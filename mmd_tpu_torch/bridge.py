@@ -3,6 +3,7 @@
 The JAX package keeps params as nested dicts and lists. The port mirrors
 them name for name (models/layers.ParamTree), so one walk maps both:
   {"w": (in, out), "b": (out,)}  -> nn.Linear (weight = w.T)
+  {"w": (in, out)}                -> nn.Linear(bias=False)
   {"scale": (d,), "bias": (d,)}  -> nn.LayerNorm (weight, bias)
   list                            -> nn.ModuleList, item by item
   array (e.g. word / position / token_type embeddings, pos_embed)
@@ -22,7 +23,9 @@ from torch import nn
 
 from mmd_tpu_torch.core.config import ModelConfig
 from mmd_tpu_torch.models import layers as L
+from mmd_tpu_torch.models.deberta import DebertaConfig, init_deberta
 from mmd_tpu_torch.models.fusion import init_fusion_params
+from mmd_tpu_torch.models.swin import SwinConfig, init_swin
 from mmd_tpu_torch.models.text_encoder import init_text_encoder
 from mmd_tpu_torch.models.transformer import TransformerConfig
 from mmd_tpu_torch.models.vit import ViTConfig, init_vit
@@ -48,9 +51,13 @@ def _check_keys(got, want, where: str) -> None:
 def load_jax_tree(module: nn.Module, tree, where: str = "params") -> None:
     """Copy a JAX param tree into a port module of the same structure."""
     if isinstance(module, nn.Linear):
-        _check_keys(tree.keys(), ("w", "b"), where)
+        if not isinstance(tree, Mapping):
+            raise KeyError(f"{where}: a dict expected, got {type(tree)}")
+        _check_keys(tree.keys(), ("w",) if module.bias is None else ("w", "b"),
+                    where)
         _copy(module.weight, np.asarray(tree["w"]).T, f"{where}.w")
-        _copy(module.bias, tree["b"], f"{where}.b")
+        if module.bias is not None:
+            _copy(module.bias, tree["b"], f"{where}.b")
     elif isinstance(module, nn.LayerNorm):
         _check_keys(tree.keys(), ("scale", "bias"), where)
         _copy(module.weight, tree["scale"], f"{where}.scale")
@@ -90,4 +97,16 @@ def text_encoder_from_jax(tree, cfg: TransformerConfig) -> L.ParamTree:
 def vit_from_jax(tree, cfg: ViTConfig) -> L.ParamTree:
     params = init_vit(torch.Generator().manual_seed(0), cfg)
     load_jax_tree(params, tree, "vit")
+    return params
+
+
+def deberta_from_jax(tree, cfg: DebertaConfig) -> L.ParamTree:
+    params = init_deberta(torch.Generator().manual_seed(0), cfg)
+    load_jax_tree(params, tree, "deberta")
+    return params
+
+
+def swin_from_jax(tree, cfg: SwinConfig) -> L.ParamTree:
+    params = init_swin(torch.Generator().manual_seed(0), cfg)
+    load_jax_tree(params, tree, "swin")
     return params

@@ -67,17 +67,23 @@ def normal(gen: torch.Generator, shape, std: float) -> torch.Tensor:
 
 # -- Linear -------------------------------------------------------------------
 
-def linear_init(gen: torch.Generator, in_dim: int, out_dim: int) -> nn.Linear:
-    lin = nn.utils.skip_init(nn.Linear, in_dim, out_dim)
+def linear_init(gen: torch.Generator, in_dim: int, out_dim: int,
+                bias: bool = True) -> nn.Linear:
+    """bias=False gives the JAX package's bias-free {"w"} projections
+    (Swinv2's key, position-bias output and patch-merge reduction)."""
+    lin = nn.utils.skip_init(nn.Linear, in_dim, out_dim, bias=bias)
     with torch.no_grad():
         lin.weight.copy_(xavier_uniform(gen, in_dim, out_dim).T)
-        lin.bias.zero_()
+        if bias:
+            lin.bias.zero_()
     return lin
 
 
 def linear(lin: nn.Linear, x: torch.Tensor,
            dtype: torch.dtype = torch.float32) -> torch.Tensor:
     y = F.linear(x.to(dtype), lin.weight.to(dtype))
+    if lin.bias is None:
+        return y
     return (y.float() + lin.bias.float()).to(dtype)
 
 

@@ -30,6 +30,8 @@ from typing import Optional
 
 import torch
 
+from mmd_tpu_torch.ops import cuda_build
+
 # Launches of the flash-attention kernel in this process; a run resets it to
 # 0 and reads it back to show which path its attentions took.
 launches = 0
@@ -131,9 +133,8 @@ def _check_kernel_inputs(q, k, v, num_heads, key_mask):
 
 def load_kernel():
     """Build (at first use) and load the kernel; returns its C entry point."""
-    from mmd_tpu_torch.ops.cuda_build import load_library
-
-    fn = load_library("flash_attn_fwd", ["flash_attn_fwd.cu"]).mmd_flash_attn_fwd
+    fn = cuda_build.load_library("flash_attn_fwd",
+                                 ["flash_attn_fwd.cu"]).mmd_flash_attn_fwd
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
@@ -152,18 +153,15 @@ def _flash_attention_cuda(q, k, v, num_heads, key_mask):
     lse = torch.empty((b, num_heads, t), dtype=torch.float32, device=q.device)
     if t == 0:
         return o, lse
-    stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
             valid.data_ptr() if valid is not None else None,
             o.data_ptr(), lse.data_ptr(),
             b, t, s, num_heads, d // num_heads, _DTYPE_CODES[q.dtype],
-            q.device.index if q.device.index is not None
-            else torch.cuda.current_device(),
-            stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attn_fwd kernel launch failed: CUDA error "
-                           f"{rc} at q {tuple(q.shape)}, k {tuple(k.shape)}, "
-                           f"{num_heads} heads, {q.dtype}")
+            cuda_build.device_index(q),
+            torch.cuda.current_stream(q.device).cuda_stream)
+    cuda_build.check_launch(rc, f"flash_attn_fwd q {tuple(q.shape)}, k "
+                                f"{tuple(k.shape)}, {num_heads} heads, "
+                                f"{q.dtype}")
     with _launch_lock:
         launches += 1
     return o, lse

@@ -25,6 +25,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _lock = threading.Lock()
+# one lock per library, so that builds of different libraries overlap
+_lib_locks: dict[str, threading.Lock] = {}
 _loaded: dict[str, ctypes.CDLL] = {}
 # seconds each library took to compile in this process (absent: it was
 # already built on disk)
@@ -48,6 +50,8 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
     """Compile `sources` (names under csrc/) into lib<name>-<hash>.so if that
     build does not exist yet, and load it once per process."""
     with _lock:
+        lib_lock = _lib_locks.setdefault(name, threading.Lock())
+    with lib_lock:
         if name in _loaded:
             return _loaded[name]
         paths = [CSRC / s for s in sources]
@@ -71,3 +75,23 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(out))
         _loaded[name] = lib
         return lib
+
+
+def device_index(t) -> int:
+    """The CUDA ordinal of tensor `t`'s device."""
+    import torch
+    return t.device.index if t.device.index is not None \
+        else torch.cuda.current_device()
+
+
+def check_launch(rc: int, what: str) -> None:
+    """Raise if a C entry point returned a CUDA error."""
+    if rc != 0:
+        raise RuntimeError(f"{what} kernel launch failed: CUDA error {rc}")
+
+
+def check_aligned(*tensors) -> None:
+    """The kernels load 16 bytes at a time."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            raise ValueError("the kernel takes 16-byte aligned tensors")

@@ -6,7 +6,8 @@ real PNG files, a corrupt file and missing images — through both
 packages' MisinformationPredictor.evaluate_batch. Widths reach the
 attention kernel (head dim 32; the JAX side runs its Pallas kernel in
 interpret mode). Labels and None-paths must be identical and the
-probabilities within 1e-4.
+probabilities within 1e-4. (tests/test_torch_reference_serving.py does the
+same with the reference's own encoder families.)
 """
 
 import dataclasses
@@ -35,7 +36,9 @@ from mmd_tpu_torch import bridge
 from mmd_tpu_torch.core.config import ModelConfig
 from mmd_tpu_torch.data.tokenizer import WordPieceTokenizer as TWordPiece
 from mmd_tpu_torch.inference.predictor import MisinformationPredictor
+from mmd_tpu_torch.models import deberta as tdeberta
 from mmd_tpu_torch.models import frozen as tfrozen
+from mmd_tpu_torch.models import swin as tswin
 from mmd_tpu_torch.models import vit as tvit
 from mmd_tpu_torch.models.transformer import TransformerConfig
 
@@ -97,7 +100,10 @@ def slice_pair(tmp_path_factory):
 
 
 def test_evaluate_batch_matches_jax(slice_pair):
-    jpred, tpred, d = slice_pair
+    _check_evaluate_batch(*slice_pair)
+
+
+def _check_evaluate_batch(jpred, tpred, d):
     imgs = [_write_png(d / f"img{i}.png", i) for i in range(4)]
     corrupt = d / "corrupt.png"
     corrupt.write_bytes(b"not an image")
@@ -307,9 +313,22 @@ def test_load_or_init_frozen_refuses_checkpoints(tmp_path, ckpt):
 
 
 def test_load_or_init_frozen_refuses_reference_families(tmp_path):
-    with pytest.raises(NotImplementedError, match="reference_families"):
-        tfrozen.load_or_init_frozen(tmp_path, vocab_texts=CORPUS,
-                                    reference_families=True)
+    """reference_families=True no longer raises: it seeds the reference's
+    own encoder families (tests/test_encoders.py's resolver test), and
+    `tiny` still ignores it."""
+    enc = tfrozen.load_or_init_frozen(tmp_path, vocab_texts=CORPUS,
+                                      vocab_size=300, reference_families=True)
+    assert isinstance(enc.text_cfg, tdeberta.DebertaConfig)
+    assert isinstance(enc.vit_cfg, tswin.SwinConfig)
+    assert enc.text_cfg.vocab_size >= 128
+    assert enc.text_cfg.compute_dtype == "bfloat16"
+    assert enc.vit_cfg.num_tokens == 64 and enc.vit_cfg.hidden_size == 1024
+    assert enc.text_params["embeddings"]["word"].shape == (
+        enc.text_cfg.vocab_size, 384)
+    tiny = tfrozen.load_or_init_frozen(tmp_path, tiny=True,
+                                       reference_families=True)
+    assert isinstance(tiny.text_cfg, TransformerConfig)
+    assert isinstance(tiny.vit_cfg, tvit.ViTConfig)
 
 
 def test_predictor_checkpoint_path_raises(tiny_predictor):
