@@ -583,7 +583,7 @@ def main() -> None:
             "layernorm": phase_layernorm(dev["card"]),
             "swin_window_attn": phase_swin(dev["card"]),
             "deberta_attn_fwd": phase_deberta(dev["card"])}
-    from mmd_tpu_torch.profile_serve import corpus, write_images
+    from mmd_tpu_torch.inference.traffic import corpus, write_images
     rng = np.random.default_rng(0)
     texts = corpus(rng, 64)
     with tempfile.TemporaryDirectory(prefix="mmd_chip_smoke_") as tmp:

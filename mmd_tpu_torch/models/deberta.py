@@ -52,7 +52,10 @@ class DebertaConfig:
     compute_dtype: str = "float32"
     fused_attn: bool = True          # the kernel path on CUDA tensors
     remat: bool = False              # fine-tuning only: raises
-    fused_train: bool = True         # fine-tuning only; no effect on serving
+    # mirrors the JAX field so that DebertaConfig(**asdict(jax_cfg)) works;
+    # ignored until the fine-tune slice (ROADMAP A11): there it picks the
+    # backward kernel, and the forward is the same kernel either way
+    fused_train: bool = True
 
     @property
     def pos_ebd_size(self) -> int:

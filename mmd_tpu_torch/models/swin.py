@@ -57,7 +57,9 @@ class SwinConfig:
     compute_dtype: str = "bfloat16"
     fused_attn: bool = True          # window attention through the kernel
     remat: bool = False              # fine-tuning only: raises
-    fused_train: bool = False        # fine-tuning only: raises
+    # fine-tuning only: raises, since in the JAX package it also swaps the
+    # forward for the fine-tune kernel (#8), which the port lacks
+    fused_train: bool = False
     fused_ln: bool = True            # LayerNorms through the kernel
 
     def __post_init__(self):

@@ -1,6 +1,6 @@
 """Where a served batch's time goes, on one NVIDIA GPU.
 
-    python -m mmd_tpu_torch.profile_serve [--reference_families] [--batches 10]
+    python -m mmd_tpu_torch.profile_serve [--reference_families]
 
 Builds the full-width predictor that chip_smoke.py serves (batch 16, 512
 tokens, ModelConfig(fused_attn=True), bf16, random weights from seed 0; the
@@ -8,7 +8,7 @@ BERT-class text encoder and the ViT, or with --reference_families
 DeBERTa-v3-xsmall and Swinv2-base), warms it up, then prints JSON lines:
 
   1. the card's name and power limit (nvidia-smi);
-  2. host-clock milliseconds per batch, each ending in
+  2. host-clock milliseconds for each of 10 batches, each ending in
      torch.cuda.synchronize(): from PNG files (evaluate_batch) and from
      decoded uint8 arrays (evaluate_arrays), median and all runs;
   3. a torch.profiler window (CPU and CUDA activities) over three
@@ -32,9 +32,11 @@ import torch
 
 from mmd_tpu_torch.core.config import ModelConfig
 from mmd_tpu_torch.inference.predictor import MisinformationPredictor
+from mmd_tpu_torch.inference.traffic import corpus, write_images
 from mmd_tpu_torch.models.frozen import load_or_init_frozen
 
 BATCH = 16
+BATCHES = 10                 # timed batches on the host clock
 # kernel symbol -> the port's kernel (the CUDA sources under ops/csrc/)
 KERNELS = {"flash_fwd_kernel": "flash_attn_fwd", "ln_kernel": "layernorm",
            "swin_attn_kernel": "swin_window_attn",
@@ -46,28 +48,6 @@ GROUPS = (("Memcpy", "copies"), ("gemm", "matmul"), ("xmma", "matmul"),
           ("layer_norm", "layer_norm"), ("reduce", "reductions"),
           ("elementwise", "elementwise"), ("CatArray", "cat"),
           ("index", "index/gather"), ("gather", "index/gather"))
-
-
-def corpus(rng: np.random.Generator, n: int) -> list[str]:
-    """n synthetic texts, from a few words to beyond the 512-token window."""
-    syl = ["ka", "ro", "mi", "ten", "sul", "va", "dor", "pli", "est", "un",
-           "qua", "bre", "zo", "lin", "ghe", "fa"]
-    words = sorted({"".join(rng.choice(syl, rng.integers(1, 4)))
-                    for _ in range(3000)})
-    return [" ".join(rng.choice(words, int(m)))
-            for m in np.geomspace(2, 700, n)]
-
-
-def write_images(d: Path, rng: np.random.Generator, n: int) -> list[str]:
-    """n random-pixel PNG files of 200-400 px a side under d."""
-    from PIL import Image
-    paths = []
-    for i in range(n):
-        arr = rng.integers(0, 256, (rng.integers(200, 400),
-                                    rng.integers(200, 400), 3), np.uint8)
-        paths.append(str(d / f"img{i}.png"))
-        Image.fromarray(arr).save(paths[-1])
-    return paths
 
 
 def _device_us(evt) -> float:
@@ -95,7 +75,6 @@ def _timed(fn, n: int) -> list[float]:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--reference_families", action="store_true")
-    ap.add_argument("--batches", type=int, default=10)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_serve needs a CUDA device")
@@ -132,12 +111,12 @@ def main(argv=None) -> None:
         for _ in range(3):
             from_files()
         torch.cuda.synchronize()
-        files_ms = _timed(from_files, args.batches)
-        arrays_ms = _timed(from_arrays, args.batches)
+        files_ms = _timed(from_files, BATCHES)
+        arrays_ms = _timed(from_arrays, BATCHES)
         print(json.dumps({
             "encoders": [type(enc.text_cfg).__name__,
                          type(enc.vit_cfg).__name__],
-            "batch": BATCH, "batches": args.batches,
+            "batch": BATCH, "batches": BATCHES,
             "files_ms_median": statistics.median(files_ms),
             "arrays_ms_median": statistics.median(arrays_ms),
             "files_ms": files_ms, "arrays_ms": arrays_ms, "card": card}),

@@ -313,9 +313,26 @@ def test_load_or_init_frozen_refuses_checkpoints(tmp_path, ckpt):
 
 
 def test_load_or_init_frozen_refuses_reference_families(tmp_path):
-    """reference_families=True no longer raises: it seeds the reference's
-    own encoder families (tests/test_encoders.py's resolver test), and
-    `tiny` still ignores it."""
+    """The reference families' converted checkpoints, which the JAX
+    package loads with reference_families=True, are refused; `tiny`
+    ignores them there and here."""
+    (tmp_path / "deberta.ckpt").mkdir()
+    (tmp_path / "swinv2.ckpt").mkdir()
+    with pytest.raises(NotImplementedError, match="deberta.ckpt"):
+        tfrozen.load_or_init_frozen(tmp_path, vocab_texts=CORPUS,
+                                    reference_families=True)
+    (tmp_path / "deberta.ckpt").rmdir()
+    with pytest.raises(NotImplementedError, match="swinv2.ckpt"):
+        tfrozen.load_or_init_frozen(tmp_path, vocab_texts=CORPUS,
+                                    reference_families=True)
+    tiny = tfrozen.load_or_init_frozen(tmp_path, vocab_texts=CORPUS,
+                                       tiny=True, reference_families=True)
+    assert isinstance(tiny.text_cfg, TransformerConfig)
+
+
+def test_load_or_init_frozen_resolves_reference_families(tmp_path):
+    """reference_families=True seeds the reference's own encoder families
+    (tests/test_encoders.py's resolver test), and `tiny` ignores it."""
     enc = tfrozen.load_or_init_frozen(tmp_path, vocab_texts=CORPUS,
                                       vocab_size=300, reference_families=True)
     assert isinstance(enc.text_cfg, tdeberta.DebertaConfig)
@@ -335,3 +352,21 @@ def test_predictor_checkpoint_path_raises(tiny_predictor):
     with pytest.raises(NotImplementedError, match="checkpoint"):
         MisinformationPredictor(tiny_predictor.cfg, checkpoint_path="ckpt",
                                 encoders=tiny_predictor.enc, device="cpu")
+
+
+def test_synthetic_traffic_is_seeded(tmp_path):
+    """The traffic chip_smoke.py and profile_serve.py send: one seed gives
+    the same texts, from two words to beyond the 512-token window, and PNG
+    files of 200-400 px a side that the predictor decodes."""
+    from PIL import Image
+
+    from mmd_tpu_torch.inference.traffic import corpus, write_images
+
+    texts = corpus(np.random.default_rng(0), 16)
+    assert texts == corpus(np.random.default_rng(0), 16)
+    lengths = [len(t.split()) for t in texts]
+    assert lengths[0] == 2 and lengths[-1] == 700 and lengths == sorted(lengths)
+    paths = write_images(tmp_path, np.random.default_rng(1), 3)
+    for p in paths:
+        with Image.open(p) as im:
+            assert im.mode == "RGB" and all(200 <= s < 400 for s in im.size)
