@@ -1,21 +1,33 @@
-"""Smoke run of the PyTorch port's serving paths on one NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving and training paths on one
+NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each of which exits nonzero on failure:
   1. device   a CUDA device, its name and power limit (nvidia-smi), TF32 off
-  2. build    nvcc builds the four kernels from ops/csrc/, all at once
+  2. build    nvcc builds the six kernel libraries from ops/csrc/, all at once
   3. kernels  each kernel against its plain PyTorch version on the card, at
-              every geometry of the serving paths, bf16 and fp32: max-abs
+              every geometry of the paths that run it, bf16 and fp32: max-abs
               error against its tolerance; kernel, plain and library times
               from CUDA events; the bound (the least time the card could
-              take: bytes over 3.35 TB/s or bf16 operations over 989
-              TFLOP/s, whichever is larger), all beside the card's name
+              take: bytes over 3.35 TB/s or operations over the card's peak
+              for the timed dtype -- 989 TFLOP/s for bf16 on the tensor
+              cores, 67 TFLOP/s for fp32, which has no tensor-core rate
+              without TF32 (H100 SXM data sheet) -- whichever is larger),
+              all beside the card's name
      * flash_attn_fwd        exact zeros for a row with no valid key, lse
      * layernorm             (residual +) LayerNorm, the 53 of a Swinv2 forward
      * swin_window_attn      Swinv2 window attention, the 24 of a forward
      * deberta_attn_fwd      DeBERTa attention, the uniform row of a row
                              with no valid key
+     * dropout               elementwise dropout at each dropout geometry of
+                             the train step: bit-identical to its plain
+                             version, kept fraction within 4 sigma of 1 - rate
+     * flash_attn_fwd        with attention dropout at the fusion model's
+       (train)               four geometries, batch 256; rate 0 unchanged
+     * flash_attn_bwd        dq, dk, dv at the same geometries with and
+                             without dropout, and the masked text geometry
+                             with a row with no valid key
   4. serve            full-width serving with the BERT-class text encoder
                       (512 tokens) and the ViT, ModelConfig(fused_attn=True),
                       bf16, batch 16: a ServingEngine answers requests from
@@ -28,8 +40,22 @@ Phases, each of which exits nonzero on failure:
   In both serve phases image requests must keep their image paths,
   probabilities must be finite and sum to 1, and one fp32 batch through the
   kernel path must agree with the explicit path.
+  6. train            python -m mmd_tpu_torch.train's main path (build, then
+                      run_training) at full width, batch 256, float32,
+                      fused_attn, dropout 0.1, on synthetic learnable batches:
+                      8 steps and one validation pass; every loss finite,
+                      exactly 8 / 8 / 32 launches of the flash forward,
+                      backward and dropout kernels a step (and 8 flash
+                      forwards a validation batch), params moved,
+                      metrics.jsonl and checkpoints written; wall time a
+                      step and peak device memory
+  7. train_parity     one fp32 step at batch 16 and full width, dropout on,
+                      one seed, through fused_attn=True and fused_attn=False:
+                      loss within 1e-5 relative, every grad leaf within 1e-4
+                      of its largest |value|
 The last line is {"ok": true, "device": {...}}; the line before it holds the
-kernels' JSON record.
+kernels' JSON record, with each kernel's launches in the counted runs of
+the serve, serve_reference and train phases.
 """
 
 from __future__ import annotations
@@ -62,6 +88,8 @@ PROB_TOL = 1e-3
 # the card's published peaks (H100 SXM data sheet) for the bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_FP32_FLOPS = 67e12       # CUDA cores: fp32 has no tensor-core rate
+                              # without TF32, which the port keeps off
 
 BATCH = 16
 TEXT = dict(name="text", t=512, s=512, d=384, h=6, masked=True)
@@ -98,6 +126,33 @@ REFERENCE_PER_BATCH = {"deberta_attn_fwd": DEBERTA["per_batch"],
                        "layernorm": sum(LN_GEOMS.values()),
                        "flash_attn_fwd": FUSION_PER_BATCH}
 
+# The fusion train step at batch 256, fp32, dropout 0.1.
+TRAIN_B = 256
+DROPOUT_RATE = 0.1
+# Elementwise dropouts a step, (N, D) -> launches, forward and backward:
+# text-query MLPs (claim second self-attention, text-text, text-image) at
+# N = 256 x 512 and image-query MLPs at N = 256 x 64, each dropping after
+# GELU (4 x 256 wide) and after fc2 (256 wide); the four classifier heads
+# drop their (256, 64) hidden layer.
+DROPOUT_GEOMS = {(131072, 1024): 6, (131072, 256): 6, (16384, 1024): 6,
+                 (16384, 256): 6, (256, 64): 8}
+# Flash forwards (and backwards) a step, by (T, S): two self-attentions
+# and two second self-attentions, then the evidence paths text-text,
+# text-image, image-text, image-image.
+TRAIN_PER_STEP = {"fusion_512x512": 3, "fusion_64x64": 3,
+                  "fusion_512x64": 1, "fusion_64x512": 1}
+PER_STEP = {"flash_attn_fwd": sum(TRAIN_PER_STEP.values()),
+            "flash_attn_bwd": sum(TRAIN_PER_STEP.values()),
+            "dropout": sum(DROPOUT_GEOMS.values())}          # 8 / 8 / 32
+TRAIN_STEPS = 8
+# train_parity: loss relative, grads relative to each leaf's largest |g|;
+# a leaf whose true gradient is zero (the key projections' biases: softmax
+# ignores a shift shared by all keys) holds fp32 noise, so no leaf is held
+# to less than 1e-3 of the model's largest gradient
+PARITY_LOSS_RTOL = 1e-5
+PARITY_GRAD_RTOL = 1e-4
+PARITY_FLOOR = 1e-3
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -122,31 +177,46 @@ def phase_device() -> dict:
             "count": torch.cuda.device_count()}
 
 
-def _ops():
-    from mmd_tpu_torch.ops import attention, deberta_attention, ln, \
+def _kernels():
+    """kernel name -> (op module, its loader, its launch counter)."""
+    from mmd_tpu_torch.ops import attention, deberta_attention, dropout, ln, \
         swin_attention
-    return {"flash_attn_fwd": attention, "layernorm": ln,
-            "swin_window_attn": swin_attention,
-            "deberta_attn_fwd": deberta_attention}
+    return {"flash_attn_fwd": (attention, "load_kernel", "launches"),
+            "layernorm": (ln, "load_kernel", "launches"),
+            "swin_window_attn": (swin_attention, "load_kernel", "launches"),
+            "deberta_attn_fwd": (deberta_attention, "load_kernel",
+                                 "launches"),
+            "dropout": (dropout, "load_kernel", "launches"),
+            "flash_attn_bwd": (attention, "load_bwd_kernel", "bwd_launches")}
+
+
+def _reset_counts() -> None:
+    for mod, _, counter in _kernels().values():
+        setattr(mod, counter, 0)
+
+
+def _counts() -> dict:
+    return {name: getattr(mod, counter)
+            for name, (mod, _, counter) in _kernels().items()}
 
 
 def phase_build() -> None:
     from mmd_tpu_torch.ops import cuda_build
-    ops = _ops()
+    kernels = _kernels()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(ops)) as ex:     # one nvcc per source
-        list(ex.map(lambda m: m.load_kernel(), ops.values()))
-    for name in ops:
+    with ThreadPoolExecutor(len(kernels)) as ex:     # one nvcc per source
+        list(ex.map(lambda k: getattr(k[0], k[1])(), kernels.values()))
+    for name in kernels:
         secs = cuda_build.build_seconds.get(name)
         print(f"build: {name} nvcc "
               f"{'%.3f s' % secs if secs is not None else 'skipped: built'}",
               flush=True)
-    print(f"build: all four loaded in {time.perf_counter() - t0:.3f} s",
-          flush=True)
+    print(f"build: all {len(kernels)} loaded in "
+          f"{time.perf_counter() - t0:.3f} s", flush=True)
 
 
-def _time_ms(fn, iters: int = 20) -> float:
-    for _ in range(3):
+def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -158,8 +228,9 @@ def _time_ms(fn, iters: int = 20) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / PEAK_BYTES_PER_S, flops / PEAK_BF16_FLOPS
+def _bound_ms(nbytes: float, flops: float,
+              peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
@@ -440,6 +511,221 @@ def phase_deberta(card: str) -> dict:
     return rec
 
 
+def phase_dropout(card: str) -> dict:
+    """Elementwise dropout at every dropout geometry of the train step."""
+    from mmd_tpu_torch.ops import dropout as D
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    errs, rows = [], []
+    for (n, d), count in DROPOUT_GEOMS.items():
+        x32 = torch.randn(n, d, device=dev, generator=gen)
+        seed = 0x5EED0000 + n + d
+        for dtype, bits in ((torch.bfloat16, torch.int16),
+                            (torch.float32, torch.int32)):
+            x = x32.to(dtype)
+            y = D.dropout(x, DROPOUT_RATE, seed)
+            torch.cuda.synchronize()
+            ref = D.dropout_plain(x, DROPOUT_RATE, seed)
+            same = torch.equal(y.view(bits), ref.view(bits))
+            err = (y.float() - ref.float()).abs().max().item()
+            kept = (D.keep_scale(seed, (n, d), DROPOUT_RATE, dev) != 0
+                    ).double().mean().item()
+            sigma = math.sqrt(DROPOUT_RATE * (1 - DROPOUT_RATE) / (n * d))
+            ok = same and abs(kept - (1 - DROPOUT_RATE)) <= 4 * sigma
+            print(f"kernel dropout ({n}, {d}) {str(dtype):>14}: "
+                  f"bit-identical {same}, max_abs_err {err:.3e}, kept "
+                  f"{kept:.6f} (1 - rate {1 - DROPOUT_RATE}, 4 sigma "
+                  f"{4 * sigma:.2e}) -> {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                fail(f"dropout kernel disagrees with its plain version at "
+                     f"({n}, {d}) {dtype}")
+            errs.append(err)
+        x = x32                                # the train step's dtype
+        row = {"ms": _time_ms(lambda: D.dropout(x, DROPOUT_RATE, 1)),
+               "plain_ms": _time_ms(
+                   lambda: D.dropout_plain(x, DROPOUT_RATE, 1), iters=3,
+                   warmup=1),
+               "library_ms": _time_ms(lambda: torch.nn.functional.dropout(
+                   x, DROPOUT_RATE, training=True))}
+        row["bound_ms"], row["bound_by"] = _bound_ms(2 * 4 * n * d, n * d,
+                                                     PEAK_FP32_FLOPS)
+        _print_time("dropout", f"({n}, {d}) fp32", row, card)
+        rows.append((count, row))
+    rec = _record("dropout", "mmd_tpu_torch/ops/csrc/dropout.cu",
+                  "mmd_tpu/ops/dropout.py:59", rows, errs,
+                  "torch.nn.functional.dropout(training=True) on the same "
+                  "fp32 input (its own generator and mask)")
+    print(f"kernel dropout per train step ({sum(DROPOUT_GEOMS.values())} "
+          f"launches, fp32): kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, F.dropout {rec['library_ms']:.4f} ms, "
+          f"bound {rec['bound_ms']:.4f} ms  [{card}]", flush=True)
+    return rec
+
+
+def _train_geoms():
+    for g in FUSION:
+        yield dict(g, b=TRAIN_B, per_step=TRAIN_PER_STEP[g["name"]])
+
+
+def phase_flash_train(card: str) -> dict:
+    """The flash forward with attention dropout at the train step's
+    geometries, batch 256; rate 0 at the same inputs too."""
+    from mmd_tpu_torch.ops import attention as A
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    errs, rows = [], []
+    for g in _train_geoms():
+        b, t, s, d, h = g["b"], g["t"], g["s"], g["d"], g["h"]
+        q32, k32, v32 = (torch.randn(b, n, d, device=dev, generator=gen)
+                         for n in (t, s, s))
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+            for rate in (DROPOUT_RATE, 0.0):
+                o, lse = A.flash_attention(q, k, v, h, None, rate, 77)
+                torch.cuda.synchronize()
+                o_ref, lse_ref = A.flash_attention_plain(
+                    q.float(), k.float(), v.float(), h, None, rate, 77)
+                err = (o.float() - o_ref).abs().max().item()
+                lse_err = (lse - lse_ref).abs().max().item()
+                ok = err <= KERNEL_TOL[dtype] and lse_err <= LSE_TOL
+                print(f"kernel flash_attn_fwd {g['name']:>14} B={b} "
+                      f"{str(dtype):>14} rate {rate}: max_abs_err "
+                      f"{err:.3e} (tol {KERNEL_TOL[dtype]:.0e}), lse err "
+                      f"{lse_err:.3e} -> {'ok' if ok else 'FAIL'}",
+                      flush=True)
+                if not ok:
+                    fail(f"flash kernel with dropout {rate} disagrees with "
+                         f"its plain version at {g['name']} {dtype}")
+                errs.append(err)
+                del o, lse, o_ref, lse_ref
+        q, k, v = q32, k32, v32                # the train step's dtype
+        qh, kh, vh = (x.view(b, -1, h, d // h).transpose(1, 2)
+                      for x in (q, k, v))
+        row = {"ms": _time_ms(lambda: A.flash_attention(
+                   q, k, v, h, None, DROPOUT_RATE, 1), iters=10),
+               "plain_ms": _time_ms(lambda: A.flash_attention_plain(
+                   q, k, v, h, None, DROPOUT_RATE, 1), iters=2, warmup=1),
+               "library_ms": _time_ms(lambda: sdpa(
+                   qh, kh, vh, dropout_p=DROPOUT_RATE), iters=10)}
+        row["bound_ms"], row["bound_by"] = _bound_ms(
+            4 * (2 * b * t * d + 2 * b * s * d) + 4 * b * h * t,
+            4 * b * t * s * d, PEAK_FP32_FLOPS)
+        _print_time("flash_attn_fwd", f"{g['name']} fp32 dropout "
+                    f"{DROPOUT_RATE} B={b} T={t} S={s} D={d} H={h}", row,
+                    card)
+        rows.append((g["per_step"], row))
+        torch.cuda.empty_cache()
+    rec = _record("flash_attn_fwd", "", "", rows, errs)
+    step = {k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "max_abs_err")}
+    step["launches_per_step"] = PER_STEP["flash_attn_fwd"]
+    step["library_note"] = ("torch.nn.functional.scaled_dot_product_"
+                            "attention(dropout_p=0.1), fp32, (B, H, T, dh) "
+                            "views")
+    print(f"kernel flash_attn_fwd per train step "
+          f"({PER_STEP['flash_attn_fwd']} launches, fp32, dropout "
+          f"{DROPOUT_RATE}): kernel {step['ms']:.4f} ms, plain "
+          f"{step['plain_ms']:.4f} ms, SDPA {step['library_ms']:.4f} ms, "
+          f"bound {step['bound_ms']:.4f} ms  [{card}]", flush=True)
+    return step
+
+
+def _bwd_tol(dtype) -> float:
+    """Relative to the largest |reference gradient|: fp32 summation order;
+    bf16 one rounding of the output."""
+    return 1e-4 if dtype == torch.float32 else 2.0 ** -7
+
+
+def phase_flash_bwd(card: str) -> dict:
+    """dq, dk, dv against flash_attention_bwd_plain: the train step's
+    geometries at batch 256 with and without dropout, and the masked text
+    geometry (batch 16, a row with no valid key) at rate 0."""
+    from mmd_tpu_torch.ops import attention as A
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(6)
+    errs, rows = [], []
+    text = dict(TEXT, b=BATCH, per_step=0)
+    for g in [*_train_geoms(), text]:
+        b, t, s, d, h = g["b"], g["t"], g["s"], g["d"], g["h"]
+        q32, k32, v32, do32 = (torch.randn(b, n, d, device=dev,
+                                           generator=gen)
+                               for n in (t, s, s, t))
+        mask = None
+        if g["masked"]:
+            lengths = torch.linspace(1, s, b - 1, device=dev).round().long()
+            mask = torch.cat([
+                torch.arange(s, device=dev)[None] < lengths[:, None],
+                torch.zeros(1, s, dtype=torch.bool, device=dev)]).int()
+        rates = (0.0,) if g["masked"] else (DROPOUT_RATE, 0.0)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
+            for rate in rates:
+                o, lse = A.flash_attention(q, k, v, h, mask, rate, 88)
+                got = A.flash_attention_bwd(q, k, v, o, lse, do, h, mask,
+                                            rate, 88)
+                torch.cuda.synchronize()
+                want = A.flash_attention_bwd_plain(
+                    q.float(), k.float(), v.float(), o.float(), lse,
+                    do.float(), h, mask, rate, 88)
+                tol = _bwd_tol(dtype)
+                abs_errs = [(x.float() - w).abs().max().item()
+                            for x, w in zip(got, want)]
+                rel = [e / max(w.abs().max().item(), 1e-30)
+                       for e, w in zip(abs_errs, want)]
+                ok = max(rel) <= tol
+                if mask is not None:
+                    ok = ok and bool((got[0][-1] == 0).all())
+                print(f"kernel flash_attn_bwd {g['name']:>14} B={b} "
+                      f"{str(dtype):>14} rate {rate}: max_abs_err dq/dk/dv "
+                      f"{abs_errs[0]:.3e}/{abs_errs[1]:.3e}/"
+                      f"{abs_errs[2]:.3e}, relative {max(rel):.3e} (tol "
+                      f"{tol:.1e})"
+                      f"{', row with no valid key dq = 0' if mask is not None else ''}"
+                      f" -> {'ok' if ok else 'FAIL'}", flush=True)
+                if not ok:
+                    fail(f"flash backward disagrees with its plain version "
+                         f"at {g['name']} {dtype} rate {rate}")
+                errs.append(max(abs_errs))
+                del o, lse, got, want
+        if not g["per_step"]:
+            continue
+        q, k, v, do = q32, k32, v32, do32      # the train step's dtype
+        o, lse = A.flash_attention(q, k, v, h, None, DROPOUT_RATE, 1)
+        qh, kh, vh = (x.view(b, -1, h, d // h).transpose(1, 2).detach()
+                      .requires_grad_() for x in (q, k, v))
+        out = sdpa(qh, kh, vh)
+        gout = torch.randn_like(out)
+        row = {"ms": _time_ms(lambda: A.flash_attention_bwd(
+                   q, k, v, o, lse, do, h, None, DROPOUT_RATE, 1), iters=5),
+               "plain_ms": _time_ms(lambda: A.flash_attention_bwd_plain(
+                   q, k, v, o, lse, do, h, None, DROPOUT_RATE, 1), iters=2,
+                   warmup=1),
+               "library_ms": _time_ms(lambda: torch.autograd.grad(
+                   out, (qh, kh, vh), gout, retain_graph=True), iters=5)}
+        row["bound_ms"], row["bound_by"] = _bound_ms(
+            4 * (4 * b * t * d + 4 * b * s * d) + 4 * b * h * t,
+            10 * b * t * s * d, PEAK_FP32_FLOPS)
+        _print_time("flash_attn_bwd", f"{g['name']} fp32 dropout "
+                    f"{DROPOUT_RATE} B={b} T={t} S={s} D={d} H={h}", row,
+                    card)
+        rows.append((g["per_step"], row))
+        del o, lse, out, gout, qh, kh, vh
+        torch.cuda.empty_cache()
+    rec = _record("flash_attn_bwd", "mmd_tpu_torch/ops/csrc/flash_attn_bwd.cu",
+                  "mmd_tpu/ops/attention.py:471", rows, errs,
+                  "the backward of torch.nn.functional.scaled_dot_product_"
+                  "attention at rate 0, fp32 (forward excluded)")
+    print(f"kernel flash_attn_bwd per train step "
+          f"({PER_STEP['flash_attn_bwd']} launches, fp32, dropout "
+          f"{DROPOUT_RATE}): kernel {rec['ms']:.4f} ms, plain "
+          f"{rec['plain_ms']:.4f} ms, SDPA backward {rec['library_ms']:.4f} "
+          f"ms, bound {rec['bound_ms']:.4f} ms  [{card}]", flush=True)
+    return rec
+
+
 def _check_result(res: dict, claim_img: bool, ev_img: bool) -> None:
     want_present = {"text_text": True, "text_image": ev_img,
                     "image_text": claim_img,
@@ -475,7 +761,6 @@ def serve(phase: str, card: str, tmp: Path, texts: list[str],
     from mmd_tpu_torch.inference.server import ServingEngine
     from mmd_tpu_torch.models.frozen import load_or_init_frozen
 
-    ops = _ops()
     t0 = time.perf_counter()
     enc = load_or_init_frozen(tmp / f"assets_{phase}", vocab_texts=texts,
                               vocab_size=30000, seed=0,
@@ -507,8 +792,7 @@ def serve(phase: str, card: str, tmp: Path, texts: list[str],
     errors: list[BaseException] = []
     lock = threading.Lock()
 
-    for m in ops.values():                # count the main path's run only
-        m.launches = 0
+    _reset_counts()                       # count the main path's run only
     eng = ServingEngine(pred, max_batch=BATCH, max_wait_ms=20.0)
 
     def client(idx: list[int]) -> None:
@@ -534,7 +818,7 @@ def serve(phase: str, card: str, tmp: Path, texts: list[str],
     finally:
         eng.close()
     torch.cuda.synchronize()
-    launches = {name: m.launches for name, m in ops.items()}
+    launches = _counts()
     st = eng.stats()
     if errors:
         fail(f"{phase}: {len(errors)} requests failed: {errors[0]!r}")
@@ -542,7 +826,8 @@ def serve(phase: str, card: str, tmp: Path, texts: list[str],
         fail(f"{phase}: {n_req - len(results)} requests never resolved")
     for i, (_, ci, _, ei) in enumerate(reqs):
         _check_result(results[i], ci is not None, ei is not None)
-    want = {name: want_per_batch.get(name, 0) * st["batches"] for name in ops}
+    want = {name: want_per_batch.get(name, 0) * st["batches"]
+            for name in launches}
     print(f"{phase}: {st['served']} requests in {st['batches']} batches "
           f"(mean fill {st['mean_batch_fill']:.2f}), latency p50 "
           f"{st['latency_p50_ms']:.2f} ms, p95 {st['latency_p95_ms']:.2f} "
@@ -576,13 +861,136 @@ def serve(phase: str, card: str, tmp: Path, texts: list[str],
     return launches
 
 
+def phase_train(card: str, tmp: Path) -> dict:
+    """python -m mmd_tpu_torch.train's main path at full width: returns the
+    kernel launches of the counted run."""
+    from mmd_tpu_torch import train as TR
+    from mmd_tpu_torch.training.loop import run_training
+
+    out = tmp / "train"
+    argv = ["--device", "cuda", "--synthetic_samples",
+            str(TRAIN_STEPS * TRAIN_B), "--batch_size", str(TRAIN_B),
+            "--epochs", "1", "--compute_dtype", "float32", "--fused_attn",
+            "--dropout", str(DROPOUT_RATE), "--log_every", "1",
+            "--save_every", "4", "--validate_every_epoch",
+            "--output_dir", str(out)]
+    t0 = time.perf_counter()
+    args = TR.parse_args(argv)
+    cfg, trainer, train_batches, val_batches = TR.build(args)
+    n_val = len(list(val_batches()))
+    m = cfg.model
+    print(f"train: fusion {m.embed_dim} wide, {m.num_heads} heads, hidden "
+          f"{m.hidden_dim}, text {m.text_input_dim} x 512, image "
+          f"{m.image_input_dim} x 64, batch {cfg.batch_size}, "
+          f"{m.compute_dtype}, fused_attn={m.fused_attn}, dropout "
+          f"{m.dropout}; {TRAIN_STEPS} steps, {n_val} validation batches; "
+          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                       # count the main path's run only
+    t0 = time.perf_counter()
+    state = run_training(trainer, train_batches, val_batches)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want.update({k: v * TRAIN_STEPS for k, v in PER_STEP.items()})
+    want["flash_attn_fwd"] += FUSION_PER_BATCH * n_val
+    print(f"train: {state.step} steps + {n_val} validation batches in "
+          f"{run_s:.2f} s, kernel launches {json.dumps(launches)} (want "
+          f"{json.dumps(want)})  [{card}]", flush=True)
+    if launches != want:
+        fail(f"train: launches {launches}; the path should launch {want}")
+
+    recs = [json.loads(x) for x in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/total_loss"] for r in recs if "train/total_loss" in r]
+    val = [r for r in recs if "val/loss" in r]
+    print(f"train: loss by step {json.dumps(losses)}; validation loss "
+          f"{val[0]['val/loss'] if val else None}, avg_f1 "
+          f"{val[0].get('val/avg_f1') if val else None}", flush=True)
+    if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"train: losses {losses}")
+    if len(val) != 1 or not math.isfinite(val[0]["val/loss"]):
+        fail(f"train: validation records {val}")
+    ckpts = sorted(p.name for p in (out / "checkpoints").iterdir())
+    want_ckpts = sorted({f"step_{i}.pt" for i in range(4, TRAIN_STEPS + 1, 4)}
+                        | {f"step_{TRAIN_STEPS}.pt"})
+    if ckpts != want_ckpts:
+        fail(f"train: checkpoints {ckpts}, want {want_ckpts}")
+    init = trainer.init().params.state_dict()
+    moved = [k for k, x in state.params.state_dict().items()
+             if not torch.equal(x, init[k])]
+    if len(moved) < len(init) // 2:
+        fail(f"train: only {len(moved)} of {len(init)} params moved")
+
+    batch = trainer.shard_batch(next(iter(train_batches(0))))
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, aux = trainer.train_step(state, batch)
+        torch.cuda.synchronize()
+        times.append(1e3 * (time.perf_counter() - t0))
+    print(f"train: wall per step after torch.cuda.synchronize() "
+          f"{json.dumps([round(x, 3) for x in times])} ms; "
+          f"{len(moved)} of {len(init)} params moved; checkpoints {ckpts}; "
+          f"peak device memory {peak / 2 ** 30:.3f} GiB "
+          f"(torch.cuda.max_memory_allocated)  [{card}]", flush=True)
+    return launches
+
+
+def phase_train_parity(card: str) -> None:
+    """One fp32 step with dropout on, fused and explicit attention, one
+    seed: the same masks, so the same step."""
+    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+    from mmd_tpu_torch.data.synthetic import synthetic_preembed_batch
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    batch = synthetic_preembed_batch(np.random.default_rng(1), BATCH)
+    out = {}
+    for fused in (True, False):
+        cfg = TrainConfig(model=ModelConfig(compute_dtype="float32",
+                                            fused_attn=fused,
+                                            dropout=DROPOUT_RATE),
+                          batch_size=BATCH)
+        tr = Trainer(cfg, device="cuda")
+        state = tr.init()
+        state, aux = tr.train_step(state, tr.shard_batch(batch))
+        out[fused] = (float(aux["loss"]),
+                      {n: p.grad.detach().clone()
+                       for n, p in state.params.named_parameters()})
+        del tr, state
+    (lf, gf), (le, ge) = out[True], out[False]
+    loss_rel = abs(lf - le) / abs(le)
+    top = max(g.abs().max().item() for g in ge.values())
+    worst, where = 0.0, None
+    for n, w in ge.items():
+        scale = max(w.abs().max().item(), PARITY_FLOOR * top)
+        r = (gf[n] - w).abs().max().item() / scale
+        if r > worst:
+            worst, where = r, n
+    ok = loss_rel <= PARITY_LOSS_RTOL and worst <= PARITY_GRAD_RTOL
+    print(f"train_parity: batch {BATCH}, fp32, dropout {DROPOUT_RATE}: loss "
+          f"fused {lf:.7f} explicit {le:.7f}, relative {loss_rel:.3e} (tol "
+          f"{PARITY_LOSS_RTOL:.0e}); worst grad leaf {where} at "
+          f"{worst:.3e} of its scale (tol {PARITY_GRAD_RTOL:.0e}) -> "
+          f"{'ok' if ok else 'FAIL'}  [{card}]", flush=True)
+    if not ok:
+        fail("train_parity: the kernel path and the explicit path disagree")
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
     recs = {"flash_attn_fwd": phase_flash(dev["card"]),
             "layernorm": phase_layernorm(dev["card"]),
             "swin_window_attn": phase_swin(dev["card"]),
-            "deberta_attn_fwd": phase_deberta(dev["card"])}
+            "deberta_attn_fwd": phase_deberta(dev["card"]),
+            "dropout": phase_dropout(dev["card"]),
+            "flash_attn_bwd": phase_flash_bwd(dev["card"])}
+    recs["flash_attn_fwd"]["train_step"] = phase_flash_train(dev["card"])
     from mmd_tpu_torch.inference.traffic import corpus, write_images
     rng = np.random.default_rng(0)
     texts = corpus(rng, 64)
@@ -594,7 +1002,9 @@ def main() -> None:
                            {"flash_attn_fwd": LAUNCHES_PER_BATCH}, 48, False),
             "serve_reference": serve("serve_reference", dev["card"], tmp,
                                      texts, images, REFERENCE_PER_BATCH, 48,
-                                     True)}
+                                     True),
+            "train": phase_train(dev["card"], tmp)}
+        phase_train_parity(dev["card"])
     kernels = []
     for name, rec in recs.items():
         counts = {ph: launches[name] for ph, launches in by_phase.items()}

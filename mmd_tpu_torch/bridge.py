@@ -1,4 +1,4 @@
-"""Weight bridge: JAX parameter trees (numpy leaves) -> the port's modules.
+"""Weight bridge: JAX parameter trees (numpy leaves) <-> the port's modules.
 
 The JAX package keeps params as nested dicts and lists. The port mirrors
 them name for name (models/layers.ParamTree), so one walk maps both:
@@ -10,7 +10,9 @@ them name for name (models/layers.ParamTree), so one walk maps both:
                                   -> the parameter of the same name
 Every name is checked both ways: a key the port lacks, a key the JAX tree
 lacks, or a shape that differs raises. Leaves may be numpy or any array
-`np.asarray` takes; nothing here imports JAX.
+`np.asarray` takes; nothing here imports JAX. `to_jax_tree` walks the other
+way (port module -> nested dicts and lists of float32 numpy arrays), so
+tests can compare params, or grads (`grads=True`), after a training step.
 """
 
 from __future__ import annotations
@@ -80,6 +82,34 @@ def load_jax_tree(module: nn.Module, tree, where: str = "params") -> None:
                 load_jax_tree(child, tree[name], f"{where}.{name}")
     else:
         raise TypeError(f"{where}: no JAX mapping for {type(module)}")
+
+
+def to_jax_tree(module: nn.Module, grads: bool = False):
+    """The JAX param tree of a port module, numpy leaves (the inverse of
+    `load_jax_tree`); with grads=True the leaves are the params' .grad."""
+    def leaf(p):
+        t = p.grad if grads else p
+        if t is None:
+            raise ValueError("a parameter has no gradient")
+        return t.detach().float().cpu().numpy()
+
+    if isinstance(module, nn.Linear):
+        out = {"w": leaf(module.weight).T.copy()}
+        if module.bias is not None:
+            out["b"] = leaf(module.bias)
+        return out
+    if isinstance(module, nn.LayerNorm):
+        return {"scale": leaf(module.weight), "bias": leaf(module.bias)}
+    if isinstance(module, nn.ModuleList):
+        return [to_jax_tree(m, grads) for m in module]
+    if isinstance(module, L.ParamTree):
+        out = {}
+        for name in module.keys():
+            child = module[name]
+            out[name] = (leaf(child) if isinstance(child, nn.Parameter)
+                         else to_jax_tree(child, grads))
+        return out
+    raise TypeError(f"no JAX mapping for {type(module)}")
 
 
 def fusion_from_jax(tree, cfg: ModelConfig) -> L.ParamTree:

@@ -1,5 +1,5 @@
-"""Evidence-conditioned multimodal fusion model, serving forward
-(counterpart of mmd_tpu/models/fusion.py).
+"""Evidence-conditioned multimodal fusion model, serving and training
+forward (counterpart of mmd_tpu/models/fusion.py).
 
   1. MultiViewClaimRepresentation (reference model.py:6-121): project
      text/image claims to embed_dim, per-modality self-attention, then a
@@ -13,9 +13,12 @@
      mean-pooled sequences, or one 3-layer head over the concat (factify),
      or a text-only 3-layer head (model.py:393-403).
 
-Every attention goes through ops.attention: the CUDA flash kernel when
-cfg.fused_attn, the explicit path otherwise. Only the deterministic
-forward is ported; dropout arrives with the training slice.
+Every attention goes through ops.attention: the CUDA flash kernels when
+cfg.fused_attn, the explicit path otherwise. The training forward
+(deterministic=False) drops attention weights, MLP activations and
+classifier-head activations at cfg.dropout, each site with its own seed
+drawn from the step's torch.Generator in the JAX package's call order
+(`_Rngs`).
 """
 
 from __future__ import annotations
@@ -27,6 +30,20 @@ import torch
 from mmd_tpu_torch.core.config import ModelConfig
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.ops.attention import multi_head_attention
+
+
+class _Rngs:
+    """One 63-bit seed per call from a torch.Generator (None-safe), the
+    counterpart of the JAX package's stream of fold_in subkeys: sites are
+    called in the same order, so site i of a step always gets draw i."""
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self._gen = generator
+
+    def __call__(self) -> Optional[int]:
+        if self._gen is None:
+            return None
+        return int(torch.randint(0, 2 ** 63 - 1, (), generator=self._gen))
 
 # -----------------------------------------------------------------------------
 # Init
@@ -102,11 +119,16 @@ def init_fusion_params(gen: torch.Generator, cfg: ModelConfig) -> L.ParamTree:
 # Forward
 # -----------------------------------------------------------------------------
 
-def _core(cfg: ModelConfig, q, k, v):
-    return multi_head_attention(q, k, v, cfg.num_heads, fused=cfg.fused_attn)
+def _core(cfg: ModelConfig, q, k, v, rngs: _Rngs, deterministic):
+    return multi_head_attention(q, k, v, cfg.num_heads,
+                                dropout_rate=cfg.dropout,
+                                dropout_seed=rngs(),
+                                deterministic=deterministic,
+                                fused=cfg.fused_attn)
 
 
-def _representation(p, cfg: ModelConfig, X_t, X_i, dtype):
+def _representation(p, cfg: ModelConfig, X_t, X_i, rngs: _Rngs,
+                    deterministic, dtype):
     """Multi-view claim representation. Returns (H_t, H_i) (either may be
     None)."""
     if X_t is not None:
@@ -121,10 +143,11 @@ def _representation(p, cfg: ModelConfig, X_t, X_i, dtype):
         iV = L.linear(p["image_WV"], X_i, dtype)
 
     def attn(q, k, v, out):
-        return L.linear(p[out], _core(cfg, q, k, v), dtype)
+        return L.linear(p[out], _core(cfg, q, k, v, rngs, deterministic),
+                        dtype)
 
     def mlp(name, x):
-        return L.mlp(p[name], x, dtype=dtype)
+        return L.mlp(p[name], x, cfg.dropout, rngs(), deterministic, dtype)
 
     if X_t is not None and X_i is None:
         H_t = X_t + attn(tQ, tK, tV, "text_self_attn_out")
@@ -159,7 +182,8 @@ def _representation(p, cfg: ModelConfig, X_t, X_i, dtype):
     return C_t, C_i
 
 
-def _evidence_conditioning(p, cfg: ModelConfig, H_t, H_i, E_t, E_i, dtype):
+def _evidence_conditioning(p, cfg: ModelConfig, H_t, H_i, E_t, E_i,
+                           rngs: _Rngs, deterministic, dtype):
     """4-path evidence conditioning. Returns ((S_t_t, S_t_i), (S_i_t,
     S_i_i))."""
     def lin(name, x):
@@ -172,9 +196,11 @@ def _evidence_conditioning(p, cfg: ModelConfig, H_t, H_i, E_t, E_i, dtype):
     def path(H, Q, K, V, name, mlp_name):
         if H is None or K is None:
             return None
-        s = L.linear(p[f"{name}_out"], _core(cfg, Q, K, V), dtype)
+        ctx = _core(cfg, Q, K, V, rngs, deterministic)
+        s = L.linear(p[f"{name}_out"], ctx, dtype)
         s = L.layernorm(p[f"{name}_ln1"], H + s)
-        s = s + L.mlp(p[mlp_name], s, dtype=dtype)
+        s = s + L.mlp(p[mlp_name], s, cfg.dropout, rngs(), deterministic,
+                      dtype)
         return L.layernorm(p[f"{name}_ln2"], s)
 
     return (
@@ -189,17 +215,19 @@ def _pool(x, dtype):
     return x.float().mean(dim=1).to(dtype)
 
 
-def _classify(p, cfg: ModelConfig, S_t, S_i, dtype):
+def _classify(p, cfg: ModelConfig, S_t, S_i, rngs: _Rngs, deterministic,
+              dtype):
     if cfg.factify:
         pooled = [_pool(s, dtype) for s in (*S_t, *S_i) if s is not None]
         logits = L.head_apply(p["unified_mlp"], torch.cat(pooled, dim=-1),
-                              dtype=dtype)
+                              cfg.dropout, rngs(), deterministic, dtype)
         return logits.float(), None
 
     def head(name, s):
         if s is None:
             return None
-        return L.head_apply(p[name], _pool(s, dtype), dtype=dtype).float()
+        return L.head_apply(p[name], _pool(s, dtype), cfg.dropout, rngs(),
+                            deterministic, dtype).float()
 
     (S_t_t, S_t_i), (S_i_t, S_i_i) = S_t, S_i
     return (
@@ -213,18 +241,18 @@ def fusion_forward(params: L.ParamTree, cfg: ModelConfig,
                    X_i: Optional[torch.Tensor] = None,
                    E_t: Optional[torch.Tensor] = None,
                    E_i: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None,
                    deterministic: bool = True):
-    """Full model forward.
+    """Full model forward. The training forward (deterministic=False) draws
+    one seed per dropout site from `generator`.
 
     Returns, matching the reference's contract (model.py:426-468):
       text_only:  (logits (B, C), None)
       factify:    (logits (B, C), None)
       default:    ((y_t_t, y_t_i), (y_i_t, y_i_i)) each (B, C) or None
     """
-    if not deterministic and cfg.dropout > 0.0:
-        raise NotImplementedError(
-            "the training forward (dropout) is part of the training slice")
     dtype = L.dtype_of(cfg.compute_dtype)
+    rngs = _Rngs(generator)
 
     def cast(x):
         return None if x is None else x.to(dtype)
@@ -233,15 +261,18 @@ def fusion_forward(params: L.ParamTree, cfg: ModelConfig,
 
     if cfg.text_only:
         H_t, _ = _representation(params["representation"], cfg, X_t, None,
-                                 dtype)
+                                 rngs, deterministic, dtype)
         (S_t_t, _), _ = _evidence_conditioning(
-            params["cross_attn"], cfg, H_t, None, E_t, None, dtype)
+            params["cross_attn"], cfg, H_t, None, E_t, None, rngs,
+            deterministic, dtype)
         logits = L.head_apply(params["classifier"]["text_classifier"],
-                              _pool(S_t_t, dtype), dtype=dtype)
+                              _pool(S_t_t, dtype), cfg.dropout, rngs(),
+                              deterministic, dtype)
         return logits.float(), None
 
     H_t, H_i = _representation(params["representation"], cfg, X_t, X_i,
-                               dtype)
+                               rngs, deterministic, dtype)
     S_t, S_i = _evidence_conditioning(params["cross_attn"], cfg, H_t, H_i,
-                                      E_t, E_i, dtype)
-    return _classify(params["classifier"], cfg, S_t, S_i, dtype)
+                                      E_t, E_i, rngs, deterministic, dtype)
+    return _classify(params["classifier"], cfg, S_t, S_i, rngs,
+                     deterministic, dtype)

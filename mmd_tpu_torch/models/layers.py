@@ -11,16 +11,22 @@ Math parity targets (reference src/model/layers.py):
   MLP   = Linear(D -> D*ratio) -> GELU(exact) -> Dropout -> Linear(-> D) -> Dropout
   init  = Xavier-uniform weights, zero bias; LN scale=1 bias=0
           (reference model.py:416-424)
-Dropout is a training feature: only its deterministic form is ported.
+Dropout takes an integer seed per site and runs ops/dropout.py: the
+hand-written kernel on CUDA tensors, its plain version on CPU tensors, with
+a backward that regenerates the mask from the seed. The fused bf16 MLP
+(mmd_tpu/ops/mlp.py, the JAX package's path for bf16 with dropout on the
+TPU) is not ported yet: `mlp` raises where the JAX package would take it.
 """
 
 from __future__ import annotations
 
-from typing import Mapping
+from typing import Mapping, Optional
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from mmd_tpu_torch.ops import dropout as D
 
 
 class ParamTree(nn.Module):
@@ -103,11 +109,14 @@ def layernorm(ln: nn.LayerNorm, x: torch.Tensor, eps: float = 1e-5
 
 # -- Dropout ------------------------------------------------------------------
 
-def dropout(x: torch.Tensor, rate: float, deterministic: bool) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, seed: Optional[int],
+            deterministic: bool) -> torch.Tensor:
+    """Inverted dropout with the mask of `seed` (ops/dropout.py)."""
     if deterministic or rate <= 0.0:
         return x
-    raise NotImplementedError(
-        "dropout is part of the training slice, not ported yet")
+    if seed is None:
+        raise ValueError("dropout requires a seed when non-deterministic")
+    return D.dropout(x, rate, seed)
 
 
 # -- MLP ----------------------------------------------------------------------
@@ -119,19 +128,40 @@ def mlp_init(gen: torch.Generator, embed_dim: int, mlp_ratio: float = 4.0
                       "fc2": linear_init(gen, hidden, embed_dim)})
 
 
+def needs_fused_mlp(dtype: torch.dtype, dropout_rate: float,
+                    deterministic: bool, device: torch.device, embed_dim: int,
+                    hidden: int) -> bool:
+    """The JAX package's rule for its fused MLP kernel (layers.py:121-128),
+    with "backend is TPU" read as "tensors on CUDA": bf16, dropout active,
+    both widths multiples of 128."""
+    return (dropout_rate > 0.0 and not deterministic
+            and dtype == torch.bfloat16 and torch.device(device).type == "cuda"
+            and embed_dim % 128 == 0 and hidden % 128 == 0)
+
+
 def mlp(params: ParamTree, x: torch.Tensor, dropout_rate: float = 0.0,
-        deterministic: bool = True, dtype: torch.dtype = torch.float32
-        ) -> torch.Tensor:
+        seed: Optional[int] = None, deterministic: bool = True,
+        dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """GELU MLP (reference layers.py:5-21, torch nn.GELU = erf-exact).
 
     Under float32 the erf form is used (parity with the reference); under
     bfloat16 the tanh approximation, as the JAX package does: its deviation
-    from erf-GELU (~5e-4 relative) is below bf16 resolution (~4e-3)."""
+    from erf-GELU (~5e-4 relative) is below bf16 resolution (~4e-3). Its two
+    dropouts take seeds split from `seed`, as the JAX package splits its
+    key. Where the JAX package would run its fused bf16 MLP kernel, this
+    raises: that kernel pair is not ported yet."""
+    if needs_fused_mlp(dtype, dropout_rate, deterministic, x.device,
+                       x.shape[-1], params["fc1"].weight.shape[0]):
+        raise NotImplementedError(
+            "bf16 with dropout on CUDA is the fused-MLP path (TPU kernels "
+            "#3/#4, mmd_tpu/ops/mlp.py), the next training slice; train in "
+            "float32 (--compute_dtype float32) until it is ported")
+    s1, s2 = D.split_seed(seed, 2) if seed is not None else (None, None)
     h = linear(params["fc1"], x, dtype)
     h = F.gelu(h, approximate="tanh" if dtype == torch.bfloat16 else "none")
-    h = dropout(h, dropout_rate, deterministic)
+    h = dropout(h, dropout_rate, s1, deterministic)
     h = linear(params["fc2"], h, dtype)
-    return dropout(h, dropout_rate, deterministic)
+    return dropout(h, dropout_rate, s2, deterministic)
 
 
 # -- Classifier-head MLPs (ReLU stacks; reference model.py:252-288) -----------
@@ -142,12 +172,14 @@ def head_init(gen: torch.Generator, dims: list[int]) -> ParamTree:
 
 
 def head_apply(params: ParamTree, x: torch.Tensor, dropout_rate: float = 0.0,
-               deterministic: bool = True,
+               seed: Optional[int] = None, deterministic: bool = True,
                dtype: torch.dtype = torch.float32) -> torch.Tensor:
-    """Linear -> ReLU -> Dropout between every pair; final Linear bare."""
+    """Linear -> ReLU -> Dropout between every pair; final Linear bare. The
+    dropouts take seeds split from `seed`."""
     n = len(params.keys())
+    seeds = D.split_seed(seed, n) if seed is not None else [None] * n
     for i in range(n):
         x = linear(params[f"fc{i}"], x, dtype)
         if i < n - 1:
-            x = dropout(torch.relu(x), dropout_rate, deterministic)
+            x = dropout(torch.relu(x), dropout_rate, seeds[i], deterministic)
     return x

@@ -1,10 +1,11 @@
 // Flash-attention forward for Hopper (sm_90a), non-causal, with an optional
-// (B, S) key mask.
+// (B, S) key mask and optional attention dropout.
 //
 // Replaces mmd_tpu/ops/attention.py::_flash_fwd (its Pallas body
 // _fwd_kernel) on the serving path: every text-encoder layer (T = S = 512,
 // masked), every ViT layer (T = S = 64) and the eight attentions of the
-// fusion model ((T, S) in {512, 64}^2).
+// fusion model ((T, S) in {512, 64}^2); and on the training path the
+// fusion model's eight attentions with dropout on the attention weights.
 //
 // What it computes, per batch row b and head h:
 //   o[b, t, h]   = sum_s softmax_s(q[b,t,h] . k[b,s,h] / sqrt(dh) | valid keys) v[b,s,h]
@@ -16,6 +17,18 @@
 // running max is taken over valid keys only and l sums valid keys only, so
 // no -1e9 bias can turn such a row into a uniform softmax.
 //
+// Dropout (rate > 0, the DROP instantiation): the normalized weight of
+// (b, h, t, s) is kept when the Philox draw of its row-major index in the
+// (B, H, T, S) weights is below `threshold` (philox.cuh), and kept weights
+// are scaled by 1 / (1 - rate):
+//   o[b, t, h] = sum_s p[t, s] keep[t, s] scale v[s] / l[t]
+// l and lse sum the UNDROPPED p, so lse does not depend on the mask and the
+// backward (flash_attn_bwd.cu) regenerates the mask from the seed alone.
+// Each 64 x 64 tile's mask is drawn into shared memory, one Philox call per
+// 4 keys of a row, while K and V are staged. rate = 0 compiles the
+// instantiation without any of it, so serving results are unchanged bit for
+// bit.
+//
 // What bounds it on this card: the score work, 4 * B * H * T * S * dh
 // operations, against K/V bytes, 2 * B * S * D elements read once from
 // device memory (the T / 64 query tiles that re-read a K/V tile find it in
@@ -24,7 +37,10 @@
 // CUDA cores (67 TFLOP/s fp32 against 3.35 TB/s) stops being the limit at
 // ~20 operations per byte, so at every shape of the slice this kernel is
 // bound by its arithmetic and by the shared-memory bandwidth that feeds it,
-// not by device memory.
+// not by device memory. Dropout adds one Philox4x32-10 call (~100 integer
+// instructions) per 4 weights against the 4 * dh = 128 FMAs of each
+// weight's score and P.V at the fusion model's dh = 32: roughly a fifth
+// more issued instructions, still no device-memory traffic.
 //
 // What the design does about that (first version: simple and right):
 //   * one CTA of 256 threads per (64-row query tile, head, batch row);
@@ -45,6 +61,8 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "philox.cuh"
+
 namespace {
 
 constexpr int BLOCK_M = 64;                  // query rows per CTA
@@ -53,6 +71,7 @@ constexpr int TPR = 4;                       // threads per query row
 constexpr int THREADS = BLOCK_M * TPR;       // 256
 constexpr int KEYS_PER_THREAD = BLOCK_N / TPR;
 constexpr int P_STRIDE = BLOCK_N + 4;        // floats per P row (16-byte aligned, bank-skewed)
+constexpr int KEEP_STRIDE = BLOCK_N + 4;     // mask bytes per row (bank-skewed)
 constexpr float LN2 = 0.69314718055994531f;
 constexpr float LOG2E = 1.4426950408889634f;
 
@@ -69,14 +88,16 @@ struct Smem {
     static constexpr int P_FLOATS = BLOCK_M * P_STRIDE;
     static constexpr size_t BYTES =
         (K_FLOATS + V_FLOATS + P_FLOATS) * sizeof(float) + BLOCK_N * sizeof(int);
+    static constexpr size_t DROP_BYTES = BYTES + BLOCK_M * KEEP_STRIDE;
 };
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const uint8_t* __restrict__ key_valid,
                  T* __restrict__ o, float* __restrict__ lse,
-                 int t_len, int s_len, int num_heads, float scale_log2) {
+                 int t_len, int s_len, int num_heads, float scale_log2,
+                 mmd_philox::Dropout drop) {
     static_assert(DH % 16 == 0, "head dim must be a multiple of 16");
     using S = Smem<DH>;
     constexpr int CHUNKS = DH / 16;          // float4 output chunks per thread
@@ -86,6 +107,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     float* vs = ks + S::K_FLOATS;                      // [BLOCK_N][DH]
     float* ps = vs + S::V_FLOATS;                      // [BLOCK_M][P_STRIDE]
     int* kvalid = reinterpret_cast<int*>(ps + S::P_FLOATS);  // [BLOCK_N]
+    uint8_t* keep = reinterpret_cast<uint8_t*>(kvalid + BLOCK_N);  // DROP only
 
     const int tid = threadIdx.x;
     const int row = tid / TPR;
@@ -134,6 +156,11 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
             const int s = s0 + tid;
             kvalid[tid] = (s < s_len) && (mb == nullptr || mb[s] != 0);
         }
+        if constexpr (DROP) {
+            mmd_philox::fill_keep_tile<BLOCK_M, BLOCK_N, KEEP_STRIDE>(
+                keep, tid, THREADS, b, h, num_heads, blockIdx.x * BLOCK_M, t_len, s0,
+                s_len, drop);
+        }
         __syncthreads();
 
         // Scores of this thread's keys j = sub + TPR * i.
@@ -167,8 +194,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
         for (int i = 0; i < KEYS_PER_THREAD; ++i) {
             const float p = exp2f(sc[i] - m_use);
-            psum += p;
-            ps[row * P_STRIDE + sub + TPR * i] = p;
+            psum += p;                       // l sums the undropped weights
+            if constexpr (DROP) {
+                const int j = sub + TPR * i;
+                ps[row * P_STRIDE + j] = p * (keep[row * KEEP_STRIDE + j] ? drop.scale : 0.f);
+            } else {
+                ps[row * P_STRIDE + sub + TPR * i] = p;
+            }
         }
         psum += __shfl_xor_sync(0xffffffffu, psum, 1);
         psum += __shfl_xor_sync(0xffffffffu, psum, 2);
@@ -218,33 +250,48 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
 }
 
-template <typename T, int DH>
+template <typename T, int DH, bool DROP>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* key_valid,
                    void* o, void* lse, int batch, int t_len, int s_len, int num_heads,
-                   cudaStream_t stream) {
-    const size_t smem = Smem<DH>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DH>,
+                   const mmd_philox::Dropout& drop, cudaStream_t stream) {
+    const size_t smem = DROP ? Smem<DH>::DROP_BYTES : Smem<DH>::BYTES;
+    cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, DH, DROP>,
                                            cudaFuncAttributeMaxDynamicSharedMemorySize,
                                            static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     const dim3 grid((t_len + BLOCK_M - 1) / BLOCK_M, num_heads, batch);
     const float scale_log2 = LOG2E / sqrtf(static_cast<float>(DH));
-    flash_fwd_kernel<T, DH><<<grid, THREADS, smem, stream>>>(
+    flash_fwd_kernel<T, DH, DROP><<<grid, THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const uint8_t*>(key_valid), static_cast<T*>(o),
-        static_cast<float*>(lse), t_len, s_len, num_heads, scale_log2);
+        static_cast<float*>(lse), t_len, s_len, num_heads, scale_log2, drop);
     return cudaGetLastError();
+}
+
+template <typename T, int DH>
+cudaError_t launch_rate(const void* q, const void* k, const void* v, const void* key_valid,
+                        void* o, void* lse, int batch, int t_len, int s_len, int num_heads,
+                        const mmd_philox::Dropout& drop, int dropout, cudaStream_t stream) {
+    if (dropout)
+        return launch<T, DH, true>(q, k, v, key_valid, o, lse, batch, t_len, s_len,
+                                   num_heads, drop, stream);
+    return launch<T, DH, false>(q, k, v, key_valid, o, lse, batch, t_len, s_len,
+                                num_heads, drop, stream);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
 // key_valid is a (B, S) uint8 array (nonzero = valid key) or NULL.
+// dropout: 0 = none (seed, threshold and drop_scale unused), 1 = attention
+// dropout with keep threshold `threshold` and scale `drop_scale`.
 // Returns the cudaError_t of the launch (0 on success).
 extern "C" int mmd_flash_attn_fwd(const void* q, const void* k, const void* v,
                                   const void* key_valid, void* o, void* lse,
                                   int batch, int t_len, int s_len, int num_heads,
-                                  int head_dim, int dtype, int device, void* stream) {
+                                  int head_dim, int dtype, uint64_t seed,
+                                  uint32_t threshold, float drop_scale, int dropout,
+                                  int device, void* stream) {
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (batch <= 0 || t_len <= 0 || s_len < 0 || num_heads <= 0 ||
@@ -252,13 +299,18 @@ extern "C" int mmd_flash_attn_fwd(const void* q, const void* k, const void* v,
         return static_cast<int>(cudaErrorInvalidValue);
     }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
+    const mmd_philox::Dropout dp{seed, threshold, drop_scale};
     if (dtype == 0 && head_dim == 32)
-        return launch<float, 32>(q, k, v, key_valid, o, lse, batch, t_len, s_len, num_heads, st);
+        return launch_rate<float, 32>(q, k, v, key_valid, o, lse, batch, t_len, s_len,
+                                      num_heads, dp, dropout, st);
     if (dtype == 0 && head_dim == 64)
-        return launch<float, 64>(q, k, v, key_valid, o, lse, batch, t_len, s_len, num_heads, st);
+        return launch_rate<float, 64>(q, k, v, key_valid, o, lse, batch, t_len, s_len,
+                                      num_heads, dp, dropout, st);
     if (dtype == 1 && head_dim == 32)
-        return launch<__nv_bfloat16, 32>(q, k, v, key_valid, o, lse, batch, t_len, s_len, num_heads, st);
+        return launch_rate<__nv_bfloat16, 32>(q, k, v, key_valid, o, lse, batch, t_len,
+                                              s_len, num_heads, dp, dropout, st);
     if (dtype == 1 && head_dim == 64)
-        return launch<__nv_bfloat16, 64>(q, k, v, key_valid, o, lse, batch, t_len, s_len, num_heads, st);
+        return launch_rate<__nv_bfloat16, 64>(q, k, v, key_valid, o, lse, batch, t_len,
+                                              s_len, num_heads, dp, dropout, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -46,9 +46,11 @@ def find_nvcc() -> str:
     return nvcc
 
 
-def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
+def load_library(name: str, sources: Sequence[str],
+                 headers: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile `sources` (names under csrc/) into lib<name>-<hash>.so if that
-    build does not exist yet, and load it once per process."""
+    build does not exist yet, and load it once per process. `headers` (names
+    under csrc/ that the sources include) are part of the hash only."""
     with _lock:
         lib_lock = _lib_locks.setdefault(name, threading.Lock())
     with lib_lock:
@@ -56,7 +58,7 @@ def load_library(name: str, sources: Sequence[str]) -> ctypes.CDLL:
             return _loaded[name]
         paths = [CSRC / s for s in sources]
         digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for p in paths:
+        for p in [*paths, *(CSRC / h for h in headers)]:
             digest.update(p.name.encode())
             digest.update(p.read_bytes())
         out = BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"

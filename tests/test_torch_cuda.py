@@ -8,9 +8,13 @@ JAX, where tests/conftest.py (which imports JAX) cannot load:
 It holds each hand-written kernel against its plain PyTorch version at the
 serving paths' geometries -- flash attention, (residual +) LayerNorm,
 Swinv2 window attention and DeBERTa disentangled attention -- and the
-small serving paths on the card against the same paths on the CPU.
+small serving paths on the card against the same paths on the CPU; and
+the training kernels -- dropout (bit for bit), flash attention with
+dropout and its backward -- and a small train step on the card against
+the same step on the CPU.
 Tolerances: fp32 within 1e-4 (summation order, exp2f); bf16 within one
-bf16 step at the largest |output| (the output is rounded to bf16 once).
+bf16 step at the largest |output| (the output is rounded to bf16 once);
+gradients relative to their largest |value| (1e-4 in fp32).
 """
 
 import numpy as np
@@ -19,6 +23,7 @@ import torch
 
 from mmd_tpu_torch.ops import attention as A
 from mmd_tpu_torch.ops import deberta_attention as DA
+from mmd_tpu_torch.ops import dropout as D
 from mmd_tpu_torch.ops import ln as LN
 from mmd_tpu_torch.ops import swin_attention as SA
 
@@ -283,3 +288,137 @@ def test_small_reference_serving_path_matches_cpu(cuda_device, tmp_path):
                 for lab, p in c[path]["probabilities"].items():
                     assert g[path]["probabilities"][lab] == pytest.approx(
                         p, abs=1e-4)
+
+
+# -- training kernels -----------------------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(4096, 1024), (1024, 256), (256, 64),
+                                   (37, 257), (3,)])
+def test_dropout_kernel_is_bit_identical_to_plain(cuda_device, dtype, shape):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    x = torch.randn(shape, device=cuda_device, generator=g).to(dtype)
+    before = D.launches
+    y = D.dropout(x, 0.1, 0xC0FFEE)
+    torch.cuda.synchronize()
+    assert D.launches == before + 1
+    want = D.dropout_plain(x, 0.1, 0xC0FFEE)
+    bits = torch.int16 if dtype == torch.bfloat16 else torch.int32
+    assert y.dtype == dtype and torch.equal(y.view(bits), want.view(bits))
+
+
+def test_dropout_kernel_backward_regenerates_the_mask(cuda_device):
+    x = torch.randn(300, 130, device=cuda_device, requires_grad=True)
+    gout = torch.randn(300, 130, device=cuda_device)
+    before = D.launches
+    D.dropout(x, 0.3, 5).backward(gout)
+    torch.cuda.synchronize()
+    assert D.launches == before + 2
+    assert torch.equal(x.grad, gout * D.keep_scale(5, x.shape, 0.3,
+                                                   cuda_device))
+
+
+def _rel_err(got, ref):
+    return (got.float() - ref).abs().max().item() / max(
+        ref.abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,s,d,h,masked", GEOMETRIES)
+def test_flash_dropout_matches_plain(cuda_device, dtype, t, s, d, h, masked):
+    q, k, v, mask = _inputs(cuda_device, t, s, d, masked)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    o, lse = A.flash_attention(q, k, v, h, mask, 0.1, 1234)
+    torch.cuda.synchronize()
+    o_p, lse_p = A.flash_attention_plain(q.float(), k.float(), v.float(), h,
+                                         mask, 0.1, 1234)
+    assert (o.float() - o_p).abs().max().item() <= _tol(dtype, o_p)
+    fin = torch.isfinite(lse_p)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert (lse[fin] - lse_p[fin]).abs().max().item() < 1e-3
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,s,d,h,masked", GEOMETRIES)
+def test_flash_bwd_matches_plain(cuda_device, rate, dtype, t, s, d, h,
+                                 masked):
+    q, k, v, mask = _inputs(cuda_device, t, s, d, masked)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    o, lse = A.flash_attention(q, k, v, h, mask, rate, 99)
+    do = torch.randn(q.shape, device=cuda_device).to(dtype)
+    before = A.bwd_launches
+    got = A.flash_attention_bwd(q, k, v, o, lse, do, h, mask, rate, 99)
+    torch.cuda.synchronize()
+    assert A.bwd_launches == before + 1
+    want = A.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                       o.float(), lse, do.float(), h, mask,
+                                       rate, 99)
+    for g, w in zip(got, want):
+        assert g.dtype == dtype
+        tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+        assert _rel_err(g, w) <= tol
+    if masked:                             # the row with no valid key
+        assert torch.all(got[0][-1] == 0)
+
+
+def test_flash_bwd_refuses_what_it_does_not_take(cuda_device):
+    q, k, v, _ = _inputs(cuda_device, 64, 64, 64, False)
+    o, lse = A.flash_attention(q, k, v, 2)
+    with pytest.raises(ValueError, match="lse"):
+        A.flash_attention_bwd(q, k, v, o, lse[:, :1], o, 2)
+    with pytest.raises(ValueError, match="contiguous"):
+        A.flash_attention_bwd(q, k, v, o, lse,
+                              o.transpose(0, 1).contiguous().transpose(0, 1),
+                              2)
+
+
+def _tiny_train_cfg(**kw):
+    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+    model = ModelConfig(text_input_dim=64, image_input_dim=96, embed_dim=64,
+                        num_heads=2, hidden_dim=16, compute_dtype="float32",
+                        fused_attn=True, **kw)
+    return TrainConfig(model=model, batch_size=8, lr=1e-3)
+
+
+def test_bf16_dropout_training_raises_at_construction(cuda_device):
+    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+    from mmd_tpu_torch.training.trainer import Trainer
+    with pytest.raises(NotImplementedError, match="fused MLP"):
+        Trainer(TrainConfig(model=ModelConfig()), device="cuda")
+    Trainer(TrainConfig(model=ModelConfig(compute_dtype="float32")),
+            device="cuda")
+
+
+def test_small_train_step_matches_cpu(cuda_device):
+    """One fp32 step with dropout 0.1 at head dim 32 on the card and on the
+    CPU, same init and seed: the same masks, so the loss within 1e-5 and
+    every grad leaf within 1e-4 of its largest |value|; the card's step
+    launches 8 / 8 / 32 of the flash forward, backward and dropout
+    kernels."""
+    from mmd_tpu_torch.data.synthetic import synthetic_preembed_batch
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    cfg = _tiny_train_cfg()
+    batch = synthetic_preembed_batch(np.random.default_rng(0), 8, 128, 64,
+                                     64, 96)
+    out = {}
+    for name in ("cpu", "cuda"):
+        tr = Trainer(cfg, device=name)
+        state = tr.init()
+        counts = (A.launches, A.bwd_launches, D.launches)
+        state, aux = tr.train_step(state, tr.shard_batch(batch))
+        if name == "cuda":
+            torch.cuda.synchronize()
+            got = [now - was for now, was in zip(
+                (A.launches, A.bwd_launches, D.launches), counts)]
+            assert got == [8, 8, 32]
+        out[name] = (float(aux["loss"]),
+                     {n: p.grad.detach().cpu()
+                      for n, p in state.params.named_parameters()})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 1e-5 * abs(lc)
+    for n, w in gc.items():
+        assert (gg[n] - w).abs().max().item() <= 1e-4 * max(
+            w.abs().max().item(), 1e-3 * max(
+                x.abs().max().item() for x in gc.values())), n

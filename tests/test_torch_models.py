@@ -259,10 +259,12 @@ def test_fusion_bf16_matches():
 
 
 def test_fusion_training_forward_raises():
+    """The training forward needs a generator for its dropout seeds, as the
+    JAX forward needs an rng."""
     cfg = ModelConfig(**FUSION_KW)
     params = tfusion.init_fusion_params(torch.Generator().manual_seed(0), cfg)
     x = [torch.from_numpy(a) for a in _fusion_inputs()]
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="seed"):
         tfusion.fusion_forward(params, cfg, *x, deterministic=False)
 
 
