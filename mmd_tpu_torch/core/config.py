@@ -83,7 +83,6 @@ class DataConfig:
     train_data: str = "./data/preprocessed/train.csv"
     val_data: Optional[str] = None
     pre_embed: bool = False
-    num_workers: int = 8
     shuffle: bool = True
 
 
@@ -98,7 +97,6 @@ class TrainConfig:
     lr: float = 1e-4
     weight_decay: float = 0.01  # torch AdamW default (reference train.py:356)
     seed: int = 42
-    text_encoder: str = "microsoft/deberta-v3-xsmall"
     output_dir: str = "./results"
     save_every: int = 2000
     log_every: int = 100
@@ -108,15 +106,14 @@ class TrainConfig:
     wandb_project: str = "misinformation-detection"
     wandb_entity: Optional[str] = None
     resume_from: Optional[str] = None
-    # >1 runs this many train steps per window, one after another (the JAX
-    # package scans them inside one compiled call); the numbers are the same
+    # Kept so that configs written for the JAX package's TrainConfig stay
+    # valid, and ignored: there it scans this many steps inside one compiled
+    # call, which a Python loop of eager steps has no use for; every batch
+    # is one step either way, with the same numbers.
     steps_per_call: int = 1
     # >1 splits each step's batch into this many interleaved micro-batches
     # with accumulated grads and ONE optimizer update (trainer._accum_grads)
     accum_steps: int = 1
-    # rematerialize trainable encoder layers when fine-tuning (A11); no
-    # effect on the pre-embedded path, as in the JAX package
-    remat: bool = False
     # keep this many batches' host-to-device copies in flight ahead of the
     # step (training/loop.py prefetch_to_device); 0 = copy at use
     prefetch_depth: int = 2
@@ -124,12 +121,15 @@ class TrainConfig:
 
 def add_train_flags(p: argparse.ArgumentParser) -> None:
     """Reference-parity CLI flags (reference train.py:24-85), the JAX
-    package's names, plus --device."""
+    package's names, plus --device. --num_workers, --text_encoder and
+    --remat are accepted so that the JAX package's command lines run
+    unchanged, and read by nothing: the pre-embedded path has no loader
+    workers, no text encoder and no encoder layers to rematerialize."""
     d = TrainConfig()
     p.add_argument("--epochs", type=int, default=d.epochs)
     p.add_argument("--batch_size", type=int, default=d.batch_size)
     p.add_argument("--lr", type=float, default=d.lr)
-    p.add_argument("--num_workers", type=int, default=d.data.num_workers)
+    p.add_argument("--num_workers", type=int, default=8)
     p.add_argument("--seed", type=int, default=d.seed)
     p.add_argument("--embed_dim", type=int, default=d.model.embed_dim)
     p.add_argument("--num_heads", type=int, default=d.model.num_heads)
@@ -142,7 +142,8 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--text_only", action="store_true")
     p.add_argument("--train_data", type=str, default=d.data.train_data)
     p.add_argument("--val_data", type=str, default=None)
-    p.add_argument("--text_encoder", type=str, default=d.text_encoder)
+    p.add_argument("--text_encoder", type=str,
+                   default="microsoft/deberta-v3-xsmall")
     p.add_argument("--output_dir", type=str, default=d.output_dir)
     p.add_argument("--save_every", type=int, default=d.save_every)
     p.add_argument("--log_every", type=int, default=d.log_every)
@@ -174,8 +175,8 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
                    choices=["bfloat16", "float32"])
     p.add_argument("--remat", action="store_true",
                    help="rematerialize trainable-encoder layers when "
-                        "fine-tuning (ROADMAP A11); no effect on the "
-                        "pre-embedded path, as in the JAX package")
+                        "fine-tuning (ROADMAP A11); nothing to do on the "
+                        "pre-embedded path")
     p.add_argument("--prefetch_depth", type=int, default=d.prefetch_depth,
                    help="keep this many batches' host-to-device copies in "
                         "flight ahead of the step (0 = off)")
@@ -203,7 +204,6 @@ def train_config_from_args(args: argparse.Namespace) -> TrainConfig:
         train_data=args.train_data,
         val_data=args.val_data,
         pre_embed=args.pre_embed,
-        num_workers=args.num_workers,
     )
     mesh = MeshConfig(model_parallel=args.model_parallel,
                       tensor_parallel=args.tensor_parallel,
@@ -213,13 +213,13 @@ def train_config_from_args(args: argparse.Namespace) -> TrainConfig:
     return TrainConfig(
         model=model, data=data, mesh=mesh,
         epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
-        seed=args.seed, text_encoder=args.text_encoder,
+        seed=args.seed,
         output_dir=args.output_dir, save_every=args.save_every,
         log_every=args.log_every,
         validate_every_epoch=args.validate_every_epoch,
         save_best=args.save_best, best_metric=args.best_metric,
         wandb_project=args.wandb_project, wandb_entity=args.wandb_entity,
         resume_from=args.resume_from,
-        accum_steps=args.accum_steps, remat=args.remat,
+        accum_steps=args.accum_steps,
         prefetch_depth=args.prefetch_depth,
     )

@@ -22,15 +22,13 @@ from __future__ import annotations
 
 import json
 import statistics
-import subprocess
-import time
 
 import numpy as np
 import torch
 
+from mmd_tpu_torch import profiling as P
 from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
 from mmd_tpu_torch.data.synthetic import synthetic_preembed_batch
-from mmd_tpu_torch.profile_serve import GROUPS, _device_us, _timed
 from mmd_tpu_torch.training.trainer import Trainer
 
 BATCH = 256
@@ -49,10 +47,7 @@ def main() -> None:
         raise SystemExit("profile_train needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip()
+    card = P.card()
     print(json.dumps({"card": card}), flush=True)
 
     cfg = TrainConfig(model=ModelConfig(compute_dtype="float32",
@@ -71,7 +66,7 @@ def main() -> None:
         step()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    step_ms = _timed(step, STEPS)
+    step_ms = P.timed(step, STEPS)
     print(json.dumps({
         "batch": BATCH, "steps": STEPS, "compute_dtype": "float32",
         "fused_attn": True, "dropout": 0.1,
@@ -79,41 +74,9 @@ def main() -> None:
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
         "card": card}), flush=True)
 
-    acts = [torch.profiler.ProfilerActivity.CPU,
-            torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts, acc_events=True) as prof:
-        t0 = time.perf_counter()
-        for _ in range(3):
-            step()
-        torch.cuda.synchronize()
-        window_ms = 1e3 * (time.perf_counter() - t0)
-    by_name: dict[str, float] = {}
-    launches = 0
-    for evt in prof.key_averages():
-        us = _device_us(evt)
-        if us <= 0:
-            continue
-        name = next((v for k, v in KERNELS.items() if k in evt.key), evt.key)
-        by_name[name] = by_name.get(name, 0.0) + us
-        launches += evt.count
-    busy_ms = sum(by_name.values()) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:15]
-    groups: dict[str, float] = {}
-    for name, us in by_name.items():
-        g = name if name in KERNELS.values() else next(
-            (v for k, v in (*TRAIN_GROUPS, *GROUPS) if k in name), "other")
-        groups[g] = groups.get(g, 0.0) + us / 1e3
-    print(json.dumps({
-        "profiled_steps": 3, "window_ms": window_ms,
-        "device_busy_ms": busy_ms,
-        "idle_share": 1.0 - busy_ms / window_ms if window_ms else None,
-        "device_events": launches,
-        "device_ms_by_group": dict(sorted(groups.items(),
-                                          key=lambda kv: -kv[1])),
-        "device_ms_top": {k[:80]: v / 1e3 for k, v in top},
-        "kernels_ms": {v: by_name.get(v, 0.0) / 1e3
-                       for v in dict.fromkeys(KERNELS.values())},
-        "card": card}), flush=True)
+    summary = P.profile_window(step, 3, KERNELS, TRAIN_GROUPS + P.GROUPS)
+    print(json.dumps({"profiled_steps": 3, **summary, "card": card}),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -150,19 +150,6 @@ def run_training(
     global_step = state.step
     samples = 0
     t_window = time.time()
-    wsize = max(1, cfg.steps_per_call)
-    pending: list[dict] = []
-
-    def flush_window():
-        nonlocal state, samples, global_step
-        state, auxw = trainer.train_window(state, pending)
-        global_step += len(pending)
-        samples += auxw["labels"].shape[0] * auxw["labels"].shape[1]
-        _accumulate(acc, {
-            "preds": auxw["preds"].reshape(-1, auxw["preds"].shape[-1]),
-            "labels": auxw["labels"].reshape(-1, auxw["labels"].shape[-1])})
-        pending.clear()
-        return auxw["loss"][-1]
 
     for epoch in range(cfg.epochs):
         stream = prefetch_to_device(
@@ -170,18 +157,12 @@ def run_training(
              for b in train_batches(epoch)),
             trainer.device, cfg.prefetch_depth)
         for batch in stream:
-            if wsize > 1:
-                pending.append(batch)
-                if len(pending) < wsize:
-                    continue
-                aux = {"loss": flush_window()}
-            else:
-                state, aux = trainer.train_step(state, batch)
-                global_step += 1
-                samples += aux["labels"].shape[0]
-                _accumulate(acc, aux)
+            state, aux = trainer.train_step(state, batch)
+            global_step += 1
+            samples += aux["labels"].shape[0]
+            _accumulate(acc, aux)
 
-            if global_step % cfg.log_every < wsize:
+            if global_step % cfg.log_every == 0:
                 dt = time.time() - t_window
                 logs = _flush_metrics(acc, num_classes, "train")
                 logs["train/total_loss"] = float(aux["loss"])
@@ -190,16 +171,8 @@ def run_training(
                 logger.log(logs, step=global_step)
                 samples, t_window = 0, time.time()
 
-            if cfg.save_every and global_step % cfg.save_every < wsize:
+            if cfg.save_every and global_step % cfg.save_every == 0:
                 ckpt.save(global_step, _checkpoint(state))
-
-        # ragged tail of a window epoch runs as single steps
-        for batch in pending:
-            state, aux = trainer.train_step(state, batch)
-            global_step += 1
-            samples += aux["labels"].shape[0]
-            _accumulate(acc, aux)
-        pending.clear()
 
         if cfg.validate_every_epoch and val_batches is not None:
             val_logs = evaluate(trainer, state, val_batches(), num_classes)

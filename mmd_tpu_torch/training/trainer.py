@@ -264,17 +264,6 @@ class Trainer:
         self.train_step = make_raw_step(self.cfg)
         self.eval_step = make_eval_step(self.cfg)
 
-    def train_window(self, state: TrainState, batches: list[dict]
-                     ) -> tuple[TrainState, dict]:
-        """steps_per_call steps one after another (the JAX package scans
-        them in one compiled call); aux stacked over the window."""
-        auxes = []
-        for batch in batches:
-            state, aux = self.train_step(state, batch)
-            auxes.append({k: aux[k] for k in ("loss", "preds", "labels")})
-        return state, {k: torch.stack([a[k] for a in auxes])
-                       for k in auxes[0]}
-
     def init(self, seed: Optional[int] = None) -> TrainState:
         return init_state(self.cfg, self.device, seed)
 
