@@ -5,7 +5,7 @@ NVIDIA GPU.
 
 Phases, each of which exits nonzero on failure:
   1. device   a CUDA device, its name and power limit (nvidia-smi), TF32 off
-  2. build    nvcc builds the six kernel libraries from ops/csrc/, all at once
+  2. build    nvcc builds the nine kernel libraries from ops/csrc/, all at once
   3. kernels  each kernel against its plain PyTorch version on the card, at
               every geometry of the paths that run it, bf16 and fp32: max-abs
               error against its tolerance; kernel, plain and library times
@@ -28,6 +28,12 @@ Phases, each of which exits nonzero on failure:
      * flash_attn_bwd        dq, dk, dv at the same geometries with and
                              without dropout, and the masked text geometry
                              with a row with no valid key
+     * mlp_masks, mlp_fwd,   the fused MLP at the bf16 train step's two MLP
+       mlp_bwd               geometries, rate 0.1 and 0: the dumped masks
+                             bit-identical to their plain version; y and
+                             dx, dW1, db1, dW2, db2 against the plain
+                             versions and against a float64 oracle built
+                             from the dumped masks
   4. serve            full-width serving with the BERT-class text encoder
                       (512 tokens) and the ViT, ModelConfig(fused_attn=True),
                       bf16, batch 16: a ServingEngine answers requests from
@@ -49,13 +55,22 @@ Phases, each of which exits nonzero on failure:
                       forwards a validation batch), params moved,
                       metrics.jsonl and checkpoints written; wall time a
                       step and peak device memory
-  7. train_parity     one fp32 step at batch 16 and full width, dropout on,
+  7. train_bf16       the same with the default compute dtype, bfloat16:
+                      exactly 6 / 6 / 8 / 8 / 8 launches of the fused MLP
+                      forward and backward, the flash forward and backward
+                      and the dropout kernel a step, none of the mask oracle
+  8. train_parity     one fp32 step at batch 16 and full width, dropout on,
                       one seed, through fused_attn=True and fused_attn=False:
                       loss within 1e-5 relative, every grad leaf within 1e-4
                       of its largest |value|
+  9. train_parity_bf16  one bf16 step at batch 16 and full width, dropout
+                      on, one seed, through the fused and the unfused MLP:
+                      loss within 1e-3 relative, the gradient within 1e-1
+                      in L2 norm; the fused step with a wrong seed must
+                      fail the same check
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record, with each kernel's launches in the counted runs of
-the serve, serve_reference and train phases.
+the serve, serve_reference, train and train_bf16 phases.
 """
 
 from __future__ import annotations
@@ -145,6 +160,25 @@ PER_STEP = {"flash_attn_fwd": sum(TRAIN_PER_STEP.values()),
             "flash_attn_bwd": sum(TRAIN_PER_STEP.values()),
             "dropout": sum(DROPOUT_GEOMS.values())}          # 8 / 8 / 32
 TRAIN_STEPS = 8
+# The bf16 train step: the six MLPs run the fused kernels (#3 forward, #4
+# backward), so only the heads' (256, 64) dropouts stay elementwise.
+# (N rows, D, F) -> MLP calls a step: the three text-query MLPs and the
+# three image-query MLPs.
+MLP_GEOMS = {(131072, 256, 1024): 3, (16384, 256, 1024): 3}
+MLP_PER_STEP = sum(MLP_GEOMS.values())                     # 6
+PER_STEP_BF16 = {"flash_attn_fwd": PER_STEP["flash_attn_fwd"],
+                 "flash_attn_bwd": PER_STEP["flash_attn_bwd"],
+                 "dropout": DROPOUT_GEOMS[(256, 64)],
+                 "mlp_fwd": MLP_PER_STEP, "mlp_bwd": MLP_PER_STEP}   # 8/8/8/6/6
+# kernels #3 and #4 against their plain versions on the same bf16 inputs,
+# relative to each output's largest |value|: one bf16 rounding of the
+# output, and of h, dyb and dab inside, after fp32 sums in another order
+MLP_TOL = 2.0 ** -7
+# against the float64 oracle built from #12's masks, which rounds nothing:
+# the kernels' bf16 roundings of h, dyb, dab and the outputs (the bound
+# benchmarks/validate_mlp_tpu.py holds the TPU kernels to); a wrong mask
+# flips ~10% of the hidden entries with an O(1) effect
+ORACLE_TOL = 2e-2
 # train_parity: loss relative, grads relative to each leaf's largest |g|;
 # a leaf whose true gradient is zero (the key projections' biases: softmax
 # ignores a shift shared by all keys) holds fp32 noise, so no leaf is held
@@ -152,6 +186,18 @@ TRAIN_STEPS = 8
 PARITY_LOSS_RTOL = 1e-5
 PARITY_GRAD_RTOL = 1e-4
 PARITY_FLOOR = 1e-3
+# train_parity_bf16, fused vs unfused MLP: the same masks, but the unfused
+# path rounds to bf16 after fc1, after its bias, after GELU and after each
+# dropout where the kernels round h and y once, so the two steps differ by
+# bf16 roundings (2^-8 each) carried through the step. The loss averages
+# them over 16 samples and 4 paths: within 1e-3 relative. The gradient as
+# one vector (all leaves) within 1e-1 in L2 norm: the classifier heads
+# carry most of its norm, and at batch 16 their gradients are sums of few
+# terms, each moved by the roundings of the logits; a single leaf is no
+# yardstick in bf16 (a head's can move by a fifth of itself). A wrong
+# mask moves the gradient by about half its norm.
+PARITY_BF16_LOSS_RTOL = 1e-3
+PARITY_BF16_GRAD_RTOL = 1e-1
 
 
 def fail(msg: str) -> None:
@@ -180,14 +226,17 @@ def phase_device() -> dict:
 def _kernels():
     """kernel name -> (op module, its loader, its launch counter)."""
     from mmd_tpu_torch.ops import attention, deberta_attention, dropout, ln, \
-        swin_attention
+        mlp, swin_attention
     return {"flash_attn_fwd": (attention, "load_kernel", "launches"),
             "layernorm": (ln, "load_kernel", "launches"),
             "swin_window_attn": (swin_attention, "load_kernel", "launches"),
             "deberta_attn_fwd": (deberta_attention, "load_kernel",
                                  "launches"),
             "dropout": (dropout, "load_kernel", "launches"),
-            "flash_attn_bwd": (attention, "load_bwd_kernel", "bwd_launches")}
+            "flash_attn_bwd": (attention, "load_bwd_kernel", "bwd_launches"),
+            "mlp_fwd": (mlp, "load_kernel", "launches"),
+            "mlp_bwd": (mlp, "load_bwd_kernel", "bwd_launches"),
+            "mlp_masks": (mlp, "load_masks_kernel", "mask_launches")}
 
 
 def _reset_counts() -> None:
@@ -726,6 +775,162 @@ def phase_flash_bwd(card: str) -> dict:
     return rec
 
 
+def _rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    """Max-abs error relative to the largest |want|."""
+    return ((got.double() - want.double()).abs().max()
+            / want.double().abs().max().clamp_min(1e-30)).item()
+
+
+def _mlp_oracle(x, w1, b1, w2, b2, dy, m1, m2):
+    """y and (dx, dw1, db1, dw2, db2) of the fused MLP in float64 from the
+    dumped masks m1, m2, rounding nothing (benchmarks/validate_mlp_tpu.py,
+    step 3)."""
+    x, w1, b1, w2, b2, dy, m1, m2 = (t.double() for t in
+                                     (x, w1, b1, w2, b2, dy, m1, m2))
+    c, k = math.sqrt(2.0 / math.pi), 0.044715
+    a = x @ w1 + b1
+    t = torch.tanh(c * (a + k * a * a * a))
+    h = 0.5 * a * (1.0 + t) * m1
+    y = (h @ w2 + b2) * m2
+    dy0 = dy * m2
+    da = (dy0 @ w2.T) * m1 * (0.5 * (1.0 + t) + 0.5 * a * (1.0 - t * t) * c
+                              * (1.0 + 3.0 * k * a * a))
+    return y, (da @ w1.T, x.T @ da, da.sum(0), h.T @ dy0, dy0.sum(0))
+
+
+def phase_mlp(card: str) -> dict:
+    """Kernels #12, #3 and #4 at the bf16 train step's MLP geometries, rate
+    0.1 and 0: the masks bit-identical to their plain version, the forward
+    and the backward against their plain versions and against the float64
+    oracle of the dumped masks; times per train step."""
+    from mmd_tpu_torch.ops import dropout as D
+    from mmd_tpu_torch.ops import mlp as M
+    fn = torch.nn.functional
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    names = ("mlp_fwd", "mlp_bwd", "mlp_masks")
+    errs = {k: [] for k in names}
+    rows = {k: [] for k in names}
+    for (n, d, f), count in MLP_GEOMS.items():
+        x = torch.randn(n, d, device=dev, generator=gen).bfloat16()
+        w1 = (torch.randn(d, f, device=dev, generator=gen)
+              / math.sqrt(d)).bfloat16()
+        b1 = 0.1 * torch.randn(f, device=dev, generator=gen)
+        w2 = (torch.randn(f, d, device=dev, generator=gen)
+              / math.sqrt(f)).bfloat16()
+        b2 = 0.1 * torch.randn(d, device=dev, generator=gen)
+        dy = torch.randn(n, d, device=dev, generator=gen).bfloat16()
+        for rate in (DROPOUT_RATE, 0.0):
+            seeds = M.mask_seeds(rate, 0x5EED + n)
+            m1, m2 = M.mlp_masks(n, d, f, seeds, rate, dev)
+            torch.cuda.synchronize()
+            p1, p2 = M.mlp_masks_plain(n, d, f, seeds, rate, dev)
+            same = torch.equal(m1, p1) and torch.equal(m2, p2)
+            del p1, p2
+            kept = [(m != 0).double().mean().item() for m in (m1, m2)]
+            sigma = [math.sqrt(rate * (1 - rate) / m.numel()) for m in (m1, m2)]
+            kept_ok = all(abs(k - (1 - rate)) <= 4 * s
+                          for k, s in zip(kept, sigma))
+            y = M.fused_mlp_fwd(x, w1, b1, w2, b2, seeds, rate)
+            got = M.fused_mlp_bwd(x, w1, b1, w2, dy, seeds, rate)
+            torch.cuda.synchronize()
+            want_y = M.fused_mlp_plain(x, w1, b1, w2, b2, seeds, rate)
+            want = M.fused_mlp_bwd_plain(x, w1, b1, w2, dy, seeds, rate)
+            rel = [_rel(y, want_y)] + [_rel(g, w) for g, w in zip(got, want)]
+            fwd_abs = (y.float() - want_y).abs().max().item()
+            bwd_abs = max((g.float() - w).abs().max().item()
+                          for g, w in zip(got, want))
+            del want_y, want
+            y64, g64 = _mlp_oracle(x, w1, b1, w2, b2, dy, m1, m2)
+            orc = [_rel(y, y64)] + [_rel(g, w) for g, w in zip(got, g64)]
+            del y64, g64, m1, m2
+            ok = (same and kept_ok and max(rel) <= MLP_TOL
+                  and max(orc) <= ORACLE_TOL)
+            print(f"kernel mlp N={n} D={d} F={f} bf16 rate {rate}: masks "
+                  f"bit-identical {same}, kept {kept[0]:.6f} / {kept[1]:.6f} "
+                  f"(4 sigma {4 * sigma[0]:.1e} / {4 * sigma[1]:.1e}); vs "
+                  f"plain y/dx/dw1/db1/dw2/db2 relative "
+                  f"{'/'.join('%.2e' % e for e in rel)} (tol {MLP_TOL:.1e}); "
+                  f"vs float64 oracle of the masks "
+                  f"{'/'.join('%.2e' % e for e in orc)} (tol "
+                  f"{ORACLE_TOL:.0e}) -> {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"fused MLP kernels disagree at N={n} rate {rate}")
+            errs["mlp_fwd"].append(fwd_abs)
+            errs["mlp_bwd"].append(bwd_abs)
+            errs["mlp_masks"].append(0.0)
+            del y, got
+        # times at the train step's rate; the composition is the unfused
+        # bf16 MLP: two cuBLAS GEMMs with their bias, F.gelu and kernel #5
+        seeds = M.mask_seeds(DROPOUT_RATE, 1)
+        w1t, w2t, b1b, b2b = (w1.T.contiguous(), w2.T.contiguous(),
+                              b1.bfloat16(), b2.bfloat16())
+
+        def composition(x_, w1t_, b1b_, w2t_, b2b_):
+            h = fn.gelu(fn.linear(x_, w1t_, b1b_), approximate="tanh")
+            h = fn.linear(D.dropout(h, DROPOUT_RATE, seeds[0]), w2t_, b2b_)
+            return D.dropout(h, DROPOUT_RATE, seeds[1])
+
+        leaves = [t.detach().requires_grad_()
+                  for t in (x, w1t, b1b, w2t, b2b)]
+        out = composition(*leaves)
+        fwd = {"ms": _time_ms(lambda: M.fused_mlp_fwd(
+                   x, w1, b1, w2, b2, seeds, DROPOUT_RATE), iters=10),
+               "plain_ms": _time_ms(lambda: M.fused_mlp_plain(
+                   x, w1, b1, w2, b2, seeds, DROPOUT_RATE), iters=2,
+                   warmup=1),
+               "library_ms": _time_ms(lambda: composition(
+                   x, w1t, b1b, w2t, b2b), iters=10)}
+        fwd["bound_ms"], fwd["bound_by"] = _bound_ms(
+            2 * 2 * n * d + 2 * 2 * d * f + 4 * (f + d), 4 * n * d * f)
+        bwd = {"ms": _time_ms(lambda: M.fused_mlp_bwd(
+                   x, w1, b1, w2, dy, seeds, DROPOUT_RATE), iters=5),
+               "plain_ms": _time_ms(lambda: M.fused_mlp_bwd_plain(
+                   x, w1, b1, w2, dy, seeds, DROPOUT_RATE), iters=2,
+                   warmup=1),
+               "library_ms": _time_ms(lambda: torch.autograd.grad(
+                   out, leaves, dy, retain_graph=True), iters=5)}
+        bwd["bound_ms"], bwd["bound_by"] = _bound_ms(
+            2 * 3 * n * d + 2 * 2 * d * f + 4 * f
+            + 4 * (2 * d * f + f + d), 10 * n * d * f)
+        masks = {"ms": _time_ms(lambda: M.mlp_masks(
+                     n, d, f, seeds, DROPOUT_RATE, dev), iters=10),
+                 "plain_ms": _time_ms(lambda: M.mlp_masks_plain(
+                     n, d, f, seeds, DROPOUT_RATE, dev), iters=2, warmup=1),
+                 "library_ms": None}
+        masks["bound_ms"], masks["bound_by"] = _bound_ms(4 * n * (f + d), 0)
+        for name, row in zip(names, (fwd, bwd, masks)):
+            _print_time(name, f"N={n} D={d} F={f} bf16 dropout "
+                        f"{DROPOUT_RATE}", row, card)
+            rows[name].append((count if name != "mlp_masks" else 1, row))
+        del x, w1, w2, dy, w1t, w2t, leaves, out
+        torch.cuda.empty_cache()
+    composition = ("not one call: the unfused bf16 composition -- F.linear "
+                   "(cuBLAS, bias in its epilogue), F.gelu(approximate="
+                   "'tanh'), kernel #5, F.linear, kernel #5")
+    recs = {
+        "mlp_fwd": _record("mlp_fwd", "mmd_tpu_torch/ops/csrc/mlp_fwd.cu",
+                           "mmd_tpu/ops/mlp.py:158", rows["mlp_fwd"],
+                           errs["mlp_fwd"], composition),
+        "mlp_bwd": _record("mlp_bwd", "mmd_tpu_torch/ops/csrc/mlp_bwd.cu",
+                           "mmd_tpu/ops/mlp.py:179", rows["mlp_bwd"],
+                           errs["mlp_bwd"], "the backward of " + composition
+                           + " (forward excluded)"),
+        "mlp_masks": _record("mlp_masks",
+                             "mmd_tpu_torch/ops/csrc/mlp_masks.cu",
+                             "benchmarks/validate_mlp_tpu.py:53",
+                             rows["mlp_masks"], errs["mlp_masks"],
+                             "none: no PyTorch call draws these masks; "
+                             "times are one dump at each geometry")}
+    for name in ("mlp_fwd", "mlp_bwd"):
+        r = recs[name]
+        print(f"kernel {name} per bf16 train step ({MLP_PER_STEP} launches):"
+              f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"unfused composition {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms  [{card}]", flush=True)
+    return recs
+
+
 def _check_result(res: dict, claim_img: bool, ev_img: bool) -> None:
     want_present = {"text_text": True, "text_image": ev_img,
                     "image_text": claim_img,
@@ -861,16 +1066,18 @@ def serve(phase: str, card: str, tmp: Path, texts: list[str],
     return launches
 
 
-def phase_train(card: str, tmp: Path) -> dict:
-    """python -m mmd_tpu_torch.train's main path at full width: returns the
-    kernel launches of the counted run."""
+def phase_train(card: str, tmp: Path, phase: str, per_step: dict,
+                dtype_args: list) -> dict:
+    """python -m mmd_tpu_torch.train's main path at full width, with
+    `dtype_args` (none: the default bf16): returns the kernel launches of
+    the counted run, which must be `per_step` a step."""
     from mmd_tpu_torch import train as TR
     from mmd_tpu_torch.training.loop import run_training
 
-    out = tmp / "train"
+    out = tmp / phase
     argv = ["--device", "cuda", "--synthetic_samples",
             str(TRAIN_STEPS * TRAIN_B), "--batch_size", str(TRAIN_B),
-            "--epochs", "1", "--compute_dtype", "float32", "--fused_attn",
+            "--epochs", "1", *dtype_args, "--fused_attn",
             "--dropout", str(DROPOUT_RATE), "--log_every", "1",
             "--save_every", "4", "--validate_every_epoch",
             "--output_dir", str(out)]
@@ -879,7 +1086,7 @@ def phase_train(card: str, tmp: Path) -> dict:
     cfg, trainer, train_batches, val_batches = TR.build(args)
     n_val = len(list(val_batches()))
     m = cfg.model
-    print(f"train: fusion {m.embed_dim} wide, {m.num_heads} heads, hidden "
+    print(f"{phase}: fusion {m.embed_dim} wide, {m.num_heads} heads, hidden "
           f"{m.hidden_dim}, text {m.text_input_dim} x 512, image "
           f"{m.image_input_dim} x 64, batch {cfg.batch_size}, "
           f"{m.compute_dtype}, fused_attn={m.fused_attn}, dropout "
@@ -895,35 +1102,35 @@ def phase_train(card: str, tmp: Path) -> dict:
     launches = _counts()
     peak = torch.cuda.max_memory_allocated()
     want = {name: 0 for name in launches}
-    want.update({k: v * TRAIN_STEPS for k, v in PER_STEP.items()})
+    want.update({k: v * TRAIN_STEPS for k, v in per_step.items()})
     want["flash_attn_fwd"] += FUSION_PER_BATCH * n_val
-    print(f"train: {state.step} steps + {n_val} validation batches in "
+    print(f"{phase}: {state.step} steps + {n_val} validation batches in "
           f"{run_s:.2f} s, kernel launches {json.dumps(launches)} (want "
           f"{json.dumps(want)})  [{card}]", flush=True)
     if launches != want:
-        fail(f"train: launches {launches}; the path should launch {want}")
+        fail(f"{phase}: launches {launches}; the path should launch {want}")
 
     recs = [json.loads(x) for x in
             (out / "metrics.jsonl").read_text().splitlines()]
     losses = [r["train/total_loss"] for r in recs if "train/total_loss" in r]
     val = [r for r in recs if "val/loss" in r]
-    print(f"train: loss by step {json.dumps(losses)}; validation loss "
+    print(f"{phase}: loss by step {json.dumps(losses)}; validation loss "
           f"{val[0]['val/loss'] if val else None}, avg_f1 "
           f"{val[0].get('val/avg_f1') if val else None}", flush=True)
     if len(losses) != TRAIN_STEPS or not all(map(math.isfinite, losses)):
-        fail(f"train: losses {losses}")
+        fail(f"{phase}: losses {losses}")
     if len(val) != 1 or not math.isfinite(val[0]["val/loss"]):
-        fail(f"train: validation records {val}")
+        fail(f"{phase}: validation records {val}")
     ckpts = sorted(p.name for p in (out / "checkpoints").iterdir())
     want_ckpts = sorted({f"step_{i}.pt" for i in range(4, TRAIN_STEPS + 1, 4)}
                         | {f"step_{TRAIN_STEPS}.pt"})
     if ckpts != want_ckpts:
-        fail(f"train: checkpoints {ckpts}, want {want_ckpts}")
+        fail(f"{phase}: checkpoints {ckpts}, want {want_ckpts}")
     init = trainer.init().params.state_dict()
     moved = [k for k, x in state.params.state_dict().items()
              if not torch.equal(x, init[k])]
     if len(moved) < len(init) // 2:
-        fail(f"train: only {len(moved)} of {len(init)} params moved")
+        fail(f"{phase}: only {len(moved)} of {len(init)} params moved")
 
     batch = trainer.shard_batch(next(iter(train_batches(0))))
     times = []
@@ -933,7 +1140,7 @@ def phase_train(card: str, tmp: Path) -> dict:
         state, aux = trainer.train_step(state, batch)
         torch.cuda.synchronize()
         times.append(1e3 * (time.perf_counter() - t0))
-    print(f"train: wall per step after torch.cuda.synchronize() "
+    print(f"{phase}: wall per step after torch.cuda.synchronize() "
           f"{json.dumps([round(x, 3) for x in times])} ms; "
           f"{len(moved)} of {len(init)} params moved; checkpoints {ckpts}; "
           f"peak device memory {peak / 2 ** 30:.3f} GiB "
@@ -964,13 +1171,7 @@ def phase_train_parity(card: str) -> None:
         del tr, state
     (lf, gf), (le, ge) = out[True], out[False]
     loss_rel = abs(lf - le) / abs(le)
-    top = max(g.abs().max().item() for g in ge.values())
-    worst, where = 0.0, None
-    for n, w in ge.items():
-        scale = max(w.abs().max().item(), PARITY_FLOOR * top)
-        r = (gf[n] - w).abs().max().item() / scale
-        if r > worst:
-            worst, where = r, n
+    worst, where = _grad_gap(gf, ge)
     ok = loss_rel <= PARITY_LOSS_RTOL and worst <= PARITY_GRAD_RTOL
     print(f"train_parity: batch {BATCH}, fp32, dropout {DROPOUT_RATE}: loss "
           f"fused {lf:.7f} explicit {le:.7f}, relative {loss_rel:.3e} (tol "
@@ -979,6 +1180,95 @@ def phase_train_parity(card: str) -> None:
           f"{'ok' if ok else 'FAIL'}  [{card}]", flush=True)
     if not ok:
         fail("train_parity: the kernel path and the explicit path disagree")
+
+
+def _grad_gap(got: dict, want: dict) -> tuple[float, str]:
+    """The worst leaf's max-abs gap relative to its largest |want|, no leaf
+    held to less than PARITY_FLOOR of the model's largest gradient."""
+    top = max(w.abs().max().item() for w in want.values())
+    worst, where = 0.0, None
+    for n, w in want.items():
+        scale = max(w.abs().max().item(), PARITY_FLOOR * top)
+        r = (got[n] - w).abs().max().item() / scale
+        if r > worst:
+            worst, where = r, n
+    return worst, where
+
+
+def phase_train_parity_bf16(card: str) -> None:
+    """One bf16 step with dropout on at batch 16 and full width, through the
+    fused MLP kernels and through the unfused MLP, one seed: the same
+    masks, so the same step up to bf16 rounding. The fused path with a
+    wrong step seed must then fail the same check."""
+    from unittest import mock
+
+    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+    from mmd_tpu_torch.data.synthetic import synthetic_preembed_batch
+    from mmd_tpu_torch.models import layers as L
+    from mmd_tpu_torch.ops import mlp as M
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    batch = synthetic_preembed_batch(np.random.default_rng(1), BATCH)
+    cfg = TrainConfig(model=ModelConfig(fused_attn=True,
+                                        dropout=DROPOUT_RATE),
+                      batch_size=BATCH)
+
+    def step(fused: bool, seed_shift: int = 0, dtype: str = "bfloat16"):
+        tr = Trainer(dataclasses.replace(cfg, model=dataclasses.replace(
+            cfg.model, compute_dtype=dtype)), device="cuda")
+        state = tr.init()
+        state.seed += seed_shift
+        was = (M.launches, M.bwd_launches)
+        with mock.patch.object(L, "needs_fused_mlp",
+                               L.needs_fused_mlp if fused
+                               else lambda *a: False):
+            state, aux = tr.train_step(state, tr.shard_batch(batch))
+        torch.cuda.synchronize()
+        launched = (M.launches - was[0], M.bwd_launches - was[1])
+        want = (MLP_PER_STEP,) * 2 if fused and dtype == "bfloat16" \
+            else (0, 0)
+        if launched != want:
+            fail(f"train_parity_bf16: the {'fused' if fused else 'unfused'}"
+                 f" step launched {launched} MLP kernels, want {want}")
+        return float(aux["loss"]), {n: p.grad.detach().float().clone()
+                                    for n, p in
+                                    state.params.named_parameters()}
+
+    def l2_gap(got: dict, want: dict) -> float:
+        """|got - want| / |want| over all leaves as one vector."""
+        return math.sqrt(
+            sum((got[n] - w).double().square().sum().item()
+                for n, w in want.items())
+            / sum(w.double().square().sum().item() for w in want.values()))
+
+    le, ge = step(False)
+    # the fp32 step on the same masks, to show the size of bf16's rounding
+    l32, g32 = step(False, dtype="float32")
+    results = {}
+    for name, shift in (("fused", 0), ("fused, wrong seed", 1)):
+        lf, gf = step(True, shift)
+        loss_rel = abs(lf - le) / abs(le)
+        grad_rel = l2_gap(gf, ge)
+        worst, where = _grad_gap(gf, ge)
+        if not shift:
+            print(f"train_parity_bf16: against the fp32 step ({l32:.7f}): "
+                  f"gradient L2 gap {l2_gap(gf, g32):.3e} fused, "
+                  f"{l2_gap(ge, g32):.3e} unfused", flush=True)
+        ok = (loss_rel <= PARITY_BF16_LOSS_RTOL
+              and grad_rel <= PARITY_BF16_GRAD_RTOL)
+        results[name] = ok
+        print(f"train_parity_bf16: batch {BATCH}, bf16, dropout "
+              f"{DROPOUT_RATE}: loss {name} {lf:.7f} unfused {le:.7f}, "
+              f"relative {loss_rel:.3e} (tol {PARITY_BF16_LOSS_RTOL:.0e}); "
+              f"gradient L2 gap {grad_rel:.3e} of its norm (tol "
+              f"{PARITY_BF16_GRAD_RTOL:.0e}); worst leaf {where} at "
+              f"{worst:.3e} of its scale -> {'ok' if ok else 'FAIL'}  "
+              f"[{card}]", flush=True)
+    if not results["fused"]:
+        fail("train_parity_bf16: the fused and the unfused MLP disagree")
+    if results["fused, wrong seed"]:
+        fail("train_parity_bf16: a wrong seed passed the check, which "
+             "therefore shows nothing")
 
 
 def main() -> None:
@@ -991,6 +1281,7 @@ def main() -> None:
             "dropout": phase_dropout(dev["card"]),
             "flash_attn_bwd": phase_flash_bwd(dev["card"])}
     recs["flash_attn_fwd"]["train_step"] = phase_flash_train(dev["card"])
+    recs.update(phase_mlp(dev["card"]))
     from mmd_tpu_torch.inference.traffic import corpus, write_images
     rng = np.random.default_rng(0)
     texts = corpus(rng, 64)
@@ -1003,8 +1294,12 @@ def main() -> None:
             "serve_reference": serve("serve_reference", dev["card"], tmp,
                                      texts, images, REFERENCE_PER_BATCH, 48,
                                      True),
-            "train": phase_train(dev["card"], tmp)}
+            "train": phase_train(dev["card"], tmp, "train", PER_STEP,
+                                 ["--compute_dtype", "float32"]),
+            "train_bf16": phase_train(dev["card"], tmp, "train_bf16",
+                                      PER_STEP_BF16, [])}
         phase_train_parity(dev["card"])
+        phase_train_parity_bf16(dev["card"])
     kernels = []
     for name, rec in recs.items():
         counts = {ph: launches[name] for ph, launches in by_phase.items()}

@@ -13,9 +13,11 @@ Math parity targets (reference src/model/layers.py):
           (reference model.py:416-424)
 Dropout takes an integer seed per site and runs ops/dropout.py: the
 hand-written kernel on CUDA tensors, its plain version on CPU tensors, with
-a backward that regenerates the mask from the seed. The fused bf16 MLP
-(mmd_tpu/ops/mlp.py, the JAX package's path for bf16 with dropout on the
-TPU) is not ported yet: `mlp` raises where the JAX package would take it.
+a backward that regenerates the mask from the seed. Where the JAX package
+runs its fused bf16 MLP kernel (bf16, dropout active, both widths multiples
+of 128, on the TPU), `mlp` runs ops/mlp.py's fused MLP on CUDA tensors:
+the forward and backward kernels, with the same two masks as the unfused
+path. The CPU keeps the unfused path, as the JAX package does off the TPU.
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmd_tpu_torch.ops import dropout as D
+from mmd_tpu_torch.ops.mlp import fused_mlp
 
 
 class ParamTree(nn.Module):
@@ -148,14 +151,13 @@ def mlp(params: ParamTree, x: torch.Tensor, dropout_rate: float = 0.0,
     bfloat16 the tanh approximation, as the JAX package does: its deviation
     from erf-GELU (~5e-4 relative) is below bf16 resolution (~4e-3). Its two
     dropouts take seeds split from `seed`, as the JAX package splits its
-    key. Where the JAX package would run its fused bf16 MLP kernel, this
-    raises: that kernel pair is not ported yet."""
+    key. Where `needs_fused_mlp` holds, the block runs as ops/mlp.fused_mlp
+    (kernels #3/#4), which draws the same two masks from the same seeds."""
     if needs_fused_mlp(dtype, dropout_rate, deterministic, x.device,
                        x.shape[-1], params["fc1"].weight.shape[0]):
-        raise NotImplementedError(
-            "bf16 with dropout on CUDA is the fused-MLP path (TPU kernels "
-            "#3/#4, mmd_tpu/ops/mlp.py), the next training slice; train in "
-            "float32 (--compute_dtype float32) until it is ported")
+        fc1, fc2 = params["fc1"], params["fc2"]
+        return fused_mlp(x, fc1.weight.T, fc1.bias, fc2.weight.T, fc2.bias,
+                         dropout_rate, seed, dtype)
     s1, s2 = D.split_seed(seed, 2) if seed is not None else (None, None)
     h = linear(params["fc1"], x, dtype)
     h = F.gelu(h, approximate="tanh" if dtype == torch.bfloat16 else "none")

@@ -2,10 +2,14 @@
 (counterpart of the repository's train.py).
 
     python -m mmd_tpu_torch.train --pre_embed --train_data data/preprocessed/train.csv \\
-        --epochs 50 --batch_size 32 --lr 1e-4 --compute_dtype float32 --fused_attn \\
+        --epochs 50 --batch_size 32 --lr 1e-4 --fused_attn \\
         [--val_data ... --validate_every_epoch --save_best] [--device cuda|cpu]
     python -m mmd_tpu_torch.train --synthetic_samples 2048 --batch_size 256 \\
-        --compute_dtype float32 --fused_attn
+        --fused_attn [--compute_dtype float32]
+
+--compute_dtype defaults to bfloat16, as in the JAX package: with dropout on
+the card the MLPs then run the fused GELU-MLP kernels (ops/mlp.py); on the
+CPU, and in float32, they run unfused.
 
 CLI contract of the JAX package's train.py (reference train.py:24-85):
   * --pre_embed reads the ArrayStore the embed pipeline wrote next to the
@@ -20,8 +24,7 @@ CLI contract of the JAX package's train.py (reference train.py:24-85):
   * --device cuda (the default) raises where there is no card; the CPU is
     used only when asked for.
 The raw path (frozen encoders inside the step) is not ported yet (ROADMAP
-A6, A11), and bf16 with dropout on CUDA waits for the fused MLP kernels:
-both raise.
+A6, A11) and raises.
 """
 
 from __future__ import annotations

@@ -4,11 +4,11 @@ mmd_tpu/training/trainer.py, pre-embedded batches).
 The JAX package compiles one function per step: loss, grads, AdamW update.
 Here the step runs eagerly: `fusion_forward(deterministic=False)` ->
 `multipath_loss` (or `single_loss` in the factify / text-only modes) ->
-`backward` -> `torch.optim.AdamW.step`, with the attention and dropout
-kernels on CUDA tensors (ops/attention.py, ops/dropout.py). The state is
-updated in place: params and the optimizer's moments are the tensors the
-optimizer owns, and `step_fn` returns the same TrainState with its step
-advanced.
+`backward` -> `torch.optim.AdamW.step`, with the attention, dropout and
+(bf16 with dropout) fused-MLP kernels on CUDA tensors (ops/attention.py,
+ops/dropout.py, ops/mlp.py). The state is updated in place: params and the
+optimizer's moments are the tensors the optimizer owns, and `step_fn`
+returns the same TrainState with its step advanced.
 
 Randomness: the JAX step draws its dropout keys from
 fold_in(state.rng, step). The port derives the step's torch.Generator from
@@ -78,8 +78,10 @@ def make_optimizer(cfg: TrainConfig, params: torch.nn.Module
                              weight_decay=cfg.weight_decay)
 
 
-def init_state(cfg: TrainConfig, device="cpu",
+def init_state(cfg: TrainConfig, device="cuda",
                seed: Optional[int] = None) -> TrainState:
+    """Step 0: fusion params from `seed` (cfg.seed by default) on `device`,
+    which is cuda unless the caller asks for the CPU, and a fresh AdamW."""
     seed = cfg.seed if seed is None else seed
     params = init_fusion_params(torch.Generator().manual_seed(seed),
                                 cfg.model).to(device)
@@ -252,15 +254,6 @@ class Trainer:
             raise RuntimeError("training on cuda, but torch sees no CUDA "
                                "device; pass --device cpu to train on the "
                                "CPU")
-        m = self.cfg.model
-        if L.needs_fused_mlp(L.dtype_of(m.compute_dtype), m.dropout, False,
-                             self.device, m.embed_dim,
-                             int(m.embed_dim * m.mlp_ratio)):
-            raise NotImplementedError(
-                "bf16 training with dropout on CUDA runs the fused MLP "
-                "(TPU kernels #3/#4, mmd_tpu/ops/mlp.py), the next training "
-                "slice; train with --compute_dtype float32 until it is "
-                "ported")
         self.train_step = make_raw_step(self.cfg)
         self.eval_step = make_eval_step(self.cfg)
 

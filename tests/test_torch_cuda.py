@@ -10,11 +10,14 @@ serving paths' geometries -- flash attention, (residual +) LayerNorm,
 Swinv2 window attention and DeBERTa disentangled attention -- and the
 small serving paths on the card against the same paths on the CPU; and
 the training kernels -- dropout (bit for bit), flash attention with
-dropout and its backward -- and a small train step on the card against
-the same step on the CPU.
+dropout and its backward, the fused GELU-MLP forward and backward and their
+mask oracle -- and small fp32 and bf16 train steps on the card against the
+same steps on the CPU.
 Tolerances: fp32 within 1e-4 (summation order, exp2f); bf16 within one
 bf16 step at the largest |output| (the output is rounded to bf16 once);
-gradients relative to their largest |value| (1e-4 in fp32).
+gradients relative to their largest |value| (1e-4 in fp32); the fused MLP
+within 2^-7 of each output's largest |value| (one bf16 rounding of the
+output and of h, dyb and dab inside).
 """
 
 import numpy as np
@@ -25,6 +28,7 @@ from mmd_tpu_torch.ops import attention as A
 from mmd_tpu_torch.ops import deberta_attention as DA
 from mmd_tpu_torch.ops import dropout as D
 from mmd_tpu_torch.ops import ln as LN
+from mmd_tpu_torch.ops import mlp as M
 from mmd_tpu_torch.ops import swin_attention as SA
 
 pytestmark = pytest.mark.cuda
@@ -381,13 +385,12 @@ def _tiny_train_cfg(**kw):
     return TrainConfig(model=model, batch_size=8, lr=1e-3)
 
 
-def test_bf16_dropout_training_raises_at_construction(cuda_device):
+def test_bf16_dropout_trainer_builds_on_the_card(cuda_device):
     from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
     from mmd_tpu_torch.training.trainer import Trainer
-    with pytest.raises(NotImplementedError, match="fused MLP"):
-        Trainer(TrainConfig(model=ModelConfig()), device="cuda")
-    Trainer(TrainConfig(model=ModelConfig(compute_dtype="float32")),
-            device="cuda")
+    tr = Trainer(TrainConfig(model=ModelConfig()), device="cuda")
+    assert tr.cfg.model.compute_dtype == "bfloat16"
+    assert all(p.is_cuda for p in tr.init().params.parameters())
 
 
 def test_small_train_step_matches_cpu(cuda_device):
@@ -422,3 +425,126 @@ def test_small_train_step_matches_cpu(cuda_device):
         assert (gg[n] - w).abs().max().item() <= 1e-4 * max(
             w.abs().max().item(), 1e-3 * max(
                 x.abs().max().item() for x in gc.values())), n
+
+
+MLP_TOL = 2.0 ** -7
+
+
+def _mlp_inputs(dev, n, d, f, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn(n, d, device=dev, generator=g).bfloat16()
+    w1 = (torch.randn(d, f, device=dev, generator=g) / d ** 0.5).bfloat16()
+    b1 = 0.1 * torch.randn(f, device=dev, generator=g)
+    w2 = (torch.randn(f, d, device=dev, generator=g) / f ** 0.5).bfloat16()
+    b2 = 0.1 * torch.randn(d, device=dev, generator=g)
+    dy = torch.randn(n, d, device=dev, generator=g).bfloat16()
+    return x, w1, b1, w2, b2, dy
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("n,d,f", [(100, 128, 256), (64, 256, 128),
+                                   (1000, 256, 1024), (1, 128, 128)])
+def test_mlp_kernels_match_plain(cuda_device, rate, n, d, f):
+    """#12 bit for bit; #3 and #4 within MLP_TOL of each output's scale."""
+    x, w1, b1, w2, b2, dy = _mlp_inputs(cuda_device, n, d, f)
+    seeds = M.mask_seeds(rate, 0xBEEF)
+    was = (M.launches, M.bwd_launches, M.mask_launches)
+    m1, m2 = M.mlp_masks(n, d, f, seeds, rate, cuda_device)
+    y = M.fused_mlp_fwd(x, w1, b1, w2, b2, seeds, rate)
+    got = M.fused_mlp_bwd(x, w1, b1, w2, dy, seeds, rate)
+    torch.cuda.synchronize()
+    assert (M.launches, M.bwd_launches, M.mask_launches) == tuple(
+        c + 1 for c in was)
+    p1, p2 = M.mlp_masks_plain(n, d, f, seeds, rate, cuda_device)
+    assert torch.equal(m1, p1) and torch.equal(m2, p2)
+    assert y.dtype == torch.bfloat16 and y.shape == x.shape
+    assert _rel_err(y, M.fused_mlp_plain(x, w1, b1, w2, b2, seeds,
+                                         rate)) <= MLP_TOL
+    want = M.fused_mlp_bwd_plain(x, w1, b1, w2, dy, seeds, rate)
+    assert [t.dtype for t in got] == [torch.bfloat16] + [torch.float32] * 4
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert a.shape == b.shape and _rel_err(a, b) <= MLP_TOL, name
+
+
+def test_fused_mlp_autograd_runs_the_kernels(cuda_device):
+    """layers.mlp in bf16 with dropout takes fused_mlp on the card: one
+    forward and one backward kernel, and the same masks as the unfused
+    path on the CPU."""
+    from mmd_tpu_torch.models import layers as L
+    params = L.mlp_init(torch.Generator().manual_seed(0), 128, 4.0)
+    x = torch.randn(2, 50, 128)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = L.mlp_init(torch.Generator().manual_seed(0), 128, 4.0).to(dev)
+        p.load_state_dict(params.state_dict())
+        xd = x.clone().to(dev).requires_grad_()
+        was = (M.launches, M.bwd_launches)
+        y = L.mlp(p, xd, 0.1, 42, False, torch.bfloat16)
+        y.float().square().sum().backward()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert (M.launches - was[0], M.bwd_launches - was[1]) == (1, 1)
+        out[dev] = (y.detach().float().cpu(), xd.grad.cpu(),
+                    p["fc1"].weight.grad.cpu())
+    (yc, gc, wc), (yg, gg, wg) = out["cpu"], out["cuda"]
+    assert torch.equal(yc == 0, yg == 0)      # the same output mask
+    for a, b in ((yg, yc), (gg, gc), (wg, wc)):
+        assert _rel_err(a, b) <= 4 * MLP_TOL
+
+
+def test_mlp_kernels_refuse_what_they_do_not_take(cuda_device):
+    x, w1, b1, w2, b2, dy = _mlp_inputs(cuda_device, 32, 128, 256)
+    seeds = M.mask_seeds(0.1, 1)
+    with pytest.raises(ValueError, match="bfloat16"):
+        M.fused_mlp_fwd(x.float(), w1, b1, w2, b2, seeds, 0.1)
+    with pytest.raises(ValueError, match="D in"):
+        M.fused_mlp_fwd(x[:, :64].contiguous(), w1[:64].contiguous(), b1,
+                        w2[:, :64].contiguous(), b2[:64], seeds, 0.1)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        M.fused_mlp_bwd(x, w1[:, :200].contiguous(), b1[:200],
+                        w2[:200].contiguous(), dy, seeds, 0.1)
+    with pytest.raises(ValueError, match="contiguous"):
+        M.fused_mlp_fwd(x, w1.T.contiguous().T, b1, w2, b2, seeds, 0.1)
+    with pytest.raises(ValueError, match="dy"):
+        M.fused_mlp_bwd(x, w1, b1, w2, dy.float(), seeds, 0.1)
+
+
+def test_small_bf16_train_step_matches_cpu(cuda_device):
+    """One bf16 step with dropout 0.1 at embed 128 (the fused MLP's
+    smallest width), head dim 32, on the card -- fused MLP kernels -- and
+    on the CPU -- the unfused MLP -- same init and seed, so the same masks:
+    loss within 2e-2 relative and every grad leaf within 1e-1 of its
+    largest |value| (bf16 rounding at other points on the two paths: the
+    kernels keep fc1's output in fp32). The card's step launches 6 / 6 of
+    the MLP kernels, 8 / 8 of the flash kernels and 8 elementwise
+    dropouts (the heads')."""
+    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+    from mmd_tpu_torch.data.synthetic import synthetic_preembed_batch
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    cfg = TrainConfig(model=ModelConfig(
+        text_input_dim=64, image_input_dim=96, embed_dim=128, num_heads=4,
+        hidden_dim=16, fused_attn=True), batch_size=8, lr=1e-3)
+    batch = synthetic_preembed_batch(np.random.default_rng(0), 8, 128, 64,
+                                     64, 96)
+    kernels = lambda: (M.launches, M.bwd_launches, A.launches,  # noqa: E731
+                       A.bwd_launches, D.launches)
+    out = {}
+    for name in ("cpu", "cuda"):
+        tr = Trainer(cfg, device=name)
+        state = tr.init()
+        counts = kernels()
+        state, aux = tr.train_step(state, tr.shard_batch(batch))
+        if name == "cuda":
+            torch.cuda.synchronize()
+            got = [now - was for now, was in zip(kernels(), counts)]
+            assert got == [6, 6, 8, 8, 8]
+        out[name] = (float(aux["loss"]),
+                     {n: p.grad.detach().cpu()
+                      for n, p in state.params.named_parameters()})
+    (lc, gc), (lg, gg) = out["cpu"], out["cuda"]
+    assert abs(lg - lc) <= 2e-2 * abs(lc), (lg, lc)
+    top = max(x.abs().max().item() for x in gc.values())
+    for n, w in gc.items():
+        gap = (gg[n] - w).abs().max().item()
+        assert gap <= 1e-1 * max(w.abs().max().item(), 1e-2 * top), (n, gap)

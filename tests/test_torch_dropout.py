@@ -147,7 +147,8 @@ def test_mlp_and_head_draw_one_mask_per_site():
 def test_bf16_mlp_with_dropout_runs_unfused_on_the_cpu():
     """Off CUDA, bf16 with dropout takes the unfused MLP, as the JAX package
     does off the TPU; on CUDA tensors the same call is the fused-MLP path,
-    which is not ported and raises (tests/test_torch_cuda.py)."""
+    the kernels of ops/mlp.py (tests/test_torch_mlp.py,
+    tests/test_torch_cuda.py)."""
     gen = torch.Generator().manual_seed(1)
     mlp = L.mlp_init(gen, 128, 4.0)
     x = torch.randn(4, 128).to(torch.bfloat16)
