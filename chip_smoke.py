@@ -1,11 +1,12 @@
-"""Smoke run of the PyTorch port's serving and training paths on one
-NVIDIA GPU.
+"""Smoke run of the PyTorch port's serving, training and fine-tuning paths
+on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
 Phases, each of which exits nonzero on failure:
   1. device   a CUDA device, its name and power limit (nvidia-smi), TF32 off
-  2. build    nvcc builds the nine kernel libraries from ops/csrc/, all at once
+  2. build    nvcc builds the eleven kernel libraries from ops/csrc/, all at
+              once
   3. kernels  each kernel against its plain PyTorch version on the card, at
               every geometry of the paths that run it, bf16 and fp32: max-abs
               error against its tolerance; kernel, plain and library times
@@ -34,6 +35,13 @@ Phases, each of which exits nonzero on failure:
                              dx, dW1, db1, dW2, db2 against the plain
                              versions and against a float64 oracle built
                              from the dumped masks
+     * deberta_attn_bwd      DeBERTa attention backward at B 8, T 256, D 384,
+                             6 heads, a padded tail and a row with no valid
+                             key: dq, dk, dv, dPK, dPQ, fp32 and bf16
+     * swin_attn_train_fwd,  Swinv2 window attention for fine-tuning,
+       swin_attn_train_bwd   forward and backward (dq, dk, dv, dbias) at the
+                             four Swinv2-base stage geometries, B 8, fp32
+                             and bf16
   4. serve            full-width serving with the BERT-class text encoder
                       (512 tokens) and the ViT, ModelConfig(fused_attn=True),
                       bf16, batch 16: a ServingEngine answers requests from
@@ -68,9 +76,31 @@ Phases, each of which exits nonzero on failure:
                       loss within 1e-3 relative, the gradient within 1e-1
                       in L2 norm; the fused step with a wrong seed must
                       fail the same check
+ 10. finetune_reference  8 steps of end-to-end fine-tuning of the reference
+                      encoders (Trainer(finetune=True) on
+                      load_or_init_frozen(reference_families=True):
+                      DeBERTa-v3-xsmall and Swinv2-base with fused_train,
+                      bf16) with the default fusion model, batch 8, 256
+                      tokens, raw batches: finite losses, exactly 24 / 24 /
+                      48 / 48 launches a step of the DeBERTa forward and
+                      backward and the Swin fine-tuning forward and
+                      backward, the fusion model's kernels, none of the
+                      serving Swin kernel or the LayerNorm; wall time a
+                      step and peak device memory
+ 11. finetune_parity  one fp32 step of the same at batch 2, dropout 0,
+                      through the kernels and through both encoders'
+                      explicit paths: loss within 1e-4 relative, each
+                      tree's (fusion, text, vit) gradient within 1e-3 in
+                      L2 norm
+ 12. train_raw        a synthetic Factify tree (64 train rows, 256 px) ->
+                      preprocess_csv -> python -m mmd_tpu_torch.train's
+                      main on the raw path, 2 epochs at batch 8, default
+                      encoder families: frozen, then --finetune_encoders;
+                      finite losses, metrics.jsonl, the launches a step
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record, with each kernel's launches in the counted runs of
-the serve, serve_reference, train and train_bf16 phases.
+the serve, serve_reference, train, train_bf16, finetune_reference and
+train_raw phases.
 """
 
 from __future__ import annotations
@@ -199,6 +229,32 @@ PARITY_FLOOR = 1e-3
 PARITY_BF16_LOSS_RTOL = 1e-3
 PARITY_BF16_GRAD_RTOL = 1e-1
 
+# The reference fine-tuning step: batch 8, 256 tokens (the JAX package's
+# fine-tune benchmarks), DeBERTa-v3-xsmall (12 layers, D 384, 6 heads) on
+# the claim and the document, Swinv2-base on both images.
+FT_STEPS = 8
+FT_DEBERTA = dict(b=8, t=256, d=384, h=6, per_step=24)
+# Swinv2-base window attentions a fine-tuning step: (nW, C, heads) -> the
+# blocks of the stage x 2 images
+FT_SWIN_GEOMS = {(64, 128, 4): 4, (16, 256, 8): 4, (4, 512, 16): 36,
+                 (1, 1024, 32): 4}
+FT_PER_STEP = {"deberta_attn_fwd": 24, "deberta_attn_bwd": 24,
+               "swin_attn_train_fwd": 48, "swin_attn_train_bwd": 48,
+               "flash_attn_fwd": 8, "flash_attn_bwd": 8, "mlp_fwd": 6,
+               "mlp_bwd": 6, "dropout": 8}
+# finetune_parity, fp32 at batch 2, kernels vs explicit paths, set before
+# the first run: the two differ by the order of fp32 sums through 12
+# DeBERTa layers and 24 Swin blocks, forward and backward (and the Swin
+# kernels' exp2 of log2-domain scores against exp of natural ones); a
+# wrong gradient in #8, #9, #10 or #11 moves its tree by O(1)
+FT_PARITY_LOSS_RTOL = 1e-4
+FT_PARITY_GRAD_RTOL = 1e-3
+# train_raw: the default families' launches a step, claim and document
+# through 12 text layers and 12 ViT layers, then the fusion model's
+RAW_FROZEN_PER_STEP = {"flash_attn_fwd": 56, "flash_attn_bwd": 8,
+                       "mlp_fwd": 6, "mlp_bwd": 6, "dropout": 8}
+RAW_FINETUNE_PER_STEP = {**RAW_FROZEN_PER_STEP, "flash_attn_bwd": 56}
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -236,7 +292,13 @@ def _kernels():
             "flash_attn_bwd": (attention, "load_bwd_kernel", "bwd_launches"),
             "mlp_fwd": (mlp, "load_kernel", "launches"),
             "mlp_bwd": (mlp, "load_bwd_kernel", "bwd_launches"),
-            "mlp_masks": (mlp, "load_masks_kernel", "mask_launches")}
+            "mlp_masks": (mlp, "load_masks_kernel", "mask_launches"),
+            "deberta_attn_bwd": (deberta_attention, "load_bwd_kernel",
+                                 "bwd_launches"),
+            "swin_attn_train_fwd": (swin_attention, "load_train_kernel",
+                                    "train_launches"),
+            "swin_attn_train_bwd": (swin_attention, "load_train_bwd_kernel",
+                                    "train_bwd_launches")}
 
 
 def _reset_counts() -> None:
@@ -931,6 +993,183 @@ def phase_mlp(card: str) -> dict:
     return recs
 
 
+def _rel_tol(dtype, ref: torch.Tensor) -> float:
+    """A gradient's tolerance against its fp32 plain version on the same
+    inputs: fp32 sums in another order, 1e-4 of its largest |value|; bf16
+    outputs one rounding, a bf16 step at the largest |value|."""
+    if dtype == torch.float32:
+        return 1e-4 * ref.abs().max().item()
+    return _bf16_step(ref)
+
+
+def _check_grads(kernel, what, got, want, dtypes) -> float:
+    """Each named output against its plain version; returns the worst
+    absolute error, fails past a tolerance."""
+    worst = 0.0
+    for (name, a), w, dtype in zip(got.items(), want, dtypes):
+        err = (a.float() - w).abs().max().item()
+        tol = _rel_tol(dtype, w)
+        print(f"kernel {kernel} {what} {name:>5}: max_abs_err {err:.3e} "
+              f"(tol {tol:.3e}) -> {'ok' if err <= tol else 'FAIL'}",
+              flush=True)
+        if not err <= tol:
+            fail(f"{kernel} {name} disagrees with its plain version, {what}")
+        worst = max(worst, err)
+    return worst
+
+
+def phase_deberta_bwd(card: str) -> dict:
+    from mmd_tpu_torch.ops import deberta_attention as DA
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, t, d, h = (FT_DEBERTA[k] for k in "btdh")
+    q32, k32, v32, do32 = (torch.randn(b, t, d, device=dev, generator=gen)
+                           for _ in range(4))
+    pk32, pq32 = (torch.randn(2 * t, d, device=dev, generator=gen)
+                  for _ in range(2))
+    # padded tails from 1 to T valid keys, and a row with no valid key
+    lengths = torch.linspace(1, t, b - 1, device=dev).round().long()
+    mask = torch.cat([torch.arange(t, device=dev)[None] < lengths[:, None],
+                      torch.zeros(1, t, dtype=torch.bool, device=dev)]).int()
+    scale = 1.0 / math.sqrt(3.0 * d // h)
+    errs = []
+    for dtype in (torch.bfloat16, torch.float32):
+        args = [x.to(dtype) for x in (q32, k32, v32, pk32, pq32)]
+        do = do32.to(dtype)
+        got = DA.deberta_attention_bwd(*args, mask, do, h, scale)
+        torch.cuda.synchronize()
+        want = DA.deberta_attention_bwd_plain(*[x.float() for x in args],
+                                              mask, do.float(), h, scale)
+        errs.append(_check_grads(
+            "deberta_attn_bwd", f"B={b} T={t} D={d} H={h} {dtype}",
+            dict(zip(("dq", "dk", "dv", "dPK", "dPQ"), got)), want,
+            (dtype,) * 3 + (torch.float32,) * 2))
+    args = [x.to(torch.bfloat16) for x in (q32, k32, v32, pk32, pq32)]
+    do = do32.to(torch.bfloat16)
+    row = {"ms": _time_ms(lambda: DA.deberta_attention_bwd(
+        *args, mask, do, h, scale)),
+           "plain_ms": _time_ms(lambda: DA.deberta_attention_bwd_plain(
+               *args, mask, do, h, scale)),
+           "library_ms": None}
+    # reads q, k, v, do and both tables, writes dq, dk, dv (bf16) and the
+    # tables' fp32 gradients; 20 B T^2 D operations (the TPU kernel's count)
+    row["bound_ms"], row["bound_by"] = _bound_ms(
+        2 * (7 * b * t * d + 2 * 2 * t * d) + 4 * 2 * 2 * t * d + b * t,
+        20 * b * t * t * d)
+    _print_time("deberta_attn_bwd", f"B={b} T={t} D={d} H={h} bf16", row,
+                card)
+    rec = _record("deberta_attn_bwd",
+                  "mmd_tpu_torch/ops/csrc/deberta_attn_bwd.cu",
+                  "mmd_tpu/models/deberta.py:464",
+                  [(FT_DEBERTA["per_step"], row)], errs,
+                  "no single PyTorch call computes it: the c2p and p2c "
+                  "terms gather from relative-position tables per (t, s)")
+    print(f"kernel deberta_attn_bwd per fine-tuning step "
+          f"({FT_DEBERTA['per_step']} launches): kernel {rec['ms']:.4f} ms, "
+          f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms  "
+          f"[{card}]", flush=True)
+    return rec
+
+
+def phase_swin_train(card: str) -> dict:
+    from mmd_tpu_torch.ops import swin_attention as SA
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(8)
+    b, n, log2e = FT_DEBERTA["b"], 64, 1.4426950408889634
+    errs = {"fwd": [], "bwd": []}
+    rows = {"fwd": [], "bwd": []}
+    lib_note = None
+    for (nw, c, h), count in FT_SWIN_GEOMS.items():
+        dh = c // h
+
+        def unit(x):
+            x = x.reshape(nw, b, n, h, dh)
+            return (x / x.norm(dim=-1, keepdim=True)).reshape(nw, b, n, c)
+
+        # q' as the model makes it: normalized, times a logit scale of 10
+        # and log2(e); k normalized; the bias a position bias in (0, 16)
+        # plus twice a -100 region mask in the shifted stages, log2 domain
+        q32 = unit(torch.randn(nw, b, n, c, device=dev, generator=gen)
+                   ) * (10 * log2e)
+        k32 = unit(torch.randn(nw, b, n, c, device=dev, generator=gen))
+        v32, do32 = (torch.randn(nw, b, n, c, device=dev, generator=gen)
+                     for _ in range(2))
+        bias = 16 * torch.rand(nw, h, n, n, device=dev, generator=gen)
+        if nw > 1:
+            bias = bias - 200.0 * (torch.rand(nw, 1, n, n, device=dev,
+                                              generator=gen) < 0.3)
+        bias = (bias * log2e).contiguous()
+        what = f"nW={nw} B={b} C={c} h={h}"
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
+            o = SA.swin_window_attention_fwd(q, k, v, bias, h)
+            got = SA.swin_window_attention_bwd(q, k, v, bias, do, h)
+            torch.cuda.synchronize()
+            ref = SA.swin_window_attention_plain(q.float(), k.float(),
+                                                 v.float(), bias, h)
+            errs["fwd"].append(_check_grads(
+                "swin_attn_train_fwd", f"{what} {dtype}", {"o": o}, [ref],
+                (dtype,)))
+            want = SA.swin_window_attention_bwd_plain(
+                q.float(), k.float(), v.float(), bias, do.float(), h)
+            errs["bwd"].append(_check_grads(
+                "swin_attn_train_bwd", f"{what} {dtype}",
+                dict(zip(("dq", "dk", "dv", "dbias"), got)), want,
+                (dtype,) * 3 + (torch.float32,)))
+        q, k, v, do = (x.to(torch.bfloat16) for x in (q32, k32, v32, do32))
+        # the library call: SDPA on (nW B, h, n, dh), exp2(x) = exp(ln2 x),
+        # the bias as an additive mask in the inputs' dtype
+        ln2 = math.log(2.0)
+        q4, k4, v4, do4 = (x.reshape(nw, b, n, h, dh).transpose(2, 3)
+                           .reshape(nw * b, h, n, dh).contiguous()
+                           for x in (q, k, v, do))
+        m4 = (ln2 * bias)[:, None].expand(nw, b, h, n, n).reshape(
+            nw * b, h, n, n).to(torch.bfloat16).contiguous()
+        fwd = {"ms": _time_ms(lambda: SA.swin_window_attention_fwd(
+            q, k, v, bias, h)),
+               "plain_ms": _time_ms(lambda: SA.swin_window_attention_plain(
+                   q, k, v, bias, h)),
+               "library_ms": _time_ms(lambda: sdpa(q4, k4, v4, attn_mask=m4,
+                                                   scale=ln2))}
+        bwd = {"ms": _time_ms(lambda: SA.swin_window_attention_bwd(
+            q, k, v, bias, do, h)),
+               "plain_ms": _time_ms(lambda: SA.swin_window_attention_bwd_plain(
+                   q, k, v, bias, do, h))}
+        leaves = [x.detach().requires_grad_() for x in (q4, k4, v4, m4)]
+        try:
+            o4 = sdpa(*leaves[:3], attn_mask=leaves[3], scale=ln2)
+            bwd["library_ms"] = _time_ms(lambda: torch.autograd.grad(
+                o4, leaves, do4, retain_graph=True))
+        except RuntimeError as e:           # no backend gives dmask
+            bwd["library_ms"] = None
+            lib_note = f"SDPA's backward with a mask gradient: {e}"[:200]
+        elems = nw * b * n * c
+        fwd["bound_ms"], fwd["bound_by"] = _bound_ms(
+            2 * 4 * elems + 4 * nw * h * n * n, 4 * nw * b * n * n * c)
+        bwd["bound_ms"], bwd["bound_by"] = _bound_ms(
+            2 * 7 * elems + 2 * 4 * nw * h * n * n, 10 * nw * b * n * n * c)
+        for kind, row in (("fwd", fwd), ("bwd", bwd)):
+            _print_time(f"swin_attn_train_{kind}", f"{what} n={n} bf16", row,
+                        card)
+            rows[kind].append((count, row))
+    recs = {}
+    for kind, line in (("fwd", 211), ("bwd", 314)):
+        name = f"swin_attn_train_{kind}"
+        recs[name] = _record(
+            name, "mmd_tpu_torch/ops/csrc/swin_window_attn_train.cu",
+            f"mmd_tpu/ops/swin_attention.py:{line}", rows[kind],
+            errs[kind],
+            None if kind == "fwd" or lib_note is None else lib_note)
+        print(f"kernel {name} per fine-tuning step "
+              f"({sum(FT_SWIN_GEOMS.values())} launches): kernel "
+              f"{recs[name]['ms']:.4f} ms, plain {recs[name]['plain_ms']:.4f} "
+              f"ms, library {recs[name]['library_ms']}, bound "
+              f"{recs[name]['bound_ms']:.4f} ms  [{card}]", flush=True)
+    return recs
+
+
+
 def _check_result(res: dict, claim_img: bool, ev_img: bool) -> None:
     want_present = {"text_text": True, "text_image": ev_img,
                     "image_text": claim_img,
@@ -1271,6 +1510,173 @@ def phase_train_parity_bf16(card: str) -> None:
              "therefore shows nothing")
 
 
+def phase_finetune_reference(card: str, tmp: Path) -> dict:
+    """FT_STEPS steps of the reference fine-tuning configuration through
+    Trainer(finetune=True): returns the kernel launches of the run, which
+    must be FT_PER_STEP a step."""
+    from mmd_tpu_torch.profile_train import (FT_BATCH, FT_SEQ, raw_batch,
+                                             reference_encoders,
+                                             reference_finetune)
+
+    t0 = time.perf_counter()
+    enc = reference_encoders(tmp / "ft_assets")
+    trainer = reference_finetune(enc)
+    state = trainer.init()
+    tc, vc, m = enc.text_cfg, enc.vit_cfg, trainer.cfg.model
+    print(f"finetune_reference: DeBERTa-v3-xsmall ({tc.num_layers} layers, "
+          f"D {tc.hidden_size}, {tc.num_heads} heads, {tc.compute_dtype}, "
+          f"fused_train={tc.fused_train}) + Swinv2-base (depths {vc.depths}, "
+          f"C {vc.embed_dim}..{vc.hidden_size}, window {vc.window_size}, "
+          f"{vc.compute_dtype}, fused_train={vc.fused_train}); fusion "
+          f"{m.embed_dim} wide, {m.compute_dtype}, dropout {m.dropout}; "
+          f"batch {FT_BATCH}, {FT_SEQ} tokens, {vc.image_size} px; "
+          f"{sum(p.numel() for p in state.params.parameters())} params; "
+          f"set-up {time.perf_counter() - t0:.1f} s", flush=True)
+    rng = np.random.default_rng(5)
+    batches = [raw_batch(rng, FT_BATCH, FT_SEQ, tc.vocab_size, vc.image_size)
+               for _ in range(FT_STEPS)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                       # count the main path's run only
+    losses, times = [], []
+    for batch in batches:
+        t0 = time.perf_counter()
+        state, aux = trainer.train_step(state, trainer.shard_batch(batch))
+        losses.append(float(aux["loss"]))  # synchronizes
+        times.append(1e3 * (time.perf_counter() - t0))
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {name: 0 for name in launches}
+    want.update({k: v * FT_STEPS for k, v in FT_PER_STEP.items()})
+    print(f"finetune_reference: {state.step} steps, kernel launches "
+          f"{json.dumps(launches)} (want {json.dumps(want)})  [{card}]",
+          flush=True)
+    if launches != want:
+        fail(f"finetune_reference: launches {launches}; the path should "
+             f"launch {want}")
+    print(f"finetune_reference: loss by step {json.dumps(losses)}; wall per "
+          f"step {json.dumps([round(x, 3) for x in times])} ms (median "
+          f"{sorted(times)[len(times) // 2]:.3f}); peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB (torch.cuda.max_memory_allocated)  "
+          f"[{card}]", flush=True)
+    if not all(map(math.isfinite, losses)):
+        fail(f"finetune_reference: losses {losses}")
+    return launches
+
+
+def phase_finetune_parity(card: str, tmp: Path) -> None:
+    """One fp32 step at batch 2, dropout 0, of the reference fine-tuning
+    configuration through the kernels and through both encoders' explicit
+    paths: the same step up to the order of fp32 sums."""
+    from mmd_tpu_torch.profile_train import (FT_SEQ, raw_batch,
+                                             reference_encoders,
+                                             reference_finetune)
+
+    enc = reference_encoders(tmp / "parity_assets")
+    batch = raw_batch(np.random.default_rng(6), 2, FT_SEQ,
+                      enc.text_cfg.vocab_size, enc.vit_cfg.image_size)
+    out = {}
+    for kernels in (True, False):
+        fp32 = dict(compute_dtype="float32", fused_attn=kernels)
+        variant = dataclasses.replace(
+            enc, text_cfg=dataclasses.replace(enc.text_cfg, **fp32),
+            vit_cfg=dataclasses.replace(enc.vit_cfg, **fp32))
+        trainer = reference_finetune(variant, batch_size=2,
+                                     compute_dtype="float32", dropout=0.0)
+        state = trainer.init()
+        was = _counts()
+        state, aux = trainer.train_step(state, trainer.shard_batch(batch))
+        torch.cuda.synchronize()
+        ran = {k: v - was[k] for k, v in _counts().items()
+               if k.startswith(("deberta", "swin")) and v != was[k]}
+        print(f"finetune_parity: {'kernels' if kernels else 'explicit'} "
+              f"path launched {json.dumps(ran)}", flush=True)
+        if bool(ran) != kernels or (kernels and len(ran) != 4):
+            fail(f"finetune_parity: the {'kernel' if kernels else 'explicit'}"
+                 f" path launched {ran}")
+        out[kernels] = (float(aux["loss"]), {
+            tree: [p.grad.detach().double().clone()
+                   for p in state.params[tree].parameters()]
+            for tree in ("fusion", "text", "vit")})
+        del trainer, state
+    (lk, gk), (le, ge) = out[True], out[False]
+    loss_rel = abs(lk - le) / abs(le)
+    gaps = {tree: math.sqrt(
+        sum((a - w).square().sum().item() for a, w in zip(gk[tree], ge[tree]))
+        / sum(w.square().sum().item() for w in ge[tree])) for tree in gk}
+    ok = (loss_rel <= FT_PARITY_LOSS_RTOL
+          and max(gaps.values()) <= FT_PARITY_GRAD_RTOL)
+    print(f"finetune_parity: batch 2, fp32, dropout 0: loss kernels "
+          f"{lk:.7f} explicit {le:.7f}, relative {loss_rel:.3e} (tol "
+          f"{FT_PARITY_LOSS_RTOL:.0e}); gradient L2 gap by tree "
+          f"{json.dumps({k: float(f'{v:.3e}') for k, v in gaps.items()})} "
+          f"(tol {FT_PARITY_GRAD_RTOL:.0e}) -> {'ok' if ok else 'FAIL'}  "
+          f"[{card}]", flush=True)
+    if not ok:
+        fail("finetune_parity: the kernel path and the explicit path "
+             "disagree")
+
+
+def phase_train_raw(card: str, tmp: Path) -> dict:
+    """The raw path of python -m mmd_tpu_torch.train on a synthetic Factify
+    tree, frozen and then --finetune_encoders, with the default encoder
+    families: returns the kernel launches of both runs."""
+    import os
+
+    from mmd_tpu_torch import train as TR
+    from mmd_tpu_torch.data.synthetic import synthetic_factify_tree
+    from mmd_tpu_torch.pipelines.preprocess import preprocess_csv
+
+    root = tmp / "factify"
+    t0 = time.perf_counter()
+    synthetic_factify_tree(root, n_train=64, n_test=8, image_size=256)
+    csv = preprocess_csv("train", root)
+    print(f"train_raw: tree and preprocessed csv in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    cwd = os.getcwd()
+    os.environ["MMD_TPU_ROOT"] = str(root)
+    os.chdir(root)                   # the encoders' assets land in the tree
+    total = {}
+    try:
+        for name, extra, per_step in (
+                ("frozen", [], RAW_FROZEN_PER_STEP),
+                ("finetune", ["--finetune_encoders"], RAW_FINETUNE_PER_STEP)):
+            out = root / f"run_{name}"
+            argv = ["--device", "cuda", "--train_data", str(csv),
+                    "--batch_size", "8", "--epochs", "2", "--fused_attn",
+                    "--log_every", "1", "--output_dir", str(out), *extra]
+            torch.cuda.synchronize()
+            _reset_counts()
+            t0 = time.perf_counter()
+            state = TR.main(argv)
+            torch.cuda.synchronize()
+            run_s = time.perf_counter() - t0
+            launches = _counts()
+            want = {k: 0 for k in launches}
+            want.update({k: v * state.step for k, v in per_step.items()})
+            recs = [json.loads(x) for x in
+                    (out / "metrics.jsonl").read_text().splitlines()]
+            losses = [r["train/total_loss"] for r in recs
+                      if "train/total_loss" in r]
+            print(f"train_raw {name}: {state.step} steps in {run_s:.1f} s "
+                  f"(raw store, encoders and checkpoint included); loss by "
+                  f"step {json.dumps(losses)}; launches "
+                  f"{json.dumps(launches)} (want {json.dumps(want)})  "
+                  f"[{card}]", flush=True)
+            if launches != want:
+                fail(f"train_raw {name}: launches {launches}, want {want}")
+            if len(losses) != state.step or state.step < 2 or not all(
+                    map(math.isfinite, losses)):
+                fail(f"train_raw {name}: losses {losses}")
+            for k, v in launches.items():
+                total[k] = total.get(k, 0) + v
+    finally:
+        os.chdir(cwd)
+        del os.environ["MMD_TPU_ROOT"]
+    return total
+
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -1282,6 +1688,8 @@ def main() -> None:
             "flash_attn_bwd": phase_flash_bwd(dev["card"])}
     recs["flash_attn_fwd"]["train_step"] = phase_flash_train(dev["card"])
     recs.update(phase_mlp(dev["card"]))
+    recs["deberta_attn_bwd"] = phase_deberta_bwd(dev["card"])
+    recs.update(phase_swin_train(dev["card"]))
     from mmd_tpu_torch.inference.traffic import corpus, write_images
     rng = np.random.default_rng(0)
     texts = corpus(rng, 64)
@@ -1297,9 +1705,12 @@ def main() -> None:
             "train": phase_train(dev["card"], tmp, "train", PER_STEP,
                                  ["--compute_dtype", "float32"]),
             "train_bf16": phase_train(dev["card"], tmp, "train_bf16",
-                                      PER_STEP_BF16, [])}
+                                      PER_STEP_BF16, []),
+            "finetune_reference": phase_finetune_reference(dev["card"], tmp),
+            "train_raw": phase_train_raw(dev["card"], tmp)}
         phase_train_parity(dev["card"])
         phase_train_parity_bf16(dev["card"])
+        phase_finetune_parity(dev["card"], tmp)
     kernels = []
     for name, rec in recs.items():
         counts = {ph: launches[name] for ph, launches in by_phase.items()}

@@ -13,6 +13,8 @@ lacks, or a shape that differs raises. Leaves may be numpy or any array
 `np.asarray` takes; nothing here imports JAX. `to_jax_tree` walks the other
 way (port module -> nested dicts and lists of float32 numpy arrays), so
 tests can compare params, or grads (`grads=True`), after a training step.
+`finetune_from_jax` loads a JAX fine-tuning state's joint params
+{"fusion", "text", "vit"}; `to_jax_tree` walks its gradients back.
 """
 
 from __future__ import annotations
@@ -140,3 +142,27 @@ def swin_from_jax(tree, cfg: SwinConfig) -> L.ParamTree:
     params = init_swin(torch.Generator().manual_seed(0), cfg)
     load_jax_tree(params, tree, "swin")
     return params
+
+
+def text_from_jax(tree, cfg) -> L.ParamTree:
+    """A text encoder of either family, by its config."""
+    if isinstance(cfg, DebertaConfig):
+        return deberta_from_jax(tree, cfg)
+    return text_encoder_from_jax(tree, cfg)
+
+
+def image_from_jax(tree, cfg) -> L.ParamTree:
+    """An image encoder of either family, by its config."""
+    if isinstance(cfg, SwinConfig):
+        return swin_from_jax(tree, cfg)
+    return vit_from_jax(tree, cfg)
+
+
+def finetune_from_jax(tree, model_cfg: ModelConfig, text_cfg,
+                      vit_cfg) -> L.ParamTree:
+    """The joint params of a JAX fine-tuning state (init_finetune_state's
+    {"fusion", "text", "vit"}) as the port's fine-tuning params."""
+    _check_keys(tree.keys(), ("fusion", "text", "vit"), "finetune")
+    return L.ParamTree({"fusion": fusion_from_jax(tree["fusion"], model_cfg),
+                        "text": text_from_jax(tree["text"], text_cfg),
+                        "vit": image_from_jax(tree["vit"], vit_cfg)})

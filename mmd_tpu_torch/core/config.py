@@ -114,6 +114,11 @@ class TrainConfig:
     # >1 splits each step's batch into this many interleaved micro-batches
     # with accumulated grads and ONE optimizer update (trainer._accum_grads)
     accum_steps: int = 1
+    # recompute each TRAINABLE encoder layer in the backward when
+    # fine-tuning (torch.utils.checkpoint): the same gradients for about
+    # one more forward, with only the layer boundaries kept across the
+    # backward; no effect on the frozen and pre-embedded paths
+    remat: bool = False
     # keep this many batches' host-to-device copies in flight ahead of the
     # step (training/loop.py prefetch_to_device); 0 = copy at use
     prefetch_depth: int = 2
@@ -121,10 +126,9 @@ class TrainConfig:
 
 def add_train_flags(p: argparse.ArgumentParser) -> None:
     """Reference-parity CLI flags (reference train.py:24-85), the JAX
-    package's names, plus --device. --num_workers, --text_encoder and
-    --remat are accepted so that the JAX package's command lines run
-    unchanged, and read by nothing: the pre-embedded path has no loader
-    workers, no text encoder and no encoder layers to rematerialize."""
+    package's names, plus --device. --num_workers and --text_encoder are
+    accepted so that the JAX package's command lines run unchanged, and
+    read by nothing, as in the JAX package."""
     d = TrainConfig()
     p.add_argument("--epochs", type=int, default=d.epochs)
     p.add_argument("--batch_size", type=int, default=d.batch_size)
@@ -166,7 +170,9 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--accum_steps", type=int, default=d.accum_steps,
                    help="micro-batches per step (gradient accumulation)")
     p.add_argument("--finetune_encoders", action="store_true",
-                   help="end-to-end fine-tuning (ROADMAP A11): raises")
+                   help="on the raw path, train the text and image "
+                        "encoders with the fusion model (end-to-end "
+                        "fine-tuning)")
     p.add_argument("--text_parallelism", choices=["sp", "sp_ring", "pp"],
                    default=None, help="multi-device (ROADMAP A16): raises")
     p.add_argument("--zero3", action="store_true",
@@ -174,9 +180,9 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--compute_dtype", type=str, default=d.model.compute_dtype,
                    choices=["bfloat16", "float32"])
     p.add_argument("--remat", action="store_true",
-                   help="rematerialize trainable-encoder layers when "
-                        "fine-tuning (ROADMAP A11); nothing to do on the "
-                        "pre-embedded path")
+                   help="rematerialize trainable-encoder layers in the "
+                        "backward when fine-tuning (same gradients, less "
+                        "activation memory)")
     p.add_argument("--prefetch_depth", type=int, default=d.prefetch_depth,
                    help="keep this many batches' host-to-device copies in "
                         "flight ahead of the step (0 = off)")
@@ -221,5 +227,6 @@ def train_config_from_args(args: argparse.Namespace) -> TrainConfig:
         wandb_project=args.wandb_project, wandb_entity=args.wandb_entity,
         resume_from=args.resume_from,
         accum_steps=args.accum_steps,
+        remat=args.remat,
         prefetch_depth=args.prefetch_depth,
     )

@@ -1,18 +1,22 @@
-"""Synthetic pre-embedded Factify-shaped batches for tests, smoke runs and
-benchmarks (the port's copy of mmd_tpu/data/synthetic.py's
-synthetic_preembed_batch).
+"""Synthetic Factify-shaped data for tests, smoke runs and benchmarks (the
+port's copy of mmd_tpu/data/synthetic.py).
 
-Batches have the exact shapes of the embedding store (text (512, 384),
-image (64, 1024) -- reference preprocess_embeddings.py:63-92) and make the
-same numpy draws as the JAX package's, so one seed gives the same batches
-in both. The raw Factify tree writer belongs to the pipelines slice.
+(a) Pre-embedded batches with the exact shapes of the embedding store (text
+(512, 384), image (64, 1024) -- reference preprocess_embeddings.py:63-92);
+(b) a small raw Factify tree (TSV + JPEG images) for the preprocess and
+raw-store pipelines. Both make the same numpy draws as the JAX package's,
+so one seed gives the same data in both.
 """
 
 from __future__ import annotations
 
+import os
+from pathlib import Path
+
 import numpy as np
 
 from mmd_tpu_torch.data import labels as lb
+from mmd_tpu_torch.data.schema import HEADERS
 
 
 def synthetic_preembed_batch(
@@ -47,3 +51,47 @@ def synthetic_preembed_batch(
         batch["claim_text_embeds"][..., :8] += shift
         batch["claim_image_embeds"][..., :8] += shift
     return batch
+
+
+def synthetic_factify_tree(
+    root: str | os.PathLike,
+    n_train: int = 20,
+    n_test: int = 10,
+    image_size: int = 64,
+    seed: int = 0,
+) -> Path:
+    """Write a mini raw Factify tree: extracted/{train,test}.csv (TSV with
+    HEADERS) + images/{split}/{id}_{claim|evidence}.jpg. Returns root.
+
+    About 15% of the images are left out, to exercise skip-and-count. (The
+    JAX package's `learnable` trees, which plant label signal for its
+    quality benchmarks, have no user in the port.)"""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    root = Path(root)
+    for split, n in (("train", n_train), ("test", n_test)):
+        extracted = root / "data" / "raw" / "factify" / "extracted"
+        img_dir = extracted / "images" / split
+        img_dir.mkdir(parents=True, exist_ok=True)
+        rows = []
+        for i in range(1, n + 1):
+            cat = lb.CATEGORIES[int(rng.integers(0, len(lb.CATEGORIES)))]
+            shape = (image_size, image_size, 3)
+            for kind in ("claim", "evidence"):
+                if rng.random() < 0.85:
+                    arr = rng.integers(0, 255, shape, dtype=np.uint8)
+                    Image.fromarray(arr).save(img_dir / f"{i}_{kind}.jpg")
+            claim_txt = f"claim text number {i} about topic {i % 5}"
+            ev_txt = (f"evidence document {i} discussing topic "
+                      f"{i % 5} in detail")
+            rows.append([
+                str(i), claim_txt, f"http://example.com/{split}/{i}_claim.jpg",
+                ev_txt, f"http://example.com/{split}/{i}_evidence.jpg",
+                cat, "[]", "[]",
+            ])
+        with open(extracted / f"{split}.csv", "w") as f:
+            f.write("\t".join(HEADERS) + "\n")
+            for r in rows:
+                f.write("\t".join(r) + "\n")
+    return root

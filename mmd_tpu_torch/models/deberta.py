@@ -17,8 +17,13 @@ Two attention paths, chosen as the JAX package chooses them
     package's one-hot contraction does -- here as an index gather, which
     picks the same element without building the (T, 2T-1, T) one-hot.
 
-Fine-tuning (remat), the sequence/pipeline-parallel variants and the HF
-converter arrive with later slices.
+The kernel path is differentiable: `deberta_attention` is an autograd
+Function whose backward is the hand-written backward kernel (#11), so
+fine-tuning keeps the kernel, as the JAX package does with fused_train (the
+trainer takes the explicit path when fused_train is off). remat recomputes
+each layer in the backward (torch.utils.checkpoint). The
+sequence/pipeline-parallel variants and the HF converter arrive with later
+slices.
 """
 
 from __future__ import annotations
@@ -31,6 +36,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.ops.deberta_attention import (
@@ -51,10 +57,10 @@ class DebertaConfig:
     share_att_key: bool = True       # v3: position terms reuse the q/k projections
     compute_dtype: str = "float32"
     fused_attn: bool = True          # the kernel path on CUDA tensors
-    remat: bool = False              # fine-tuning only: raises
-    # mirrors the JAX field so that DebertaConfig(**asdict(jax_cfg)) works;
-    # ignored until the fine-tune slice (ROADMAP A11): there it picks the
-    # backward kernel, and the forward is the same kernel either way
+    remat: bool = False              # recompute each layer in the backward
+    # keep the kernels when fine-tuning: the backward kernel (#11) serves
+    # the gradient; off, the trainer takes the explicit path
+    # (training/trainer.py::make_finetune_raw_step, as in the JAX package)
     fused_train: bool = True
 
     @property
@@ -247,10 +253,6 @@ def deberta_encode(params: L.ParamTree, cfg: DebertaConfig,
                    attention_mask: Optional[torch.Tensor] = None
                    ) -> torch.Tensor:
     """(B, T) token ids -> last_hidden_state (B, T, D)."""
-    if cfg.remat:
-        raise NotImplementedError(
-            "remat is a fine-tuning option; it arrives with the fine-tune "
-            "slice")
     dtype = L.dtype_of(cfg.compute_dtype)
     t = input_ids.shape[1]
     dev = input_ids.device
@@ -258,7 +260,10 @@ def deberta_encode(params: L.ParamTree, cfg: DebertaConfig,
                         for m in _diag_maps(t, cfg))
     x, rel_emb = deberta_embed(params, cfg, input_ids, attention_mask)
     fused = use_fused_attn(cfg, t, dev)
+    remat = cfg.remat and torch.is_grad_enabled()
     for p in params["layers"]:
-        x = deberta_layer(p, cfg, x, rel_emb, c2p_map, p2c_map,
-                          attention_mask, dtype, fused)
+        args = (p, cfg, x, rel_emb, c2p_map, p2c_map, attention_mask, dtype,
+                fused)
+        x = (checkpoint(deberta_layer, *args, use_reentrant=False) if remat
+             else deberta_layer(*args))
     return x

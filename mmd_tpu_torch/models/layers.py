@@ -15,7 +15,8 @@ Dropout takes an integer seed per site and runs ops/dropout.py: the
 hand-written kernel on CUDA tensors, its plain version on CPU tensors, with
 a backward that regenerates the mask from the seed. Where the JAX package
 runs its fused bf16 MLP kernel (bf16, dropout active, both widths multiples
-of 128, on the TPU), `mlp` runs ops/mlp.py's fused MLP on CUDA tensors:
+of 128, on the TPU), `mlp` runs ops/mlp.py's fused MLP on CUDA tensors
+at the widths its kernels are built for (D 128 or 256):
 the forward and backward kernels, with the same two masks as the unfused
 path. The CPU keeps the unfused path, as the JAX package does off the TPU.
 """
@@ -29,7 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from mmd_tpu_torch.ops import dropout as D
-from mmd_tpu_torch.ops.mlp import fused_mlp
+from mmd_tpu_torch.ops.mlp import WIDTHS, fused_mlp
 
 
 class ParamTree(nn.Module):
@@ -136,10 +137,13 @@ def needs_fused_mlp(dtype: torch.dtype, dropout_rate: float,
                     hidden: int) -> bool:
     """The JAX package's rule for its fused MLP kernel (layers.py:121-128),
     with "backend is TPU" read as "tensors on CUDA": bf16, dropout active,
-    both widths multiples of 128."""
+    both widths multiples of 128 -- and D one of the widths the kernels
+    are built for (ops/mlp.py WIDTHS). Another D takes the unfused
+    composition, which draws the same masks, so the step computes the same
+    function."""
     return (dropout_rate > 0.0 and not deterministic
             and dtype == torch.bfloat16 and torch.device(device).type == "cuda"
-            and embed_dim % 128 == 0 and hidden % 128 == 0)
+            and embed_dim in WIDTHS and hidden % 128 == 0)
 
 
 def mlp(params: ParamTree, x: torch.Tensor, dropout_rate: float = 0.0,

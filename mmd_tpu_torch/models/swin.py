@@ -12,15 +12,22 @@ HF's Swinv2SelfAttention does.
 
 Two paths per block, chosen as the JAX package chooses them:
   * fused_attn and a geometry `ops.swin_attention.fused_ok` admits: the
-    window-major (nW, B, n, C) layout and `swin_window_attention_infer`
-    (the CUDA kernel on the card);
+    window-major (nW, B, n, C) layout, and then
+      - for serving, `swin_window_attention_infer` on the raw q, k (the
+        CUDA kernel #7 normalizes them; it has no backward), or
+      - with fused_train (fine-tuning), `swin_window_attention`, the
+        differentiable kernels #8/#9: q and k are normalized and scaled
+        here, where autograd differentiates them, and the bias (the
+        continuous position bias MLP's output) takes its gradient dbias;
   * otherwise the explicit batch-major path.
 fused_ln routes every LayerNorm through `ops.ln.fused_layernorm` (the
-residual add inside it) instead of `layers.layernorm` followed by the add.
+residual add inside it) instead of `layers.layernorm` followed by the add;
+remat turns it off, as in the JAX package, and recomputes each block in
+the backward (torch.utils.checkpoint).
 
 The patch embedding is patchify + one linear, as in the JAX package (no
-Conv2d, which cuDNN runs in TF32). Fine-tuning (remat, fused_train) and the
-HF converters arrive with later slices and raise.
+Conv2d, which cuDNN runs in TF32). The HF converters arrive with a later
+slice.
 """
 
 from __future__ import annotations
@@ -33,12 +40,13 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.models.vit import patchify
 from mmd_tpu_torch.ops.ln import fused_layernorm
 from mmd_tpu_torch.ops.swin_attention import (
-    fused_ok, swin_window_attention_infer,
+    fused_ok, swin_window_attention, swin_window_attention_infer,
 )
 
 
@@ -56,9 +64,11 @@ class SwinConfig:
     pretrained_window_sizes: tuple = (0, 0, 0, 0)
     compute_dtype: str = "bfloat16"
     fused_attn: bool = True          # window attention through the kernel
-    remat: bool = False              # fine-tuning only: raises
-    # fine-tuning only: raises, since in the JAX package it also swaps the
-    # forward for the fine-tune kernel (#8), which the port lacks
+    remat: bool = False              # recompute each block in the backward
+    # the differentiable window-attention kernels (#8/#9) on the fused
+    # path, for fine-tuning; off, the fused path is the serving kernel (#7)
+    # and the trainer takes the explicit path when fine-tuning, as the JAX
+    # package does
     fused_train: bool = False
     fused_ln: bool = True            # LayerNorms through the kernel
 
@@ -280,27 +290,53 @@ def _cosine_window_attention(bp: L.ParamTree, x: torch.Tensor, heads: int,
     return L.linear(bp["attn_out"], ctx, dtype)
 
 
+_LOG2E = 1.4426950408889634
+
+
 def _cosine_window_attention_fused(bp: L.ParamTree, x: torch.Tensor,
                                    heads: int, bias: torch.Tensor,
-                                   mask: Optional[torch.Tensor], dtype
-                                   ) -> torch.Tensor:
-    """Kernel path: x window-major (nW, B, n, C) -> (nW, B, n, C). The
-    kernel takes the raw q/k and normalizes them itself; the per-window
-    bias is the position bias plus twice the shift mask, or the position
-    bias alone, shared by every window, when there is no shift."""
+                                   mask: Optional[torch.Tensor], dtype,
+                                   differentiable: bool) -> torch.Tensor:
+    """Kernel path: x window-major (nW, B, n, C) -> (nW, B, n, C).
+
+    Serving (differentiable=False): the kernel takes the raw q/k and
+    normalizes them itself; the per-window bias is the position bias plus
+    twice the shift mask, or the position bias alone, shared by every
+    window, when there is no shift.
+
+    Fine-tuning (differentiable=True, the JAX package's counterpart with
+    the same flag): q and k are L2-normalized per head here, q scaled by
+    the clamped logit scale times log2(e); the bias goes to the log2
+    domain and is broadcast to every window; `swin_window_attention`
+    differentiates all of them."""
+    nw, b, n, c = x.shape
     q = L.linear(bp["q"], x, dtype)
     k = L.linear(bp["k"], x, dtype)
     v = L.linear(bp["v"], x, dtype)
-    tot = bias[None] if mask is None else bias[None] + 2.0 * mask[:, None]
-    # the position bias keeps the strides of the permute it came from
-    out = swin_window_attention_infer(q, k, v, tot.contiguous(),
-                                      _logit_scale(bp), heads)
+    if differentiable:
+        def nrm(t):
+            th = t.reshape(nw, b, n, heads, c // heads).float()
+            return th / th.norm(dim=-1, keepdim=True).clamp_min(1e-12)
+
+        qh = (nrm(q) * (_logit_scale(bp) * _LOG2E)[:, None]
+              ).reshape(nw, b, n, c).to(dtype)
+        kh = nrm(k).reshape(nw, b, n, c).to(dtype)
+        tot = bias * _LOG2E
+        tot = (tot.expand(nw, heads, n, n) if mask is None
+               else tot[None] + (2.0 * _LOG2E) * mask[:, None])
+        out = swin_window_attention(qh, kh, v, tot.contiguous(), heads)
+    else:
+        tot = bias[None] if mask is None else bias[None] + 2.0 * mask[:, None]
+        # the position bias keeps the strides of the permute it came from
+        out = swin_window_attention_infer(q, k, v, tot.contiguous(),
+                                          _logit_scale(bp), heads)
     return L.linear(bp["attn_out"], out, dtype)
 
 
 def _block(bp: L.ParamTree, x: torch.Tensor, res: int, heads: int,
            window: int, shift: int, pretrained_window: int, eps: float,
-           dtype, fused: bool, fused_ln: bool) -> torch.Tensor:
+           dtype, fused: bool, fused_ln: bool, fused_train: bool
+           ) -> torch.Tensor:
     """One Swinv2 block on (B, res*res, C). Post-norm residual order."""
     b, _, c = x.shape
     shortcut = x
@@ -313,7 +349,7 @@ def _block(bp: L.ParamTree, x: torch.Tensor, res: int, heads: int,
     if fused and fused_ok(window, c // heads, heads):
         windows = _window_partition_wm(h, window)
         attn = _cosine_window_attention_fused(bp, windows, heads, bias, mask,
-                                              dtype)
+                                              dtype, fused_train)
         h = _window_reverse_wm(attn, window, res, res)
     else:
         windows = _window_partition(h, window)
@@ -353,13 +389,12 @@ def swin_forward(params: L.ParamTree, cfg: SwinConfig, images: torch.Tensor
                  ) -> torch.Tensor:
     """(B, H, W, 3) float NHWC -> last_hidden_state (B, num_tokens, hidden),
     HF Swinv2Model's (final LayerNorm applied, no pooler)."""
-    if cfg.remat or cfg.fused_train:
-        raise NotImplementedError(
-            "remat and fused_train are fine-tuning options; they arrive with "
-            "the fine-tune slice")
     dtype = L.dtype_of(cfg.compute_dtype)
     eps = cfg.layer_norm_eps
-    fln = cfg.fused_ln
+    # remat (a training option) keeps the plain LayerNorm, as in the JAX
+    # package
+    fln = cfg.fused_ln and not cfg.remat
+    remat = cfg.remat and torch.is_grad_enabled()
     x = patchify(images.to(dtype), cfg.patch_size)
     x = L.linear(params["patch_embed"], x, dtype)
     x = (fused_layernorm(params["embed_ln"], x, eps) if fln
@@ -369,9 +404,11 @@ def swin_forward(params: L.ParamTree, cfg: SwinConfig, images: torch.Tensor
         stage = params["stages"][s]
         for i, bp in enumerate(stage["blocks"]):
             window, shift = cfg.stage_window_shift(s, i)
-            x = _block(bp, x, res, cfg.num_heads[s], window, shift,
-                       cfg.pretrained_window_sizes[s], eps, dtype,
-                       fused=cfg.fused_attn, fused_ln=fln)
+            args = (bp, x, res, cfg.num_heads[s], window, shift,
+                    cfg.pretrained_window_sizes[s], eps, dtype,
+                    cfg.fused_attn, fln, cfg.fused_train)
+            x = (checkpoint(_block, *args, use_reentrant=False) if remat
+                 else _block(*args))
         if "downsample" in stage:
             x = _patch_merge(stage["downsample"], x, res, eps, dtype, fln)
     return (fused_layernorm(params["ln_final"], x, eps) if fln

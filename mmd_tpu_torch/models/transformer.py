@@ -14,6 +14,7 @@ from typing import Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.ops.attention import (
@@ -42,7 +43,8 @@ class TransformerConfig:
     relative_bias_buckets: int = 0
     mpnet_positions: bool = False
     pad_token_id: int = 0
-    # recompute each block in the backward; no effect without gradients
+    # recompute each block in the backward (torch.utils.checkpoint); no
+    # effect without gradients
     remat: bool = False
 
     @property
@@ -193,7 +195,13 @@ def transformer_forward(params: L.ParamTree, cfg: TransformerConfig,
             "causal and cross-attending stacks arrive with the captioner "
             "slice")
     x = embed(params["embeddings"], cfg, input_ids, token_type_ids)
-    # pure key padding stays on the fused kernel path (boolean key mask)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def layer(p, x, key_mask):
+        # pure key padding stays on the fused kernel path (boolean key mask)
+        return encoder_layer(p, cfg, x, key_mask=key_mask)[0]
+
     for p in params["layers"]:
-        x = encoder_layer(p, cfg, x, key_mask=attention_mask)[0]
+        x = (checkpoint(layer, p, x, attention_mask, use_reentrant=False)
+             if remat else layer(p, x, attention_mask))
     return x

@@ -16,6 +16,7 @@ import dataclasses
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.models.transformer import (
@@ -41,8 +42,9 @@ class ViTConfig:
     use_cls: bool = False          # carry a CLS token through the blocks
                                    # (dropped from the output)
     keep_cls: bool = False         # keep CLS in the OUTPUT sequence
-    remat: bool = False            # recompute blocks in the backward; no
-                                   # effect without gradients
+    remat: bool = False            # recompute blocks in the backward
+                                   # (torch.utils.checkpoint); no effect
+                                   # without gradients
 
     @property
     def num_tokens(self) -> int:
@@ -102,7 +104,13 @@ def vit_forward(params: L.ParamTree, cfg: ViTConfig, images: torch.Tensor
     x = x + params["pos_embed"].to(dtype)[None]
     if cfg.embed_ln:
         x = L.layernorm(params["ln_pre"], x, cfg.layer_norm_eps)
+    remat = cfg.remat and torch.is_grad_enabled()
+
+    def layer(p, x):
+        return encoder_layer(p, block, x)[0]
+
     for p in params["layers"]:
-        x = encoder_layer(p, block, x)[0]
+        x = (checkpoint(layer, p, x, use_reentrant=False) if remat
+             else layer(p, x))
     x = L.layernorm(params["ln_post"], x, cfg.layer_norm_eps)
     return x[:, 1:] if (cfg.use_cls and not cfg.keep_cls) else x

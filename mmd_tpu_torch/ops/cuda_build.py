@@ -86,6 +86,16 @@ def device_index(t) -> int:
         else torch.cuda.current_device()
 
 
+def on_cuda(x, what: str) -> bool:
+    """True for a CUDA tensor (the kernels), False for a CPU one (the plain
+    versions); any other device raises."""
+    if x.device.type == "cpu":
+        return False
+    if x.device.type != "cuda":
+        raise ValueError(f"{what} runs on cuda or cpu, not {x.device.type}")
+    return True
+
+
 def check_launch(rc: int, what: str) -> None:
     """Raise if a C entry point returned a CUDA error."""
     if rc != 0:

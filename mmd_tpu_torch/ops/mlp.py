@@ -49,7 +49,7 @@ _launch_lock = threading.Lock()
 
 _C = math.sqrt(2.0 / math.pi)
 _K = 0.044715
-_WIDTHS = (128, 256)          # the D the kernels are built for
+WIDTHS = (128, 256)          # the D the kernels are built for
 _ROWS = 64                    # rows a tile in the backward kernel
 _MAX_GROUPS = 16              # row groups of the backward's weight pass
 _HEADERS = ["mlp_common.cuh", "philox.cuh"]
@@ -184,8 +184,8 @@ def _check_kernel_inputs(x2, w1, b1, w2, b2=None) -> tuple[int, int, int]:
         raise ValueError(f"x must be (N, D), not {tuple(x2.shape)}")
     n, d = x2.shape
     f = w1.shape[1] if w1.dim() == 2 else -1
-    if d not in _WIDTHS or f <= 0 or f % 128:
-        raise ValueError(f"the fused MLP kernels take D in {_WIDTHS} and F a "
+    if d not in WIDTHS or f <= 0 or f % 128:
+        raise ValueError(f"the fused MLP kernels take D in {WIDTHS} and F a "
                          f"multiple of 128, not D {d}, F {f}")
     want = [("x", x2, (n, d), torch.bfloat16), ("w1", w1, (d, f),
                                                 torch.bfloat16),
@@ -259,18 +259,9 @@ def _mlp_bwd_cuda(x2, w1, b1, w2, dy, seeds, rate):
     return dx, dw1, db1, dw2, db2
 
 
-def _route(x: torch.Tensor, what: str) -> bool:
-    """True for CUDA tensors (the kernels), False for CPU tensors."""
-    if x.device.type == "cpu":
-        return False
-    if x.device.type != "cuda":
-        raise ValueError(f"{what} runs on cuda or cpu, not {x.device.type}")
-    return True
-
-
 def fused_mlp_fwd(x2, w1, b1, w2, b2, seeds, rate: float) -> torch.Tensor:
     """The forward: kernel #3 on CUDA tensors, `fused_mlp_plain` on CPU."""
-    if _route(x2, "fused_mlp_fwd"):
+    if cuda_build.on_cuda(x2, "fused_mlp_fwd"):
         return _mlp_fwd_cuda(x2, w1, b1, w2, b2, seeds, rate)
     return fused_mlp_plain(x2, w1, b1, w2, b2, seeds, rate)
 
@@ -278,7 +269,7 @@ def fused_mlp_fwd(x2, w1, b1, w2, b2, seeds, rate: float) -> torch.Tensor:
 def fused_mlp_bwd(x2, w1, b1, w2, dy, seeds, rate: float):
     """The backward: kernel #4 on CUDA tensors, `fused_mlp_bwd_plain` on
     CPU."""
-    if _route(x2, "fused_mlp_bwd"):
+    if cuda_build.on_cuda(x2, "fused_mlp_bwd"):
         return _mlp_bwd_cuda(x2, w1, b1, w2, dy, seeds, rate)
     return fused_mlp_bwd_plain(x2, w1, b1, w2, dy, seeds, rate)
 

@@ -1,5 +1,15 @@
 """The fusion train step on one device (counterpart of
-mmd_tpu/training/trainer.py, pre-embedded batches).
+mmd_tpu/training/trainer.py).
+
+Three steps, as in the JAX package:
+  * `make_raw_step`: pre-embedded batches;
+  * `make_encoding_raw_step`: raw batches (token ids and uint8 images,
+    pipelines/raw_store.py); the frozen encoders run inside the step under
+    torch.no_grad (the JAX package's stop_gradient), inside each micro
+    step when accumulating;
+  * `make_finetune_raw_step`: raw batches, and the encoders' params train
+    with the fusion model's under one AdamW (`init_finetune_state`), with
+    the JAX package's kernel gating (`finetune_encoder_configs`).
 
 The JAX package compiles one function per step: loss, grads, AdamW update.
 Here the step runs eagerly: `fusion_forward(deterministic=False)` ->
@@ -16,12 +26,13 @@ fold_in(state.rng, step). The port derives the step's torch.Generator from
 accumulated step -- so a resumed run draws the same masks, and no step ever
 touches the global RNG.
 
-The raw-batch, fine-tuning and multi-device variants (encoders, finetune,
-zero1, zero3, tensor_parallel, text_parallelism) raise: ROADMAP A11 and A16.
+The multi-device variants (zero1, zero3, tensor_parallel,
+text_parallelism) raise: ROADMAP A16.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Any, Callable, Optional
 
@@ -32,7 +43,11 @@ from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
 from mmd_tpu_torch.data.labels import (PATHS, paths_to_category_idx_torch,
                                        paths_to_simplified_torch)
 from mmd_tpu_torch.models import layers as L
+from mmd_tpu_torch.models.deberta import DebertaConfig
+from mmd_tpu_torch.models.frozen import image_encode, text_encode
 from mmd_tpu_torch.models.fusion import fusion_forward, init_fusion_params
+from mmd_tpu_torch.models.swin import SwinConfig
+from mmd_tpu_torch.ops.image_ops import TRAIN_TRANSFORM, normalize_on_device
 from mmd_tpu_torch.training.losses import (cross_entropy_per_sample,
                                            multipath_loss, single_loss)
 
@@ -172,17 +187,14 @@ def _accum_grads(loss_fn: Callable, params: torch.nn.Module, batch: dict,
     return {k: merge([a[k] for a in auxes]) for k in auxes[0]}
 
 
-def make_raw_step(cfg: TrainConfig) -> Callable[[TrainState, dict],
-                                                tuple[TrainState, dict]]:
-    """step_fn(state, batch) -> (state, aux): one AdamW step on a batch of
-    tensors on the params' device. cfg.accum_steps > 1 runs the step as
-    that many micro-batches with accumulated grads and ONE optimizer
-    update. After the call each param's .grad holds the step's gradient."""
-    mcfg = cfg.model
+def _make_step(cfg: TrainConfig, loss_fn: Callable
+               ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
+    """step_fn(state, batch) -> (state, aux): one AdamW step of
+    loss_fn(params, batch, generator) -> (loss, aux). cfg.accum_steps > 1
+    runs the step as that many micro-batches with accumulated grads and ONE
+    optimizer update. After the call each param's .grad holds the step's
+    gradient."""
     accum = max(1, cfg.accum_steps)
-
-    def loss_fn(params, batch, generator):
-        return _loss_fn(params, mcfg, batch, generator)
 
     def step_fn(state: TrainState, batch: dict):
         _zero_grads(state.params)
@@ -201,6 +213,121 @@ def make_raw_step(cfg: TrainConfig) -> Callable[[TrainState, dict],
     return step_fn
 
 
+def make_raw_step(cfg: TrainConfig) -> Callable[[TrainState, dict],
+                                                tuple[TrainState, dict]]:
+    """step_fn(state, batch) -> (state, aux): one AdamW step on a batch of
+    pre-embedded tensors on the params' device (see `_make_step`)."""
+    mcfg = cfg.model
+
+    def loss_fn(params, batch, generator):
+        return _loss_fn(params, mcfg, batch, generator)
+
+    return _make_step(cfg, loss_fn)
+
+
+def _embed_raw(text_params, text_cfg, vit_params, vit_cfg, batch: dict,
+               dtype: torch.dtype) -> dict:
+    """A raw batch -> the fusion model's inputs: both texts through the text
+    encoder, both images (uint8, normalized on the device with the training
+    transform) through the image encoder."""
+    def image(u8):
+        return image_encode(vit_params, vit_cfg,
+                            normalize_on_device(u8, TRAIN_TRANSFORM, dtype))
+
+    return {
+        "claim_text_embeds": text_encode(text_params, text_cfg,
+                                         batch["claim_ids"],
+                                         batch["claim_mask"]),
+        "doc_text_embeds": text_encode(text_params, text_cfg,
+                                       batch["doc_ids"], batch["doc_mask"]),
+        "claim_image_embeds": image(batch["claim_image"]),
+        "doc_image_embeds": image(batch["doc_image"]),
+        "labels": batch["labels"],
+    }
+
+
+def make_encoding_raw_step(cfg: TrainConfig, enc
+                           ) -> Callable[[TrainState, dict],
+                                         tuple[TrainState, dict]]:
+    """step_fn(state, batch) -> (state, aux) on RAW batches: the frozen
+    encoders of `enc` (a FrozenEncoders whose params lie on the step's
+    device) run inside the step under torch.no_grad -- the JAX package's
+    stop_gradient -- then the fusion loss and update. With accumulation the
+    encoding happens inside each micro step, so the encoders' activations
+    exist for one micro-batch at a time."""
+    mcfg = cfg.model
+    dtype = L.dtype_of(mcfg.compute_dtype)
+
+    def loss_fn(params, batch, generator):
+        with torch.no_grad():
+            emb = _embed_raw(enc.text_params, enc.text_cfg, enc.vit_params,
+                             enc.vit_cfg, batch, dtype)
+        return _loss_fn(params, mcfg, emb, generator)
+
+    return _make_step(cfg, loss_fn)
+
+
+def finetune_encoder_configs(cfg: TrainConfig, text_cfg, vit_cfg):
+    """The encoders' configs in a fine-tuning step, gated as the JAX
+    package gates them (trainer.py:301-327): remat from cfg; DeBERTa keeps
+    its kernels only with fused_train; Swin takes the explicit path unless
+    fused_train; Swin's fused LayerNorm is off."""
+    if cfg.remat:
+        text_cfg = dataclasses.replace(text_cfg, remat=True)
+        vit_cfg = dataclasses.replace(vit_cfg, remat=True)
+    if (isinstance(text_cfg, DebertaConfig) and text_cfg.fused_attn
+            and not text_cfg.fused_train):
+        text_cfg = dataclasses.replace(text_cfg, fused_attn=False)
+    if isinstance(vit_cfg, SwinConfig):
+        if vit_cfg.fused_attn and not vit_cfg.fused_train:
+            vit_cfg = dataclasses.replace(vit_cfg, fused_attn=False)
+        if vit_cfg.fused_ln:
+            vit_cfg = dataclasses.replace(vit_cfg, fused_ln=False)
+    return text_cfg, vit_cfg
+
+
+def init_finetune_state(cfg: TrainConfig, enc, device="cuda",
+                        seed: Optional[int] = None) -> TrainState:
+    """Step 0 of fine-tuning: params {"fusion", "text", "vit"} -- fresh
+    fusion params from `seed` and COPIES of the encoders' params, so the
+    caller's encoders stay as they were -- on `device`, under one AdamW."""
+    seed = cfg.seed if seed is None else seed
+    params = L.ParamTree({
+        "fusion": init_fusion_params(torch.Generator().manual_seed(seed),
+                                     cfg.model),
+        "text": copy.deepcopy(enc.text_params),
+        "vit": copy.deepcopy(enc.vit_params),
+    }).to(device)
+    for p in params.parameters():
+        p.requires_grad_(True)
+    return TrainState(0, params, make_optimizer(cfg, params), seed)
+
+
+def make_finetune_raw_step(cfg: TrainConfig, enc
+                           ) -> Callable[[TrainState, dict],
+                                         tuple[TrainState, dict]]:
+    """End-to-end fine-tuning step on RAW batches: the text and image
+    encoders run inside the step with gradients, their params in
+    state.params next to the fusion model's (`init_finetune_state`), one
+    AdamW over the joint tree; composes with accumulation and cfg.remat.
+    `step_fn.joint_loss(params, batch, generator, deterministic=False)` is
+    the loss, for the eval step."""
+    mcfg = cfg.model
+    dtype = L.dtype_of(mcfg.compute_dtype)
+    text_cfg, vit_cfg = finetune_encoder_configs(cfg, enc.text_cfg,
+                                                 enc.vit_cfg)
+
+    def joint_loss(params, batch, generator, deterministic=False):
+        emb = _embed_raw(params["text"], text_cfg, params["vit"], vit_cfg,
+                         batch, dtype)
+        return _loss_fn(params["fusion"], mcfg, emb, generator,
+                        deterministic=deterministic)
+
+    step_fn = _make_step(cfg, joint_loss)
+    step_fn.joint_loss = joint_loss
+    return step_fn
+
+
 def make_eval_step(cfg: TrainConfig) -> Callable[[torch.nn.Module, dict],
                                                  dict]:
     """eval_fn(params, batch) -> aux: loss and preds without updates
@@ -215,14 +342,15 @@ def make_eval_step(cfg: TrainConfig) -> Callable[[torch.nn.Module, dict],
     return eval_fn
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP {item})")
-
-
 @dataclasses.dataclass
 class Trainer:
-    """Config, device, and the step functions for the train loop, for
-    pre-embedded batches on one device.
+    """Config, device, and the step functions for the train loop on one
+    device.
+
+    With `encoders` (a FrozenEncoders) batches are RAW (token ids and uint8
+    images from pipelines/raw_store.py): the frozen encoders, moved to the
+    device, run inside the step; with `finetune` as well, they train with
+    the fusion model. Otherwise batches are pre-embedded.
 
     `device` defaults to cuda and never falls back: without a card it
     raises; tests pass "cpu"."""
@@ -237,13 +365,13 @@ class Trainer:
     text_parallelism: Optional[str] = None
 
     def __post_init__(self):
-        if self.encoders is not None or self.finetune:
-            raise _not_ported("training with the encoders inside the step "
-                              "(raw batches, fine-tuning)", "A11")
         if self.tensor_parallel or self.zero1 or self.zero3 \
                 or self.text_parallelism is not None:
-            raise _not_ported("multi-device training (tensor parallelism, "
-                              "ZeRO, text parallelism)", "A16")
+            raise NotImplementedError(
+                "multi-device training (tensor parallelism, ZeRO, text "
+                "parallelism) is not ported yet (ROADMAP A16)")
+        if self.finetune and self.encoders is None:
+            raise ValueError("finetune=True requires encoders")
         if (self.cfg.accum_steps > 1
                 and self.cfg.batch_size % self.cfg.accum_steps != 0):
             raise ValueError(
@@ -254,10 +382,28 @@ class Trainer:
             raise RuntimeError("training on cuda, but torch sees no CUDA "
                                "device; pass --device cpu to train on the "
                                "CPU")
-        self.train_step = make_raw_step(self.cfg)
         self.eval_step = make_eval_step(self.cfg)
+        if self.finetune:
+            self.train_step = make_finetune_raw_step(self.cfg, self.encoders)
+            joint_loss = self.train_step.joint_loss
+
+            def eval_step(params, batch):
+                with torch.no_grad():
+                    return joint_loss(params, batch, None,
+                                      deterministic=True)[1]
+            self.eval_step = eval_step
+        elif self.encoders is not None:
+            for params in (self.encoders.text_params,
+                           self.encoders.vit_params):
+                params.to(self.device).requires_grad_(False)
+            self.train_step = make_encoding_raw_step(self.cfg, self.encoders)
+        else:
+            self.train_step = make_raw_step(self.cfg)
 
     def init(self, seed: Optional[int] = None) -> TrainState:
+        if self.finetune:
+            return init_finetune_state(self.cfg, self.encoders, self.device,
+                                       seed)
         return init_state(self.cfg, self.device, seed)
 
     def shard_batch(self, batch: dict) -> dict:

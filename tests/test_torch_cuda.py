@@ -12,7 +12,10 @@ small serving paths on the card against the same paths on the CPU; and
 the training kernels -- dropout (bit for bit), flash attention with
 dropout and its backward, the fused GELU-MLP forward and backward and their
 mask oracle -- and small fp32 and bf16 train steps on the card against the
-same steps on the CPU.
+same steps on the CPU; and the fine-tuning kernels -- the DeBERTa attention
+backward and the Swin window attention's fine-tuning forward and backward,
+dbias included -- with the autograd graph kept through every trainable
+wrapper and the fused-MLP routing limited to the kernels' widths.
 Tolerances: fp32 within 1e-4 (summation order, exp2f); bf16 within one
 bf16 step at the largest |output| (the output is rounded to bf16 once);
 gradients relative to their largest |value| (1e-4 in fp32); the fused MLP
@@ -548,3 +551,135 @@ def test_small_bf16_train_step_matches_cpu(cuda_device):
     for n, w in gc.items():
         gap = (gg[n] - w).abs().max().item()
         assert gap <= 1e-1 * max(w.abs().max().item(), 1e-2 * top), (n, gap)
+
+
+# -- the fine-tuning kernels: #11 (DeBERTa attention backward), #8 and #9
+# (Swin window attention forward and backward) --------------------------------
+
+def _grad_tol(dtype, ref):
+    """fp32: summation order, 1e-4 of the largest |value|; bf16: one
+    rounding of the output."""
+    top = ref.abs().max().item()
+    return 1e-4 * top if dtype == torch.float32 else _bf16_step(ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("t,d,heads", [(256, 384, 6), (128, 128, 4),
+                                       (64, 64, 2)])
+def test_deberta_bwd_kernel_matches_plain(cuda_device, dtype, t, d, heads):
+    g = torch.Generator(device=cuda_device).manual_seed(4)
+    q, k, v, do = (torch.randn(B, t, d, device=cuda_device, generator=g)
+                   .to(dtype) for _ in range(4))
+    pk, pq = (torch.randn(2 * t, d, device=cuda_device, generator=g)
+              .to(dtype) for _ in range(2))
+    lengths = torch.tensor([t, t - 11, 1, 0], device=cuda_device)
+    mask = (torch.arange(t, device=cuda_device)[None]
+            < lengths[:, None]).int()
+    scale = 1.0 / np.sqrt(3.0 * d // heads)
+    before = DA.bwd_launches
+    got = DA.deberta_attention_bwd(q, k, v, pk, pq, mask, do, heads, scale)
+    torch.cuda.synchronize()
+    assert DA.bwd_launches == before + 1
+    want = DA.deberta_attention_bwd_plain(
+        *(x.float() for x in (q, k, v, pk, pq)), mask, do.float(), heads,
+        scale)
+    for name, a, w in zip(("dq", "dk", "dv", "dPK", "dPQ"), got, want):
+        assert a.shape == w.shape, name
+        assert a.dtype == (dtype if name[1] != "P" else torch.float32), name
+        tol = _grad_tol(dtype if name[1] != "P" else torch.float32, w)
+        assert (a.float() - w).abs().max().item() <= tol, name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nw,c,heads", [(64, 128, 4), (16, 256, 8),
+                                        (4, 512, 16), (1, 1024, 32)])
+def test_swin_train_kernels_match_plain(cuda_device, dtype, nw, c, heads):
+    g = torch.Generator(device=cuda_device).manual_seed(5)
+    dh = c // heads
+
+    def unit(x):
+        x = x.reshape(nw, B, 64, heads, dh)
+        return (x / x.norm(dim=-1, keepdim=True)).reshape(nw, B, 64, c)
+
+    q = unit(torch.randn(nw, B, 64, c, device=cuda_device, generator=g))
+    q = (q * 10 * 1.4426950408889634).to(dtype)
+    k = unit(torch.randn(nw, B, 64, c, device=cuda_device, generator=g)
+             ).to(dtype)
+    v, do = (torch.randn(nw, B, 64, c, device=cuda_device, generator=g)
+             .to(dtype) for _ in range(2))
+    bias = 16 * torch.rand(nw, heads, 64, 64, device=cuda_device,
+                           generator=g) * 1.4426950408889634
+    before = (SA.train_launches, SA.train_bwd_launches)
+    o = SA.swin_window_attention_fwd(q, k, v, bias, heads)
+    grads = SA.swin_window_attention_bwd(q, k, v, bias, do, heads)
+    torch.cuda.synchronize()
+    assert (SA.train_launches, SA.train_bwd_launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    ref = SA.swin_window_attention_plain(q.float(), k.float(), v.float(),
+                                         bias, heads)
+    assert o.dtype == dtype
+    assert (o.float() - ref).abs().max().item() <= _tol(dtype, ref)
+    want = SA.swin_window_attention_bwd_plain(
+        q.float(), k.float(), v.float(), bias, do.float(), heads)
+    for name, a, w in zip(("dq", "dk", "dv", "dbias"), grads, want):
+        assert a.shape == w.shape, name
+        fp32 = name == "dbias" or dtype == torch.float32
+        tol = _grad_tol(torch.float32 if fp32 else dtype, w)
+        assert (a.float() - w).abs().max().item() <= tol, name
+
+
+def test_kernel_wrappers_keep_the_graph(cuda_device):
+    """With grad enabled no kernel wrapper returns an output cut from the
+    graph: the trainable ones carry a grad_fn whose backward reaches the
+    inputs, the serving-only #7 raises."""
+    g = torch.Generator(device=cuda_device).manual_seed(6)
+
+    def leaf(*shape):
+        return torch.randn(*shape, device=cuda_device,
+                           generator=g).requires_grad_()
+
+    t, d = 64, 128
+    q, k, v = leaf(2, t, d), leaf(2, t, d), leaf(2, t, d)
+    pk, pq = leaf(2 * t, d), leaf(2 * t, d)
+    o = DA.deberta_attention(q, k, v, pk, pq, None, 4, 0.1)
+    assert o.grad_fn is not None
+    o.square().sum().backward()
+    assert all(x.grad is not None for x in (q, k, v, pk, pq))
+
+    ln = torch.nn.LayerNorm(128).to(cuda_device)
+    y, x = leaf(16, 128), leaf(16, 128)
+    out = LN.fused_layernorm(ln, y, 1e-5, x)
+    assert out.grad_fn is not None
+    out.square().sum().backward()
+    assert all(p.grad is not None for p in (y, x, ln.weight, ln.bias))
+
+    qs, ks, vs = leaf(4, 2, 64, 128), leaf(4, 2, 64, 128), leaf(4, 2, 64, 128)
+    bias = leaf(4, 4, 64, 64)
+    o = SA.swin_window_attention(qs, ks, vs, bias, 4)
+    assert o.grad_fn is not None
+    o.square().sum().backward()
+    assert all(p.grad is not None for p in (qs, ks, vs, bias))
+
+    with pytest.raises(RuntimeError, match="no backward"):
+        SA.swin_window_attention_infer(qs, ks, vs, bias.detach(),
+                                       torch.ones(4, device=cuda_device), 4)
+
+
+def test_bf16_dropout_step_at_embed_384_runs(cuda_device):
+    """The fused-MLP routing takes only the widths the kernels are built
+    for: at embed_dim 384 the bf16 dropout step runs the unfused MLP."""
+    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+    from mmd_tpu_torch.data.synthetic import synthetic_preembed_batch
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    cfg = TrainConfig(model=ModelConfig(
+        text_input_dim=64, image_input_dim=96, embed_dim=384, num_heads=6,
+        hidden_dim=16, fused_attn=True), batch_size=4, lr=1e-3)
+    tr = Trainer(cfg, device="cuda")
+    state = tr.init()
+    before = M.launches
+    batch = synthetic_preembed_batch(np.random.default_rng(0), 4, 128, 64,
+                                     64, 96)
+    state, aux = tr.train_step(state, tr.shard_batch(batch))
+    torch.cuda.synchronize()
+    assert M.launches == before and np.isfinite(float(aux["loss"]))

@@ -191,10 +191,22 @@ def test_use_fused_attn_gate():
 
 
 def test_remat_raises():
+    """remat runs now: the same output and a gradient that reaches the
+    params; what still raises is the attention op on a device that is
+    neither cpu nor cuda."""
     cfg = dataclasses.replace(TD.DEBERTA_TEST, remat=True)
     params = TD.init_deberta(torch.Generator().manual_seed(0), cfg)
-    with pytest.raises(NotImplementedError, match="fine-tune"):
-        TD.deberta_encode(params, cfg, torch.zeros(1, 8, dtype=torch.long))
+    ids = torch.randint(0, cfg.vocab_size, (2, 8),
+                        generator=torch.Generator().manual_seed(1))
+    want = TD.deberta_encode(params, TD.DEBERTA_TEST, ids)
+    got = TD.deberta_encode(params, cfg, ids)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    got.square().sum().backward()
+    assert params["rel_embeddings"].grad is not None
+    x = torch.zeros(1, 64, 64, device="meta")
+    tab = torch.zeros(128, 64, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        TD.deberta_attention(x, x, x, tab, tab, None, 2, 0.1)
 
 
 def test_kernel_path_hands_the_op_contiguous_tensors(monkeypatch):

@@ -163,9 +163,21 @@ def test_static_tables_match_jax(name):
 
 
 def test_fine_tuning_options_raise():
-    tcfg = dataclasses.replace(TS.SWIN_TEST, remat=True)
-    params = TS.init_swin(torch.Generator().manual_seed(0), tcfg)
-    with pytest.raises(NotImplementedError, match="fine-tune"):
-        TS.swin_forward(params, tcfg, torch.zeros(1, 32, 32, 3))
-    with pytest.raises(NotImplementedError, match="fine-tune"):
-        TSA.swin_window_attention()
+    """remat and fused_train run now (the forward under remat is the one
+    without it, and the gradient reaches the params); what still raises is
+    the fine-tuning op on a device that is neither cpu nor cuda."""
+    params = TS.init_swin(torch.Generator().manual_seed(0), TS.SWIN_TEST)
+    x = torch.randn(2, 32, 32, 3, generator=torch.Generator().manual_seed(1))
+    want = TS.swin_forward(params, TS.SWIN_TEST, x)
+    for kw in ({"remat": True}, {"fused_train": True},
+               {"remat": True, "fused_train": True}):
+        cfg = dataclasses.replace(TS.SWIN_TEST, **kw)
+        params.zero_grad()
+        got = TS.swin_forward(params, cfg, x)
+        torch.testing.assert_close(got, want, rtol=0, atol=2e-5)
+        got.square().sum().backward()
+        assert params["patch_embed"].weight.grad is not None
+    q = torch.zeros(1, 1, 64, 64, device="meta")
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        TSA.swin_window_attention(q, q, q, torch.zeros(1, 2, 64, 64,
+                                                       device="meta"), 2)

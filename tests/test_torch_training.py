@@ -264,17 +264,20 @@ def test_cli_trains_logs_checkpoints_and_resumes(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
+    """Multi-device training raises; the raw path and fine-tuning are
+    ported (tests/test_torch_raw_training.py), so a raw run without its
+    csv stops at reading the csv, as the JAX package's does."""
     out = ["--output_dir", str(tmp_path)]
-    with pytest.raises(NotImplementedError, match="raw path"):
-        T.main(ARGS + out)
+    with pytest.raises(FileNotFoundError):
+        T.main(ARGS + out + ["--train_data", str(tmp_path / "none.csv")])
     with pytest.raises(NotImplementedError, match="A16"):
         T.main(ARGS + out + ["--synthetic_samples", "4", "--zero1"])
     with pytest.raises(NotImplementedError, match="A16"):
         T.main(ARGS + out + ["--synthetic_samples", "4", "--model_parallel",
                              "2"])
-    with pytest.raises(NotImplementedError, match="A11"):
+    with pytest.raises(NotImplementedError, match="A16"):
         T.main(ARGS + out + ["--synthetic_samples", "4",
-                             "--finetune_encoders"])
+                             "--text_parallelism", "sp"])
 
 
 def test_cuda_is_the_default_and_never_falls_back(tmp_path):
@@ -323,8 +326,8 @@ def test_trainer_validates_like_the_jax_trainer():
     cfg = dataclasses.replace(small_cfg(), accum_steps=3)
     with pytest.raises(ValueError, match="accum_steps"):
         TT.Trainer(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        TT.Trainer(small_cfg(), device="cpu", encoders=object())
+    with pytest.raises(ValueError, match="requires encoders"):
+        TT.Trainer(small_cfg(), device="cpu", finetune=True)
     with pytest.raises(NotImplementedError, match="A16"):
         TT.Trainer(small_cfg(), device="cpu", tensor_parallel=True)
 
