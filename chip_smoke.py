@@ -25,10 +25,17 @@ Phases, each of which exits nonzero on failure:
                              the train step: bit-identical to its plain
                              version, kept fraction within 4 sigma of 1 - rate
      * flash_attn_fwd        with attention dropout at the fusion model's
-       (train)               four geometries, batch 256; rate 0 unchanged
+       (train)               four geometries, batch 256; rate 0 unchanged;
+                             timed in fp32 and bf16 at rates 0.1 and 0
+                             beside SDPA in the same dtype and rate
      * flash_attn_bwd        dq, dk, dv at the same geometries with and
-                             without dropout, and the masked text geometry
-                             with a row with no valid key
+                             without dropout, the masked text geometry
+                             with a row with no valid key, and two ragged
+                             geometries (T 100, S 130, masked, dh 64; T 77,
+                             S 50, dh 32) at both rates with the forward;
+                             every backward twice, bit-identical; timed in
+                             fp32 and bf16 at rates 0.1 and 0 beside SDPA's
+                             backward
      * mlp_masks, mlp_fwd,   the fused MLP at the bf16 train step's two MLP
        mlp_bwd               geometries, rate 0.1 and 0: the dumped masks
                              bit-identical to their plain version; y and
@@ -679,14 +686,42 @@ def _train_geoms():
         yield dict(g, b=TRAIN_B, per_step=TRAIN_PER_STEP[g["name"]])
 
 
+def _step_record(rows, errs, what: str, library: str, card: str) -> dict:
+    """One train step's sum over the geometries' rows (_record's sums)."""
+    rec = _record("", "", "", rows, errs)
+    step = {k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                "bound_by", "max_abs_err")}
+    step["launches_per_step"] = sum(n for n, _ in rows)
+    step["library_note"] = library
+    print(f"kernel {what} per train step ({step['launches_per_step']} "
+          f"launches): kernel {step['ms']:.4f} ms, plain "
+          f"{step['plain_ms']:.4f} ms, library {step['library_ms']:.4f} ms, "
+          f"bound {step['bound_ms']:.4f} ms  [{card}]", flush=True)
+    return step
+
+
+# the train step's timed cases: (dtype, rate) -> key of the step record
+TRAIN_TIMINGS = {(torch.float32, DROPOUT_RATE): "train_step",
+                 (torch.bfloat16, DROPOUT_RATE): "train_step_bf16",
+                 (torch.float32, 0.0): "train_step_rate0",
+                 (torch.bfloat16, 0.0): "train_step_bf16_rate0"}
+
+
+def _peak(dtype) -> float:
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+
+
 def phase_flash_train(card: str) -> dict:
     """The flash forward with attention dropout at the train step's
-    geometries, batch 256; rate 0 at the same inputs too."""
+    geometries, batch 256; rate 0 at the same inputs too. Timed in fp32 and
+    bf16 at rates 0.1 and 0, each beside SDPA on the same inputs and
+    rate."""
     from mmd_tpu_torch.ops import attention as A
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
-    errs, rows = [], []
+    errs = []
+    rows = {key: [] for key in TRAIN_TIMINGS.values()}
     for g in _train_geoms():
         b, t, s, d, h = g["b"], g["t"], g["s"], g["d"], g["h"]
         q32, k32, v32 = (torch.randn(b, n, d, device=dev, generator=gen)
@@ -711,36 +746,30 @@ def phase_flash_train(card: str) -> dict:
                          f"its plain version at {g['name']} {dtype}")
                 errs.append(err)
                 del o, lse, o_ref, lse_ref
-        q, k, v = q32, k32, v32                # the train step's dtype
-        qh, kh, vh = (x.view(b, -1, h, d // h).transpose(1, 2)
-                      for x in (q, k, v))
-        row = {"ms": _time_ms(lambda: A.flash_attention(
-                   q, k, v, h, None, DROPOUT_RATE, 1), iters=10),
-               "plain_ms": _time_ms(lambda: A.flash_attention_plain(
-                   q, k, v, h, None, DROPOUT_RATE, 1), iters=2, warmup=1),
-               "library_ms": _time_ms(lambda: sdpa(
-                   qh, kh, vh, dropout_p=DROPOUT_RATE), iters=10)}
-        row["bound_ms"], row["bound_by"] = _bound_ms(
-            4 * (2 * b * t * d + 2 * b * s * d) + 4 * b * h * t,
-            4 * b * t * s * d, PEAK_FP32_FLOPS)
-        _print_time("flash_attn_fwd", f"{g['name']} fp32 dropout "
-                    f"{DROPOUT_RATE} B={b} T={t} S={s} D={d} H={h}", row,
-                    card)
-        rows.append((g["per_step"], row))
+                qh, kh, vh = (x.view(b, -1, h, d // h).transpose(1, 2)
+                              for x in (q, k, v))
+                row = {"ms": _time_ms(lambda: A.flash_attention(
+                           q, k, v, h, None, rate, 1), iters=10),
+                       "plain_ms": _time_ms(lambda: A.flash_attention_plain(
+                           q, k, v, h, None, rate, 1), iters=2, warmup=1),
+                       "library_ms": _time_ms(lambda: sdpa(
+                           qh, kh, vh, dropout_p=rate), iters=10)}
+                row["bound_ms"], row["bound_by"] = _bound_ms(
+                    q.element_size() * (2 * b * t * d + 2 * b * s * d)
+                    + 4 * b * h * t, 4 * b * t * s * d, _peak(dtype))
+                _print_time("flash_attn_fwd", f"{g['name']} "
+                            f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+                            f" dropout {rate} B={b} T={t} S={s} D={d} H={h}",
+                            row, card)
+                rows[TRAIN_TIMINGS[(dtype, rate)]].append((g["per_step"],
+                                                           row))
         torch.cuda.empty_cache()
-    rec = _record("flash_attn_fwd", "", "", rows, errs)
-    step = {k: rec[k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
-                                "bound_by", "max_abs_err")}
-    step["launches_per_step"] = PER_STEP["flash_attn_fwd"]
-    step["library_note"] = ("torch.nn.functional.scaled_dot_product_"
-                            "attention(dropout_p=0.1), fp32, (B, H, T, dh) "
-                            "views")
-    print(f"kernel flash_attn_fwd per train step "
-          f"({PER_STEP['flash_attn_fwd']} launches, fp32, dropout "
-          f"{DROPOUT_RATE}): kernel {step['ms']:.4f} ms, plain "
-          f"{step['plain_ms']:.4f} ms, SDPA {step['library_ms']:.4f} ms, "
-          f"bound {step['bound_ms']:.4f} ms  [{card}]", flush=True)
-    return step
+    return {key: _step_record(
+                rows[key], errs, f"flash_attn_fwd {key}",
+                f"torch.nn.functional.scaled_dot_product_attention(dropout_p"
+                f"={rate}), {'bf16' if dtype == torch.bfloat16 else 'fp32'}, "
+                f"(B, H, T, dh) views", card)
+            for (dtype, rate), key in TRAIN_TIMINGS.items()}
 
 
 def _bwd_tol(dtype) -> float:
@@ -749,91 +778,134 @@ def _bwd_tol(dtype) -> float:
     return 1e-4 if dtype == torch.float32 else 2.0 ** -7
 
 
+def _masked_lengths(b: int, s: int, dev) -> torch.Tensor:
+    """(B, S) int mask: valid lengths from 1 to S, and a last row with no
+    valid key."""
+    lengths = torch.linspace(1, s, b - 1, device=dev).round().long()
+    return torch.cat([torch.arange(s, device=dev)[None] < lengths[:, None],
+                      torch.zeros(1, s, dtype=torch.bool, device=dev)]).int()
+
+
+def _check_flash(A, g, q32, k32, v32, do32, mask, rates, errs) -> None:
+    """Forward and backward against their plain versions in bf16 and fp32
+    at each rate; the backward twice, bit for bit the same."""
+    b, h = q32.shape[0], g["h"]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
+        for rate in rates:
+            o, lse = A.flash_attention(q, k, v, h, mask, rate, 88)
+            got = A.flash_attention_bwd(q, k, v, o, lse, do, h, mask,
+                                        rate, 88)
+            again = A.flash_attention_bwd(q, k, v, o, lse, do, h, mask,
+                                          rate, 88)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = A.flash_attention_plain(
+                q.float(), k.float(), v.float(), h, mask, rate, 88)
+            want = A.flash_attention_bwd_plain(
+                q.float(), k.float(), v.float(), o.float(), lse,
+                do.float(), h, mask, rate, 88)
+            o_err = (o.float() - o_ref).abs().max().item()
+            fin = torch.isfinite(lse_ref)
+            lse_err = (lse[fin] - lse_ref[fin]).abs().max().item()
+            tol = _bwd_tol(dtype)
+            abs_errs = [(x.float() - w).abs().max().item()
+                        for x, w in zip(got, want)]
+            rel = [e / max(w.abs().max().item(), 1e-30)
+                   for e, w in zip(abs_errs, want)]
+            same = all(torch.equal(x, y) for x, y in zip(got, again))
+            ok = (o_err <= KERNEL_TOL[dtype] and lse_err <= LSE_TOL
+                  and torch.equal(torch.isfinite(lse), fin)
+                  and max(rel) <= tol and same)
+            if mask is not None:
+                ok = ok and bool((o[-1] == 0).all()) and bool(
+                    (got[0][-1] == 0).all())
+            print(f"kernel flash_attn_bwd {g['name']:>14} B={b} "
+                  f"{str(dtype):>14} rate {rate}: o err {o_err:.3e}, lse "
+                  f"err {lse_err:.3e}, max_abs_err dq/dk/dv "
+                  f"{abs_errs[0]:.3e}/{abs_errs[1]:.3e}/{abs_errs[2]:.3e}, "
+                  f"relative {max(rel):.3e} (tol {tol:.1e}), repeat "
+                  f"{'bit-identical' if same else 'DIFFERS'}"
+                  f"{', row with no valid key o = dq = 0' if mask is not None else ''}"
+                  f" -> {'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"flash forward/backward disagrees with its plain "
+                     f"version, or repeats differ, at {g['name']} {dtype} "
+                     f"rate {rate}")
+            errs.append(max(abs_errs))
+            del o, lse, got, again, want
+
+
+# ragged geometries: S not a multiple of the 64-key tile (a padded text
+# batch, dh 64; and T 77, S 50 at dh 32)
+RAGGED = [dict(name="ragged_100x130", b=BATCH, t=100, s=130, d=128, h=2,
+               masked=True),
+          dict(name="ragged_77x50", b=BATCH, t=77, s=50, d=64, h=2,
+               masked=False)]
+
+
 def phase_flash_bwd(card: str) -> dict:
     """dq, dk, dv against flash_attention_bwd_plain: the train step's
-    geometries at batch 256 with and without dropout, and the masked text
-    geometry (batch 16, a row with no valid key) at rate 0."""
+    geometries at batch 256 with and without dropout, the masked text
+    geometry (batch 16, a row with no valid key) at rate 0, and the two
+    ragged geometries at both rates (forward checked too); every backward
+    twice, bit-identical. Timed in fp32 and bf16 at rates 0.1 and 0."""
     from mmd_tpu_torch.ops import attention as A
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
-    errs, rows = [], []
+    errs = []
+    rows = {key: [] for key in TRAIN_TIMINGS.values()}
     text = dict(TEXT, b=BATCH, per_step=0)
-    for g in [*_train_geoms(), text]:
+    for g in [*_train_geoms(), text, *RAGGED]:
         b, t, s, d, h = g["b"], g["t"], g["s"], g["d"], g["h"]
         q32, k32, v32, do32 = (torch.randn(b, n, d, device=dev,
                                            generator=gen)
                                for n in (t, s, s, t))
-        mask = None
-        if g["masked"]:
-            lengths = torch.linspace(1, s, b - 1, device=dev).round().long()
-            mask = torch.cat([
-                torch.arange(s, device=dev)[None] < lengths[:, None],
-                torch.zeros(1, s, dtype=torch.bool, device=dev)]).int()
-        rates = (0.0,) if g["masked"] else (DROPOUT_RATE, 0.0)
+        mask = _masked_lengths(b, s, dev) if g["masked"] else None
+        rates = (0.0,) if g is text else (DROPOUT_RATE, 0.0)
+        _check_flash(A, g, q32, k32, v32, do32, mask, rates, errs)
+        if not g.get("per_step"):
+            continue
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
-            for rate in rates:
-                o, lse = A.flash_attention(q, k, v, h, mask, rate, 88)
-                got = A.flash_attention_bwd(q, k, v, o, lse, do, h, mask,
-                                            rate, 88)
-                torch.cuda.synchronize()
-                want = A.flash_attention_bwd_plain(
-                    q.float(), k.float(), v.float(), o.float(), lse,
-                    do.float(), h, mask, rate, 88)
-                tol = _bwd_tol(dtype)
-                abs_errs = [(x.float() - w).abs().max().item()
-                            for x, w in zip(got, want)]
-                rel = [e / max(w.abs().max().item(), 1e-30)
-                       for e, w in zip(abs_errs, want)]
-                ok = max(rel) <= tol
-                if mask is not None:
-                    ok = ok and bool((got[0][-1] == 0).all())
-                print(f"kernel flash_attn_bwd {g['name']:>14} B={b} "
-                      f"{str(dtype):>14} rate {rate}: max_abs_err dq/dk/dv "
-                      f"{abs_errs[0]:.3e}/{abs_errs[1]:.3e}/"
-                      f"{abs_errs[2]:.3e}, relative {max(rel):.3e} (tol "
-                      f"{tol:.1e})"
-                      f"{', row with no valid key dq = 0' if mask is not None else ''}"
-                      f" -> {'ok' if ok else 'FAIL'}", flush=True)
-                if not ok:
-                    fail(f"flash backward disagrees with its plain version "
-                         f"at {g['name']} {dtype} rate {rate}")
-                errs.append(max(abs_errs))
-                del o, lse, got, want
-        if not g["per_step"]:
-            continue
-        q, k, v, do = q32, k32, v32, do32      # the train step's dtype
-        o, lse = A.flash_attention(q, k, v, h, None, DROPOUT_RATE, 1)
-        qh, kh, vh = (x.view(b, -1, h, d // h).transpose(1, 2).detach()
-                      .requires_grad_() for x in (q, k, v))
-        out = sdpa(qh, kh, vh)
-        gout = torch.randn_like(out)
-        row = {"ms": _time_ms(lambda: A.flash_attention_bwd(
-                   q, k, v, o, lse, do, h, None, DROPOUT_RATE, 1), iters=5),
-               "plain_ms": _time_ms(lambda: A.flash_attention_bwd_plain(
-                   q, k, v, o, lse, do, h, None, DROPOUT_RATE, 1), iters=2,
-                   warmup=1),
-               "library_ms": _time_ms(lambda: torch.autograd.grad(
-                   out, (qh, kh, vh), gout, retain_graph=True), iters=5)}
-        row["bound_ms"], row["bound_by"] = _bound_ms(
-            4 * (4 * b * t * d + 4 * b * s * d) + 4 * b * h * t,
-            10 * b * t * s * d, PEAK_FP32_FLOPS)
-        _print_time("flash_attn_bwd", f"{g['name']} fp32 dropout "
-                    f"{DROPOUT_RATE} B={b} T={t} S={s} D={d} H={h}", row,
-                    card)
-        rows.append((g["per_step"], row))
-        del o, lse, out, gout, qh, kh, vh
+            qh, kh, vh = (x.view(b, -1, h, d // h).transpose(1, 2).detach()
+                          .requires_grad_() for x in (q, k, v))
+            out = sdpa(qh, kh, vh)
+            gout = torch.randn_like(out)
+            lib_ms = _time_ms(lambda: torch.autograd.grad(
+                out, (qh, kh, vh), gout, retain_graph=True), iters=5)
+            for rate in (DROPOUT_RATE, 0.0):
+                o, lse = A.flash_attention(q, k, v, h, None, rate, 1)
+                row = {"ms": _time_ms(lambda: A.flash_attention_bwd(
+                           q, k, v, o, lse, do, h, None, rate, 1), iters=5),
+                       "plain_ms": _time_ms(
+                           lambda: A.flash_attention_bwd_plain(
+                               q, k, v, o, lse, do, h, None, rate, 1),
+                           iters=2, warmup=1),
+                       "library_ms": lib_ms}
+                row["bound_ms"], row["bound_by"] = _bound_ms(
+                    q.element_size() * (4 * b * t * d + 4 * b * s * d)
+                    + 4 * b * h * t, 10 * b * t * s * d, _peak(dtype))
+                _print_time("flash_attn_bwd", f"{g['name']} "
+                            f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}"
+                            f" dropout {rate} B={b} T={t} S={s} D={d} H={h}",
+                            row, card)
+                rows[TRAIN_TIMINGS[(dtype, rate)]].append((g["per_step"],
+                                                           row))
+                del o, lse
+            del out, gout, qh, kh, vh
         torch.cuda.empty_cache()
+    steps = {key: _step_record(
+                 rows[key], errs, f"flash_attn_bwd {key}",
+                 f"the backward of torch.nn.functional.scaled_dot_product_"
+                 f"attention at rate 0, "
+                 f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} (forward "
+                 f"excluded)", card)
+             for (dtype, rate), key in TRAIN_TIMINGS.items()}
     rec = _record("flash_attn_bwd", "mmd_tpu_torch/ops/csrc/flash_attn_bwd.cu",
-                  "mmd_tpu/ops/attention.py:471", rows, errs,
-                  "the backward of torch.nn.functional.scaled_dot_product_"
-                  "attention at rate 0, fp32 (forward excluded)")
-    print(f"kernel flash_attn_bwd per train step "
-          f"({PER_STEP['flash_attn_bwd']} launches, fp32, dropout "
-          f"{DROPOUT_RATE}): kernel {rec['ms']:.4f} ms, plain "
-          f"{rec['plain_ms']:.4f} ms, SDPA backward {rec['library_ms']:.4f} "
-          f"ms, bound {rec['bound_ms']:.4f} ms  [{card}]", flush=True)
+                  "mmd_tpu/ops/attention.py:471", rows["train_step"], errs,
+                  steps["train_step"]["library_note"])
+    rec.update({k: v for k, v in steps.items() if k != "train_step"})
     return rec
 
 
@@ -1686,7 +1758,7 @@ def main() -> None:
             "deberta_attn_fwd": phase_deberta(dev["card"]),
             "dropout": phase_dropout(dev["card"]),
             "flash_attn_bwd": phase_flash_bwd(dev["card"])}
-    recs["flash_attn_fwd"]["train_step"] = phase_flash_train(dev["card"])
+    recs["flash_attn_fwd"].update(phase_flash_train(dev["card"]))
     recs.update(phase_mlp(dev["card"]))
     recs["deberta_attn_bwd"] = phase_deberta_bwd(dev["card"])
     recs.update(phase_swin_train(dev["card"]))

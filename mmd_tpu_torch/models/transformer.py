@@ -112,10 +112,13 @@ def init_transformer(gen: torch.Generator, cfg: TransformerConfig
 def embed(params: L.ParamTree, cfg: TransformerConfig,
           input_ids: torch.Tensor,
           token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, T) int -> (B, T, D) in the compute dtype. T beyond the position
-    table raises (the JAX gather would clamp)."""
+    """(B, T) int -> (B, T, D) in the compute dtype. Positions past the
+    position table take its last row, as the JAX package's gather clamps
+    them."""
     _require_encoder(cfg)
-    e = params["word"][input_ids] + params["position"][:input_ids.shape[1]]
+    table = params["position"]
+    pos = torch.arange(input_ids.shape[1], device=table.device)
+    e = params["word"][input_ids] + table[pos.clamp_max(table.shape[0] - 1)]
     if "token_type" in params:
         # segment 0 by default (HF semantics: token_type_ids default to 0)
         if token_type_ids is None:

@@ -31,6 +31,7 @@ are fp32 whatever the compute dtype.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 from typing import Optional
@@ -197,24 +198,27 @@ def _check_kernel_inputs(q, k, v, num_heads, key_mask):
 
 _DROP_ARGTYPES = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float,
                   ctypes.c_int]
+_HEADERS = ["flash_common.cuh", "tensor_core.cuh", "philox.cuh"]
 
 
+@functools.cache
 def load_kernel():
     """Build (at first use) and load the forward kernel; returns its C entry
-    point."""
+    point (cached: a served batch calls it 56 times)."""
     fn = cuda_build.load_library("flash_attn_fwd", ["flash_attn_fwd.cu"],
-                                 ["philox.cuh"]).mmd_flash_attn_fwd
+                                 _HEADERS).mmd_flash_attn_fwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + _DROP_ARGTYPES + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return fn
 
 
+@functools.cache
 def load_bwd_kernel():
     """Build (at first use) and load the backward kernels; returns their C
-    entry point."""
+    entry point (cached)."""
     fn = cuda_build.load_library("flash_attn_bwd", ["flash_attn_bwd.cu"],
-                                 ["philox.cuh"]).mmd_flash_attn_bwd
+                                 _HEADERS).mmd_flash_attn_bwd
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                    + _DROP_ARGTYPES + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -231,14 +235,19 @@ def _dropout_args(dropout_rate: float, seed: int) -> tuple:
 
 
 def _key_valid(key_mask):
+    """The kernels' (B, S) uint8 mask (nonzero = valid): a bool or uint8
+    mask as it is, any other dtype in one comparison."""
     if key_mask is None:
         return None
-    return (key_mask != 0).to(torch.uint8).contiguous()
+    if key_mask.dtype not in (torch.bool, torch.uint8):
+        key_mask = key_mask != 0
+    return key_mask.contiguous().view(torch.uint8)
 
 
 def _flash_attention_cuda(q, k, v, num_heads, key_mask, dropout_rate, seed):
     global launches
     _check_kernel_inputs(q, k, v, num_heads, key_mask)
+    cuda_build.check_aligned(q, k, v)
     drop = _dropout_args(dropout_rate, seed)
     fn = load_kernel()
     b, t, d = q.shape
@@ -297,6 +306,7 @@ def _flash_attention_bwd_cuda(q, k, v, o, lse, do, num_heads, key_mask,
             or lse.device != q.device or not lse.is_contiguous()):
         raise ValueError(f"lse must be contiguous (B, H, T) = "
                          f"{(b, num_heads, t)} float32 on q's device")
+    cuda_build.check_aligned(q, k, v, o, do)
     drop = _dropout_args(dropout_rate, seed)
     s = k.shape[1]
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)

@@ -1,10 +1,11 @@
 // Flash-attention backward for Hopper (sm_90a), non-causal, with an optional
-// (B, S) key mask and optional attention dropout.
+// (B, S) key mask and optional attention dropout, on the tensor cores.
 //
 // Replaces mmd_tpu/ops/attention.py::_flash_bwd (its Pallas body
 // _bwd_kernel, behind the custom VJPs _fused_attention_core[_masked]) on the
 // training path: the backward of each of the fusion model's eight
-// attentions, (T, S) in {512, 64}^2, D 256, 8 heads.
+// attentions, (T, S) in {512, 64}^2, D 256, 8 heads; and of the encoders'
+// attentions when they are fine-tuned.
 //
 // What it computes, per batch row b and head h, from q, k, v, the forward's
 // o and natural-log lse, the output gradient do, and the dropout seed:
@@ -18,13 +19,16 @@
 //   dq[t]    = sum_s ds k[s] / sqrt(dh)
 //   dk[s]    = sum_t ds q[t] / sqrt(dh)
 // with keep scale = 1 when there is no dropout. Sums are fp32; dq, dk and dv
-// are returned in the input dtype, as the TPU kernel does.
+// are returned in the input dtype, as the TPU kernel does. In bf16, p keep
+// scale is rounded to bf16 before dv and ds before dq and dk, where the TPU
+// kernel rounds them.
 //
 // On the TPU the grid runs in order and the kernel carries dk/dv sums in
 // revisited output blocks across query tiles. Blocks on Hopper run in no
 // order, so this is TWO PASSES over the score matrix, chosen over fp32
 // atomics for dq because it is deterministic (a training step gives the
-// same grads every run) and needs no zeroed scratch:
+// same grads every run) and needs no zeroed scratch (one pass with a
+// per-key-tile dq workspace would need ~1 GB at the train step's shapes):
 //   1. rowdot   D[b, h, t] into a (B, H, T) fp32 scratch;
 //   2. dkdv     one CTA per (64-key tile, head, batch row) walks the query
 //               tiles, recomputes p and dp, and keeps dk and dv in registers;
@@ -33,97 +37,63 @@
 // Both passes redraw the dropout mask of each 64 x 64 tile into shared
 // memory (fill_keep_tile), exactly as the forward draws it.
 //
-// What bounds it on this card: arithmetic. Counted as the TPU kernel counts
-// it, 10 * B * H * T * S * dh operations (score, dp, dv, dk, dq products)
-// against q, k, v, o, do read once and dq, dk, dv written once: T / 2.5
-// operations per fp32 byte at S = T, ~200 for the 512-token shapes, far
-// above the ~20 where 67 TFLOP/s of fp32 FMA meets 3.35 TB/s. The two
-// passes recompute the score and dp products, 14 instead of 10 products of
-// dh per weight, and add one Philox call per 4 weights to each pass.
+// What bounds it on this card: the tensor cores. Counted as the TPU kernel
+// counts it, 10 * B * H * T * S * dh operations (score, dp, dv, dk, dq
+// products) against q, k, v, o, do read once and dq, dk, dv written once:
+// T / 4 operations per bf16 byte at S = T, 128 for the 512-token shapes,
+// under the 295 where 989 TFLOP/s meets 3.35 TB/s only for the 64-token
+// ones. The two passes recompute the score and dp products (14 instead of
+// 10 products of dh a weight), and each pass draws one Philox4x32-10 call
+// (~100 integer instructions) per 4 weights when dropout is on -- at dh 32
+// more issue slots than the products.
 //
-// What the design does about that (first version: simple and right):
-//   * 256 threads a CTA; in the score phases 4 threads share a row of the
-//     tile, holding that row of q (pre-scaled into the exp2 domain) or do
-//     in registers and 16 of the tile's 64 keys each, as the forward does;
-//   * tiles of K, V, Q and dO are staged in shared memory as fp32 with rows
-//     padded to dh + 4 floats, so the float4 reads of a warp fall in
-//     different banks;
-//   * in the dkdv pass the weights p keep scale and ds go through shared
-//     memory, and each thread then owns one key and dh / 4 columns of dk and
-//     dv; in the dq pass each thread owns dh / 4 columns of its row's dq;
-//   * plain FMA on the CUDA cores. Tensor cores (mma.sync / wgmma) and one
-//     pass with the score tile shared by both products are the next steps.
+// What the design does about that:
+//   * 4 warps a CTA, 16 rows of the CTA's tile each; all five products on
+//     mma.sync (bf16 m16n8k16, or 3xTF32 on m16n8k8 in fp32) with fp32
+//     accumulators (flash_common.cuh);
+//   * the CTA's own tiles (K and V in dkdv, Q and dO in dq) are copied once;
+//     the walked tiles are double-buffered with cp.async, so the copy of
+//     tile j + 1 and the Philox draw of tile j's mask run under the
+//     products of tile j;
+//   * dkdv computes the transposed tile: S^T = K Q^T and dP^T = V dO^T, so
+//     p^T keep scale and ds^T come out as C fragments of the (key, query)
+//     tile and feed dV += P^T dO and dK += dS^T Q straight from registers;
+//     the keep bits are read from the same (query, key) shared tile the
+//     forward draws, at the transposed coordinates;
+//   * dq computes S = Q K^T and dP = dO V^T, then ds, then dQ += dS K;
+//   * a weight is 0 for a masked or out-of-range key and for a row whose
+//     lse is -inf: exp2 never sees s - (-inf).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "flash_common.cuh"
 #include "philox.cuh"
 
 namespace {
 
-constexpr int BLOCK_M = 64;                  // query rows per tile
-constexpr int BLOCK_N = 64;                  // keys per tile
-constexpr int TPR = 4;                       // threads per row in the score phases
-constexpr int THREADS = 256;
-constexpr int PER_THREAD = BLOCK_N / TPR;    // keys (or rows) per thread
-constexpr int S_STRIDE = BLOCK_N + 4;        // floats per row of a weight tile
-constexpr int KEEP_STRIDE = BLOCK_N + 4;     // mask bytes per row
-constexpr float LOG2E = 1.4426950408889634f;
+using namespace mmd_flash;
 
-static_assert(BLOCK_M * TPR == THREADS && BLOCK_N * TPR == THREADS,
-              "one row (or key) per 4 threads");
+constexpr int ROWDOT_THREADS = 256;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
 
-// Rows [r0, r0 + 64) of head h of a (B, L, D) tensor into an fp32 tile of
-// row stride DH + 4; rows at or past `len` become zeros.
-template <typename T, int DH>
-__device__ __forceinline__ void stage_rows(float* dst, const T* base, int r0, int len,
-                                           int d_model, int tid) {
-    constexpr int ROW = DH + 4;
-    for (int i = tid; i < 64 * DH; i += THREADS) {
-        const int j = i / DH;
-        const int d = i % DH;
-        const int r = r0 + j;
-        dst[j * ROW + d] = r < len ? to_float(base[static_cast<size_t>(r) * d_model + d]) : 0.f;
-    }
-}
-
-template <int DH>
-__device__ __forceinline__ float dot_row(const float (&x)[DH], const float* row) {
-    const float4* r4 = reinterpret_cast<const float4*>(row);
-    float acc = 0.f;
-#pragma unroll
-    for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const float4 y = r4[d4];
-        acc = fmaf(x[4 * d4 + 0], y.x, acc);
-        acc = fmaf(x[4 * d4 + 1], y.y, acc);
-        acc = fmaf(x[4 * d4 + 2], y.z, acc);
-        acc = fmaf(x[4 * d4 + 3], y.w, acc);
-    }
-    return acc;
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float a, const float4& x) {
-    acc.x = fmaf(a, x.x, acc.x);
-    acc.y = fmaf(a, x.y, acc.y);
-    acc.z = fmaf(a, x.z, acc.z);
-    acc.w = fmaf(a, x.w, acc.w);
+// keep scale of weight (row r, key c) of a tile filled by fill_keep_tile
+__device__ __forceinline__ float keep_at(const uint8_t* keep, int r, int c, float scale) {
+    return keep[r * KEEP_STRIDE + c] ? scale : 0.f;
 }
 
 // ---------------------------------------------------------------------------
 // 1. D[b, h, t] = sum_d do o
 // ---------------------------------------------------------------------------
 template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(ROWDOT_THREADS)
 rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
               float* __restrict__ delta, int batch, int t_len, int num_heads) {
-    const int64_t idx = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+    const int64_t idx = static_cast<int64_t>(blockIdx.x) * ROWDOT_THREADS + threadIdx.x;
     const int64_t rows = static_cast<int64_t>(batch) * t_len * num_heads;
     if (idx >= rows) return;
     const int h = static_cast<int>(idx % num_heads);
@@ -137,17 +107,17 @@ rowdot_kernel(const T* __restrict__ o, const T* __restrict__ dout,
     delta[(b * num_heads + h) * t_len + t] = acc;
 }
 
+// Six tiles (two of the CTA's own, two double-buffered pairs), up to two
+// (BLOCK) fp32 rows, the keep tile.
+template <typename T, int DH>
+constexpr size_t smem_bytes(bool drop) {
+    return 6 * Tile<T, DH>::BYTES + 2 * BLOCK * sizeof(float) +
+           (drop ? BLOCK * KEEP_STRIDE : 0);
+}
+
 // ---------------------------------------------------------------------------
 // 2. dk, dv: one CTA per (key tile, head, batch row)
 // ---------------------------------------------------------------------------
-template <int DH>
-struct DkdvSmem {
-    static constexpr int ROW = DH + 4;
-    static constexpr size_t BYTES =
-        (4 * 64 * ROW + 2 * BLOCK_M * S_STRIDE + 2 * BLOCK_M) * sizeof(float)
-        + BLOCK_N * sizeof(int) + BLOCK_M * KEEP_STRIDE;
-};
-
 template <typename T, int DH, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -155,24 +125,27 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
             const float* __restrict__ lse, const float* __restrict__ delta,
             T* __restrict__ dk, T* __restrict__ dv, int t_len, int s_len, int num_heads,
             float scale_log2, float sm_scale, mmd_philox::Dropout drop) {
-    constexpr int ROW = DH + 4;
-    constexpr int CHUNKS = DH / 16;
+    using Op = Ops<T, DH>;
+    constexpr int TE = Tile<T, DH>::ELEMS;
+    constexpr int LD = Tile<T, DH>::LD;
+    // fp32 at dh 64 spills with whole 64-query slices (and still with two of
+    // 32, by ptxas -v): it takes four slices of 16, 143 registers, no spill.
+    constexpr int PARTS = (sizeof(T) == 4 && DH == 64) ? 4 : 1;
+    constexpr int N = NT / PARTS;
     extern __shared__ float4 smem4[];
-    float* ks = reinterpret_cast<float*>(smem4);   // [BLOCK_N][ROW]
-    float* vs = ks + BLOCK_N * ROW;                 // [BLOCK_N][ROW]
-    float* qs = vs + BLOCK_N * ROW;                 // [BLOCK_M][ROW]
-    float* dos = qs + BLOCK_M * ROW;                // [BLOCK_M][ROW]
-    float* pds = dos + BLOCK_M * ROW;               // [BLOCK_M][S_STRIDE]  p keep scale
-    float* dss = pds + BLOCK_M * S_STRIDE;          // [BLOCK_M][S_STRIDE]  ds
-    float* lse2 = dss + BLOCK_M * S_STRIDE;         // [BLOCK_M] log2 domain
-    float* drow = lse2 + BLOCK_M;                   // [BLOCK_M]
-    int* kvalid = reinterpret_cast<int*>(drow + BLOCK_M);            // [BLOCK_N]
-    uint8_t* keep = reinterpret_cast<uint8_t*>(kvalid + BLOCK_N);    // [BLOCK_M][KEEP_STRIDE]
+    T* ks = reinterpret_cast<T*>(smem4);     // [BLOCK][LD]
+    T* vs = ks + TE;                          // [BLOCK][LD]
+    T* qs = vs + TE;                          // [2][BLOCK][LD]
+    T* dos = qs + 2 * TE;                     // [2][BLOCK][LD]
+    float* lse2 = reinterpret_cast<float*>(dos + 2 * TE);      // [BLOCK] log2 domain
+    float* drow = lse2 + BLOCK;                                 // [BLOCK]
+    uint8_t* keep = reinterpret_cast<uint8_t*>(drow + BLOCK);   // [BLOCK query][KEEP_STRIDE]
 
     const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
     const int h = blockIdx.y;
     const int b = blockIdx.z;
-    const int s0 = blockIdx.x * BLOCK_N;
+    const int s0 = blockIdx.x * BLOCK;
     const int d_model = num_heads * DH;
     const size_t head_off = static_cast<size_t>(h) * DH;
     const T* qb = q + static_cast<size_t>(b) * t_len * d_model + head_off;
@@ -181,100 +154,104 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     const T* vb = v + static_cast<size_t>(b) * s_len * d_model + head_off;
     const float* lseb = lse + (static_cast<size_t>(b) * num_heads + h) * t_len;
     const float* deltab = delta + (static_cast<size_t>(b) * num_heads + h) * t_len;
+    const int n_tiles = (t_len + BLOCK - 1) / BLOCK;
 
-    stage_rows<T, DH>(ks, kb, s0, s_len, d_model, tid);
-    stage_rows<T, DH>(vs, vb, s0, s_len, d_model, tid);
-    if (tid < BLOCK_N) {
-        const int s = s0 + tid;
-        kvalid[tid] = (s < s_len) &&
-                      (key_valid == nullptr || key_valid[static_cast<size_t>(b) * s_len + s] != 0);
-    }
+    copy_tile<T, DH>(ks, kb, d_model, s0, s_len);
+    copy_tile<T, DH>(vs, vb, d_model, s0, s_len);
+    copy_tile<T, DH>(qs, qb, d_model, 0, t_len);
+    copy_tile<T, DH>(dos, dob, d_model, 0, t_len);
+    mmd_tc::cp_async_commit();
 
-    // In the accumulation phase this thread owns key `kj` and columns
-    // [4 * (4 * c + sub), +4) of its dk and dv rows.
-    const int sub = tid % TPR;
-    const int kj = tid / TPR;
-    float4 dk_acc[CHUNKS], dv_acc[CHUNKS];
+    // This lane's keys: rows g and g + 8 of the warp's 16.
+    const int key_local[2] = {16 * warp + g, 16 * warp + g + 8};
+    bool key_ok[2];
 #pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) {
-        dk_acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-        dv_acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int r = 0; r < 2; ++r) {
+        const int s = s0 + key_local[r];
+        key_ok[r] = s < s_len &&
+                    (key_valid == nullptr || key_valid[static_cast<size_t>(b) * s_len + s] != 0);
     }
 
-    for (int t0 = 0; t0 < t_len; t0 += BLOCK_M) {
-        __syncthreads();                     // the previous tile is consumed
-        stage_rows<T, DH>(qs, qb, t0, t_len, d_model, tid);
-        stage_rows<T, DH>(dos, dob, t0, t_len, d_model, tid);
-        if (tid < BLOCK_M) {
+    float dk_acc[DH / 8][4], dv_acc[DH / 8][4];
+    zero(dk_acc);
+    zero(dv_acc);
+    typename Op::A ka, va;
+
+    for (int j = 0; j < n_tiles; ++j) {
+        const int t0 = j * BLOCK;
+        const int cur = (j & 1) * TE;
+        if (j + 1 < n_tiles) {
+            copy_tile<T, DH>(qs + (TE - cur), qb, d_model, t0 + BLOCK, t_len);
+            copy_tile<T, DH>(dos + (TE - cur), dob, d_model, t0 + BLOCK, t_len);
+        }
+        mmd_tc::cp_async_commit();
+        if (tid < BLOCK) {
             const int t = t0 + tid;
             lse2[tid] = t < t_len ? lseb[t] * LOG2E : -CUDART_INF_F;
             drow[tid] = t < t_len ? deltab[t] : 0.f;
         }
         if constexpr (DROP) {
-            mmd_philox::fill_keep_tile<BLOCK_M, BLOCK_N, KEEP_STRIDE>(
+            mmd_philox::fill_keep_tile<BLOCK, BLOCK, KEEP_STRIDE>(
                 keep, tid, THREADS, b, h, num_heads, t0, t_len, s0, s_len, drop);
         }
+        mmd_tc::cp_async_wait<1>();
         __syncthreads();
+        if (j == 0) {
+            Op::load_a(ka, ks, 16 * warp);
+            Op::load_a(va, vs, 16 * warp);
+        }
 
-        // Score phase: row r, keys j = sub + TPR * i.
-        {
-            const int r = tid / TPR;
-            const float l2 = lse2[r];
-            const bool row_live = l2 != -CUDART_INF_F;
-            float x[DH];
+        // The tile's queries in PARTS slices of N n8 tiles: P^T rows are this
+        // warp's keys, columns the slice's queries.
 #pragma unroll
-            for (int d = 0; d < DH; ++d) x[d] = qs[r * ROW + d] * scale_log2;
-            float p[PER_THREAD];
+        for (int part = 0; part < PARTS; ++part) {
+            const int c0 = part * 8 * N;
+            float pt[N][4];
+            zero(pt);
+            Op::template scores<N>(pt, ka, qs + cur + c0 * LD);
+            float w[N][4];                     // p keep scale, then ds
 #pragma unroll
-            for (int i = 0; i < PER_THREAD; ++i) {
-                const int j = sub + TPR * i;
-                const float s = dot_row<DH>(x, ks + j * ROW);
-                p[i] = (row_live && kvalid[j]) ? exp2f(s - l2) : 0.f;
-            }
+            for (int nt = 0; nt < N; ++nt)
 #pragma unroll
-            for (int d = 0; d < DH; ++d) x[d] = dos[r * ROW + d];
-            const float dr = drow[r];
+                for (int e = 0; e < 4; ++e) {
+                    const int c = c0 + 8 * nt + 2 * qd + (e & 1);
+                    const float l2 = lse2[c];
+                    const float p = (key_ok[e >> 1] && l2 != -CUDART_INF_F)
+                                        ? exp2f(pt[nt][e] * scale_log2 - l2)
+                                        : 0.f;
+                    pt[nt][e] = p;
+                    w[nt][e] = DROP ? p * keep_at(keep, c, key_local[e >> 1], drop.scale) : p;
+                }
+            Op::template pv<N>(dv_acc, w, dos + cur + c0 * LD);
+
+            zero(w);
+            Op::template scores<N>(w, va, dos + cur + c0 * LD);      // dP^T
 #pragma unroll
-            for (int i = 0; i < PER_THREAD; ++i) {
-                const int j = sub + TPR * i;
-                const float dp = dot_row<DH>(x, vs + j * ROW);
-                float ksc = 1.f;
-                if constexpr (DROP) ksc = keep[r * KEEP_STRIDE + j] ? drop.scale : 0.f;
-                pds[r * S_STRIDE + j] = p[i] * ksc;
-                dss[r * S_STRIDE + j] = p[i] * (dp * ksc - dr);
-            }
+            for (int nt = 0; nt < N; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const int c = c0 + 8 * nt + 2 * qd + (e & 1);
+                    const float dp =
+                        DROP ? w[nt][e] * keep_at(keep, c, key_local[e >> 1], drop.scale)
+                             : w[nt][e];
+                    w[nt][e] = pt[nt][e] * (dp - drow[c]);
+                }
+            Op::template pv<N>(dk_acc, w, qs + cur + c0 * LD);
         }
         __syncthreads();
-
-        // Accumulation phase: dv[kj] += sum_r pd[r, kj] do[r]; dk[kj] += sum_r ds[r, kj] q[r].
-#pragma unroll 4
-        for (int r = 0; r < BLOCK_M; ++r) {
-            const float pd = pds[r * S_STRIDE + kj];
-            const float ds = dss[r * S_STRIDE + kj];
-            const float4* dor = reinterpret_cast<const float4*>(dos + r * ROW);
-            const float4* qr = reinterpret_cast<const float4*>(qs + r * ROW);
-#pragma unroll
-            for (int c = 0; c < CHUNKS; ++c) {
-                fma4(dv_acc[c], pd, dor[4 * c + sub]);
-                fma4(dk_acc[c], ds, qr[4 * c + sub]);
-            }
-        }
     }
+    mmd_tc::cp_async_wait<0>();
 
-    const int s = s0 + kj;
-    if (s < s_len) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+        const int s = s0 + key_local[r];
+        if (s >= s_len) continue;
         const size_t off = (static_cast<size_t>(b) * s_len + s) * d_model + head_off;
 #pragma unroll
-        for (int c = 0; c < CHUNKS; ++c) {
-            const int col = 4 * (4 * c + sub);
-            store_as(dk + off + col + 0, dk_acc[c].x * sm_scale);
-            store_as(dk + off + col + 1, dk_acc[c].y * sm_scale);
-            store_as(dk + off + col + 2, dk_acc[c].z * sm_scale);
-            store_as(dk + off + col + 3, dk_acc[c].w * sm_scale);
-            store_as(dv + off + col + 0, dv_acc[c].x);
-            store_as(dv + off + col + 1, dv_acc[c].y);
-            store_as(dv + off + col + 2, dv_acc[c].z);
-            store_as(dv + off + col + 3, dv_acc[c].w);
+        for (int n = 0; n < DH / 8; ++n) {
+            const int col = 8 * n + 2 * qd;
+            store2(dk + off + col, dk_acc[n][2 * r] * sm_scale, dk_acc[n][2 * r + 1] * sm_scale);
+            store2(dv + off + col, dv_acc[n][2 * r], dv_acc[n][2 * r + 1]);
         }
     }
 }
@@ -282,14 +259,6 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 // ---------------------------------------------------------------------------
 // 3. dq: one CTA per (query tile, head, batch row)
 // ---------------------------------------------------------------------------
-template <int DH>
-struct DqSmem {
-    static constexpr int ROW = DH + 4;
-    static constexpr size_t BYTES =
-        (2 * BLOCK_N * ROW + BLOCK_M * S_STRIDE) * sizeof(float)
-        + BLOCK_N * sizeof(int) + BLOCK_M * KEEP_STRIDE;
-};
-
 template <typename T, int DH, bool DROP>
 __global__ void __launch_bounds__(THREADS)
 dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
@@ -297,95 +266,107 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict_
           const float* __restrict__ lse, const float* __restrict__ delta,
           T* __restrict__ dq, int t_len, int s_len, int num_heads,
           float scale_log2, float sm_scale, mmd_philox::Dropout drop) {
-    constexpr int ROW = DH + 4;
-    constexpr int CHUNKS = DH / 16;
+    using Op = Ops<T, DH>;
+    constexpr int TE = Tile<T, DH>::ELEMS;
     extern __shared__ float4 smem4[];
-    float* ks = reinterpret_cast<float*>(smem4);   // [BLOCK_N][ROW]
-    float* vs = ks + BLOCK_N * ROW;                 // [BLOCK_N][ROW]
-    float* dss = vs + BLOCK_N * ROW;                // [BLOCK_M][S_STRIDE]
-    int* kvalid = reinterpret_cast<int*>(dss + BLOCK_M * S_STRIDE);   // [BLOCK_N]
-    uint8_t* keep = reinterpret_cast<uint8_t*>(kvalid + BLOCK_N);     // [BLOCK_M][KEEP_STRIDE]
+    T* qs = reinterpret_cast<T*>(smem4);     // [BLOCK][LD]
+    T* dos = qs + TE;                         // [BLOCK][LD]
+    T* ks = dos + TE;                         // [2][BLOCK][LD]
+    T* vs = ks + 2 * TE;                      // [2][BLOCK][LD]
+    float* kbias = reinterpret_cast<float*>(vs + 2 * TE);       // [BLOCK]: 0 or -inf
+    uint8_t* keep = reinterpret_cast<uint8_t*>(kbias + BLOCK);  // [BLOCK][KEEP_STRIDE]
 
     const int tid = threadIdx.x;
-    const int r = tid / TPR;
-    const int sub = tid % TPR;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
     const int h = blockIdx.y;
     const int b = blockIdx.z;
-    const int t0 = blockIdx.x * BLOCK_M;
-    const int t = t0 + r;
-    const bool row_ok = t < t_len;
+    const int t0 = blockIdx.x * BLOCK;
     const int d_model = num_heads * DH;
     const size_t head_off = static_cast<size_t>(h) * DH;
+    const T* qb = q + static_cast<size_t>(b) * t_len * d_model + head_off;
+    const T* dob = dout + static_cast<size_t>(b) * t_len * d_model + head_off;
     const T* kb = k + static_cast<size_t>(b) * s_len * d_model + head_off;
     const T* vb = v + static_cast<size_t>(b) * s_len * d_model + head_off;
-    const size_t row_off = (static_cast<size_t>(b) * t_len + t) * d_model + head_off;
-    const size_t stat = (static_cast<size_t>(b) * num_heads + h) * t_len + t;
+    const uint8_t* mb = key_valid ? key_valid + static_cast<size_t>(b) * s_len : nullptr;
+    const int n_tiles = (s_len + BLOCK - 1) / BLOCK;
 
-    // This thread's row of q (pre-scaled into the exp2 domain) and of do.
-    float qr[DH], dor[DH];
+    copy_tile<T, DH>(qs, qb, d_model, t0, t_len);
+    copy_tile<T, DH>(dos, dob, d_model, t0, t_len);
+    copy_tile<T, DH>(ks, kb, d_model, 0, s_len);
+    copy_tile<T, DH>(vs, vb, d_model, 0, s_len);
+    mmd_tc::cp_async_commit();
+
+    // This lane's rows g and g + 8 of the warp's 16: lse (log2) and D.
+    const int row_local[2] = {16 * warp + g, 16 * warp + g + 8};
+    float l2[2], dr[2];
 #pragma unroll
-    for (int d = 0; d < DH; ++d) {
-        qr[d] = row_ok ? to_float(q[row_off + d]) * scale_log2 : 0.f;
-        dor[d] = row_ok ? to_float(dout[row_off + d]) : 0.f;
+    for (int r = 0; r < 2; ++r) {
+        const int t = t0 + row_local[r];
+        const size_t stat = (static_cast<size_t>(b) * num_heads + h) * t_len + t;
+        l2[r] = t < t_len ? lse[stat] * LOG2E : -CUDART_INF_F;
+        dr[r] = t < t_len ? delta[stat] : 0.f;
     }
-    const float l2 = row_ok ? lse[stat] * LOG2E : -CUDART_INF_F;
-    const float dr = row_ok ? delta[stat] : 0.f;
-    const bool row_live = l2 != -CUDART_INF_F;
 
-    float4 acc[CHUNKS];
-#pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    float acc[DH / 8][4];
+    zero(acc);
+    typename Op::A qa, doa;
 
-    for (int s0 = 0; s0 < s_len; s0 += BLOCK_N) {
-        __syncthreads();                     // the previous tile is consumed
-        stage_rows<T, DH>(ks, kb, s0, s_len, d_model, tid);
-        stage_rows<T, DH>(vs, vb, s0, s_len, d_model, tid);
-        if (tid < BLOCK_N) {
+    for (int j = 0; j < n_tiles; ++j) {
+        const int s0 = j * BLOCK;
+        const int cur = (j & 1) * TE;
+        if (j + 1 < n_tiles) {
+            copy_tile<T, DH>(ks + (TE - cur), kb, d_model, s0 + BLOCK, s_len);
+            copy_tile<T, DH>(vs + (TE - cur), vb, d_model, s0 + BLOCK, s_len);
+        }
+        mmd_tc::cp_async_commit();
+        if (tid < BLOCK) {
             const int s = s0 + tid;
-            kvalid[tid] = (s < s_len) &&
-                          (key_valid == nullptr || key_valid[static_cast<size_t>(b) * s_len + s] != 0);
+            kbias[tid] = (s < s_len && (mb == nullptr || mb[s] != 0)) ? 0.f : -CUDART_INF_F;
         }
         if constexpr (DROP) {
-            mmd_philox::fill_keep_tile<BLOCK_M, BLOCK_N, KEEP_STRIDE>(
+            mmd_philox::fill_keep_tile<BLOCK, BLOCK, KEEP_STRIDE>(
                 keep, tid, THREADS, b, h, num_heads, t0, t_len, s0, s_len, drop);
         }
+        mmd_tc::cp_async_wait<1>();
         __syncthreads();
-
-#pragma unroll
-        for (int i = 0; i < PER_THREAD; ++i) {
-            const int j = sub + TPR * i;
-            const float s = dot_row<DH>(qr, ks + j * ROW);
-            const float p = (row_live && kvalid[j]) ? exp2f(s - l2) : 0.f;
-            const float dp = dot_row<DH>(dor, vs + j * ROW);
-            float ksc = 1.f;
-            if constexpr (DROP) ksc = keep[r * KEEP_STRIDE + j] ? drop.scale : 0.f;
-            dss[r * S_STRIDE + j] = p * (dp * ksc - dr);
+        if (j == 0) {
+            Op::load_a(qa, qs, 16 * warp);
+            Op::load_a(doa, dos, 16 * warp);
         }
-        __syncwarp();                        // the row's ds was written by this warp
 
-        const float4* dsr = reinterpret_cast<const float4*>(dss + r * S_STRIDE);
-#pragma unroll 4
-        for (int j4 = 0; j4 < BLOCK_N / 4; ++j4) {
-            const float4 d4 = dsr[j4];
-            const float dsj[4] = {d4.x, d4.y, d4.z, d4.w};
+        float s[NT][4], dp[NT][4];
+        zero(s);
+        zero(dp);
+        Op::template scores<NT>(s, qa, ks + cur);
+        Op::template scores<NT>(dp, doa, vs + cur);
 #pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-                const float4* kr = reinterpret_cast<const float4*>(ks + (4 * j4 + jj) * ROW);
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-                for (int c = 0; c < CHUNKS; ++c) fma4(acc[c], dsj[jj], kr[4 * c + sub]);
+            for (int e = 0; e < 4; ++e) {
+                const int r = e >> 1;
+                const int c = 8 * nt + 2 * qd + (e & 1);
+                // kbias is -inf for a masked key; l2 is -inf for a row with
+                // no valid key: either way the weight is exactly 0
+                const float p = (kbias[c] == 0.f && l2[r] != -CUDART_INF_F)
+                                    ? exp2f(s[nt][e] * scale_log2 - l2[r])
+                                    : 0.f;
+                const float d = DROP ? dp[nt][e] * keep_at(keep, row_local[r], c, drop.scale)
+                                     : dp[nt][e];
+                s[nt][e] = p * (d - dr[r]);
             }
-        }
+        Op::template pv<NT>(acc, s, ks + cur);
+        __syncthreads();
     }
+    mmd_tc::cp_async_wait<0>();
 
-    if (row_ok) {
 #pragma unroll
-        for (int c = 0; c < CHUNKS; ++c) {
-            T* dst = dq + row_off + 4 * (4 * c + sub);
-            store_as(dst + 0, acc[c].x * sm_scale);
-            store_as(dst + 1, acc[c].y * sm_scale);
-            store_as(dst + 2, acc[c].z * sm_scale);
-            store_as(dst + 3, acc[c].w * sm_scale);
-        }
+    for (int r = 0; r < 2; ++r) {
+        const int t = t0 + row_local[r];
+        if (t >= t_len) continue;
+        T* dst = dq + (static_cast<size_t>(b) * t_len + t) * d_model + head_off;
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n)
+            store2(dst + 8 * n + 2 * qd, acc[n][2 * r] * sm_scale, acc[n][2 * r + 1] * sm_scale);
     }
 }
 
@@ -408,31 +389,30 @@ cudaError_t launch(const Args& a, const mmd_philox::Dropout& drop, cudaStream_t 
     float* delta = static_cast<float*>(a.delta);
 
     const int64_t rows = static_cast<int64_t>(a.batch) * a.t_len * a.num_heads;
-    rowdot_kernel<T, DH><<<static_cast<unsigned>((rows + THREADS - 1) / THREADS), THREADS, 0,
-                           stream>>>(static_cast<const T*>(a.o), dout, delta, a.batch, a.t_len,
-                                     a.num_heads);
+    rowdot_kernel<T, DH><<<static_cast<unsigned>((rows + ROWDOT_THREADS - 1) / ROWDOT_THREADS),
+                           ROWDOT_THREADS, 0, stream>>>(static_cast<const T*>(a.o), dout, delta,
+                                                        a.batch, a.t_len, a.num_heads);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
-    const size_t dkdv_smem = DkdvSmem<DH>::BYTES;
+    constexpr size_t smem = smem_bytes<T, DH>(DROP);
     err = cudaFuncSetAttribute(dkdv_kernel<T, DH, DROP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dkdv_smem));
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    const dim3 kgrid((a.s_len + BLOCK_N - 1) / BLOCK_N, a.num_heads, a.batch);
-    dkdv_kernel<T, DH, DROP><<<kgrid, THREADS, dkdv_smem, stream>>>(
+    const dim3 kgrid((a.s_len + BLOCK - 1) / BLOCK, a.num_heads, a.batch);
+    dkdv_kernel<T, DH, DROP><<<kgrid, THREADS, smem, stream>>>(
         q, k, v, kv, dout, lse, delta, static_cast<T*>(a.dk), static_cast<T*>(a.dv),
         a.t_len, a.s_len, a.num_heads, scale_log2, sm_scale, drop);
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
-    const size_t dq_smem = DqSmem<DH>::BYTES;
     err = cudaFuncSetAttribute(dq_kernel<T, DH, DROP>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(dq_smem));
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
-    const dim3 qgrid((a.t_len + BLOCK_M - 1) / BLOCK_M, a.num_heads, a.batch);
-    dq_kernel<T, DH, DROP><<<qgrid, THREADS, dq_smem, stream>>>(
+    const dim3 qgrid((a.t_len + BLOCK - 1) / BLOCK, a.num_heads, a.batch);
+    dq_kernel<T, DH, DROP><<<qgrid, THREADS, smem, stream>>>(
         q, k, v, kv, dout, lse, delta, static_cast<T*>(a.dq), a.t_len, a.s_len,
         a.num_heads, scale_log2, sm_scale, drop);
     return cudaGetLastError();
@@ -447,12 +427,12 @@ cudaError_t launch_rate(const Args& a, const mmd_philox::Dropout& drop, int drop
 }  // namespace
 
 // C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16 for
-// q, k, v, o, do and the outputs dq, dk, dv; lse is (B, H, T) fp32 natural
-// log; delta is a (B, H, T) fp32 scratch. key_valid is a (B, S) uint8 array
-// (nonzero = valid key) or NULL. dropout: 0 = none, 1 = regenerate the
-// forward's attention-dropout mask from (seed, threshold) and scale kept
-// weights by drop_scale. Returns the cudaError_t of the launches (0 on
-// success).
+// q, k, v, o, do and the outputs dq, dk, dv (all 16-byte aligned); lse is
+// (B, H, T) fp32 natural log; delta is a (B, H, T) fp32 scratch. key_valid
+// is a (B, S) uint8 array (nonzero = valid key) or NULL. dropout: 0 = none,
+// 1 = regenerate the forward's attention-dropout mask from (seed,
+// threshold) and scale kept weights by drop_scale. Returns the cudaError_t
+// of the launches (0 on success).
 extern "C" int mmd_flash_attn_bwd(const void* q, const void* k, const void* v,
                                   const void* key_valid, const void* o, const void* dout,
                                   const void* lse, void* delta, void* dq, void* dk, void* dv,

@@ -53,10 +53,11 @@
 // tile read zeros and contribute nothing).
 
 #include "mlp_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-using mmd_mlp::bf16;
+using mmd_tc::bf16;
 using mmd_mlp::Mask;
 
 constexpr int THREADS = 256;
@@ -118,17 +119,17 @@ __device__ __forceinline__ void hidden_products(float (&a)[NT][4], float (&dh)[N
 #pragma unroll 4
     for (int k0 = 0; k0 < D; k0 += 16) {
         uint32_t ax[4], ad[4];
-        mmd_mlp::load_a(ax, xs, ldx, m0, k0);
-        mmd_mlp::load_a(ad, dys, ldx, m0, k0);
+        mmd_tc::load_a(ax, xs, ldx, m0, k0);
+        mmd_tc::load_a(ad, dys, ldx, m0, k0);
 #pragma unroll
         for (int j = 0; j < NT / 2; ++j) {
             uint32_t b[4];
-            mmd_mlp::load_b_t(b, w1s, ldw1, k0, n0 + 16 * j);
-            mmd_mlp::mma(a[2 * j], ax, b[0], b[1]);
-            mmd_mlp::mma(a[2 * j + 1], ax, b[2], b[3]);
-            mmd_mlp::load_b(b, w2s, ldx, k0, n0 + 16 * j);
-            mmd_mlp::mma(dh[2 * j], ad, b[0], b[1]);
-            mmd_mlp::mma(dh[2 * j + 1], ad, b[2], b[3]);
+            mmd_tc::load_b_t(b, w1s, ldw1, k0, n0 + 16 * j);
+            mmd_tc::mma(a[2 * j], ax, b[0], b[1]);
+            mmd_tc::mma(a[2 * j + 1], ax, b[2], b[3]);
+            mmd_tc::load_b(b, w2s, ldx, k0, n0 + 16 * j);
+            mmd_tc::mma(dh[2 * j], ad, b[0], b[1]);
+            mmd_tc::mma(dh[2 * j + 1], ad, b[2], b[3]);
         }
     }
 }
@@ -175,7 +176,7 @@ mlp_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 
     uint8_t* keep2 = smem + S::DA;
     mmd_mlp::fill_keep<BM, D>(keep2, m2, row0, D, 0);
-    mmd_mlp::load_tile(xs, LDX, x + row0 * D, D, BM, D, valid);
+    mmd_tc::load_tile(xs, LDX, x + row0 * D, D, BM, D, valid);
     __syncthreads();
     float unused[8] = {};
     load_dy<D>(dys, LDX, dy, dyb, row0, valid, keep2, m2, unused);
@@ -190,10 +191,10 @@ mlp_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 
     for (int c0 = 0; c0 < f; c0 += FCA) {
         __syncthreads();                        // the last chunk's readers are done
-        mmd_mlp::load_tile(w1s, LDA, w1 + c0, f, D, FCA, D);
-        mmd_mlp::load_tile(w2s, LDX, w2 + static_cast<int64_t>(c0) * D, D, FCA, D, FCA);
+        mmd_tc::load_tile(w1s, LDA, w1 + c0, f, D, FCA, D);
+        mmd_tc::load_tile(w2s, LDX, w2 + static_cast<int64_t>(c0) * D, D, FCA, D, FCA);
         mmd_mlp::fill_keep<BM, FCA>(keep, m1, row0, f, c0);
-        mmd_mlp::cp_async_wait_all();
+        mmd_tc::cp_async_wait_all();
         __syncthreads();
 
         float a[4][4], dh[4][4];
@@ -211,7 +212,7 @@ mlp_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                 const float d1 = dh[j][2 * half + 1] *
                                  mmd_mlp::keep_scale<FCA>(keep, m1, r, col + 1) *
                                  mmd_mlp::gelu_tanh_grad(a[j][2 * half + 1] + bias1);
-                mmd_mlp::store_bf16x2(das + r * LDA + col, d0, d1);
+                mmd_tc::store_bf16x2(das + r * LDA + col, d0, d1);
             }
         }
         __syncthreads();
@@ -220,16 +221,16 @@ mlp_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll
         for (int k0 = 0; k0 < FCA; k0 += 16) {
             uint32_t av[2][4];
-            mmd_mlp::load_a(av[0], das, LDA, xm, k0);
-            mmd_mlp::load_a(av[1], das, LDA, xm + 16, k0);
+            mmd_tc::load_a(av[0], das, LDA, xm, k0);
+            mmd_tc::load_a(av[1], das, LDA, xm + 16, k0);
 #pragma unroll
             for (int j = 0; j < XN / 2; ++j) {
                 uint32_t b[4];
-                mmd_mlp::load_b(b, w1s, LDA, k0, xn + 16 * j);
+                mmd_tc::load_b(b, w1s, LDA, k0, xn + 16 * j);
 #pragma unroll
                 for (int i = 0; i < 2; ++i) {
-                    mmd_mlp::mma(acc[i][2 * j], av[i], b[0], b[1]);
-                    mmd_mlp::mma(acc[i][2 * j + 1], av[i], b[2], b[3]);
+                    mmd_tc::mma(acc[i][2 * j], av[i], b[0], b[1]);
+                    mmd_tc::mma(acc[i][2 * j + 1], av[i], b[2], b[3]);
                 }
             }
         }
@@ -244,7 +245,7 @@ mlp_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
             for (int half = 0; half < 2; ++half) {
                 const int r = xm + 16 * i + g + 8 * half;
                 if (r < valid) {
-                    mmd_mlp::store_bf16x2(dx + (row0 + r) * D + col, acc[i][j][2 * half],
+                    mmd_tc::store_bf16x2(dx + (row0 + r) * D + col, acc[i][j][2 * half],
                                           acc[i][j][2 * half + 1]);
                 }
             }
@@ -303,8 +304,8 @@ mlp_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     const int w2m = (warp & 1) * 16, w2n = (warp >> 1) * (D / 4);   // of dW2 (FCB x D)
     const int w1m = warp * (D / 8);                             // of dW1 (D x FCB)
 
-    mmd_mlp::load_tile(w1s, LDB, w1 + c0, f, D, FCB, D);
-    mmd_mlp::load_tile(w2s, LDX, w2 + static_cast<int64_t>(c0) * D, D, FCB, D, FCB);
+    mmd_tc::load_tile(w1s, LDB, w1 + c0, f, D, FCB, D);
+    mmd_tc::load_tile(w2s, LDX, w2 + static_cast<int64_t>(c0) * D, D, FCB, D, FCB);
 
     float dw2[W2N][4], dw1[W1M][4][4];
 #pragma unroll
@@ -326,14 +327,14 @@ mlp_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     for (int64_t row0 = first; row0 < last; row0 += BM) {
         const int64_t valid = last - row0;
         __syncthreads();                        // the last tile's readers are done
-        mmd_mlp::load_tile(xs, LDX, x + row0 * D, D, BM, D, valid);
+        mmd_tc::load_tile(xs, LDX, x + row0 * D, D, BM, D, valid);
         if (first_chunk) {
             mmd_mlp::fill_keep<BM, D>(keep2, m2, row0, D, 0);
         } else {
-            mmd_mlp::load_tile(dys, LDX, dyb + row0 * D, D, BM, D, valid);
+            mmd_tc::load_tile(dys, LDX, dyb + row0 * D, D, BM, D, valid);
         }
         mmd_mlp::fill_keep<BM, FCB>(keep, m1, row0, f, c0);
-        mmd_mlp::cp_async_wait_all();
+        mmd_tc::cp_async_wait_all();
         __syncthreads();
         if (first_chunk) {
             load_dy<D>(dys, LDX, dy, nullptr, row0, valid, keep2, m2, db2);
@@ -360,8 +361,8 @@ mlp_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                     dv[e] = dh[j][2 * half + e] * k * mmd_mlp::gelu_tanh_grad(av);
                     colda[j][e] += dv[e];       // zero on rows past the end: dy is 0
                 }
-                mmd_mlp::store_bf16x2(hs + r * LDB + col, hv[0], hv[1]);
-                mmd_mlp::store_bf16x2(das + r * LDB + col, dv[0], dv[1]);
+                mmd_tc::store_bf16x2(hs + r * LDB + col, hv[0], hv[1]);
+                mmd_tc::store_bf16x2(das + r * LDB + col, dv[0], dv[1]);
             }
         }
         // db1: sum the warp's 16 rows over the lanes of one column, then
@@ -386,29 +387,29 @@ mlp_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll
         for (int k0 = 0; k0 < BM; k0 += 16) {
             uint32_t ah[4];
-            mmd_mlp::load_a_t(ah, hs, LDB, w2m, k0);
+            mmd_tc::load_a_t(ah, hs, LDB, w2m, k0);
 #pragma unroll
             for (int j = 0; j < W2N / 2; ++j) {
                 uint32_t b[4];
-                mmd_mlp::load_b_t(b, dys, LDX, k0, w2n + 16 * j);
-                mmd_mlp::mma(dw2[2 * j], ah, b[0], b[1]);
-                mmd_mlp::mma(dw2[2 * j + 1], ah, b[2], b[3]);
+                mmd_tc::load_b_t(b, dys, LDX, k0, w2n + 16 * j);
+                mmd_tc::mma(dw2[2 * j], ah, b[0], b[1]);
+                mmd_tc::mma(dw2[2 * j + 1], ah, b[2], b[3]);
             }
         }
         // dW1[:, chunk] += x^T dab: A[m = d][k = r] = xs[r][d], B[k = r][n = f] = das[r][f]
 #pragma unroll
         for (int k0 = 0; k0 < BM; k0 += 16) {
             uint32_t b[2][4];
-            mmd_mlp::load_b_t(b[0], das, LDB, k0, 0);
-            mmd_mlp::load_b_t(b[1], das, LDB, k0, 16);
+            mmd_tc::load_b_t(b[0], das, LDB, k0, 0);
+            mmd_tc::load_b_t(b[1], das, LDB, k0, 16);
 #pragma unroll
             for (int i = 0; i < W1M; ++i) {
                 uint32_t ax[4];
-                mmd_mlp::load_a_t(ax, xs, LDX, w1m + 16 * i, k0);
+                mmd_tc::load_a_t(ax, xs, LDX, w1m + 16 * i, k0);
 #pragma unroll
                 for (int j = 0; j < 2; ++j) {
-                    mmd_mlp::mma(dw1[i][2 * j], ax, b[j][0], b[j][1]);
-                    mmd_mlp::mma(dw1[i][2 * j + 1], ax, b[j][2], b[j][3]);
+                    mmd_tc::mma(dw1[i][2 * j], ax, b[j][0], b[j][1]);
+                    mmd_tc::mma(dw1[i][2 * j + 1], ax, b[j][2], b[j][3]);
                 }
             }
         }

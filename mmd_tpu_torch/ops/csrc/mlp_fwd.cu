@@ -37,10 +37,11 @@
 // or 256; F a multiple of 128.
 
 #include "mlp_common.cuh"
+#include "tensor_core.cuh"
 
 namespace {
 
-using mmd_mlp::bf16;
+using mmd_tc::bf16;
 using mmd_mlp::Mask;
 
 constexpr int THREADS = 256;
@@ -86,7 +87,7 @@ mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     const int hm = (warp & 3) * 16, hn = (warp >> 2) * 32;
     const int ym = (warp & 1) * 32, yn = (warp >> 1) * (D / 4);
 
-    mmd_mlp::load_tile(xs, LDX, x + row0 * D, D, BM, D, valid);
+    mmd_tc::load_tile(xs, LDX, x + row0 * D, D, BM, D, valid);
     float acc[2][YN][4];
 #pragma unroll
     for (int i = 0; i < 2; ++i)
@@ -97,10 +98,10 @@ mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 
     for (int c0 = 0; c0 < f; c0 += FC) {
         __syncthreads();                        // the last chunk's readers are done
-        mmd_mlp::load_tile(w1s, LDH, w1 + c0, f, D, FC, D);
-        mmd_mlp::load_tile(w2s, LDX, w2 + static_cast<int64_t>(c0) * D, D, FC, D, FC);
+        mmd_tc::load_tile(w1s, LDH, w1 + c0, f, D, FC, D);
+        mmd_tc::load_tile(w2s, LDX, w2 + static_cast<int64_t>(c0) * D, D, FC, D, FC);
         mmd_mlp::fill_keep<BM, FC>(keep, m1, row0, f, c0);
-        mmd_mlp::cp_async_wait_all();
+        mmd_tc::cp_async_wait_all();
         __syncthreads();
 
         // a = x w1[:, chunk] for this warp's 16 x 32 block
@@ -112,13 +113,13 @@ mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll 4
         for (int k0 = 0; k0 < D; k0 += 16) {
             uint32_t a[4];
-            mmd_mlp::load_a(a, xs, LDX, hm, k0);
+            mmd_tc::load_a(a, xs, LDX, hm, k0);
 #pragma unroll
             for (int j = 0; j < 2; ++j) {
                 uint32_t b[4];
-                mmd_mlp::load_b_t(b, w1s, LDH, k0, hn + 16 * j);
-                mmd_mlp::mma(h[2 * j], a, b[0], b[1]);
-                mmd_mlp::mma(h[2 * j + 1], a, b[2], b[3]);
+                mmd_tc::load_b_t(b, w1s, LDH, k0, hn + 16 * j);
+                mmd_tc::mma(h[2 * j], a, b[0], b[1]);
+                mmd_tc::mma(h[2 * j + 1], a, b[2], b[3]);
             }
         }
         // + b1, GELU, hidden dropout, bf16 -> hs
@@ -133,7 +134,7 @@ mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                                  mmd_mlp::keep_scale<FC>(keep, m1, r, col);
                 const float v1 = mmd_mlp::gelu_tanh(h[j][2 * half + 1] + bias1) *
                                  mmd_mlp::keep_scale<FC>(keep, m1, r, col + 1);
-                mmd_mlp::store_bf16x2(hs + r * LDH + col, v0, v1);
+                mmd_tc::store_bf16x2(hs + r * LDH + col, v0, v1);
             }
         }
         __syncthreads();
@@ -142,16 +143,16 @@ mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
 #pragma unroll
         for (int k0 = 0; k0 < FC; k0 += 16) {
             uint32_t a[2][4];
-            mmd_mlp::load_a(a[0], hs, LDH, ym, k0);
-            mmd_mlp::load_a(a[1], hs, LDH, ym + 16, k0);
+            mmd_tc::load_a(a[0], hs, LDH, ym, k0);
+            mmd_tc::load_a(a[1], hs, LDH, ym + 16, k0);
 #pragma unroll
             for (int j = 0; j < YN / 2; ++j) {
                 uint32_t b[4];
-                mmd_mlp::load_b_t(b, w2s, LDX, k0, yn + 16 * j);
+                mmd_tc::load_b_t(b, w2s, LDX, k0, yn + 16 * j);
 #pragma unroll
                 for (int i = 0; i < 2; ++i) {
-                    mmd_mlp::mma(acc[i][2 * j], a[i], b[0], b[1]);
-                    mmd_mlp::mma(acc[i][2 * j + 1], a[i], b[2], b[3]);
+                    mmd_tc::mma(acc[i][2 * j], a[i], b[0], b[1]);
+                    mmd_tc::mma(acc[i][2 * j + 1], a[i], b[2], b[3]);
                 }
             }
         }
@@ -176,7 +177,7 @@ mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
                                  mmd_mlp::keep_scale<D>(keep2, m2, r, col);
                 const float v1 = (acc[i][j][2 * half + 1] + bias1) *
                                  mmd_mlp::keep_scale<D>(keep2, m2, r, col + 1);
-                mmd_mlp::store_bf16x2(y + (row0 + r) * D + col, v0, v1);
+                mmd_tc::store_bf16x2(y + (row0 + r) * D + col, v0, v1);
             }
         }
 }

@@ -52,7 +52,7 @@ _K = 0.044715
 WIDTHS = (128, 256)          # the D the kernels are built for
 _ROWS = 64                    # rows a tile in the backward kernel
 _MAX_GROUPS = 16              # row groups of the backward's weight pass
-_HEADERS = ["mlp_common.cuh", "philox.cuh"]
+_HEADERS = ["mlp_common.cuh", "philox.cuh", "tensor_core.cuh"]
 
 
 def gelu_tanh(a: torch.Tensor) -> torch.Tensor:

@@ -37,10 +37,11 @@ from mmd_tpu_torch.ops import swin_attention as SA
 pytestmark = pytest.mark.cuda
 
 B = 4
-# (T, S, D, H, masked): text, ViT, fusion self and cross, ragged
+# (T, S, D, H, masked): text, ViT, fusion self and cross, ragged (S not a
+# multiple of the kernels' 64-key tile) at dh 64 and dh 32
 GEOMETRIES = [(512, 512, 384, 6, True), (64, 64, 1024, 16, False),
               (512, 64, 256, 8, False), (64, 512, 256, 8, False),
-              (100, 130, 128, 2, True)]
+              (100, 130, 128, 2, True), (77, 50, 64, 2, False)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -230,8 +231,13 @@ def test_deberta_kernel_matches_plain(cuda_device, dtype, t, d, heads):
 
 def test_new_kernels_refuse_what_they_do_not_take(cuda_device):
     ln = torch.nn.LayerNorm(2048).to(cuda_device)
+    y = torch.zeros(8, 2048, device=cuda_device)
     with pytest.raises(ValueError, match="multiple of 128"):
-        LN.fused_layernorm(ln, torch.zeros(8, 2048, device=cuda_device))
+        LN._layernorm_cuda(ln.weight, ln.bias, y, 1e-5, None)
+    # the routing rule (fused_ln_ok) keeps such a width off the kernel
+    before = LN.launches
+    LN.fused_layernorm(ln, y)
+    assert LN.launches == before
     q = torch.zeros(1, 1, 16, 128, device=cuda_device)
     with pytest.raises(ValueError, match="64 tokens"):
         SA.swin_window_attention_infer(
@@ -367,6 +373,22 @@ def test_flash_bwd_matches_plain(cuda_device, rate, dtype, t, s, d, h,
         assert _rel_err(g, w) <= tol
     if masked:                             # the row with no valid key
         assert torch.all(got[0][-1] == 0)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_bwd_is_deterministic(cuda_device, rate, dtype):
+    """Two backward calls on the same inputs give bit-identical dq, dk and
+    dv: the kernels sum in a fixed order (two passes, no atomics)."""
+    q, k, v, mask = _inputs(cuda_device, 100, 130, 128, True)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    o, lse = A.flash_attention(q, k, v, 2, mask, rate, 5)
+    do = torch.randn(q.shape, device=cuda_device).to(dtype)
+    first = A.flash_attention_bwd(q, k, v, o, lse, do, 2, mask, rate, 5)
+    second = A.flash_attention_bwd(q, k, v, o, lse, do, 2, mask, rate, 5)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_flash_bwd_refuses_what_it_does_not_take(cuda_device):

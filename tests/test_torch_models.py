@@ -24,6 +24,7 @@ from mmd_tpu.core.config import ModelConfig as JModelConfig
 from mmd_tpu.models import fusion as jfusion
 from mmd_tpu.models import layers as jL
 from mmd_tpu.models import text_encoder as jte
+from mmd_tpu.models import transformer as jtr
 from mmd_tpu.models import vit as jvit
 from mmd_tpu.models.transformer import TransformerConfig as JTransformerConfig
 from mmd_tpu_torch import bridge
@@ -31,6 +32,7 @@ from mmd_tpu_torch.core.config import ModelConfig
 from mmd_tpu_torch.models import fusion as tfusion
 from mmd_tpu_torch.models import layers as tL
 from mmd_tpu_torch.models import text_encoder as tte
+from mmd_tpu_torch.models import transformer as ttr
 from mmd_tpu_torch.models import vit as tvit
 from mmd_tpu_torch.models.transformer import TransformerConfig
 
@@ -147,6 +149,33 @@ def test_text_encoder_matches(text_params, fused):
                                torch.from_numpy(mask)).numpy()
     np.testing.assert_allclose(
         pooled, np.asarray(jte.mean_pool(jnp.asarray(want), mask)), **TOL)
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_text_encoder_clamps_positions_past_the_table(text_params, fused):
+    """T = max_position + 8: the positions past the table take its last row
+    in both packages (JAX's gather clamps), through embed and the encoder."""
+    cfg = dataclasses.replace(TEXT_CFG, fused_attn=fused)
+    t = cfg.max_position + 8
+    rng = np.random.default_rng(9)
+    ids = rng.integers(0, cfg.vocab_size, (2, t)).astype(np.int32)
+    mask = np.ones((2, t), np.int32)
+    mask[1, t - 5:] = 0
+    pcfg = _port(cfg, TransformerConfig)
+    params = bridge.text_encoder_from_jax(text_params, pcfg)
+    with torch.no_grad():
+        got_e = ttr.embed(params["embeddings"], pcfg,
+                          torch.from_numpy(ids).long()).numpy()
+        got = tte.encode(params, pcfg, torch.from_numpy(ids).long(),
+                         torch.from_numpy(mask)).numpy()
+    jparams = jax.tree_util.tree_map(jnp.asarray, text_params)  # jnp gathers
+    want_e = np.asarray(jtr.embed(jparams["embeddings"], cfg,
+                                  jnp.asarray(ids)))
+    want = np.asarray(jte.encode(jparams, cfg, jnp.asarray(ids),
+                                 jnp.asarray(mask)))
+    assert got.shape == (2, t, cfg.hidden_size)
+    np.testing.assert_allclose(got_e, want_e, **TOL)
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 @pytest.mark.parametrize("fused", [True, False])

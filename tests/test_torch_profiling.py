@@ -1,10 +1,14 @@
 """mmd_tpu_torch/profiling.py's reduction of a torch.profiler window, on
-made-up events (the profilers themselves need a card)."""
+made-up events, and profile_kernels.py's reading of ptxas output (the
+profilers themselves need a card, the ptxas report nvcc)."""
 
 from collections import namedtuple
 
+import pytest
+import torch
 from torch.autograd import DeviceType
 
+from mmd_tpu_torch import profile_kernels
 from mmd_tpu_torch.profiling import device_summary
 
 Evt = namedtuple("Evt", "key device_type device_time_total count")
@@ -32,3 +36,31 @@ def test_device_summary_names_groups_and_idle_share():
     s = device_summary(events, 10.0, kernels)
     assert s["device_ms_by_group"] == {"flash_attn_fwd": 3.0, "matmul": 1.0,
                                        "copies": 0.5, "other": 0.5}
+
+
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_Z4dkdvILi64EEvv' for 'sm_90a'
+ptxas info    : Function properties for _Z4dkdvILi64EEvv
+    16 bytes stack frame, 12 bytes spill stores, 20 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers, 16 bytes cumulative stack size
+ptxas info    : Compiling entry function '_Z6rowdotv' for 'sm_90a'
+ptxas info    : Function properties for _Z6rowdotv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 30 registers, used 0 barriers
+"""
+
+
+def test_parse_ptxas_reads_registers_and_spills():
+    assert profile_kernels.parse_ptxas(PTXAS_LOG) == [
+        {"kernel": "_Z4dkdvILi64EEvv", "stack": 16, "spill_stores": 12,
+         "spill_loads": 20, "registers": 168},
+        {"kernel": "_Z6rowdotv", "stack": 0, "spill_stores": 0,
+         "spill_loads": 0, "registers": 30}]
+
+
+def test_flash_calls_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only without a CUDA device")
+    with pytest.raises(SystemExit, match="CUDA device"):
+        profile_kernels.main(["flash_calls"])
