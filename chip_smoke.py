@@ -47,8 +47,10 @@ Phases, each of which exits nonzero on failure:
                              key: dq, dk, dv, dPK, dPQ, fp32 and bf16
      * swin_attn_train_fwd,  Swinv2 window attention for fine-tuning,
        swin_attn_train_bwd   forward and backward (dq, dk, dv, dbias) at the
-                             four Swinv2-base stage geometries, B 8, fp32
-                             and bf16
+                             four Swinv2-base stage geometries, B 8, and
+                             three at B 7 (one with head dim 64), fp32 and
+                             bf16, the forward twice bit for bit; per stage
+                             the forward's and SDPA's us a call
   4. serve            full-width serving with the BERT-class text encoder
                       (512 tokens) and the ViT, ModelConfig(fused_attn=True),
                       bf16, batch 16: a ServingEngine answers requests from
@@ -245,6 +247,9 @@ FT_DEBERTA = dict(b=8, t=256, d=384, h=6, per_step=24)
 # blocks of the stage x 2 images
 FT_SWIN_GEOMS = {(64, 128, 4): 4, (16, 256, 8): 4, (4, 512, 16): 36,
                  (1, 1024, 32): 4}
+# (nW, C, heads) checked at B 7 (prime): stage 0 (one row a CTA), 512
+# (window, head) pairs (one CTA walks all seven rows), head dim 64
+FT_SWIN_CHECK_B7 = [(64, 128, 4), (64, 256, 8), (16, 256, 4)]
 FT_PER_STEP = {"deberta_attn_fwd": 24, "deberta_attn_bwd": 24,
                "swin_attn_train_fwd": 48, "swin_attn_train_bwd": 48,
                "flash_attn_fwd": 8, "flash_attn_bwd": 8, "mlp_fwd": 6,
@@ -1143,52 +1148,72 @@ def phase_deberta_bwd(card: str) -> dict:
     return rec
 
 
+def _swin_train_inputs(gen, nw: int, b: int, c: int, h: int):
+    """q', k, v, do (fp32) and the log2-domain bias of one window attention
+    of the fine-tuning path."""
+    dev, n, dh, log2e = torch.device("cuda"), 64, c // h, 1.4426950408889634
+
+    def unit(x):
+        x = x.reshape(nw, b, n, h, dh)
+        return (x / x.norm(dim=-1, keepdim=True)).reshape(nw, b, n, c)
+
+    # q' as the model makes it: normalized, times a logit scale of 10 and
+    # log2(e); k normalized; the bias a position bias in (0, 16) plus twice
+    # a -100 region mask in the shifted stages, log2 domain
+    q32 = unit(torch.randn(nw, b, n, c, device=dev, generator=gen)
+               ) * (10 * log2e)
+    k32 = unit(torch.randn(nw, b, n, c, device=dev, generator=gen))
+    v32, do32 = (torch.randn(nw, b, n, c, device=dev, generator=gen)
+                 for _ in range(2))
+    bias = 16 * torch.rand(nw, h, n, n, device=dev, generator=gen)
+    if nw > 1:
+        bias = bias - 200.0 * (torch.rand(nw, 1, n, n, device=dev,
+                                          generator=gen) < 0.3)
+    return q32, k32, v32, do32, (bias * log2e).contiguous()
+
+
+def _check_swin_train(SA, gen, nw, b, c, h, errs):
+    """#8 and #9 against their plain versions at one geometry, both dtypes,
+    the forward twice and bit-identical; returns the fp32 inputs."""
+    q32, k32, v32, do32, bias = _swin_train_inputs(gen, nw, b, c, h)
+    what = f"nW={nw} B={b} C={c} h={h}"
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
+        o = SA.swin_window_attention_fwd(q, k, v, bias, h)
+        got = SA.swin_window_attention_bwd(q, k, v, bias, do, h)
+        again = SA.swin_window_attention_fwd(q, k, v, bias, h)
+        torch.cuda.synchronize()
+        if not torch.equal(o, again):
+            fail(f"swin_attn_train_fwd: two calls differ, {what} {dtype}")
+        ref = SA.swin_window_attention_plain(q.float(), k.float(),
+                                             v.float(), bias, h)
+        errs["fwd"].append(_check_grads(
+            "swin_attn_train_fwd", f"{what} {dtype}", {"o": o}, [ref],
+            (dtype,)))
+        want = SA.swin_window_attention_bwd_plain(
+            q.float(), k.float(), v.float(), bias, do.float(), h)
+        errs["bwd"].append(_check_grads(
+            "swin_attn_train_bwd", f"{what} {dtype}",
+            dict(zip(("dq", "dk", "dv", "dbias"), got)), want,
+            (dtype,) * 3 + (torch.float32,)))
+    return q32, k32, v32, do32, bias
+
+
 def phase_swin_train(card: str) -> dict:
     from mmd_tpu_torch.ops import swin_attention as SA
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(8)
-    b, n, log2e = FT_DEBERTA["b"], 64, 1.4426950408889634
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    b, n = FT_DEBERTA["b"], 64
     errs = {"fwd": [], "bwd": []}
     rows = {"fwd": [], "bwd": []}
     lib_note = None
-    for (nw, c, h), count in FT_SWIN_GEOMS.items():
+    for nw, c, h in FT_SWIN_CHECK_B7:
+        _check_swin_train(SA, gen, nw, 7, c, h, errs)
+    for stage, ((nw, c, h), count) in enumerate(FT_SWIN_GEOMS.items()):
         dh = c // h
-
-        def unit(x):
-            x = x.reshape(nw, b, n, h, dh)
-            return (x / x.norm(dim=-1, keepdim=True)).reshape(nw, b, n, c)
-
-        # q' as the model makes it: normalized, times a logit scale of 10
-        # and log2(e); k normalized; the bias a position bias in (0, 16)
-        # plus twice a -100 region mask in the shifted stages, log2 domain
-        q32 = unit(torch.randn(nw, b, n, c, device=dev, generator=gen)
-                   ) * (10 * log2e)
-        k32 = unit(torch.randn(nw, b, n, c, device=dev, generator=gen))
-        v32, do32 = (torch.randn(nw, b, n, c, device=dev, generator=gen)
-                     for _ in range(2))
-        bias = 16 * torch.rand(nw, h, n, n, device=dev, generator=gen)
-        if nw > 1:
-            bias = bias - 200.0 * (torch.rand(nw, 1, n, n, device=dev,
-                                              generator=gen) < 0.3)
-        bias = (bias * log2e).contiguous()
         what = f"nW={nw} B={b} C={c} h={h}"
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
-            o = SA.swin_window_attention_fwd(q, k, v, bias, h)
-            got = SA.swin_window_attention_bwd(q, k, v, bias, do, h)
-            torch.cuda.synchronize()
-            ref = SA.swin_window_attention_plain(q.float(), k.float(),
-                                                 v.float(), bias, h)
-            errs["fwd"].append(_check_grads(
-                "swin_attn_train_fwd", f"{what} {dtype}", {"o": o}, [ref],
-                (dtype,)))
-            want = SA.swin_window_attention_bwd_plain(
-                q.float(), k.float(), v.float(), bias, do.float(), h)
-            errs["bwd"].append(_check_grads(
-                "swin_attn_train_bwd", f"{what} {dtype}",
-                dict(zip(("dq", "dk", "dv", "dbias"), got)), want,
-                (dtype,) * 3 + (torch.float32,)))
+        q32, k32, v32, do32, bias = _check_swin_train(SA, gen, nw, b, c, h,
+                                                      errs)
         q, k, v, do = (x.to(torch.bfloat16) for x in (q32, k32, v32, do32))
         # the library call: SDPA on (nW B, h, n, dh), exp2(x) = exp(ln2 x),
         # the bias as an additive mask in the inputs' dtype
@@ -1225,6 +1250,10 @@ def phase_swin_train(card: str) -> dict:
             _print_time(f"swin_attn_train_{kind}", f"{what} n={n} bf16", row,
                         card)
             rows[kind].append((count, row))
+        print(f"time   swin_attn_train_fwd stage {stage} ({what}, bf16, "
+              f"{count} a step): kernel {1e3 * fwd['ms']:.3f} us a call, "
+              f"SDPA {1e3 * fwd['library_ms']:.3f} us, bound "
+              f"{1e3 * fwd['bound_ms']:.3f} us  [{card}]", flush=True)
     recs = {}
     for kind, line in (("fwd", 211), ("bwd", 314)):
         name = f"swin_attn_train_{kind}"
@@ -1239,7 +1268,6 @@ def phase_swin_train(card: str) -> dict:
               f"ms, library {recs[name]['library_ms']}, bound "
               f"{recs[name]['bound_ms']:.4f} ms  [{card}]", flush=True)
     return recs
-
 
 
 def _check_result(res: dict, claim_img: bool, ev_img: bool) -> None:

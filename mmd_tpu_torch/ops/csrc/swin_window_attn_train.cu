@@ -20,38 +20,62 @@
 // autograd differentiates the normalization; bias is fp32 (nW, heads, n, n)
 // in the log2 domain (the continuous position bias plus twice the shift
 // mask, times log2(e)). Scores, softmax and sums are fp32; outputs are in
-// the input dtype, dbias in fp32. The TPU kernel packs the bias into lane
-// segments and rounds P to the input dtype before P.V; neither is carried
-// over (Mosaic layout details).
+// the input dtype, dbias in fp32.
 //
-// dbias sums over the batch. The TPU grid runs in order and adds each batch
-// block into one revisited output block; here one CTA per (head, window,
-// group of batch rows) keeps its group's sum in registers, writes it to a
-// (groups, nW, heads, n, n) fp32 workspace, and a second kernel sums the
-// groups in a fixed order: deterministic, no atomics.
+// Both kernels take one CTA per (head, window, group of batch rows) and
+// walk the group's rows in a loop, which takes the place of the TPU grid's
+// batch blocks; the caller chooses the groups (the fewest that divide the
+// batch and still give two CTAs an SM).
 //
 // What bounds it on this card: bytes. Per (window, batch row, head) the
 // forward reads three 64 x dh tiles and writes one for 4 * 64 * 64 * dh
 // operations, 64 operations per bf16 byte at dh 32; the backward reads five
-// and writes three for 10 * 64 * 64 * dh, ~100 a byte; both below the
-// ~295 where the tensor cores would be the limit. The bias tile is shared
-// by the batch rows of a window, so it comes from the L2 cache after the
-// first of them.
+// and writes three for 10 * 64 * 64 * dh, ~100 a byte; both well below the
+// ~295 where the tensor cores would be the limit.
 //
-// What the design does about that (first version: simple and right):
-//   * 256 threads a CTA; 4 threads share a query row, each holding that row
-//     of q' (and of do) in registers and 16 of the window's 64 keys, as the
-//     serving kernel (swin_window_attn.cu) does;
-//   * tiles are read once, 16 bytes a thread, into shared memory as fp32
-//     with rows padded to dh + 4 floats; P and ds go through shared memory
-//     once for the three products of the backward;
-//   * plain FMA on the CUDA cores; n = 64 and dh in {32, 64}.
+// #8, the forward (swin_train_fwd_kernel), does about that:
+//   * 4 warps, each owning 16 of the window's 64 query rows, as the flash
+//     kernels do (flash_common.cuh): S = Q'K^T and P V on the tensor cores
+//     (bf16 mma.sync m16n8k16; fp32 as 3xTF32 on m16n8k8), P kept in
+//     registers between the two products;
+//   * the (window, head) bias tile is read from device memory once per CTA,
+//     16 rows x 64 keys a warp, into registers in the C-fragment layout of
+//     the scores (32 floats a thread), and added to every batch row of the
+//     group;
+//   * q', k and v are copied in the input dtype with cp.async into two
+//     shared-memory stages: the next batch row's tiles land while this
+//     row computes (30 KB at bf16 dh 32, so several CTAs share an SM);
+//   * the row max and sum are fp32 over the 4 lanes of a row (two
+//     shuffles); in bf16 the unnormalized P is rounded to bf16 before P V
+//     and o is divided by max(l, 1e-37) after it, as the TPU kernel does;
+//     no atomics, so the result is deterministic.
+//
+// #9, the backward (swin_train_bwd_kernel; first version, simple and
+// right): dbias sums over the batch. The TPU grid runs in order and adds
+// each batch block into one revisited output block; here each CTA keeps its
+// group's sum in registers and writes it to a (groups, nW, heads, n, n)
+// fp32 workspace, and a second kernel sums the groups in a fixed order:
+// deterministic, no atomics. 256 threads a CTA; 4 threads share a query
+// row, each holding that row of q' and do in registers and 16 of the
+// window's 64 keys, as the serving kernel (swin_window_attn.cu) does;
+// tiles are read once, 16 bytes a thread, into shared memory as fp32 with
+// rows padded to dh + 4 floats; P and ds go through shared memory once for
+// the three products; plain FMA on the CUDA cores. The TPU kernel rounds P
+// to the input dtype before P.V; the backward does not (it recomputes P
+// in fp32). n = 64 and dh in {32, 64} throughout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+#include <math_constants.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "flash_common.cuh"
+
 namespace {
+
+namespace F = mmd_flash;
 
 constexpr int N = 64;                        // tokens per window (8 x 8)
 constexpr int TPR = 4;                       // threads per query row
@@ -158,68 +182,107 @@ __device__ __forceinline__ void softmax_row(const float (&qr)[DH], const float* 
 }
 
 // ---------------------------------------------------------------------------
-// #8: the forward, one CTA per (head, batch row, window)
+// #8: the forward, one CTA of 4 warps per (head, window, group of batch rows)
 // ---------------------------------------------------------------------------
-template <int DH>
-struct FwdSmem {
-    static constexpr size_t BYTES = (3 * N * (DH + 4) + N * P_STRIDE) * sizeof(float);
-};
+template <typename T, int DH>
+constexpr size_t fwd_smem_bytes() {
+    return 2 * 3 * F::Tile<T, DH>::BYTES;    // two stages of q', k and v tiles
+}
 
 template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(F::THREADS)
 swin_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const float* __restrict__ bias, T* __restrict__ o, int batch, int heads) {
-    constexpr int ST = DH + 4;
-    constexpr int CHUNKS = DH / 16;
+                      const float* __restrict__ bias, T* __restrict__ o, int batch, int heads,
+                      int per_group) {
+    static_assert(N == F::BLOCK, "a window is one tile of the flash products");
+    using Op = F::Ops<T, DH>;
+    constexpr int TE = F::Tile<T, DH>::ELEMS;
+    constexpr int NT = F::NT;
     extern __shared__ float4 smem4[];
-    float* qs = reinterpret_cast<float*>(smem4);   // [N][ST]
-    float* ks = qs + N * ST;                        // [N][ST]
-    float* vs = ks + N * ST;                        // [N][ST]
-    float* ps = vs + N * ST;                        // [N][P_STRIDE]
+    T* tiles = reinterpret_cast<T*>(smem4);  // [2 stages][q', k, v][N][LD]
 
     const int tid = threadIdx.x;
-    const int row = tid / TPR;
-    const int sub = tid % TPR;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
     const int h = blockIdx.x;
-    const int b = blockIdx.y;
-    const int w = blockIdx.z;
+    const int w = blockIdx.y;
+    const int b0 = blockIdx.z * per_group;
     const int c = heads * DH;
-    const size_t base = (static_cast<size_t>(w) * batch + b) * N * c + static_cast<size_t>(h) * DH;
+    // the (window, batch row b) tile of this head starts at row_base(b)
+    const size_t head_base = static_cast<size_t>(w) * batch * N * c + static_cast<size_t>(h) * DH;
+    auto row_base = [&](int b) { return head_base + static_cast<size_t>(b) * N * c; };
+    auto copy_row = [&](int stage, int b) {
+        T* s = tiles + stage * 3 * TE;
+        const size_t off = row_base(b);
+        F::copy_tile<T, DH>(s, q + off, c, 0, N);
+        F::copy_tile<T, DH>(s + TE, k + off, c, 0, N);
+        F::copy_tile<T, DH>(s + 2 * TE, v + off, c, 0, N);
+    };
+    copy_row(0, b0);
+    mmd_tc::cp_async_commit();
 
-    stage_row<T, DH>(qs, q + base, row, sub, c);
-    stage_row<T, DH>(ks, k + base, row, sub, c);
-    stage_row<T, DH>(vs, v + base, row, sub, c);
-    __syncthreads();
+    // The warp's 16 bias rows, once for the group, at the score fragment's
+    // (row g + 8 r, key 8 nt + 2 qd + {0, 1}), under the first copy.
+    float bs[NT][4];
+    const float* bt = bias + ((static_cast<size_t>(w) * heads + h) * N + 16 * warp + g) * N + 2 * qd;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const float2 x = __ldg(reinterpret_cast<const float2*>(bt + 8 * r * N + 8 * nt));
+            bs[nt][2 * r] = x.x;
+            bs[nt][2 * r + 1] = x.y;
+        }
 
-    float qr[DH];
-    row_regs<DH>(qs, row, qr);
-    const float* brow = bias + ((static_cast<size_t>(w) * heads + h) * N + row) * N;
-    float p[KEYS_PER_THREAD];
-    softmax_row<DH>(qr, ks, brow, sub, p);
-#pragma unroll
-    for (int i = 0; i < KEYS_PER_THREAD; ++i) ps[row * P_STRIDE + sub + TPR * i] = p[i];
-    __syncwarp();                            // the row's P was written by this warp
+    for (int i = 0; i < per_group; ++i) {
+        const int cur = i & 1;
+        if (i + 1 < per_group) copy_row(cur ^ 1, b0 + i + 1);   // under this row's work
+        mmd_tc::cp_async_commit();
+        mmd_tc::cp_async_wait<1>();          // this row's tiles have landed
+        __syncthreads();
+        const T* qs = tiles + cur * 3 * TE;
 
-    // This thread owns output columns [4 * (4 * ch + sub), +4) for ch < CHUNKS.
-    float4 acc[CHUNKS];
+        typename Op::A qa;
+        Op::load_a(qa, qs, 16 * warp);
+        float sc[NT][4];
+        F::zero(sc);
+        Op::template scores<NT>(sc, qa, qs + TE);
+        float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
 #pragma unroll
-    for (int ch = 0; ch < CHUNKS; ++ch) acc[ch] = make_float4(0.f, 0.f, 0.f, 0.f);
-    const float* pr = ps + row * P_STRIDE;
-#pragma unroll 4
-    for (int j = 0; j < N; ++j) {
-        const float pj = pr[j];
-        const float4* vr = reinterpret_cast<const float4*>(vs + j * ST);
+        for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int ch = 0; ch < CHUNKS; ++ch) fma4(acc[ch], pj, vr[4 * ch + sub]);
-    }
-    T* orow = o + base + static_cast<size_t>(row) * c;
+            for (int e = 0; e < 4; ++e) {
+                sc[nt][e] += bs[nt][e];
+                mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
+            }
+        float l[2] = {0.f, 0.f};
 #pragma unroll
-    for (int ch = 0; ch < CHUNKS; ++ch) {
-        T* dst = orow + 4 * (4 * ch + sub);
-        store_as(dst + 0, acc[ch].x);
-        store_as(dst + 1, acc[ch].y);
-        store_as(dst + 2, acc[ch].z);
-        store_as(dst + 3, acc[ch].w);
+        for (int r = 0; r < 2; ++r) {
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = exp2f(sc[nt][e] - mx[e >> 1]);
+                l[e >> 1] += p;              // the fp32 weights, as the TPU kernel sums them
+                sc[nt][e] = p;
+            }
+        float acc[DH / 8][4];
+        F::zero(acc);
+        Op::template pv<NT>(acc, sc, qs + 2 * TE);
+
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+            const float inv = 1.f / fmaxf(l[r], 1e-37f);
+            T* orow = o + row_base(b0 + i) + static_cast<size_t>(16 * warp + g + 8 * r) * c;
+#pragma unroll
+            for (int n = 0; n < DH / 8; ++n)
+                F::store2(orow + 8 * n + 2 * qd, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
+        }
+        __syncthreads();                     // this stage is free for the row after next
     }
 }
 
@@ -354,17 +417,27 @@ swin_train_dbias_kernel(const float* __restrict__ ws, float* __restrict__ dbias,
     dbias[idx] = acc;
 }
 
+// Above 48 KB of dynamic shared memory a kernel has to be allowed it, once
+// per device: `raised` holds a bit for each device where that is done.
 template <typename T, int DH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
-                       int windows, int batch, int heads, cudaStream_t stream) {
-    const size_t smem = FwdSmem<DH>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(swin_train_fwd_kernel<T, DH>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-    swin_train_fwd_kernel<T, DH><<<dim3(heads, batch, windows), THREADS, smem, stream>>>(
+                       int windows, int batch, int heads, int groups, int device,
+                       cudaStream_t stream) {
+    constexpr size_t smem = fwd_smem_bytes<T, DH>();
+    if constexpr (smem > 48 * 1024) {
+        static std::atomic<uint64_t> raised{0};
+        const uint64_t bit = uint64_t{1} << device;
+        if (!(raised.load(std::memory_order_relaxed) & bit)) {
+            const cudaError_t err = cudaFuncSetAttribute(
+                swin_train_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                static_cast<int>(smem));
+            if (err != cudaSuccess) return err;
+            raised.fetch_or(bit, std::memory_order_relaxed);
+        }
+    }
+    swin_train_fwd_kernel<T, DH><<<dim3(heads, windows, groups), F::THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<const float*>(bias), static_cast<T*>(o), batch, heads);
+        static_cast<const float*>(bias), static_cast<T*>(o), batch, heads, batch / groups);
     return cudaGetLastError();
 }
 
@@ -400,25 +473,32 @@ bool geometry_ok(int windows, int batch, int n, int heads) {
 // C entry points, bound with ctypes. q, k, v, o, dout, dq, dk, dv are
 // (windows, batch, 64, heads * head_dim) contiguous, of one dtype (0 =
 // float32, 1 = bfloat16); bias and dbias (windows, heads, 64, 64) fp32; ws
-// an fp32 workspace of groups * windows * heads * 64 * 64 floats, groups
-// dividing batch. Each returns the cudaError_t of its launches (0 on
+// an fp32 workspace of groups * windows * heads * 64 * 64 floats; groups
+// divides batch. Each returns the cudaError_t of its launches (0 on
 // success).
 extern "C" int mmd_swin_attn_train_fwd(const void* q, const void* k, const void* v,
                                        const void* bias, void* o, int windows, int batch,
-                                       int n, int heads, int head_dim, int dtype, int device,
-                                       void* stream) {
-    cudaError_t err = cudaSetDevice(device);
+                                       int n, int heads, int head_dim, int groups, int dtype,
+                                       int device, void* stream) {
+    if (!geometry_ok(windows, batch, n, heads) || groups <= 0 || groups > 65535 ||
+        batch % groups != 0 || device < 0 || device >= 64) {
+        return static_cast<int>(cudaErrorInvalidValue);
+    }
+    int current = -1;
+    cudaError_t err = cudaGetDevice(&current);
+    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (!geometry_ok(windows, batch, n, heads)) return static_cast<int>(cudaErrorInvalidValue);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0 && head_dim == 32)
-        return launch_fwd<float, 32>(q, k, v, bias, o, windows, batch, heads, st);
+        return launch_fwd<float, 32>(q, k, v, bias, o, windows, batch, heads, groups, device, st);
     if (dtype == 0 && head_dim == 64)
-        return launch_fwd<float, 64>(q, k, v, bias, o, windows, batch, heads, st);
+        return launch_fwd<float, 64>(q, k, v, bias, o, windows, batch, heads, groups, device, st);
     if (dtype == 1 && head_dim == 32)
-        return launch_fwd<__nv_bfloat16, 32>(q, k, v, bias, o, windows, batch, heads, st);
+        return launch_fwd<__nv_bfloat16, 32>(q, k, v, bias, o, windows, batch, heads, groups,
+                                             device, st);
     if (dtype == 1 && head_dim == 64)
-        return launch_fwd<__nv_bfloat16, 64>(q, k, v, bias, o, windows, batch, heads, st);
+        return launch_fwd<__nv_bfloat16, 64>(q, k, v, bias, o, windows, batch, heads, groups,
+                                             device, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 

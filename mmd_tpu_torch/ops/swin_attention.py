@@ -36,7 +36,8 @@ and the backward returns dq', dk, dv and dbias (summed over the batch,
 the gradient of the continuous position bias MLP):
 
   * CUDA tensors go to the kernels (ops/csrc/swin_window_attn_train.cu):
-    n = 64, head dims 32 and 64, float32 or bfloat16;
+    n = 64, head dims 32 and 64, float32 or bfloat16; in bf16 the forward
+    rounds the unnormalized P to bf16 before P.V, as the JAX kernel does;
   * CPU tensors go to `swin_window_attention_plain` and
     `swin_window_attention_bwd_plain`.
 """
@@ -44,6 +45,7 @@ the gradient of the continuous position bias MLP):
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 
 import torch
@@ -179,8 +181,8 @@ def swin_window_attention_infer(q: torch.Tensor, k: torch.Tensor,
 # -- fine-tuning: pre-normalized q'/k, log2-domain bias, with a backward -------
 
 _LN2 = 0.6931471805599453
-# backward CTAs (heads x windows x batch groups) to aim for: two a SM
-_BWD_CTAS = 2 * 132
+# CTAs (heads x windows x batch groups) to aim for: two an SM of the H100
+_CTAS = 2 * 132
 
 
 def _softmax2(qh, kh, bias):
@@ -218,62 +220,84 @@ def swin_window_attention_bwd_plain(q, k, v, bias, do, heads: int):
     return (*(_merge(x).to(q.dtype) for x in (dq, dk, dv)), ds.sum(dim=1))
 
 
+# the fine-tuning library's C entry points, bound once (argtypes set at load)
+_train_fns: dict[str, ctypes._CFuncPtr] = {}
+_TRAIN_ARGTYPES = {
+    "mmd_swin_attn_train_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p],
+    "mmd_swin_attn_train_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    + [ctypes.c_void_p]}
+
+
+def _train_fn(name: str):
+    fn = _train_fns.get(name)
+    if fn is None:
+        fn = getattr(cuda_build.load_library(
+            "swin_window_attn_train", ["swin_window_attn_train.cu"],
+            headers=["flash_common.cuh", "tensor_core.cuh"]), name)
+        fn.argtypes = _TRAIN_ARGTYPES[name]
+        fn.restype = ctypes.c_int
+        _train_fns[name] = fn
+    return fn
+
+
 def load_train_kernel():
     """Build (at first use) and load the fine-tuning kernels; returns the
     forward's C entry point."""
-    fn = cuda_build.load_library(
-        "swin_window_attn_train",
-        ["swin_window_attn_train.cu"]).mmd_swin_attn_train_fwd
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _train_fn("mmd_swin_attn_train_fwd")
 
 
 def load_train_bwd_kernel():
     """The fine-tuning backward's C entry point (same library as
     `load_train_kernel`)."""
-    fn = cuda_build.load_library(
-        "swin_window_attn_train",
-        ["swin_window_attn_train.cu"]).mmd_swin_attn_train_bwd
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _train_fn("mmd_swin_attn_train_bwd")
 
 
-def backward_groups(windows: int, batch: int, heads: int) -> int:
-    """Batch groups of the backward: its CTAs are (head, window, group), each
-    summing dbias over batch / groups rows. The fewest groups (a divisor of
-    the batch) that give `_BWD_CTAS` CTAs, or one group per batch row."""
+@functools.lru_cache(maxsize=256)
+def batch_groups(windows: int, batch: int, heads: int) -> int:
+    """Batch groups of the fine-tuning kernels: their CTAs are (head,
+    window, group), each walking batch / groups rows (the backward sums
+    dbias over them). The fewest groups (a divisor of the batch) that give
+    `_CTAS` CTAs, or one group per batch row."""
     for g in range(1, batch + 1):
-        if batch % g == 0 and windows * heads * g >= _BWD_CTAS:
+        if batch % g == 0 and windows * heads * g >= _CTAS:
             return g
     return batch
 
 
 def _check_train_inputs(q, k, v, bias, heads, do=None):
-    if q.dim() != 4 or k.shape != q.shape or v.shape != q.shape:
+    """Raise ValueError on what the fine-tuning kernels do not take. On the
+    forward's per-call path: each attribute is read once."""
+    shape = q.shape
+    if len(shape) != 4 or k.shape != shape or v.shape != shape:
         raise ValueError(f"q, k, v must be (nW, B, n, C) of one shape, not "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    nw, b, n, c = q.shape
+    nw, b, n, c = shape
     if n != _TOKENS:
         raise ValueError(f"the kernel takes windows of {_TOKENS} tokens, "
                          f"not {n}")
-    if c % heads or c // heads not in _HEAD_DIMS:
+    dh, rem = divmod(c, heads)
+    if rem or dh not in _HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {_HEAD_DIMS}; C={c} "
                          f"over {heads} heads")
-    tensors = (q, k, v) if do is None else (q, k, v, do)
-    if q.dtype not in _DTYPE_CODES or any(t.dtype != q.dtype
-                                          for t in tensors):
+    dtype = q.dtype
+    if dtype not in _DTYPE_CODES or k.dtype != dtype or v.dtype != dtype \
+            or (do is not None and do.dtype != dtype):
+        tensors = (q, k, v) if do is None else (q, k, v, do)
         raise ValueError(f"the kernel takes float32 or bfloat16 tensors of "
                          f"one dtype, not {[t.dtype for t in tensors]}")
-    if do is not None and do.shape != q.shape:
+    if do is not None and do.shape != shape:
         raise ValueError("do must have q's shape")
-    if bias.dtype != torch.float32 or tuple(bias.shape) != (nw, heads, n, n):
+    if bias.dtype != torch.float32 or bias.shape != (nw, heads, n, n):
         raise ValueError(f"bias must be float32 ({nw}, {heads}, {n}, {n}), "
                          f"not {bias.dtype} {tuple(bias.shape)}")
-    if not all(t.is_contiguous() for t in (*tensors, bias)):
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()
+            and bias.is_contiguous()
+            and (do is None or do.is_contiguous())):
         raise ValueError("the kernel takes contiguous tensors")
-    if any(t.device != q.device for t in (*tensors, bias)):
+    dev = q.device
+    if k.device != dev or v.device != dev or bias.device != dev or (
+            do is not None and do.device != dev):
         raise ValueError("the inputs lie on different devices")
 
 
@@ -284,12 +308,16 @@ def _swin_train_fwd_cuda(q, k, v, bias, heads):
     o = torch.empty_like(q)
     cuda_build.check_aligned(q, k, v, bias, o)
     fn = load_train_kernel()
+    dev = q.get_device()
+    # the handle torch.cuda.current_stream(dev).cuda_stream gives, without
+    # building a Stream object on every call
+    stream = torch._C._cuda_getCurrentRawStream(dev)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-            o.data_ptr(), nw, b, n, heads, c // heads, _DTYPE_CODES[q.dtype],
-            cuda_build.device_index(q),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check_launch(rc, f"swin_attn_train_fwd {tuple(q.shape)} "
-                                f"{heads} heads {q.dtype}")
+            o.data_ptr(), nw, b, n, heads, c // heads,
+            batch_groups(nw, b, heads), _DTYPE_CODES[q.dtype], dev, stream)
+    if rc:
+        cuda_build.check_launch(rc, f"swin_attn_train_fwd {tuple(q.shape)} "
+                                    f"{heads} heads {q.dtype}")
     with _launch_lock:
         train_launches += 1
     return o
@@ -299,7 +327,7 @@ def _swin_train_bwd_cuda(q, k, v, bias, do, heads):
     global train_bwd_launches
     _check_train_inputs(q, k, v, bias, heads, do)
     nw, b, n, c = q.shape
-    groups = backward_groups(nw, b, heads)
+    groups = batch_groups(nw, b, heads)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
     ws = torch.empty((groups, *bias.shape), dtype=torch.float32,

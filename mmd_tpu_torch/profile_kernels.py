@@ -2,6 +2,7 @@
 
     python -m mmd_tpu_torch.profile_kernels ptxas [SOURCE.cu ...]
     python -m mmd_tpu_torch.profile_kernels flash_calls
+    python -m mmd_tpu_torch.profile_kernels swin_calls
 
 `ptxas` compiles sources under ops/csrc/ (all of them by default) with the
 build's flags plus `-Xptxas -v` and prints one JSON line a kernel
@@ -15,16 +16,28 @@ call and the kernel's) beside the kernel's device microseconds a launch
 (torch.profiler over 200 calls). Where the first is the larger, a run of
 calls timed with CUDA events measures the host, not the kernel. It needs
 a CUDA device.
+
+`swin_calls` does the same for the Swin fine-tuning forward (#8,
+`swin_window_attention_fwd`) at the four Swinv2-base stage geometries of a
+fine-tuning step (batch 8, bf16), beside one SDPA call that computes the
+same function on the same inputs, as chip_smoke.py times it (its host us a
+call and its device us, all kernels of the call). It also times each
+piece of the wrapper's call path alone (2000 calls each), down to the C
+entry point with its arguments, which launches the kernel: what is left of
+a host-bound call past those pieces is Python's own calls and the launch
+counter. It needs a CUDA device.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import math
 import re
 import subprocess
 import tempfile
 import time
+from functools import partial
 from pathlib import Path
 
 import torch
@@ -45,6 +58,12 @@ SERVE_GEOMETRIES = [("text", 512, 512, 384, 6, True),
                     ("fusion_64x512", 64, 512, 256, 8, False),
                     ("fusion_64x64", 64, 64, 256, 8, False)]
 BATCH = 16
+# (name, windows, C, heads): the Swinv2-base stages of a fine-tuning step,
+# batch 8 (chip_smoke.py's FT_SWIN_GEOMS)
+SWIN_GEOMETRIES = [("stage0", 64, 128, 4), ("stage1", 16, 256, 8),
+                   ("stage2", 4, 512, 16), ("stage3", 1, 1024, 32)]
+SWIN_BATCH = 8
+_CALLS = 2000
 
 
 def parse_ptxas(log: str) -> list[dict]:
@@ -100,6 +119,18 @@ def ptxas(sources: list[str]) -> None:
                       flush=True)
 
 
+def _host_us(call, n: int = _CALLS) -> float:
+    """Host microseconds a call over n calls ended by one device sync."""
+    for _ in range(10):
+        call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        call()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
 def flash_calls() -> None:
     from mmd_tpu_torch.ops import attention as A
     if not torch.cuda.is_available():
@@ -116,14 +147,7 @@ def flash_calls() -> None:
             mask = (torch.arange(s, device=dev)[None]
                     < lengths[:, None]).long()
         call = lambda: A.flash_attention(q, k, v, h, mask)  # noqa: E731
-        for _ in range(10):
-            call()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(2000):
-            call()
-        torch.cuda.synchronize()
-        host_us = (time.perf_counter() - t0) / 2000 * 1e6
+        host_us = _host_us(call)
         win = P.profile_window(call, 200, {"flash_fwd_kernel": "flash"})
         print(json.dumps({
             "geometry": name, "B": BATCH, "T": t, "S": s, "D": d, "H": h,
@@ -132,17 +156,125 @@ def flash_calls() -> None:
             / 200, "card": P.card()}), flush=True)
 
 
+def _swin_inputs(dev, gen, nw: int, c: int, h: int):
+    """q', k, v and the log2-domain bias as the model makes them (see
+    chip_smoke.py's phase_swin_train), bf16; and SDPA's view of them."""
+    b, n, dh, log2e = SWIN_BATCH, 64, c // h, 1.4426950408889634
+
+    def unit(x):
+        x = x.reshape(nw, b, n, h, dh)
+        return (x / x.norm(dim=-1, keepdim=True)).reshape(nw, b, n, c)
+
+    q = unit(torch.randn(nw, b, n, c, device=dev, generator=gen)) \
+        * (10 * log2e)
+    k = unit(torch.randn(nw, b, n, c, device=dev, generator=gen))
+    v = torch.randn(nw, b, n, c, device=dev, generator=gen)
+    bias = 16 * torch.rand(nw, h, n, n, device=dev, generator=gen)
+    if nw > 1:
+        bias = bias - 200.0 * (torch.rand(nw, 1, n, n, device=dev,
+                                          generator=gen) < 0.3)
+    bias = (bias * log2e).contiguous()
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    q4, k4, v4 = (x.reshape(nw, b, n, h, dh).transpose(2, 3)
+                  .reshape(nw * b, h, n, dh).contiguous() for x in (q, k, v))
+    m4 = (math.log(2.0) * bias)[:, None].expand(nw, b, h, n, n).reshape(
+        nw * b, h, n, n).to(torch.bfloat16).contiguous()
+    return (q, k, v, bias), (q4, k4, v4, m4)
+
+
+def _swin_pieces(SA, q, k, v, bias, h: int) -> dict:
+    """Host us a call of each piece of the forward wrapper's call path,
+    timed alone; the last one, the C entry point with the call's
+    arguments, launches the kernel (`c_entry` is the same call refused
+    before the launch, and not part of the path). A piece this tree's
+    wrapper does not have (an older tree's, for a comparison in one run)
+    is None."""
+    nw, b, n, c = q.shape
+
+    def c_call(dtype=None):
+        o, fn, dev = torch.empty_like(q), SA.load_train_kernel(), \
+            q.get_device()
+        args = (nw, b, n, h, c // h, SA.batch_groups(nw, b, h),
+                SA._DTYPE_CODES[q.dtype] if dtype is None else dtype, dev,
+                torch._C._cuda_getCurrentRawStream(dev))
+        if len(fn.argtypes) != 5 + len(args):   # another tree's signature
+            raise TypeError("the entry point takes other arguments")
+        return lambda: fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          bias.data_ptr(), o.data_ptr(), *args)
+
+    dev = q.get_device()
+    pieces = {
+        "checks": lambda: partial(SA._check_train_inputs, q, k, v, bias, h),
+        "empty_like": lambda: partial(torch.empty_like, q),
+        "check_aligned": lambda: partial(cuda_build.check_aligned,
+                                         q, k, v, bias, q),
+        "get_device": lambda: q.get_device,
+        "raw_stream": lambda: partial(torch._C._cuda_getCurrentRawStream,
+                                      dev),
+        "batch_groups": lambda: partial(SA.batch_groups, nw, b, h),
+        # the entry point refusing dtype code -1 before any launch: ctypes
+        # and the C function's own checks
+        "c_entry": lambda: c_call(dtype=-1),
+        "c_call": c_call}
+    out = {}
+    for name, make in pieces.items():
+        try:
+            call = make()
+        except (AttributeError, TypeError):
+            out[name] = None
+        else:
+            out[name] = _host_us(call)
+    return out
+
+
+def swin_calls() -> None:
+    from mmd_tpu_torch.ops import swin_attention as SA
+    if not torch.cuda.is_available():
+        raise SystemExit("swin_calls needs a CUDA device")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    print(json.dumps({"card": P.card()}), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    for name, nw, c, h in SWIN_GEOMETRIES:
+        (q, k, v, bias), (q4, k4, v4, m4) = _swin_inputs(dev, gen, nw, c, h)
+        call = lambda: SA.swin_window_attention_fwd(  # noqa: E731
+            q, k, v, bias, h)
+        lib = lambda: sdpa(q4, k4, v4, attn_mask=m4,  # noqa: E731
+                           scale=math.log(2.0))
+        host_us = _host_us(call)
+        win = P.profile_window(call, 200,
+                               {"swin_train_fwd_kernel": "swin"})
+        lib_host_us = _host_us(lib)
+        lib_win = P.profile_window(lib, 200, {})
+        piece_us = _swin_pieces(SA, q, k, v, bias, h)
+        print(json.dumps({
+            "geometry": name, "nW": nw, "B": SWIN_BATCH, "C": c, "H": h,
+            "host_us_a_call": host_us,
+            "kernel_device_us_a_launch": win["kernels_ms"]["swin"] * 1e3
+            / 200,
+            "sdpa_host_us_a_call": lib_host_us,
+            "sdpa_device_us_a_call": lib_win["device_busy_ms"] * 1e3 / 200,
+            "piece_host_us": piece_us,
+            "rest_host_us": host_us - sum(
+                x for k_, x in piece_us.items()
+                if x is not None and k_ != "c_entry"),
+            "card": P.card()}), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="what", required=True)
     sub.add_parser("ptxas").add_argument("sources", nargs="*")
     sub.add_parser("flash_calls")
+    sub.add_parser("swin_calls")
     args = ap.parse_args(argv)
     if args.what == "ptxas":
         ptxas(args.sources or sorted(f.name for f in cuda_build.CSRC.glob(
             "*.cu")))
-    else:
+    elif args.what == "flash_calls":
         flash_calls()
+    else:
+        swin_calls()
 
 
 if __name__ == "__main__":

@@ -4,7 +4,8 @@ by operation.
 
 Device time is the sum of the kernel and copy events on the card; host-side
 operators are left out, since their kernels already carry their device
-time. Each event is named by the port's kernel whose symbol it holds, or
+time, and so are the device-side spans of record-function ranges (such as
+`Optimizer.step#AdamW.step`), which cover kernels counted on their own. Each event is named by the port's kernel whose symbol it holds, or
 else kept under its own name and grouped by the first substring of GROUPS
 (or the caller's extra groups) that it contains.
 """
@@ -46,9 +47,10 @@ def timed(fn, n: int) -> list[float]:
 
 def device_us(evt) -> float:
     """Microseconds of a device-side event (a kernel or a copy); 0 for the
-    host-side operators."""
+    host-side operators and for user annotations (record-function ranges)."""
     from torch.autograd import DeviceType
-    if evt.device_type != DeviceType.CUDA:
+    if evt.device_type != DeviceType.CUDA or getattr(
+            evt, "is_user_annotation", False):
         return 0.0
     for name in ("device_time_total", "cuda_time_total"):
         if hasattr(evt, name):

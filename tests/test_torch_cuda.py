@@ -613,30 +613,38 @@ def test_deberta_bwd_kernel_matches_plain(cuda_device, dtype, t, d, heads):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nw,c,heads", [(64, 128, 4), (16, 256, 8),
-                                        (4, 512, 16), (1, 1024, 32)])
-def test_swin_train_kernels_match_plain(cuda_device, dtype, nw, c, heads):
+@pytest.mark.parametrize("nw,b,c,heads", [
+    (64, 8, 128, 4), (16, 8, 256, 8), (4, 8, 512, 16), (1, 8, 1024, 32),
+    (64, 7, 128, 4), (64, 7, 256, 8), (16, 1, 256, 8),
+    (64, 8, 256, 4), (16, 7, 256, 4)])
+def test_swin_train_kernels_match_plain(cuda_device, dtype, nw, b, c, heads):
+    """The four Swinv2-base stages at batch 8, then B 7 (one row a CTA, and
+    seven rows a CTA at 512 (window, head) pairs), B 1 and head dim 64;
+    the forward twice, bit-identical."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
     dh = c // heads
 
     def unit(x):
-        x = x.reshape(nw, B, 64, heads, dh)
-        return (x / x.norm(dim=-1, keepdim=True)).reshape(nw, B, 64, c)
+        x = x.reshape(nw, b, 64, heads, dh)
+        return (x / x.norm(dim=-1, keepdim=True)).reshape(nw, b, 64, c)
 
-    q = unit(torch.randn(nw, B, 64, c, device=cuda_device, generator=g))
+    q = unit(torch.randn(nw, b, 64, c, device=cuda_device, generator=g))
     q = (q * 10 * 1.4426950408889634).to(dtype)
-    k = unit(torch.randn(nw, B, 64, c, device=cuda_device, generator=g)
+    k = unit(torch.randn(nw, b, 64, c, device=cuda_device, generator=g)
              ).to(dtype)
-    v, do = (torch.randn(nw, B, 64, c, device=cuda_device, generator=g)
+    v, do = (torch.randn(nw, b, 64, c, device=cuda_device, generator=g)
              .to(dtype) for _ in range(2))
     bias = 16 * torch.rand(nw, heads, 64, 64, device=cuda_device,
                            generator=g) * 1.4426950408889634
     before = (SA.train_launches, SA.train_bwd_launches)
     o = SA.swin_window_attention_fwd(q, k, v, bias, heads)
+    assert SA.train_launches == before[0] + 1
     grads = SA.swin_window_attention_bwd(q, k, v, bias, do, heads)
+    again = SA.swin_window_attention_fwd(q, k, v, bias, heads)
     torch.cuda.synchronize()
-    assert (SA.train_launches, SA.train_bwd_launches) == (before[0] + 1,
+    assert (SA.train_launches, SA.train_bwd_launches) == (before[0] + 2,
                                                           before[1] + 1)
+    assert torch.equal(o, again)
     ref = SA.swin_window_attention_plain(q.float(), k.float(), v.float(),
                                          bias, heads)
     assert o.dtype == dtype

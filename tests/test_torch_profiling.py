@@ -1,5 +1,5 @@
 """mmd_tpu_torch/profiling.py's reduction of a torch.profiler window, on
-made-up events, and profile_kernels.py's reading of ptxas output (the
+made-up events (record-function ranges left out), and profile_kernels.py's reading of ptxas output (the
 profilers themselves need a card, the ptxas report nvcc)."""
 
 from collections import namedtuple
@@ -38,6 +38,29 @@ def test_device_summary_names_groups_and_idle_share():
                                        "copies": 0.5, "other": 0.5}
 
 
+Ann = namedtuple("Ann", "key device_type device_time_total count "
+                        "is_user_annotation")
+
+
+def test_device_summary_leaves_out_record_function_ranges():
+    """A record-function range on the card (AdamW.step) spans kernels that
+    are counted on their own: its time is not counted again."""
+    cuda = DeviceType.CUDA
+    events = [Ann("Optimizer.step#AdamW.step", cuda, 2000.0, 1, True),
+              Ann("void multi_tensor_apply_kernel<>", cuda, 1500.0, 3,
+                  False),
+              Ann("void flash_fwd_kernel<32, float>", cuda, 500.0, 1,
+                  False)]
+    s = device_summary(events, 4.0, {"flash_fwd_kernel": "flash_attn_fwd"},
+                       (("multi_tensor_apply", "optimizer"),))
+    assert s["device_busy_ms"] == 2.0
+    assert s["idle_share"] == 0.5
+    assert s["device_events"] == 4
+    assert s["device_ms_by_group"] == {"optimizer": 1.5,
+                                       "flash_attn_fwd": 0.5}
+    assert "Optimizer.step#AdamW.step" not in s["device_ms_top"]
+
+
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_Z4dkdvILi64EEvv' for 'sm_90a'
@@ -64,3 +87,10 @@ def test_flash_calls_needs_a_card():
         pytest.skip("the refusal shows only without a CUDA device")
     with pytest.raises(SystemExit, match="CUDA device"):
         profile_kernels.main(["flash_calls"])
+
+
+def test_swin_calls_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only without a CUDA device")
+    with pytest.raises(SystemExit, match="CUDA device"):
+        profile_kernels.main(["swin_calls"])
