@@ -44,7 +44,10 @@ Phases, each of which exits nonzero on failure:
                              from the dumped masks
      * deberta_attn_bwd      DeBERTa attention backward at B 8, T 256, D 384,
                              6 heads, a padded tail and a row with no valid
-                             key: dq, dk, dv, dPK, dPQ, fp32 and bf16
+                             key: dq, dk, dv, dPK, dPQ, fp32 and bf16, each
+                             call twice and bit for bit; its device us a
+                             call by torch.profiler beside its CUDA-event
+                             us and its bound
      * swin_attn_train_fwd,  Swinv2 window attention for fine-tuning,
        swin_attn_train_bwd   forward and backward (dq, dk, dv, dbias) at the
                              four Swinv2-base stage geometries, B 8, and
@@ -1114,7 +1117,10 @@ def phase_deberta_bwd(card: str) -> dict:
         args = [x.to(dtype) for x in (q32, k32, v32, pk32, pq32)]
         do = do32.to(dtype)
         got = DA.deberta_attention_bwd(*args, mask, do, h, scale)
+        again = DA.deberta_attention_bwd(*args, mask, do, h, scale)
         torch.cuda.synchronize()
+        if not all(torch.equal(a, b_) for a, b_ in zip(got, again)):
+            fail(f"deberta_attn_bwd: two calls differ, {dtype}")
         want = DA.deberta_attention_bwd_plain(*[x.float() for x in args],
                                               mask, do.float(), h, scale)
         errs.append(_check_grads(
@@ -1135,6 +1141,19 @@ def phase_deberta_bwd(card: str) -> dict:
         20 * b * t * t * d)
     _print_time("deberta_attn_bwd", f"B={b} T={t} D={d} H={h} bf16", row,
                 card)
+    # device time a call by torch.profiler, beside the CUDA-event time
+    # (which also holds the host's time where that is the larger)
+    from mmd_tpu_torch import profiling
+    calls = 50
+    win = profiling.profile_window(lambda: DA.deberta_attention_bwd(
+        *args, mask, do, h, scale), calls, {})
+    device_us = {k.split("(")[1].split("::")[-1].split("<")[0]:
+                 v * 1e3 / calls for k, v in win["device_ms_top"].items()
+                 if "deberta_bwd" in k}
+    print(f"time   deberta_attn_bwd B={b} T={t} D={d} H={h} bf16: device "
+          f"{sum(device_us.values()):.3f} us a call by torch.profiler "
+          f"{json.dumps(device_us)}, CUDA events {1e3 * row['ms']:.3f} us, "
+          f"bound {1e3 * row['bound_ms']:.3f} us  [{card}]", flush=True)
     rec = _record("deberta_attn_bwd",
                   "mmd_tpu_torch/ops/csrc/deberta_attn_bwd.cu",
                   "mmd_tpu/models/deberta.py:464",

@@ -1,4 +1,5 @@
-// DeBERTa-v3 disentangled attention backward for Hopper (sm_90a).
+// DeBERTa-v3 disentangled attention backward for Hopper (sm_90a), on the
+// tensor cores.
 //
 // Replaces mmd_tpu/models/deberta.py::_deberta_attn_fused_bwd_call (its
 // Pallas body _deberta_attn_bwd_kernel, behind the custom VJP
@@ -17,692 +18,834 @@
 //   dk_s  = sum_t ds[t, s] (q_t + PQ[T-1-s+t])
 //   dPK[r] = sum_b sum_{T-1-t+s=r} ds[t, s] q_t
 //   dPQ[r] = sum_b sum_{T-1-s+t=r} ds[t, s] k_s
-// The scores are recomputed from the operands in fp32, so nothing T x T
-// sized crosses device memory, and D_t comes from P and dP themselves (not
-// from the forward's rounded output). A row with no valid key has the
-// uniform P of the forward; its ds is zero, as the reference's `where`
-// makes it. dq, dk, dv are written in the input dtype, dPK and dPQ in fp32.
+// The scores are recomputed from the operands, so nothing T x T sized
+// crosses device memory, and D_t comes from P and dP themselves (not from
+// the forward's rounded output). A row with no valid key has the uniform P
+// of the forward; its ds is zero, as the reference's `where` makes it. dq,
+// dk, dv are written in the input dtype, dPK and dPQ in fp32.
+//
+// The position terms as band products. For the 64-row tile pair (t0, s0)
+// the PK rows that serve it are the 128-row band from T-64-t0+s0, and
+// local band row 63 - r + c serves pair (r, c); the PQ band starts at
+// T-64-s0+t0, and row 63 - c + r serves (r, c). So, with 64-row tiles:
+//   c2p  = diag(Q_tile PK_band^T):   score (r, c) takes element (r, 63-r+c)
+//   p2c  = diag(K_tile PQ_band^T)^T: score (r, c) takes element (c, 63-c+r)
+//   dSk[r][63 - r + c] = dS[r][c], 0 elsewhere (64 x 128): then
+//   dq  += dS K + dSk PK_band,  dPK_band += dSk^T Q_tile,
+// and the same with dS^T, K and PQ for dk and dPQ. Each band of a CTA's
+// walk overlaps the next by 64 rows, so a CTA sums its band gradients in
+// registers and writes each row of its own (T + 64)-row slice once.
 //
 // On the TPU the grid runs in order over the batch and the kernel adds each
 // row's table gradients into one revisited output block. Blocks on Hopper
-// run in no order, so the table gradients go through a workspace and a
-// fixed-order sum, with no atomics, and the result is the same every run:
+// run in no order, so the table gradients go through the slices and a
+// fixed-order sum, with no atomics: the result is the same every run.
 //   1. stats   one CTA per (64-query tile, head, b) walks the key tiles
 //              with an online softmax: row max m and 1/l of the log2-domain
 //              scores, and D = sum P dP, into a (3, B, H, T) fp32 scratch;
-//   2. dq      one CTA per (query tile, head, b) walks the key tiles,
-//              recomputes P and dP, keeps dq in registers, and adds each
-//              tile pair's 127-row band of dPK into this CTA's own (T + 64,
-//              D) slice of the workspace (no other CTA touches it);
-//   3. dkdv    one CTA per (64-key tile, head, b) walks the query tiles,
-//              keeps dk and dv in registers and adds the dPQ bands into
-//              its own slice;
-//   4. reduce  dPK[r] (and dPQ[r]) = the sum over b, then over tiles, of
-//              the slices' rows that map to r, in that fixed order.
+//   2. grad    one launch, two kinds of CTA. dq: one CTA per (query tile,
+//              head, b) walks the key tiles, recomputes P and dS, keeps dq
+//              in registers and writes the dPK slice. dk/dv: one CTA per
+//              (key tile, head, b) does the same in the transposed frame,
+//              where rows are keys: K for Q, V for dO, Q and dO walked, PQ
+//              for PK and the columns' statistics; it writes dk, dv and the
+//              dPQ slice. The same code serves both;
+//   3. reduce  dPK[r] and dPQ[r] = the sum over b, then over tiles, of the
+//              slices' rows that map to r.
 //
-// What bounds it on this card: operations. Counted as the TPU kernel counts
-// it, 20 * B * T^2 * D operations against 8 * B * T * D elements of q, k,
-// v, do and their gradients: at the fine-tuning shape (B 8, T 256, D 384)
-// ~640 operations per bf16 byte, above the ~295 where the tensor cores and
-// not device memory are the limit. This first version runs its products on
-// the CUDA cores in fp32 (67 TFLOP/s) and recomputes the scores three
-// times (stats, dq, dkdv): 17 products of dh per (t, s) pair against the
-// reference's 10, plus the RMW traffic of the band slices.
+// What bounds it on this card: the tensor cores. Counted as the TPU kernel
+// counts it, 20 * B * T^2 * D operations against 8 * B * T * D elements of
+// q, k, v, do and their gradients: at the fine-tuning shape (B 8, T 256,
+// D 384) ~640 operations per bf16 byte, above the ~295 where the tensor
+// cores and not device memory are the limit. The three passes recompute
+// the scores three times, the band products cover 80 of the 128 band rows
+// a warp (5/4 of the 64 x 64 x dh of a content product), and in bf16 dS
+// goes into its products as hi + lo (below): ~2.3x the TPU kernel's count.
+// The slices are 2 * B * (T / 64) * (T + 64) * D fp32, written once and
+// read once by the reduce (63 MB a call at the fine-tuning shape).
 //
-// What the design does about that (first version: simple and right):
-//   * 256 threads a CTA; in the score phases each thread holds a 4 x 4 block
-//     of scores at rows ty + 16 j and columns tx + 16 i, as the forward
-//     kernel does, so the c2p and p2c rows it needs lie on 7 diagonals of
-//     the staged 128-row PK and PQ bands;
-//   * q, k, v, do tiles and both bands live in shared memory as fp32 with
-//     rows padded to dh + 4 floats; P and ds go through shared memory once
-//     a tile pair;
-//   * dq and dk fold the content and position terms into one product over
-//     (k + PK band) and (q + PQ band);
-//   * T % 64 == 0 and dh in {32, 64}, as the forward kernel.
+// What the design does about that:
+//   * 4 warps a CTA, 16 rows of its own tile each, as the flash kernels
+//     (flash_common.cuh): every product on mma.sync, bf16 m16n8k16 with
+//     fp32 accumulators, fp32 as 3xTF32 on m16n8k8; tiles kept in the input
+//     dtype in shared memory (rows padded by 16 bytes);
+//   * the band products cover each warp's window: rows r of warp w serve
+//     band rows [48 - 16w, 128 - 16w), 80 rows (10 n8 tiles, 5 k16 steps);
+//     of the band gradient, warp w owns band rows [16w, +16) and [64 + 16w,
+//     +16), whose dS rows span 16(w + 1) and 16(4 - w) rows: 80 a warp;
+//   * the bands come from a ring of three 64-row chunks per table; each
+//     step loads one chunk of each with cp.async a step ahead, and the
+//     walked tiles' copies for the next step start as soon as the step's
+//     last product that reads them is done;
+//   * c2p and p2c leave their mma as C fragments in registers and go
+//     through a 64 x 88 fp32 tile in shared memory, where each score
+//     fragment reads its diagonal element. 88 floats a row (24 mod 32):
+//     the 8-byte fragment stores are free of bank conflicts, the diagonal
+//     reads 2-way (a row stride that is free for both would have to be
+//     0 mod 4 for the stores and odd for the reads);
+//   * dSk shares that space: each warp zero-fills its rows' window and
+//     scatters its dS fragments on the diagonal; 136 bf16 (272 bytes) or
+//     132 fp32 a row, so ldmatrix and the fp32 transposed loads read
+//     without bank conflicts;
+//   * rounding points in bf16: P is rounded to bf16 as the A operand of
+//     dV += P^T dO, as the flash backward does; dS goes into dq, dk, dPK
+//     and dPQ as bf16 hi + bf16 lo (two products), which keeps its fp32
+//     value to ~2^-17: the table gradients are held to fp32 tolerances;
+//   * the grid: at the fine-tuning shape 192 stats CTAs and 384 grad CTAs
+//     (bf16 dh 64: 113 KB of shared memory each, two an SM).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include <atomic>
+
+#include "flash_common.cuh"
+
 namespace {
 
-constexpr int BM = 64;                       // query rows per tile
-constexpr int BN = 64;                       // keys per tile
-constexpr int BAND = 128;                    // PK / PQ rows per tile pair (127 used)
-constexpr int THREADS = 256;
-constexpr int P_STRIDE = BN + 4;
+using namespace mmd_flash;
+
+constexpr int WIN = 80;                      // band rows in one warp's window
+constexpr int G_LD = 88;                     // floats a row of the band scores' tile
+constexpr int REDUCE_THREADS = 256;
 constexpr float NEG = -3.402823466e38f;      // finfo(float32).min
 
-__device__ __forceinline__ void load16(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
+template <typename T>
+struct Skew {                                // dSk's row stride, elements
+    static constexpr int LD = sizeof(T) == 2 ? 136 : 132;
+};
 
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        out[2 * i] = f.x;
-        out[2 * i + 1] = f.y;
-    }
-}
-
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ float dot4(const float4 a, const float4 b, float acc) {
-    acc = fmaf(a.x, b.x, acc);
-    acc = fmaf(a.y, b.y, acc);
-    acc = fmaf(a.z, b.z, acc);
-    return fmaf(a.w, b.w, acc);
-}
-
-__device__ __forceinline__ void fma4(float4& acc, float a, const float4 x) {
-    acc.x = fmaf(a, x.x, acc.x);
-    acc.y = fmaf(a, x.y, acc.y);
-    acc.z = fmaf(a, x.z, acc.z);
-    acc.w = fmaf(a, x.w, acc.w);
-}
-
-__device__ __forceinline__ float4 add4(const float4 a, const float4 b) {
-    return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
-}
-
-// rows x DH values of a row-major array (row stride `stride` elements) into
-// shared memory as fp32 rows of DH + 4 floats.
+// Shared memory of the stats and grad kernels: own tiles X, X2 and walked
+// tiles Y, Y2; two rings of three band chunks; the band scores' fp32 tile,
+// which dSk shares; 64 floats x 3 of per-column values.
 template <typename T, int DH>
-__device__ __forceinline__ void stage(float* dst, const T* src, int stride, int rows) {
-    constexpr int ST = DH + 4;
-    constexpr int VEC = 16 / static_cast<int>(sizeof(T));
-    constexpr int CPR = DH / VEC;            // 16-byte chunks per row
-    for (int i = threadIdx.x; i < rows * CPR; i += THREADS) {
-        const int r = i / CPR;
-        const int ch = i % CPR;
-        float x[VEC];
-        load16(src + static_cast<size_t>(r) * stride + ch * VEC, x);
-        float* d = dst + r * ST + ch * VEC;
-#pragma unroll
-        for (int e = 0; e < VEC; e += 4) {
-            *reinterpret_cast<float4*>(d + e) = make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
-        }
-    }
-}
+struct Smem {
+    static constexpr size_t TILES = 10 * Tile<T, DH>::BYTES;
+    static constexpr size_t G = static_cast<size_t>(BLOCK) * G_LD * sizeof(float);
+    static constexpr size_t DSK = static_cast<size_t>(BLOCK) * Skew<T>::LD * sizeof(T);
+    static constexpr size_t SHARED = G > DSK ? G : DSK;
+    static constexpr size_t BYTES = TILES + SHARED + 3 * BLOCK * sizeof(float);
+};
 
-// The unscaled scores of this thread's 4 x 4 block (rows ty + 16 j, keys
-// tx + 16 i): content + c2p + p2c, from the staged q and k tiles and the
-// PK / PQ bands of the tile pair (local band row 63 - r + c for PK, 63 - c
-// + r for PQ).
+// The rows of one band: rows 0..63 in chunk `lo`, 64..127 in chunk `hi`.
+template <typename T, int DH>
+struct Band {
+    const T* lo;
+    const T* hi;
+    __device__ __forceinline__ const T* row(int j) const {
+        constexpr int LD = Tile<T, DH>::LD;
+        return j < BLOCK ? lo + j * LD : hi + (j - BLOCK) * LD;
+    }
+};
+
+template <typename T, int DH>
+struct BandOps;
+
+// bf16 products of the band terms.
 template <int DH>
-__device__ __forceinline__ void score_tile(const float* qs, const float* ks,
-                                           const float* pks, const float* pqs,
-                                           int ty, int tx, float (&s)[4][4]) {
-    constexpr int ST = DH + 4;
+struct BandOps<bf16, DH> {
+    using Op = Ops<bf16, DH>;
+    static constexpr int LD = Tile<bf16, DH>::LD;
+    static constexpr int SLD = Skew<bf16>::LD;
+
+    // c (16 x 8N) += A (16 x DH) . band rows [n0, n0 + 8N)^T
+    template <int N>
+    __device__ __forceinline__ static void scores(float (&c)[N][4], const typename Op::A& a,
+                                                  const Band<bf16, DH>& band, int n0) {
+        const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+        for (int ks = 0; ks < DH / 16; ++ks) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll 1
-    for (int d = 0; d < DH; d += 4) {
-        float4 qv[4], kv[4], pkv[7], pqv[7];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            qv[j] = *reinterpret_cast<const float4*>(qs + (ty + 16 * j) * ST + d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-            kv[i] = *reinterpret_cast<const float4*>(ks + (tx + 16 * i) * ST + d);
-#pragma unroll
-        for (int e = 0; e < 7; ++e) {
-            pkv[e] = *reinterpret_cast<const float4*>(pks + (63 + tx - ty + 16 * (e - 3)) * ST + d);
-            pqv[e] = *reinterpret_cast<const float4*>(pqs + (63 - tx + ty + 16 * (e - 3)) * ST + d);
-        }
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                float x = dot4(qv[j], kv[i], s[j][i]);     // content
-                x = dot4(qv[j], pkv[i - j + 3], x);         // c2p
-                s[j][i] = dot4(kv[i], pqv[j - i + 3], x);   // p2c
+            for (int np = 0; np < N / 2; ++np) {
+                uint32_t f[4];
+                mmd_tc::ldsm_x4(f, band.row(n0 + 16 * np + (i >> 1) * 8 + r) + 16 * ks +
+                                       (i & 1) * 8);
+                mmd_tc::mma(c[2 * np], a.f[ks], f[0], f[1]);
+                mmd_tc::mma(c[2 * np + 1], a.f[ks], f[2], f[3]);
             }
+        }
     }
-}
 
-// dP of this thread's 4 x 4 block: do rows ty + 16 j against v rows tx + 16 i.
+    // o (16 x DH) += dSk rows [m0, +16) x cols [k0, +16 ks) . band rows [k0, ...)
+    __device__ __forceinline__ static void own(float (&o)[DH / 8][4], const bf16* dsk, int m0,
+                                               int k0, int steps, const Band<bf16, DH>& band) {
+        const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+#pragma unroll
+        for (int kk = 0; kk < steps; ++kk) {
+            const int k = k0 + 16 * kk;
+            uint32_t a[4];
+            mmd_tc::load_a(a, dsk, SLD, m0, k);
+            const bf16* brow = band.row(k + (i & 1) * 8 + r) + (i >> 1) * 8;
+#pragma unroll
+            for (int np = 0; np < DH / 16; ++np) {
+                uint32_t f[4];
+                mmd_tc::ldsm_x4_t(f, brow + 16 * np);
+                mmd_tc::mma(o[2 * np], a, f[0], f[1]);
+                mmd_tc::mma(o[2 * np + 1], a, f[2], f[3]);
+            }
+        }
+    }
+
+    // o (16 band rows x DH) += dSk^T rows [j0, +16) x k [k0, +16 steps) . x rows k
+    __device__ __forceinline__ static void grad(float (&o)[DH / 8][4], const bf16* dsk, int j0,
+                                                int k0, int steps, const bf16* x) {
+        for (int kk = 0; kk < steps; ++kk) {
+            const int k = k0 + 16 * kk;
+            uint32_t a[4];
+            mmd_tc::load_a_t(a, dsk, SLD, j0, k);
+#pragma unroll
+            for (int np = 0; np < DH / 16; ++np) {
+                uint32_t f[4];
+                mmd_tc::load_b_t(f, x, LD, k, 16 * np);
+                mmd_tc::mma(o[2 * np], a, f[0], f[1]);
+                mmd_tc::mma(o[2 * np + 1], a, f[2], f[3]);
+            }
+        }
+    }
+};
+
+// fp32: 3xTF32. `own` and `grad` take the k index of an m16k8 fragment in
+// the permuted order of Ops<float, DH>::pv (k q and q + 4 are rows 2q and
+// 2q + 1), so the scalar loads of B (row stride 4 mod 32 words) and of the
+// transposed dSk (132 = 4 mod 32) hit 32 banks.
 template <int DH>
-__device__ __forceinline__ void dot_tile(const float* as, const float* bs, int ty, int tx,
-                                         float (&s)[4][4]) {
-    constexpr int ST = DH + 4;
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int i = 0; i < 4; ++i) s[j][i] = 0.f;
-#pragma unroll 1
-    for (int d = 0; d < DH; d += 4) {
-        float4 av[4], bv[4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-            av[j] = *reinterpret_cast<const float4*>(as + (ty + 16 * j) * ST + d);
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-            bv[i] = *reinterpret_cast<const float4*>(bs + (tx + 16 * i) * ST + d);
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int i = 0; i < 4; ++i) s[j][i] = dot4(av[j], bv[i], s[j][i]);
-    }
-}
+struct BandOps<float, DH> {
+    using Op = Ops<float, DH>;
+    static constexpr int LD = Tile<float, DH>::LD;
+    static constexpr int SLD = Skew<float>::LD;
 
-struct Geom {
-    int t_len, num_heads, d_model;
+    template <int N>
+    __device__ __forceinline__ static void scores(float (&c)[N][4], const typename Op::A& a,
+                                                  const Band<float, DH>& band, int n0) {
+        const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
+#pragma unroll
+        for (int ks = 0; ks < DH / 8; ++ks) {
+            uint32_t raw[4];
+            mmd_tc::load_a_f32(raw, a.s, LD, a.m0, 8 * ks);
+            const mmd_tc::Split<4> af(raw);
+#pragma unroll
+            for (int np = 0; np < N / 2; ++np) {
+                uint32_t f[4];
+                mmd_tc::ldsm_x4(f, band.row(n0 + 16 * np + (i >> 1) * 8 + r) + 8 * ks +
+                                       (i & 1) * 4);
+                const mmd_tc::Split<4> bf(f);
+                mmd_tc::mma_3xtf32(c[2 * np], af, bf.hi[0], bf.hi[1], bf.lo[0], bf.lo[1]);
+                mmd_tc::mma_3xtf32(c[2 * np + 1], af, bf.hi[2], bf.hi[3], bf.lo[2], bf.lo[3]);
+            }
+        }
+    }
+
+    __device__ __forceinline__ static void own(float (&o)[DH / 8][4], const float* dsk, int m0,
+                                               int k0, int steps, const Band<float, DH>& band) {
+        const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+        for (int kk = 0; kk < 2 * steps; ++kk) {
+            const int k = k0 + 8 * kk;
+            const float2 x0 = *reinterpret_cast<const float2*>(dsk + (m0 + g) * SLD + k + 2 * q);
+            const float2 x1 =
+                *reinterpret_cast<const float2*>(dsk + (m0 + g + 8) * SLD + k + 2 * q);
+            const uint32_t raw[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x),
+                                     __float_as_uint(x0.y), __float_as_uint(x1.y)};
+            const mmd_tc::Split<4> af(raw);
+            const float* r0 = band.row(k + 2 * q) + g;
+            const float* r1 = band.row(k + 2 * q + 1) + g;
+#pragma unroll
+            for (int nt = 0; nt < DH / 8; ++nt) {
+                const uint32_t f[2] = {__float_as_uint(r0[8 * nt]), __float_as_uint(r1[8 * nt])};
+                const mmd_tc::Split<2> bf(f);
+                mmd_tc::mma_3xtf32(o[nt], af, bf.hi[0], bf.hi[1], bf.lo[0], bf.lo[1]);
+            }
+        }
+    }
+
+    __device__ __forceinline__ static void grad(float (&o)[DH / 8][4], const float* dsk, int j0,
+                                                int k0, int steps, const float* x) {
+        const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+        for (int kk = 0; kk < 2 * steps; ++kk) {
+            const int k = k0 + 8 * kk;
+            const float* d0 = dsk + (k + 2 * q) * SLD + j0 + g;
+            const float* d1 = d0 + SLD;
+            const uint32_t raw[4] = {__float_as_uint(d0[0]), __float_as_uint(d0[8]),
+                                     __float_as_uint(d1[0]), __float_as_uint(d1[8])};
+            const mmd_tc::Split<4> af(raw);
+            const float* r0 = x + (k + 2 * q) * LD + g;
+#pragma unroll
+            for (int nt = 0; nt < DH / 8; ++nt) {
+                const uint32_t f[2] = {__float_as_uint(r0[8 * nt]),
+                                       __float_as_uint(r0[LD + 8 * nt])};
+                const mmd_tc::Split<2> bf(f);
+                mmd_tc::mma_3xtf32(o[nt], af, bf.hi[0], bf.hi[1], bf.lo[0], bf.lo[1]);
+            }
+        }
+    }
+};
+
+__device__ __forceinline__ float round_as(float x, float*) { return x; }
+__device__ __forceinline__ float round_as(float x, bf16*) {
+    return __bfloat162float(__float2bfloat16(x));
+}
+__device__ __forceinline__ void put(float* p, float x) { *p = x; }
+__device__ __forceinline__ void put(bf16* p, float x) { *p = __float2bfloat16(x); }
+
+template <typename T>
+struct Params {
+    const T *q, *k, *v, *pk, *pq, *dout;
+    const uint8_t* key_valid;
+    float* stats;                // (3, B, H, T): m (log2 domain), 1 / l, D
+    float* ws;                   // (2, B, T / 64, T + 64, D): the dPK, dPQ slices
+    T *dq, *dk, *dv;
+    int batch, t_len, num_heads;
     float scale, scale_log2;
 };
+
+// One CTA's operands: its own tiles X, X2 and the walked tiles Y, Y2 of a
+// batch row and head (row stride d_model), the table whose band gives the
+// own term and the other table. Score rows are X's rows; dP = X2 Y2^T.
+template <typename T, int DH>
+struct Frame {
+    const T *x, *x2, *y, *y2, *own_tab, *other_tab;
+    int own_tile, t_len, d_model;
+};
+
+// The CTA's shared memory (layout of Smem<T, DH>).
+template <typename T, int DH>
+struct Shared {
+    static constexpr int TE = Tile<T, DH>::ELEMS;
+    T *xs, *x2s, *ys, *y2s, *ring_own, *ring_other;
+    float* gs;                   // the band scores' tile ...
+    T* dsk;                      // ... and dSk, in the same bytes
+    float* col;                  // [3][BLOCK] per walked row
+
+    __device__ __forceinline__ explicit Shared(float4* smem) {
+        T* base = reinterpret_cast<T*>(smem);
+        xs = base;
+        x2s = xs + TE;
+        ys = x2s + TE;
+        y2s = ys + TE;
+        ring_own = y2s + TE;
+        ring_other = ring_own + 3 * TE;
+        gs = reinterpret_cast<float*>(ring_other + 3 * TE);
+        dsk = reinterpret_cast<T*>(gs);
+        col = reinterpret_cast<float*>(reinterpret_cast<char*>(gs) + Smem<T, DH>::SHARED);
+    }
+
+    // own-term chunk c covers table rows T-64-64 o + 64 c (ring slot c % 3);
+    // other-term chunk c (-1 <= c < T / 64) rows T-64+64 o-64 c (slot (c+1) % 3)
+    __device__ __forceinline__ void load_own_chunk(const Frame<T, DH>& f, int c) const {
+        copy_tile<T, DH>(ring_own + (c % 3) * TE, f.own_tab, f.d_model,
+                         f.t_len - BLOCK - BLOCK * f.own_tile + BLOCK * c, 2 * f.t_len);
+    }
+    __device__ __forceinline__ void load_other_chunk(const Frame<T, DH>& f, int c) const {
+        copy_tile<T, DH>(ring_other + ((c + 1) % 3) * TE, f.other_tab, f.d_model,
+                         f.t_len - BLOCK + BLOCK * f.own_tile - BLOCK * c, 2 * f.t_len);
+    }
+    __device__ __forceinline__ void load_walked(const Frame<T, DH>& f, int i) const {
+        copy_tile<T, DH>(ys, f.y, f.d_model, BLOCK * i, f.t_len);
+        copy_tile<T, DH>(y2s, f.y2, f.d_model, BLOCK * i, f.t_len);
+    }
+    // the first step's operands; one commit group
+    __device__ __forceinline__ void load_first(const Frame<T, DH>& f) const {
+        copy_tile<T, DH>(xs, f.x, f.d_model, BLOCK * f.own_tile, f.t_len);
+        copy_tile<T, DH>(x2s, f.x2, f.d_model, BLOCK * f.own_tile, f.t_len);
+        load_walked(f, 0);
+        load_own_chunk(f, 0);
+        load_own_chunk(f, 1);
+        load_other_chunk(f, -1);
+        load_other_chunk(f, 0);
+        mmd_tc::cp_async_commit();
+    }
+    // step i's bands: own chunks i, i + 1; other chunks i, i - 1
+    __device__ __forceinline__ Band<T, DH> own_band(int i) const {
+        return {ring_own + (i % 3) * TE, ring_own + ((i + 1) % 3) * TE};
+    }
+    __device__ __forceinline__ Band<T, DH> other_band(int i) const {
+        return {ring_other + ((i + 1) % 3) * TE, ring_other + (i % 3) * TE};
+    }
+};
+
+// C fragments (16 rows from m0, 8N columns from n0) into the band scores'
+// tile.
+template <int N>
+__device__ __forceinline__ void store_g(float* gs, const float (&c)[N][4], int m0, int n0) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < N; ++nt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+            *reinterpret_cast<float2*>(gs + (m0 + g + 8 * h) * G_LD + n0 + 8 * nt + 2 * q) =
+                make_float2(c[nt][2 * h], c[nt][2 * h + 1]);
+}
+
+// A (this warp's 16 rows from m0) . the warp's window of the band^T into
+// the band scores' tile, in two products (48 and 32 columns: fewer
+// accumulators live at once).
+template <typename T, int DH>
+__device__ __forceinline__ void band_scores(float* gs, const typename Ops<T, DH>::A& a,
+                                            const Band<T, DH>& band, int m0) {
+    using BO = BandOps<T, DH>;
+    const int n0 = 48 - m0;
+    {
+        float c[6][4];
+        zero(c);
+        BO::template scores<6>(c, a, band, n0);
+        store_g(gs, c, m0, 0);
+    }
+    float c[4][4];
+    zero(c);
+    BO::template scores<4>(c, a, band, n0 + 48);
+    store_g(gs, c, m0, 48);
+}
+
+// The unscaled scores of this warp's 16 rows against the walked tile:
+// content X Y^T, the own term (this warp's rows of X . band^T, each score
+// taking element (r, 63 - r + c): local column 15 - r % 16 + c of the
+// window) and the other term (the walked tile's rows of Y . other band^T,
+// written by their warps; score (r, c) takes element (c, 63 - c + r)).
+// Ends with every warp past one barrier and the tile still being read.
+template <typename T, int DH>
+__device__ __forceinline__ void tile_scores(float (&s)[NT][4], const Shared<T, DH>& sh, int i) {
+    using Op = Ops<T, DH>;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    const int m0 = 16 * warp;
+    zero(s);
+    {
+        typename Op::A xa;
+        Op::load_a(xa, sh.xs, m0);
+        Op::template scores<NT>(s, xa, sh.ys);
+        band_scores<T, DH>(sh.gs, xa, sh.own_band(i), m0);
+    }
+    __syncwarp();
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int r = g + 8 * (e >> 1);
+            s[nt][e] += sh.gs[(m0 + r) * G_LD + 15 - r + 8 * nt + 2 * q + (e & 1)];
+        }
+    __syncwarp();
+    {
+        typename Op::A ya;
+        Op::load_a(ya, sh.ys, m0);
+        band_scores<T, DH>(sh.gs, ya, sh.other_band(i), m0);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int c = 8 * nt + 2 * q + (e & 1);
+            s[nt][e] += sh.gs[c * G_LD + 15 - (c & 15) + m0 + g + 8 * (e >> 1)];
+        }
+}
+
+// dP (or dP^T) of this warp's rows: X2 Y2^T
+template <typename T, int DH>
+__device__ __forceinline__ void tile_dp(float (&dp)[NT][4], const Shared<T, DH>& sh) {
+    using Op = Ops<T, DH>;
+    zero(dp);
+    typename Op::A a;
+    Op::load_a(a, sh.x2s, 16 * (threadIdx.x >> 5));
+    Op::template scores<NT>(dp, a, sh.y2s);
+}
 
 // ---------------------------------------------------------------------------
 // 1. row statistics: m (log2 domain), 1 / l and D = sum_s P dP
 // ---------------------------------------------------------------------------
-template <int DH>
-struct StatsSmem {
-    static constexpr int ST = DH + 4;
-    static constexpr size_t BYTES =
-        static_cast<size_t>(4 * 64 + 2 * BAND) * ST * sizeof(float) + BN * sizeof(int);
-};
-
 template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
-deberta_bwd_stats_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             const T* __restrict__ pk, const T* __restrict__ pq,
-             const uint8_t* __restrict__ key_valid, const T* __restrict__ dout,
-             float* __restrict__ m_out, float* __restrict__ inv_l_out,
-             float* __restrict__ d_out, Geom g) {
-    constexpr int ST = DH + 4;
+deberta_bwd_stats_kernel(const Params<T> p) {
     extern __shared__ float4 smem4[];
-    float* qs = reinterpret_cast<float*>(smem4);   // [BM][ST]
-    float* dos = qs + BM * ST;                      // [BM][ST]
-    float* ks = dos + BM * ST;                      // [BN][ST]
-    float* vs = ks + BN * ST;                       // [BN][ST]
-    float* pks = vs + BN * ST;                      // [BAND][ST]
-    float* pqs = pks + BAND * ST;                   // [BAND][ST]
-    int* kvalid = reinterpret_cast<int*>(pqs + BAND * ST);   // [BN]
-
+    const Shared<T, DH> sh(smem4);
     const int tid = threadIdx.x;
-    const int ty = tid >> 4;
-    const int tx = tid & 15;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int t0 = blockIdx.x * BM;
-    const int t_len = g.t_len;
-    const int d_model = g.d_model;
-    const size_t head_off = static_cast<size_t>(h) * DH;
-    const size_t bt = static_cast<size_t>(b) * t_len * d_model + head_off;
-    const uint8_t* mb = key_valid + static_cast<size_t>(b) * t_len;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+    const int o = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
+    const int t_len = p.t_len, d_model = p.num_heads * DH, n = t_len / BLOCK;
+    const size_t row0 = static_cast<size_t>(b) * t_len * d_model + static_cast<size_t>(h) * DH;
+    const Frame<T, DH> f{p.q + row0, p.dout + row0, p.k + row0, p.v + row0,
+                         p.pk + static_cast<size_t>(h) * DH, p.pq + static_cast<size_t>(h) * DH,
+                         o, t_len, d_model};
+    const uint8_t* mb = p.key_valid + static_cast<size_t>(b) * t_len;
+    float* kvalid = sh.col;
+    sh.load_first(f);
 
-    stage<T, DH>(qs, q + bt + static_cast<size_t>(t0) * d_model, d_model, BM);
-    stage<T, DH>(dos, dout + bt + static_cast<size_t>(t0) * d_model, d_model, BM);
-
-    float m_run[4], l_run[4], d_run[4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        m_run[j] = -CUDART_INF_F;
-        l_run[j] = 0.f;
-        d_run[j] = 0.f;
-    }
-    for (int s0 = 0; s0 < t_len; s0 += BN) {
-        __syncthreads();                     // the previous tile is consumed
-        stage<T, DH>(ks, k + bt + static_cast<size_t>(s0) * d_model, d_model, BN);
-        stage<T, DH>(vs, v + bt + static_cast<size_t>(s0) * d_model, d_model, BN);
-        stage<T, DH>(pks, pk + static_cast<size_t>(t_len - BM - t0 + s0) * d_model + head_off,
-                     d_model, BAND);
-        stage<T, DH>(pqs, pq + static_cast<size_t>(t_len - BN - s0 + t0) * d_model + head_off,
-                     d_model, BAND);
-        if (tid < BN) kvalid[tid] = mb[s0 + tid] != 0;
+    float m_run[2] = {-CUDART_INF_F, -CUDART_INF_F}, l_run[2] = {0.f, 0.f},
+          d_run[2] = {0.f, 0.f};
+    for (int i = 0; i < n; ++i) {
+        mmd_tc::cp_async_wait_all();
         __syncthreads();
-
-        float s[4][4], dp[4][4];
-        score_tile<DH>(qs, ks, pks, pqs, ty, tx, s);
-        dot_tile<DH>(dos, vs, ty, tx, dp);
+        if (i + 1 < n) {
+            sh.load_own_chunk(f, i + 2);
+            sh.load_other_chunk(f, i + 1);
+        }
+        mmd_tc::cp_async_commit();
+        if (tid < BLOCK) kvalid[tid] = mb[BLOCK * i + tid] != 0 ? 1.f : 0.f;
+        float s[NT][4], dp[NT][4];
+        tile_scores<T, DH>(s, sh, i);
+        tile_dp<T, DH>(dp, sh);
+        __syncthreads();                     // the band scores' tile and Y, Y2 are free
+        if (i + 1 < n) sh.load_walked(f, i + 1);
+        mmd_tc::cp_async_commit();
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
+        for (int hr = 0; hr < 2; ++hr) {
             float mx = NEG;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                s[j][i] = kvalid[tx + 16 * i] ? s[j][i] * g.scale_log2 : NEG;
-                mx = fmaxf(mx, s[j][i]);
-            }
-            // the 16 threads of a row are lanes tx = 0..15 of one half-warp
+            for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-            for (int off = 1; off < 16; off <<= 1)
-                mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-            const float m_new = fmaxf(m_run[j], mx);
-            const float alpha = exp2f(m_run[j] - m_new);
+                for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+                    const int c = 8 * nt + 2 * qd + (e & 1);
+                    s[nt][e] = kvalid[c] != 0.f ? s[nt][e] * p.scale_log2 : NEG;
+                    mx = fmaxf(mx, s[nt][e]);
+                }
+            // the 4 lanes of a row are one quad
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+            const float m_new = fmaxf(m_run[hr], mx);
+            const float alpha = exp2f(m_run[hr] - m_new);
             float psum = 0.f, dsum = 0.f;
 #pragma unroll
-            for (int i = 0; i < 4; ++i) {
-                const float p = exp2f(s[j][i] - m_new);
-                psum += p;
-                dsum = fmaf(p, dp[j][i], dsum);
-            }
+            for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-            for (int off = 1; off < 16; off <<= 1) {
+                for (int e = 2 * hr; e < 2 * hr + 2; ++e) {
+                    const float pe = exp2f(s[nt][e] - m_new);
+                    psum += pe;
+                    dsum = fmaf(pe, dp[nt][e], dsum);
+                }
+#pragma unroll
+            for (int off = 1; off < 4; off <<= 1) {
                 psum += __shfl_xor_sync(0xffffffffu, psum, off);
                 dsum += __shfl_xor_sync(0xffffffffu, dsum, off);
             }
-            l_run[j] = l_run[j] * alpha + psum;
-            d_run[j] = d_run[j] * alpha + dsum;
-            m_run[j] = m_new;
+            l_run[hr] = l_run[hr] * alpha + psum;
+            d_run[hr] = d_run[hr] * alpha + dsum;
+            m_run[hr] = m_new;
         }
     }
-    if (tx == 0) {
-        const size_t row0 = (static_cast<size_t>(b) * g.num_heads + h) * t_len + t0;
+    mmd_tc::cp_async_wait_all();
+    if (qd == 0) {
+        const size_t rows = static_cast<size_t>(p.batch) * p.num_heads * t_len;
+        const size_t r0 = (static_cast<size_t>(b) * p.num_heads + h) * t_len + BLOCK * o +
+                          16 * warp + g;
 #pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const size_t r = row0 + ty + 16 * j;
-            const float inv = 1.f / l_run[j];    // l >= 1: the row max contributes exp2(0)
-            m_out[r] = m_run[j];
-            inv_l_out[r] = inv;
-            d_out[r] = d_run[j] * inv;
+        for (int hr = 0; hr < 2; ++hr) {
+            const float inv = 1.f / l_run[hr];   // l >= 1: the row max contributes exp2(0)
+            p.stats[r0 + 8 * hr] = m_run[hr];
+            p.stats[rows + r0 + 8 * hr] = inv;
+            p.stats[2 * rows + r0 + 8 * hr] = d_run[hr] * inv;
         }
-    }
-}
-
-// P and ds of this thread's 4 x 4 block into the [BM][P_STRIDE] tiles ps
-// (when given) and dss, from the raw scores s and dP.
-__device__ __forceinline__ void weights_tile(const float (&s)[4][4], const float (&dp)[4][4],
-                                             const int* kvalid, const float* mrow,
-                                             const float* invl, const float* drow, int ty,
-                                             int tx, const Geom& g, float* ps, float* dss) {
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-        const int r = ty + 16 * j;
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-            const int c = tx + 16 * i;
-            const bool ok = kvalid[c] != 0;
-            const float p = exp2f((ok ? s[j][i] * g.scale_log2 : NEG) - mrow[r]) * invl[r];
-            if (ps != nullptr) ps[r * P_STRIDE + c] = p;
-            dss[r * P_STRIDE + c] = ok ? p * (dp[j][i] - drow[r]) * g.scale : 0.f;
-        }
-    }
-}
-
-// Add one tile pair's 127-row table-gradient band into a CTA's workspace
-// slice: band[rr] = sum over the (row, col) pairs of the tile on diagonal rr
-// of ds * x, where rr = 63 - row + col (FOR_PK: x = the query row, the pair
-// is (i, i + rr - 63)) or rr = 63 - col + row (x = the key row, the pair is
-// (j + rr - 63, j)). `dst` points at the slice row of band row 0, head
-// columns.
-template <int DH, bool FOR_PK>
-__device__ __forceinline__ void add_band(const float* dss, const float* xs, float* dst,
-                                         int d_model) {
-    constexpr int ST = DH + 4;
-    constexpr int C4 = DH / 4;
-    for (int item = threadIdx.x; item < (2 * 64 - 1) * C4; item += THREADS) {
-        const int rr = item / C4;
-        const int c = 4 * (item % C4);
-        const int lo = rr < 63 ? 63 - rr : 0;
-        const int hi = rr > 63 ? 127 - rr : 64;
-        float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
-        for (int a = lo; a < hi; ++a) {
-            // FOR_PK: a is the query row i, the key is i + rr - 63;
-            // else a is the key j, the query row is j + rr - 63
-            const int other = a + rr - 63;
-            const float d = FOR_PK ? dss[a * P_STRIDE + other] : dss[other * P_STRIDE + a];
-            fma4(acc, d, *reinterpret_cast<const float4*>(xs + a * ST + c));
-        }
-        float4* out = reinterpret_cast<float4*>(dst + static_cast<size_t>(rr) * d_model + c);
-        *out = add4(*out, acc);
     }
 }
 
 // ---------------------------------------------------------------------------
-// 2. dq and the dPK bands: one CTA per (query tile, head, b)
+// 2. gradients: dq and the dPK slices (KEYS false), dk, dv and the dPQ
+//    slices (KEYS true, the transposed frame)
 // ---------------------------------------------------------------------------
-template <int DH>
-struct DqSmem {
-    static constexpr int ST = DH + 4;
-    static constexpr size_t BYTES =
-        (static_cast<size_t>(4 * 64 + 2 * BAND) * ST + BM * P_STRIDE + 3 * BM) * sizeof(float)
-        + BN * sizeof(int);
-};
 
+// dS (or, as lo, what bf16 rounding left of it) of this warp's fragments
+// onto the diagonal of dSk: dSk[r][63 - r + c] = w[r][c].
+template <typename T>
+__device__ __forceinline__ void skew_store(T* dsk, const float (&w)[NT][4]) {
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            const int r = 16 * warp + g + 8 * (e >> 1);
+            put(dsk + r * Skew<T>::LD + BLOCK - 1 - r + 8 * nt + 2 * q + (e & 1), w[nt][e]);
+        }
+}
+
+// Zeros over this warp's rows of dSk, columns [48 - 16 w, 128 - 16 w).
+template <typename T>
+__device__ __forceinline__ void zero_window(T* dsk) {
+    constexpr int PER = 16 / static_cast<int>(sizeof(T));
+    constexpr int CH = WIN / PER;
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    for (int idx = lane; idx < 16 * CH; idx += 32) {
+        const int r = 16 * warp + idx / CH;
+        *reinterpret_cast<uint4*>(dsk + r * Skew<T>::LD + 48 - 16 * warp + (idx % CH) * PER) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+}
+
+// C fragments of 16 rows (from row m0 of `dst`, row stride ld) to memory.
 template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
-deberta_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-          const T* __restrict__ pk, const T* __restrict__ pq,
-          const uint8_t* __restrict__ key_valid, const T* __restrict__ dout,
-          const float* __restrict__ m_in, const float* __restrict__ inv_l_in,
-          const float* __restrict__ d_in, T* __restrict__ dq, float* __restrict__ ws, Geom g) {
-    constexpr int ST = DH + 4;
-    constexpr int CHUNKS = DH / 16;
-    extern __shared__ float4 smem4[];
-    float* qs = reinterpret_cast<float*>(smem4);   // [BM][ST]
-    float* dos = qs + BM * ST;                      // [BM][ST]
-    float* ks = dos + BM * ST;                      // [BN][ST]
-    float* vs = ks + BN * ST;                       // [BN][ST]
-    float* pks = vs + BN * ST;                      // [BAND][ST]
-    float* pqs = pks + BAND * ST;                   // [BAND][ST]
-    float* dss = pqs + BAND * ST;                   // [BM][P_STRIDE]
-    float* mrow = dss + BM * P_STRIDE;              // [BM]
-    float* invl = mrow + BM;                        // [BM]
-    float* drow = invl + BM;                        // [BM]
-    int* kvalid = reinterpret_cast<int*>(drow + BM);   // [BN]
-
-    const int tid = threadIdx.x;
-    const int ty = tid >> 4;
-    const int tx = tid & 15;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int t0 = blockIdx.x * BM;
-    const int t_len = g.t_len;
-    const int d_model = g.d_model;
-    const size_t head_off = static_cast<size_t>(h) * DH;
-    const size_t bt = static_cast<size_t>(b) * t_len * d_model + head_off;
-    const uint8_t* mb = key_valid + static_cast<size_t>(b) * t_len;
-    // this CTA's (T + 64, D) workspace slice; its row 0 is table row T-64-t0
-    float* slice = ws + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) * (t_len + 64) * d_model
-                   + head_off;
-
-    stage<T, DH>(qs, q + bt + static_cast<size_t>(t0) * d_model, d_model, BM);
-    stage<T, DH>(dos, dout + bt + static_cast<size_t>(t0) * d_model, d_model, BM);
-    if (tid < BM) {
-        const size_t r = (static_cast<size_t>(b) * g.num_heads + h) * t_len + t0 + tid;
-        mrow[tid] = m_in[r];
-        invl[tid] = inv_l_in[r];
-        drow[tid] = d_in[r];
-    }
-
-    // In the accumulation phase this thread owns row `row` and columns
-    // [4 * (4 * c + sub), +4) of dq.
-    const int row = tid >> 2;
-    const int sub = tid & 3;
-    float4 acc[CHUNKS];
+__device__ __forceinline__ void store_rows(T* dst, int64_t ld, const float (&acc)[DH / 8][4]) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
 #pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-
-    for (int s0 = 0; s0 < t_len; s0 += BN) {
-        __syncthreads();                     // the previous tile is consumed
-        stage<T, DH>(ks, k + bt + static_cast<size_t>(s0) * d_model, d_model, BN);
-        stage<T, DH>(vs, v + bt + static_cast<size_t>(s0) * d_model, d_model, BN);
-        stage<T, DH>(pks, pk + static_cast<size_t>(t_len - BM - t0 + s0) * d_model + head_off,
-                     d_model, BAND);
-        stage<T, DH>(pqs, pq + static_cast<size_t>(t_len - BN - s0 + t0) * d_model + head_off,
-                     d_model, BAND);
-        if (tid < BN) kvalid[tid] = mb[s0 + tid] != 0;
-        __syncthreads();
-
-        {
-            float s[4][4], dp[4][4];
-            score_tile<DH>(qs, ks, pks, pqs, ty, tx, s);
-            dot_tile<DH>(dos, vs, ty, tx, dp);
-            weights_tile(s, dp, kvalid, mrow, invl, drow, ty, tx, g, nullptr, dss);
-        }
-        __syncthreads();
-
-        // dq[row] += sum_j ds[row, j] (k_j + PK band[63 - row + j])
-        const float* dsr = dss + row * P_STRIDE;
-#pragma unroll 4
-        for (int j = 0; j < BN; ++j) {
-            const float d = dsr[j];
-            const float4* kr = reinterpret_cast<const float4*>(ks + j * ST);
-            const float4* pr = reinterpret_cast<const float4*>(pks + (63 - row + j) * ST);
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-            for (int c = 0; c < CHUNKS; ++c) fma4(acc[c], d, add4(kr[4 * c + sub], pr[4 * c + sub]));
-        }
-        // the band's table row T-64-t0+s0+rr is slice row s0 + rr
-        add_band<DH, true>(dss, qs, slice + static_cast<size_t>(s0) * d_model, d_model);
-    }
-
-    T* dst = dq + bt + static_cast<size_t>(t0 + row) * d_model;
-#pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) {
-        const int col = 4 * (4 * c + sub);
-        store_as(dst + col + 0, acc[c].x);
-        store_as(dst + col + 1, acc[c].y);
-        store_as(dst + col + 2, acc[c].z);
-        store_as(dst + col + 3, acc[c].w);
-    }
+        for (int nt = 0; nt < DH / 8; ++nt)
+            store2(dst + (g + 8 * h) * ld + 8 * nt + 2 * q, acc[nt][2 * h], acc[nt][2 * h + 1]);
 }
 
-// ---------------------------------------------------------------------------
-// 3. dk, dv and the dPQ bands: one CTA per (key tile, head, b)
-// ---------------------------------------------------------------------------
-template <int DH>
-struct DkdvSmem {
-    static constexpr int ST = DH + 4;
-    static constexpr size_t BYTES =
-        (static_cast<size_t>(4 * 64 + 2 * BAND) * ST + 2 * BM * P_STRIDE + 3 * BM) * sizeof(float)
-        + BN * sizeof(int);
-};
-
-template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
-deberta_bwd_dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-            const T* __restrict__ pk, const T* __restrict__ pq,
-            const uint8_t* __restrict__ key_valid, const T* __restrict__ dout,
-            const float* __restrict__ m_in, const float* __restrict__ inv_l_in,
-            const float* __restrict__ d_in, T* __restrict__ dk, T* __restrict__ dv,
-            float* __restrict__ ws, Geom g) {
-    constexpr int ST = DH + 4;
-    constexpr int CHUNKS = DH / 16;
+template <typename T, int DH, bool KEYS>
+__device__ __forceinline__ void grad_cta(const Params<T>& p, int o, int h, int b) {
+    using Op = Ops<T, DH>;
+    using BO = BandOps<T, DH>;
+    constexpr bool SPLIT = sizeof(T) == 2;   // dS as bf16 hi + lo
     extern __shared__ float4 smem4[];
-    float* ks = reinterpret_cast<float*>(smem4);   // [BN][ST]
-    float* vs = ks + BN * ST;                       // [BN][ST]
-    float* qs = vs + BN * ST;                       // [BM][ST]
-    float* dos = qs + BM * ST;                      // [BM][ST]
-    float* pks = dos + BM * ST;                     // [BAND][ST]
-    float* pqs = pks + BAND * ST;                   // [BAND][ST]
-    float* ps = pqs + BAND * ST;                    // [BM][P_STRIDE]
-    float* dss = ps + BM * P_STRIDE;                // [BM][P_STRIDE]
-    float* mrow = dss + BM * P_STRIDE;              // [BM]
-    float* invl = mrow + BM;                        // [BM]
-    float* drow = invl + BM;                        // [BM]
-    int* kvalid = reinterpret_cast<int*>(drow + BM);   // [BN]
-
+    const Shared<T, DH> sh(smem4);
     const int tid = threadIdx.x;
-    const int ty = tid >> 4;
-    const int tx = tid & 15;
-    const int h = blockIdx.y;
-    const int b = blockIdx.z;
-    const int s0 = blockIdx.x * BN;
-    const int t_len = g.t_len;
-    const int d_model = g.d_model;
-    const size_t head_off = static_cast<size_t>(h) * DH;
-    const size_t bt = static_cast<size_t>(b) * t_len * d_model + head_off;
-    // this CTA's workspace slice; its row 0 is table row T-64-s0
-    float* slice = ws + (static_cast<size_t>(b) * gridDim.x + blockIdx.x) * (t_len + 64) * d_model
-                   + head_off;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+    const int t_len = p.t_len, d_model = p.num_heads * DH, n = t_len / BLOCK;
+    const size_t head = static_cast<size_t>(h) * DH;
+    const size_t row0 = static_cast<size_t>(b) * t_len * d_model + head;
+    const Frame<T, DH> f = KEYS
+        ? Frame<T, DH>{p.k + row0, p.v + row0, p.q + row0, p.dout + row0, p.pq + head,
+                       p.pk + head, o, t_len, d_model}
+        : Frame<T, DH>{p.q + row0, p.dout + row0, p.k + row0, p.v + row0, p.pk + head,
+                       p.pq + head, o, t_len, d_model};
+    const uint8_t* mb = p.key_valid + static_cast<size_t>(b) * t_len;
+    const size_t rows = static_cast<size_t>(p.batch) * p.num_heads * t_len;
+    const float* stats = p.stats + (static_cast<size_t>(b) * p.num_heads + h) * t_len;
+    // this CTA's slice: (T + 64) rows, row 0 at table row T - 64 - 64 o
+    float* slice = p.ws + (KEYS ? static_cast<size_t>(p.batch) * n * (t_len + BLOCK) * d_model : 0)
+                   + (static_cast<size_t>(b) * n + o) * (t_len + BLOCK) * d_model + head;
+    float* col = sh.col;                     // dq: key valid; dk/dv: m, 1/l, D of the queries
+    sh.load_first(f);
 
-    stage<T, DH>(ks, k + bt + static_cast<size_t>(s0) * d_model, d_model, BN);
-    stage<T, DH>(vs, v + bt + static_cast<size_t>(s0) * d_model, d_model, BN);
-    if (tid < BN) kvalid[tid] = key_valid[static_cast<size_t>(b) * t_len + s0 + tid] != 0;
-
-    // In the accumulation phase this thread owns key `kj` and columns
-    // [4 * (4 * c + sub), +4) of dk and dv.
-    const int kj = tid >> 2;
-    const int sub = tid & 3;
-    float4 dk_acc[CHUNKS], dv_acc[CHUNKS];
+    // this lane's own rows: 16 warp + g and + 8
+    const int own0 = BLOCK * o + 16 * warp + g;
+    float rm[2], ril[2], rd[2];              // dq: the rows' statistics
+    bool rok[2];                             // dk/dv: the rows' keys are valid
 #pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) {
-        dk_acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
-        dv_acc[c] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int hr = 0; hr < 2; ++hr) {
+        const int t = own0 + 8 * hr;
+        if constexpr (KEYS) {
+            rok[hr] = mb[t] != 0;
+        } else {
+            rm[hr] = stats[t];
+            ril[hr] = stats[rows + t];
+            rd[hr] = stats[2 * rows + t];
+        }
     }
 
-    for (int t0 = 0; t0 < t_len; t0 += BM) {
-        __syncthreads();                     // the previous tile is consumed
-        stage<T, DH>(qs, q + bt + static_cast<size_t>(t0) * d_model, d_model, BM);
-        stage<T, DH>(dos, dout + bt + static_cast<size_t>(t0) * d_model, d_model, BM);
-        stage<T, DH>(pks, pk + static_cast<size_t>(t_len - BM - t0 + s0) * d_model + head_off,
-                     d_model, BAND);
-        stage<T, DH>(pqs, pq + static_cast<size_t>(t_len - BN - s0 + t0) * d_model + head_off,
-                     d_model, BAND);
-        if (tid < BM) {
-            const size_t r = (static_cast<size_t>(b) * g.num_heads + h) * t_len + t0 + tid;
-            mrow[tid] = m_in[r];
-            invl[tid] = inv_l_in[r];
-            drow[tid] = d_in[r];
-        }
-        __syncthreads();
+    float acc[DH / 8][4], dv_acc[DH / 8][4], band_lo[DH / 8][4], band_hi[DH / 8][4];
+    zero(acc);
+    zero(band_lo);
+    zero(band_hi);
+    if constexpr (KEYS) zero(dv_acc);
 
-        {
-            float s[4][4], dp[4][4];
-            score_tile<DH>(qs, ks, pks, pqs, ty, tx, s);
-            dot_tile<DH>(dos, vs, ty, tx, dp);
-            weights_tile(s, dp, kvalid, mrow, invl, drow, ty, tx, g, ps, dss);
+    for (int i = 0; i < n; ++i) {
+        mmd_tc::cp_async_wait_all();
+        __syncthreads();                     // the step's tiles have landed; dSk is free
+        if (i + 1 < n) {
+            sh.load_own_chunk(f, i + 2);
+            sh.load_other_chunk(f, i + 1);
         }
-        __syncthreads();
-
-        // dv[kj] += sum_i P[i, kj] do_i;  dk[kj] += sum_i ds[i, kj] (q_i + PQ band[63 - kj + i])
-#pragma unroll 4
-        for (int i = 0; i < BM; ++i) {
-            const float p = ps[i * P_STRIDE + kj];
-            const float d = dss[i * P_STRIDE + kj];
-            const float4* dor = reinterpret_cast<const float4*>(dos + i * ST);
-            const float4* qr = reinterpret_cast<const float4*>(qs + i * ST);
-            const float4* pr = reinterpret_cast<const float4*>(pqs + (63 - kj + i) * ST);
-#pragma unroll
-            for (int c = 0; c < CHUNKS; ++c) {
-                fma4(dv_acc[c], p, dor[4 * c + sub]);
-                fma4(dk_acc[c], d, add4(qr[4 * c + sub], pr[4 * c + sub]));
+        mmd_tc::cp_async_commit();
+        if (tid < BLOCK) {
+            const int t = BLOCK * i + tid;
+            if constexpr (KEYS) {
+                col[tid] = stats[t];
+                col[BLOCK + tid] = stats[rows + t];
+                col[2 * BLOCK + tid] = stats[2 * rows + t];
+            } else {
+                col[tid] = mb[t] != 0 ? 1.f : 0.f;
             }
         }
-        // the band's table row T-64-s0+t0+rr is slice row t0 + rr
-        add_band<DH, false>(dss, ks, slice + static_cast<size_t>(t0) * d_model, d_model);
-    }
-
-    const size_t off = bt + static_cast<size_t>(s0 + kj) * d_model;
+        float s[NT][4], w[NT][4];
+        tile_scores<T, DH>(s, sh, i);
+        tile_dp<T, DH>(w, sh);
+        // s <- P (or P^T), w <- dS (or dS^T)
 #pragma unroll
-    for (int c = 0; c < CHUNKS; ++c) {
-        const int col = 4 * (4 * c + sub);
-        store_as(dk + off + col + 0, dk_acc[c].x);
-        store_as(dk + off + col + 1, dk_acc[c].y);
-        store_as(dk + off + col + 2, dk_acc[c].z);
-        store_as(dk + off + col + 3, dk_acc[c].w);
-        store_as(dv + off + col + 0, dv_acc[c].x);
-        store_as(dv + off + col + 1, dv_acc[c].y);
-        store_as(dv + off + col + 2, dv_acc[c].z);
-        store_as(dv + off + col + 3, dv_acc[c].w);
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int hr = e >> 1;
+                const int c = 8 * nt + 2 * qd + (e & 1);
+                const bool ok = KEYS ? rok[hr] : col[c] != 0.f;
+                const float m = KEYS ? col[c] : rm[hr];
+                const float il = KEYS ? col[BLOCK + c] : ril[hr];
+                const float dr = KEYS ? col[2 * BLOCK + c] : rd[hr];
+                const float pe = exp2f((ok ? s[nt][e] * p.scale_log2 : NEG) - m) * il;
+                s[nt][e] = pe;
+                w[nt][e] = ok ? pe * (w[nt][e] - dr) * p.scale : 0.f;
+            }
+        if constexpr (KEYS) Op::template pv<NT>(dv_acc, s, sh.y2s);   // dv += P^T dO
+        Op::template pv<NT>(acc, w, sh.ys);                            // += dS Y
+        if constexpr (SPLIT) {
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) s[nt][e] = w[nt][e] - round_as(w[nt][e], (T*)nullptr);
+            Op::template pv<NT>(acc, s, sh.ys);
+        }
+        __syncthreads();                     // the band scores' tile and Y, Y2 are free
+        if (i + 1 < n) sh.load_walked(f, i + 1);
+        mmd_tc::cp_async_commit();
+        zero_window(sh.dsk);
+        __syncwarp();
+        skew_store(sh.dsk, w);
+        __syncthreads();
+        // position terms: own rows . band, and the band gradient's two blocks
+        const Band<T, DH> band = sh.own_band(i);
+        BO::own(acc, sh.dsk, 16 * warp, 48 - 16 * warp, WIN / 16, band);
+        BO::grad(band_lo, sh.dsk, 16 * warp, 48 - 16 * warp, warp + 1, sh.xs);
+        BO::grad(band_hi, sh.dsk, BLOCK + 16 * warp, 0, 4 - warp, sh.xs);
+        if constexpr (SPLIT) {
+            __syncthreads();
+            skew_store(sh.dsk, s);
+            __syncthreads();
+            BO::own(acc, sh.dsk, 16 * warp, 48 - 16 * warp, WIN / 16, band);
+            BO::grad(band_lo, sh.dsk, 16 * warp, 48 - 16 * warp, warp + 1, sh.xs);
+            BO::grad(band_hi, sh.dsk, BLOCK + 16 * warp, 0, 4 - warp, sh.xs);
+        }
+        // band rows [0, 64) are final: slice rows 64 i + [0, 64)
+        store_rows<float, DH>(slice + static_cast<size_t>(BLOCK * i + 16 * warp) * d_model,
+                              d_model, band_lo);
+#pragma unroll
+        for (int nt = 0; nt < DH / 8; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                band_lo[nt][e] = band_hi[nt][e];
+                band_hi[nt][e] = 0.f;
+            }
+    }
+    mmd_tc::cp_async_wait_all();
+    store_rows<float, DH>(slice + static_cast<size_t>(BLOCK * n + 16 * warp) * d_model, d_model,
+                          band_lo);
+    T* out = (KEYS ? p.dk : p.dq) + row0 + static_cast<size_t>(BLOCK * o + 16 * warp) * d_model;
+    store_rows<T, DH>(out, d_model, acc);
+    if constexpr (KEYS) {
+        store_rows<T, DH>(p.dv + row0 + static_cast<size_t>(BLOCK * o + 16 * warp) * d_model,
+                          d_model, dv_acc);
+    }
+}
+
+// blockIdx.y < heads: the dq CTAs; the rest: the dk/dv CTAs
+template <typename T, int DH>
+__global__ void __launch_bounds__(THREADS)
+deberta_bwd_grad_kernel(const Params<T> p) {
+    if (static_cast<int>(blockIdx.y) < p.num_heads) {
+        grad_cta<T, DH, false>(p, blockIdx.x, blockIdx.y, blockIdx.z);
+    } else {
+        grad_cta<T, DH, true>(p, blockIdx.x, blockIdx.y - p.num_heads, blockIdx.z);
     }
 }
 
 // ---------------------------------------------------------------------------
-// 4. out[r] = sum over b, then over tiles, of the slice rows that map to r
+// 3. out[r] = sum over b, then over tiles, of the slice rows that map to r
+//    (blockIdx.y: 0 dPK, 1 dPQ)
 // ---------------------------------------------------------------------------
-__global__ void __launch_bounds__(THREADS)
-deberta_bwd_reduce_kernel(const float* __restrict__ ws, float* __restrict__ out, int batch, int t_len,
-              int d_model) {
-    const int64_t idx = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+__global__ void __launch_bounds__(REDUCE_THREADS)
+deberta_bwd_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dpk,
+                          float* __restrict__ dpq, int batch, int t_len, int d_model) {
+    const int64_t idx = static_cast<int64_t>(blockIdx.x) * REDUCE_THREADS + threadIdx.x;
     const int c4 = d_model / 4;
     if (idx >= static_cast<int64_t>(2 * t_len) * c4) return;
     const int r = static_cast<int>(idx / c4);
     const int col = 4 * static_cast<int>(idx % c4);
-    const int tiles = t_len / 64;
+    const int tiles = t_len / BLOCK;
+    const size_t slice = static_cast<size_t>(t_len + BLOCK) * d_model;
+    const float* src = ws + (blockIdx.y ? static_cast<size_t>(batch) * tiles * slice : 0);
     float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
     for (int b = 0; b < batch; ++b) {
         for (int tile = 0; tile < tiles; ++tile) {
-            // slice row 0 of tile `tile` is table row T - 64 - 64 * tile
-            const int local = r - (t_len - 64 - 64 * tile);
-            if (local < 0 || local >= t_len + 64) continue;
+            const int local = r - (t_len - BLOCK - BLOCK * tile);
+            if (local < 0 || local >= t_len + BLOCK) continue;
             const float4 x = *reinterpret_cast<const float4*>(
-                ws + ((static_cast<size_t>(b) * tiles + tile) * (t_len + 64) + local) * d_model
-                + col);
-            acc = add4(acc, x);
+                src + (static_cast<size_t>(b) * tiles + tile) * slice +
+                static_cast<size_t>(local) * d_model + col);
+            acc.x += x.x;
+            acc.y += x.y;
+            acc.z += x.z;
+            acc.w += x.w;
         }
     }
-    *reinterpret_cast<float4*>(out + static_cast<size_t>(r) * d_model + col) = acc;
+    *reinterpret_cast<float4*>((blockIdx.y ? dpq : dpk) + static_cast<size_t>(r) * d_model + col) =
+        acc;
 }
 
-struct Args {
-    const void *q, *k, *v, *pk, *pq, *key_valid, *dout;
-    float *stats, *ws;
-    void *dq, *dk, *dv;
-    float *dpk, *dpq;
-    int batch, t_len, num_heads;
-    float scale;
-};
+// Above 48 KB of dynamic shared memory a kernel has to be allowed it, once
+// per device: `raised` holds a bit for each device where that is done.
+template <typename T, int DH>
+cudaError_t launch(const Params<T>& p, float* dpk, float* dpq, int device,
+                   cudaStream_t stream) {
+    constexpr size_t smem = Smem<T, DH>::BYTES;
+    static std::atomic<uint64_t> raised{0};
+    const uint64_t bit = uint64_t{1} << device;
+    if (!(raised.load(std::memory_order_relaxed) & bit)) {
+        cudaError_t err = cudaFuncSetAttribute(deberta_bwd_stats_kernel<T, DH>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+        if (err == cudaSuccess) {
+            err = cudaFuncSetAttribute(deberta_bwd_grad_kernel<T, DH>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       static_cast<int>(smem));
+        }
+        if (err != cudaSuccess) return err;
+        raised.fetch_or(bit, std::memory_order_relaxed);
+    }
+    const int tiles = p.t_len / BLOCK;
+    deberta_bwd_stats_kernel<T, DH><<<dim3(tiles, p.num_heads, p.batch), THREADS, smem,
+                                      stream>>>(p);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    deberta_bwd_grad_kernel<T, DH><<<dim3(tiles, 2 * p.num_heads, p.batch), THREADS, smem,
+                                     stream>>>(p);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+    const int64_t outs = static_cast<int64_t>(2 * p.t_len) * (p.num_heads * DH / 4);
+    deberta_bwd_reduce_kernel<<<dim3(static_cast<unsigned>(
+                                         (outs + REDUCE_THREADS - 1) / REDUCE_THREADS), 2),
+                                REDUCE_THREADS, 0, stream>>>(p.ws, dpk, dpq, p.batch, p.t_len,
+                                                             p.num_heads * DH);
+    return cudaGetLastError();
+}
 
 template <typename T, int DH>
-cudaError_t launch(const Args& a, cudaStream_t stream) {
-    const T* q = static_cast<const T*>(a.q);
-    const T* k = static_cast<const T*>(a.k);
-    const T* v = static_cast<const T*>(a.v);
-    const T* pk = static_cast<const T*>(a.pk);
-    const T* pq = static_cast<const T*>(a.pq);
-    const T* dout = static_cast<const T*>(a.dout);
-    const uint8_t* kv = static_cast<const uint8_t*>(a.key_valid);
-    const Geom g{a.t_len, a.num_heads, a.num_heads * DH, a.scale, a.scale * 1.4426950408889634f};
-    const size_t rows = static_cast<size_t>(a.batch) * a.num_heads * a.t_len;
-    float* m = a.stats;
-    float* inv_l = a.stats + rows;
-    float* dsum = a.stats + 2 * rows;
-    // the dq pass's slices hold the dPK bands, the dkdv pass's the dPQ bands
-    const size_t slice_floats =
-        static_cast<size_t>(a.batch) * (a.t_len / 64) * (a.t_len + 64) * g.d_model;
-    float* ws_pk = a.ws;
-    float* ws_pq = a.ws + slice_floats;
-    const dim3 grid(a.t_len / 64, a.num_heads, a.batch);
-
-    cudaError_t err = cudaFuncSetAttribute(deberta_bwd_stats_kernel<T, DH>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(StatsSmem<DH>::BYTES));
-    if (err != cudaSuccess) return err;
-    deberta_bwd_stats_kernel<T, DH><<<grid, THREADS, StatsSmem<DH>::BYTES, stream>>>(
-        q, k, v, pk, pq, kv, dout, m, inv_l, dsum, g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-    err = cudaFuncSetAttribute(deberta_bwd_dq_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(DqSmem<DH>::BYTES));
-    if (err != cudaSuccess) return err;
-    deberta_bwd_dq_kernel<T, DH><<<grid, THREADS, DqSmem<DH>::BYTES, stream>>>(
-        q, k, v, pk, pq, kv, dout, m, inv_l, dsum, static_cast<T*>(a.dq), ws_pk, g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-    err = cudaFuncSetAttribute(deberta_bwd_dkdv_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(DkdvSmem<DH>::BYTES));
-    if (err != cudaSuccess) return err;
-    deberta_bwd_dkdv_kernel<T, DH><<<grid, THREADS, DkdvSmem<DH>::BYTES, stream>>>(
-        q, k, v, pk, pq, kv, dout, m, inv_l, dsum, static_cast<T*>(a.dk),
-        static_cast<T*>(a.dv), ws_pq, g);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-    const int64_t outs = static_cast<int64_t>(2 * a.t_len) * (g.d_model / 4);
-    const unsigned blocks = static_cast<unsigned>((outs + THREADS - 1) / THREADS);
-    deberta_bwd_reduce_kernel<<<blocks, THREADS, 0, stream>>>(ws_pk, a.dpk, a.batch, a.t_len, g.d_model);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    deberta_bwd_reduce_kernel<<<blocks, THREADS, 0, stream>>>(ws_pq, a.dpq, a.batch, a.t_len, g.d_model);
-    return cudaGetLastError();
+cudaError_t launch_typed(const void* const* in, void* stats, void* ws, void* const* grads,
+                         void* dpk, void* dpq, int batch, int t_len, int num_heads,
+                         float scale, int device, cudaStream_t stream) {
+    const Params<T> p{static_cast<const T*>(in[0]), static_cast<const T*>(in[1]),
+                      static_cast<const T*>(in[2]), static_cast<const T*>(in[3]),
+                      static_cast<const T*>(in[4]), static_cast<const T*>(in[6]),
+                      static_cast<const uint8_t*>(in[5]), static_cast<float*>(stats),
+                      static_cast<float*>(ws), static_cast<T*>(grads[0]),
+                      static_cast<T*>(grads[1]), static_cast<T*>(grads[2]),
+                      batch, t_len, num_heads, scale, scale * LOG2E};
+    return launch<T, DH>(p, static_cast<float*>(dpk), static_cast<float*>(dpq), device, stream);
 }
 
 }  // namespace
 
 // C entry point, bound with ctypes. q, k, v, dout, dq, dk, dv are (batch,
 // t_len, heads * head_dim) and pk, pq (2 * t_len, heads * head_dim), all of
-// one dtype (0 = float32, 1 = bfloat16) and contiguous; key_valid is (batch,
-// t_len) uint8; dpk and dpq are (2 * t_len, heads * head_dim) fp32. stats is
-// a (3, batch, heads, t_len) fp32 scratch and ws a ZEROED fp32 workspace of
-// 2 * batch * (t_len / 64) * (t_len + 64) * heads * head_dim floats. Returns
-// the cudaError_t of the launches (0 on success).
+// one dtype (0 = float32, 1 = bfloat16), contiguous and 16-byte aligned;
+// key_valid is (batch, t_len) uint8; dpk and dpq are (2 * t_len, heads *
+// head_dim) fp32. stats is a (3, batch, heads, t_len) fp32 scratch and ws an
+// fp32 scratch of 2 * batch * (t_len / 64) * (t_len + 64) * heads * head_dim
+// floats; neither needs zeroing (every element read is first written).
+// Returns the cudaError_t of the launches (0 on success).
 extern "C" int mmd_deberta_attn_bwd(const void* q, const void* k, const void* v,
                                     const void* pk, const void* pq, const void* key_valid,
                                     const void* dout, void* stats, void* ws, void* dq,
                                     void* dk, void* dv, void* dpk, void* dpq, int batch,
                                     int t_len, int num_heads, int head_dim, float scale,
                                     int dtype, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (batch <= 0 || batch > 65535 || num_heads <= 0 || num_heads > 65535 ||
-        t_len <= 0 || t_len % BM != 0) {
+    if (batch <= 0 || batch > 65535 || num_heads <= 0 || num_heads > 32767 || t_len <= 0 ||
+        t_len % BLOCK != 0 || device < 0 || device >= 64) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
-    const Args a{q, k, v, pk, pq, key_valid, dout,
-                 static_cast<float*>(stats), static_cast<float*>(ws), dq, dk, dv,
-                 static_cast<float*>(dpk), static_cast<float*>(dpq),
-                 batch, t_len, num_heads, scale};
+    int current = -1;
+    cudaError_t err = cudaGetDevice(&current);
+    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const void* in[7] = {q, k, v, pk, pq, key_valid, dout};
+    void* grads[3] = {dq, dk, dv};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 0 && head_dim == 32) return launch<float, 32>(a, st);
-    if (dtype == 0 && head_dim == 64) return launch<float, 64>(a, st);
-    if (dtype == 1 && head_dim == 32) return launch<__nv_bfloat16, 32>(a, st);
-    if (dtype == 1 && head_dim == 64) return launch<__nv_bfloat16, 64>(a, st);
+    if (dtype == 0 && head_dim == 32)
+        return launch_typed<float, 32>(in, stats, ws, grads, dpk, dpq, batch, t_len, num_heads,
+                                       scale, device, st);
+    if (dtype == 0 && head_dim == 64)
+        return launch_typed<float, 64>(in, stats, ws, grads, dpk, dpq, batch, t_len, num_heads,
+                                       scale, device, st);
+    if (dtype == 1 && head_dim == 32)
+        return launch_typed<bf16, 32>(in, stats, ws, grads, dpk, dpq, batch, t_len, num_heads,
+                                      scale, device, st);
+    if (dtype == 1 && head_dim == 64)
+        return launch_typed<bf16, 64>(in, stats, ws, grads, dpk, dpq, batch, t_len, num_heads,
+                                      scale, device, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

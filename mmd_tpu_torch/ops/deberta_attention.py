@@ -138,15 +138,25 @@ def load_kernel():
     return fn
 
 
+# the backward's C entry point, bound once (argtypes set at load)
+_bwd_fn: Optional[ctypes._CFuncPtr] = None
+
+
 def load_bwd_kernel():
     """Build (at first use) and load the backward kernels; returns their C
     entry point."""
-    fn = cuda_build.load_library(
-        "deberta_attn_bwd", ["deberta_attn_bwd.cu"]).mmd_deberta_attn_bwd
-    fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    global _bwd_fn
+    if _bwd_fn is None:
+        fn = cuda_build.load_library(
+            "deberta_attn_bwd", ["deberta_attn_bwd.cu"],
+            headers=["flash_common.cuh", "tensor_core.cuh"]
+        ).mmd_deberta_attn_bwd
+        fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _bwd_fn = fn
+    return _bwd_fn
 
 
 def _check_kernel_inputs(q, k, v, pos_k_d, pos_q_d, key_mask, num_heads):
@@ -210,25 +220,29 @@ def _deberta_attention_bwd_cuda(q, k, v, pos_k_d, pos_q_d, key_mask, do,
             or not do.is_contiguous():
         raise ValueError("do must be a contiguous tensor of q's shape, dtype "
                          "and device")
-    valid = (key_mask != 0).to(torch.uint8).contiguous()
+    # the kernel reads the mask as bytes, nonzero = valid
+    valid = key_mask if key_mask.dtype == torch.uint8 else (key_mask != 0)
+    valid = valid.contiguous().view(torch.uint8)
+    cuda_build.check_aligned(q, k, v, pos_k_d, pos_q_d, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    f32 = dict(dtype=torch.float32, device=q.device)
-    dpk, dpq = torch.empty((2 * t, d), **f32), torch.empty((2 * t, d), **f32)
-    stats = torch.empty((3, b, num_heads, t), **f32)
-    # the dq and dkdv passes' band slices: (T + 64) rows per (b, tile)
-    ws = torch.zeros((2, b, t // _TILE, t + 64, d), **f32)
-    cuda_build.check_aligned(q, k, v, pos_k_d, pos_q_d, do, dq, dk, dv, dpk,
-                             dpq, ws)
+    dpk, dpq = torch.empty((2, 2 * t, d), dtype=torch.float32,
+                           device=q.device)
+    # the row statistics (3, B, H, T), then the band slices (2, B, T / 64,
+    # T + 64, D): the kernel writes every element before it reads it
+    stats = 3 * b * num_heads * t
+    scratch = torch.empty(stats + 2 * b * (t // _TILE) * (t + _TILE) * d,
+                          dtype=torch.float32, device=q.device)
     fn = load_bwd_kernel()
+    dev = q.get_device()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_k_d.data_ptr(),
             pos_q_d.data_ptr(), valid.data_ptr(), do.data_ptr(),
-            stats.data_ptr(), ws.data_ptr(), dq.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), dpk.data_ptr(), dpq.data_ptr(), b, t, num_heads,
-            d // num_heads, scale, _DTYPE_CODES[q.dtype],
-            cuda_build.device_index(q),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check_launch(rc, f"deberta_attn_bwd {tuple(q.shape)} "
-                                f"{num_heads} heads {q.dtype}")
+            scratch.data_ptr(), scratch[stats:].data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), dpk.data_ptr(), dpq.data_ptr(), b,
+            t, num_heads, d // num_heads, scale, _DTYPE_CODES[q.dtype], dev,
+            torch._C._cuda_getCurrentRawStream(dev))
+    if rc:
+        cuda_build.check_launch(rc, f"deberta_attn_bwd {tuple(q.shape)} "
+                                    f"{num_heads} heads {q.dtype}")
     with _launch_lock:
         bwd_launches += 1
     return dq, dk, dv, dpk, dpq

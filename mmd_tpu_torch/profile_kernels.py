@@ -3,6 +3,7 @@
     python -m mmd_tpu_torch.profile_kernels ptxas [SOURCE.cu ...]
     python -m mmd_tpu_torch.profile_kernels flash_calls
     python -m mmd_tpu_torch.profile_kernels swin_calls
+    python -m mmd_tpu_torch.profile_kernels deberta_bwd_calls
 
 `ptxas` compiles sources under ops/csrc/ (all of them by default) with the
 build's flags plus `-Xptxas -v` and prints one JSON line a kernel
@@ -26,6 +27,17 @@ piece of the wrapper's call path alone (2000 calls each), down to the C
 entry point with its arguments, which launches the kernel: what is left of
 a host-bound call past those pieces is Python's own calls and the launch
 counter. It needs a CUDA device.
+
+`deberta_bwd_calls` times the DeBERTa attention backward (#11,
+`deberta_attention_bwd`) at the fine-tuning geometry (B 8, T 256, D 384,
+6 heads; bf16 and fp32): host us a call as `flash_calls` takes it, the
+host's own us a call (10 calls enqueued on an idle card, timed before
+the device sync; the median of 20 runs) and of the wrapper's input
+checks alone, the device us of each of the call's kernel launches and
+their sum (torch.profiler over 50 calls), and the us a call by CUDA
+events around 20 back-to-back calls, as chip_smoke.py times it. It runs
+on an older tree too (its kernels' names are matched whatever they are),
+for a parent/change comparison in one run. It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -34,6 +46,7 @@ import argparse
 import json
 import math
 import re
+import statistics
 import subprocess
 import tempfile
 import time
@@ -63,6 +76,9 @@ BATCH = 16
 SWIN_GEOMETRIES = [("stage0", 64, 128, 4), ("stage1", 16, 256, 8),
                    ("stage2", 4, 512, 16), ("stage3", 1, 1024, 32)]
 SWIN_BATCH = 8
+# the DeBERTa attention backward of a fine-tuning step (chip_smoke.py's
+# FT_DEBERTA): B, T, D, heads
+DEBERTA_BWD = (8, 256, 384, 6)
 _CALLS = 2000
 
 
@@ -261,20 +277,83 @@ def swin_calls() -> None:
             "card": P.card()}), flush=True)
 
 
+def deberta_bwd_calls() -> None:
+    from mmd_tpu_torch.ops import deberta_attention as DA
+    if not torch.cuda.is_available():
+        raise SystemExit("deberta_bwd_calls needs a CUDA device")
+    print(json.dumps({"card": P.card()}), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    b, t, d, h = DEBERTA_BWD
+    x32 = [torch.randn(b, t, d, device=dev, generator=gen) for _ in range(4)]
+    tabs32 = [torch.randn(2 * t, d, device=dev, generator=gen)
+              for _ in range(2)]
+    # padded tails from 1 to T valid keys and a row with no valid key, as
+    # chip_smoke.py's phase_deberta_bwd; the tokenizer's int mask
+    lengths = torch.linspace(1, t, b - 1, device=dev).round().long()
+    mask = torch.cat([torch.arange(t, device=dev)[None] < lengths[:, None],
+                      torch.zeros(1, t, dtype=torch.bool, device=dev)]).int()
+    scale = 1.0 / math.sqrt(3.0 * d // h)
+    calls = 50
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (x.to(dtype) for x in x32)
+        pk, pq = (x.to(dtype) for x in tabs32)
+        call = lambda: DA.deberta_attention_bwd(  # noqa: E731
+            q, k, v, pk, pq, mask, do, h, scale)
+        host_us = _host_us(call, 200)
+        # the host's own cost: 10 calls enqueued on an idle card, timed
+        # before the sync (few enough that no launch waits for the queue);
+        # the median of 20 such runs
+        runs = []
+        for _ in range(20):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                call()
+            runs.append((time.perf_counter() - t0) / 10 * 1e6)
+        torch.cuda.synchronize()
+        enqueue_us = statistics.median(runs)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(20):
+            call()
+        end.record()
+        torch.cuda.synchronize()
+        win = P.profile_window(call, calls, {})
+        per_kernel = {k_: v_ * 1e3 / calls
+                      for k_, v_ in win["device_ms_top"].items()
+                      if "deberta_bwd" in k_}
+        print(json.dumps({
+            "geometry": "finetune", "B": b, "T": t, "D": d, "H": h,
+            "dtype": str(dtype).split(".")[-1],
+            "host_us_a_call": host_us,
+            "host_enqueue_us_a_call": enqueue_us,
+            "checks_us_a_call": _host_us(partial(
+                DA._check_kernel_inputs, q, k, v, pk, pq, mask, h)),
+            "event_us_a_call": start.elapsed_time(end) * 1e3 / 20,
+            "device_us_a_call": sum(per_kernel.values()),
+            "device_us_by_kernel": per_kernel,
+            "card": P.card()}), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="what", required=True)
     sub.add_parser("ptxas").add_argument("sources", nargs="*")
     sub.add_parser("flash_calls")
     sub.add_parser("swin_calls")
+    sub.add_parser("deberta_bwd_calls")
     args = ap.parse_args(argv)
     if args.what == "ptxas":
         ptxas(args.sources or sorted(f.name for f in cuda_build.CSRC.glob(
             "*.cu")))
     elif args.what == "flash_calls":
         flash_calls()
-    else:
+    elif args.what == "swin_calls":
         swin_calls()
+    else:
+        deberta_bwd_calls()
 
 
 if __name__ == "__main__":

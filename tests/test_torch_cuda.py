@@ -585,18 +585,30 @@ def _grad_tol(dtype, ref):
     return 1e-4 * top if dtype == torch.float32 else _bf16_step(ref)
 
 
+def _deberta_bwd_inputs(dev, dtype, b, t, d, seed=4):
+    """q, k, v, do, PK, PQ and a key mask whose rows hold T, T - 11 (a
+    padded tail), 0 (no valid key), 1 and then T / 2 + 3 valid keys."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v, do = (torch.randn(b, t, d, device=dev, generator=g).to(dtype)
+                   for _ in range(4))
+    pk, pq = (torch.randn(2 * t, d, device=dev, generator=g).to(dtype)
+              for _ in range(2))
+    lengths = ([t, t - 11, 0, 1] + [t // 2 + 3] * b)[:b]
+    mask = (torch.arange(t, device=dev)[None]
+            < torch.tensor(lengths, device=dev)[:, None]).int()
+    return q, k, v, pk, pq, mask, do
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("t,d,heads", [(256, 384, 6), (128, 128, 4),
-                                       (64, 64, 2)])
-def test_deberta_bwd_kernel_matches_plain(cuda_device, dtype, t, d, heads):
-    g = torch.Generator(device=cuda_device).manual_seed(4)
-    q, k, v, do = (torch.randn(B, t, d, device=cuda_device, generator=g)
-                   .to(dtype) for _ in range(4))
-    pk, pq = (torch.randn(2 * t, d, device=cuda_device, generator=g)
-              .to(dtype) for _ in range(2))
-    lengths = torch.tensor([t, t - 11, 1, 0], device=cuda_device)
-    mask = (torch.arange(t, device=cuda_device)[None]
-            < lengths[:, None]).int()
+@pytest.mark.parametrize("b,t,d,heads", [
+    (4, 256, 384, 6), (4, 128, 128, 4), (4, 64, 64, 2), (3, 256, 128, 4),
+    (5, 128, 256, 4), (3, 64, 384, 6), (7, 192, 128, 2)])
+def test_deberta_bwd_kernel_matches_plain(cuda_device, dtype, b, t, d,
+                                          heads):
+    """Head dims 64 and 32 at T 64 to 256, B 3 to 7 (no CTA groups batch
+    rows: any B), with a padded tail and a row with no valid key."""
+    q, k, v, pk, pq, mask, do = _deberta_bwd_inputs(cuda_device, dtype, b,
+                                                    t, d)
     scale = 1.0 / np.sqrt(3.0 * d // heads)
     before = DA.bwd_launches
     got = DA.deberta_attention_bwd(q, k, v, pk, pq, mask, do, heads, scale)
@@ -609,7 +621,40 @@ def test_deberta_bwd_kernel_matches_plain(cuda_device, dtype, t, d, heads):
         assert a.shape == w.shape, name
         assert a.dtype == (dtype if name[1] != "P" else torch.float32), name
         tol = _grad_tol(dtype if name[1] != "P" else torch.float32, w)
-        assert (a.float() - w).abs().max().item() <= tol, name
+        err = (a.float() - w).abs().max().item()
+        assert err <= tol, (name, err, tol)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deberta_bwd_is_deterministic(cuda_device, dtype):
+    """Two backward calls on the same inputs give bit-identical dq, dk, dv,
+    dPK and dPQ: fixed-order sums, no atomics."""
+    q, k, v, pk, pq, mask, do = _deberta_bwd_inputs(cuda_device, dtype, 5,
+                                                    256, 384)
+    first = DA.deberta_attention_bwd(q, k, v, pk, pq, mask, do, 6, 0.1)
+    second = DA.deberta_attention_bwd(q, k, v, pk, pq, mask, do, 6, 0.1)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+def test_deberta_bwd_refuses_what_it_does_not_take(cuda_device):
+    q, k, v, pk, pq, mask, do = _deberta_bwd_inputs(cuda_device,
+                                                    torch.float32, 2, 64, 128)
+    with pytest.raises(ValueError, match="do must be"):
+        DA.deberta_attention_bwd(q, k, v, pk, pq, mask, do.bfloat16(), 2, 0.1)
+    with pytest.raises(ValueError, match="head dims"):
+        DA.deberta_attention_bwd(q, k, v, pk, pq, mask, do, 1, 0.1)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        DA.deberta_attention_bwd(
+            *(x[:, :32].contiguous() for x in (q, k, v)),
+            pk[:64].contiguous(), pq[:64].contiguous(), mask[:, :32],
+            do[:, :32].contiguous(), 2, 0.1)
+    # a view 4 bytes into its storage: contiguous, not 16-byte aligned
+    flat = torch.zeros(q.numel() + 1, device=cuda_device)
+    odd = flat[1:].view(q.shape)
+    with pytest.raises(ValueError, match="aligned"):
+        DA.deberta_attention_bwd(odd, k, v, pk, pq, mask, do, 2, 0.1)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
