@@ -120,6 +120,7 @@ from __future__ import annotations
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -944,7 +945,8 @@ def phase_mlp(card: str) -> dict:
     """Kernels #12, #3 and #4 at the bf16 train step's MLP geometries, rate
     0.1 and 0: the masks bit-identical to their plain version, the forward
     and the backward against their plain versions and against the float64
-    oracle of the dumped masks; times per train step."""
+    oracle of the dumped masks, the backward twice bit for bit; times per
+    train step, and #4's device time a call split by launch."""
     from mmd_tpu_torch.ops import dropout as D
     from mmd_tpu_torch.ops import mlp as M
     fn = torch.nn.functional
@@ -975,7 +977,10 @@ def phase_mlp(card: str) -> dict:
                           for k, s in zip(kept, sigma))
             y = M.fused_mlp_fwd(x, w1, b1, w2, b2, seeds, rate)
             got = M.fused_mlp_bwd(x, w1, b1, w2, dy, seeds, rate)
+            again = M.fused_mlp_bwd(x, w1, b1, w2, dy, seeds, rate)
             torch.cuda.synchronize()
+            same_bwd = all(torch.equal(a, b) for a, b in zip(got, again))
+            del again
             want_y = M.fused_mlp_plain(x, w1, b1, w2, b2, seeds, rate)
             want = M.fused_mlp_bwd_plain(x, w1, b1, w2, dy, seeds, rate)
             rel = [_rel(y, want_y)] + [_rel(g, w) for g, w in zip(got, want)]
@@ -986,10 +991,11 @@ def phase_mlp(card: str) -> dict:
             y64, g64 = _mlp_oracle(x, w1, b1, w2, b2, dy, m1, m2)
             orc = [_rel(y, y64)] + [_rel(g, w) for g, w in zip(got, g64)]
             del y64, g64, m1, m2
-            ok = (same and kept_ok and max(rel) <= MLP_TOL
+            ok = (same and same_bwd and kept_ok and max(rel) <= MLP_TOL
                   and max(orc) <= ORACLE_TOL)
             print(f"kernel mlp N={n} D={d} F={f} bf16 rate {rate}: masks "
-                  f"bit-identical {same}, kept {kept[0]:.6f} / {kept[1]:.6f} "
+                  f"bit-identical {same}, backward twice bit-identical "
+                  f"{same_bwd}, kept {kept[0]:.6f} / {kept[1]:.6f} "
                   f"(4 sigma {4 * sigma[0]:.1e} / {4 * sigma[1]:.1e}); vs "
                   f"plain y/dx/dw1/db1/dw2/db2 relative "
                   f"{'/'.join('%.2e' % e for e in rel)} (tol {MLP_TOL:.1e}); "
@@ -1035,6 +1041,19 @@ def phase_mlp(card: str) -> dict:
         bwd["bound_ms"], bwd["bound_by"] = _bound_ms(
             2 * 3 * n * d + 2 * 2 * d * f + 4 * f
             + 4 * (2 * d * f + f + d), 10 * n * d * f)
+        # #4's device time a call, launch by launch (torch.profiler)
+        from mmd_tpu_torch import profiling
+        win = profiling.profile_window(lambda: M.fused_mlp_bwd(
+            x, w1, b1, w2, dy, seeds, DROPOUT_RATE), 5, {})
+        split = {re.search(r"mlp_\w+_kernel", k).group(0): v * 1e3 / 5
+                 for k, v in win["device_ms_top"].items()
+                 if re.search(r"mlp_\w+_kernel", k)}
+        print(f"split  mlp_bwd N={n} D={d} F={f} bf16 dropout "
+              f"{DROPOUT_RATE}: device "
+              + ", ".join(f"{k} {us:.1f} us" for k, us in split.items())
+              + f"; {sum(split.values()):.1f} us a call by torch.profiler, "
+              f"{1e3 * bwd['ms']:.1f} us by CUDA events  [{card}]",
+              flush=True)
         masks = {"ms": _time_ms(lambda: M.mlp_masks(
                      n, d, f, seeds, DROPOUT_RATE, dev), iters=10),
                  "plain_ms": _time_ms(lambda: M.mlp_masks_plain(

@@ -7,8 +7,8 @@ content<->position terms (c2p uses the key projection of the relative
 embeddings, p2c the query projection), scale sqrt(3 * d_head), no absolute
 positions, no token types.
 
-Two attention paths, chosen as the JAX package chooses them
-(`use_fused_attn`):
+Two attention paths, chosen as the JAX package chooses them, within the
+head dims the kernels take (`use_fused_attn`):
   * the kernel path `_disentangled_attention_fused`: projections and the
     diagonal tables PK/PQ here, everything (T x T)-shaped in
     `ops.deberta_attention.deberta_attention` (the CUDA kernel on the card);
@@ -40,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.ops.deberta_attention import (
-    deberta_attention, diagonal_index, split_heads,
+    _HEAD_DIMS, deberta_attention, diagonal_index, split_heads,
 )
 
 
@@ -223,9 +223,13 @@ def deberta_embed(params: L.ParamTree, cfg: DebertaConfig,
 
 def use_fused_attn(cfg: DebertaConfig, t: int, device: torch.device) -> bool:
     """The JAX package's gate, with "the tensors lie on CUDA" for "the
-    backend is a TPU": D and 2T multiples of 128."""
+    backend is a TPU": D and 2T multiples of 128; narrowed to the head
+    dims kernels #10 and #11 take. Any other geometry takes the explicit
+    path."""
     return (cfg.fused_attn and device.type == "cuda"
-            and cfg.hidden_size % 128 == 0 and (2 * t) % 128 == 0)
+            and cfg.hidden_size % 128 == 0 and (2 * t) % 128 == 0
+            and cfg.hidden_size % cfg.num_heads == 0
+            and cfg.hidden_size // cfg.num_heads in _HEAD_DIMS)
 
 
 def deberta_layer(p: L.ParamTree, cfg: DebertaConfig, x: torch.Tensor,

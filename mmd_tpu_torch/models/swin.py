@@ -10,7 +10,8 @@ merging [x0; x1; x2; x3] -> Linear(4C -> 2C, no bias) -> LayerNorm; windows
 that shrink to the resolution; and the shifted-window mask added twice, as
 HF's Swinv2SelfAttention does.
 
-Two paths per block, chosen as the JAX package chooses them:
+Two paths per block, chosen as the JAX package chooses them, within the
+geometries the kernels take:
   * fused_attn and a geometry `ops.swin_attention.fused_ok` admits: the
     window-major (nW, B, n, C) layout, and then
       - for serving, `swin_window_attention_infer` on the raw q, k (the

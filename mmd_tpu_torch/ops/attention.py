@@ -384,6 +384,13 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 # Dispatch
 # ----------------------------------------------------------------------------
 
+def fused_ok(d: int, num_heads: int) -> bool:
+    """Whether `fused_attention` takes D over num_heads heads: the kernels'
+    head dims. The JAX package sends every head dim from 32 up to its
+    kernel; here dh 96 or 128 takes the explicit path."""
+    return d % num_heads == 0 and d // num_heads in _HEAD_DIMS
+
+
 def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          num_heads: int, dropout_rate: float = 0.0,
                          dropout_seed: Optional[int] = None,
@@ -397,12 +404,13 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     CUDA tensors), which applies it as a boolean; fused=False adds it as a
     -1e9 bias to the explicit path. Dropout of the attention weights runs
     when dropout_rate > 0 and not deterministic, on either path, with the
-    mask of `dropout_seed`. Head dims below 32 always take the explicit
-    path, as in the JAX package."""
+    mask of `dropout_seed`. A head dim the kernels do not take (`fused_ok`)
+    takes the explicit path: the same function, and the same dropout
+    masks."""
     rate = dropout_rate if _dropout_on(dropout_rate, dropout_seed,
                                        deterministic) else 0.0
     seed = dropout_seed if rate > 0.0 else 0
-    if fused and q.shape[-1] // num_heads < 32:
+    if fused and not fused_ok(q.shape[-1], num_heads):
         fused = False
     if fused:
         return fused_attention(q, k, v, num_heads, key_mask, rate, seed)

@@ -15,42 +15,42 @@
 //   dW1 = x^T dab,  db1 = sum_rows da,  dW2 = hb^T dyb,  db2 = sum_rows dyf
 // dW1, dW2, db1 and db2 are fp32, as the TPU kernel returns them.
 //
-// On the TPU the grid runs in order and the kernel adds every row block's
-// dW and db into the same output blocks. Blocks on Hopper run in no order
-// and one CTA cannot hold dW1 + dW2 (2 MB in fp32), so this is two passes
-// and a reduction, deterministic (a step gives the same grads every run)
-// and free of atomics:
-//   A. mlp_dx_kernel      one CTA per 64 rows walks F in chunks of 64:
-//                         recomputes a and dh for the chunk, forms dab in
-//                         shared memory and adds dab w1[:, chunk]^T into dx,
-//                         held in registers; it also writes dyb, which it
-//                         builds first, to an (N, D) workspace;
-//   B. mlp_dw_kernel      one CTA per (32 hidden columns, group of rows)
-//                         walks its rows 64 at a time: recomputes a, h and dh
-//                         for its columns from x and pass A's dyb, and adds
-//                         hb^T dyb into dW2[chunk, :] and x^T dab into
-//                         dW1[:, chunk], both held in registers, and the
-//                         column sums of da into db1; the first column
-//                         chunk's CTAs rebuild dyb from dy and sum dyf into
-//                         db2. Each group writes its fp32 partial sums to a
-//                         workspace;
-//   C. mlp_reduce_kernel  sums the groups' partials in a fixed order.
-// Products: A does 3 of N D F multiply-adds (a, dh, dx) and B 4 (a, dh,
-// dW2, dW1): 14 N D F operations against the TPU body's 10.
-//
-// What bounds it on this card: arithmetic, counted as the TPU kernel needs
-// it, 10 N D F operations against x, dy and dx (6 N D bytes) and the
-// weights: as for the forward, far above the bf16 ridge.
-//
-// What the design does about that (first version: simple and right): the
-// products run on the tensor cores (mma.sync m16n8k16, bf16 in, fp32 out)
-// from shared-memory tiles padded against bank conflicts, with ldmatrix
-// .trans where a product contracts over rows (hb^T dyb, x^T dab); tiles
-// arrive by cp.async; the hidden mask is redrawn per tile into shared
-// memory with keep_byte, as the forward draws it, and the output mask once
-// a row (pass A, and pass B's first column chunk). No double buffering
-// yet. D 128 or 256; F a multiple of 128; any N (missing rows of the last
-// tile read zeros and contribute nothing).
+// What bounds it on this card: arithmetic, 10 N D F operations (the five
+// products above) against x, dy and dx (6 N D bytes) and the weights: far
+// above the bf16 ridge. The TPU kernel keeps hb and dab in VMEM and adds
+// every row block's dW into one output block, in grid order. Blocks on
+// Hopper run in no order, one CTA cannot hold dW1 + dW2 (2 MB in fp32),
+// and a CTA that keeps a 128 x D dx accumulator in registers has none left
+// for the hidden products. So each product is computed once, and what
+// links them goes through device memory: 4 N F bytes of hb and dab,
+// written once and read once. Every product runs on wgmma (the warpgroup
+// instruction, operands in 128-byte-swizzled shared memory filled by
+// cp.async): mma.sync reached about a quarter of the bf16 peak here. Three
+// launches, deterministic (fixed-order sums, no atomics):
+//   A. mlp_bwd_hidden_kernel  one CTA per 128 rows (two warpgroups of 64),
+//        x and dyb resident in shared memory (dyb built once from dy and
+//        the output mask, and written out). It walks F in 64-column
+//        chunks, w1[:, chunk] and w2[chunk, :] streamed through a 4-stage
+//        ring, 64 rows of D a stage; each warpgroup issues a = x w1 and
+//        dh = dyb w2^T for its rows (m64n64k16). At the end of a chunk it
+//        forms hb and dab (one tanh for GELU and its derivative) into the
+//        (N, F) workspaces, and the column sums of da, per warp and then
+//        over the CTA, into a db1 partial row. The hidden keep bits of the
+//        next chunk are drawn a slice a stage.
+//   B. mlp_bwd_product_kernel  one launch of 128 x 128 output tiles
+//        (m64n128k16 a warpgroup), 3 stages of 64 along the contraction,
+//        two CTAs an SM: dW1 = x^T dab and dW2 = hb^T dyb with both
+//        operands MN-major, split over K = N into the row groups of
+//        ops/mlp.py::backward_groups (fp32 partials), then dx = bf16(dab
+//        w1^T) (K-major, K = F, no split). No Philox, nothing recomputed.
+//   C. mlp_bwd_reduce_kernel  sums the groups' dW partials and the row
+//        tiles' db1 and db2 partials, in a fixed order.
+// 10 N D F operations, the TPU body's count. D 128 or 256; F a multiple of
+// 128; any N (missing rows of the last tile read zeros and contribute
+// nothing).
+
+#include <atomic>
+#include <type_traits>
 
 #include "mlp_common.cuh"
 #include "tensor_core.cuh"
@@ -61,21 +61,174 @@ using mmd_tc::bf16;
 using mmd_mlp::Mask;
 
 constexpr int THREADS = 256;
-constexpr int BM = 64;          // rows a tile
-constexpr int FCA = 64;         // hidden columns a chunk, pass A
-constexpr int FCB = 32;         // hidden columns a CTA, pass B
-constexpr int PAD = 8;
-constexpr int LDA = FCA + PAD;
-constexpr int LDB = FCB + PAD;
 
-// dyb = bf16(dy m2) of a tile into shared memory, and into dyb_out (the
-// tile's rows of an (N, D) array) unless that is null; dy rows past
-// `valid` are zeros. Thread t handles the same 8 columns of every row it
-// touches, so it can keep their fp32 column sums in `colsum`.
+// pass A
+constexpr int BM = 128;           // rows a CTA: two warpgroups of 64
+constexpr int FC = 64;            // hidden columns a chunk
+constexpr int KS = 64;            // rows of w1 (columns of w2) a weight stage
+constexpr int STAGES_A = 4;
+
+// pass B
+constexpr int BT = 128;           // output tile, both sides: two warpgroups of 64 rows
+constexpr int BKW = 64;           // contraction a stage: one 128-byte swizzle row
+constexpr int STAGES_B = 3;
+constexpr int TILE_B = BT * BKW * 2;                 // bytes of an operand's stage
+constexpr int SMEM_B = STAGES_B * 2 * TILE_B + 1024; // + the 1024-byte alignment
+constexpr int GROUP_ALIGN = 64;   // group_rows is a multiple of this
+
+// pass C
+constexpr int SLICES_C = THREADS / 8;     // partial rows summed side by side
+constexpr int DW_BLOCKS_C = 132 * 4;      // most blocks on the dW sums
+
+int64_t row_tiles(int64_t n) { return (n + BM - 1) / BM; }
+
+// The workspace: hb and dab (N, F) bf16, dyb (N, D) bf16, then fp32
+// partials: dW [groups][dW1 (D, F) | dW2 (F, D)], db1 [row tiles][F], db2
+// [row tiles][D]. Every piece starts on a 16-byte boundary (F and D are
+// multiples of 128).
+struct Work {
+    bf16 *hb, *dab, *dyb;
+    float *dw, *db1, *db2;
+};
+
+int64_t workspace_bytes(int64_t n, int d, int f, int groups) {
+    const int64_t t = row_tiles(n);
+    return 2 * (2 * n * f + n * d) + 4 * (2 * int64_t{groups} * d * f + t * f + t * d);
+}
+
+Work carve(void* ws, int64_t n, int d, int f, int groups) {
+    Work w;
+    w.hb = static_cast<bf16*>(ws);
+    w.dab = w.hb + n * f;
+    w.dyb = w.dab + n * f;
+    w.dw = reinterpret_cast<float*>(w.dyb + n * d);
+    w.db1 = w.dw + 2 * int64_t{groups} * d * f;
+    w.db2 = w.db1 + row_tiles(n) * f;
+    return w;
+}
+
+// -- wgmma (sm_90a): warpgroup products from shared memory -----------------------
+// A 128-byte-swizzled operand tile in shared memory, as the descriptors below
+// describe it (PTX ISA, "Matrix Descriptor"): K-major, rows of 64 bf16 (128
+// bytes), the 16-byte chunk c of row r at r * 128 + ((c ^ (r % 8)) * 16),
+// 8-row groups 1024 bytes apart; MN-major, rows of K, each 64-wide MN block
+// an atom of 64 K rows x 128 bytes with the same chunk swizzle, atoms
+// `atom` bytes apart. A tile's base is 1024-byte aligned.
+
+__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
+    return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) | (uint64_t{1024 >> 4} << 32) |
+           (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr, uint32_t atom) {
+    return ((addr & 0x3FFFF) >> 4) | (uint64_t{(atom >> 4) & 0x3FFF} << 16) |
+           (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wgmma_commit() {
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// generic-proxy writes to shared memory (cp.async) made visible to wgmma
+__device__ __forceinline__ void fence_async_shared() {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (+)= a b for a 64 x 128 (d: 64 fp32 a thread) or 64 x 64 (32) block, k 16;
+// TA / TB: the operand is MN-major; accumulate: 0 overwrites d
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db,
+                                           int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, %67, %68;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db,
+                                          int accumulate) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, %35, %36;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+          "+f"(d[30]), "+f"(d[31])
+        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
+}
+
+// The first 1024-byte aligned byte of dynamic shared memory.
+__device__ __forceinline__ unsigned char* align_1024(unsigned char* smem) {
+    const uint32_t a = mmd_tc::smem_addr(smem);
+    return smem + (((a + 1023) & ~1023u) - a);
+}
+
+// -- pass A: hb, dab, dyb and the bias partials ---------------------------------
+
 template <int D>
-__device__ __forceinline__ void load_dy(bf16* dys, int ld, const bf16* dy, bf16* dyb_out,
-                                        int64_t row0, int64_t valid, const uint8_t* keep2,
-                                        const Mask& m2, float (&colsum)[8]) {
+struct SmemA {
+    static constexpr int X = 0;                          // x, K-major, D / 64 blocks
+    static constexpr int BLOCK = BM * 128;               // one block: 64 columns
+    static constexpr int DY = X + (D / 64) * BLOCK;      // dyb, the same layout
+    static constexpr int W = DY + (D / 64) * BLOCK;      // the weight stages
+    static constexpr int W1_BYTES = KS * 128;            // w1 slice, MN-major, one atom
+    static constexpr int STAGE = W1_BYTES + FC * 128;    // + w2 slice, K-major
+    static constexpr int KEEP_BYTES = BM * FC / 8;       // a chunk's hidden keep bits
+    static constexpr int KEEP1 = W + STAGES_A * STAGE;   // [2][BM][FC / 8]
+    static constexpr int KEEP2 = KEEP1 + 2 * KEEP_BYTES; // [BM][D / 8]
+    static constexpr int DB1 = KEEP2 + BM * D / 8;       // [8 warps][FC] fp32
+    static constexpr int BYTES = DB1 + 8 * FC * 4 + 1024;    // + the alignment
+    // the dyf column sums, [THREADS][8] fp32, use the weight stages before
+    // the first is loaded
+    static_assert(THREADS * 8 * 4 <= STAGES_A * STAGE, "db2 partials fit the stages");
+    static_assert(BYTES <= 232448, "one CTA an SM");
+};
+
+// Byte offset of element (r, c) in a K-major tile of BM rows stored as
+// 64-column blocks (c a multiple of 8: a 16-byte chunk).
+__device__ __forceinline__ int kmajor_at(int r, int c) {
+    return (c >> 6) * (BM * 128) + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4);
+}
+
+// dyb = bf16(dy m2) of a tile into shared memory (K-major, swizzled) and
+// into dyb_out (the tile's rows of an (N, D) array); dy rows past `valid`
+// are zeros. Thread t handles the same 8 columns of every row it touches,
+// so it keeps their fp32 column sums in `colsum`.
+template <int D>
+__device__ __forceinline__ void build_dyb(unsigned char* dys, const bf16* dy, bf16* dyb_out,
+                                          int64_t row0, int64_t valid, const uint8_t* keep2,
+                                          const Mask& m2, float (&colsum)[8]) {
     static_assert(THREADS % (D / 8) == 0, "a thread keeps its columns");
     for (int i = threadIdx.x; i < BM * (D / 8); i += THREADS) {
         const int r = i / (D / 8);
@@ -96,466 +249,502 @@ __device__ __forceinline__ void load_dy(bf16* dys, int ld, const bf16* dy, bf16*
         __nv_bfloat162* ho = reinterpret_cast<__nv_bfloat162*>(&out);
 #pragma unroll
         for (int j = 0; j < 4; ++j) ho[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
-        *reinterpret_cast<uint4*>(dys + r * ld + c) = out;
-        if (dyb_out != nullptr && r < valid) {
-            *reinterpret_cast<uint4*>(dyb_out + (row0 + r) * D + c) = out;
-        }
+        *reinterpret_cast<uint4*>(dys + kmajor_at(r, c)) = out;
+        if (r < valid) *reinterpret_cast<uint4*>(dyb_out + (row0 + r) * D + c) = out;
     }
 }
 
-// The 16 x 8*NT block (rows m0.., hidden columns n0..) of a = x w1c and of
-// dh = dyb w2c^T, with w1c stored [D][ldw1] (hidden columns contiguous) and
-// w2c stored [hidden][ldx].
-template <int D, int NT>
-__device__ __forceinline__ void hidden_products(float (&a)[NT][4], float (&dh)[NT][4],
-                                                const bf16* xs, const bf16* dys, int ldx,
-                                                const bf16* w1s, int ldw1, const bf16* w2s,
-                                                int m0, int n0) {
-    static_assert(NT % 2 == 0, "n-tiles come in pairs");
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) a[j][e] = dh[j][e] = 0.f;
-#pragma unroll 4
-    for (int k0 = 0; k0 < D; k0 += 16) {
-        uint32_t ax[4], ad[4];
-        mmd_tc::load_a(ax, xs, ldx, m0, k0);
-        mmd_tc::load_a(ad, dys, ldx, m0, k0);
-#pragma unroll
-        for (int j = 0; j < NT / 2; ++j) {
-            uint32_t b[4];
-            mmd_tc::load_b_t(b, w1s, ldw1, k0, n0 + 16 * j);
-            mmd_tc::mma(a[2 * j], ax, b[0], b[1]);
-            mmd_tc::mma(a[2 * j + 1], ax, b[2], b[3]);
-            mmd_tc::load_b(b, w2s, ldx, k0, n0 + 16 * j);
-            mmd_tc::mma(dh[2 * j], ad, b[0], b[1]);
-            mmd_tc::mma(dh[2 * j + 1], ad, b[2], b[3]);
-        }
+// f(integral_constant<int, I>) for I in [I0, N), unrolled: the index is a
+// constant inside f, so register arrays indexed by it stay in registers.
+template <int I0, int N, typename F>
+__device__ __forceinline__ void static_for(F&& fn) {
+    if constexpr (I0 < N) {
+        fn(std::integral_constant<int, I0>{});
+        static_for<I0 + 1, N>(fn);
     }
 }
 
-// -- pass A: dx ----------------------------------------------------------------
-
-template <int D>
-struct SmemA {
-    static constexpr int LDX = D + PAD;
-    static constexpr int X = 0;                          // [BM][LDX] x
-    static constexpr int DY = X + BM * LDX * 2;          // [BM][LDX] dyb
-    static constexpr int W1 = DY + BM * LDX * 2;         // [D][LDA] w1[:, chunk]
-    static constexpr int W2 = W1 + D * LDA * 2;          // [FCA][LDX] w2[chunk, :]
-    static constexpr int DA = W2 + FCA * LDX * 2;        // [BM][LDA] dab
-    static constexpr int KEEP = DA + BM * LDA * 2;       // [BM][FCA / 8] hidden keep bits
-    static constexpr int BYTES = KEEP + BM * FCA / 8;
-    // the output keep bits, [BM][D / 8], use the dab tile before the loop
-    static_assert(BM * D / 8 <= BM * LDA * 2, "output keep bits fit the dab tile");
+// The state a thread of pass A carries between its calls below.
+struct HiddenTile {
+    int64_t row0, valid, tile;
+    int f;
+    int wg, warp, g, q;
+    Mask m1;
 };
 
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_dx_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-              const float* __restrict__ b1, const bf16* __restrict__ w2,
-              const bf16* __restrict__ dy, bf16* __restrict__ dx, bf16* __restrict__ dyb,
-              int64_t n, int f, Mask m1, Mask m2) {
-    using S = SmemA<D>;
-    constexpr int LDX = S::LDX;
-    constexpr int XN = D / 32;                  // 8-column tiles of dx a warp
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* xs = reinterpret_cast<bf16*>(smem + S::X);
-    bf16* dys = reinterpret_cast<bf16*>(smem + S::DY);
-    bf16* w1s = reinterpret_cast<bf16*>(smem + S::W1);
-    bf16* w2s = reinterpret_cast<bf16*>(smem + S::W2);
-    bf16* das = reinterpret_cast<bf16*>(smem + S::DA);
-    uint8_t* keep = smem + S::KEEP;
-
-    const int64_t row0 = static_cast<int64_t>(blockIdx.x) * BM;
-    const int64_t valid = n - row0;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, q = lane & 3;
-    const int hm = (warp & 3) * 16, hn = (warp >> 2) * 32;
-    const int xm = (warp & 1) * 32, xn = (warp >> 1) * (D / 4);
-
-    uint8_t* keep2 = smem + S::DA;
-    mmd_mlp::fill_keep<BM, D>(keep2, m2, row0, D, 0);
-    mmd_tc::load_tile(xs, LDX, x + row0 * D, D, BM, D, valid);
-    __syncthreads();
-    float unused[8] = {};
-    load_dy<D>(dys, LDX, dy, dyb, row0, valid, keep2, m2, unused);
-
-    float acc[2][XN][4];
+// The epilogue of one chunk (hidden columns c0..c0 + 63) from its
+// accumulators: hb = bf16(gelu(a + b1) m1) and dab = bf16(dh m1 gelu'(a +
+// b1)) out, and the warp's column sums of da (over its 16 rows, lanes in a
+// fixed order) into the db1 scratch, [8 warps][FC].
+__device__ __forceinline__ void hidden_epilogue(const HiddenTile& h, const float (&acc_a)[32],
+                                                const float (&acc_d)[32], const float* b1,
+                                                int c0, const uint8_t* kb, float* db1s,
+                                                const Work& ws) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < XN; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-    for (int c0 = 0; c0 < f; c0 += FCA) {
-        __syncthreads();                        // the last chunk's readers are done
-        mmd_tc::load_tile(w1s, LDA, w1 + c0, f, D, FCA, D);
-        mmd_tc::load_tile(w2s, LDX, w2 + static_cast<int64_t>(c0) * D, D, FCA, D, FCA);
-        mmd_mlp::fill_keep<BM, FCA>(keep, m1, row0, f, c0);
-        mmd_tc::cp_async_wait_all();
-        __syncthreads();
-
-        float a[4][4], dh[4][4];
-        hidden_products<D, 4>(a, dh, xs, dys, LDX, w1s, LDA, w2s, hm, hn);
-        // da = dh m1 gelu'(a + b1) -> bf16 -> das
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int col = hn + 8 * j + 2 * q;
-            const float bias0 = b1[c0 + col], bias1 = b1[c0 + col + 1];
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int r = hm + g + 8 * half;
-                const float d0 = dh[j][2 * half] * mmd_mlp::keep_scale<FCA>(keep, m1, r, col) *
-                                 mmd_mlp::gelu_tanh_grad(a[j][2 * half] + bias0);
-                const float d1 = dh[j][2 * half + 1] *
-                                 mmd_mlp::keep_scale<FCA>(keep, m1, r, col + 1) *
-                                 mmd_mlp::gelu_tanh_grad(a[j][2 * half + 1] + bias1);
-                mmd_tc::store_bf16x2(das + r * LDA + col, d0, d1);
-            }
-        }
-        __syncthreads();
-
-        // dx += dab w1[:, chunk]^T: B[k = f][n = d] = w1s[d][f]
-#pragma unroll
-        for (int k0 = 0; k0 < FCA; k0 += 16) {
-            uint32_t av[2][4];
-            mmd_tc::load_a(av[0], das, LDA, xm, k0);
-            mmd_tc::load_a(av[1], das, LDA, xm + 16, k0);
-#pragma unroll
-            for (int j = 0; j < XN / 2; ++j) {
-                uint32_t b[4];
-                mmd_tc::load_b(b, w1s, LDA, k0, xn + 16 * j);
-#pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    mmd_tc::mma(acc[i][2 * j], av[i], b[0], b[1]);
-                    mmd_tc::mma(acc[i][2 * j + 1], av[i], b[2], b[3]);
-                }
-            }
-        }
-    }
-
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < XN; ++j) {
-            const int col = xn + 8 * j + 2 * q;
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int r = xm + 16 * i + g + 8 * half;
-                if (r < valid) {
-                    mmd_tc::store_bf16x2(dx + (row0 + r) * D + col, acc[i][j][2 * half],
-                                          acc[i][j][2 * half + 1]);
-                }
-            }
-        }
-}
-
-// -- pass B: partial dW1, dW2, db1, db2 -----------------------------------------
-
-template <int D>
-struct SmemB {
-    static constexpr int LDX = D + PAD;
-    static constexpr int X = 0;                          // [BM][LDX] x
-    static constexpr int DY = X + BM * LDX * 2;          // [BM][LDX] dyb
-    static constexpr int W1 = DY + BM * LDX * 2;         // [D][LDB] w1[:, chunk]
-    static constexpr int W2 = W1 + D * LDB * 2;          // [FCB][LDX] w2[chunk, :]
-    static constexpr int H = W2 + FCB * LDX * 2;         // [BM][LDB] hb
-    static constexpr int DA = H + BM * LDB * 2;          // [BM][LDB] dab
-    static constexpr int KEEP = DA + BM * LDB * 2;       // [BM][FCB / 8] hidden keep bits
-    static constexpr int RED = KEEP + BM * FCB / 8;      // [4][FCB] fp32 db1 partials
-    static constexpr int BYTES = RED + 4 * FCB * 4;
-    // the output keep bits, [BM][D / 8], use the hb and dab tiles, which
-    // are written only after dyb is built
-    static_assert(BM * D / 8 <= 2 * BM * LDB * 2, "output keep bits fit hb and dab");
-    // the end-of-kernel db2 reduction, [THREADS][8] fp32, uses the x tile
-    static_assert(THREADS * 8 * 4 <= BM * LDX * 2, "db2 partials fit the x tile");
-};
-
-template <int D>
-__global__ void __launch_bounds__(THREADS, 1)
-mlp_dw_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-              const float* __restrict__ b1, const bf16* __restrict__ w2,
-              const bf16* __restrict__ dy, const bf16* __restrict__ dyb,
-              float* __restrict__ ws, int64_t n, int f, int64_t group_rows, Mask m1,
-              Mask m2) {
-    using S = SmemB<D>;
-    constexpr int LDX = S::LDX;
-    constexpr int W2N = D / 32;                 // 8-column tiles of dW2 a warp
-    constexpr int W1M = D / 128;                // 16-row tiles of dW1 a warp
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* xs = reinterpret_cast<bf16*>(smem + S::X);
-    bf16* dys = reinterpret_cast<bf16*>(smem + S::DY);
-    bf16* w1s = reinterpret_cast<bf16*>(smem + S::W1);
-    bf16* w2s = reinterpret_cast<bf16*>(smem + S::W2);
-    bf16* hs = reinterpret_cast<bf16*>(smem + S::H);
-    bf16* das = reinterpret_cast<bf16*>(smem + S::DA);
-    uint8_t* keep = smem + S::KEEP;
-    uint8_t* keep2 = smem + S::H;
-    float* red = reinterpret_cast<float*>(smem + S::RED);
-
-    const int c0 = blockIdx.x * FCB;
-    const int64_t first = static_cast<int64_t>(blockIdx.y) * group_rows;
-    const int64_t last = first + group_rows < n ? first + group_rows : n;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, q = lane & 3;
-    const int hm = (warp & 3) * 16, hn = (warp >> 2) * 16;     // 16 x 16 of a, dh
-    const int w2m = (warp & 1) * 16, w2n = (warp >> 1) * (D / 4);   // of dW2 (FCB x D)
-    const int w1m = warp * (D / 8);                             // of dW1 (D x FCB)
-
-    mmd_tc::load_tile(w1s, LDB, w1 + c0, f, D, FCB, D);
-    mmd_tc::load_tile(w2s, LDX, w2 + static_cast<int64_t>(c0) * D, D, FCB, D, FCB);
-
-    float dw2[W2N][4], dw1[W1M][4][4];
-#pragma unroll
-    for (int j = 0; j < W2N; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dw2[j][e] = 0.f;
-#pragma unroll
-    for (int i = 0; i < W1M; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) dw1[i][j][e] = 0.f;
-    float db1 = 0.f;                            // thread t < FCB: column c0 + t
-    float db2[8] = {};                          // this thread's 8 columns of dyf
-
-    // The CTAs of the first column chunk redraw the output mask to build dyb
-    // and sum dyf into db2; the others load the dyb that pass A wrote.
-    const bool first_chunk = blockIdx.x == 0;
-    for (int64_t row0 = first; row0 < last; row0 += BM) {
-        const int64_t valid = last - row0;
-        __syncthreads();                        // the last tile's readers are done
-        mmd_tc::load_tile(xs, LDX, x + row0 * D, D, BM, D, valid);
-        if (first_chunk) {
-            mmd_mlp::fill_keep<BM, D>(keep2, m2, row0, D, 0);
-        } else {
-            mmd_tc::load_tile(dys, LDX, dyb + row0 * D, D, BM, D, valid);
-        }
-        mmd_mlp::fill_keep<BM, FCB>(keep, m1, row0, f, c0);
-        mmd_tc::cp_async_wait_all();
-        __syncthreads();
-        if (first_chunk) {
-            load_dy<D>(dys, LDX, dy, nullptr, row0, valid, keep2, m2, db2);
-            __syncthreads();
-        }
-
-        float a[2][4], dh[2][4];
-        hidden_products<D, 2>(a, dh, xs, dys, LDX, w1s, LDB, w2s, hm, hn);
-        // hb = bf16(gelu(a + b1) m1) -> hs; da = dh m1 gelu'(a + b1) -> das
-        float colda[2][2] = {};
-#pragma unroll
-        for (int j = 0; j < 2; ++j) {
-            const int col = hn + 8 * j + 2 * q;
-            const float bias[2] = {b1[c0 + col], b1[c0 + col + 1]};
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int r = hm + g + 8 * half;
-                float hv[2], dv[2];
-#pragma unroll
-                for (int e = 0; e < 2; ++e) {
-                    const float av = a[j][2 * half + e] + bias[e];
-                    const float k = mmd_mlp::keep_scale<FCB>(keep, m1, r, col + e);
-                    hv[e] = mmd_mlp::gelu_tanh(av) * k;
-                    dv[e] = dh[j][2 * half + e] * k * mmd_mlp::gelu_tanh_grad(av);
-                    colda[j][e] += dv[e];       // zero on rows past the end: dy is 0
-                }
-                mmd_tc::store_bf16x2(hs + r * LDB + col, hv[0], hv[1]);
-                mmd_tc::store_bf16x2(das + r * LDB + col, dv[0], dv[1]);
-            }
-        }
-        // db1: sum the warp's 16 rows over the lanes of one column, then
-        // the 4 row blocks in order
-#pragma unroll
-        for (int j = 0; j < 2; ++j)
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-                float v = colda[j][e];
-                v += __shfl_xor_sync(0xFFFFFFFFu, v, 4);
-                v += __shfl_xor_sync(0xFFFFFFFFu, v, 8);
-                v += __shfl_xor_sync(0xFFFFFFFFu, v, 16);
-                if (g == 0) red[(warp & 3) * FCB + hn + 8 * j + 2 * q + e] = v;
-            }
-        __syncthreads();
-        if (threadIdx.x < FCB) {
-            const int t = threadIdx.x;
-            db1 += ((red[t] + red[FCB + t]) + red[2 * FCB + t]) + red[3 * FCB + t];
-        }
-
-        // dW2[chunk, :] += hb^T dyb: A[m = f][k = r] = hs[r][f], B[k = r][n = d] = dys[r][d]
-#pragma unroll
-        for (int k0 = 0; k0 < BM; k0 += 16) {
-            uint32_t ah[4];
-            mmd_tc::load_a_t(ah, hs, LDB, w2m, k0);
-#pragma unroll
-            for (int j = 0; j < W2N / 2; ++j) {
-                uint32_t b[4];
-                mmd_tc::load_b_t(b, dys, LDX, k0, w2n + 16 * j);
-                mmd_tc::mma(dw2[2 * j], ah, b[0], b[1]);
-                mmd_tc::mma(dw2[2 * j + 1], ah, b[2], b[3]);
-            }
-        }
-        // dW1[:, chunk] += x^T dab: A[m = d][k = r] = xs[r][d], B[k = r][n = f] = das[r][f]
-#pragma unroll
-        for (int k0 = 0; k0 < BM; k0 += 16) {
-            uint32_t b[2][4];
-            mmd_tc::load_b_t(b[0], das, LDB, k0, 0);
-            mmd_tc::load_b_t(b[1], das, LDB, k0, 16);
-#pragma unroll
-            for (int i = 0; i < W1M; ++i) {
-                uint32_t ax[4];
-                mmd_tc::load_a_t(ax, xs, LDX, w1m + 16 * i, k0);
-#pragma unroll
-                for (int j = 0; j < 2; ++j) {
-                    mmd_tc::mma(dw1[i][2 * j], ax, b[j][0], b[j][1]);
-                    mmd_tc::mma(dw1[i][2 * j + 1], ax, b[j][2], b[j][3]);
-                }
-            }
-        }
-    }
-
-    // this group's partials: ws[group] = [dW1 (D, f) | dW2 (f, D) | db1 (f) | db2 (D)]
-    const int64_t total = 2 * static_cast<int64_t>(D) * f + f + D;
-    float* out = ws + blockIdx.y * total;
-    float* out_dw1 = out;
-    float* out_dw2 = out + static_cast<int64_t>(D) * f;
-    float* out_db1 = out_dw2 + static_cast<int64_t>(D) * f;
-    float* out_db2 = out_db1 + f;
-#pragma unroll
-    for (int j = 0; j < W2N; ++j) {
-        const int col = w2n + 8 * j + 2 * q;
+    for (int j = 0; j < 8; ++j) {               // the 8-column tiles of the chunk
+        const int col = 8 * j + 2 * h.q;
+        const float2 bias = *reinterpret_cast<const float2*>(b1 + c0 + col);
+        float dsum[2] = {0.f, 0.f};
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
-            const int r = w2m + g + 8 * half;
-            *reinterpret_cast<float2*>(out_dw2 + static_cast<int64_t>(c0 + r) * D + col) =
-                make_float2(dw2[j][2 * half], dw2[j][2 * half + 1]);
-        }
-    }
+            const int r = h.wg * 64 + (h.warp & 3) * 16 + h.g + 8 * half;
+            float hv[2], dv[2];
 #pragma unroll
-    for (int i = 0; i < W1M; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int col = 8 * j + 2 * q;
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int r = w1m + 16 * i + g + 8 * half;
-                *reinterpret_cast<float2*>(out_dw1 + static_cast<int64_t>(r) * f + c0 + col) =
-                    make_float2(dw1[i][j][2 * half], dw1[i][j][2 * half + 1]);
+            for (int e = 0; e < 2; ++e) {
+                const float av = acc_a[4 * j + 2 * half + e] + (e ? bias.y : bias.x);
+                const float k = mmd_mlp::keep_scale<FC>(kb, h.m1, r, col + e);
+                float gl, dg;
+                mmd_mlp::gelu_tanh_and_grad_fast(av, gl, dg);
+                hv[e] = gl * k;
+                dv[e] = acc_d[4 * j + 2 * half + e] * k * dg;
+                dsum[e] += dv[e];               // zero on rows past the end: dyb is 0
+            }
+            if (r < h.valid) {
+                const int64_t at = (h.row0 + r) * h.f + c0 + col;
+                mmd_tc::store_bf16x2(ws.hb + at, hv[0], hv[1]);
+                mmd_tc::store_bf16x2(ws.dab + at, dv[0], dv[1]);
             }
         }
-    if (threadIdx.x < FCB) out_db1[c0 + threadIdx.x] = db1;
-    if (blockIdx.x == 0) {
-        // db2: the threads that share a column group, in order
-        __syncthreads();
-        float* part = reinterpret_cast<float*>(smem + S::X);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) part[threadIdx.x * 8 + j] = db2[j];
+        for (int e = 0; e < 2; ++e) {
+            float v = dsum[e];
+            v += __shfl_xor_sync(0xFFFFFFFFu, v, 4);
+            v += __shfl_xor_sync(0xFFFFFFFFu, v, 8);
+            v += __shfl_xor_sync(0xFFFFFFFFu, v, 16);
+            if (h.g == 0) db1s[h.warp * FC + col + e] = v;
+        }
+    }
+}
+
+// db1 of one chunk for the tile: the 8 warps' partials in order (threads
+// 0..FC-1; after a barrier that follows the chunk's epilogue).
+__device__ __forceinline__ void hidden_db1(const HiddenTile& h, const float* db1s, int c0,
+                                           const Work& ws) {
+    if (threadIdx.x < FC) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) s += db1s[w * FC + threadIdx.x];
+        ws.db1[h.tile * h.f + c0 + threadIdx.x] = s;
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+mlp_bwd_hidden_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                      const float* __restrict__ b1, const bf16* __restrict__ w2,
+                      const bf16* __restrict__ dy, Work ws, int64_t n, int f, Mask m1,
+                      Mask m2) {
+    using S = SmemA<D>;
+    constexpr int SLICES = D / KS;              // weight stages a chunk
+    constexpr int KEEP_ROWS = BM / SLICES;      // hidden keep rows drawn a stage
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = align_1024(smem_raw);
+    uint8_t* keep1 = smem + S::KEEP1;
+    uint8_t* keep2 = smem + S::KEEP2;
+    float* db1s = reinterpret_cast<float*>(smem + S::DB1);
+    const uint32_t xs = mmd_tc::smem_addr(smem + S::X);
+    const uint32_t dys = mmd_tc::smem_addr(smem + S::DY);
+
+    HiddenTile h;
+    h.tile = blockIdx.x;
+    h.row0 = h.tile * BM;
+    h.valid = n - h.row0;
+    h.f = f;
+    h.warp = threadIdx.x >> 5;
+    h.wg = h.warp >> 2;
+    h.g = (threadIdx.x & 31) >> 2;
+    h.q = threadIdx.x & 3;
+    h.m1 = m1;
+    const int64_t row0 = h.row0;
+
+    // x (in flight while dyb is built), the output keep bits, dyb and the
+    // tile's column sums of dyf, summed over the threads of a column in order
+    for (int i = threadIdx.x; i < BM * (D / 8); i += THREADS) {
+        const int r = i / (D / 8), c = 8 * (i % (D / 8));
+        const bool ok = r < h.valid;
+        mmd_tc::cp_async16(smem + S::X + kmajor_at(r, c), ok ? x + (row0 + r) * D + c : x, ok);
+    }
+    mmd_tc::cp_async_commit();
+    mmd_mlp::fill_keep<BM, D>(keep2, m2, row0, D, 0);
+    __syncthreads();
+    {
+        float colsum[8] = {};
+        build_dyb<D>(smem + S::DY, dy, ws.dyb, row0, h.valid, keep2, m2, colsum);
+        float* part = reinterpret_cast<float*>(smem + S::W);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) part[threadIdx.x * 8 + j] = colsum[j];
         __syncthreads();
         for (int col = threadIdx.x; col < D; col += THREADS) {
             float s = 0.f;
-            for (int t = (col / 8) % (D / 8); t < THREADS; t += D / 8) s += part[t * 8 + col % 8];
-            out_db2[col] = s;
+            for (int t = col / 8; t < THREADS; t += D / 8) s += part[t * 8 + col % 8];
+            ws.db2[h.tile * D + col] = s;
         }
+        __syncthreads();                        // the stages take the partials' place
+    }
+
+    const int chunks = f / FC;
+    const int iters = chunks * SLICES;
+    auto load_stage = [&](int it) {
+        const int c0 = (it / SLICES) * FC, kd = (it % SLICES) * KS;
+        unsigned char* st = smem + S::W + (it % STAGES_A) * S::STAGE;
+        // w1[kd.., c0..c0 + 63]: KS rows of one MN-major atom
+        for (int i = threadIdx.x; i < KS * 8; i += THREADS) {
+            const int k = i >> 3, c = i & 7;
+            mmd_tc::cp_async16(st + k * 128 + ((c ^ (k & 7)) << 4),
+                               w1 + static_cast<int64_t>(kd + k) * f + c0 + c * 8, true);
+        }
+        // w2[c0.., kd..kd + 63]: FC rows, K-major
+        for (int i = threadIdx.x; i < FC * 8; i += THREADS) {
+            const int r = i >> 3, c = i & 7;
+            mmd_tc::cp_async16(st + S::W1_BYTES + r * 128 + ((c ^ (r & 7)) << 4),
+                               w2 + static_cast<int64_t>(c0 + r) * D + kd + c * 8, true);
+        }
+    };
+    auto fill_keep1 = [&](int chunk, int r0, int rows) {     // rows r0.. of a chunk's bits
+        uint8_t* kb = keep1 + (chunk & 1) * S::KEEP_BYTES;
+        for (int i = threadIdx.x; i < rows * (FC / 8); i += THREADS) {
+            const int r = r0 + i / (FC / 8), c8 = 8 * (i % (FC / 8));
+            kb[r * (FC / 8) + c8 / 8] = static_cast<uint8_t>(mmd_mlp::keep_byte(
+                m1, static_cast<uint64_t>(row0 + r), f, chunk * FC + c8));
+        }
+    };
+#pragma unroll
+    for (int s = 0; s < STAGES_A - 2; ++s) {
+        if (s < iters) load_stage(s);
+        mmd_tc::cp_async_commit();
+    }
+    fill_keep1(0, 0, BM);
+
+    // A stage is overwritten two stages after its products were issued:
+    // wgmma.wait_group 1 has retired them by then. The epilogue waits for
+    // all of its chunk's products (reading the accumulators of a product in
+    // flight would make ptxas serialize every wgmma).
+    float acc_a[32] = {}, acc_d[32] = {};
+    for (int c = 0; c < chunks; ++c) {
+        static_for<0, SLICES>([&](auto slice_tag) {
+            constexpr int s = decltype(slice_tag)::value;
+            const int it = c * SLICES + s;
+            mmd_tc::cp_async_wait<STAGES_A - 3>();
+            fence_async_shared();
+            __syncthreads();                    // stage `it` is in; stage it - 2 is retired
+            if (s == 0 && c > 0) hidden_db1(h, db1s, (c - 1) * FC, ws);
+            if (it + STAGES_A - 2 < iters) load_stage(it + STAGES_A - 2);
+            mmd_tc::cp_async_commit();
+            if (c + 1 < chunks) fill_keep1(c + 1, s * KEEP_ROWS, KEEP_ROWS);
+
+            const uint32_t st = mmd_tc::smem_addr(smem + S::W + (it % STAGES_A) * S::STAGE);
+            const uint32_t xa = xs + s * S::BLOCK + h.wg * 64 * 128;
+            const uint32_t da = dys + s * S::BLOCK + h.wg * 64 * 128;
+            wgmma_fence();
+#pragma unroll
+            for (int kk = 0; kk < KS; kk += 16) {
+                const int acc = s > 0 || kk > 0;
+                wgmma_n64<0, 1>(acc_a, desc_kmajor(xa + kk * 2),
+                                desc_mnmajor(st + kk * 128, KS * 128), acc);
+                wgmma_n64<0, 0>(acc_d, desc_kmajor(da + kk * 2),
+                                desc_kmajor(st + S::W1_BYTES + kk * 2), acc);
+            }
+            wgmma_commit();
+            wgmma_wait<1>();
+        });
+        wgmma_wait<0>();
+        hidden_epilogue(h, acc_a, acc_d, b1, c * FC, keep1 + (c & 1) * S::KEEP_BYTES, db1s,
+                        ws);
+    }
+    __syncthreads();
+    hidden_db1(h, db1s, (chunks - 1) * FC, ws);
+}
+
+// -- pass B: dW1, dW2 partials and dx -------------------------------------------
+
+// A K-major stage: ROWS rows of 64 bf16 from src (row stride ld), rows at or
+// past `valid` zero.
+template <int ROWS>
+__device__ __forceinline__ void load_kmajor(unsigned char* dst, const bf16* src, int64_t ld,
+                                            int64_t valid) {
+    for (int i = threadIdx.x; i < ROWS * 8; i += THREADS) {
+        const int r = i >> 3, c = i & 7;
+        const bool ok = r < valid;
+        mmd_tc::cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4), ok ? src + r * ld + c * 8 : src,
+                           ok);
     }
 }
 
-// -- C: the fixed-order sum over groups -------------------------------------------
+// An MN-major stage: BKW rows of 128 bf16 (two atoms) from src (row stride
+// ld), rows at or past `valid` zero.
+__device__ __forceinline__ void load_mnmajor(unsigned char* dst, const bf16* src, int64_t ld,
+                                             int64_t valid) {
+    for (int i = threadIdx.x; i < BKW * 16; i += THREADS) {
+        const int k = i >> 4, c = i & 15;
+        const bool ok = k < valid;
+        mmd_tc::cp_async16(dst + (c >> 3) * (BKW * 128) + k * 128 + (((c & 7) ^ (k & 7)) << 4),
+                           ok ? src + k * ld + c * 8 : src, ok);
+    }
+}
 
-__global__ void __launch_bounds__(THREADS)
-mlp_reduce_kernel(const float* __restrict__ ws, int groups, int64_t total,
-                  float* __restrict__ dw1, float* __restrict__ dw2, float* __restrict__ db1,
-                  float* __restrict__ db2, int64_t dw_size, int f) {
-    const int64_t stride = static_cast<int64_t>(gridDim.x) * THREADS;
-    for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < total;
-         i += stride) {
-        float s = 0.f;
-        for (int gi = 0; gi < groups; ++gi) s += ws[gi * total + i];
-        if (i < dw_size) {
-            dw1[i] = s;
-        } else if (i < 2 * dw_size) {
-            dw2[i - dw_size] = s;
-        } else if (i < 2 * dw_size + f) {
-            db1[i - 2 * dw_size] = s;
+// One 128 x 128 output tile over `iters` stages of BKW: warpgroup wg's 64 x
+// 128 half in acc (the wgmma accumulator layout). TRANS: both operands are
+// contracted over their rows (dW1 = x^T dab, dW2 = hb^T dyb) and stored
+// MN-major: a and b point at the first row, rows advance by lda / ldb, rows
+// at or past `valid` read zeros. Otherwise (dx = dab w1^T) both are
+// contracted over their columns, K-major: a is [BT rows][K] with `valid`
+// rows, b [BT rows][K]. A stage is overwritten two iterations after its
+// products were issued: wgmma.wait_group 1 has retired them by then.
+template <bool TRANS>
+__device__ __forceinline__ void product_tile(float (&acc)[64], unsigned char* smem,
+                                             const bf16* a, int64_t lda, const bf16* b,
+                                             int64_t ldb, int64_t valid, int iters) {
+    const int wg = threadIdx.x >> 7;
+    auto load = [&](int i) {
+        unsigned char* as = smem + (i % STAGES_B) * 2 * TILE_B;
+        const int64_t k = static_cast<int64_t>(i) * BKW;
+        if constexpr (TRANS) {
+            load_mnmajor(as, a + k * lda, lda, valid - k);
+            load_mnmajor(as + TILE_B, b + k * ldb, ldb, valid - k);
         } else {
-            db2[i - 2 * dw_size - f] = s;
+            load_kmajor<BT>(as, a + k, lda, valid);
+            load_kmajor<BT>(as + TILE_B, b + k, ldb, BT);
         }
+    };
+#pragma unroll
+    for (int s = 0; s < STAGES_B - 2; ++s) {
+        if (s < iters) load(s);
+        mmd_tc::cp_async_commit();
+    }
+    for (int i = 0; i < iters; ++i) {
+        mmd_tc::cp_async_wait<STAGES_B - 3>();
+        fence_async_shared();
+        __syncthreads();                        // stage i is in; stage i - 2 is retired
+        if (i + STAGES_B - 2 < iters) load(i + STAGES_B - 2);
+        mmd_tc::cp_async_commit();
+        const uint32_t as = mmd_tc::smem_addr(smem + (i % STAGES_B) * 2 * TILE_B);
+        const uint32_t bs = as + TILE_B;
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BKW; kk += 16) {
+            if constexpr (TRANS) {
+                wgmma_n128<1, 1>(acc, desc_mnmajor(as + wg * (BKW * 128) + kk * 128, BKW * 128),
+                                 desc_mnmajor(bs + kk * 128, BKW * 128), i > 0 || kk > 0);
+            } else {
+                wgmma_n128<0, 0>(acc, desc_kmajor(as + wg * 64 * 128 + kk * 2),
+                                 desc_kmajor(bs + kk * 2), i > 0 || kk > 0);
+            }
+        }
+        wgmma_commit();
+        wgmma_wait<1>();
+    }
+    wgmma_wait<0>();
+}
+
+// Block order: the dW tiles of group 0 (dW1 then dW2), of group 1, ...,
+// then the dx tiles, the D / 128 tiles of a row block side by side, so that
+// the tiles that read the same rows run together.
+template <int D>
+__global__ void __launch_bounds__(THREADS, 2)
+mlp_bwd_product_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, Work ws,
+                       bf16* __restrict__ dx, int64_t n, int f, int groups,
+                       int64_t group_rows) {
+    constexpr int DT = D / BT;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = align_1024(smem_raw);
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+    const int g = lane >> 2, q = lane & 3;
+    const int wm = (warp >> 2) * 64 + (warp & 3) * 16;  // the warp's 16 rows of the tile
+    const int ft = f / BT;
+    const int per_group = 2 * DT * ft;
+    float acc[64] = {};
+
+    const int64_t bid = blockIdx.x;
+    if (bid < static_cast<int64_t>(groups) * per_group) {
+        const int grp = static_cast<int>(bid / per_group);
+        int t = static_cast<int>(bid % per_group);
+        const int64_t r0 = grp * group_rows;
+        const int64_t rows = n - r0 < group_rows ? n - r0 : group_rows;
+        const int iters = static_cast<int>((rows + BKW - 1) / BKW);
+        float* out = ws.dw + static_cast<int64_t>(grp) * 2 * D * f;
+        int64_t ld;
+        if (t < DT * ft) {                      // dW1[d0.., f0..] = x^T dab
+            const int d0 = (t / ft) * BT, f0 = (t % ft) * BT;
+            product_tile<true>(acc, smem, x + r0 * D + d0, D, ws.dab + r0 * f + f0, f, rows,
+                               iters);
+            out += static_cast<int64_t>(d0) * f + f0;
+            ld = f;
+        } else {                                // dW2[f0.., d0..] = hb^T dyb
+            t -= DT * ft;
+            const int f0 = (t / DT) * BT, d0 = (t % DT) * BT;
+            product_tile<true>(acc, smem, ws.hb + r0 * f + f0, f, ws.dyb + r0 * D + d0, D, rows,
+                               iters);
+            out += static_cast<int64_t>(D) * f + static_cast<int64_t>(f0) * D + d0;
+            ld = D;
+        }
+#pragma unroll
+        for (int j = 0; j < 16; ++j)
+#pragma unroll
+            for (int half = 0; half < 2; ++half) {
+                const int r = wm + g + 8 * half, c = 8 * j + 2 * q;
+                *reinterpret_cast<float2*>(out + r * ld + c) =
+                    make_float2(acc[4 * j + 2 * half], acc[4 * j + 2 * half + 1]);
+            }
+        return;
+    }
+    // dx[row0.., d0..] = bf16(dab w1^T): w1 (D, F) is [n][k]
+    const int64_t t = bid - static_cast<int64_t>(groups) * per_group;
+    const int64_t row0 = (t / DT) * BT;
+    const int d0 = static_cast<int>(t % DT) * BT;
+    const int64_t valid = n - row0;
+    product_tile<false>(acc, smem, ws.dab + row0 * f, f, w1 + static_cast<int64_t>(d0) * f, f,
+                        valid, f / BKW);
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int r = wm + g + 8 * half, c = d0 + 8 * j + 2 * q;
+            if (r < valid) {
+                mmd_tc::store_bf16x2(dx + (row0 + r) * D + c, acc[4 * j + 2 * half],
+                                     acc[4 * j + 2 * half + 1]);
+            }
+        }
+}
+
+// -- C: the fixed-order sums ------------------------------------------------------
+
+// Blocks [0, dw_blocks) sum the dW partials over the groups, in group
+// order, four floats a thread; then 8 columns a block of db1 and of db2,
+// each over the row tiles' partial rows: 32 slices of rows side by side,
+// each in row order, then the slices in order.
+__global__ void __launch_bounds__(THREADS)
+mlp_bwd_reduce_kernel(Work ws, float* __restrict__ grads, int d, int f, int groups,
+                      int64_t tiles, int dw_blocks) {
+    const int64_t dw_size = static_cast<int64_t>(d) * f;
+    if (static_cast<int>(blockIdx.x) < dw_blocks) {
+        const int64_t quads = 2 * dw_size / 4;
+        const float4* src = reinterpret_cast<const float4*>(ws.dw);
+        float4* dst = reinterpret_cast<float4*>(grads);
+        for (int64_t i = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x; i < quads;
+             i += static_cast<int64_t>(dw_blocks) * THREADS) {
+            float4 s = src[i];
+            for (int gi = 1; gi < groups; ++gi) {
+                const float4 v = src[gi * quads + i];
+                s.x += v.x;
+                s.y += v.y;
+                s.z += v.z;
+                s.w += v.w;
+            }
+            dst[i] = s;
+        }
+        return;
+    }
+    __shared__ float part[THREADS];
+    int b = static_cast<int>(blockIdx.x) - dw_blocks;
+    const float* src = ws.db1;
+    float* dst = grads + 2 * dw_size;           // db1, then db2
+    int ld = f;
+    if (b >= f / 8) {
+        b -= f / 8;
+        src = ws.db2;
+        dst += f;
+        ld = d;
+    }
+    const int col = 8 * b + (threadIdx.x & 7), slice = threadIdx.x >> 3;
+    float s = 0.f;
+    for (int64_t r = slice; r < tiles; r += SLICES_C) s += src[r * ld + col];
+    part[threadIdx.x] = s;
+    __syncthreads();
+    if (threadIdx.x < 8) {
+        float total = 0.f;
+        for (int sl = 0; sl < SLICES_C; ++sl) total += part[sl * 8 + threadIdx.x];
+        dst[col] = total;
     }
 }
 
-struct Args {
-    const void *x, *w1, *b1, *w2, *dy;
-    void *dx, *dyb, *ws, *dw1, *db1, *dw2, *db2;
-    int64_t n;
-    int f, groups;
-    int64_t group_rows;
-};
-
+// Above 48 KB of dynamic shared memory a kernel has to be allowed it, once
+// per device: `raised` holds a bit for each device where that is done.
 template <int D>
-cudaError_t launch(const Args& a, const Mask& m1, const Mask& m2, cudaStream_t stream) {
-    const bf16* x = static_cast<const bf16*>(a.x);
-    const bf16* w1 = static_cast<const bf16*>(a.w1);
-    const float* b1 = static_cast<const float*>(a.b1);
-    const bf16* w2 = static_cast<const bf16*>(a.w2);
-    const bf16* dy = static_cast<const bf16*>(a.dy);
-
-    const int smem_a = SmemA<D>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(mlp_dx_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, smem_a);
-    if (err != cudaSuccess) return err;
-    bf16* dyb = static_cast<bf16*>(a.dyb);
-    mlp_dx_kernel<D><<<static_cast<unsigned>((a.n + BM - 1) / BM), THREADS, smem_a, stream>>>(
-        x, w1, b1, w2, dy, static_cast<bf16*>(a.dx), dyb, a.n, a.f, m1, m2);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-
-    const int smem_b = SmemB<D>::BYTES;
-    err = cudaFuncSetAttribute(mlp_dw_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               smem_b);
-    if (err != cudaSuccess) return err;
-    mlp_dw_kernel<D><<<dim3(a.f / FCB, a.groups), THREADS, smem_b, stream>>>(
-        x, w1, b1, w2, dy, dyb, static_cast<float*>(a.ws), a.n, a.f, a.group_rows, m1, m2);
-    err = cudaGetLastError();
+cudaError_t launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                   const bf16* dy, bf16* dx, float* grads, const Work& ws, int64_t n, int f,
+                   int groups, int64_t group_rows, const Mask& m1, const Mask& m2, int device,
+                   cudaStream_t stream) {
+    static std::atomic<uint64_t> raised{0};
+    const uint64_t bit = uint64_t{1} << device;
+    if (!(raised.load(std::memory_order_relaxed) & bit)) {
+        cudaError_t err = cudaFuncSetAttribute(mlp_bwd_hidden_kernel<D>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               SmemA<D>::BYTES);
+        if (err == cudaSuccess) {
+            err = cudaFuncSetAttribute(mlp_bwd_product_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_B);
+        }
+        if (err != cudaSuccess) return err;
+        raised.fetch_or(bit, std::memory_order_relaxed);
+    }
+    const int64_t tiles = row_tiles(n);
+    mlp_bwd_hidden_kernel<D><<<static_cast<unsigned>(tiles), THREADS, SmemA<D>::BYTES, stream>>>(
+        x, w1, b1, w2, dy, ws, n, f, m1, m2);
+    cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
 
-    const int64_t dw_size = static_cast<int64_t>(D) * a.f;
-    const int64_t total = 2 * dw_size + a.f + D;
-    int64_t blocks = (total + THREADS - 1) / THREADS;
-    if (blocks > 132 * 8) blocks = 132 * 8;
-    mlp_reduce_kernel<<<static_cast<unsigned>(blocks), THREADS, 0, stream>>>(
-        static_cast<const float*>(a.ws), a.groups, total, static_cast<float*>(a.dw1),
-        static_cast<float*>(a.dw2), static_cast<float*>(a.db1), static_cast<float*>(a.db2),
-        dw_size, a.f);
+    const int64_t products = static_cast<int64_t>(groups) * 2 * (D / BT) * (f / BT) +
+                             (n + BT - 1) / BT * (D / BT);
+    mlp_bwd_product_kernel<D><<<static_cast<unsigned>(products), THREADS, SMEM_B, stream>>>(
+        x, w1, ws, dx, n, f, groups, group_rows);
+    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+
+    const int64_t quads = 2 * static_cast<int64_t>(D) * f / 4;
+    int64_t dw_blocks = (quads + THREADS - 1) / THREADS;
+    if (dw_blocks > DW_BLOCKS_C) dw_blocks = DW_BLOCKS_C;
+    mlp_bwd_reduce_kernel<<<static_cast<unsigned>(dw_blocks + f / 8 + D / 8), THREADS, 0,
+                            stream>>>(ws, grads, D, f, groups, tiles,
+                                      static_cast<int>(dw_blocks));
     return cudaGetLastError();
 }
 
 }  // namespace
 
+// Bytes of the workspace mmd_mlp_bwd takes for n rows, widths d and f, and
+// `groups` row groups.
+extern "C" int64_t mmd_mlp_bwd_workspace(int64_t n, int d, int f, int groups) {
+    return workspace_bytes(n, d, f, groups);
+}
+
 // C entry point, bound with ctypes. x, dy and dx (n, d), w1 (d, f) and w2
-// (f, d) are contiguous bf16; b1 (f,) fp32; dw1 (d, f), dw2 (f, d), db1 (f,)
-// and db2 (d,) contiguous fp32 outputs; dyb an (n, d) bf16 workspace and ws
-// an fp32 workspace of groups x (2 d f + f + d). Rows [g * group_rows, (g + 1) * group_rows) form group
-// g; group_rows is a multiple of 64 and groups * group_rows >= n. d is 128
-// or 256, f a multiple of 128. dropout: 0 = none, 1 = the forward's masks
-// of seed1 (hidden) and seed2 (output). Returns the cudaError_t of the
+// (f, d) are contiguous bf16; b1 (f,) fp32; grads the fp32 outputs [dW1
+// (d, f) | dW2 (f, d) | db1 (f) | db2 (d)], written whole; ws a workspace
+// of mmd_mlp_bwd_workspace(n, d, f, groups) bytes, 16-byte aligned, that
+// needs no zeroing. Rows [g * group_rows, (g + 1) * group_rows) form group
+// g: group_rows is a multiple of 64 and every group holds rows. d is 128 or
+// 256, f a multiple of 128. dropout: 0 = none, 1 = the forward's masks of
+// seed1 (hidden) and seed2 (output). Returns the cudaError_t of the
 // launches (0 on success).
 extern "C" int mmd_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2,
-                           const void* dy, void* dx, void* dyb, void* ws, void* dw1, void* db1,
-                           void* dw2, void* db2, int64_t n, int d, int f, int groups, int64_t group_rows,
+                           const void* dy, void* dx, void* grads, void* ws, int64_t ws_bytes,
+                           int64_t n, int d, int f, int groups, int64_t group_rows,
                            uint64_t seed1, uint64_t seed2, uint32_t threshold, float scale,
                            int dropout, int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (n <= 0 || f <= 0 || f % 128 != 0 || groups <= 0 || groups > 65535 ||
-        group_rows <= 0 || group_rows % BM != 0 || groups * group_rows < n ||
-        (n + BM - 1) / BM > 0x7FFFFFFF) {
+    if (n <= 0 || f <= 0 || f % BT != 0 || f % FC != 0 || groups <= 0 || groups > 65535 ||
+        group_rows <= 0 || group_rows % GROUP_ALIGN != 0 || (groups - 1) * group_rows >= n ||
+        groups * group_rows < n || row_tiles(n) > 0x7FFFFFFF / 2 || device < 0 ||
+        device >= 64 || (d != 128 && d != 256) || ws_bytes < workspace_bytes(n, d, f, groups)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
+    int current = -1;
+    cudaError_t err = cudaGetDevice(&current);
+    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const float s = dropout ? scale : 1.f;
     const Mask m1{seed1, threshold, s, dropout}, m2{seed2, threshold, s, dropout};
-    const Args a{x, w1, b1, w2, dy, dx, dyb, ws, dw1, db1, dw2, db2, n, f, groups, group_rows};
+    const Work w = carve(ws, n, d, f, groups);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (d == 128) return launch<128>(a, m1, m2, st);
-    if (d == 256) return launch<256>(a, m1, m2, st);
-    return static_cast<int>(cudaErrorInvalidValue);
+    const bf16* xb = static_cast<const bf16*>(x);
+    const bf16* w1b = static_cast<const bf16*>(w1);
+    const float* b1f = static_cast<const float*>(b1);
+    const bf16* w2b = static_cast<const bf16*>(w2);
+    const bf16* dyb = static_cast<const bf16*>(dy);
+    bf16* dxb = static_cast<bf16*>(dx);
+    float* gf = static_cast<float*>(grads);
+    if (d == 128) {
+        return launch<128>(xb, w1b, b1f, w2b, dyb, dxb, gf, w, n, f, groups, group_rows, m1, m2,
+                           device, st);
+    }
+    return launch<256>(xb, w1b, b1f, w2b, dyb, dxb, gf, w, n, f, groups, group_rows, m1, m2,
+                       device, st);
 }

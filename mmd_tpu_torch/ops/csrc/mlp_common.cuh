@@ -1,15 +1,16 @@
 // Shared pieces of the fused GELU-MLP kernels (mlp_fwd.cu, mlp_bwd.cu) and
 // of their mask oracle (mlp_masks.cu), for Hopper (sm_90a):
-//   * the tanh-GELU and its derivative, as mmd_tpu/ops/mlp.py writes them;
+//   * the tanh-GELU, and for the backward the GELU with its derivative, as
+//     mmd_tpu/ops/mlp.py writes them;
 //   * the MLP's two dropout masks, drawn from philox.cuh at the absolute
 //     row-major index: the hidden mask at row * F + f with the first seed,
 //     the output mask at row * D + d with the second, the same draws the
 //     unfused path's two elementwise dropouts make. `keep_byte` is the one
 //     function every kernel draws them with, so the oracle's dump tests the
 //     very bits the forward and the backward use.
-// The kernels' bf16 tensor-core products (mma.sync m16n8k16 from ldmatrix,
-// tiles staged with cp.async) use tensor_core.cuh, as the flash-attention
-// kernels do.
+// The forward's bf16 tensor-core products (mma.sync m16n8k16 from
+// ldmatrix, tiles staged with cp.async) use tensor_core.cuh, as the
+// flash-attention kernels do; the backward's run on wgmma (mlp_bwd.cu).
 
 #pragma once
 
@@ -29,11 +30,18 @@ __device__ __forceinline__ float gelu_tanh(float a) {
     return 0.5f * a * (1.f + tanhf(GELU_C * (a + GELU_K * a * a * a)));
 }
 
-// d gelu_tanh / da, as mmd_tpu/ops/mlp.py::_bwd_kernel writes it
-__device__ __forceinline__ float gelu_tanh_grad(float a) {
-    const float t = tanhf(GELU_C * (a + GELU_K * a * a * a));
-    return 0.5f * (1.f + t) +
-           0.5f * a * (1.f - t * t) * GELU_C * (1.f + 3.f * GELU_K * a * a);
+// gelu_tanh(a) and its derivative from one tanh, taken as 1 - 2 / (1 +
+// e^2u) with the fast exponential and division (ex2.approx, rcp.approx):
+// within ~1e-7 of tanhf (absolute; the relative error near u = 0 is larger,
+// but 0.5 a (1 + t) and the derivative only see t's absolute error), far
+// below the bf16 rounding of h and da; the derivative as
+// mmd_tpu/ops/mlp.py::_bwd_kernel writes it. Fewer instructions than tanhf,
+// for the backward's epilogue.
+__device__ __forceinline__ void gelu_tanh_and_grad_fast(float a, float& g, float& dg) {
+    const float u = GELU_C * (a + GELU_K * a * a * a);
+    const float t = 1.f - __fdividef(2.f, 1.f + __expf(2.f * u));
+    g = 0.5f * a * (1.f + t);
+    dg = 0.5f * (1.f + t) + 0.5f * a * (1.f - t * t) * GELU_C * (1.f + 3.f * GELU_K * a * a);
 }
 
 // One dropout mask. With on == 0 every element is kept and scale is 1.

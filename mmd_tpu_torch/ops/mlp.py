@@ -4,7 +4,10 @@ kernels, their mask oracle, and the plain PyTorch versions.
 Counterpart of mmd_tpu/ops/mlp.py. The fusion model's MLP (reference
 src/model/layers.py:5-21: Linear(D, F) -> GELU -> Dropout -> Linear(F, D)
 -> Dropout) runs in one kernel when it trains in bf16 with dropout, so the
-(N, F) hidden activation and its mask never reach device memory.
+forward's (N, F) hidden activation and its mask never reach device memory;
+the backward (three launches) writes the rounded hidden activation and its
+gradient to a workspace once and reads them back once, for the weight
+gradients.
 
   * `fused_mlp_plain` / `fused_mlp_bwd_plain` -- the kernels' functions in
     plain PyTorch, with the TPU kernels' rounding points (_fwd_kernel,
@@ -50,8 +53,8 @@ _launch_lock = threading.Lock()
 _C = math.sqrt(2.0 / math.pi)
 _K = 0.044715
 WIDTHS = (128, 256)          # the D the kernels are built for
-_ROWS = 64                    # rows a tile in the backward kernel
-_MAX_GROUPS = 16              # row groups of the backward's weight pass
+_ROWS = 64                    # a row group of the backward holds whole 64s
+_MAX_GROUPS = 16              # row groups of the backward's weight products
 _HEADERS = ["mlp_common.cuh", "philox.cuh", "tensor_core.cuh"]
 
 
@@ -149,15 +152,27 @@ def load_kernel():
     return fn
 
 
+# the backward's C entry point and its workspace size, bound once
+_bwd_fn: Optional[ctypes._CFuncPtr] = None
+_bwd_workspace: Optional[ctypes._CFuncPtr] = None
+
+
 def load_bwd_kernel():
     """Build (at first use) and load the backward kernels' C entry point."""
-    fn = cuda_build.load_library("mlp_bwd", ["mlp_bwd.cu"],
-                                 _HEADERS).mmd_mlp_bwd
-    fn.argtypes = [ctypes.c_void_p] * 12 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int64] + _DROP_ARGS
-    fn.restype = ctypes.c_int
-    return fn
+    global _bwd_fn, _bwd_workspace
+    if _bwd_fn is None:
+        lib = cuda_build.load_library("mlp_bwd", ["mlp_bwd.cu"], _HEADERS)
+        size = lib.mmd_mlp_bwd_workspace
+        size.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                         ctypes.c_int]
+        size.restype = ctypes.c_int64
+        fn = lib.mmd_mlp_bwd
+        fn.argtypes = [ctypes.c_void_p] * 8 + [
+            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+            ctypes.c_int, ctypes.c_int64] + _DROP_ARGS
+        fn.restype = ctypes.c_int
+        _bwd_workspace, _bwd_fn = size, fn
+    return _bwd_fn
 
 
 def load_masks_kernel():
@@ -221,8 +236,9 @@ def _mlp_fwd_cuda(x2, w1, b1, w2, b2, seeds, rate):
 
 
 def backward_groups(n: int) -> tuple[int, int]:
-    """(groups, rows a group) of the backward's weight pass: up to 16
-    groups of whole 64-row tiles, each summed in a fixed order."""
+    """(groups, rows a group) of the backward's weight products, split over
+    their contraction (the rows): up to 16 groups of whole 64-row tiles,
+    each summed in a fixed order."""
     tiles = max(1, -(-n // _ROWS))
     per = -(-tiles // min(_MAX_GROUPS, tiles))
     return -(-tiles // per), per * _ROWS
@@ -238,22 +254,27 @@ def _mlp_bwd_cuda(x2, w1, b1, w2, dy, seeds, rate):
     cuda_build.check_aligned(dy)
     dev = x2.device
     dx = torch.empty_like(x2)
-    dw1 = torch.zeros(d, f, device=dev)
-    db1 = torch.zeros(f, device=dev)
-    dw2 = torch.zeros(f, d, device=dev)
-    db2 = torch.zeros(d, device=dev)
+    # [dW1 | dW2 | db1 | db2], which the kernels write whole
+    grads = torch.empty(2 * d * f + f + d, device=dev)
+    dw1, dw2 = grads[:d * f].view(d, f), grads[d * f:2 * d * f].view(f, d)
+    db1, db2 = grads[2 * d * f:2 * d * f + f], grads[2 * d * f + f:]
     if n == 0:
+        grads.zero_()
         return dx, dw1, db1, dw2, db2
     groups, group_rows = backward_groups(n)
-    dyb = torch.empty_like(dy)
-    ws = torch.empty(groups, 2 * d * f + f + d, device=dev)
     fn = load_bwd_kernel()
+    nbytes = _bwd_workspace(n, d, f, groups)
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
+    s1, s2 = seeds if seeds is not None else (0, 0)
+    idx = x2.get_device()
     rc = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            dy.data_ptr(), dx.data_ptr(), dyb.data_ptr(), ws.data_ptr(),
-            dw1.data_ptr(), db1.data_ptr(), dw2.data_ptr(), db2.data_ptr(),
-            n, d, f, groups, group_rows, *_drop_args(seeds, rate, x2))
-    cuda_build.check_launch(rc, f"mlp_bwd x {tuple(x2.shape)}, F {f}, "
-                                f"dropout {rate}")
+            dy.data_ptr(), dx.data_ptr(), grads.data_ptr(), ws.data_ptr(),
+            nbytes, n, d, f, groups, group_rows, s1, s2, D.threshold(rate),
+            1.0 / (1.0 - rate), int(seeds is not None), idx,
+            torch._C._cuda_getCurrentRawStream(idx))
+    if rc:
+        cuda_build.check_launch(rc, f"mlp_bwd x {tuple(x2.shape)}, F {f}, "
+                                    f"dropout {rate}")
     with _launch_lock:
         bwd_launches += 1
     return dx, dw1, db1, dw2, db2

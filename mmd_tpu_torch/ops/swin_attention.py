@@ -74,12 +74,13 @@ def _group_size(dh: int, heads: int) -> int:
 
 
 def fused_ok(window: int, dh: int, heads: int) -> bool:
-    """The JAX package's rule for which blocks take the fused kernel
-    (models/swin.py::_fused_ok), kept so that both packages route the same
-    blocks to it."""
+    """Which blocks take the fused kernels: the JAX package's rule
+    (models/swin.py::_fused_ok), narrowed to what kernels #7, #8 and #9
+    take -- windows of 64 tokens and head dims 32 or 64. Another window
+    (16 x 16, say, which the JAX rule admits) takes the explicit path."""
     n = window * window
-    g = _group_size(dh, heads)
-    return dh >= 32 and 128 % dh == 0 and n % 8 == 0 and (g * n) % 128 == 0
+    return (n == _TOKENS and dh in _HEAD_DIMS
+            and (_group_size(dh, heads) * n) % 128 == 0)
 
 
 def _split(x: torch.Tensor, heads: int) -> torch.Tensor:

@@ -4,6 +4,7 @@
     python -m mmd_tpu_torch.profile_kernels flash_calls
     python -m mmd_tpu_torch.profile_kernels swin_calls
     python -m mmd_tpu_torch.profile_kernels deberta_bwd_calls
+    python -m mmd_tpu_torch.profile_kernels mlp_bwd_calls
 
 `ptxas` compiles sources under ops/csrc/ (all of them by default) with the
 build's flags plus `-Xptxas -v` and prints one JSON line a kernel
@@ -38,6 +39,15 @@ their sum (torch.profiler over 50 calls), and the us a call by CUDA
 events around 20 back-to-back calls, as chip_smoke.py times it. It runs
 on an older tree too (its kernels' names are matched whatever they are),
 for a parent/change comparison in one run. It needs a CUDA device.
+
+`mlp_bwd_calls` does the same for the fused GELU-MLP backward (#4,
+`fused_mlp_bwd`) at the bf16 train step's two MLP geometries (N 131072
+and 16384 rows, D 256, F 1024; dropout 0.1): host us a call, the host's
+own us a call, the device us of each kernel launch of a call and their
+sum, and the us a call by CUDA events, beside the CUDA-event us of the
+unfused composition's backward (chip_smoke.py's `library_ms` for #4);
+then the same summed over a step's six calls. It runs on an older tree
+too, for a parent/change comparison in one run. It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -80,6 +90,10 @@ SWIN_BATCH = 8
 # FT_DEBERTA): B, T, D, heads
 DEBERTA_BWD = (8, 256, 384, 6)
 _CALLS = 2000
+# the fused MLP's calls in a bf16 train step (chip_smoke.py's MLP_GEOMS):
+# (N, D, F) -> calls a step; the step's dropout rate
+MLP_GEOMETRIES = {(131072, 256, 1024): 3, (16384, 256, 1024): 3}
+MLP_RATE = 0.1
 
 
 def parse_ptxas(log: str) -> list[dict]:
@@ -277,6 +291,34 @@ def swin_calls() -> None:
             "card": P.card()}), flush=True)
 
 
+def _enqueue_us(call, calls: int = 10, runs: int = 20) -> float:
+    """The host's own us a call: `calls` calls enqueued on an idle card,
+    timed before the sync (few enough that no launch waits for the queue);
+    the median of `runs` such runs."""
+    out = []
+    for _ in range(runs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            call()
+        out.append((time.perf_counter() - t0) / calls * 1e6)
+    torch.cuda.synchronize()
+    return statistics.median(out)
+
+
+def _event_us(call, calls: int = 20) -> float:
+    """us a call by CUDA events around `calls` back-to-back calls."""
+    call()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(calls):
+        call()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) * 1e3 / calls
+
+
 def deberta_bwd_calls() -> None:
     from mmd_tpu_torch.ops import deberta_attention as DA
     if not torch.cuda.is_available():
@@ -301,25 +343,8 @@ def deberta_bwd_calls() -> None:
         call = lambda: DA.deberta_attention_bwd(  # noqa: E731
             q, k, v, pk, pq, mask, do, h, scale)
         host_us = _host_us(call, 200)
-        # the host's own cost: 10 calls enqueued on an idle card, timed
-        # before the sync (few enough that no launch waits for the queue);
-        # the median of 20 such runs
-        runs = []
-        for _ in range(20):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(10):
-                call()
-            runs.append((time.perf_counter() - t0) / 10 * 1e6)
-        torch.cuda.synchronize()
-        enqueue_us = statistics.median(runs)
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(20):
-            call()
-        end.record()
-        torch.cuda.synchronize()
+        enqueue_us = _enqueue_us(call)
+        event_us = _event_us(call)
         win = P.profile_window(call, calls, {})
         per_kernel = {k_: v_ * 1e3 / calls
                       for k_, v_ in win["device_ms_top"].items()
@@ -331,10 +356,73 @@ def deberta_bwd_calls() -> None:
             "host_enqueue_us_a_call": enqueue_us,
             "checks_us_a_call": _host_us(partial(
                 DA._check_kernel_inputs, q, k, v, pk, pq, mask, h)),
-            "event_us_a_call": start.elapsed_time(end) * 1e3 / 20,
+            "event_us_a_call": event_us,
             "device_us_a_call": sum(per_kernel.values()),
             "device_us_by_kernel": per_kernel,
             "card": P.card()}), flush=True)
+
+
+def mlp_bwd_calls() -> None:
+    from mmd_tpu_torch.ops import dropout as D
+    from mmd_tpu_torch.ops import mlp as M
+    if not torch.cuda.is_available():
+        raise SystemExit("mlp_bwd_calls needs a CUDA device")
+    fn = torch.nn.functional
+    print(json.dumps({"card": P.card()}), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    rate, calls = MLP_RATE, 10
+    step = {"device_us": 0.0, "event_us": 0.0, "composition_event_us": 0.0,
+            "device_us_by_kernel": {}}
+    for (n, d, f), count in MLP_GEOMETRIES.items():
+        x = torch.randn(n, d, device=dev, generator=gen).bfloat16()
+        w1 = (torch.randn(d, f, device=dev, generator=gen)
+              / math.sqrt(d)).bfloat16()
+        b1 = 0.1 * torch.randn(f, device=dev, generator=gen)
+        w2 = (torch.randn(f, d, device=dev, generator=gen)
+              / math.sqrt(f)).bfloat16()
+        b2 = 0.1 * torch.randn(d, device=dev, generator=gen)
+        dy = torch.randn(n, d, device=dev, generator=gen).bfloat16()
+        seeds = M.mask_seeds(rate, 1)
+        call = lambda: M.fused_mlp_bwd(  # noqa: E731
+            x, w1, b1, w2, dy, seeds, rate)
+        host_us = _host_us(call, 50)
+        enqueue_us = _enqueue_us(call)
+        event_us = _event_us(call)
+        win = P.profile_window(call, calls, {})
+        per_kernel = {k_: v_ * 1e3 / calls
+                      for k_, v_ in win["device_ms_top"].items()
+                      if "mlp" in k_}
+        # the unfused bf16 composition's backward, as chip_smoke.py's
+        # phase_mlp times it (its forward excluded)
+        leaves = [t.detach().requires_grad_() for t in (
+            x, w1.T.contiguous(), b1.bfloat16(), w2.T.contiguous(),
+            b2.bfloat16())]
+        hid = fn.gelu(fn.linear(leaves[0], leaves[1], leaves[2]),
+                      approximate="tanh")
+        hid = fn.linear(D.dropout(hid, rate, seeds[0]), leaves[3], leaves[4])
+        out = D.dropout(hid, rate, seeds[1])
+        comp_us = _event_us(lambda: torch.autograd.grad(
+            out, leaves, dy, retain_graph=True), 5)
+        del leaves, hid, out
+        rec = {"geometry": f"N={n} D={d} F={f}", "rate": rate,
+               "calls_a_step": count, "host_us_a_call": host_us,
+               "host_enqueue_us_a_call": enqueue_us,
+               "event_us_a_call": event_us,
+               "device_us_a_call": sum(per_kernel.values()),
+               "device_us_by_kernel": per_kernel,
+               "composition_event_us_a_call": comp_us, "card": P.card()}
+        print(json.dumps(rec), flush=True)
+        step["device_us"] += count * rec["device_us_a_call"]
+        step["event_us"] += count * event_us
+        step["composition_event_us"] += count * comp_us
+        for k_, v_ in per_kernel.items():
+            step["device_us_by_kernel"][k_] = \
+                step["device_us_by_kernel"].get(k_, 0.0) + count * v_
+        del x, w1, w2, dy
+        torch.cuda.empty_cache()
+    print(json.dumps({"per_step": sum(MLP_GEOMETRIES.values()), **step,
+                      "card": P.card()}), flush=True)
 
 
 def main(argv=None) -> None:
@@ -344,6 +432,7 @@ def main(argv=None) -> None:
     sub.add_parser("flash_calls")
     sub.add_parser("swin_calls")
     sub.add_parser("deberta_bwd_calls")
+    sub.add_parser("mlp_bwd_calls")
     args = ap.parse_args(argv)
     if args.what == "ptxas":
         ptxas(args.sources or sorted(f.name for f in cuda_build.CSRC.glob(
@@ -352,8 +441,10 @@ def main(argv=None) -> None:
         flash_calls()
     elif args.what == "swin_calls":
         swin_calls()
-    else:
+    elif args.what == "deberta_bwd_calls":
         deberta_bwd_calls()
+    else:
+        mlp_bwd_calls()
 
 
 if __name__ == "__main__":

@@ -55,8 +55,7 @@ KERNELS = {"deberta_bwd_": "deberta_attn_bwd",
            "flash_fwd_kernel": "flash_attn_fwd",
            "rowdot_kernel": "flash_attn_bwd", "dkdv_kernel": "flash_attn_bwd",
            "dq_kernel": "flash_attn_bwd", "dropout_kernel": "dropout",
-           "mlp_fwd_kernel": "mlp_fwd", "mlp_dx_kernel": "mlp_bwd",
-           "mlp_dw_kernel": "mlp_bwd", "mlp_reduce_kernel": "mlp_bwd"}
+           "mlp_fwd_kernel": "mlp_fwd", "mlp_bwd_": "mlp_bwd"}
 # the AdamW update (torch's foreach kernels) and autograd's accumulation
 TRAIN_GROUPS = (("multi_tensor_apply", "optimizer"),
                 ("foreach", "optimizer"))

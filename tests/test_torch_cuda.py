@@ -15,13 +15,19 @@ mask oracle -- and small fp32 and bf16 train steps on the card against the
 same steps on the CPU; and the fine-tuning kernels -- the DeBERTa attention
 backward and the Swin window attention's fine-tuning forward and backward,
 dbias included -- with the autograd graph kept through every trainable
-wrapper and the fused-MLP routing limited to the kernels' widths.
+wrapper and the fused-MLP routing limited to the kernels' widths; the
+fused MLP backward twice bit for bit at the train step's geometries; and
+attention geometries the kernels do not take (flash dh 128, Swin windows
+of 16, DeBERTa dh 128) routed to the explicit path, whose results they
+give.
 Tolerances: fp32 within 1e-4 (summation order, exp2f); bf16 within one
 bf16 step at the largest |output| (the output is rounded to bf16 once);
 gradients relative to their largest |value| (1e-4 in fp32); the fused MLP
 within 2^-7 of each output's largest |value| (one bf16 rounding of the
 output and of h, dyb and dab inside).
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -468,9 +474,12 @@ def _mlp_inputs(dev, n, d, f, seed=0):
 
 @pytest.mark.parametrize("rate", [0.1, 0.0])
 @pytest.mark.parametrize("n,d,f", [(100, 128, 256), (64, 256, 128),
-                                   (1000, 256, 1024), (1, 128, 128)])
+                                   (1000, 256, 1024), (1, 128, 128),
+                                   (65, 256, 1024), (1088, 256, 1024)])
 def test_mlp_kernels_match_plain(cuda_device, rate, n, d, f):
-    """#12 bit for bit; #3 and #4 within MLP_TOL of each output's scale."""
+    """#12 bit for bit; #3 and #4 within MLP_TOL of each output's scale;
+    65, 1000 and 1088 rows end in a partial row tile and row group of
+    #4."""
     x, w1, b1, w2, b2, dy = _mlp_inputs(cuda_device, n, d, f)
     seeds = M.mask_seeds(rate, 0xBEEF)
     was = (M.launches, M.bwd_launches, M.mask_launches)
@@ -758,3 +767,127 @@ def test_bf16_dropout_step_at_embed_384_runs(cuda_device):
     state, aux = tr.train_step(state, tr.shard_batch(batch))
     torch.cuda.synchronize()
     assert M.launches == before and np.isfinite(float(aux["loss"]))
+
+
+# -- #4 at the bf16 train step's MLP geometries --------------------------------
+
+# (N, D, F): the step's text-query and image-query MLPs (chip_smoke.py's
+# MLP_GEOMS)
+MLP_STEP_GEOMS = [(131072, 256, 1024), (16384, 256, 1024)]
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("n,d,f", MLP_STEP_GEOMS)
+def test_mlp_bwd_is_deterministic(cuda_device, rate, n, d, f):
+    """Two calls of #4 agree bit for bit: fixed-order sums, no atomics."""
+    x, w1, b1, w2, _, dy = _mlp_inputs(cuda_device, n, d, f, seed=3)
+    seeds = M.mask_seeds(rate, 0xD1CE)
+    first = M.fused_mlp_bwd(x, w1, b1, w2, dy, seeds, rate)
+    second = M.fused_mlp_bwd(x, w1, b1, w2, dy, seeds, rate)
+    torch.cuda.synchronize()
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), first, second):
+        assert torch.equal(a, b), name
+
+
+# -- attention geometries the kernels do not take take the explicit path ------
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fusion_step_at_head_dim_128_matches_the_explicit_path(cuda_device,
+                                                               dtype):
+    """embed 512 over 4 heads (dh 128) with fused_attn: no flash kernel
+    runs, and the step is the explicit path's (fused_attn off), same
+    init and seed."""
+    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+    from mmd_tpu_torch.data.synthetic import synthetic_preembed_batch
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    batch = synthetic_preembed_batch(np.random.default_rng(0), 4, 128, 64,
+                                     64, 96)
+    out = {}
+    for fused in (True, False):
+        cfg = TrainConfig(model=ModelConfig(
+            text_input_dim=64, image_input_dim=96, embed_dim=512,
+            num_heads=4, hidden_dim=16, fused_attn=fused,
+            compute_dtype=dtype), batch_size=4, lr=1e-3)
+        tr = Trainer(cfg, device="cuda")
+        state = tr.init()
+        was = (A.launches, A.bwd_launches)
+        state, aux = tr.train_step(state, tr.shard_batch(batch))
+        torch.cuda.synchronize()
+        assert (A.launches, A.bwd_launches) == was
+        out[fused] = (float(aux["loss"]),
+                      {n: p.grad.detach().clone()
+                       for n, p in state.params.named_parameters()})
+    (lf, gf), (le, ge) = out[True], out[False]
+    assert np.isfinite(lf) and abs(lf - le) <= 1e-6 * abs(le)
+    for n, w in ge.items():
+        assert (gf[n] - w).abs().max().item() <= 1e-5 * max(
+            w.abs().max().item(), 1e-30), n
+
+
+def test_swin_window_16_matches_the_explicit_path(cuda_device):
+    """SwinConfig(window_size=16): the fused and fine-tuning kernels take
+    64-token windows, so with fused_attn and fused_train on, the forward
+    and the backward run the explicit path and give its results."""
+    from mmd_tpu_torch.models import swin as TS
+    base = TS.SwinConfig(image_size=128, patch_size=4, embed_dim=64,
+                         depths=(2,), num_heads=(2,), window_size=16,
+                         pretrained_window_sizes=(0,),
+                         compute_dtype="float32")
+    gen = torch.Generator(cuda_device).manual_seed(1)
+    images = torch.rand(2, 128, 128, 3, device=cuda_device, generator=gen)
+    probe = torch.randn(2, 1024, 64, device=cuda_device, generator=gen)
+    out = {}
+    for fused in (True, False):
+        cfg = dataclasses.replace(base, fused_attn=fused, fused_train=fused)
+        params = TS.init_swin(torch.Generator().manual_seed(0), cfg).to(
+            cuda_device)
+        was = (SA.launches, SA.train_launches, SA.train_bwd_launches)
+        with torch.no_grad():
+            served = TS.swin_forward(params, cfg, images)
+        y = TS.swin_forward(params, cfg, images)
+        (y * probe).sum().backward()
+        torch.cuda.synchronize()
+        assert (SA.launches, SA.train_launches, SA.train_bwd_launches) == was
+        out[fused] = (served, y.detach(),
+                      {n: p.grad.detach().clone()
+                       for n, p in params.named_parameters()})
+    (sf, yf, gf), (se, ye, ge) = out[True], out[False]
+    assert torch.isfinite(yf).all()
+    assert torch.equal(sf, se) and torch.equal(yf, ye)
+    # the position bias's gradient is a scatter-add, summed in no fixed
+    # order: fp32 summation order, 1e-5 of each leaf's largest |value|
+    for n, w in ge.items():
+        assert (gf[n] - w).abs().max().item() <= 1e-5 * max(
+            w.abs().max().item(), 1e-30), n
+
+
+def test_deberta_head_dim_128_matches_the_explicit_path(cuda_device):
+    """A DeBERTa config with dh 128 (hidden 256 over 2 heads): no
+    disentangled-attention kernel runs, and the encoding is the explicit
+    path's."""
+    from mmd_tpu_torch.models import deberta as TD
+    base = TD.DebertaConfig(vocab_size=128, hidden_size=256, num_layers=2,
+                            num_heads=2, intermediate_size=256,
+                            max_position=64, position_buckets=16)
+    assert not TD.use_fused_attn(base, 64, cuda_device)
+    ids = torch.randint(0, 128, (2, 64), device=cuda_device,
+                        generator=torch.Generator(cuda_device).manual_seed(2))
+    mask = torch.ones(2, 64, dtype=torch.int32, device=cuda_device)
+    mask[1, 40:] = 0
+    out = {}
+    for fused in (True, False):
+        cfg = dataclasses.replace(base, fused_attn=fused)
+        params = TD.init_deberta(torch.Generator().manual_seed(0), cfg).to(
+            cuda_device)
+        was = (DA.launches, DA.bwd_launches)
+        h = TD.deberta_encode(params, cfg, ids, mask)
+        h.square().mean().backward()
+        torch.cuda.synchronize()
+        assert (DA.launches, DA.bwd_launches) == was
+        out[fused] = (h.detach(), params["rel_embeddings"].grad.clone())
+    assert torch.isfinite(out[True][0]).all()
+    assert torch.equal(out[True][0], out[False][0])
+    # the table's gradient is a scatter-add, summed in no fixed order
+    top = out[False][1].abs().max().item()
+    assert (out[True][1] - out[False][1]).abs().max().item() <= 1e-5 * top

@@ -204,3 +204,86 @@ def test_backward_groups_cover_the_rows(n):
     groups, rows = M.backward_groups(n)
     assert 1 <= groups <= 16 and rows % 64 == 0
     assert (groups - 1) * rows < n <= groups * rows
+
+
+# -- the Hopper kernel's order of work (ops/csrc/mlp_bwd.cu) --------------------
+# A mirror, in PyTorch, of kernel #4's partition: pass A by 128-row tiles and
+# 64-column hidden chunks (hb, dab and dyb to workspaces; a tile's db1
+# partial row sums its eight 16-row warp blocks in order; one db2 partial
+# row a tile); pass B's
+# weight products split over the row groups of `backward_groups`, dx by
+# 128-row tiles over the whole of F; pass C's fixed-order sums (the groups
+# in order; the bias partials in 32 slices of rows, each in row order, then
+# the slices in order). With fp32 inputs every rounding point is the
+# identity, so it meets `fused_mlp_bwd_plain` within fp32 summation order:
+# 1e-5 of each output's largest |value|.
+
+_BM, _FC, _SLICES = 128, 64, 32
+
+
+def _slice_sum(parts: torch.Tensor) -> torch.Tensor:
+    """pass C: rows s, s + 32, ... of each slice in order, then the slices."""
+    sums = [torch.zeros(parts.shape[1]) for _ in range(_SLICES)]
+    for r in range(parts.shape[0]):
+        sums[r % _SLICES] = sums[r % _SLICES] + parts[r]
+    total = torch.zeros(parts.shape[1])
+    for s in sums:
+        total = total + s
+    return total
+
+
+def _kernel_order_bwd(x2, w1, b1, w2, dy, seeds, rate):
+    n, d = x2.shape
+    f = w1.shape[1]
+    dtype = x2.dtype
+    m1, m2 = M.mlp_masks_plain(n, d, f, seeds, rate)
+    w1f, w2f = w1.float(), w2.float()
+    tiles = -(-n // _BM)
+    hb, dab = torch.zeros(n, f), torch.zeros(n, f)
+    dyb = torch.zeros(n, d)
+    db1_parts, db2_parts = torch.zeros(tiles, f), torch.zeros(tiles, d)
+    for t in range(tiles):                  # pass A
+        r0, r1 = t * _BM, min(n, (t + 1) * _BM)
+        xt = torch.zeros(_BM, d)
+        xt[:r1 - r0] = x2[r0:r1].float()
+        dyf = torch.zeros(_BM, d)
+        dyf[:r1 - r0] = dy[r0:r1].float() * m2[r0:r1]
+        db2_parts[t] = dyf.sum(0)
+        dybt = dyf.to(dtype).float()
+        dyb[r0:r1] = dybt[:r1 - r0]
+        for c0 in range(0, f, _FC):
+            k = torch.zeros(_BM, _FC)
+            k[:r1 - r0] = m1[r0:r1, c0:c0 + _FC]
+            a = xt @ w1f[:, c0:c0 + _FC] + b1[c0:c0 + _FC].float()
+            dh = dybt @ w2f[c0:c0 + _FC].T
+            h = M.gelu_tanh(a) * k
+            da = dh * k * M.gelu_tanh_grad(a)
+            hb[r0:r1, c0:c0 + _FC] = h.to(dtype).float()[:r1 - r0]
+            dab[r0:r1, c0:c0 + _FC] = da.to(dtype).float()[:r1 - r0]
+            part = torch.zeros(_FC)
+            for w in range(_BM // 16):
+                part = part + da[16 * w:16 * w + 16].sum(0)
+            db1_parts[t, c0:c0 + _FC] = part
+    groups, group_rows = M.backward_groups(n)
+    dw1, dw2 = torch.zeros(d, f), torch.zeros(f, d)
+    for g in range(groups):                 # pass B, then C's group sums
+        r0, r1 = g * group_rows, min(n, (g + 1) * group_rows)
+        dw1 = dw1 + x2[r0:r1].float().T @ dab[r0:r1]
+        dw2 = dw2 + hb[r0:r1].T @ dyb[r0:r1]
+    dx = torch.cat([(dab[r0:r0 + _BM] @ w1f.T).to(dtype)
+                    for r0 in range(0, n, _BM)])
+    return dx, dw1, _slice_sum(db1_parts), dw2, _slice_sum(db2_parts)
+
+
+@pytest.mark.parametrize("rate", [0.0, 0.1])
+@pytest.mark.parametrize("n", [1, 65, 1000, 1088])
+def test_kernel_order_of_work_matches_plain(n, rate):
+    inp = _inputs(n, n=n)
+    t = {k: torch.from_numpy(v).float() for k, v in inp.items()}
+    seeds = M.mask_seeds(rate, 1234 + n)
+    args = (t["x"], t["w1"], t["b1"], t["w2"], t["dy"], seeds, rate)
+    got = _kernel_order_bwd(*args)
+    want = M.fused_mlp_bwd_plain(*args)
+    for name, g, w in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert g.shape == w.shape, name
+        assert (g - w).abs().max() <= 1e-5 * w.abs().max(), name

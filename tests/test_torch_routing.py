@@ -1,0 +1,115 @@
+"""The port's attention routing rules admit only what their kernels take.
+
+Each rule that sends a geometry to a hand-written kernel -- flash attention
+(`ops.attention.fused_ok`, read by `multi_head_attention`), Swin window
+attention (`ops.swin_attention.fused_ok`, read by `models.swin._block`)
+and DeBERTa disentangled attention (`models.deberta.use_fused_attn`) -- is
+held against that kernel's own input checks over a grid of geometries:
+where the rule says yes, the checks accept. Where the JAX package's rule
+admits more (head dims 96 and 128, 16 x 16 windows), the port's rule is
+the JAX rule narrowed to the kernels' geometries, and those blocks take the
+explicit path, which draws the same dropout masks.
+"""
+
+import dataclasses
+import itertools
+
+import pytest
+import torch
+
+from mmd_tpu.models import swin as JS
+from mmd_tpu_torch.models import deberta as TD
+from mmd_tpu_torch.ops import attention as A
+from mmd_tpu_torch.ops import deberta_attention as DA
+from mmd_tpu_torch.ops import swin_attention as SA
+
+
+def _accepts(check, *args) -> bool:
+    try:
+        check(*args)
+    except ValueError:
+        return False
+    return True
+
+
+# -- flash attention: (D, heads) -------------------------------------------------
+
+@pytest.mark.parametrize("d,heads", list(itertools.product(
+    (64, 96, 128, 256, 384, 512, 1024), (1, 2, 3, 4, 6, 8, 16))))
+def test_flash_rule_admits_only_what_the_kernel_takes(d, heads):
+    q = torch.zeros(1, 16, d)
+    ok = A.fused_ok(d, heads)
+    assert ok == (_accepts(A._check_kernel_inputs, q, q, q, heads, None)
+                  and d // heads >= 32)
+
+
+@pytest.mark.parametrize("d,heads", [(384, 4), (512, 4), (256, 2)])
+def test_flash_rule_sends_dh_96_and_128_to_the_explicit_path(d, heads):
+    """The CLI's `--embed_dim 384 --num_heads 4` (dh 96) and `--embed_dim
+    512 --num_heads 4` (dh 128): the fused route gives the explicit path's
+    output, and no kernel (which would raise on a card) is asked."""
+    g = torch.Generator().manual_seed(d + heads)
+    q, k, v = (torch.randn(2, 24, d, generator=g) for _ in range(3))
+    mask = torch.ones(2, 24, dtype=torch.int32)
+    mask[1, 17:] = 0
+    assert not A.fused_ok(d, heads)
+
+    def run(fused):
+        return A.multi_head_attention(q, k, v, heads, dropout_rate=0.1,
+                                      dropout_seed=9, deterministic=False,
+                                      fused=fused, key_mask=mask)
+
+    assert torch.equal(run(True), run(False))
+
+
+# -- Swin window attention: (window, dh, heads) --------------------------------
+
+SWIN_GRID = list(itertools.product((4, 7, 8, 12, 16, 24), (16, 32, 48, 64,
+                                                           96, 128),
+                                   (1, 2, 3, 4, 8)))
+
+
+@pytest.mark.parametrize("window,dh,heads", SWIN_GRID)
+def test_swin_rule_admits_only_what_the_kernels_take(window, dh, heads):
+    """fused_ok is the JAX rule where #7 (serving) and #8/#9 (fine-tuning)
+    accept the geometry, and False elsewhere."""
+    n, c = window * window, dh * heads
+    q = torch.zeros(1, 2, n, c)
+    bias = torch.zeros(1, heads, n, n)
+    serve = _accepts(SA._check_kernel_inputs, q, q, q, bias,
+                     torch.zeros(heads), heads)
+    train = _accepts(SA._check_train_inputs, q, q, q, bias, heads)
+    assert SA.fused_ok(window, dh, heads) == (
+        JS._fused_ok(window, dh, heads) and serve and train)
+
+
+def test_swin_window_16_takes_the_explicit_path():
+    """fused_ok(16, 32, 4): the JAX rule admits it, the kernels take 64
+    tokens a window, so the port routes it to the explicit path."""
+    assert JS._fused_ok(16, 32, 4)
+    assert not SA.fused_ok(16, 32, 4)
+    assert SA.fused_ok(8, 32, 4)
+
+
+# -- DeBERTa disentangled attention: (D, heads, T) -------------------------------
+
+@pytest.mark.parametrize("d,heads,t", list(itertools.product(
+    (128, 256, 384, 512), (2, 3, 4, 6, 8), (32, 64, 128))))
+def test_deberta_rule_admits_only_what_the_kernels_take(d, heads, t):
+    cfg = dataclasses.replace(TD.DEBERTA_TEST, hidden_size=d, num_heads=heads)
+    q = torch.zeros(1, t, d)
+    tab = torch.zeros(2 * t, d)
+    mask = torch.ones(1, t, dtype=torch.uint8)
+    accepted = _accepts(DA._check_kernel_inputs, q, q, q, tab, tab, mask,
+                        heads)
+    rule = TD.use_fused_attn(cfg, t, torch.device("cuda"))
+    assert not rule or accepted
+    # the JAX gate (D and 2T multiples of 128) narrowed to the kernels
+    assert rule == (d % 128 == 0 and (2 * t) % 128 == 0 and accepted)
+
+
+def test_deberta_dh_128_takes_the_explicit_path():
+    cfg = dataclasses.replace(TD.DEBERTA_V3_XSMALL, hidden_size=384,
+                              num_heads=3)
+    assert not TD.use_fused_attn(cfg, 256, torch.device("cuda"))
+    assert TD.use_fused_attn(TD.DEBERTA_V3_XSMALL, 256, torch.device("cuda"))
