@@ -19,8 +19,12 @@ Phases, each of which exits nonzero on failure:
      * flash_attn_fwd        exact zeros for a row with no valid key, lse
      * layernorm             (residual +) LayerNorm, the 53 of a Swinv2 forward
      * swin_window_attn      Swinv2 window attention, the 24 of a forward
-     * deberta_attn_fwd      DeBERTa attention, the uniform row of a row
-                             with no valid key
+     * deberta_attn_fwd      DeBERTa attention at the served (B 16, T 512)
+                             and the fine-tuning (B 8, T 256) geometry,
+                             fp32 and bf16: the uniform row of a row with
+                             no valid key, each call twice and bit for
+                             bit; its device us a call by torch.profiler
+                             beside its CUDA-event us and its bound
      * dropout               elementwise dropout at each dropout geometry of
                              the train step: bit-identical to its plain
                              version, kept fraction within 4 sigma of 1 - rate
@@ -583,58 +587,99 @@ def phase_swin(card: str) -> dict:
     return rec
 
 
-def phase_deberta(card: str) -> dict:
-    from mmd_tpu_torch.ops import deberta_attention as DA
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(3)
-    b, t, d, h = BATCH, DEBERTA["t"], DEBERTA["d"], DEBERTA["h"]
+def _deberta_inputs(gen, b: int, t: int, d: int):
+    """q, k, v, PK, PQ (fp32) and an int key mask with valid lengths from 1
+    to T and a last row with no valid key."""
+    dev = gen.device
     q32, k32, v32 = (torch.randn(b, t, d, device=dev, generator=gen)
                      for _ in range(3))
     pk32, pq32 = (torch.randn(2 * t, d, device=dev, generator=gen)
                   for _ in range(2))
-    # valid lengths from 1 to T, and a last row with no valid key
     lengths = torch.linspace(1, t, b - 1, device=dev).round().long()
     mask = torch.cat([torch.arange(t, device=dev)[None] < lengths[:, None],
                       torch.zeros(1, t, dtype=torch.bool, device=dev)]).int()
+    return [q32, k32, v32, pk32, pq32], mask
+
+
+def phase_deberta(card: str) -> dict:
+    """#10 at the served geometry (B 16, T 512) and the fine-tuning one (B 8,
+    T 256), bf16 and fp32: against its plain version, the row with no valid
+    key, two calls bit for bit; timed in bf16 at both, with its device time
+    a call by torch.profiler."""
+    from mmd_tpu_torch import profiling
+    from mmd_tpu_torch.ops import deberta_attention as DA
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    d, h = DEBERTA["d"], DEBERTA["h"]
     scale = 1.0 / math.sqrt(3.0 * d // h)
-    errs = []
-    for dtype in (torch.bfloat16, torch.float32):
-        args = [x.to(dtype) for x in (q32, k32, v32, pk32, pq32)]
-        o = DA.deberta_attention(*args, mask, h, scale)
-        torch.cuda.synchronize()
-        ref = DA.deberta_attention_plain(*[x.float() for x in args], mask, h,
-                                         scale)
-        err = (o.float() - ref).abs().max().item()
-        tol = (KERNEL_TOL[dtype] if dtype == torch.float32
-               else _bf16_step(ref))
-        uniform = args[2][-1].float().mean(0).expand(t, d)
-        uerr = (o[-1].float() - uniform).abs().max().item()
-        ok = err <= tol and uerr <= tol
-        print(f"kernel deberta_attn_fwd B={b} T={t} D={d} H={h} "
-              f"{str(dtype):>14}: max_abs_err {err:.3e} (tol {tol:.3e}), "
-              f"row with no valid key vs uniform mean of V {uerr:.3e} -> "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-            fail(f"deberta kernel disagrees with its plain version at {dtype}")
-        errs.append(max(err, uerr))
-    args = [x.to(torch.bfloat16) for x in (q32, k32, v32, pk32, pq32)]
-    row = {"ms": _time_ms(lambda: DA.deberta_attention(*args, mask, h, scale)),
-           "plain_ms": _time_ms(
-               lambda: DA.deberta_attention_plain(*args, mask, h, scale)),
-           "library_ms": None}
-    row["bound_ms"], row["bound_by"] = _bound_ms(
-        2 * (4 * b * t * d + 2 * 2 * t * d) + b * t, 8 * b * t * t * d)
-    _print_time("deberta_attn_fwd", f"B={b} T={t} D={d} H={h} bf16", row,
-                card)
+    errs, rows = [], {}
+    for what, b, t in (("served", BATCH, DEBERTA["t"]),
+                       ("finetune", FT_DEBERTA["b"], FT_DEBERTA["t"])):
+        x32, mask = _deberta_inputs(gen, b, t, d)
+        geom = f"B={b} T={t} D={d} H={h}"
+        for dtype in (torch.bfloat16, torch.float32):
+            args = [x.to(dtype) for x in x32]
+            o = DA.deberta_attention(*args, mask, h, scale)
+            again = DA.deberta_attention(*args, mask, h, scale)
+            torch.cuda.synchronize()
+            same = torch.equal(o, again)
+            ref = DA.deberta_attention_plain(*[x.float() for x in args], mask,
+                                             h, scale)
+            err = (o.float() - ref).abs().max().item()
+            tol = (KERNEL_TOL[dtype] if dtype == torch.float32
+                   else _bf16_step(ref))
+            uniform = args[2][-1].float().mean(0).expand(t, d)
+            uerr = (o[-1].float() - uniform).abs().max().item()
+            ok = err <= tol and uerr <= tol and same
+            print(f"kernel deberta_attn_fwd {geom} {str(dtype):>14}: "
+                  f"max_abs_err {err:.3e} (tol {tol:.3e}), row with no valid "
+                  f"key vs uniform mean of V {uerr:.3e}, two calls "
+                  f"{'bit-identical' if same else 'DIFFER'} -> "
+                  f"{'ok' if ok else 'FAIL'}", flush=True)
+            if not ok:
+                fail(f"deberta_attn_fwd disagrees with its plain version or "
+                     f"with itself, {geom} {dtype}")
+            errs.append(max(err, uerr))
+        # timed with the mask as the encoder hands it over: bytes
+        args = [x.to(torch.bfloat16) for x in x32]
+        kmask = DA.key_bytes(mask)
+        call = lambda: DA.deberta_attention(  # noqa: E731
+            *args, kmask, h, scale)
+        row = {"ms": _time_ms(call),
+               "plain_ms": _time_ms(
+                   lambda: DA.deberta_attention_plain(*args, kmask, h, scale),
+                   5 if what == "served" else 20),
+               "library_ms": None}
+        # reads q, k, v and both tables, writes o (bf16) and reads the mask;
+        # 8 B T^2 D operations (the TPU kernel's count)
+        row["bound_ms"], row["bound_by"] = _bound_ms(
+            2 * (4 * b * t * d + 2 * 2 * t * d) + b * t, 8 * b * t * t * d)
+        _print_time("deberta_attn_fwd", f"{geom} bf16", row, card)
+        # device time a call by torch.profiler, beside the CUDA-event time
+        # (which also holds the host's time where that is the larger)
+        calls = 50
+        win = profiling.profile_window(call, calls, {})
+        device_us = sum(v * 1e3 / calls for k, v in
+                        win["device_ms_top"].items() if "deberta_attn" in k)
+        print(f"time   deberta_attn_fwd {geom} bf16: device {device_us:.3f} "
+              f"us a call by torch.profiler, CUDA events "
+              f"{1e3 * row['ms']:.3f} us, bound {1e3 * row['bound_ms']:.3f} "
+              f"us  [{card}]", flush=True)
+        rows[what] = row
     rec = _record("deberta_attn_fwd",
                   "mmd_tpu_torch/ops/csrc/deberta_attn_fwd.cu",
                   "mmd_tpu/models/deberta.py:293",
-                  [(DEBERTA["per_batch"], row)], errs,
+                  [(DEBERTA["per_batch"], rows["served"])], errs,
                   "no single PyTorch call computes it: the c2p and p2c "
                   "terms gather from relative-position tables per (t, s)")
+    step = {k: FT_DEBERTA["per_step"] * rows["finetune"][k]
+            for k in ("ms", "plain_ms", "bound_ms")}
     print(f"kernel deberta_attn_fwd per served batch ({DEBERTA['per_batch']} "
           f"launches): kernel {rec['ms']:.4f} ms, plain {rec['plain_ms']:.4f} "
-          f"ms, bound {rec['bound_ms']:.4f} ms  [{card}]", flush=True)
+          f"ms, bound {rec['bound_ms']:.4f} ms; per fine-tuning step "
+          f"({FT_DEBERTA['per_step']} launches): kernel {step['ms']:.4f} ms, "
+          f"plain {step['plain_ms']:.4f} ms, bound {step['bound_ms']:.4f} ms"
+          f"  [{card}]", flush=True)
     return rec
 
 

@@ -40,7 +40,7 @@ from torch.utils.checkpoint import checkpoint
 
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.ops.deberta_attention import (
-    _HEAD_DIMS, deberta_attention, diagonal_index, split_heads,
+    _HEAD_DIMS, deberta_attention, diagonal_index, key_bytes, split_heads,
 )
 
 
@@ -264,9 +264,12 @@ def deberta_encode(params: L.ParamTree, cfg: DebertaConfig,
                         for m in _diag_maps(t, cfg))
     x, rel_emb = deberta_embed(params, cfg, input_ids, attention_mask)
     fused = use_fused_attn(cfg, t, dev)
+    key_mask = attention_mask
+    if fused and key_mask is not None:
+        key_mask = key_bytes(key_mask)      # the kernels' view, once a call
     remat = cfg.remat and torch.is_grad_enabled()
     for p in params["layers"]:
-        args = (p, cfg, x, rel_emb, c2p_map, p2c_map, attention_mask, dtype,
+        args = (p, cfg, x, rel_emb, c2p_map, p2c_map, key_mask, dtype,
                 fused)
         x = (checkpoint(deberta_layer, *args, use_reentrant=False) if remat
              else deberta_layer(*args))

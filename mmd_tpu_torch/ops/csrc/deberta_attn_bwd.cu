@@ -93,6 +93,8 @@
 //     value to ~2^-17: the table gradients are held to fp32 tolerances;
 //   * the grid: at the fine-tuning shape 192 stats CTAs and 384 grad CTAs
 //     (bf16 dh 64: 113 KB of shared memory each, two an SM).
+// The tiles, band rings and score products (Band, BandOps, Shared,
+// tile_scores) are deberta_common.cuh's, shared with the forward.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -101,185 +103,13 @@
 
 #include <atomic>
 
-#include "flash_common.cuh"
+#include "deberta_common.cuh"
 
 namespace {
 
-using namespace mmd_flash;
+using namespace mmd_deberta;
 
-constexpr int WIN = 80;                      // band rows in one warp's window
-constexpr int G_LD = 88;                     // floats a row of the band scores' tile
 constexpr int REDUCE_THREADS = 256;
-constexpr float NEG = -3.402823466e38f;      // finfo(float32).min
-
-template <typename T>
-struct Skew {                                // dSk's row stride, elements
-    static constexpr int LD = sizeof(T) == 2 ? 136 : 132;
-};
-
-// Shared memory of the stats and grad kernels: own tiles X, X2 and walked
-// tiles Y, Y2; two rings of three band chunks; the band scores' fp32 tile,
-// which dSk shares; 64 floats x 3 of per-column values.
-template <typename T, int DH>
-struct Smem {
-    static constexpr size_t TILES = 10 * Tile<T, DH>::BYTES;
-    static constexpr size_t G = static_cast<size_t>(BLOCK) * G_LD * sizeof(float);
-    static constexpr size_t DSK = static_cast<size_t>(BLOCK) * Skew<T>::LD * sizeof(T);
-    static constexpr size_t SHARED = G > DSK ? G : DSK;
-    static constexpr size_t BYTES = TILES + SHARED + 3 * BLOCK * sizeof(float);
-};
-
-// The rows of one band: rows 0..63 in chunk `lo`, 64..127 in chunk `hi`.
-template <typename T, int DH>
-struct Band {
-    const T* lo;
-    const T* hi;
-    __device__ __forceinline__ const T* row(int j) const {
-        constexpr int LD = Tile<T, DH>::LD;
-        return j < BLOCK ? lo + j * LD : hi + (j - BLOCK) * LD;
-    }
-};
-
-template <typename T, int DH>
-struct BandOps;
-
-// bf16 products of the band terms.
-template <int DH>
-struct BandOps<bf16, DH> {
-    using Op = Ops<bf16, DH>;
-    static constexpr int LD = Tile<bf16, DH>::LD;
-    static constexpr int SLD = Skew<bf16>::LD;
-
-    // c (16 x 8N) += A (16 x DH) . band rows [n0, n0 + 8N)^T
-    template <int N>
-    __device__ __forceinline__ static void scores(float (&c)[N][4], const typename Op::A& a,
-                                                  const Band<bf16, DH>& band, int n0) {
-        const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
-#pragma unroll
-        for (int ks = 0; ks < DH / 16; ++ks) {
-#pragma unroll
-            for (int np = 0; np < N / 2; ++np) {
-                uint32_t f[4];
-                mmd_tc::ldsm_x4(f, band.row(n0 + 16 * np + (i >> 1) * 8 + r) + 16 * ks +
-                                       (i & 1) * 8);
-                mmd_tc::mma(c[2 * np], a.f[ks], f[0], f[1]);
-                mmd_tc::mma(c[2 * np + 1], a.f[ks], f[2], f[3]);
-            }
-        }
-    }
-
-    // o (16 x DH) += dSk rows [m0, +16) x cols [k0, +16 ks) . band rows [k0, ...)
-    __device__ __forceinline__ static void own(float (&o)[DH / 8][4], const bf16* dsk, int m0,
-                                               int k0, int steps, const Band<bf16, DH>& band) {
-        const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
-#pragma unroll
-        for (int kk = 0; kk < steps; ++kk) {
-            const int k = k0 + 16 * kk;
-            uint32_t a[4];
-            mmd_tc::load_a(a, dsk, SLD, m0, k);
-            const bf16* brow = band.row(k + (i & 1) * 8 + r) + (i >> 1) * 8;
-#pragma unroll
-            for (int np = 0; np < DH / 16; ++np) {
-                uint32_t f[4];
-                mmd_tc::ldsm_x4_t(f, brow + 16 * np);
-                mmd_tc::mma(o[2 * np], a, f[0], f[1]);
-                mmd_tc::mma(o[2 * np + 1], a, f[2], f[3]);
-            }
-        }
-    }
-
-    // o (16 band rows x DH) += dSk^T rows [j0, +16) x k [k0, +16 steps) . x rows k
-    __device__ __forceinline__ static void grad(float (&o)[DH / 8][4], const bf16* dsk, int j0,
-                                                int k0, int steps, const bf16* x) {
-        for (int kk = 0; kk < steps; ++kk) {
-            const int k = k0 + 16 * kk;
-            uint32_t a[4];
-            mmd_tc::load_a_t(a, dsk, SLD, j0, k);
-#pragma unroll
-            for (int np = 0; np < DH / 16; ++np) {
-                uint32_t f[4];
-                mmd_tc::load_b_t(f, x, LD, k, 16 * np);
-                mmd_tc::mma(o[2 * np], a, f[0], f[1]);
-                mmd_tc::mma(o[2 * np + 1], a, f[2], f[3]);
-            }
-        }
-    }
-};
-
-// fp32: 3xTF32. `own` and `grad` take the k index of an m16k8 fragment in
-// the permuted order of Ops<float, DH>::pv (k q and q + 4 are rows 2q and
-// 2q + 1), so the scalar loads of B (row stride 4 mod 32 words) and of the
-// transposed dSk (132 = 4 mod 32) hit 32 banks.
-template <int DH>
-struct BandOps<float, DH> {
-    using Op = Ops<float, DH>;
-    static constexpr int LD = Tile<float, DH>::LD;
-    static constexpr int SLD = Skew<float>::LD;
-
-    template <int N>
-    __device__ __forceinline__ static void scores(float (&c)[N][4], const typename Op::A& a,
-                                                  const Band<float, DH>& band, int n0) {
-        const int lane = threadIdx.x & 31, i = lane >> 3, r = lane & 7;
-#pragma unroll
-        for (int ks = 0; ks < DH / 8; ++ks) {
-            uint32_t raw[4];
-            mmd_tc::load_a_f32(raw, a.s, LD, a.m0, 8 * ks);
-            const mmd_tc::Split<4> af(raw);
-#pragma unroll
-            for (int np = 0; np < N / 2; ++np) {
-                uint32_t f[4];
-                mmd_tc::ldsm_x4(f, band.row(n0 + 16 * np + (i >> 1) * 8 + r) + 8 * ks +
-                                       (i & 1) * 4);
-                const mmd_tc::Split<4> bf(f);
-                mmd_tc::mma_3xtf32(c[2 * np], af, bf.hi[0], bf.hi[1], bf.lo[0], bf.lo[1]);
-                mmd_tc::mma_3xtf32(c[2 * np + 1], af, bf.hi[2], bf.hi[3], bf.lo[2], bf.lo[3]);
-            }
-        }
-    }
-
-    __device__ __forceinline__ static void own(float (&o)[DH / 8][4], const float* dsk, int m0,
-                                               int k0, int steps, const Band<float, DH>& band) {
-        const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-        for (int kk = 0; kk < 2 * steps; ++kk) {
-            const int k = k0 + 8 * kk;
-            const float2 x0 = *reinterpret_cast<const float2*>(dsk + (m0 + g) * SLD + k + 2 * q);
-            const float2 x1 =
-                *reinterpret_cast<const float2*>(dsk + (m0 + g + 8) * SLD + k + 2 * q);
-            const uint32_t raw[4] = {__float_as_uint(x0.x), __float_as_uint(x1.x),
-                                     __float_as_uint(x0.y), __float_as_uint(x1.y)};
-            const mmd_tc::Split<4> af(raw);
-            const float* r0 = band.row(k + 2 * q) + g;
-            const float* r1 = band.row(k + 2 * q + 1) + g;
-#pragma unroll
-            for (int nt = 0; nt < DH / 8; ++nt) {
-                const uint32_t f[2] = {__float_as_uint(r0[8 * nt]), __float_as_uint(r1[8 * nt])};
-                const mmd_tc::Split<2> bf(f);
-                mmd_tc::mma_3xtf32(o[nt], af, bf.hi[0], bf.hi[1], bf.lo[0], bf.lo[1]);
-            }
-        }
-    }
-
-    __device__ __forceinline__ static void grad(float (&o)[DH / 8][4], const float* dsk, int j0,
-                                                int k0, int steps, const float* x) {
-        const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-        for (int kk = 0; kk < 2 * steps; ++kk) {
-            const int k = k0 + 8 * kk;
-            const float* d0 = dsk + (k + 2 * q) * SLD + j0 + g;
-            const float* d1 = d0 + SLD;
-            const uint32_t raw[4] = {__float_as_uint(d0[0]), __float_as_uint(d0[8]),
-                                     __float_as_uint(d1[0]), __float_as_uint(d1[8])};
-            const mmd_tc::Split<4> af(raw);
-            const float* r0 = x + (k + 2 * q) * LD + g;
-#pragma unroll
-            for (int nt = 0; nt < DH / 8; ++nt) {
-                const uint32_t f[2] = {__float_as_uint(r0[8 * nt]),
-                                       __float_as_uint(r0[LD + 8 * nt])};
-                const mmd_tc::Split<2> bf(f);
-                mmd_tc::mma_3xtf32(o[nt], af, bf.hi[0], bf.hi[1], bf.lo[0], bf.lo[1]);
-            }
-        }
-    }
-};
 
 __device__ __forceinline__ float round_as(float x, float*) { return x; }
 __device__ __forceinline__ float round_as(float x, bf16*) {
@@ -299,149 +129,9 @@ struct Params {
     float scale, scale_log2;
 };
 
-// One CTA's operands: its own tiles X, X2 and the walked tiles Y, Y2 of a
-// batch row and head (row stride d_model), the table whose band gives the
-// own term and the other table. Score rows are X's rows; dP = X2 Y2^T.
-template <typename T, int DH>
-struct Frame {
-    const T *x, *x2, *y, *y2, *own_tab, *other_tab;
-    int own_tile, t_len, d_model;
-};
-
-// The CTA's shared memory (layout of Smem<T, DH>).
-template <typename T, int DH>
-struct Shared {
-    static constexpr int TE = Tile<T, DH>::ELEMS;
-    T *xs, *x2s, *ys, *y2s, *ring_own, *ring_other;
-    float* gs;                   // the band scores' tile ...
-    T* dsk;                      // ... and dSk, in the same bytes
-    float* col;                  // [3][BLOCK] per walked row
-
-    __device__ __forceinline__ explicit Shared(float4* smem) {
-        T* base = reinterpret_cast<T*>(smem);
-        xs = base;
-        x2s = xs + TE;
-        ys = x2s + TE;
-        y2s = ys + TE;
-        ring_own = y2s + TE;
-        ring_other = ring_own + 3 * TE;
-        gs = reinterpret_cast<float*>(ring_other + 3 * TE);
-        dsk = reinterpret_cast<T*>(gs);
-        col = reinterpret_cast<float*>(reinterpret_cast<char*>(gs) + Smem<T, DH>::SHARED);
-    }
-
-    // own-term chunk c covers table rows T-64-64 o + 64 c (ring slot c % 3);
-    // other-term chunk c (-1 <= c < T / 64) rows T-64+64 o-64 c (slot (c+1) % 3)
-    __device__ __forceinline__ void load_own_chunk(const Frame<T, DH>& f, int c) const {
-        copy_tile<T, DH>(ring_own + (c % 3) * TE, f.own_tab, f.d_model,
-                         f.t_len - BLOCK - BLOCK * f.own_tile + BLOCK * c, 2 * f.t_len);
-    }
-    __device__ __forceinline__ void load_other_chunk(const Frame<T, DH>& f, int c) const {
-        copy_tile<T, DH>(ring_other + ((c + 1) % 3) * TE, f.other_tab, f.d_model,
-                         f.t_len - BLOCK + BLOCK * f.own_tile - BLOCK * c, 2 * f.t_len);
-    }
-    __device__ __forceinline__ void load_walked(const Frame<T, DH>& f, int i) const {
-        copy_tile<T, DH>(ys, f.y, f.d_model, BLOCK * i, f.t_len);
-        copy_tile<T, DH>(y2s, f.y2, f.d_model, BLOCK * i, f.t_len);
-    }
-    // the first step's operands; one commit group
-    __device__ __forceinline__ void load_first(const Frame<T, DH>& f) const {
-        copy_tile<T, DH>(xs, f.x, f.d_model, BLOCK * f.own_tile, f.t_len);
-        copy_tile<T, DH>(x2s, f.x2, f.d_model, BLOCK * f.own_tile, f.t_len);
-        load_walked(f, 0);
-        load_own_chunk(f, 0);
-        load_own_chunk(f, 1);
-        load_other_chunk(f, -1);
-        load_other_chunk(f, 0);
-        mmd_tc::cp_async_commit();
-    }
-    // step i's bands: own chunks i, i + 1; other chunks i, i - 1
-    __device__ __forceinline__ Band<T, DH> own_band(int i) const {
-        return {ring_own + (i % 3) * TE, ring_own + ((i + 1) % 3) * TE};
-    }
-    __device__ __forceinline__ Band<T, DH> other_band(int i) const {
-        return {ring_other + ((i + 1) % 3) * TE, ring_other + (i % 3) * TE};
-    }
-};
-
-// C fragments (16 rows from m0, 8N columns from n0) into the band scores'
-// tile.
-template <int N>
-__device__ __forceinline__ void store_g(float* gs, const float (&c)[N][4], int m0, int n0) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-    for (int nt = 0; nt < N; ++nt)
-#pragma unroll
-        for (int h = 0; h < 2; ++h)
-            *reinterpret_cast<float2*>(gs + (m0 + g + 8 * h) * G_LD + n0 + 8 * nt + 2 * q) =
-                make_float2(c[nt][2 * h], c[nt][2 * h + 1]);
-}
-
-// A (this warp's 16 rows from m0) . the warp's window of the band^T into
-// the band scores' tile, in two products (48 and 32 columns: fewer
-// accumulators live at once).
-template <typename T, int DH>
-__device__ __forceinline__ void band_scores(float* gs, const typename Ops<T, DH>::A& a,
-                                            const Band<T, DH>& band, int m0) {
-    using BO = BandOps<T, DH>;
-    const int n0 = 48 - m0;
-    {
-        float c[6][4];
-        zero(c);
-        BO::template scores<6>(c, a, band, n0);
-        store_g(gs, c, m0, 0);
-    }
-    float c[4][4];
-    zero(c);
-    BO::template scores<4>(c, a, band, n0 + 48);
-    store_g(gs, c, m0, 48);
-}
-
-// The unscaled scores of this warp's 16 rows against the walked tile:
-// content X Y^T, the own term (this warp's rows of X . band^T, each score
-// taking element (r, 63 - r + c): local column 15 - r % 16 + c of the
-// window) and the other term (the walked tile's rows of Y . other band^T,
-// written by their warps; score (r, c) takes element (c, 63 - c + r)).
-// Ends with every warp past one barrier and the tile still being read.
-template <typename T, int DH>
-__device__ __forceinline__ void tile_scores(float (&s)[NT][4], const Shared<T, DH>& sh, int i) {
-    using Op = Ops<T, DH>;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-    const int m0 = 16 * warp;
-    zero(s);
-    {
-        typename Op::A xa;
-        Op::load_a(xa, sh.xs, m0);
-        Op::template scores<NT>(s, xa, sh.ys);
-        band_scores<T, DH>(sh.gs, xa, sh.own_band(i), m0);
-    }
-    __syncwarp();
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int r = g + 8 * (e >> 1);
-            s[nt][e] += sh.gs[(m0 + r) * G_LD + 15 - r + 8 * nt + 2 * q + (e & 1)];
-        }
-    __syncwarp();
-    {
-        typename Op::A ya;
-        Op::load_a(ya, sh.ys, m0);
-        band_scores<T, DH>(sh.gs, ya, sh.other_band(i), m0);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-            const int c = 8 * nt + 2 * q + (e & 1);
-            s[nt][e] += sh.gs[c * G_LD + 15 - (c & 15) + m0 + g + 8 * (e >> 1)];
-        }
-}
-
 // dP (or dP^T) of this warp's rows: X2 Y2^T
 template <typename T, int DH>
-__device__ __forceinline__ void tile_dp(float (&dp)[NT][4], const Shared<T, DH>& sh) {
+__device__ __forceinline__ void tile_dp(float (&dp)[NT][4], const Shared<T, DH, true>& sh) {
     using Op = Ops<T, DH>;
     zero(dp);
     typename Op::A a;
@@ -456,7 +146,7 @@ template <typename T, int DH>
 __global__ void __launch_bounds__(THREADS)
 deberta_bwd_stats_kernel(const Params<T> p) {
     extern __shared__ float4 smem4[];
-    const Shared<T, DH> sh(smem4);
+    const Shared<T, DH, true> sh(smem4);
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
     const int o = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
@@ -568,24 +258,13 @@ __device__ __forceinline__ void zero_window(T* dsk) {
     }
 }
 
-// C fragments of 16 rows (from row m0 of `dst`, row stride ld) to memory.
-template <typename T, int DH>
-__device__ __forceinline__ void store_rows(T* dst, int64_t ld, const float (&acc)[DH / 8][4]) {
-    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
-#pragma unroll
-    for (int h = 0; h < 2; ++h)
-#pragma unroll
-        for (int nt = 0; nt < DH / 8; ++nt)
-            store2(dst + (g + 8 * h) * ld + 8 * nt + 2 * q, acc[nt][2 * h], acc[nt][2 * h + 1]);
-}
-
 template <typename T, int DH, bool KEYS>
 __device__ __forceinline__ void grad_cta(const Params<T>& p, int o, int h, int b) {
     using Op = Ops<T, DH>;
     using BO = BandOps<T, DH>;
     constexpr bool SPLIT = sizeof(T) == 2;   // dS as bf16 hi + lo
     extern __shared__ float4 smem4[];
-    const Shared<T, DH> sh(smem4);
+    const Shared<T, DH, true> sh(smem4);
     const int tid = threadIdx.x;
     const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
     const int t_len = p.t_len, d_model = p.num_heads * DH, n = t_len / BLOCK;
@@ -763,7 +442,7 @@ deberta_bwd_reduce_kernel(const float* __restrict__ ws, float* __restrict__ dpk,
 template <typename T, int DH>
 cudaError_t launch(const Params<T>& p, float* dpk, float* dpq, int device,
                    cudaStream_t stream) {
-    constexpr size_t smem = Smem<T, DH>::BYTES;
+    constexpr size_t smem = Smem<T, DH, true>::BYTES;
     static std::atomic<uint64_t> raised{0};
     const uint64_t bit = uint64_t{1} << device;
     if (!(raised.load(std::memory_order_relaxed) & bit)) {

@@ -128,18 +128,26 @@ def deberta_attention_bwd_plain(q, k, v, pos_k_d, pos_q_d,
             merge(dpq))
 
 
-def load_kernel():
-    """Build (at first use) and load the kernel; returns its C entry point."""
-    fn = cuda_build.load_library(
-        "deberta_attn_fwd", ["deberta_attn_fwd.cu"]).mmd_deberta_attn_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
-                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
-
-
-# the backward's C entry point, bound once (argtypes set at load)
+# the C entry points, bound once (argtypes set at load)
+_fwd_fn: Optional[ctypes._CFuncPtr] = None
 _bwd_fn: Optional[ctypes._CFuncPtr] = None
+_HEADERS = ["deberta_common.cuh", "flash_common.cuh", "tensor_core.cuh"]
+
+
+def load_kernel():
+    """Build (at first use) and load the forward kernel; returns its C entry
+    point."""
+    global _fwd_fn
+    if _fwd_fn is None:
+        fn = cuda_build.load_library(
+            "deberta_attn_fwd", ["deberta_attn_fwd.cu"], headers=_HEADERS
+        ).mmd_deberta_attn_fwd
+        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 4
+                       + [ctypes.c_float] + [ctypes.c_int] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+        _fwd_fn = fn
+    return _fwd_fn
 
 
 def load_bwd_kernel():
@@ -148,8 +156,7 @@ def load_bwd_kernel():
     global _bwd_fn
     if _bwd_fn is None:
         fn = cuda_build.load_library(
-            "deberta_attn_bwd", ["deberta_attn_bwd.cu"],
-            headers=["flash_common.cuh", "tensor_core.cuh"]
+            "deberta_attn_bwd", ["deberta_attn_bwd.cu"], headers=_HEADERS
         ).mmd_deberta_attn_bwd
         fn.argtypes = ([ctypes.c_void_p] * 14 + [ctypes.c_int] * 4
                        + [ctypes.c_float] + [ctypes.c_int] * 2
@@ -157,6 +164,18 @@ def load_bwd_kernel():
         fn.restype = ctypes.c_int
         _bwd_fn = fn
     return _bwd_fn
+
+
+def key_bytes(key_mask: torch.Tensor) -> torch.Tensor:
+    """The (B, T) key mask as the kernels read it, bytes with nonzero =
+    valid: a uint8 mask as it is, a bool one viewed as bytes (neither
+    costs a pass), any other dtype compared with 0. An encoder makes it
+    once for all its layers."""
+    if key_mask.dtype == torch.uint8:
+        return key_mask.contiguous()
+    if key_mask.dtype != torch.bool:
+        key_mask = key_mask != 0
+    return key_mask.contiguous().view(torch.uint8)
 
 
 def _check_kernel_inputs(q, k, v, pos_k_d, pos_q_d, key_mask, num_heads):
@@ -193,17 +212,18 @@ def _deberta_attention_cuda(q, k, v, pos_k_d, pos_q_d, key_mask, num_heads,
     if key_mask is None:
         key_mask = torch.ones((b, t), dtype=torch.uint8, device=q.device)
     _check_kernel_inputs(q, k, v, pos_k_d, pos_q_d, key_mask, num_heads)
-    valid = (key_mask != 0).to(torch.uint8).contiguous()
+    valid = key_bytes(key_mask)
     o = torch.empty_like(q)
     cuda_build.check_aligned(q, k, v, pos_k_d, pos_q_d, o)
     fn = load_kernel()
+    dev = q.get_device()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), pos_k_d.data_ptr(),
             pos_q_d.data_ptr(), valid.data_ptr(), o.data_ptr(), b, t,
-            num_heads, d // num_heads, scale, _DTYPE_CODES[q.dtype],
-            cuda_build.device_index(q),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check_launch(rc, f"deberta_attn_fwd {tuple(q.shape)} "
-                                f"{num_heads} heads {q.dtype}")
+            num_heads, d // num_heads, scale, _DTYPE_CODES[q.dtype], dev,
+            torch._C._cuda_getCurrentRawStream(dev))
+    if rc:
+        cuda_build.check_launch(rc, f"deberta_attn_fwd {tuple(q.shape)} "
+                                    f"{num_heads} heads {q.dtype}")
     with _launch_lock:
         launches += 1
     return o
@@ -220,9 +240,7 @@ def _deberta_attention_bwd_cuda(q, k, v, pos_k_d, pos_q_d, key_mask, do,
             or not do.is_contiguous():
         raise ValueError("do must be a contiguous tensor of q's shape, dtype "
                          "and device")
-    # the kernel reads the mask as bytes, nonzero = valid
-    valid = key_mask if key_mask.dtype == torch.uint8 else (key_mask != 0)
-    valid = valid.contiguous().view(torch.uint8)
+    valid = key_bytes(key_mask)
     cuda_build.check_aligned(q, k, v, pos_k_d, pos_q_d, do)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dpk, dpq = torch.empty((2, 2 * t, d), dtype=torch.float32,

@@ -3,6 +3,7 @@
     python -m mmd_tpu_torch.profile_kernels ptxas [SOURCE.cu ...]
     python -m mmd_tpu_torch.profile_kernels flash_calls
     python -m mmd_tpu_torch.profile_kernels swin_calls
+    python -m mmd_tpu_torch.profile_kernels deberta_fwd_calls
     python -m mmd_tpu_torch.profile_kernels deberta_bwd_calls
     python -m mmd_tpu_torch.profile_kernels mlp_bwd_calls
 
@@ -28,6 +29,16 @@ piece of the wrapper's call path alone (2000 calls each), down to the C
 entry point with its arguments, which launches the kernel: what is left of
 a host-bound call past those pieces is Python's own calls and the launch
 counter. It needs a CUDA device.
+
+`deberta_fwd_calls` times the DeBERTa attention forward (#10,
+`deberta_attention`) at the served geometry (B 16, T 512) and the
+fine-tuning one (B 8, T 256), D 384, 6 heads, bf16 and fp32: host us a
+call, the host's own us a call, the device us of the call's kernel
+launches (torch.profiler over 50 calls) and the us a call by CUDA events,
+as `deberta_bwd_calls` below takes them. The mask goes in as the encoder
+hands it over (bytes made once, where the tree has `key_bytes`; else the
+int mask). It runs on an older tree too, for a parent/change comparison in
+one run. It needs a CUDA device.
 
 `deberta_bwd_calls` times the DeBERTa attention backward (#11,
 `deberta_attention_bwd`) at the fine-tuning geometry (B 8, T 256, D 384,
@@ -89,6 +100,9 @@ SWIN_BATCH = 8
 # the DeBERTa attention backward of a fine-tuning step (chip_smoke.py's
 # FT_DEBERTA): B, T, D, heads
 DEBERTA_BWD = (8, 256, 384, 6)
+# the DeBERTa attention forwards of a served batch and of a fine-tuning
+# step (chip_smoke.py's DEBERTA and FT_DEBERTA): name, B, T, D, heads
+DEBERTA_FWD = [("served", 16, 512, 384, 6), ("finetune", 8, 256, 384, 6)]
 _CALLS = 2000
 # the fused MLP's calls in a bf16 train step (chip_smoke.py's MLP_GEOMS):
 # (N, D, F) -> calls a step; the step's dropout rate
@@ -319,6 +333,53 @@ def _event_us(call, calls: int = 20) -> float:
     return start.elapsed_time(end) * 1e3 / calls
 
 
+def deberta_fwd_calls() -> None:
+    from mmd_tpu_torch.ops import deberta_attention as DA
+    if not torch.cuda.is_available():
+        raise SystemExit("deberta_fwd_calls needs a CUDA device")
+    print(json.dumps({"card": P.card()}), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    calls = 50
+    for name, b, t, d, h in DEBERTA_FWD:
+        x32 = [torch.randn(b, t, d, device=dev, generator=gen)
+               for _ in range(3)]
+        tabs32 = [torch.randn(2 * t, d, device=dev, generator=gen)
+                  for _ in range(2)]
+        # padded tails from 1 to T valid keys and a row with no valid key,
+        # as chip_smoke.py's phase_deberta; the tokenizer's int mask
+        lengths = torch.linspace(1, t, b - 1, device=dev).round().long()
+        mask = torch.cat([torch.arange(t, device=dev)[None]
+                          < lengths[:, None],
+                          torch.zeros(1, t, dtype=torch.bool,
+                                      device=dev)]).int()
+        if hasattr(DA, "key_bytes"):
+            mask = DA.key_bytes(mask)
+        scale = 1.0 / math.sqrt(3.0 * d // h)
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (x.to(dtype) for x in x32)
+            pk, pq = (x.to(dtype) for x in tabs32)
+            call = lambda: DA.deberta_attention(  # noqa: E731
+                q, k, v, pk, pq, mask, h, scale)
+            host_us = _host_us(call, 200)
+            enqueue_us = _enqueue_us(call)
+            event_us = _event_us(call)
+            win = P.profile_window(call, calls, {})
+            per_kernel = {k_: v_ * 1e3 / calls
+                          for k_, v_ in win["device_ms_top"].items()}
+            print(json.dumps({
+                "geometry": name, "B": b, "T": t, "D": d, "H": h,
+                "dtype": str(dtype).split(".")[-1],
+                "host_us_a_call": host_us,
+                "host_enqueue_us_a_call": enqueue_us,
+                "event_us_a_call": event_us,
+                "device_us_a_call": sum(
+                    v_ for k_, v_ in per_kernel.items()
+                    if "deberta_attn" in k_),
+                "device_us_by_kernel": per_kernel,
+                "card": P.card()}), flush=True)
+
+
 def deberta_bwd_calls() -> None:
     from mmd_tpu_torch.ops import deberta_attention as DA
     if not torch.cuda.is_available():
@@ -431,6 +492,7 @@ def main(argv=None) -> None:
     sub.add_parser("ptxas").add_argument("sources", nargs="*")
     sub.add_parser("flash_calls")
     sub.add_parser("swin_calls")
+    sub.add_parser("deberta_fwd_calls")
     sub.add_parser("deberta_bwd_calls")
     sub.add_parser("mlp_bwd_calls")
     args = ap.parse_args(argv)
@@ -441,6 +503,8 @@ def main(argv=None) -> None:
         flash_calls()
     elif args.what == "swin_calls":
         swin_calls()
+    elif args.what == "deberta_fwd_calls":
+        deberta_fwd_calls()
     elif args.what == "deberta_bwd_calls":
         deberta_bwd_calls()
     else:

@@ -14,7 +14,8 @@ dropout and its backward, the fused GELU-MLP forward and backward and their
 mask oracle -- and small fp32 and bf16 train steps on the card against the
 same steps on the CPU; and the fine-tuning kernels -- the DeBERTa attention
 backward and the Swin window attention's fine-tuning forward and backward,
-dbias included -- with the autograd graph kept through every trainable
+dbias included, and the DeBERTa forward at the fine-tuning geometry and
+twice bit for bit -- with the autograd graph kept through every trainable
 wrapper and the fused-MLP routing limited to the kernels' widths; the
 fused MLP backward twice bit for bit at the train step's geometries; and
 attention geometries the kernels do not take (flash dh 128, Swin windows
@@ -645,6 +646,42 @@ def test_deberta_bwd_is_deterministic(cuda_device, dtype):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,t,d,heads", [(8, 256, 384, 6), (3, 192, 128, 4)])
+def test_deberta_fwd_kernel_matches_plain_at_more_geometries(
+        cuda_device, dtype, b, t, d, heads):
+    """The forward at the fine-tuning geometry (B 8, T 256) and at T 192
+    (three key tiles, dh 32), with a padded tail and a row with no valid
+    key: against the plain version, and that row against the uniform mean
+    of V."""
+    q, k, v, pk, pq, mask, _ = _deberta_bwd_inputs(cuda_device, dtype, b, t,
+                                                   d)
+    scale = 1.0 / np.sqrt(3.0 * d // heads)
+    before = DA.launches
+    o = DA.deberta_attention(q, k, v, pk, pq, mask, heads, scale)
+    torch.cuda.synchronize()
+    assert DA.launches == before + 1 and o.dtype == dtype
+    ref = DA.deberta_attention_plain(q.float(), k.float(), v.float(),
+                                     pk.float(), pq.float(), mask, heads,
+                                     scale)
+    assert (o.float() - ref).abs().max().item() <= _tol(dtype, ref)
+    uniform = v[2].float().mean(0).expand(t, d)
+    assert (o[2].float() - uniform).abs().max().item() <= _tol(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_deberta_fwd_is_deterministic(cuda_device, dtype):
+    """Two forward calls on the same inputs give bit-identical outputs (no
+    atomics), whether the mask is int, bool or bytes."""
+    q, k, v, pk, pq, mask, _ = _deberta_bwd_inputs(cuda_device, dtype, 8,
+                                                   256, 384)
+    first = DA.deberta_attention(q, k, v, pk, pq, mask, 6, 0.1)
+    for m in (mask, mask.bool(), DA.key_bytes(mask)):
+        again = DA.deberta_attention(q, k, v, pk, pq, m, 6, 0.1)
+        torch.cuda.synchronize()
+        assert torch.equal(first, again)
 
 
 def test_deberta_bwd_refuses_what_it_does_not_take(cuda_device):
