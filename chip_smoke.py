@@ -56,8 +56,9 @@ Phases, each of which exits nonzero on failure:
        swin_attn_train_bwd   forward and backward (dq, dk, dv, dbias) at the
                              four Swinv2-base stage geometries, B 8, and
                              three at B 7 (one with head dim 64), fp32 and
-                             bf16, the forward twice bit for bit; per stage
-                             the forward's and SDPA's us a call
+                             bf16, the forward and the backward twice bit
+                             for bit; per stage the forward's and SDPA's us
+                             a call
   4. serve            full-width serving with the BERT-class text encoder
                       (512 tokens) and the ViT, ModelConfig(fused_attn=True),
                       bf16, batch 16: a ServingEngine answers requests from
@@ -1257,7 +1258,7 @@ def _swin_train_inputs(gen, nw: int, b: int, c: int, h: int):
 
 def _check_swin_train(SA, gen, nw, b, c, h, errs):
     """#8 and #9 against their plain versions at one geometry, both dtypes,
-    the forward twice and bit-identical; returns the fp32 inputs."""
+    each twice and bit-identical; returns the fp32 inputs."""
     q32, k32, v32, do32, bias = _swin_train_inputs(gen, nw, b, c, h)
     what = f"nW={nw} B={b} C={c} h={h}"
     for dtype in (torch.bfloat16, torch.float32):
@@ -1265,9 +1266,14 @@ def _check_swin_train(SA, gen, nw, b, c, h, errs):
         o = SA.swin_window_attention_fwd(q, k, v, bias, h)
         got = SA.swin_window_attention_bwd(q, k, v, bias, do, h)
         again = SA.swin_window_attention_fwd(q, k, v, bias, h)
+        got_again = SA.swin_window_attention_bwd(q, k, v, bias, do, h)
         torch.cuda.synchronize()
         if not torch.equal(o, again):
             fail(f"swin_attn_train_fwd: two calls differ, {what} {dtype}")
+        for name, a, a2 in zip(("dq", "dk", "dv", "dbias"), got, got_again):
+            if not torch.equal(a, a2):
+                fail(f"swin_attn_train_bwd: two calls differ in {name}, "
+                     f"{what} {dtype}")
         ref = SA.swin_window_attention_plain(q.float(), k.float(),
                                              v.float(), bias, h)
         errs["fwd"].append(_check_grads(

@@ -22,10 +22,10 @@
 // mask, times log2(e)). Scores, softmax and sums are fp32; outputs are in
 // the input dtype, dbias in fp32.
 //
-// Both kernels take one CTA per (head, window, group of batch rows) and
-// walk the group's rows in a loop, which takes the place of the TPU grid's
-// batch blocks; the caller chooses the groups (the fewest that divide the
-// batch and still give two CTAs an SM).
+// Both kernels take one CTA of 4 warps per (head, window, group of batch
+// rows) and walk the group's rows in a loop, which takes the place of the
+// TPU grid's batch blocks; the caller chooses the groups (swin_attention.py:
+// batch_groups for the forward, bwd_batch_groups for the backward).
 //
 // What bounds it on this card: bytes. Per (window, batch row, head) the
 // forward reads three 64 x dh tiles and writes one for 4 * 64 * 64 * dh
@@ -33,36 +33,68 @@
 // and writes three for 10 * 64 * 64 * dh, ~100 a byte; both well below the
 // ~295 where the tensor cores would be the limit.
 //
-// #8, the forward (swin_train_fwd_kernel), does about that:
-//   * 4 warps, each owning 16 of the window's 64 query rows, as the flash
-//     kernels do (flash_common.cuh): S = Q'K^T and P V on the tensor cores
-//     (bf16 mma.sync m16n8k16; fp32 as 3xTF32 on m16n8k8), P kept in
-//     registers between the two products;
+// Both do about that the same way:
+//   * 4 warps, each owning 16 of the window's 64 rows, as the flash
+//     kernels do (flash_common.cuh): every product on the tensor cores
+//     (bf16 mma.sync m16n8k16; fp32 as 3xTF32 on m16n8k8), a weight tile
+//     kept in registers from the product that makes it (`scores`) to the
+//     one that uses it (`pv`);
 //   * the (window, head) bias tile is read from device memory once per CTA,
 //     16 rows x 64 keys a warp, into registers in the C-fragment layout of
 //     the scores (32 floats a thread), and added to every batch row of the
 //     group;
-//   * q', k and v are copied in the input dtype with cp.async into two
-//     shared-memory stages: the next batch row's tiles land while this
-//     row computes (30 KB at bf16 dh 32, so several CTAs share an SM);
-//   * the row max and sum are fp32 over the 4 lanes of a row (two
-//     shuffles); in bf16 the unnormalized P is rounded to bf16 before P V
-//     and o is divided by max(l, 1e-37) after it, as the TPU kernel does;
-//     no atomics, so the result is deterministic.
+//   * the tiles are copied in the input dtype with cp.async into two
+//     shared-memory stages: the next batch row's tiles land while this row
+//     computes;
+//   * the row max and sums are fp32 over the 4 lanes of a row (two
+//     shuffles); no atomics, so the results are deterministic.
 //
-// #9, the backward (swin_train_bwd_kernel; first version, simple and
-// right): dbias sums over the batch. The TPU grid runs in order and adds
-// each batch block into one revisited output block; here each CTA keeps its
-// group's sum in registers and writes it to a (groups, nW, heads, n, n)
-// fp32 workspace, and a second kernel sums the groups in a fixed order:
-// deterministic, no atomics. 256 threads a CTA; 4 threads share a query
-// row, each holding that row of q' and do in registers and 16 of the
-// window's 64 keys, as the serving kernel (swin_window_attn.cu) does;
-// tiles are read once, 16 bytes a thread, into shared memory as fp32 with
-// rows padded to dh + 4 floats; P and ds go through shared memory once for
-// the three products; plain FMA on the CUDA cores. The TPU kernel rounds P
-// to the input dtype before P.V; the backward does not (it recomputes P
-// in fp32). n = 64 and dh in {32, 64} throughout.
+// #8, the forward (swin_train_fwd_kernel): q', k and v a stage (30 KB at
+// bf16 dh 32); in bf16 the unnormalized P is rounded to bf16 before P V
+// and o is divided by max(l, 1e-37) after it, as the TPU kernel does.
+//
+// #9, the backward (swin_train_bwd_kernel): q', k, v and do a stage, and
+// the weight tiles below (76 KB at bf16 dh 32: two CTAs an SM). A CTA owns
+// whole 64 x 64 windows, so dk and dv need no sum across CTAs and each
+// batch row is one pass of two halves, a barrier between them:
+//   * query side, warp w its 16 query rows: S = Q'K^T + bias and dP = dO V^T
+//     (dP's products issued right after S's, to run under the softmax); m
+//     and 1/l by shuffles, P; D = rowsum(P dP) (the TPU kernel's D, not
+//     dO . O: no output is saved); dS; dQ' = dS K. dS is added into dbias,
+//     kept in registers in the bias's own fragment layout across the
+//     group, and P and dS go to shared memory as 64 x 64 weight tiles;
+//   * key side, warp w its 16 keys: dV = P^T dO and dK = dS^T Q' in one
+//     loop, the A fragments of P^T and dS^T read from the weight tiles
+//     transposed (ldmatrix.trans in bf16, scalar loads in fp32). Sharing P
+//     and dS this way beat recomputing the transposed tile from the query
+//     side's m, 1/l and D (S^T = K Q'^T, dP^T = V dO^T, as the flash
+//     backward's dkdv pass does): 0.79 against 0.76-0.85 ms of device time
+//     a bf16 fine-tuning step, 1.66-1.68 against 2.07 in fp32 (NVIDIA H100
+//     80GB HBM3, 700 W; profile_kernels.py swin_bwd_calls, both in one
+//     run); the order of work above took bf16 to 0.76;
+//   * mma.sync and ldmatrix are asm volatile and issue in program order,
+//     so the products are ordered by hand: a weight product runs over all
+//     n tiles of a k step before the next, and the lo products before the
+//     hi ones, which keeps the mma.sync of one accumulator apart;
+//   * P and dS are fp32 in the TPU body. In bf16 each goes into its
+//     products (dQ', dV, dK) as bf16 hi + bf16 lo, two mma.sync on one B
+//     fragment, which keeps it to ~2^-17 (a single bf16 P or dS would cost
+//     up to 2^-9 of an output, as much as its own rounding); fp32 runs
+//     3xTF32, which splits its operands already;
+//   * the batch split is the backward's own (swin_attention.py:
+//     bwd_batch_groups: the fewest groups that give 132 CTAs). With one
+//     group a CTA walks every batch row of its (window, head) and writes
+//     dbias itself: one launch (Swinv2-base stage 0 at batch 8). With more,
+//     each CTA writes its group's sum to a (groups, nW, heads, 64, 64) fp32
+//     workspace and swin_train_dbias_kernel sums the groups in their order:
+//     two launches (stages 1-3: 2, 4 and 8 groups). Measured as above,
+//     that beat one group wherever one group leaves the card short of CTAs
+//     (stage 2: 13.7 us a call at 4 groups, 22.7 at one), and beat summing
+//     the groups of a (window, head) as one thread-block cluster through
+//     distributed shared memory (19.6 us at 4 groups, 14.7 at 2: clusters
+//     of 4-8 CTAs of 76 KB schedule worse). No atomics either way: two
+//     calls give the same bits.
+// n = 64 and dh in {32, 64} throughout.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -78,108 +110,8 @@ namespace {
 namespace F = mmd_flash;
 
 constexpr int N = 64;                        // tokens per window (8 x 8)
-constexpr int TPR = 4;                       // threads per query row
-constexpr int THREADS = N * TPR;             // 256
-constexpr int KEYS_PER_THREAD = N / TPR;     // 16
-constexpr int P_STRIDE = N + 4;              // floats per P / ds row
+constexpr int SUM_THREADS = 256;
 constexpr float LN2 = 0.6931471805599453f;
-
-__device__ __forceinline__ void load16(const float* p, float* out) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    out[0] = v.x; out[1] = v.y; out[2] = v.z; out[3] = v.w;
-}
-
-__device__ __forceinline__ void load16(const __nv_bfloat16* p, float* out) {
-    const uint4 u = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-        const float2 f = __bfloat1622float2(h[i]);
-        out[2 * i] = f.x;
-        out[2 * i + 1] = f.y;
-    }
-}
-
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
-__device__ __forceinline__ void fma4(float4& acc, float a, const float4 x) {
-    acc.x = fmaf(a, x.x, acc.x);
-    acc.y = fmaf(a, x.y, acc.y);
-    acc.z = fmaf(a, x.z, acc.z);
-    acc.w = fmaf(a, x.w, acc.w);
-}
-
-template <int DH>
-__device__ __forceinline__ float dot_row(const float (&x)[DH], const float* row) {
-    const float4* r4 = reinterpret_cast<const float4*>(row);
-    float acc = 0.f;
-#pragma unroll
-    for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const float4 y = r4[d4];
-        acc = fmaf(x[4 * d4 + 0], y.x, acc);
-        acc = fmaf(x[4 * d4 + 1], y.y, acc);
-        acc = fmaf(x[4 * d4 + 2], y.z, acc);
-        acc = fmaf(x[4 * d4 + 3], y.w, acc);
-    }
-    return acc;
-}
-
-// This thread's PER values of row `row` of one (n, C) window tile, head
-// columns, into an fp32 shared-memory tile of row stride DH + 4.
-template <typename T, int DH>
-__device__ __forceinline__ void stage_row(float* dst, const T* src, int row, int sub, int c) {
-    constexpr int PER = DH / TPR;
-    constexpr int VEC = 16 / static_cast<int>(sizeof(T));
-    static_assert(PER % VEC == 0, "a thread's slice of a row is whole 16-byte loads");
-    float x[PER];
-#pragma unroll
-    for (int e = 0; e < PER; e += VEC) load16(src + static_cast<size_t>(row) * c + sub * PER + e, x + e);
-    float* d = dst + row * (DH + 4) + sub * PER;
-#pragma unroll
-    for (int e = 0; e < PER; e += 4) {
-        *reinterpret_cast<float4*>(d + e) = make_float4(x[e], x[e + 1], x[e + 2], x[e + 3]);
-    }
-}
-
-template <int DH>
-__device__ __forceinline__ void row_regs(const float* tile, int row, float (&x)[DH]) {
-    const float4* r4 = reinterpret_cast<const float4*>(tile + row * (DH + 4));
-#pragma unroll
-    for (int d4 = 0; d4 < DH / 4; ++d4) {
-        const float4 y = r4[d4];
-        x[4 * d4] = y.x; x[4 * d4 + 1] = y.y; x[4 * d4 + 2] = y.z; x[4 * d4 + 3] = y.w;
-    }
-}
-
-// The softmax weights of this thread's 16 keys (j = sub + 4 i) of row `row`:
-// scores from q' in registers, the staged k tile and the bias row.
-template <int DH>
-__device__ __forceinline__ void softmax_row(const float (&qr)[DH], const float* ks,
-                                            const float* brow, int sub,
-                                            float (&p)[KEYS_PER_THREAD]) {
-    float mx = -3.402823466e38f;
-#pragma unroll
-    for (int i = 0; i < KEYS_PER_THREAD; ++i) {
-        const int j = sub + TPR * i;
-        p[i] = dot_row<DH>(qr, ks + j * (DH + 4)) + __ldg(brow + j);
-        mx = fmaxf(mx, p[i]);
-    }
-    // the TPR threads of a row are adjacent lanes of one warp
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    float l = 0.f;
-#pragma unroll
-    for (int i = 0; i < KEYS_PER_THREAD; ++i) {
-        p[i] = exp2f(p[i] - mx);
-        l += p[i];
-    }
-    l += __shfl_xor_sync(0xffffffffu, l, 1);
-    l += __shfl_xor_sync(0xffffffffu, l, 2);
-    const float inv = 1.f / fmaxf(l, 1e-37f);
-#pragma unroll
-    for (int i = 0; i < KEYS_PER_THREAD; ++i) p[i] *= inv;
-}
 
 // ---------------------------------------------------------------------------
 // #8: the forward, one CTA of 4 warps per (head, window, group of batch rows)
@@ -287,130 +219,336 @@ swin_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
 }
 
 // ---------------------------------------------------------------------------
-// #9: the backward, one CTA per (head, window, group of batch rows)
+// #9: the backward, one CTA of 4 warps per (head, window, group of batch rows)
 // ---------------------------------------------------------------------------
-template <int DH>
-struct BwdSmem {
-    static constexpr size_t BYTES = (4 * N * (DH + 4) + 2 * N * P_STRIDE) * sizeof(float);
+// The weights the key side reads transposed: P and dS, 64 x 64 each, stored
+// [query][key] as the query side holds them; in bf16 each as a hi and a lo
+// tile. Rows of 144 bytes (bf16: the 8 rows an ldmatrix reads fall in
+// distinct banks) or 68 floats (fp32: the transposed scalar loads of `pv_t`
+// hit 32 banks).
+template <typename T>
+struct WTile {
+    static constexpr int LD = sizeof(T) == 2 ? N + 8 : N + 4;
+    static constexpr int ELEMS = N * LD;
+    static constexpr int COUNT = sizeof(T) == 2 ? 4 : 2;   // P (hi, lo), dS (hi, lo)
+    static constexpr size_t BYTES = COUNT * ELEMS * sizeof(T);
 };
 
-template <typename T>
-__device__ __forceinline__ void store4(T* dst, const float4 x) {
-    store_as(dst + 0, x.x);
-    store_as(dst + 1, x.y);
-    store_as(dst + 2, x.z);
-    store_as(dst + 3, x.w);
+template <typename T, int DH>
+constexpr size_t bwd_smem_bytes() {
+    // two stages of q', k, v and do tiles; the weight tiles
+    return 2 * 4 * F::Tile<T, DH>::BYTES + WTile<T>::BYTES;
 }
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(THREADS)
-swin_train_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-           const float* __restrict__ bias, const T* __restrict__ dout, T* __restrict__ dq,
-           T* __restrict__ dk, T* __restrict__ dv, float* __restrict__ ws, int windows,
-           int batch, int heads, int per_group) {
-    constexpr int ST = DH + 4;
-    constexpr int CHUNKS = DH / 16;
-    extern __shared__ float4 smem4[];
-    float* qs = reinterpret_cast<float*>(smem4);   // [N][ST]
-    float* ks = qs + N * ST;                        // [N][ST]
-    float* vs = ks + N * ST;                        // [N][ST]
-    float* dos = vs + N * ST;                       // [N][ST]
-    float* ps = dos + N * ST;                       // [N][P_STRIDE]
-    float* dss = ps + N * P_STRIDE;                 // [N][P_STRIDE]
-
-    const int tid = threadIdx.x;
-    const int row = tid / TPR;
-    const int sub = tid % TPR;
-    const int h = blockIdx.x;
-    const int w = blockIdx.y;
-    const int grp = blockIdx.z;
-    const int c = heads * DH;
-    const float* brow = bias + ((static_cast<size_t>(w) * heads + h) * N + row) * N;
-
-    float dbias[KEYS_PER_THREAD];
+// o += A B over the DH / 8 n tiles of B fragments f: mma.sync issues in
+// program order (asm volatile), so the products of one accumulator are kept
+// DH / 8 apart.
+template <int DH>
+__device__ __forceinline__ void mma_pairs(float (&o)[DH / 8][4], const uint32_t (&a)[4],
+                                          const uint32_t (&f)[DH / 16][4]) {
 #pragma unroll
-    for (int i = 0; i < KEYS_PER_THREAD; ++i) dbias[i] = 0.f;
+    for (int np = 0; np < DH / 16; ++np) {
+        mmd_tc::mma(o[2 * np], a, f[np][0], f[np][1]);
+        mmd_tc::mma(o[2 * np + 1], a, f[np][2], f[np][3]);
+    }
+}
 
-    for (int b = grp * per_group; b < (grp + 1) * per_group; ++b) {
-        const size_t base = (static_cast<size_t>(w) * batch + b) * N * c +
-                            static_cast<size_t>(h) * DH;
-        __syncthreads();                     // the previous batch row is consumed
-        stage_row<T, DH>(qs, q + base, row, sub, c);
-        stage_row<T, DH>(ks, k + base, row, sub, c);
-        stage_row<T, DH>(vs, v + base, row, sub, c);
-        stage_row<T, DH>(dos, dout + base, row, sub, c);
-        __syncthreads();
+// (x0, x1) as two bf16 pairs: hi rounded to nearest, lo what that left
+// (exact in fp32), rounded in turn.
+__device__ __forceinline__ void split_bf16x2(float x0, float x1, uint32_t& hi, uint32_t& lo) {
+    const __nv_bfloat162 r = __floats2bfloat162_rn(x0, x1);
+    const float2 rf = __bfloat1622float2(r);
+    hi = *reinterpret_cast<const uint32_t*>(&r);
+    lo = mmd_tc::pack_bf16x2(x0 - rf.x, x1 - rf.y);
+}
 
-        {
-            float x[DH];
-            row_regs<DH>(qs, row, x);
-            float p[KEYS_PER_THREAD];
-            softmax_row<DH>(x, ks, brow, sub, p);
-            row_regs<DH>(dos, row, x);
-            float dp[KEYS_PER_THREAD];
-            float dsum = 0.f;
+// o += W B, as Ops::pv, with the fp32 weights W kept to ~2^-17: 3xTF32 splits
+// them already; in bf16 each goes in as bf16 hi and bf16 lo (what rounding
+// to bf16 left, exact in fp32), two mma.sync on one B fragment.
+template <int DH>
+__device__ __forceinline__ void pv_exact(float (&o)[DH / 8][4], const float (&w)[F::NT][4],
+                                         const float* b) {
+    F::Ops<float, DH>::template pv<F::NT>(o, w, b);
+}
+
+template <int DH>
+__device__ __forceinline__ void pv_exact(float (&o)[DH / 8][4], const float (&w)[F::NT][4],
+                                         const F::bf16* b) {
+    constexpr int LD = F::Tile<F::bf16, DH>::LD;
 #pragma unroll
-            for (int i = 0; i < KEYS_PER_THREAD; ++i) {
-                dp[i] = dot_row<DH>(x, vs + (sub + TPR * i) * ST);
-                dsum = fmaf(p[i], dp[i], dsum);
-            }
-            dsum += __shfl_xor_sync(0xffffffffu, dsum, 1);
-            dsum += __shfl_xor_sync(0xffffffffu, dsum, 2);
+    for (int kb = 0; kb < F::NT / 2; ++kb) {
+        // the A fragment of Ops<bf16>::pv: rows g, g + 8, keys 2q.., 2q + 8..
+        uint32_t hi[4], lo[4];
 #pragma unroll
-            for (int i = 0; i < KEYS_PER_THREAD; ++i) {
-                const int j = sub + TPR * i;
-                const float ds = LN2 * p[i] * (dp[i] - dsum);
-                ps[row * P_STRIDE + j] = p[i];
-                dss[row * P_STRIDE + j] = ds;
-                dbias[i] += ds;
-            }
+        for (int j = 0; j < 4; ++j) {
+            const float* x = w[2 * kb + (j >> 1)] + 2 * (j & 1);
+            split_bf16x2(x[0], x[1], hi[j], lo[j]);
         }
-        __syncthreads();
+        uint32_t f[DH / 16][4];
+#pragma unroll
+        for (int np = 0; np < DH / 16; ++np) mmd_tc::load_b_t(f[np], b, LD, 16 * kb, 16 * np);
+        mma_pairs<DH>(o, lo, f);
+        mma_pairs<DH>(o, hi, f);
+    }
+}
 
-        // dq'[row] = sum_j ds[row, j] k_j: this thread's columns
-        // [4 * (4 * ch + sub), +4); then dk[row], dv[row] with `row` as the key.
-        float4 a[CHUNKS], bk[CHUNKS], bv[CHUNKS];
+// This warp's C fragments of a weight tile W (its 16 query rows) into shared
+// memory: fp32 as it is; bf16 as hi at dst and lo at dst + one tile.
+__device__ __forceinline__ void put_w(float* dst, const float (&w)[F::NT][4]) {
+    const int lane = threadIdx.x & 31, r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
 #pragma unroll
-        for (int ch = 0; ch < CHUNKS; ++ch) {
-            a[ch] = make_float4(0.f, 0.f, 0.f, 0.f);
-            bk[ch] = make_float4(0.f, 0.f, 0.f, 0.f);
-            bv[ch] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int nt = 0; nt < F::NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+            F::store2(dst + (r0 + 8 * r) * WTile<float>::LD + 8 * nt + 2 * (lane & 3),
+                      w[nt][2 * r], w[nt][2 * r + 1]);
+}
+
+__device__ __forceinline__ void put_w(F::bf16* dst, const float (&w)[F::NT][4]) {
+    const int lane = threadIdx.x & 31, r0 = 16 * (threadIdx.x >> 5) + (lane >> 2);
+#pragma unroll
+    for (int nt = 0; nt < F::NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            uint32_t* at = reinterpret_cast<uint32_t*>(
+                dst + (r0 + 8 * r) * WTile<F::bf16>::LD + 8 * nt + 2 * (lane & 3));
+            split_bf16x2(w[nt][2 * r], w[nt][2 * r + 1], at[0], at[WTile<F::bf16>::ELEMS / 2]);
         }
-#pragma unroll 4
-        for (int j = 0; j < N; ++j) {
-            const float d = dss[row * P_STRIDE + j];
-            const float dt = dss[j * P_STRIDE + row];
-            const float pt = ps[j * P_STRIDE + row];
-            const float4* kr = reinterpret_cast<const float4*>(ks + j * ST);
-            const float4* qr = reinterpret_cast<const float4*>(qs + j * ST);
-            const float4* dr = reinterpret_cast<const float4*>(dos + j * ST);
+}
+
+// o1 += W1^T B1 and o2 += W2^T B2 for this warp's 16 keys: W1, W2 weight
+// tiles put by `put_w` (their rows the 64 queries), B1, B2 (query, dh)
+// tiles; the two products interleaved, as neither waits on the other. bf16:
+// the A fragments of W^T read by ldmatrix.trans, hi and lo, two mma.sync on
+// one B fragment.
+template <int DH>
+__device__ __forceinline__ void pv_t(float (&o1)[DH / 8][4], const F::bf16* w1,
+                                     const F::bf16* b1, float (&o2)[DH / 8][4],
+                                     const F::bf16* w2, const F::bf16* b2) {
+    constexpr int LD = F::Tile<F::bf16, DH>::LD;
+    constexpr int WLD = WTile<F::bf16>::LD, WE = WTile<F::bf16>::ELEMS;
+    const int m0 = 16 * (threadIdx.x >> 5);
 #pragma unroll
-            for (int ch = 0; ch < CHUNKS; ++ch) {
-                fma4(a[ch], d, kr[4 * ch + sub]);
-                fma4(bk[ch], dt, qr[4 * ch + sub]);
-                fma4(bv[ch], pt, dr[4 * ch + sub]);
-            }
+    for (int kb = 0; kb < F::NT / 2; ++kb) {
+        uint32_t hi1[4], lo1[4], hi2[4], lo2[4], f1[DH / 16][4], f2[DH / 16][4];
+        mmd_tc::load_a_t(hi1, w1, WLD, m0, 16 * kb);
+        mmd_tc::load_a_t(lo1, w1 + WE, WLD, m0, 16 * kb);
+        mmd_tc::load_a_t(hi2, w2, WLD, m0, 16 * kb);
+        mmd_tc::load_a_t(lo2, w2 + WE, WLD, m0, 16 * kb);
+#pragma unroll
+        for (int np = 0; np < DH / 16; ++np) {
+            mmd_tc::load_b_t(f1[np], b1, LD, 16 * kb, 16 * np);
+            mmd_tc::load_b_t(f2[np], b2, LD, 16 * kb, 16 * np);
         }
-        const size_t off = base + static_cast<size_t>(row) * c;
+        mma_pairs<DH>(o1, lo1, f1);
+        mma_pairs<DH>(o2, lo2, f2);
+        mma_pairs<DH>(o1, hi1, f1);
+        mma_pairs<DH>(o2, hi2, f2);
+    }
+}
+
+// fp32, 3xTF32 on m16n8k8, in Ops<float>::pv's order of k: k index q is
+// query 8 j + 2 q, q + 4 is 8 j + 2 q + 1, so that the scalar loads of both
+// operands hit 32 banks.
+template <int DH>
+__device__ __forceinline__ void pv_t(float (&o1)[DH / 8][4], const float* w1, const float* b1,
+                                     float (&o2)[DH / 8][4], const float* w2, const float* b2) {
+    constexpr int LD = F::Tile<float, DH>::LD;
+    constexpr int WLD = WTile<float>::LD;
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    const int m0 = 16 * (threadIdx.x >> 5);
+    auto a_frag = [&](const float* w, int j) {
+        const float* a0 = w + (8 * j + 2 * q) * WLD + m0 + g;
+        const uint32_t raw[4] = {__float_as_uint(a0[0]), __float_as_uint(a0[8]),
+                                 __float_as_uint(a0[WLD]), __float_as_uint(a0[WLD + 8])};
+        return mmd_tc::Split<4>(raw);
+    };
+    auto b_frag = [&](const float* b, int j, int nt) {
+        const float* r0 = b + (8 * j + 2 * q) * LD + g + 8 * nt;
+        const uint32_t f[2] = {__float_as_uint(r0[0]), __float_as_uint(r0[LD])};
+        return mmd_tc::Split<2>(f);
+    };
 #pragma unroll
-        for (int ch = 0; ch < CHUNKS; ++ch) {
-            const int col = 4 * (4 * ch + sub);
-            store4(dq + off + col, a[ch]);
-            store4(dk + off + col, bk[ch]);
-            store4(dv + off + col, bv[ch]);
+    for (int j = 0; j < F::NT; ++j) {
+        const mmd_tc::Split<4> a1 = a_frag(w1, j), a2 = a_frag(w2, j);
+#pragma unroll
+        for (int nt = 0; nt < DH / 8; ++nt) {
+            const mmd_tc::Split<2> f1 = b_frag(b1, j, nt), f2 = b_frag(b2, j, nt);
+            mmd_tc::mma_3xtf32(o1[nt], a1, f1.hi[0], f1.hi[1], f1.lo[0], f1.lo[1]);
+            mmd_tc::mma_3xtf32(o2[nt], a2, f2.hi[0], f2.hi[1], f2.lo[0], f2.lo[1]);
         }
     }
+}
 
-    float* wrow = ws + (((static_cast<size_t>(grp) * windows + w) * heads + h) * N + row) * N;
+// This warp's 16 rows (16 warp + g, + 8) of a (64, C) gradient tile at dst, head columns.
+template <typename T, int DH>
+__device__ __forceinline__ void store_rows(T* dst, int c, const float (&acc)[DH / 8][4]) {
+    const int lane = threadIdx.x & 31, g = lane >> 2, qd = lane & 3;
+    const int r0 = 16 * (threadIdx.x >> 5) + g;
 #pragma unroll
-    for (int i = 0; i < KEYS_PER_THREAD; ++i) wrow[sub + TPR * i] = dbias[i];
+    for (int r = 0; r < 2; ++r) {
+        T* row = dst + static_cast<size_t>(r0 + 8 * r) * c + 2 * qd;
+#pragma unroll
+        for (int n = 0; n < DH / 8; ++n) F::store2(row + 8 * n, acc[n][2 * r], acc[n][2 * r + 1]);
+    }
+}
+
+// `out` is dbias with one group, else the (groups, nW, heads, n, n) workspace.
+template <typename T, int DH>
+__global__ void __launch_bounds__(F::THREADS)
+swin_train_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                      const float* __restrict__ bias, const T* __restrict__ dout,
+                      T* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv,
+                      float* __restrict__ out, int batch, int heads, int per_group) {
+    using Op = F::Ops<T, DH>;
+    constexpr int TE = F::Tile<T, DH>::ELEMS;
+    constexpr int NT = F::NT;
+    extern __shared__ float4 smem4[];
+    T* tiles = reinterpret_cast<T*>(smem4);  // [2 stages][q', k, v, do][N][LD]
+    T* wp = tiles + 2 * 4 * TE;              // P: [query][key], bf16 hi then lo
+    T* wds = wp + WTile<T>::COUNT / 2 * WTile<T>::ELEMS;   // dS, the same
+
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+    const int r0 = 16 * warp + g;            // this lane's rows: r0 and r0 + 8
+    const int h = blockIdx.x;
+    const int w = blockIdx.y;
+    const int b0 = blockIdx.z * per_group;
+    const int c = heads * DH;
+    // the (window, batch row b) tile of this head starts at row_base(b)
+    const size_t head_base = static_cast<size_t>(w) * batch * N * c + static_cast<size_t>(h) * DH;
+    auto row_base = [&](int b) { return head_base + static_cast<size_t>(b) * N * c; };
+    auto copy_row = [&](int stage, int b) {
+        T* s = tiles + stage * 4 * TE;
+        const size_t off = row_base(b);
+        F::copy_tile<T, DH>(s, q + off, c, 0, N);
+        F::copy_tile<T, DH>(s + TE, k + off, c, 0, N);
+        F::copy_tile<T, DH>(s + 2 * TE, v + off, c, 0, N);
+        F::copy_tile<T, DH>(s + 3 * TE, dout + off, c, 0, N);
+    };
+    copy_row(0, b0);
+    mmd_tc::cp_async_commit();
+
+    // The bias once for the group, under the first copy, at this lane's
+    // score fragments (query r0 + 8 r, key 8 nt + 2 qd + {0, 1}); db, the
+    // group's dbias, has its layout.
+    const float* bw = bias + (static_cast<size_t>(w) * heads + h) * N * N;
+    float bs[NT][4], db[NT][4];
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            const float2 x = __ldg(reinterpret_cast<const float2*>(
+                bw + (r0 + 8 * r) * N + 8 * nt + 2 * qd));
+            bs[nt][2 * r] = x.x;
+            bs[nt][2 * r + 1] = x.y;
+        }
+    F::zero(db);
+
+    for (int i = 0; i < per_group; ++i) {
+        const int cur = i & 1;
+        if (i + 1 < per_group) copy_row(cur ^ 1, b0 + i + 1);   // under this row's work
+        mmd_tc::cp_async_commit();
+        mmd_tc::cp_async_wait<1>();          // this row's tiles have landed
+        __syncthreads();
+        const T* qs = tiles + cur * 4 * TE;
+        const T* ks = qs + TE;
+        const T* vs = qs + 2 * TE;
+        const T* dos = qs + 3 * TE;
+        const size_t base = row_base(b0 + i);
+
+        // query side: P and dS of this warp's 16 queries, then dQ' = dS K
+        {
+            typename Op::A a, ao;
+            Op::load_a(a, qs, 16 * warp);
+            Op::load_a(ao, dos, 16 * warp);
+            float p[NT][4], ds[NT][4];
+            F::zero(p);
+            F::zero(ds);
+            Op::template scores<NT>(p, a, ks);
+            Op::template scores<NT>(ds, ao, vs);     // dP, under the softmax
+            float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    p[nt][e] += bs[nt][e];
+                    mx[e >> 1] = fmaxf(mx[e >> 1], p[nt][e]);
+                }
+            float l[2] = {0.f, 0.f};
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+                mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    p[nt][e] = exp2f(p[nt][e] - mx[e >> 1]);
+                    l[e >> 1] += p[nt][e];
+                }
+            float inv[2];
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+                l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+                inv[r] = 1.f / fmaxf(l[r], 1e-37f);
+            }
+            float d[2] = {0.f, 0.f};
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    p[nt][e] *= inv[e >> 1];
+                    d[e >> 1] += p[nt][e] * ds[nt][e];
+                }
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                d[r] += __shfl_xor_sync(0xffffffffu, d[r], 1);
+                d[r] += __shfl_xor_sync(0xffffffffu, d[r], 2);
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    ds[nt][e] = LN2 * p[nt][e] * (ds[nt][e] - d[e >> 1]);
+                    db[nt][e] += ds[nt][e];
+                }
+            put_w(wp, p);
+            put_w(wds, ds);
+            float acc[DH / 8][4];
+            F::zero(acc);
+            pv_exact<DH>(acc, ds, ks);
+            store_rows<T, DH>(dq + base, c, acc);
+        }
+        __syncthreads();                     // P and dS are in shared memory
+
+        // key side, this warp's 16 keys: dV = P^T dO, dK = dS^T Q'
+        {
+            float dva[DH / 8][4], dka[DH / 8][4];
+            F::zero(dva);
+            F::zero(dka);
+            pv_t<DH>(dva, wp, dos, dka, wds, qs);
+            store_rows<T, DH>(dv + base, c, dva);
+            store_rows<T, DH>(dk + base, c, dka);
+        }
+        __syncthreads();                     // this stage and P, dS are free
+    }
+
+    float* o = out + ((static_cast<size_t>(blockIdx.z) * gridDim.y + w) * heads + h) * N * N;
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int r = 0; r < 2; ++r)
+            F::store2(o + (r0 + 8 * r) * N + 8 * nt + 2 * qd, db[nt][2 * r], db[nt][2 * r + 1]);
 }
 
 // dbias[e] = sum over groups g of ws[g, e], in the order of g.
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(SUM_THREADS)
 swin_train_dbias_kernel(const float* __restrict__ ws, float* __restrict__ dbias, int groups,
-                    int64_t elems) {
-    const int64_t idx = static_cast<int64_t>(blockIdx.x) * THREADS + threadIdx.x;
+                        int64_t elems) {
+    const int64_t idx = static_cast<int64_t>(blockIdx.x) * SUM_THREADS + threadIdx.x;
     if (idx >= elems) return;
     float acc = 0.f;
     for (int g = 0; g < groups; ++g) acc += ws[g * elems + idx];
@@ -418,23 +556,26 @@ swin_train_dbias_kernel(const float* __restrict__ ws, float* __restrict__ dbias,
 }
 
 // Above 48 KB of dynamic shared memory a kernel has to be allowed it, once
-// per device: `raised` holds a bit for each device where that is done.
+// per device: `raised`, the caller's own for each kernel, holds a bit for
+// each device where that is done.
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, size_t smem, int device, std::atomic<uint64_t>& raised) {
+    const uint64_t bit = uint64_t{1} << device;
+    if (smem <= 48 * 1024 || (raised.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err == cudaSuccess) raised.fetch_or(bit, std::memory_order_relaxed);
+    return err;
+}
+
 template <typename T, int DH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
                        int windows, int batch, int heads, int groups, int device,
                        cudaStream_t stream) {
     constexpr size_t smem = fwd_smem_bytes<T, DH>();
-    if constexpr (smem > 48 * 1024) {
-        static std::atomic<uint64_t> raised{0};
-        const uint64_t bit = uint64_t{1} << device;
-        if (!(raised.load(std::memory_order_relaxed) & bit)) {
-            const cudaError_t err = cudaFuncSetAttribute(
-                swin_train_fwd_kernel<T, DH>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                static_cast<int>(smem));
-            if (err != cudaSuccess) return err;
-            raised.fetch_or(bit, std::memory_order_relaxed);
-        }
-    }
+    static std::atomic<uint64_t> raised{0};
+    cudaError_t err = allow_smem(swin_train_fwd_kernel<T, DH>, smem, device, raised);
+    if (err != cudaSuccess) return err;
     swin_train_fwd_kernel<T, DH><<<dim3(heads, windows, groups), F::THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const float*>(bias), static_cast<T*>(o), batch, heads, batch / groups);
@@ -444,49 +585,54 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
 template <typename T, int DH>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* bias,
                        const void* dout, void* dq, void* dk, void* dv, void* dbias, void* ws,
-                       int windows, int batch, int heads, int groups, cudaStream_t stream) {
-    const size_t smem = BwdSmem<DH>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(swin_train_bwd_kernel<T, DH>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(smem));
+                       int windows, int batch, int heads, int groups, int device,
+                       cudaStream_t stream) {
+    constexpr size_t smem = bwd_smem_bytes<T, DH>();
+    static std::atomic<uint64_t> raised{0};
+    cudaError_t err = allow_smem(swin_train_bwd_kernel<T, DH>, smem, device, raised);
     if (err != cudaSuccess) return err;
-    swin_train_bwd_kernel<T, DH><<<dim3(heads, windows, groups), THREADS, smem, stream>>>(
+    swin_train_bwd_kernel<T, DH><<<dim3(heads, windows, groups), F::THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
         static_cast<const float*>(bias), static_cast<const T*>(dout), static_cast<T*>(dq),
-        static_cast<T*>(dk), static_cast<T*>(dv), static_cast<float*>(ws), windows, batch,
-        heads, batch / groups);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
+        static_cast<T*>(dk), static_cast<T*>(dv),
+        static_cast<float*>(groups == 1 ? dbias : ws), batch, heads, batch / groups);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || groups == 1) return err;
     const int64_t elems = static_cast<int64_t>(windows) * heads * N * N;
-    swin_train_dbias_kernel<<<static_cast<unsigned>((elems + THREADS - 1) / THREADS), THREADS, 0,
-                          stream>>>(static_cast<const float*>(ws), static_cast<float*>(dbias),
-                                    groups, elems);
+    swin_train_dbias_kernel<<<static_cast<unsigned>((elems + SUM_THREADS - 1) / SUM_THREADS),
+                              SUM_THREADS, 0, stream>>>(static_cast<const float*>(ws),
+                                                        static_cast<float*>(dbias), groups,
+                                                        elems);
     return cudaGetLastError();
 }
 
-bool geometry_ok(int windows, int batch, int n, int heads) {
-    return n == N && windows > 0 && windows <= 65535 && batch > 0 && batch <= 65535 &&
-           heads > 0 && heads <= 65535;
+// The checks both entry points make, then `device` made current if it is
+// not already.
+cudaError_t enter(int windows, int batch, int n, int heads, int groups, int device) {
+    if (n != N || windows <= 0 || windows > 65535 || batch <= 0 || batch > 65535 ||
+        heads <= 0 || heads > 65535 || groups <= 0 || groups > 65535 || batch % groups != 0 ||
+        device < 0 || device >= 64) {
+        return cudaErrorInvalidValue;
+    }
+    int current = -1;
+    cudaError_t err = cudaGetDevice(&current);
+    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+    return err;
 }
 
 }  // namespace
 
 // C entry points, bound with ctypes. q, k, v, o, dout, dq, dk, dv are
 // (windows, batch, 64, heads * head_dim) contiguous, of one dtype (0 =
-// float32, 1 = bfloat16); bias and dbias (windows, heads, 64, 64) fp32; ws
-// an fp32 workspace of groups * windows * heads * 64 * 64 floats; groups
-// divides batch. Each returns the cudaError_t of its launches (0 on
-// success).
+// float32, 1 = bfloat16); bias and dbias (windows, heads, 64, 64) fp32;
+// groups divides batch; ws is an fp32 workspace of groups * windows * heads
+// * 64 * 64 floats, unused (and may be NULL) when groups is 1. Each returns
+// the cudaError_t of its launches (0 on success).
 extern "C" int mmd_swin_attn_train_fwd(const void* q, const void* k, const void* v,
                                        const void* bias, void* o, int windows, int batch,
                                        int n, int heads, int head_dim, int groups, int dtype,
                                        int device, void* stream) {
-    if (!geometry_ok(windows, batch, n, heads) || groups <= 0 || groups > 65535 ||
-        batch % groups != 0 || device < 0 || device >= 64) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
-    int current = -1;
-    cudaError_t err = cudaGetDevice(&current);
-    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+    cudaError_t err = enter(windows, batch, n, heads, groups, device);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0 && head_dim == 32)
@@ -507,24 +653,21 @@ extern "C" int mmd_swin_attn_train_bwd(const void* q, const void* k, const void*
                                        void* dv, void* dbias, void* ws, int windows, int batch,
                                        int n, int heads, int head_dim, int groups, int dtype,
                                        int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
+    cudaError_t err = enter(windows, batch, n, heads, groups, device);
+    if (err == cudaSuccess && groups > 1 && ws == nullptr) err = cudaErrorInvalidValue;
     if (err != cudaSuccess) return static_cast<int>(err);
-    if (!geometry_ok(windows, batch, n, heads) || groups <= 0 || groups > 65535 ||
-        batch % groups != 0) {
-        return static_cast<int>(cudaErrorInvalidValue);
-    }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0 && head_dim == 32)
         return launch_bwd<float, 32>(q, k, v, bias, dout, dq, dk, dv, dbias, ws, windows, batch,
-                                     heads, groups, st);
+                                     heads, groups, device, st);
     if (dtype == 0 && head_dim == 64)
         return launch_bwd<float, 64>(q, k, v, bias, dout, dq, dk, dv, dbias, ws, windows, batch,
-                                     heads, groups, st);
+                                     heads, groups, device, st);
     if (dtype == 1 && head_dim == 32)
         return launch_bwd<__nv_bfloat16, 32>(q, k, v, bias, dout, dq, dk, dv, dbias, ws, windows,
-                                             batch, heads, groups, st);
+                                             batch, heads, groups, device, st);
     if (dtype == 1 && head_dim == 64)
         return launch_bwd<__nv_bfloat16, 64>(q, k, v, bias, dout, dq, dk, dv, dbias, ws, windows,
-                                             batch, heads, groups, st);
+                                             batch, heads, groups, device, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -37,7 +37,9 @@ the gradient of the continuous position bias MLP):
 
   * CUDA tensors go to the kernels (ops/csrc/swin_window_attn_train.cu):
     n = 64, head dims 32 and 64, float32 or bfloat16; in bf16 the forward
-    rounds the unnormalized P to bf16 before P.V, as the JAX kernel does;
+    rounds the unnormalized P to bf16 before P.V, as the JAX kernel does,
+    and the backward keeps P and dS to ~2^-17 (bf16 hi + lo) in its
+    products, as the JAX kernel keeps them in fp32;
   * CPU tensors go to `swin_window_attention_plain` and
     `swin_window_attention_bwd_plain`.
 """
@@ -183,7 +185,9 @@ def swin_window_attention_infer(q: torch.Tensor, k: torch.Tensor,
 
 _LN2 = 0.6931471805599453
 # CTAs (heads x windows x batch groups) to aim for: two an SM of the H100
+# in the forward, one an SM in the backward
 _CTAS = 2 * 132
+_BWD_CTAS = 132
 
 
 def _softmax2(qh, kh, bias):
@@ -256,12 +260,25 @@ def load_train_bwd_kernel():
 
 @functools.lru_cache(maxsize=256)
 def batch_groups(windows: int, batch: int, heads: int) -> int:
-    """Batch groups of the fine-tuning kernels: their CTAs are (head,
-    window, group), each walking batch / groups rows (the backward sums
-    dbias over them). The fewest groups (a divisor of the batch) that give
-    `_CTAS` CTAs, or one group per batch row."""
+    """Batch groups of the fine-tuning forward: its CTAs are (head, window,
+    group), each walking batch / groups rows. The fewest groups (a divisor
+    of the batch) that give `_CTAS` CTAs, or one group per batch row."""
+    return _fewest_groups(windows * heads, batch, _CTAS)
+
+
+@functools.lru_cache(maxsize=256)
+def bwd_batch_groups(windows: int, batch: int, heads: int) -> int:
+    """Batch groups of the fine-tuning backward, whose CTAs are (head,
+    window, group) too. One group (every batch row of a (window, head) in
+    one CTA, dbias written by it, one launch) unless that leaves the card
+    short of `_BWD_CTAS` CTAs; then the fewest groups that give them, each
+    writing its part of dbias to a workspace that a second launch sums."""
+    return _fewest_groups(windows * heads, batch, _BWD_CTAS)
+
+
+def _fewest_groups(pairs: int, batch: int, ctas: int) -> int:
     for g in range(1, batch + 1):
-        if batch % g == 0 and windows * heads * g >= _CTAS:
+        if batch % g == 0 and pairs * g >= ctas:
             return g
     return batch
 
@@ -328,20 +345,23 @@ def _swin_train_bwd_cuda(q, k, v, bias, do, heads):
     global train_bwd_launches
     _check_train_inputs(q, k, v, bias, heads, do)
     nw, b, n, c = q.shape
-    groups = batch_groups(nw, b, heads)
+    groups = bwd_batch_groups(nw, b, heads)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
+    # the groups' parts of dbias, for the second launch to sum
     ws = torch.empty((groups, *bias.shape), dtype=torch.float32,
-                     device=q.device)
-    cuda_build.check_aligned(q, k, v, bias, do, dq, dk, dv, dbias, ws)
+                     device=q.device) if groups > 1 else None
+    cuda_build.check_aligned(q, k, v, bias, do, dq, dk, dv, dbias)
     fn = load_train_bwd_kernel()
+    dev = q.get_device()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            dbias.data_ptr(), ws.data_ptr(), nw, b, n, heads, c // heads,
-            groups, _DTYPE_CODES[q.dtype], cuda_build.device_index(q),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check_launch(rc, f"swin_attn_train_bwd {tuple(q.shape)} "
-                                f"{heads} heads {q.dtype}")
+            dbias.data_ptr(), None if ws is None else ws.data_ptr(),
+            nw, b, n, heads, c // heads, groups, _DTYPE_CODES[q.dtype], dev,
+            torch._C._cuda_getCurrentRawStream(dev))
+    if rc:
+        cuda_build.check_launch(rc, f"swin_attn_train_bwd {tuple(q.shape)} "
+                                    f"{heads} heads {q.dtype}")
     with _launch_lock:
         train_bwd_launches += 1
     return dq, dk, dv, dbias
@@ -356,7 +376,7 @@ def swin_window_attention_fwd(q, k, v, bias, heads: int) -> torch.Tensor:
 
 
 def swin_window_attention_bwd(q, k, v, bias, do, heads: int):
-    """The fine-tuning backward -> (dq, dk, dv, dbias): the kernels (#9) on
+    """The fine-tuning backward -> (dq, dk, dv, dbias): the kernel (#9) on
     CUDA tensors, `swin_window_attention_bwd_plain` on CPU ones."""
     if cuda_build.on_cuda(q, "swin_window_attention_bwd"):
         return _swin_train_bwd_cuda(q, k, v, bias, do, heads)

@@ -3,6 +3,7 @@
     python -m mmd_tpu_torch.profile_kernels ptxas [SOURCE.cu ...]
     python -m mmd_tpu_torch.profile_kernels flash_calls
     python -m mmd_tpu_torch.profile_kernels swin_calls
+    python -m mmd_tpu_torch.profile_kernels swin_bwd_calls
     python -m mmd_tpu_torch.profile_kernels deberta_fwd_calls
     python -m mmd_tpu_torch.profile_kernels deberta_bwd_calls
     python -m mmd_tpu_torch.profile_kernels mlp_bwd_calls
@@ -24,11 +25,24 @@ a CUDA device.
 `swin_window_attention_fwd`) at the four Swinv2-base stage geometries of a
 fine-tuning step (batch 8, bf16), beside one SDPA call that computes the
 same function on the same inputs, as chip_smoke.py times it (its host us a
-call and its device us, all kernels of the call). It also times each
-piece of the wrapper's call path alone (2000 calls each), down to the C
-entry point with its arguments, which launches the kernel: what is left of
-a host-bound call past those pieces is Python's own calls and the launch
-counter. It needs a CUDA device.
+call and its device us, all kernels of the call), and a digest of the
+forward's output (inputs from a fixed seed: two trees compare bit for
+bit). It also times each piece of the wrapper's call path alone (2000
+calls each), down to the C entry point with its arguments, which launches
+the kernel: what is left of a host-bound call past those pieces is
+Python's own calls and the launch counter. It needs a CUDA device.
+
+`swin_bwd_calls` times the Swin fine-tuning backward (#9,
+`swin_window_attention_bwd`) at the same four stage geometries, bf16 and
+fp32: host us a call, the host's own us a call, the device us of each of
+the call's kernel launches and their sum (torch.profiler over 50 calls),
+the us a call by CUDA events, and SDPA's backward with the mask's gradient
+beside it (CUDA-event and device us a call), as chip_smoke.py times it;
+then the device us a call of the C entry point itself at each batch split
+that divides the batch (the grid's groups: one launch with one group, a
+second that sums dbias with more). Last, the bf16 and fp32 device us summed
+over a fine-tuning step's 48 calls. It runs on an older tree too, for a
+parent/change comparison in one run. It needs a CUDA device.
 
 `deberta_fwd_calls` times the DeBERTa attention forward (#10,
 `deberta_attention`) at the served geometry (B 16, T 512) and the
@@ -64,6 +78,7 @@ too, for a parent/change comparison in one run. It needs a CUDA device.
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import math
 import re
@@ -97,6 +112,9 @@ BATCH = 16
 SWIN_GEOMETRIES = [("stage0", 64, 128, 4), ("stage1", 16, 256, 8),
                    ("stage2", 4, 512, 16), ("stage3", 1, 1024, 32)]
 SWIN_BATCH = 8
+# the backward's calls a fine-tuning step at each stage: 2 images x the
+# stage's blocks (chip_smoke.py's FT_SWIN_GEOMS)
+SWIN_CALLS_A_STEP = {"stage0": 4, "stage1": 4, "stage2": 36, "stage3": 4}
 # the DeBERTa attention backward of a fine-tuning step (chip_smoke.py's
 # FT_DEBERTA): B, T, D, heads
 DEBERTA_BWD = (8, 256, 384, 6)
@@ -200,9 +218,11 @@ def flash_calls() -> None:
             / 200, "card": P.card()}), flush=True)
 
 
-def _swin_inputs(dev, gen, nw: int, c: int, h: int):
+def _swin_inputs(dev, gen, nw: int, c: int, h: int,
+                 dtype=torch.bfloat16):
     """q', k, v and the log2-domain bias as the model makes them (see
-    chip_smoke.py's phase_swin_train), bf16; and SDPA's view of them."""
+    chip_smoke.py's phase_swin_train), in `dtype` (bias fp32); and SDPA's
+    view of them."""
     b, n, dh, log2e = SWIN_BATCH, 64, c // h, 1.4426950408889634
 
     def unit(x):
@@ -218,12 +238,18 @@ def _swin_inputs(dev, gen, nw: int, c: int, h: int):
         bias = bias - 200.0 * (torch.rand(nw, 1, n, n, device=dev,
                                           generator=gen) < 0.3)
     bias = (bias * log2e).contiguous()
-    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
-    q4, k4, v4 = (x.reshape(nw, b, n, h, dh).transpose(2, 3)
-                  .reshape(nw * b, h, n, dh).contiguous() for x in (q, k, v))
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    q4, k4, v4 = (_sdpa_view(x, h) for x in (q, k, v))
     m4 = (math.log(2.0) * bias)[:, None].expand(nw, b, h, n, n).reshape(
-        nw * b, h, n, n).to(torch.bfloat16).contiguous()
+        nw * b, h, n, n).to(dtype).contiguous()
     return (q, k, v, bias), (q4, k4, v4, m4)
+
+
+def _sdpa_view(x, h: int):
+    """(nW, B, n, C) -> SDPA's (nW B, h, n, dh)."""
+    nw, b, n, c = x.shape
+    return x.reshape(nw, b, n, h, c // h).transpose(2, 3).reshape(
+        nw * b, h, n, c // h).contiguous()
 
 
 def _swin_pieces(SA, q, k, v, bias, h: int) -> dict:
@@ -291,8 +317,10 @@ def swin_calls() -> None:
         lib_host_us = _host_us(lib)
         lib_win = P.profile_window(lib, 200, {})
         piece_us = _swin_pieces(SA, q, k, v, bias, h)
+        out = call().float().cpu().numpy()
         print(json.dumps({
             "geometry": name, "nW": nw, "B": SWIN_BATCH, "C": c, "H": h,
+            "o_sha256": hashlib.sha256(out.tobytes()).hexdigest()[:16],
             "host_us_a_call": host_us,
             "kernel_device_us_a_launch": win["kernels_ms"]["swin"] * 1e3
             / 200,
@@ -303,6 +331,97 @@ def swin_calls() -> None:
                 x for k_, x in piece_us.items()
                 if x is not None and k_ != "c_entry"),
             "card": P.card()}), flush=True)
+
+
+def _swin_bwd_entry(SA, q, k, v, bias, do, h: int, groups: int):
+    """#9's C entry point with the call's arguments and a given batch split
+    (the same signature on an older tree): one call, rc checked."""
+    nw, b, n, c = q.shape
+    fn, dev = SA.load_train_bwd_kernel(), q.get_device()
+    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
+    dbias = torch.empty_like(bias)
+    ws = torch.empty((groups, *bias.shape), device=q.device)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            dbias.data_ptr(), ws.data_ptr(), nw, b, n, h, c // h, groups,
+            SA._DTYPE_CODES[q.dtype], dev,
+            torch._C._cuda_getCurrentRawStream(dev))
+
+    def call():
+        rc = fn(*args)
+        if rc:
+            raise RuntimeError(f"swin_attn_train_bwd: CUDA error {rc}")
+    return call
+
+
+def swin_bwd_calls() -> None:
+    from mmd_tpu_torch.ops import swin_attention as SA
+    if not torch.cuda.is_available():
+        raise SystemExit("swin_bwd_calls needs a CUDA device")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    print(json.dumps({"card": P.card()}), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # an older tree splits the backward's batch as the forward's
+    groups_of = getattr(SA, "bwd_batch_groups", SA.batch_groups)
+    calls = 50
+    step = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name_dt = str(dtype).split(".")[-1]
+        step[name_dt] = 0.0
+        for name, nw, c, h in SWIN_GEOMETRIES:
+            (q, k, v, bias), (q4, k4, v4, m4) = _swin_inputs(
+                dev, gen, nw, c, h, dtype)
+            do = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
+            call = lambda: SA.swin_window_attention_bwd(  # noqa: E731
+                q, k, v, bias, do, h)
+            host_us = _host_us(call, 200)
+            enqueue_us = _enqueue_us(call)
+            event_us = _event_us(call)
+            win = P.profile_window(call, calls, {})
+            per_kernel = {k_: v_ * 1e3 / calls
+                          for k_, v_ in win["device_ms_top"].items()
+                          if "swin_train" in k_}
+            by_groups = {}
+            for g in (d for d in range(1, SWIN_BATCH + 1)
+                      if SWIN_BATCH % d == 0):
+                w = P.profile_window(_swin_bwd_entry(SA, q, k, v, bias, do,
+                                                     h, g), calls, {})
+                by_groups[g] = sum(v_ for k_, v_ in
+                                   w["device_ms_top"].items()
+                                   if "swin_train" in k_) * 1e3 / calls
+            # SDPA's backward with the mask's gradient, as chip_smoke.py's
+            # phase_swin_train takes its library time
+            leaves = [x.detach().requires_grad_() for x in (q4, k4, v4, m4)]
+            try:
+                o4 = sdpa(*leaves[:3], attn_mask=leaves[3],
+                          scale=math.log(2.0))
+                lib = lambda: torch.autograd.grad(  # noqa: E731
+                    o4, leaves, _sdpa_view(do, h), retain_graph=True)
+                lib_event_us = _event_us(lib)
+                lib_device_us = P.profile_window(lib, calls, {})[
+                    "device_busy_ms"] * 1e3 / calls
+            except RuntimeError:             # no backend gives dmask
+                lib_event_us = lib_device_us = None
+            device_us = sum(per_kernel.values())
+            step[name_dt] += SWIN_CALLS_A_STEP[name] * device_us
+            print(json.dumps({
+                "geometry": name, "nW": nw, "B": SWIN_BATCH, "C": c, "H": h,
+                "dtype": name_dt, "groups": groups_of(nw, SWIN_BATCH, h),
+                "host_us_a_call": host_us,
+                "host_enqueue_us_a_call": enqueue_us,
+                "event_us_a_call": event_us,
+                "device_us_a_call": device_us,
+                "device_us_by_kernel": per_kernel,
+                "device_us_by_groups": by_groups,
+                "sdpa_bwd_event_us_a_call": lib_event_us,
+                "sdpa_bwd_device_us_a_call": lib_device_us,
+                "card": P.card()}), flush=True)
+            del leaves, q, k, v, do
+            torch.cuda.empty_cache()
+    print(json.dumps({"per_step": sum(SWIN_CALLS_A_STEP.values()),
+                      "device_us_a_step": step, "card": P.card()}),
+          flush=True)
 
 
 def _enqueue_us(call, calls: int = 10, runs: int = 20) -> float:
@@ -492,6 +611,7 @@ def main(argv=None) -> None:
     sub.add_parser("ptxas").add_argument("sources", nargs="*")
     sub.add_parser("flash_calls")
     sub.add_parser("swin_calls")
+    sub.add_parser("swin_bwd_calls")
     sub.add_parser("deberta_fwd_calls")
     sub.add_parser("deberta_bwd_calls")
     sub.add_parser("mlp_bwd_calls")
@@ -503,6 +623,8 @@ def main(argv=None) -> None:
         flash_calls()
     elif args.what == "swin_calls":
         swin_calls()
+    elif args.what == "swin_bwd_calls":
+        swin_bwd_calls()
     elif args.what == "deberta_fwd_calls":
         deberta_fwd_calls()
     elif args.what == "deberta_bwd_calls":

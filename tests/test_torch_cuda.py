@@ -711,7 +711,7 @@ def test_deberta_bwd_refuses_what_it_does_not_take(cuda_device):
 def test_swin_train_kernels_match_plain(cuda_device, dtype, nw, b, c, heads):
     """The four Swinv2-base stages at batch 8, then B 7 (one row a CTA, and
     seven rows a CTA at 512 (window, head) pairs), B 1 and head dim 64;
-    the forward twice, bit-identical."""
+    the forward and the backward twice each, bit-identical."""
     g = torch.Generator(device=cuda_device).manual_seed(5)
     dh = c // heads
 
@@ -731,11 +731,15 @@ def test_swin_train_kernels_match_plain(cuda_device, dtype, nw, b, c, heads):
     o = SA.swin_window_attention_fwd(q, k, v, bias, heads)
     assert SA.train_launches == before[0] + 1
     grads = SA.swin_window_attention_bwd(q, k, v, bias, do, heads)
+    assert SA.train_bwd_launches == before[1] + 1
     again = SA.swin_window_attention_fwd(q, k, v, bias, heads)
+    grads_again = SA.swin_window_attention_bwd(q, k, v, bias, do, heads)
     torch.cuda.synchronize()
     assert (SA.train_launches, SA.train_bwd_launches) == (before[0] + 2,
-                                                          before[1] + 1)
+                                                          before[1] + 2)
     assert torch.equal(o, again)
+    for name, a, a2 in zip(("dq", "dk", "dv", "dbias"), grads, grads_again):
+        assert torch.equal(a, a2), name
     ref = SA.swin_window_attention_plain(q.float(), k.float(), v.float(),
                                          bias, heads)
     assert o.dtype == dtype

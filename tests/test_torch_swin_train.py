@@ -1,6 +1,7 @@
 """The Swin fine-tuning kernels' host side (#8 forward, #9 backward), on the
-CPU: the batch groups that set their grids, and the input checks that guard
-their C entry points (each bad input raises ValueError before any launch).
+CPU: the batch groups that set their grids (each kernel its own), and the
+input checks that guard their C entry points (each bad input raises
+ValueError before any launch).
 The kernels themselves run in tests/test_torch_cuda.py, on a card."""
 
 import pytest
@@ -34,6 +35,30 @@ def test_batch_groups_divide_the_batch_and_fill_the_card(nw, b, heads, want):
                    for d in range(1, g) if b % d == 0)
     else:
         assert g == b                     # one row a CTA
+
+
+@pytest.mark.parametrize("nw,b,heads,want", [
+    (64, 8, 4, 1),        # Swinv2-base stage 0: 256 CTAs of 8 rows, one launch
+    (16, 8, 8, 2),        # stage 1: 128 pairs, short of one CTA an SM
+    (4, 8, 16, 4),        # stage 2: 256 CTAs of 2 rows
+    (1, 8, 32, 8),        # stage 3: 256 CTAs of 1 row
+    (64, 7, 4, 1),        # B 7 (prime)
+    (16, 7, 4, 7),
+    (1, 1, 32, 1),        # B 1
+    (300, 8, 1, 1),
+])
+def test_bwd_batch_groups_fill_the_card_once(nw, b, heads, want):
+    """The backward's own split: one CTA an SM (132), not the forward's
+    two, so that a (window, head) keeps its batch rows in one CTA, and
+    dbias its one launch, wherever that fills the card."""
+    g = SA.bwd_batch_groups(nw, b, heads)
+    assert g == want
+    assert b % g == 0
+    if nw * heads * b >= SMS:
+        assert nw * heads * g >= SMS
+        assert all(nw * heads * d < SMS for d in range(1, g) if b % d == 0)
+    else:
+        assert g == b
 
 
 def _good(nw=4, b=2, c=128, heads=4, dtype=torch.bfloat16):
