@@ -18,7 +18,8 @@ Phases, each of which exits nonzero on failure:
               all beside the card's name
      * flash_attn_fwd        exact zeros for a row with no valid key, lse
      * layernorm             (residual +) LayerNorm, the 53 of a Swinv2 forward
-     * swin_window_attn      Swinv2 window attention, the 24 of a forward
+     * swin_window_attn      Swinv2 window attention, the 24 of a forward,
+                             fp32 and bf16, each call twice and bit for bit
      * deberta_attn_fwd      DeBERTa attention at the served (B 16, T 512)
                              and the fine-tuning (B 8, T 256) geometry,
                              fp32 and bf16: the uniform row of a row with
@@ -549,7 +550,10 @@ def phase_swin(card: str) -> dict:
         for dtype in (torch.bfloat16, torch.float32):
             q, k, v = (x.to(dtype) for x in (q32, k32, v32))
             o = SA.swin_window_attention_infer(q, k, v, bias, scale, h)
+            again = SA.swin_window_attention_infer(q, k, v, bias, scale, h)
             torch.cuda.synchronize()
+            if not torch.equal(o, again):
+                fail(f"swin kernel: two calls differ at nW={nw} C={c} {dtype}")
             ref = SA.swin_window_attention_infer_plain(
                 q.float(), k.float(), v.float(), bias, scale, h)
             err = (o.float() - ref).abs().max().item()

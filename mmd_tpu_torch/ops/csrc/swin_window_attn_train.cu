@@ -29,9 +29,9 @@
 //
 // What bounds it on this card: bytes. Per (window, batch row, head) the
 // forward reads three 64 x dh tiles and writes one for 4 * 64 * 64 * dh
-// operations, 64 operations per bf16 byte at dh 32; the backward reads five
-// and writes three for 10 * 64 * 64 * dh, ~100 a byte; both well below the
-// ~295 where the tensor cores would be the limit.
+// operations, 32 operations per bf16 byte; the backward reads five and
+// writes three for 10 * 64 * 64 * dh, 40 a byte; both well below the ~295
+// where the tensor cores would be the limit.
 //
 // Both do about that the same way:
 //   * 4 warps, each owning 16 of the window's 64 rows, as the flash
@@ -49,9 +49,11 @@
 //   * the row max and sums are fp32 over the 4 lanes of a row (two
 //     shuffles); no atomics, so the results are deterministic.
 //
-// #8, the forward (swin_train_fwd_kernel): q', k and v a stage (30 KB at
-// bf16 dh 32); in bf16 the unnormalized P is rounded to bf16 before P V
-// and o is divided by max(l, 1e-37) after it, as the TPU kernel does.
+// #8, the forward (swin_train_fwd_kernel): the body it shares with the
+// serving kernel #7, swin_fwd.cuh (Inputs::kNormalized): q', k and v a
+// stage (30 KB at bf16 dh 32); in bf16 the unnormalized P is rounded to
+// bf16 before P V and o is divided by max(l, 1e-37) after it, as the TPU
+// kernel does.
 //
 // #9, the backward (swin_train_bwd_kernel): q', k, v and do a stage, and
 // the weight tiles below (76 KB at bf16 dh 32: two CTAs an SM). A CTA owns
@@ -103,119 +105,28 @@
 
 #include <atomic>
 
-#include "flash_common.cuh"
+#include "swin_fwd.cuh"
 
 namespace {
 
 namespace F = mmd_flash;
+namespace S = mmd_swin;
 
 constexpr int N = 64;                        // tokens per window (8 x 8)
 constexpr int SUM_THREADS = 256;
 constexpr float LN2 = 0.6931471805599453f;
 
 // ---------------------------------------------------------------------------
-// #8: the forward, one CTA of 4 warps per (head, window, group of batch rows)
+// #8: the forward, one CTA of 4 warps per (head, window, group of batch rows):
+// the body both Swin forwards share (swin_fwd.cuh)
 // ---------------------------------------------------------------------------
-template <typename T, int DH>
-constexpr size_t fwd_smem_bytes() {
-    return 2 * 3 * F::Tile<T, DH>::BYTES;    // two stages of q', k and v tiles
-}
-
 template <typename T, int DH>
 __global__ void __launch_bounds__(F::THREADS)
 swin_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                       const float* __restrict__ bias, T* __restrict__ o, int batch, int heads,
                       int per_group) {
-    static_assert(N == F::BLOCK, "a window is one tile of the flash products");
-    using Op = F::Ops<T, DH>;
-    constexpr int TE = F::Tile<T, DH>::ELEMS;
-    constexpr int NT = F::NT;
-    extern __shared__ float4 smem4[];
-    T* tiles = reinterpret_cast<T*>(smem4);  // [2 stages][q', k, v][N][LD]
-
-    const int tid = threadIdx.x;
-    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
-    const int h = blockIdx.x;
-    const int w = blockIdx.y;
-    const int b0 = blockIdx.z * per_group;
-    const int c = heads * DH;
-    // the (window, batch row b) tile of this head starts at row_base(b)
-    const size_t head_base = static_cast<size_t>(w) * batch * N * c + static_cast<size_t>(h) * DH;
-    auto row_base = [&](int b) { return head_base + static_cast<size_t>(b) * N * c; };
-    auto copy_row = [&](int stage, int b) {
-        T* s = tiles + stage * 3 * TE;
-        const size_t off = row_base(b);
-        F::copy_tile<T, DH>(s, q + off, c, 0, N);
-        F::copy_tile<T, DH>(s + TE, k + off, c, 0, N);
-        F::copy_tile<T, DH>(s + 2 * TE, v + off, c, 0, N);
-    };
-    copy_row(0, b0);
-    mmd_tc::cp_async_commit();
-
-    // The warp's 16 bias rows, once for the group, at the score fragment's
-    // (row g + 8 r, key 8 nt + 2 qd + {0, 1}), under the first copy.
-    float bs[NT][4];
-    const float* bt = bias + ((static_cast<size_t>(w) * heads + h) * N + 16 * warp + g) * N + 2 * qd;
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            const float2 x = __ldg(reinterpret_cast<const float2*>(bt + 8 * r * N + 8 * nt));
-            bs[nt][2 * r] = x.x;
-            bs[nt][2 * r + 1] = x.y;
-        }
-
-    for (int i = 0; i < per_group; ++i) {
-        const int cur = i & 1;
-        if (i + 1 < per_group) copy_row(cur ^ 1, b0 + i + 1);   // under this row's work
-        mmd_tc::cp_async_commit();
-        mmd_tc::cp_async_wait<1>();          // this row's tiles have landed
-        __syncthreads();
-        const T* qs = tiles + cur * 3 * TE;
-
-        typename Op::A qa;
-        Op::load_a(qa, qs, 16 * warp);
-        float sc[NT][4];
-        F::zero(sc);
-        Op::template scores<NT>(sc, qa, qs + TE);
-        float mx[2] = {-CUDART_INF_F, -CUDART_INF_F};
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                sc[nt][e] += bs[nt][e];
-                mx[e >> 1] = fmaxf(mx[e >> 1], sc[nt][e]);
-            }
-        float l[2] = {0.f, 0.f};
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-            mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const float p = exp2f(sc[nt][e] - mx[e >> 1]);
-                l[e >> 1] += p;              // the fp32 weights, as the TPU kernel sums them
-                sc[nt][e] = p;
-            }
-        float acc[DH / 8][4];
-        F::zero(acc);
-        Op::template pv<NT>(acc, sc, qs + 2 * TE);
-
-#pragma unroll
-        for (int r = 0; r < 2; ++r) {
-            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-            l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-            const float inv = 1.f / fmaxf(l[r], 1e-37f);
-            T* orow = o + row_base(b0 + i) + static_cast<size_t>(16 * warp + g + 8 * r) * c;
-#pragma unroll
-            for (int n = 0; n < DH / 8; ++n)
-                F::store2(orow + 8 * n + 2 * qd, acc[n][2 * r] * inv, acc[n][2 * r + 1] * inv);
-        }
-        __syncthreads();                     // this stage is free for the row after next
-    }
+    S::forward<T, DH, S::Inputs::kNormalized>(q, k, v, bias, nullptr, o, batch, heads, false,
+                                              per_group);
 }
 
 // ---------------------------------------------------------------------------
@@ -555,26 +466,13 @@ swin_train_dbias_kernel(const float* __restrict__ ws, float* __restrict__ dbias,
     dbias[idx] = acc;
 }
 
-// Above 48 KB of dynamic shared memory a kernel has to be allowed it, once
-// per device: `raised`, the caller's own for each kernel, holds a bit for
-// each device where that is done.
-template <typename Kernel>
-cudaError_t allow_smem(Kernel kernel, size_t smem, int device, std::atomic<uint64_t>& raised) {
-    const uint64_t bit = uint64_t{1} << device;
-    if (smem <= 48 * 1024 || (raised.load(std::memory_order_relaxed) & bit)) return cudaSuccess;
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err == cudaSuccess) raised.fetch_or(bit, std::memory_order_relaxed);
-    return err;
-}
-
 template <typename T, int DH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
                        int windows, int batch, int heads, int groups, int device,
                        cudaStream_t stream) {
-    constexpr size_t smem = fwd_smem_bytes<T, DH>();
+    constexpr size_t smem = S::fwd_smem_bytes<T, DH>();
     static std::atomic<uint64_t> raised{0};
-    cudaError_t err = allow_smem(swin_train_fwd_kernel<T, DH>, smem, device, raised);
+    cudaError_t err = S::allow_smem(swin_train_fwd_kernel<T, DH>, smem, device, raised);
     if (err != cudaSuccess) return err;
     swin_train_fwd_kernel<T, DH><<<dim3(heads, windows, groups), F::THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -589,7 +487,7 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
                        cudaStream_t stream) {
     constexpr size_t smem = bwd_smem_bytes<T, DH>();
     static std::atomic<uint64_t> raised{0};
-    cudaError_t err = allow_smem(swin_train_bwd_kernel<T, DH>, smem, device, raised);
+    cudaError_t err = S::allow_smem(swin_train_bwd_kernel<T, DH>, smem, device, raised);
     if (err != cudaSuccess) return err;
     swin_train_bwd_kernel<T, DH><<<dim3(heads, windows, groups), F::THREADS, smem, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
@@ -606,20 +504,6 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
     return cudaGetLastError();
 }
 
-// The checks both entry points make, then `device` made current if it is
-// not already.
-cudaError_t enter(int windows, int batch, int n, int heads, int groups, int device) {
-    if (n != N || windows <= 0 || windows > 65535 || batch <= 0 || batch > 65535 ||
-        heads <= 0 || heads > 65535 || groups <= 0 || groups > 65535 || batch % groups != 0 ||
-        device < 0 || device >= 64) {
-        return cudaErrorInvalidValue;
-    }
-    int current = -1;
-    cudaError_t err = cudaGetDevice(&current);
-    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
-    return err;
-}
-
 }  // namespace
 
 // C entry points, bound with ctypes. q, k, v, o, dout, dq, dk, dv are
@@ -632,7 +516,7 @@ extern "C" int mmd_swin_attn_train_fwd(const void* q, const void* k, const void*
                                        const void* bias, void* o, int windows, int batch,
                                        int n, int heads, int head_dim, int groups, int dtype,
                                        int device, void* stream) {
-    cudaError_t err = enter(windows, batch, n, heads, groups, device);
+    cudaError_t err = S::enter(windows, batch, n, heads, groups, device);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0 && head_dim == 32)
@@ -653,7 +537,7 @@ extern "C" int mmd_swin_attn_train_bwd(const void* q, const void* k, const void*
                                        void* dv, void* dbias, void* ws, int windows, int batch,
                                        int n, int heads, int head_dim, int groups, int dtype,
                                        int device, void* stream) {
-    cudaError_t err = enter(windows, batch, n, heads, groups, device);
+    cudaError_t err = S::enter(windows, batch, n, heads, groups, device);
     if (err == cudaSuccess && groups > 1 && ws == nullptr) err = cudaErrorInvalidValue;
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaStream_t st = static_cast<cudaStream_t>(stream);

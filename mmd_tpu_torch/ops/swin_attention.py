@@ -16,9 +16,12 @@ shifted-window mask, or the position bias alone for every window. (The
 JAX package takes both in the log2 domain and packs them for Mosaic; its
 bf16 kernel also rounds the squares before the norms.)
 
-  * CUDA tensors go to the kernel (ops/csrc/swin_window_attn.cu): n = 64,
-    head dims 32 and 64, float32 or bfloat16; it raises on the rest, and
-    on inputs that require grad while grad is enabled, since it has no
+  * CUDA tensors go to the kernel (ops/csrc/swin_window_attn.cu over the
+    forward body it shares with the fine-tuning forward, swin_fwd.cuh): n
+    = 64, head dims 32 and 64, float32 or bfloat16, the batch split into
+    the groups of `batch_groups`; in bf16 it rounds the unnormalized P to
+    bf16 before P.V, as the JAX kernel does. It raises on the rest, and on
+    inputs that require grad while grad is enabled, since it has no
     backward (neither has the JAX package's serving kernel).
   * CPU tensors go to `swin_window_attention_infer_plain`.
 
@@ -107,13 +110,38 @@ def swin_window_attention_infer_plain(q, k, v, bias, scale, heads: int
     return o.transpose(2, 3).reshape(nw, b, n, c).to(q.dtype)
 
 
+# The C entry points of the serving library (#7) and of the fine-tuning
+# library (#8, #9): name -> (library, argtypes); each bound once, its
+# argtypes set at load.
+_ENTRIES = {
+    "mmd_swin_window_attn_fwd": ("swin_window_attn", [ctypes.c_void_p] * 6
+                                 + [ctypes.c_int] * 9 + [ctypes.c_void_p]),
+    "mmd_swin_attn_train_fwd": ("swin_window_attn_train",
+                                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
+                                + [ctypes.c_void_p]),
+    "mmd_swin_attn_train_bwd": ("swin_window_attn_train",
+                                [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                                + [ctypes.c_void_p])}
+_fns: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _entry(name: str):
+    fn = _fns.get(name)
+    if fn is None:
+        library, argtypes = _ENTRIES[name]
+        fn = getattr(cuda_build.load_library(
+            library, [f"{library}.cu"],
+            headers=["swin_fwd.cuh", "flash_common.cuh", "tensor_core.cuh"]),
+            name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
 def load_kernel():
     """Build (at first use) and load the kernel; returns its C entry point."""
-    fn = cuda_build.load_library(
-        "swin_window_attn", ["swin_window_attn.cu"]).mmd_swin_window_attn_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
+    return _entry("mmd_swin_window_attn_fwd")
 
 
 def _check_kernel_inputs(q, k, v, bias, scale, heads):
@@ -156,12 +184,14 @@ def _swin_attention_cuda(q, k, v, bias, scale, heads):
     o = torch.empty_like(q)
     cuda_build.check_aligned(q, k, v, bias, o)
     fn = load_kernel()
+    dev = q.get_device()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             scale.data_ptr(), o.data_ptr(), nw, b, n, heads, c // heads,
-            bias.shape[0], _DTYPE_CODES[q.dtype], cuda_build.device_index(q),
-            torch.cuda.current_stream(q.device).cuda_stream)
-    cuda_build.check_launch(rc, f"swin_window_attn {tuple(q.shape)} "
-                                f"{heads} heads {q.dtype}")
+            bias.shape[0], batch_groups(nw, b, heads), _DTYPE_CODES[q.dtype],
+            dev, torch._C._cuda_getCurrentRawStream(dev))
+    if rc:
+        cuda_build.check_launch(rc, f"swin_window_attn {tuple(q.shape)} "
+                                    f"{heads} heads {q.dtype}")
     with _launch_lock:
         launches += 1
     return o
@@ -225,43 +255,22 @@ def swin_window_attention_bwd_plain(q, k, v, bias, do, heads: int):
     return (*(_merge(x).to(q.dtype) for x in (dq, dk, dv)), ds.sum(dim=1))
 
 
-# the fine-tuning library's C entry points, bound once (argtypes set at load)
-_train_fns: dict[str, ctypes._CFuncPtr] = {}
-_TRAIN_ARGTYPES = {
-    "mmd_swin_attn_train_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 8
-    + [ctypes.c_void_p],
-    "mmd_swin_attn_train_bwd": [ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-    + [ctypes.c_void_p]}
-
-
-def _train_fn(name: str):
-    fn = _train_fns.get(name)
-    if fn is None:
-        fn = getattr(cuda_build.load_library(
-            "swin_window_attn_train", ["swin_window_attn_train.cu"],
-            headers=["flash_common.cuh", "tensor_core.cuh"]), name)
-        fn.argtypes = _TRAIN_ARGTYPES[name]
-        fn.restype = ctypes.c_int
-        _train_fns[name] = fn
-    return fn
-
-
 def load_train_kernel():
     """Build (at first use) and load the fine-tuning kernels; returns the
     forward's C entry point."""
-    return _train_fn("mmd_swin_attn_train_fwd")
+    return _entry("mmd_swin_attn_train_fwd")
 
 
 def load_train_bwd_kernel():
     """The fine-tuning backward's C entry point (same library as
     `load_train_kernel`)."""
-    return _train_fn("mmd_swin_attn_train_bwd")
+    return _entry("mmd_swin_attn_train_bwd")
 
 
 @functools.lru_cache(maxsize=256)
 def batch_groups(windows: int, batch: int, heads: int) -> int:
-    """Batch groups of the fine-tuning forward: its CTAs are (head, window,
-    group), each walking batch / groups rows. The fewest groups (a divisor
+    """Batch groups of the forwards, serving (#7) and fine-tuning (#8):
+    their CTAs are (head, window, group), each walking batch / groups rows. The fewest groups (a divisor
     of the batch) that give `_CTAS` CTAs, or one group per batch row."""
     return _fewest_groups(windows * heads, batch, _CTAS)
 

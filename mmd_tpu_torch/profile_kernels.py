@@ -3,6 +3,7 @@
     python -m mmd_tpu_torch.profile_kernels ptxas [SOURCE.cu ...]
     python -m mmd_tpu_torch.profile_kernels flash_calls
     python -m mmd_tpu_torch.profile_kernels swin_calls
+    python -m mmd_tpu_torch.profile_kernels swin_infer_calls
     python -m mmd_tpu_torch.profile_kernels swin_bwd_calls
     python -m mmd_tpu_torch.profile_kernels deberta_fwd_calls
     python -m mmd_tpu_torch.profile_kernels deberta_bwd_calls
@@ -31,6 +32,18 @@ bit). It also times each piece of the wrapper's call path alone (2000
 calls each), down to the C entry point with its arguments, which launches
 the kernel: what is left of a host-bound call past those pieces is
 Python's own calls and the launch counter. It needs a CUDA device.
+
+`swin_infer_calls` times the Swin serving kernel (#7,
+`swin_window_attention_infer`) at the seven geometries of a served batch of
+Swinv2-base (batch 16; unshifted blocks share one bias tile, shifted ones
+have one a window), bf16 and fp32: host us a call, the host's own us a call,
+the device us a launch (torch.profiler over 50 calls), the us a call by CUDA
+events, the wrapper's batch groups, a digest of the output (inputs from a
+fixed seed: two trees compare bit for bit), and the device us of the C entry
+point itself at each batch split that divides the batch (where the tree's
+entry point takes one); then each dtype's device and CUDA-event us summed
+over a served batch's 48 calls. It runs on an older tree too, for a
+parent/change comparison in one run. It needs a CUDA device.
 
 `swin_bwd_calls` times the Swin fine-tuning backward (#9,
 `swin_window_attention_bwd`) at the same four stage geometries, bf16 and
@@ -112,6 +125,11 @@ BATCH = 16
 SWIN_GEOMETRIES = [("stage0", 64, 128, 4), ("stage1", 16, 256, 8),
                    ("stage2", 4, 512, 16), ("stage3", 1, 1024, 32)]
 SWIN_BATCH = 8
+# the serving kernel's calls in a served batch of 16 (chip_smoke.py's
+# SWIN_GEOMS): (windows, C, heads, bias windows) -> calls
+SWIN_SERVED = {(64, 128, 4, 1): 2, (64, 128, 4, 64): 2, (16, 256, 8, 1): 2,
+               (16, 256, 8, 16): 2, (4, 512, 16, 1): 18, (4, 512, 16, 4): 18,
+               (1, 1024, 32, 1): 4}
 # the backward's calls a fine-tuning step at each stage: 2 images x the
 # stage's blocks (chip_smoke.py's FT_SWIN_GEOMS)
 SWIN_CALLS_A_STEP = {"stage0": 4, "stage1": 4, "stage2": 36, "stage3": 4}
@@ -331,6 +349,95 @@ def swin_calls() -> None:
                 x for k_, x in piece_us.items()
                 if x is not None and k_ != "c_entry"),
             "card": P.card()}), flush=True)
+
+
+def _swin_infer_inputs(dev, gen, nw: int, c: int, h: int, nwb: int):
+    """Raw q, k, v (fp32), the natural-log bias and the clamped logit scale
+    as chip_smoke.py's phase_swin makes them, at batch 16."""
+    n = 64
+    q, k, v = (torch.randn(nw, BATCH, n, c, device=dev, generator=gen)
+               for _ in range(3))
+    bias = 16 * torch.rand(1, h, n, n, device=dev, generator=gen)
+    if nwb > 1:
+        bias = bias - 200.0 * (torch.rand(nwb, 1, n, n, device=dev,
+                                          generator=gen) < 0.3)
+    bias = bias.expand(nwb, h, n, n).contiguous()
+    scale = torch.exp(torch.clamp(torch.rand(h, device=dev, generator=gen)
+                                  * 5, max=math.log(100)))
+    return q, k, v, bias, scale
+
+
+def _swin_infer_entry(SA, q, k, v, bias, scale, h: int, groups: int):
+    """#7's C entry point with the call's arguments at a given batch split;
+    None where the tree's entry point takes no batch split."""
+    nw, b, n, c = q.shape
+    fn, dev = SA.load_kernel(), q.get_device()
+    if len(fn.argtypes) != 16:
+        return None
+    o = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            scale.data_ptr(), o.data_ptr(), nw, b, n, h, c // h,
+            bias.shape[0], groups, SA._DTYPE_CODES[q.dtype], dev,
+            torch._C._cuda_getCurrentRawStream(dev))
+
+    def call():
+        rc = fn(*args)
+        if rc:
+            raise RuntimeError(f"swin_window_attn: CUDA error {rc}")
+    return call
+
+
+def swin_infer_calls() -> None:
+    from mmd_tpu_torch.ops import swin_attention as SA
+    if not torch.cuda.is_available():
+        raise SystemExit("swin_infer_calls needs a CUDA device")
+    print(json.dumps({"card": P.card()}), flush=True)
+    dev = torch.device("cuda")
+    calls = 50
+    batch = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name_dt = str(dtype).split(".")[-1]
+        batch[name_dt] = {"device_us": 0.0, "event_us": 0.0}
+        gen = torch.Generator(device=dev).manual_seed(0)
+        for (nw, c, h, nwb), count in SWIN_SERVED.items():
+            q, k, v, bias, scale = _swin_infer_inputs(dev, gen, nw, c, h,
+                                                      nwb)
+            q, k, v = (x.to(dtype) for x in (q, k, v))
+            call = lambda: SA.swin_window_attention_infer(  # noqa: E731
+                q, k, v, bias, scale, h)
+            host_us = _host_us(call, 200)
+            enqueue_us = _enqueue_us(call)
+            event_us = _event_us(call)
+            win = P.profile_window(call, calls, {"swin_attn_kernel": "swin"})
+            device_us = win["kernels_ms"]["swin"] * 1e3 / calls
+            by_groups = {}
+            for g in (d for d in range(1, BATCH + 1) if BATCH % d == 0):
+                entry = _swin_infer_entry(SA, q, k, v, bias, scale, h, g)
+                if entry is None:
+                    by_groups = None
+                    break
+                by_groups[g] = P.profile_window(
+                    entry, calls, {"swin_attn_kernel": "swin"})[
+                    "kernels_ms"]["swin"] * 1e3 / calls
+            out = call().float().cpu().numpy()
+            batch[name_dt]["device_us"] += count * device_us
+            batch[name_dt]["event_us"] += count * event_us
+            print(json.dumps({
+                "nW": nw, "B": BATCH, "C": c, "H": h, "bias_windows": nwb,
+                "dtype": name_dt, "calls_a_batch": count,
+                "groups": (SA.batch_groups(nw, BATCH, h)
+                           if by_groups is not None else None),
+                "o_sha256": hashlib.sha256(out.tobytes()).hexdigest()[:16],
+                "host_us_a_call": host_us,
+                "host_enqueue_us_a_call": enqueue_us,
+                "event_us_a_call": event_us,
+                "device_us_a_launch": device_us,
+                "device_us_by_groups": by_groups,
+                "card": P.card()}), flush=True)
+            del q, k, v, bias
+            torch.cuda.empty_cache()
+    print(json.dumps({"per_batch": sum(SWIN_SERVED.values()),
+                      "us_a_batch": batch, "card": P.card()}), flush=True)
 
 
 def _swin_bwd_entry(SA, q, k, v, bias, do, h: int, groups: int):
@@ -611,6 +718,7 @@ def main(argv=None) -> None:
     sub.add_parser("ptxas").add_argument("sources", nargs="*")
     sub.add_parser("flash_calls")
     sub.add_parser("swin_calls")
+    sub.add_parser("swin_infer_calls")
     sub.add_parser("swin_bwd_calls")
     sub.add_parser("deberta_fwd_calls")
     sub.add_parser("deberta_bwd_calls")
@@ -623,6 +731,8 @@ def main(argv=None) -> None:
         flash_calls()
     elif args.what == "swin_calls":
         swin_calls()
+    elif args.what == "swin_infer_calls":
+        swin_infer_calls()
     elif args.what == "swin_bwd_calls":
         swin_bwd_calls()
     elif args.what == "deberta_fwd_calls":

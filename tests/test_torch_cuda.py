@@ -189,24 +189,68 @@ def test_layernorm_kernel_matches_plain(cuda_device, dtype, rows, c,
     assert (out.float() - ref).abs().max().item() <= _tol(dtype, ref)
 
 
+# the Swinv2-base window attentions of a served batch of 16: (nW, C,
+# heads, bias windows), unshifted blocks sharing one bias tile; and head
+# dim 64
+SWIN_SERVED = [(64, 128, 4, 1), (64, 128, 4, 64), (16, 256, 8, 1),
+               (16, 256, 8, 16), (4, 512, 16, 1), (4, 512, 16, 4),
+               (1, 1024, 32, 1), (4, 256, 4, 4)]
+
+
+def _swin_serving_inputs(dev, dtype, nw, b, c, heads, nwb, seed):
+    """Raw q, k, v; the position bias in (0, 16) plus, for shifted blocks,
+    twice a 0 / -100 region mask; logit scales up to the clamp of 100."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, k, v = (torch.randn(nw, b, 64, c, device=dev, generator=g).to(dtype)
+               for _ in range(3))
+    bias = 16 * torch.rand(1, heads, 64, 64, device=dev, generator=g)
+    if nwb > 1:
+        bias = bias - 200.0 * (torch.rand(nwb, 1, 64, 64, device=dev,
+                                          generator=g) < 0.3)
+    bias = bias.expand(nwb, heads, 64, 64).contiguous()
+    scale = torch.exp(torch.clamp(
+        torch.rand(heads, device=dev, generator=g) * 5, max=np.log(100.0)))
+    return q, k, v, bias, scale
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("nw,c,heads,shared_bias", [
-    (16, 128, 4, False), (4, 256, 8, True), (1, 1024, 32, True),
-    (4, 256, 4, False)])
-def test_swin_kernel_matches_plain(cuda_device, dtype, nw, c, heads,
-                                   shared_bias):
-    g = torch.Generator(device=cuda_device).manual_seed(2)
-    q, k, v = (torch.randn(nw, B, 64, c, device=cuda_device, generator=g)
-               .to(dtype) for _ in range(3))
-    bias = torch.randn(1 if shared_bias else nw, heads, 64, 64,
-                       device=cuda_device, generator=g) * 4
-    scale = torch.rand(heads, device=cuda_device, generator=g) * 30 + 1
+@pytest.mark.parametrize("nw,c,heads,nwb", SWIN_SERVED)
+def test_swin_kernel_matches_plain(cuda_device, dtype, nw, c, heads, nwb):
+    q, k, v, bias, scale = _swin_serving_inputs(cuda_device, dtype, nw, 16,
+                                                c, heads, nwb, seed=2)
     before = SA.launches
     o = SA.swin_window_attention_infer(q, k, v, bias, scale, heads)
     torch.cuda.synchronize()
     ref = SA.swin_window_attention_infer_plain(q.float(), k.float(),
                                                v.float(), bias, scale, heads)
     assert SA.launches == before + 1 and o.dtype == dtype
+    assert (o.float() - ref).abs().max().item() <= _tol(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nw,b,c,heads,nwb", [
+    (4, 5, 512, 16, 4), (16, 12, 256, 8, 1), (4, 12, 256, 4, 4)])
+def test_swin_kernel_uneven_batch_zero_rows_scale_100(cuda_device, dtype, nw,
+                                                      b, c, heads, nwb):
+    """Batches that `batch_groups` splits unevenly against its CTA target
+    (B 5: one row a group; B 12), a zero q row and a zero k row (the 1e-12
+    floor), every logit scale at the clamp of 100; two calls give the same
+    bits."""
+    q, k, v, bias, scale = _swin_serving_inputs(cuda_device, dtype, nw, b,
+                                                c, heads, nwb, seed=5)
+    dh = c // heads
+    q[0, 0, 5, :dh] = 0
+    k[nw - 1, b - 1, 7, c - dh:] = 0
+    scale = torch.full_like(scale, 100.0)
+    before = SA.launches
+    o = SA.swin_window_attention_infer(q, k, v, bias, scale, heads)
+    again = SA.swin_window_attention_infer(q, k, v, bias, scale, heads)
+    torch.cuda.synchronize()
+    assert SA.launches == before + 2
+    assert torch.equal(o, again)
+    ref = SA.swin_window_attention_infer_plain(q.float(), k.float(),
+                                               v.float(), bias, scale, heads)
+    assert torch.isfinite(o.float()).all()
     assert (o.float() - ref).abs().max().item() <= _tol(dtype, ref)
 
 

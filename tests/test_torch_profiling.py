@@ -103,6 +103,13 @@ def test_swin_bwd_calls_needs_a_card():
         profile_kernels.main(["swin_bwd_calls"])
 
 
+def test_swin_infer_calls_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only without a CUDA device")
+    with pytest.raises(SystemExit, match="CUDA device"):
+        profile_kernels.main(["swin_infer_calls"])
+
+
 def test_mlp_bwd_calls_needs_a_card():
     if torch.cuda.is_available():
         pytest.skip("the refusal shows only without a CUDA device")
