@@ -46,7 +46,8 @@ Phases, each of which exits nonzero on failure:
                              bit-identical to their plain version; y and
                              dx, dW1, db1, dW2, db2 against the plain
                              versions and against a float64 oracle built
-                             from the dumped masks
+                             from the dumped masks; y and the gradients
+                             twice, bit-identical
      * deberta_attn_bwd      DeBERTa attention backward at B 8, T 256, D 384,
                              6 heads, a padded tail and a row with no valid
                              key: dq, dk, dv, dPK, dPQ, fp32 and bf16, each
@@ -995,8 +996,9 @@ def phase_mlp(card: str) -> dict:
     """Kernels #12, #3 and #4 at the bf16 train step's MLP geometries, rate
     0.1 and 0: the masks bit-identical to their plain version, the forward
     and the backward against their plain versions and against the float64
-    oracle of the dumped masks, the backward twice bit for bit; times per
-    train step, and #4's device time a call split by launch."""
+    oracle of the dumped masks, the forward and the backward twice bit for
+    bit; times per train step, and #4's device time a call split by
+    launch."""
     from mmd_tpu_torch.ops import dropout as D
     from mmd_tpu_torch.ops import mlp as M
     fn = torch.nn.functional
@@ -1026,6 +1028,8 @@ def phase_mlp(card: str) -> dict:
             kept_ok = all(abs(k - (1 - rate)) <= 4 * s
                           for k, s in zip(kept, sigma))
             y = M.fused_mlp_fwd(x, w1, b1, w2, b2, seeds, rate)
+            same_fwd = torch.equal(y, M.fused_mlp_fwd(x, w1, b1, w2, b2,
+                                                      seeds, rate))
             got = M.fused_mlp_bwd(x, w1, b1, w2, dy, seeds, rate)
             again = M.fused_mlp_bwd(x, w1, b1, w2, dy, seeds, rate)
             torch.cuda.synchronize()
@@ -1041,10 +1045,11 @@ def phase_mlp(card: str) -> dict:
             y64, g64 = _mlp_oracle(x, w1, b1, w2, b2, dy, m1, m2)
             orc = [_rel(y, y64)] + [_rel(g, w) for g, w in zip(got, g64)]
             del y64, g64, m1, m2
-            ok = (same and same_bwd and kept_ok and max(rel) <= MLP_TOL
-                  and max(orc) <= ORACLE_TOL)
+            ok = (same and same_fwd and same_bwd and kept_ok
+                  and max(rel) <= MLP_TOL and max(orc) <= ORACLE_TOL)
             print(f"kernel mlp N={n} D={d} F={f} bf16 rate {rate}: masks "
-                  f"bit-identical {same}, backward twice bit-identical "
+                  f"bit-identical {same}, forward twice bit-identical "
+                  f"{same_fwd}, backward twice bit-identical "
                   f"{same_bwd}, kept {kept[0]:.6f} / {kept[1]:.6f} "
                   f"(4 sigma {4 * sigma[0]:.1e} / {4 * sigma[1]:.1e}); vs "
                   f"plain y/dx/dw1/db1/dw2/db2 relative "

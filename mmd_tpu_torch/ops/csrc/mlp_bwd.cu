@@ -50,15 +50,25 @@
 // nothing).
 
 #include <atomic>
-#include <type_traits>
 
 #include "mlp_common.cuh"
 #include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
 using mmd_tc::bf16;
 using mmd_mlp::Mask;
+using mmd_wgmma::align_1024;
+using mmd_wgmma::desc_kmajor;
+using mmd_wgmma::desc_mnmajor;
+using mmd_wgmma::fence_async_shared;
+using mmd_wgmma::static_for;
+using mmd_wgmma::wgmma_commit;
+using mmd_wgmma::wgmma_fence;
+using mmd_wgmma::wgmma_n128;
+using mmd_wgmma::wgmma_n64;
+using mmd_wgmma::wgmma_wait;
 
 constexpr int THREADS = 256;
 
@@ -105,93 +115,6 @@ Work carve(void* ws, int64_t n, int d, int f, int groups) {
     w.db1 = w.dw + 2 * int64_t{groups} * d * f;
     w.db2 = w.db1 + row_tiles(n) * f;
     return w;
-}
-
-// -- wgmma (sm_90a): warpgroup products from shared memory -----------------------
-// A 128-byte-swizzled operand tile in shared memory, as the descriptors below
-// describe it (PTX ISA, "Matrix Descriptor"): K-major, rows of 64 bf16 (128
-// bytes), the 16-byte chunk c of row r at r * 128 + ((c ^ (r % 8)) * 16),
-// 8-row groups 1024 bytes apart; MN-major, rows of K, each 64-wide MN block
-// an atom of 64 K rows x 128 bytes with the same chunk swizzle, atoms
-// `atom` bytes apart. A tile's base is 1024-byte aligned.
-
-__device__ __forceinline__ uint64_t desc_kmajor(uint32_t addr) {
-    return ((addr & 0x3FFFF) >> 4) | (uint64_t{1} << 16) | (uint64_t{1024 >> 4} << 32) |
-           (uint64_t{1} << 62);
-}
-
-__device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr, uint32_t atom) {
-    return ((addr & 0x3FFFF) >> 4) | (uint64_t{(atom >> 4) & 0x3FFF} << 16) |
-           (uint64_t{1024 >> 4} << 32) | (uint64_t{1} << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-    asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// generic-proxy writes to shared memory (cp.async) made visible to wgmma
-__device__ __forceinline__ void fence_async_shared() {
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-// d (+)= a b for a 64 x 128 (d: 64 fp32 a thread) or 64 x 64 (32) block, k 16;
-// TA / TB: the operand is MN-major; accumulate: 0 overwrites d
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n128(float (&d)[64], uint64_t da, uint64_t db,
-                                           int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, %67, %68;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-          "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
-          "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-          "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
-          "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-          "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-}
-
-template <int TA, int TB>
-__device__ __forceinline__ void wgmma_n64(float (&d)[32], uint64_t da, uint64_t db,
-                                          int accumulate) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, %35, %36;\n}\n"
-        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
-          "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-          "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
-          "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-          "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-          "+f"(d[30]), "+f"(d[31])
-        : "l"(da), "l"(db), "r"(accumulate), "n"(TA), "n"(TB));
-}
-
-// The first 1024-byte aligned byte of dynamic shared memory.
-__device__ __forceinline__ unsigned char* align_1024(unsigned char* smem) {
-    const uint32_t a = mmd_tc::smem_addr(smem);
-    return smem + (((a + 1023) & ~1023u) - a);
 }
 
 // -- pass A: hb, dab, dyb and the bias partials ---------------------------------
@@ -251,16 +174,6 @@ __device__ __forceinline__ void build_dyb(unsigned char* dys, const bf16* dy, bf
         for (int j = 0; j < 4; ++j) ho[j] = __floats2bfloat162_rn(v[2 * j], v[2 * j + 1]);
         *reinterpret_cast<uint4*>(dys + kmajor_at(r, c)) = out;
         if (r < valid) *reinterpret_cast<uint4*>(dyb_out + (row0 + r) * D + c) = out;
-    }
-}
-
-// f(integral_constant<int, I>) for I in [I0, N), unrolled: the index is a
-// constant inside f, so register arrays indexed by it stay in registers.
-template <int I0, int N, typename F>
-__device__ __forceinline__ void static_for(F&& fn) {
-    if constexpr (I0 < N) {
-        fn(std::integral_constant<int, I0>{});
-        static_for<I0 + 1, N>(fn);
     }
 }
 

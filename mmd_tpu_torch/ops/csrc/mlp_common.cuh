@@ -1,16 +1,14 @@
 // Shared pieces of the fused GELU-MLP kernels (mlp_fwd.cu, mlp_bwd.cu) and
 // of their mask oracle (mlp_masks.cu), for Hopper (sm_90a):
-//   * the tanh-GELU, and for the backward the GELU with its derivative, as
-//     mmd_tpu/ops/mlp.py writes them;
+//   * the tanh-GELU with its derivative, as mmd_tpu/ops/mlp.py writes
+//     them, from one fast tanh: the one GELU both kernels take;
 //   * the MLP's two dropout masks, drawn from philox.cuh at the absolute
 //     row-major index: the hidden mask at row * F + f with the first seed,
 //     the output mask at row * D + d with the second, the same draws the
 //     unfused path's two elementwise dropouts make. `keep_byte` is the one
 //     function every kernel draws them with, so the oracle's dump tests the
 //     very bits the forward and the backward use.
-// The forward's bf16 tensor-core products (mma.sync m16n8k16 from
-// ldmatrix, tiles staged with cp.async) use tensor_core.cuh, as the
-// flash-attention kernels do; the backward's run on wgmma (mlp_bwd.cu).
+// Both kernels' products run on wgmma (wgmma.cuh).
 
 #pragma once
 
@@ -25,18 +23,15 @@ namespace mmd_mlp {
 constexpr float GELU_C = 0.7978845608028654f;   // sqrt(2 / pi)
 constexpr float GELU_K = 0.044715f;
 
-// mmd_tpu/ops/mlp.py::_gelu_tanh
-__device__ __forceinline__ float gelu_tanh(float a) {
-    return 0.5f * a * (1.f + tanhf(GELU_C * (a + GELU_K * a * a * a)));
-}
-
-// gelu_tanh(a) and its derivative from one tanh, taken as 1 - 2 / (1 +
-// e^2u) with the fast exponential and division (ex2.approx, rcp.approx):
-// within ~1e-7 of tanhf (absolute; the relative error near u = 0 is larger,
-// but 0.5 a (1 + t) and the derivative only see t's absolute error), far
-// below the bf16 rounding of h and da; the derivative as
-// mmd_tpu/ops/mlp.py::_bwd_kernel writes it. Fewer instructions than tanhf,
-// for the backward's epilogue.
+// gelu_tanh(a) (mmd_tpu/ops/mlp.py::_gelu_tanh) and its derivative from
+// one tanh, taken as 1 - 2 / (1 + e^2u) with the fast exponential and
+// division (ex2.approx, rcp.approx): within ~1e-7 of tanhf (absolute; the
+// relative error near u = 0 is larger, but 0.5 a (1 + t) and the
+// derivative only see t's absolute error), far below the bf16 rounding of
+// h and da; the derivative as mmd_tpu/ops/mlp.py::_bwd_kernel writes it.
+// The one GELU of both kernels: the forward takes g alone (the compiler
+// drops dg), so the backward's recomputed h is the forward's h wherever
+// their fp32 a agree.
 __device__ __forceinline__ void gelu_tanh_and_grad_fast(float a, float& g, float& dg) {
     const float u = GELU_C * (a + GELU_K * a * a * a);
     const float t = 1.f - __fdividef(2.f, 1.f + __expf(2.f * u));

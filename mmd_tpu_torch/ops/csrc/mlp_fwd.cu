@@ -11,190 +11,439 @@
 //   h = bf16(gelu_tanh(a) * m1)          m1 = keep * scale at row * F + f
 //   y = bf16((h w2 + b2) * m2)           m2 = keep * scale at row * D + d
 // with the masks of mlp_common.cuh (seed 1 for m1, seed 2 for m2; both 1
-// when dropout is off). Nothing F wide reaches device memory.
+// when dropout is off). Nothing F wide reaches device memory. Each row's y
+// sums the chunks of F in order, on one CTA: no split, no atomics, the
+// same bits every call.
 //
-// What bounds it on this card: arithmetic. 4 N D F operations against
-// 4 N D bytes of x and y (plus the 1 MB of weights): F = 1024 operations a
-// byte, far above the ~295 where 989 TFLOP/s of bf16 tensor-core work
-// meets 3.35 TB/s.
+// What bounds it on this card. 4 N D F tensor-core operations against 4 N D
+// bytes of x and y: F = 1024 operations a byte, far above the ~295 where
+// 989 TFLOP/s of bf16 meets 3.35 TB/s. But the work that is not a product
+// weighs as much: at dropout 0.1, N F / 4 + N D / 4 Philox4x32-10 calls of
+// ~70 integer instructions (the integer pipe does 64 lanes a clock an SM,
+// against 1024 bf16 multiply-adds on the tensor cores), one tanh a hidden
+// element, and every 128-row tile reads all of w1 and w2 (1 MB) from L2. So
+// the design is about overlap, and about keeping the products' pipeline
+// free of stalls.
 //
-// What the design does about that (first version: simple and right):
-//   * one CTA of 8 warps takes 64 rows; its x tile stays in shared memory
-//     while it walks F in chunks of 64 columns;
-//   * per chunk it stages w1[:, chunk] and w2[chunk, :] in shared memory,
-//     draws the chunk's hidden keep bits (one Philox call per 4 elements),
-//     computes the 64 x 64 block of a on the tensor cores (mma.sync
-//     m16n8k16, bf16 in, fp32 out), applies bias, GELU and the mask in
-//     registers, stores h in bf16 to shared memory, and adds h w2[chunk, :]
-//     into the 64 x D fp32 accumulator that the 8 warps hold in registers;
-//   * rows are padded by 8 elements in shared memory, so the 8 row
-//     addresses of an ldmatrix fall in different banks;
-//   * tiles arrive by cp.async, all copies of a tile in flight at once; no
-//     double buffering or warp specialization yet: two CTAs per SM overlap
-//     one's loads with the other's products. wgmma with TMA is the next
-//     step.
+//   * One CTA per 128 rows, one CTA an SM: two consumer warpgroups of 64
+//     rows and a producer warpgroup (setmaxnreg: 56 registers for it, 224
+//     for each consumer). x stays in shared memory for the whole kernel,
+//     K-major and 128-byte swizzled (64 KB at D 256).
+//   * F is walked in chunks of 64 columns. Stage p of a ring in shared
+//     memory holds w1[:, chunk p] and w2[chunk p - 1, :] (MN-major, 64 KB at
+//     D 256), chunk p's b1 and a slice of the tile's output keep bits: the
+//     two products issued together read one stage. Two stages fit beside x
+//     at D 256 (a third would need 264 KB), four at D 128. The producer refills a stage as soon as both
+//     consumers release it: one thread issues the TMA loads (which swizzle
+//     and count their bytes on the stage's mbarrier), the warpgroup copies
+//     b1 and draws the output keep bits while they fly.
+//   * A consumer warpgroup, chunk c: wait for its products (a = x w1[:, c],
+//     wgmma m64n64k16 with both operands in shared memory, and y += h w2[c -
+//     1, :]); add b1, take GELU (mlp_common.cuh's, the one #4 recomputes h
+//     with) and the hidden keep bits in place; release the stage; pack h to
+//     bf16 straight into the A fragments of the next product (h never
+//     touches shared memory); issue
+//     a = x w1[:, c + 1] and y += h w2[c, :] (wgmma m64n256k16, A from
+//     registers; m64n128 at D 128) as one group; then draw chunk c + 1's
+//     hidden keep bits into registers before waiting for those products (8
+//     Philox calls a thread; lanes q and q ^ 1 share each call). No
+//     accumulator is read while a product is in flight: ptxas would then
+//     serialize every wgmma (C7514). A wgmma's issue waits while the tensor
+//     cores' queue is full, so the draws mostly follow the products rather
+//     than overlap them, and the two warpgroups run in step (PERF.md §6).
+//   * The tail: b2 and the output keep bits, bf16, staged through the
+//     warpgroup's own rows of the x tile and stored 16 bytes a thread.
 // Any N (the last tile's missing rows read zeros and store nothing); D 128
 // or 256; F a multiple of 128.
 
+#include <cuda.h>
+
+#include <atomic>
+
 #include "mlp_common.cuh"
 #include "tensor_core.cuh"
+#include "wgmma.cuh"
 
 namespace {
 
-using mmd_tc::bf16;
 using mmd_mlp::Mask;
+using mmd_tc::bf16;
+using mmd_tc::cp_async16;
+using mmd_tc::smem_addr;
+using mmd_wgmma::fence_async_shared;
+using mmd_wgmma::fence_operand;
+using mmd_wgmma::mbar_arrive;
+using mmd_wgmma::mbar_wait;
+using mmd_wgmma::static_for;
 
-constexpr int THREADS = 256;
-constexpr int BM = 64;          // rows a CTA
-constexpr int FC = 64;          // hidden columns a chunk
-constexpr int PAD = 8;
-constexpr int LDH = FC + PAD;   // row stride of the chunk-wide tiles
+constexpr int BM = 128;                 // rows a CTA: two consumer warpgroups of 64
+constexpr int FC = 64;                  // hidden columns a chunk
+constexpr int WG = 128;                 // threads a warpgroup
+constexpr int CONSUMERS = 2 * WG;
+constexpr int THREADS = CONSUMERS + WG; // and the producer
+constexpr int SMEM_MAX = 232448;
+// registers a thread after setmaxnreg: the producer's, and the consumers'
+// share of what the launch gave the CTA's three warpgroups (setmaxnreg.inc
+// waits until the registers it asks for are free: asking for more hangs)
+constexpr int LAUNCH_REGS = 65536 / THREADS / 8 * 8;
+constexpr int PRODUCER_REGS = 56;
+constexpr int CONSUMER_REGS = (3 * LAUNCH_REGS - PRODUCER_REGS) / 2 / 8 * 8;
 
 template <int D>
 struct Smem {
-    static constexpr int LDX = D + PAD;
-    static constexpr int X = 0;                          // [BM][LDX] x
-    static constexpr int W1 = X + BM * LDX * 2;          // [D][LDH] w1[:, chunk]
-    static constexpr int W2 = W1 + D * LDH * 2;          // [FC][LDX] w2[chunk, :]
-    static constexpr int H = W2 + FC * LDX * 2;          // [BM][LDH] h
-    static constexpr int KEEP = H + BM * LDH * 2;        // [BM][FC / 8] hidden keep bits
-    static constexpr int BYTES = KEEP + BM * FC / 8;
-    // the output keep bits, [BM][D / 8], reuse the w1 tile after the loop
-    static_assert(BM * D / 8 <= D * LDH * 2, "output keep bits fit the w1 tile");
+    static constexpr int BLOCK = BM * 128;               // x: one 64-column K-major block
+    static constexpr int X = 0;                          // x, D / 64 blocks
+    static constexpr int W = X + (D / 64) * BLOCK;       // the ring's weights
+    static constexpr int W1_BYTES = D * 128;             // w1[:, chunk]: [D rows][128 bytes]
+    static constexpr int W2_BYTES = FC * D * 2;          // w2[chunk, :]: D / 64 atoms of
+                                                         // [FC rows][128 bytes]
+    static constexpr int STAGE = W1_BYTES + W2_BYTES;
+    static constexpr int B1_BYTES = FC * 4;              // a chunk's b1
+    static constexpr int KEEP_BYTES = BM * D / 8;        // the output keep bits [BM][D / 8]
+    static constexpr int FIT = (SMEM_MAX - 1024 - W - KEEP_BYTES - 256) / (STAGE + B1_BYTES);
+    static constexpr int RING = FIT < 4 ? FIT : 4;
+    static constexpr int B1 = W + RING * STAGE;          // [RING][B1_BYTES]
+    static constexpr int KEEP = B1 + RING * B1_BYTES;
+    static constexpr int BARS = KEEP + KEEP_BYTES;       // full[RING], empty[RING]
+    static constexpr int BYTES = BARS + 2 * RING * 8 + 1024;    // + the 1024-byte alignment
+    static_assert(RING >= 2, "a stage loads while the one before it is read");
+    static_assert(BYTES <= SMEM_MAX, "one CTA an SM");
 };
 
+// Byte offset of element (r, c) in a K-major tile of BM rows stored as
+// 64-column blocks (c a multiple of 8: a 16-byte chunk), as mlp_bwd.cu's
+// pass A lays out x.
+__device__ __forceinline__ int kmajor_at(int r, int c) {
+    return (c >> 6) * (BM * 128) + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4);
+}
+
+// What both roles know of the tile.
+struct Tile {
+    int64_t row0, valid;
+    int f, chunks;
+    Mask m1, m2;
+    const float* b1;
+};
+
+// The weights of stage p (0 <= p <= chunks), by one thread: w1[:, chunk p]
+// (p < chunks; one box of 64 columns x D rows) and w2[chunk p - 1, :] (p > 0;
+// D / 64 boxes of 64 rows x 64 columns, the MN-major atoms) by TMA, which
+// writes them 128-byte swizzled and counts their bytes on the stage's full
+// barrier.
 template <int D>
-__global__ void __launch_bounds__(THREADS, 2)
-mlp_fwd_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
-               const float* __restrict__ b1, const bf16* __restrict__ w2,
-               const float* __restrict__ b2, bf16* __restrict__ y, int64_t n, int f,
-               Mask m1, Mask m2) {
+__device__ __forceinline__ void load_stage(unsigned char* smem, const CUtensorMap* w1m,
+                                           const CUtensorMap* w2m, const Tile& tl, int p) {
     using S = Smem<D>;
-    constexpr int LDX = S::LDX;
-    constexpr int YN = D / 32;                  // 8-column tiles of y a warp
-    extern __shared__ __align__(16) unsigned char smem[];
-    bf16* xs = reinterpret_cast<bf16*>(smem + S::X);
-    bf16* w1s = reinterpret_cast<bf16*>(smem + S::W1);
-    bf16* w2s = reinterpret_cast<bf16*>(smem + S::W2);
-    bf16* hs = reinterpret_cast<bf16*>(smem + S::H);
-    uint8_t* keep = smem + S::KEEP;
-
-    const int64_t row0 = static_cast<int64_t>(blockIdx.x) * BM;
-    const int64_t valid = n - row0;
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-    const int g = lane >> 2, q = lane & 3;
-    // this warp's 16 x 32 block of a chunk's hidden tile, and 32 x D/4 of y
-    const int hm = (warp & 3) * 16, hn = (warp >> 2) * 32;
-    const int ym = (warp & 1) * 32, yn = (warp >> 1) * (D / 4);
-
-    mmd_tc::load_tile(xs, LDX, x + row0 * D, D, BM, D, valid);
-    float acc[2][YN][4];
+    unsigned char* st = smem + S::W + (p % S::RING) * S::STAGE;
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS) + p % S::RING;
+    mmd_wgmma::mbar_expect_tx(
+        full, (p < tl.chunks ? S::W1_BYTES : 0) + (p > 0 ? S::W2_BYTES : 0));
+    if (p < tl.chunks) mmd_wgmma::tma_load_2d(st, w1m, p * FC, 0, full);
+    if (p > 0) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < YN; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-    for (int c0 = 0; c0 < f; c0 += FC) {
-        __syncthreads();                        // the last chunk's readers are done
-        mmd_tc::load_tile(w1s, LDH, w1 + c0, f, D, FC, D);
-        mmd_tc::load_tile(w2s, LDX, w2 + static_cast<int64_t>(c0) * D, D, FC, D, FC);
-        mmd_mlp::fill_keep<BM, FC>(keep, m1, row0, f, c0);
-        mmd_tc::cp_async_wait_all();
-        __syncthreads();
-
-        // a = x w1[:, chunk] for this warp's 16 x 32 block
-        float h[4][4];
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) h[j][e] = 0.f;
-#pragma unroll 4
-        for (int k0 = 0; k0 < D; k0 += 16) {
-            uint32_t a[4];
-            mmd_tc::load_a(a, xs, LDX, hm, k0);
-#pragma unroll
-            for (int j = 0; j < 2; ++j) {
-                uint32_t b[4];
-                mmd_tc::load_b_t(b, w1s, LDH, k0, hn + 16 * j);
-                mmd_tc::mma(h[2 * j], a, b[0], b[1]);
-                mmd_tc::mma(h[2 * j + 1], a, b[2], b[3]);
-            }
-        }
-        // + b1, GELU, hidden dropout, bf16 -> hs
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-            const int col = hn + 8 * j + 2 * q;
-            const float bias0 = b1[c0 + col], bias1 = b1[c0 + col + 1];
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int r = hm + g + 8 * half;
-                const float v0 = mmd_mlp::gelu_tanh(h[j][2 * half] + bias0) *
-                                 mmd_mlp::keep_scale<FC>(keep, m1, r, col);
-                const float v1 = mmd_mlp::gelu_tanh(h[j][2 * half + 1] + bias1) *
-                                 mmd_mlp::keep_scale<FC>(keep, m1, r, col + 1);
-                mmd_tc::store_bf16x2(hs + r * LDH + col, v0, v1);
-            }
-        }
-        __syncthreads();
-
-        // y += h w2[chunk, :] for this warp's 32 x D/4 block
-#pragma unroll
-        for (int k0 = 0; k0 < FC; k0 += 16) {
-            uint32_t a[2][4];
-            mmd_tc::load_a(a[0], hs, LDH, ym, k0);
-            mmd_tc::load_a(a[1], hs, LDH, ym + 16, k0);
-#pragma unroll
-            for (int j = 0; j < YN / 2; ++j) {
-                uint32_t b[4];
-                mmd_tc::load_b_t(b, w2s, LDX, k0, yn + 16 * j);
-#pragma unroll
-                for (int i = 0; i < 2; ++i) {
-                    mmd_tc::mma(acc[i][2 * j], a[i], b[0], b[1]);
-                    mmd_tc::mma(acc[i][2 * j + 1], a[i], b[2], b[3]);
-                }
-            }
+        for (int a = 0; a < D / 64; ++a) {
+            mmd_wgmma::tma_load_2d(st + S::W1_BYTES + a * FC * 128, w2m, a * 64, (p - 1) * FC,
+                                   full);
         }
     }
+}
 
-    // + b2, output dropout, bf16 -> y
-    __syncthreads();
-    uint8_t* keep2 = smem + S::W1;
-    mmd_mlp::fill_keep<BM, D>(keep2, m2, row0, D, 0);
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < YN; ++j) {
-            const int col = yn + 8 * j + 2 * q;
-            const float bias0 = b2[col], bias1 = b2[col + 1];
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-                const int r = ym + 16 * i + g + 8 * half;
-                if (r >= valid) continue;
-                const float v0 = (acc[i][j][2 * half] + bias0) *
-                                 mmd_mlp::keep_scale<D>(keep2, m2, r, col);
-                const float v1 = (acc[i][j][2 * half + 1] + bias1) *
-                                 mmd_mlp::keep_scale<D>(keep2, m2, r, col + 1);
-                mmd_tc::store_bf16x2(y + (row0 + r) * D + col, v0, v1);
-            }
+// The rest of stage p, by threads t of NT: chunk p's slice of b1 (p <
+// chunks) and output keep rows [p r, (p + 1) r) of the tile, r = ceil(BM /
+// (chunks + 1)).
+template <int D, int NT>
+__device__ __forceinline__ void draw_stage(unsigned char* smem, const Tile& tl, int p, int t) {
+    using S = Smem<D>;
+    if (p < tl.chunks && t < FC / 4) {
+        reinterpret_cast<float4*>(smem + S::B1 + (p % S::RING) * S::B1_BYTES)[t] =
+            reinterpret_cast<const float4*>(tl.b1 + p * FC)[t];
+    }
+    const int per = (BM + tl.chunks) / (tl.chunks + 1);
+    const int r0 = p * per;
+    const int rows = BM - r0 < per ? BM - r0 : per;
+    uint8_t* k2 = smem + S::KEEP;
+    for (int i = t; i < rows * (D / 8); i += NT) {
+        const int r = r0 + i / (D / 8), c8 = 8 * (i % (D / 8));
+        k2[r * (D / 8) + c8 / 8] = static_cast<uint8_t>(
+            mmd_mlp::keep_byte(tl.m2, static_cast<uint64_t>(tl.row0 + r), D, c8));
+    }
+}
+
+// a = x w1[:, chunk] for the warpgroup's 64 rows: xa its rows of x, w1s the
+// stage's w1.
+template <int D>
+__device__ __forceinline__ void hidden_product(float (&acc)[32], uint32_t xa, uint32_t w1s) {
+    static_for<0, D / 16>([&](auto kt) {
+        constexpr int k = decltype(kt)::value;
+        mmd_wgmma::wgmma_n64<0, 1>(
+            acc, mmd_wgmma::desc_kmajor(xa + (k / 4) * Smem<D>::BLOCK + (k % 4) * 32),
+            mmd_wgmma::desc_mnmajor(w1s + k * 16 * 128, FC * 128), k > 0);
+    });
+}
+
+// y += h w2[chunk, :]: h the chunk's four k16 A fragments, w2s the stage's w2.
+template <int D>
+__device__ __forceinline__ void output_product(float (&acc)[D / 2], const uint32_t (&h)[4][4],
+                                               uint32_t w2s) {
+    static_for<0, FC / 16>([&](auto kt) {
+        constexpr int k = decltype(kt)::value;
+        const uint64_t b = mmd_wgmma::desc_mnmajor(w2s + k * 16 * 128, FC * 128);
+        if constexpr (D == 256) {
+            mmd_wgmma::wgmma_rs_n256<1>(acc, h[k], b, 1);
+        } else {
+            mmd_wgmma::wgmma_rs_n128<1>(acc, h[k], b, 1);
         }
+    });
+}
+
+// The hidden keep bits of the thread's 32 elements of the chunk at column
+// c0 (rows r and r + 8, columns 8 j + 2 q + e), bit 4 j + 2 h + e for row r
+// + 8 h: the m64n64 accumulator's order. Elements 4 k .. 4 k + 3 of a row
+// share one Philox call, and so do lanes q and q ^ 1: the even lane draws
+// row r, the odd one row r + 8, and one shuffle swaps the halves.
+__device__ __forceinline__ uint32_t hidden_keep(const Mask& m, int64_t row0, int r, int f,
+                                                int c0, int q) {
+    if (!m.on) return 0xFFFFFFFFu;
+    const int odd = q & 1;
+    const uint64_t group =
+        (static_cast<uint64_t>(row0 + r + 8 * odd) * f + c0 + 4 * (q >> 1)) >> 2;
+    uint32_t mine = 0;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {               // columns 8 j .. 8 j + 7
+        const uint4 v = mmd_philox::group_bits(m.seed, group + 2 * j);
+        const uint32_t t = m.threshold;
+        mine |= (static_cast<uint32_t>(v.x < t) | static_cast<uint32_t>(v.y < t) << 1 |
+                 static_cast<uint32_t>(v.z < t) << 2 | static_cast<uint32_t>(v.w < t) << 3)
+                << (4 * j);
+    }
+    const uint32_t other = __shfl_xor_sync(0xFFFFFFFFu, mine, 1);
+    const uint32_t half = odd ? 0xCCCCCCCCu : 0x33333333u;    // this lane's 2 of each 4
+    const uint32_t row_r = odd ? other : mine, row_r8 = odd ? mine : other;
+    return ((row_r & half) >> (2 * odd)) | ((row_r8 & half) >> (2 * odd)) << 2;
+}
+
+// acc = gelu(acc + b1) * m1 in place for the thread's two rows and its 16
+// columns of a chunk (the m64n64 accumulator layout); bias1 the chunk's b1,
+// keep the elements' keep bits (hidden_keep). GELU is #4's, whose
+// derivative goes unused here.
+__device__ __forceinline__ void hidden_epilogue(float (&acc)[32], const float* bias1,
+                                                uint32_t keep, int q, float scale) {
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+        const float2 bias = *reinterpret_cast<const float2*>(bias1 + 8 * j + 2 * q);
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+            float g, dg;
+            mmd_mlp::gelu_tanh_and_grad_fast(acc[4 * j + e] + (e & 1 ? bias.y : bias.x), g, dg);
+            acc[4 * j + e] = g * ((keep >> (4 * j + e)) & 1u ? scale : 0.f);
+        }
+    }
 }
 
 template <int D>
+__device__ __forceinline__ void consume(unsigned char* smem, const bf16* x, const float* b2,
+                                        bf16* y, const Tile& tl) {
+    using S = Smem<D>;
+    constexpr int RING = S::RING;
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+    uint64_t* empty = full + RING;
+    const int wg = threadIdx.x >> 7;
+    const int lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    const int r = wg * 64 + ((threadIdx.x >> 5) & 3) * 16 + g;    // rows r and r + 8
+    const uint32_t xa = smem_addr(smem + S::X) + wg * 64 * 128;
+    const uint32_t ring = smem_addr(smem + S::W);
+
+    // x, rows past the end zero
+    for (int i = threadIdx.x; i < BM * (D / 8); i += CONSUMERS) {
+        const int rr = i / (D / 8), c = 8 * (i % (D / 8));
+        const bool ok = rr < tl.valid;
+        cp_async16(smem + S::X + kmajor_at(rr, c), ok ? x + (tl.row0 + rr) * D + c : x, ok);
+    }
+
+    mmd_tc::cp_async_commit();
+    mmd_tc::cp_async_wait<0>();
+    fence_async_shared();
+    mmd_wgmma::named_sync(1, CONSUMERS);        // x is in, for both warpgroups
+
+    float acc_y[D / 2], acc_a[32];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_y[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc_a[i] = 0.f;
+    uint32_t h[4][4];
+
+    mbar_wait(&full[0], 0);
+    mmd_wgmma::wgmma_fence();
+    hidden_product<D>(acc_a, xa, ring);
+    mmd_wgmma::wgmma_commit();
+    uint32_t keep = hidden_keep(tl.m1, tl.row0, r, tl.f, 0, q);    // behind the product
+
+    for (int c = 0; c < tl.chunks; ++c) {
+        const int slot = c % RING;
+        // a of chunk c and y of c - 1: stage c is done with once the
+        // epilogue has read its b1
+        mmd_wgmma::wgmma_wait<0>();
+        fence_operand(acc_a);
+        fence_operand(acc_y);
+        hidden_epilogue(acc_a,
+                        reinterpret_cast<const float*>(smem + S::B1 + slot * S::B1_BYTES),
+                        keep, q, tl.m1.scale);
+        mbar_arrive(&empty[slot]);
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+                h[t][i] = mmd_tc::pack_bf16x2(acc_a[8 * t + 2 * i], acc_a[8 * t + 2 * i + 1]);
+            }
+
+        const int p = c + 1;
+        mbar_wait(&full[p % RING], (p / RING) & 1);
+        const uint32_t st = ring + (p % RING) * S::STAGE;
+        mmd_wgmma::wgmma_fence();
+        if (p < tl.chunks) hidden_product<D>(acc_a, xa, st);
+        output_product<D>(acc_y, h, st + S::W1_BYTES);
+        mmd_wgmma::wgmma_commit();
+        if (p < tl.chunks) keep = hidden_keep(tl.m1, tl.row0, r, tl.f, p * FC, q);
+    }
+    mmd_wgmma::wgmma_wait<0>();
+    fence_operand(acc_y);
+
+    // + b2, output dropout, bf16: staged in the warpgroup's own rows of x
+    // (its products have retired), then 16 bytes a thread to y
+    fence_async_shared();
+    const uint8_t* k2 = smem + S::KEEP;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+        const float2 bias = *reinterpret_cast<const float2*>(b2 + 8 * j + 2 * q);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int rr = r + 8 * half;
+            const uint32_t bits = k2[rr * (D / 8) + j] >> (2 * q);
+            const float v0 = (acc_y[4 * j + 2 * half] + bias.x) * (bits & 1u ? tl.m2.scale : 0.f);
+            const float v1 =
+                (acc_y[4 * j + 2 * half + 1] + bias.y) * (bits & 2u ? tl.m2.scale : 0.f);
+            mmd_tc::store_bf16x2(
+                reinterpret_cast<bf16*>(smem + S::X + kmajor_at(rr, 8 * j) + 4 * q), v0, v1);
+        }
+    }
+    mmd_wgmma::named_sync(2 + wg, WG);
+    for (int i = threadIdx.x & (WG - 1); i < 64 * (D / 8); i += WG) {
+        const int rr = wg * 64 + i / (D / 8), c = 8 * (i % (D / 8));
+        if (rr < tl.valid) {
+            *reinterpret_cast<uint4*>(y + (tl.row0 + rr) * D + c) =
+                *reinterpret_cast<const uint4*>(smem + S::X + kmajor_at(rr, c));
+        }
+    }
+}
+
+// The producer warpgroup, stage p: once both consumers have released its
+// slot, one thread starts its loads, and the warpgroup copies b1 and draws
+// the output keep bits while they fly.
+template <int D>
+__device__ __forceinline__ void produce(unsigned char* smem, const CUtensorMap* w1m,
+                                        const CUtensorMap* w2m, const Tile& tl) {
+    using S = Smem<D>;
+    uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+    uint64_t* empty = full + S::RING;
+    const int t = threadIdx.x - CONSUMERS;
+    for (int p = 0; p <= tl.chunks; ++p) {
+        if (p >= S::RING) mbar_wait(&empty[p % S::RING], (p / S::RING - 1) & 1);
+        if (t == 0) load_stage<D>(smem, w1m, w2m, tl, p);
+        draw_stage<D, WG>(smem, tl, p, t);
+        mbar_arrive(&full[p % S::RING]);
+    }
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+mlp_fwd_kernel(const bf16* __restrict__ x, const __grid_constant__ CUtensorMap w1_map,
+               const float* __restrict__ b1, const __grid_constant__ CUtensorMap w2_map,
+               const float* __restrict__ b2, bf16* __restrict__ y, int64_t n, int f, Mask m1,
+               Mask m2) {
+    using S = Smem<D>;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = mmd_wgmma::align_1024(smem_raw);
+    const int64_t row0 = static_cast<int64_t>(blockIdx.x) * BM;
+    const Tile tl{row0, n - row0, f, f / FC, m1, m2, b1};
+    if (threadIdx.x == 0) {
+        uint64_t* full = reinterpret_cast<uint64_t*>(smem + S::BARS);
+        for (int s = 0; s < S::RING; ++s) {
+            mmd_wgmma::mbar_init(&full[s], WG);
+            mmd_wgmma::mbar_init(&full[S::RING + s], CONSUMERS);
+        }
+        mmd_wgmma::mbar_init_fence();
+    }
+    __syncthreads();
+    if (threadIdx.x >= CONSUMERS) {
+        asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(PRODUCER_REGS) : "memory");
+        produce<D>(smem, &w1_map, &w2_map, tl);
+        return;
+    }
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(CONSUMER_REGS) : "memory");
+    consume<D>(smem, x, b2, y, tl);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no link to
+// libcuda), looked up once.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encoder() {
+    static const EncodeTiled fn = [] {
+        void* p = nullptr;
+        cudaDriverEntryPointQueryResult found;
+        if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+                cudaSuccess ||
+            found != cudaDriverEntryPointSuccess) {
+            p = nullptr;
+        }
+        return reinterpret_cast<EncodeTiled>(p);
+    }();
+    return fn;
+}
+
+// The tensor map of a row-major bf16 (rows, cols) matrix read in boxes of
+// 64 columns (128 bytes) x box_rows rows, 128-byte swizzled.
+cudaError_t box_map(CUtensorMap* map, const void* base, int64_t rows, int64_t cols,
+                    int box_rows) {
+    const EncodeTiled encode = encoder();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[2] = {static_cast<cuuint64_t>(cols), static_cast<cuuint64_t>(rows)};
+    const cuuint64_t strides[1] = {static_cast<cuuint64_t>(cols) * 2};
+    const cuuint32_t box[2] = {64, static_cast<cuuint32_t>(box_rows)};
+    const cuuint32_t steps[2] = {1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
+                  strides, box, steps, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                  CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+               ? cudaSuccess
+               : cudaErrorInvalidValue;
+}
+
+// Above 48 KB of dynamic shared memory a kernel has to be allowed it, once
+// per device: `raised` holds a bit for each device where that is done.
+template <int D>
 cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2,
                    const void* b2, void* y, int64_t n, int f, const Mask& m1, const Mask& m2,
-                   cudaStream_t stream) {
-    const int bytes = Smem<D>::BYTES;
-    cudaError_t err = cudaFuncSetAttribute(mlp_fwd_kernel<D>,
-                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+                   int device, cudaStream_t stream) {
+    static std::atomic<uint64_t> raised{0};
+    const uint64_t bit = uint64_t{1} << device;
+    if (!(raised.load(std::memory_order_relaxed) & bit)) {
+        const cudaError_t err = cudaFuncSetAttribute(
+            mlp_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, Smem<D>::BYTES);
+        if (err != cudaSuccess) return err;
+        raised.fetch_or(bit, std::memory_order_relaxed);
+    }
+    CUtensorMap w1_map, w2_map;
+    cudaError_t err = box_map(&w1_map, w1, D, f, D);
+    if (err == cudaSuccess) err = box_map(&w2_map, w2, f, D, FC);
     if (err != cudaSuccess) return err;
-    const int64_t blocks = (n + BM - 1) / BM;
-    mlp_fwd_kernel<D><<<static_cast<unsigned>(blocks), THREADS, bytes, stream>>>(
-        static_cast<const bf16*>(x), static_cast<const bf16*>(w1), static_cast<const float*>(b1),
-        static_cast<const bf16*>(w2), static_cast<const float*>(b2), static_cast<bf16*>(y), n,
-        f, m1, m2);
+    mlp_fwd_kernel<D><<<static_cast<unsigned>((n + BM - 1) / BM), THREADS, Smem<D>::BYTES,
+                        stream>>>(
+        static_cast<const bf16*>(x), w1_map, static_cast<const float*>(b1), w2_map,
+        static_cast<const float*>(b2), static_cast<bf16*>(y), n, f, m1, m2);
     return cudaGetLastError();
 }
 
@@ -209,15 +458,17 @@ extern "C" int mmd_mlp_fwd(const void* x, const void* w1, const void* b1, const 
                            const void* b2, void* y, int64_t n, int d, int f, uint64_t seed1,
                            uint64_t seed2, uint32_t threshold, float scale, int dropout,
                            int device, void* stream) {
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (n <= 0 || f <= 0 || f % 128 != 0 || (n + BM - 1) / BM > 0x7FFFFFFF) {
+    if (n <= 0 || f <= 0 || f % 128 != 0 || (n + BM - 1) / BM > 0x7FFFFFFF || device < 0 ||
+        device >= 64 || (d != 128 && d != 256)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
+    int current = -1;
+    cudaError_t err = cudaGetDevice(&current);
+    if (err == cudaSuccess && current != device) err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
     const float s = dropout ? scale : 1.f;
     const Mask m1{seed1, threshold, s, dropout}, m2{seed2, threshold, s, dropout};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (d == 128) return launch<128>(x, w1, b1, w2, b2, y, n, f, m1, m2, st);
-    if (d == 256) return launch<256>(x, w1, b1, w2, b2, y, n, f, m1, m2, st);
-    return static_cast<int>(cudaErrorInvalidValue);
+    if (d == 128) return launch<128>(x, w1, b1, w2, b2, y, n, f, m1, m2, device, st);
+    return launch<256>(x, w1, b1, w2, b2, y, n, f, m1, m2, device, st);
 }

@@ -55,7 +55,8 @@ _K = 0.044715
 WIDTHS = (128, 256)          # the D the kernels are built for
 _ROWS = 64                    # a row group of the backward holds whole 64s
 _MAX_GROUPS = 16              # row groups of the backward's weight products
-_HEADERS = ["mlp_common.cuh", "philox.cuh", "tensor_core.cuh"]
+_HEADERS = ["mlp_common.cuh", "philox.cuh", "tensor_core.cuh",
+            "wgmma.cuh"]
 
 
 def gelu_tanh(a: torch.Tensor) -> torch.Tensor:
@@ -140,49 +141,48 @@ def fused_mlp_bwd_plain(x2: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
 
 _DROP_ARGS = [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32,
               ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+# The C entry points: name -> (library, argtypes, restype); each bound once,
+# its argtypes set at load.
+_ENTRIES = {
+    "mmd_mlp_fwd": ("mlp_fwd", [ctypes.c_void_p] * 6 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int] + _DROP_ARGS,
+        ctypes.c_int),
+    "mmd_mlp_bwd": ("mlp_bwd", [ctypes.c_void_p] * 8 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int64] + _DROP_ARGS, ctypes.c_int),
+    "mmd_mlp_bwd_workspace": ("mlp_bwd", [ctypes.c_int64, ctypes.c_int,
+                                          ctypes.c_int, ctypes.c_int],
+                              ctypes.c_int64),
+    "mmd_mlp_masks": ("mlp_masks", [ctypes.c_void_p] * 2 + [
+        ctypes.c_int64, ctypes.c_int, ctypes.c_int] + _DROP_ARGS,
+        ctypes.c_int)}
+_fns: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _entry(name: str) -> ctypes._CFuncPtr:
+    fn = _fns.get(name)
+    if fn is None:
+        library, argtypes, restype = _ENTRIES[name]
+        fn = getattr(cuda_build.load_library(library, [f"{library}.cu"],
+                                             _HEADERS), name)
+        fn.argtypes, fn.restype = argtypes, restype
+        _fns[name] = fn
+    return fn
 
 
 def load_kernel():
     """Build (at first use) and load the forward kernel's C entry point."""
-    fn = cuda_build.load_library("mlp_fwd", ["mlp_fwd.cu"],
-                                 _HEADERS).mmd_mlp_fwd
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_int] + _DROP_ARGS
-    fn.restype = ctypes.c_int
-    return fn
-
-
-# the backward's C entry point and its workspace size, bound once
-_bwd_fn: Optional[ctypes._CFuncPtr] = None
-_bwd_workspace: Optional[ctypes._CFuncPtr] = None
+    return _entry("mmd_mlp_fwd")
 
 
 def load_bwd_kernel():
     """Build (at first use) and load the backward kernels' C entry point."""
-    global _bwd_fn, _bwd_workspace
-    if _bwd_fn is None:
-        lib = cuda_build.load_library("mlp_bwd", ["mlp_bwd.cu"], _HEADERS)
-        size = lib.mmd_mlp_bwd_workspace
-        size.argtypes = [ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-                         ctypes.c_int]
-        size.restype = ctypes.c_int64
-        fn = lib.mmd_mlp_bwd
-        fn.argtypes = [ctypes.c_void_p] * 8 + [
-            ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
-            ctypes.c_int, ctypes.c_int64] + _DROP_ARGS
-        fn.restype = ctypes.c_int
-        _bwd_workspace, _bwd_fn = size, fn
-    return _bwd_fn
+    return _entry("mmd_mlp_bwd")
 
 
 def load_masks_kernel():
     """Build (at first use) and load the mask oracle's C entry point."""
-    fn = cuda_build.load_library("mlp_masks", ["mlp_masks.cu"],
-                                 _HEADERS).mmd_mlp_masks
-    fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int64, ctypes.c_int,
-                                           ctypes.c_int] + _DROP_ARGS
-    fn.restype = ctypes.c_int
-    return fn
+    return _entry("mmd_mlp_masks")
 
 
 def _drop_args(seeds, rate: float, t: torch.Tensor) -> list:
@@ -225,11 +225,15 @@ def _mlp_fwd_cuda(x2, w1, b1, w2, b2, seeds, rate):
     if n == 0:
         return y
     fn = load_kernel()
+    s1, s2 = seeds if seeds is not None else (0, 0)
+    idx = x2.get_device()
     rc = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), y.data_ptr(), n, d, f,
-            *_drop_args(seeds, rate, x2))
-    cuda_build.check_launch(rc, f"mlp_fwd x {tuple(x2.shape)}, F {f}, "
-                                f"dropout {rate}")
+            b2.data_ptr(), y.data_ptr(), n, d, f, s1, s2, D.threshold(rate),
+            1.0 / (1.0 - rate), int(seeds is not None), idx,
+            torch._C._cuda_getCurrentRawStream(idx))
+    if rc:
+        cuda_build.check_launch(rc, f"mlp_fwd x {tuple(x2.shape)}, F {f}, "
+                                    f"dropout {rate}")
     with _launch_lock:
         launches += 1
     return y
@@ -263,7 +267,7 @@ def _mlp_bwd_cuda(x2, w1, b1, w2, dy, seeds, rate):
         return dx, dw1, db1, dw2, db2
     groups, group_rows = backward_groups(n)
     fn = load_bwd_kernel()
-    nbytes = _bwd_workspace(n, d, f, groups)
+    nbytes = _entry("mmd_mlp_bwd_workspace")(n, d, f, groups)
     ws = torch.empty(nbytes, dtype=torch.uint8, device=dev)
     s1, s2 = seeds if seeds is not None else (0, 0)
     idx = x2.get_device()

@@ -8,10 +8,12 @@
     python -m mmd_tpu_torch.profile_kernels deberta_fwd_calls
     python -m mmd_tpu_torch.profile_kernels deberta_bwd_calls
     python -m mmd_tpu_torch.profile_kernels mlp_bwd_calls
+    python -m mmd_tpu_torch.profile_kernels mlp_fwd_calls
 
 `ptxas` compiles sources under ops/csrc/ (all of them by default) with the
 build's flags plus `-Xptxas -v` and prints one JSON line a kernel
-instantiation: registers, stack frame and spill bytes. It needs nvcc, not
+instantiation: registers, stack frame and spill bytes, and one a warning
+of ptxas's (C7514: wgmma serialized). It needs nvcc, not
 a card.
 
 `flash_calls` times the flash-attention forward at the served batch's six
@@ -83,9 +85,20 @@ for a parent/change comparison in one run. It needs a CUDA device.
 and 16384 rows, D 256, F 1024; dropout 0.1): host us a call, the host's
 own us a call, the device us of each kernel launch of a call and their
 sum, and the us a call by CUDA events, beside the CUDA-event us of the
-unfused composition's backward (chip_smoke.py's `library_ms` for #4);
-then the same summed over a step's six calls. It runs on an older tree
+unfused composition's backward (chip_smoke.py's `library_ms` for #4), and a
+digest of dx, dW1, db1, dW2 and db2 (inputs from a fixed seed: two trees
+compare bit for bit); then the same summed over a step's six calls. It runs on an older tree
 too, for a parent/change comparison in one run. It needs a CUDA device.
+
+`mlp_fwd_calls` does the same for the fused GELU-MLP forward (#3,
+`fused_mlp_fwd`) at the same two geometries, at rate 0.1 and 0: host us a
+call, the host's own us a call, the device us a call (torch.profiler over
+10 calls), the us a call by CUDA events, a digest of y (inputs from a fixed
+seed: two trees compare bit for bit), whether two calls agree bit for bit,
+and the unfused composition's forward by CUDA events beside it; then the
+device and CUDA-event us summed over a step's six calls. It runs on an
+older tree too, for a parent/change comparison in one run. It needs a CUDA
+device.
 """
 
 from __future__ import annotations
@@ -168,6 +181,14 @@ def parse_ptxas(log: str) -> list[dict]:
     return out
 
 
+def ptxas_remarks(log: str) -> list[str]:
+    """The lines of an nvcc log that a kernel's author must read: warnings,
+    and ptxas's C7514 (wgmma serialized), which it prints as an info
+    line."""
+    return [line.strip() for line in log.splitlines()
+            if "warning" in line.lower() or "C7514" in line]
+
+
 def _demangle(names: list[str]) -> list[str]:
     try:
         res = subprocess.run(["c++filt"], input="\n".join(names),
@@ -196,6 +217,9 @@ def ptxas(sources: list[str]) -> None:
             for rec, name in zip(recs, _demangle([r["kernel"]
                                                   for r in recs])):
                 print(json.dumps({"source": src, **rec, "kernel": name}),
+                      flush=True)
+            for line in ptxas_remarks(log):
+                print(json.dumps({"source": src, "warning": line}),
                       flush=True)
 
 
@@ -649,6 +673,17 @@ def deberta_bwd_calls() -> None:
             "card": P.card()}), flush=True)
 
 
+def _mlp_inputs(dev, gen, n: int, d: int, f: int):
+    x = torch.randn(n, d, device=dev, generator=gen).bfloat16()
+    w1 = (torch.randn(d, f, device=dev, generator=gen)
+          / math.sqrt(d)).bfloat16()
+    b1 = 0.1 * torch.randn(f, device=dev, generator=gen)
+    w2 = (torch.randn(f, d, device=dev, generator=gen)
+          / math.sqrt(f)).bfloat16()
+    b2 = 0.1 * torch.randn(d, device=dev, generator=gen)
+    return x, w1, b1, w2, b2
+
+
 def mlp_bwd_calls() -> None:
     from mmd_tpu_torch.ops import dropout as D
     from mmd_tpu_torch.ops import mlp as M
@@ -662,17 +697,15 @@ def mlp_bwd_calls() -> None:
     step = {"device_us": 0.0, "event_us": 0.0, "composition_event_us": 0.0,
             "device_us_by_kernel": {}}
     for (n, d, f), count in MLP_GEOMETRIES.items():
-        x = torch.randn(n, d, device=dev, generator=gen).bfloat16()
-        w1 = (torch.randn(d, f, device=dev, generator=gen)
-              / math.sqrt(d)).bfloat16()
-        b1 = 0.1 * torch.randn(f, device=dev, generator=gen)
-        w2 = (torch.randn(f, d, device=dev, generator=gen)
-              / math.sqrt(f)).bfloat16()
-        b2 = 0.1 * torch.randn(d, device=dev, generator=gen)
+        x, w1, b1, w2, b2 = _mlp_inputs(dev, gen, n, d, f)
         dy = torch.randn(n, d, device=dev, generator=gen).bfloat16()
         seeds = M.mask_seeds(rate, 1)
         call = lambda: M.fused_mlp_bwd(  # noqa: E731
             x, w1, b1, w2, dy, seeds, rate)
+        digest = hashlib.sha256()
+        for t in call():
+            digest.update(t.contiguous().view(torch.uint8).cpu().numpy()
+                          .tobytes())
         host_us = _host_us(call, 50)
         enqueue_us = _enqueue_us(call)
         event_us = _event_us(call)
@@ -698,7 +731,8 @@ def mlp_bwd_calls() -> None:
                "event_us_a_call": event_us,
                "device_us_a_call": sum(per_kernel.values()),
                "device_us_by_kernel": per_kernel,
-               "composition_event_us_a_call": comp_us, "card": P.card()}
+               "composition_event_us_a_call": comp_us,
+               "grads_sha256": digest.hexdigest()[:16], "card": P.card()}
         print(json.dumps(rec), flush=True)
         step["device_us"] += count * rec["device_us_a_call"]
         step["event_us"] += count * event_us
@@ -712,6 +746,68 @@ def mlp_bwd_calls() -> None:
                       "card": P.card()}), flush=True)
 
 
+def mlp_fwd_calls() -> None:
+    from mmd_tpu_torch.ops import dropout as D
+    from mmd_tpu_torch.ops import mlp as M
+    if not torch.cuda.is_available():
+        raise SystemExit("mlp_fwd_calls needs a CUDA device")
+    fn = torch.nn.functional
+    print(json.dumps({"card": P.card()}), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(7)
+    calls = 10
+    step: dict = {}
+    for (n, d, f), count in MLP_GEOMETRIES.items():
+        x, w1, b1, w2, b2 = _mlp_inputs(dev, gen, n, d, f)
+        for rate in (MLP_RATE, 0.0):
+            seeds = M.mask_seeds(rate, 1)
+            call = lambda: M.fused_mlp_fwd(  # noqa: E731
+                x, w1, b1, w2, b2, seeds, rate)
+            # the unfused bf16 composition's forward, as chip_smoke.py's
+            # phase_mlp times it
+            w1t, w2t, b1b, b2b = (w1.T.contiguous(), w2.T.contiguous(),
+                                  b1.bfloat16(), b2.bfloat16())
+
+            def composition():
+                hid = fn.gelu(fn.linear(x, w1t, b1b), approximate="tanh")
+                if rate:
+                    hid = D.dropout(hid, rate, seeds[0])
+                out = fn.linear(hid, w2t, b2b)
+                return D.dropout(out, rate, seeds[1]) if rate else out
+
+            comp_us = _event_us(composition, 5)
+            y = call()
+            torch.cuda.synchronize()
+            digest = hashlib.sha256(
+                y.view(torch.int16).cpu().numpy().tobytes()).hexdigest()
+            again = torch.equal(y, call())
+            win = P.profile_window(call, calls, {})
+            device_us = sum(v * 1e3 / calls
+                            for k, v in win["device_ms_top"].items()
+                            if "mlp_fwd" in k)
+            rec = {"geometry": f"N={n} D={d} F={f}", "rate": rate,
+                   "calls_a_step": count,
+                   "host_us_a_call": _host_us(call, 50),
+                   "host_enqueue_us_a_call": _enqueue_us(call),
+                   "event_us_a_call": _event_us(call),
+                   "device_us_a_call": device_us,
+                   "y_sha256": digest[:16], "twice_bit_identical": again,
+                   "composition_event_us_a_call": comp_us,
+                   "card": P.card()}
+            print(json.dumps(rec), flush=True)
+            acc = step.setdefault(rate, {"device_us": 0.0, "event_us": 0.0,
+                                         "composition_event_us": 0.0})
+            acc["device_us"] += count * device_us
+            acc["event_us"] += count * rec["event_us_a_call"]
+            acc["composition_event_us"] += count * comp_us
+        del x, w1, w2
+        torch.cuda.empty_cache()
+    for rate, acc in step.items():
+        print(json.dumps({"per_step": sum(MLP_GEOMETRIES.values()),
+                          "rate": rate, **acc, "card": P.card()}),
+              flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="what", required=True)
@@ -723,6 +819,7 @@ def main(argv=None) -> None:
     sub.add_parser("deberta_fwd_calls")
     sub.add_parser("deberta_bwd_calls")
     sub.add_parser("mlp_bwd_calls")
+    sub.add_parser("mlp_fwd_calls")
     args = ap.parse_args(argv)
     if args.what == "ptxas":
         ptxas(args.sources or sorted(f.name for f in cuda_build.CSRC.glob(
@@ -739,6 +836,8 @@ def main(argv=None) -> None:
         deberta_fwd_calls()
     elif args.what == "deberta_bwd_calls":
         deberta_bwd_calls()
+    elif args.what == "mlp_fwd_calls":
+        mlp_fwd_calls()
     else:
         mlp_bwd_calls()
 

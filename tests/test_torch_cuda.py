@@ -17,7 +17,9 @@ backward and the Swin window attention's fine-tuning forward and backward,
 dbias included, and the DeBERTa forward at the fine-tuning geometry and
 twice bit for bit -- with the autograd graph kept through every trainable
 wrapper and the fused-MLP routing limited to the kernels' widths; the
-fused MLP backward twice bit for bit at the train step's geometries; and
+fused MLP backward twice bit for bit at the train step's geometries, and
+its forward twice bit for bit at a partial row tile and at the text call's
+row count; and
 attention geometries the kernels do not take (flash dh 128, Swin windows
 of 16, DeBERTa dh 128) routed to the explicit path, whose results they
 give.
@@ -872,6 +874,29 @@ def test_mlp_bwd_is_deterministic(cuda_device, rate, n, d, f):
     torch.cuda.synchronize()
     for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), first, second):
         assert torch.equal(a, b), name
+
+
+# -- #3 at a partial row tile and at the text call's row count ----------------
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("n,d,f", [(1088, 128, 512), (1088, 256, 1024),
+                                   (131072, 128, 512)])
+def test_mlp_fwd_is_deterministic_and_matches_plain(cuda_device, rate, n, d,
+                                                    f):
+    """#3 within MLP_TOL of the plain version, its zeros where the plain
+    version's are, and the same bits in two calls: 1088 rows end in a
+    partial 128-row tile; 131072 rows are the bf16 step's text call, here
+    at D 128."""
+    x, w1, b1, w2, b2, _ = _mlp_inputs(cuda_device, n, d, f, seed=5)
+    seeds = M.mask_seeds(rate, 0xF00D + n)
+    first = M.fused_mlp_fwd(x, w1, b1, w2, b2, seeds, rate)
+    second = M.fused_mlp_fwd(x, w1, b1, w2, b2, seeds, rate)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    want = M.fused_mlp_plain(x, w1, b1, w2, b2, seeds, rate)
+    assert _rel_err(first, want) <= MLP_TOL
+    if rate:
+        assert torch.equal(first == 0, want == 0)
 
 
 # -- attention geometries the kernels do not take take the explicit path ------

@@ -115,3 +115,22 @@ def test_mlp_bwd_calls_needs_a_card():
         pytest.skip("the refusal shows only without a CUDA device")
     with pytest.raises(SystemExit, match="CUDA device"):
         profile_kernels.main(["mlp_bwd_calls"])
+
+
+def test_mlp_fwd_calls_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only without a CUDA device")
+    with pytest.raises(SystemExit, match="CUDA device"):
+        profile_kernels.main(["mlp_fwd_calls"])
+
+
+def test_ptxas_remarks_keep_warnings_and_serialized_wgmma():
+    log = PTXAS_LOG + (
+        "ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized due to non wgmma instructions reading "
+        "accumulator registers\n"
+        "x.cu(3): warning #177-D: variable \"n\" was declared but never "
+        "referenced\n")
+    got = profile_kernels.ptxas_remarks(log)
+    assert len(got) == 2
+    assert "C7514" in got[0] and "warning #177-D" in got[1]
