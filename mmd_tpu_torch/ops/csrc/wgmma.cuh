@@ -1,5 +1,6 @@
 // Hopper (sm_90a) warpgroup matrix products and the pieces around them,
-// shared by the fused GELU-MLP kernels (mlp_fwd.cu, mlp_bwd.cu):
+// shared by the fused GELU-MLP kernels (mlp_fwd.cu, mlp_bwd.cu; the
+// LayerNorm, layernorm.cu, takes only its mbarriers):
 //   * shared-memory matrix descriptors of 128-byte-swizzled operand tiles,
 //     K-major and MN-major;
 //   * wgmma.mma_async bf16 -> fp32 at m64n64k16 and m64n128k16 with both

@@ -6,14 +6,22 @@ Counterpart of mmd_tpu/ops/ln.py and its custom VJPs `_fused_ln` and
 computes (y - mean) * rsqrt(var + eps) * scale + bias (+ shortcut) with
 fp32 statistics, adds the shortcut in fp32 and casts once to y's dtype:
 
-  * CUDA tensors go to the kernel (ops/csrc/layernorm.cu), which raises
-    on what it does not take, under a torch.autograd.Function whose
-    backward is `fused_layernorm_bwd_plain`, the plain PyTorch port of the
-    JAX package's `_ln_adjoint` (jnp math there too, no kernel): dy,
+  * CUDA tensors go to the kernel (ops/csrc/layernorm.cu: persistent
+    blocks whose warps each bring row tiles of y and the shortcut in
+    together by bulk copies through a ring in shared memory, a build for
+    each C / 128),
+    which raises on what it does not take, under a torch.autograd.Function
+    whose backward is `fused_layernorm_bwd_plain`, the plain PyTorch port
+    of the JAX package's `_ln_adjoint` (jnp math there too, no kernel): dy,
     dscale and dbias, with the shortcut's cotangent passed through; CPU
     tensors go to `fused_layernorm_plain`, which autograd differentiates;
   * a geometry `fused_ln_ok` refuses takes `layers.layernorm` (+ the
     shortcut, added after the cast), as the JAX package does.
+
+A served Swinv2 batch makes 106 calls of a few microseconds of card time
+each, so the call path is kept short: the entry point is bound once, the
+stream read as a raw handle, fp32 parameters passed as they are, and the
+device made current in C only when it is not already.
 """
 
 from __future__ import annotations
@@ -88,47 +96,67 @@ def fused_layernorm_bwd_plain(weight: torch.Tensor, y: torch.Tensor,
     return dy.to(y.dtype), dscale, dbias
 
 
+# The C entry point, bound once, its argtypes set at load.
+_ENTRIES = {"mmd_layernorm_fwd": [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+            + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p]}
+_fns: dict[str, ctypes._CFuncPtr] = {}
+
+
+def _entry(name: str) -> ctypes._CFuncPtr:
+    fn = _fns.get(name)
+    if fn is None:
+        fn = getattr(cuda_build.load_library(
+            "layernorm", ["layernorm.cu"],
+            headers=["wgmma.cuh", "tensor_core.cuh"]), name)
+        fn.argtypes = _ENTRIES[name]
+        fn.restype = ctypes.c_int
+        _fns[name] = fn
+    return fn
+
+
 def load_kernel():
     """Build (at first use) and load the kernel; returns its C entry point."""
-    fn = cuda_build.load_library("layernorm", ["layernorm.cu"]).mmd_layernorm_fwd
-    fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
-                   + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
-    return fn
+    return _entry("mmd_layernorm_fwd")
 
 
 def _layernorm_cuda(weight, bias, y, eps, shortcut):
     global launches
-    c = y.shape[-1]
+    dtype, shape, device = y.dtype, y.shape, y.device
+    code = _DTYPE_CODES.get(dtype)
+    if code is None:
+        raise ValueError(f"the kernel takes float32 or bfloat16, not {dtype}")
+    c = shape[-1]
     if c % 128 or c > _MAX_C:
         raise ValueError(f"the kernel takes C a multiple of 128 up to "
                          f"{_MAX_C}, not {c}")
-    if y.dtype not in _DTYPE_CODES:
-        raise ValueError(f"the kernel takes float32 or bfloat16, not {y.dtype}")
     if not y.is_contiguous():
         raise ValueError("the kernel takes a contiguous y")
-    if shortcut is not None and (shortcut.shape != y.shape
-                                 or shortcut.dtype != y.dtype
-                                 or shortcut.device != y.device
-                                 or not shortcut.is_contiguous()):
+    if shortcut is not None and (shortcut.dtype != dtype
+                                 or not shortcut.is_contiguous()
+                                 or shortcut.shape != shape
+                                 or shortcut.device != device):
         raise ValueError("the shortcut must be a contiguous tensor of y's "
                          "shape, dtype and device")
-    scale = weight.float().contiguous()
-    bias = bias.float().contiguous()
-    if scale.device != y.device or scale.shape != (c,):
+    if weight.dtype != torch.float32 or not weight.is_contiguous():
+        weight = weight.float().contiguous()
+    if bias.dtype != torch.float32 or not bias.is_contiguous():
+        bias = bias.float().contiguous()
+    if weight.shape != (c,) or bias.shape != (c,) or \
+            weight.device != device or bias.device != device:
         raise ValueError("scale and bias must be (C,) on y's device")
     out = torch.empty_like(y)
-    cuda_build.check_aligned(y, out, scale, bias,
-                             *(() if shortcut is None else (shortcut,)))
+    ptrs = (y.data_ptr(), 0 if shortcut is None else shortcut.data_ptr(),
+            weight.data_ptr(), bias.data_ptr(), out.data_ptr())
+    if (ptrs[0] | ptrs[1] | ptrs[2] | ptrs[3] | ptrs[4]) % 16:
+        raise ValueError("the kernel takes 16-byte aligned tensors")
     rows = y.numel() // c
     if rows == 0:
         return out
-    fn = load_kernel()
-    rc = fn(y.data_ptr(), None if shortcut is None else shortcut.data_ptr(),
-            scale.data_ptr(), bias.data_ptr(), out.data_ptr(), rows, c, eps,
-            _DTYPE_CODES[y.dtype], cuda_build.device_index(y),
-            torch.cuda.current_stream(y.device).cuda_stream)
-    cuda_build.check_launch(rc, f"layernorm ({rows}, {c}) {y.dtype}")
+    dev = y.get_device()
+    rc = load_kernel()(*ptrs, rows, c, eps, code, dev,
+                       torch._C._cuda_getCurrentRawStream(dev))
+    if rc:
+        cuda_build.check_launch(rc, f"layernorm ({rows}, {c}) {y.dtype}")
     with _launch_lock:
         launches += 1
     return out
@@ -155,13 +183,21 @@ class _FusedLayerNorm(torch.autograd.Function):
 
 def fused_layernorm(params: nn.LayerNorm, y: torch.Tensor, eps: float = 1e-5,
                     shortcut: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """layernorm(y) * scale + bias (+ shortcut) -> y.dtype, y (..., C)."""
+    """layernorm(y) * scale + bias (+ shortcut) -> y.dtype, y (..., C).
+
+    On the card, a call that no gradient flows through (serving) goes to
+    the kernel without the autograd Function around it."""
     if not fused_ln_ok(y.shape):
         out = L.layernorm(params, y, eps)
         return out if shortcut is None else shortcut + out
-    if y.device.type == "cpu":
+    if y.is_cpu:
         return fused_layernorm_plain(params, y, eps, shortcut)
-    if y.device.type != "cuda":
+    if not y.is_cuda:
         raise ValueError(f"fused_layernorm runs on cuda or cpu, not "
                          f"{y.device.type}")
-    return _FusedLayerNorm.apply(y, params.weight, params.bias, shortcut, eps)
+    weight, bias = params.weight, params.bias
+    if torch.is_grad_enabled() and (
+            y.requires_grad or weight.requires_grad or bias.requires_grad
+            or (shortcut is not None and shortcut.requires_grad)):
+        return _FusedLayerNorm.apply(y, weight, bias, shortcut, eps)
+    return _layernorm_cuda(weight, bias, y, eps, shortcut)

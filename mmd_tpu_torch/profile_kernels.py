@@ -9,6 +9,7 @@
     python -m mmd_tpu_torch.profile_kernels deberta_bwd_calls
     python -m mmd_tpu_torch.profile_kernels mlp_bwd_calls
     python -m mmd_tpu_torch.profile_kernels mlp_fwd_calls
+    python -m mmd_tpu_torch.profile_kernels ln_calls
 
 `ptxas` compiles sources under ops/csrc/ (all of them by default) with the
 build's flags plus `-Xptxas -v` and prints one JSON line a kernel
@@ -99,6 +100,22 @@ and the unfused composition's forward by CUDA events beside it; then the
 device and CUDA-event us summed over a step's six calls. It runs on an
 older tree too, for a parent/change comparison in one run. It needs a CUDA
 device.
+
+`ln_calls` times the (residual +) LayerNorm (#6, `fused_layernorm`) at the
+eight geometries of a served batch of Swinv2-base (batch 16), bf16 and
+fp32: host us a call, the host's own us a call, the us a call by CUDA
+events, and the device us a launch by torch.profiler (50 calls) twice:
+warm, all calls on one input (at stages 2-3 it stays in the 50 MB L2), and
+cold, the calls rotating over enough inputs to pass twice the L2, so each
+call reads from device memory: the bound (bytes over 3.35 TB/s) is read
+against the cold figure. Beside them, `F.layer_norm` plus the shortcut's
+add on the same input (device us of both kernels, warm and cold); a digest of the output (inputs from a fixed
+seed: two trees compare bit for bit) and whether two calls agree bit for
+bit; at stage 2's residual geometry (72 of the 106 calls) also the host's
+own us of each piece of the call path. Last, one line a dtype of the sums
+over a served batch's 106 calls.
+It runs on an older tree too (copy the new `profile_kernels.py` into it),
+for a parent/change comparison in one run. It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -157,6 +174,14 @@ _CALLS = 2000
 # (N, D, F) -> calls a step; the step's dropout rate
 MLP_GEOMETRIES = {(131072, 256, 1024): 3, (16384, 256, 1024): 3}
 MLP_RATE = 0.1
+# Swinv2-base LayerNorms per served batch of 16 (chip_smoke.py's LN_GEOMS):
+# (rows, C, shortcut) -> launches
+LN_GEOMS = {(65536, 128, False): 2, (65536, 128, True): 8,
+            (16384, 256, True): 8, (4096, 512, True): 72,
+            (1024, 1024, True): 8, (16384, 256, False): 2,
+            (4096, 512, False): 2, (1024, 1024, False): 4}
+L2_BYTES = 50 * 2 ** 20
+HBM_BYTES_PER_S = 3.35e12
 
 
 def parse_ptxas(log: str) -> list[dict]:
@@ -808,6 +833,122 @@ def mlp_fwd_calls() -> None:
               flush=True)
 
 
+def _ln_device_us(calls_of, calls: int, symbol: str | None,
+                  per_call: int = 1) -> float | None:
+    """Device us a call of `calls_of(i)` (the i-th call) by torch.profiler
+    over `calls` calls: the kernels whose symbol holds `symbol` (or every
+    device event: None), `per_call` launches a call, averaged over the
+    launches the trace holds (a window that lost every launch: None)."""
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        for i in range(calls):
+            calls_of(i)
+        torch.cuda.synchronize()
+    us, launches = 0.0, 0
+    for evt in prof.key_averages():
+        t = P.device_us(evt)
+        if t > 0 and (symbol is None or symbol in evt.key):
+            us, launches = us + t, launches + evt.count
+    return us / launches * per_call if launches else None
+
+
+def _ln_pieces(LN, p, y, x) -> dict:
+    """The host's own us a call (`_enqueue_us`) of each piece of the
+    wrapper's call path: the whole call, the call without the routing rule
+    and autograd (`_layernorm_cuda`), the C entry point alone with the
+    call's arguments (it launches the kernel), the output's allocation and
+    the routing rule."""
+    out = torch.empty_like(y)
+    fn = LN.load_kernel()
+    dv = y.get_device()
+    args = (y.data_ptr(), None if x is None else x.data_ptr(),
+            p.weight.data_ptr(), p.bias.data_ptr(), out.data_ptr(),
+            y.numel() // y.shape[-1], y.shape[-1], 1e-5,
+            LN._DTYPE_CODES[y.dtype], dv,
+            torch.cuda.current_stream(y.device).cuda_stream)
+    return {"call": _enqueue_us(lambda: LN.fused_layernorm(p, y, 1e-5, x)),
+            "wrapper": _enqueue_us(
+                lambda: LN._layernorm_cuda(p.weight, p.bias, y, 1e-5, x)),
+            "entry": _enqueue_us(lambda: fn(*args)),
+            "empty_like": _enqueue_us(lambda: torch.empty_like(y)),
+            "routing": _enqueue_us(lambda: LN.fused_ln_ok(y.shape))}
+
+
+def ln_calls() -> None:
+    from mmd_tpu_torch.ops import ln as LN
+    if not torch.cuda.is_available():
+        raise SystemExit("ln_calls needs a CUDA device")
+    layer_norm = torch.nn.functional.layer_norm
+    print(json.dumps({"card": P.card()}), flush=True)
+    dev = torch.device("cuda")
+    calls = 50
+    keys = ("device_us_warm", "device_us_cold", "library_device_us_warm",
+            "library_device_us_cold", "event_us", "host_us", "enqueue_us",
+            "bound_us")
+    batch = {}
+    torch.set_grad_enabled(False)
+    for dtype in (torch.bfloat16, torch.float32):
+        name_dt = str(dtype).split(".")[-1]
+        acc = batch[name_dt] = dict.fromkeys(keys, 0.0)
+        gen = torch.Generator(device=dev).manual_seed(1)
+        for (rows, c, res), count in LN_GEOMS.items():
+            p = torch.nn.LayerNorm(c).to(dev)
+            p.weight.normal_(generator=gen)
+            p.bias.normal_(generator=gen)
+            nbytes = rows * c * dtype.itemsize * (3 if res else 2)
+            # input sets: the first is the warm one; all of them pass 2 L2s
+            sets = [(torch.randn(rows, c, device=dev, generator=gen).to(dtype),
+                     torch.randn(rows, c, device=dev, generator=gen).to(dtype)
+                     if res else None)
+                    for _ in range(1 + math.ceil(2 * L2_BYTES / nbytes))]
+            y, x = sets[0]
+            call = lambda: LN.fused_layernorm(p, y, 1e-5, x)  # noqa: E731
+
+            def ours(i, s=None):
+                yi, xi = sets[i % len(sets)] if s is None else sets[s]
+                return LN.fused_layernorm(p, yi, 1e-5, xi)
+
+            wb, bb = p.weight.to(dtype), p.bias.to(dtype)
+
+            def library(i, s=None):
+                yi, xi = sets[i % len(sets)] if s is None else sets[s]
+                out = layer_norm(yi, (c,), wb, bb, 1e-5)
+                return out if xi is None else out + xi
+
+            out = call()
+            torch.cuda.synchronize()
+            rec = {"rows": rows, "C": c, "shortcut": res, "dtype": name_dt,
+                   "calls_a_batch": count,
+                   "out_sha256": hashlib.sha256(
+                       out.view(torch.int16 if dtype == torch.bfloat16
+                                else torch.int32).cpu().numpy().tobytes()
+                   ).hexdigest()[:16],
+                   "twice_bit_identical": torch.equal(out, call()),
+                   "host_us": _host_us(call, 500),
+                   "enqueue_us": _enqueue_us(call),
+                   "event_us": _event_us(call),
+                   "device_us_warm": _ln_device_us(partial(ours, s=0), calls,
+                                                   "ln_kernel"),
+                   "device_us_cold": _ln_device_us(ours, calls, "ln_kernel"),
+                   "library_device_us_warm": _ln_device_us(
+                       partial(library, s=0), calls, None, 1 + res),
+                   "library_device_us_cold": _ln_device_us(
+                       library, calls, None, 1 + res),
+                   "bound_us": 1e6 * (nbytes + 8 * c) / HBM_BYTES_PER_S}
+            if (rows, c, res) == (4096, 512, True):     # 72 of the 106
+                rec["host_pieces_us"] = _ln_pieces(LN, p, y, x)
+            for k in keys:
+                acc[k] += count * rec[k]
+            print(json.dumps({**rec, "card": P.card()}), flush=True)
+            del sets, y, x, out
+            torch.cuda.empty_cache()
+    for name_dt, acc in batch.items():
+        print(json.dumps({"per_batch": sum(LN_GEOMS.values()),
+                          "dtype": name_dt, "us_a_batch": acc,
+                          "card": P.card()}), flush=True)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="what", required=True)
@@ -820,6 +961,7 @@ def main(argv=None) -> None:
     sub.add_parser("deberta_bwd_calls")
     sub.add_parser("mlp_bwd_calls")
     sub.add_parser("mlp_fwd_calls")
+    sub.add_parser("ln_calls")
     args = ap.parse_args(argv)
     if args.what == "ptxas":
         ptxas(args.sources or sorted(f.name for f in cuda_build.CSRC.glob(
@@ -838,6 +980,8 @@ def main(argv=None) -> None:
         deberta_bwd_calls()
     elif args.what == "mlp_fwd_calls":
         mlp_fwd_calls()
+    elif args.what == "ln_calls":
+        ln_calls()
     else:
         mlp_bwd_calls()
 

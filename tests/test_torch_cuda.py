@@ -6,7 +6,8 @@ JAX, where tests/conftest.py (which imports JAX) cannot load:
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
 It holds each hand-written kernel against its plain PyTorch version at the
-serving paths' geometries -- flash attention, (residual +) LayerNorm,
+serving paths' geometries -- flash attention, (residual +) LayerNorm (at
+every C / 128 build, ragged tiles, twice bit for bit, on a side stream),
 Swinv2 window attention and DeBERTa disentangled attention -- and the
 small serving paths on the card against the same paths on the CPU; and
 the training kernels -- dropout (bit for bit), flash attention with
@@ -168,27 +169,118 @@ def _tol(dtype, ref):
     return 1e-4 if dtype == torch.float32 else _bf16_step(ref)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("rows,c,residual", [
-    (4096, 128, False), (2048, 256, True), (512, 1024, True), (24, 384, True)])
-def test_layernorm_kernel_matches_plain(cuda_device, dtype, rows, c,
-                                        residual):
-    g = torch.Generator(device=cuda_device).manual_seed(1)
-    ln = torch.nn.LayerNorm(c).to(cuda_device)
+def _ln_inputs(dev, dtype, rows, c, residual, seed=1):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ln = torch.nn.LayerNorm(c).to(dev)
     with torch.no_grad():
         ln.weight.normal_(generator=g)
         ln.bias.normal_(generator=g)
-    y = torch.randn(rows, c, device=cuda_device, generator=g).to(dtype)
-    x = (torch.randn(rows, c, device=cuda_device, generator=g).to(dtype)
+    y = torch.randn(rows, c, device=dev, generator=g).to(dtype)
+    x = (torch.randn(rows, c, device=dev, generator=g).to(dtype)
          if residual else None)
+    return ln, y, x
+
+
+def _ln_plain(ln, y, x):
+    return LN.fused_layernorm_plain(ln, y.float(), 1e-5,
+                                    None if x is None else x.float())
+
+
+# through the routing rule: the first four; then stage 2's width at 500
+# tiles, fewer tiles than a block has warps (8 x 256; 40 x 128 in bf16), a
+# grid stride of several turns (65536 x 128: 8192 bf16 tiles), and C 640,
+# 768 and 896, so that every C / 128 build of the kernel launches. The rule
+# passes only rows % 8 == 0, and every build's tile is 1, 2, 4 or 8 rows,
+# so none of these has a ragged last tile:
+# test_layernorm_kernel_takes_any_row_count calls the kernel directly for
+# those.
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c,residual", [
+    (4096, 128, False), (2048, 256, True), (512, 1024, True), (24, 384, True),
+    (1000, 512, True), (8, 256, True), (65536, 128, True), (40, 128, True),
+    (296, 640, True), (776, 768, False), (136, 896, False)])
+def test_layernorm_kernel_matches_plain(cuda_device, dtype, rows, c,
+                                        residual):
+    ln, y, x = _ln_inputs(cuda_device, dtype, rows, c, residual)
     before = LN.launches
     with torch.no_grad():
         out = LN.fused_layernorm(ln, y, 1e-5, x)
         torch.cuda.synchronize()
-        ref = LN.fused_layernorm_plain(ln, y.float(), 1e-5,
-                                       None if x is None else x.float())
+        ref = _ln_plain(ln, y, x)
     assert LN.launches == before + 1 and out.dtype == dtype
     assert (out.float() - ref).abs().max().item() <= _tol(dtype, ref)
+
+
+# rows (a tile: bf16 / fp32) -> the last tile's rows
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c,residual", [
+    (37, 128, True),        # tile 8 / 4: 5 / 1, five / ten tiles
+    (5, 128, False),        # tile 8 / 4: below a tile / 1
+    (3, 128, True),         # below a tile in both
+    (5, 256, True),         # tile 4 / 2: 1 / 1
+    (3, 1024, False),       # tile 1: three warps of a block busy
+    (1, 384, True),         # tile 2 / 1: one row of a warp's two (bf16)
+    (4095, 512, True),      # tile 2 / 1: 1 / whole, at stage 2's width
+    (65535, 128, True)])    # tile 8 / 4: 7 / 3, after a grid stride's turns
+def test_layernorm_kernel_takes_any_row_count(cuda_device, dtype, rows, c,
+                                              residual):
+    """A ragged last tile and fewer rows than a tile, which the routing rule
+    never sends: the bulk copies and their expected bytes count only the
+    rows there are (a count too high never completes the stage's phase)."""
+    ln, y, x = _ln_inputs(cuda_device, dtype, rows, c, residual, seed=3)
+    before = LN.launches
+    with torch.no_grad():
+        out = LN._layernorm_cuda(ln.weight, ln.bias, y, 1e-5, x)
+        torch.cuda.synchronize()
+        ref = _ln_plain(ln, y, x)
+    assert LN.launches == before + 1 and out.shape == (rows, c)
+    assert (out.float() - ref).abs().max().item() <= _tol(dtype, ref)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,c,residual", [
+    (65536, 128, True), (4096, 512, True), (1024, 1024, False)])
+def test_layernorm_kernel_is_deterministic(cuda_device, dtype, rows, c,
+                                           residual):
+    """Two calls give the same bits (fixed-order sums, no atomics)."""
+    ln, y, x = _ln_inputs(cuda_device, dtype, rows, c, residual, seed=2)
+    with torch.no_grad():
+        first = LN.fused_layernorm(ln, y, 1e-5, x)
+        second = LN.fused_layernorm(ln, y, 1e-5, x)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+
+
+def test_layernorm_kernel_runs_on_the_current_stream(cuda_device):
+    """The wrapper passes the current stream's raw handle: on a side stream
+    that first sleeps, the output is right once that stream is done."""
+    ln, y, x = _ln_inputs(cuda_device, torch.bfloat16, 4096, 512, True)
+    side = torch.cuda.Stream(cuda_device)
+    side.wait_stream(torch.cuda.current_stream(cuda_device))
+    with torch.no_grad(), torch.cuda.stream(side):
+        torch.cuda._sleep(1_000_000)
+        out = LN.fused_layernorm(ln, y, 1e-5, x)
+    side.synchronize()
+    ref = _ln_plain(ln, y, x)
+    assert (out.float() - ref).abs().max().item() <= _tol(torch.bfloat16,
+                                                          ref)
+
+
+def test_layernorm_refuses_what_it_does_not_take(cuda_device):
+    ln, y, x = _ln_inputs(cuda_device, torch.bfloat16, 64, 256, True)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        LN._layernorm_cuda(ln.weight, ln.bias, y.half(), 1e-5, None)
+    with pytest.raises(ValueError, match="contiguous y"):
+        LN._layernorm_cuda(ln.weight, ln.bias, torch.cat([y, y], 1)[:, :256],
+                           1e-5, None)
+    with pytest.raises(ValueError, match="shortcut"):
+        LN._layernorm_cuda(ln.weight, ln.bias, y, 1e-5, x.float())
+    with pytest.raises(ValueError, match="scale and bias"):
+        LN._layernorm_cuda(ln.weight[:128], ln.bias[:128], y, 1e-5, None)
+    skewed = torch.empty(64 * 256 + 4, dtype=torch.bfloat16,
+                         device=cuda_device)[4:].view(64, 256)
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        LN._layernorm_cuda(ln.weight, ln.bias, skewed, 1e-5, None)
 
 
 # the Swinv2-base window attentions of a served batch of 16: (nW, C,

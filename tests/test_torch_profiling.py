@@ -134,3 +134,10 @@ def test_ptxas_remarks_keep_warnings_and_serialized_wgmma():
     got = profile_kernels.ptxas_remarks(log)
     assert len(got) == 2
     assert "C7514" in got[0] and "warning #177-D" in got[1]
+
+
+def test_ln_calls_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only without a CUDA device")
+    with pytest.raises(SystemExit, match="CUDA device"):
+        profile_kernels.main(["ln_calls"])
