@@ -73,7 +73,21 @@ Phases, each of which exits nonzero on failure:
   In both serve phases image requests must keep their image paths,
   probabilities must be finite and sum to 1, and one fp32 batch through the
   kernel path must agree with the explicit path.
-  6. train            python -m mmd_tpu_torch.train's main path (build, then
+  6. serve_converted  a trained model served from files, as a user serves
+                      one: DeBERTa-v3-xsmall (fp32, as converted) and
+                      Swinv2-base assets with their sidecar configs (the
+                      published configs through config_from_hf, weights
+                      from seeds) written by convert_hf's writer, an
+                      spm.json built from the traffic corpus, and a fusion
+                      best_model.pt of seed 7, loaded through
+                      MisinformationPredictor(checkpoint_path=...,
+                      assets_dir=...); 32 requests at batch 16 with the
+                      launches of serve_reference a batch; a batch from the
+                      files bit-identical to the same modules, tokenizer
+                      and params held in memory, and unlike the seeded
+                      head's; set-up seconds and the unigram tokenizer's
+                      seconds a batch beside the WordPiece tokenizer's
+  7. train            python -m mmd_tpu_torch.train's main path (build, then
                       run_training) at full width, batch 256, float32,
                       fused_attn, dropout 0.1, on synthetic learnable batches:
                       8 steps and one validation pass; every loss finite,
@@ -82,20 +96,20 @@ Phases, each of which exits nonzero on failure:
                       forwards a validation batch), params moved,
                       metrics.jsonl and checkpoints written; wall time a
                       step and peak device memory
-  7. train_bf16       the same with the default compute dtype, bfloat16:
+  8. train_bf16       the same with the default compute dtype, bfloat16:
                       exactly 6 / 6 / 8 / 8 / 8 launches of the fused MLP
                       forward and backward, the flash forward and backward
                       and the dropout kernel a step, none of the mask oracle
-  8. train_parity     one fp32 step at batch 16 and full width, dropout on,
+  9. train_parity     one fp32 step at batch 16 and full width, dropout on,
                       one seed, through fused_attn=True and fused_attn=False:
                       loss within 1e-5 relative, every grad leaf within 1e-4
                       of its largest |value|
-  9. train_parity_bf16  one bf16 step at batch 16 and full width, dropout
+ 10. train_parity_bf16  one bf16 step at batch 16 and full width, dropout
                       on, one seed, through the fused and the unfused MLP:
                       loss within 1e-3 relative, the gradient within 1e-1
                       in L2 norm; the fused step with a wrong seed must
                       fail the same check
- 10. finetune_reference  8 steps of end-to-end fine-tuning of the reference
+ 11. finetune_reference  8 steps of end-to-end fine-tuning of the reference
                       encoders (Trainer(finetune=True) on
                       load_or_init_frozen(reference_families=True):
                       DeBERTa-v3-xsmall and Swinv2-base with fused_train,
@@ -106,20 +120,20 @@ Phases, each of which exits nonzero on failure:
                       backward, the fusion model's kernels, none of the
                       serving Swin kernel or the LayerNorm; wall time a
                       step and peak device memory
- 11. finetune_parity  one fp32 step of the same at batch 2, dropout 0,
+ 12. finetune_parity  one fp32 step of the same at batch 2, dropout 0,
                       through the kernels and through both encoders'
                       explicit paths: loss within 1e-4 relative, each
                       tree's (fusion, text, vit) gradient within 1e-3 in
                       L2 norm
- 12. train_raw        a synthetic Factify tree (64 train rows, 256 px) ->
+ 13. train_raw        a synthetic Factify tree (64 train rows, 256 px) ->
                       preprocess_csv -> python -m mmd_tpu_torch.train's
                       main on the raw path, 2 epochs at batch 8, default
                       encoder families: frozen, then --finetune_encoders;
                       finite losses, metrics.jsonl, the launches a step
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record, with each kernel's launches in the counted runs of
-the serve, serve_reference, train, train_bf16, finetune_reference and
-train_raw phases.
+the serve, serve_reference, serve_converted, train, train_bf16,
+finetune_reference and train_raw phases.
 """
 
 from __future__ import annotations
@@ -190,6 +204,26 @@ REFERENCE_PER_BATCH = {"deberta_attn_fwd": DEBERTA["per_batch"],
                        "swin_window_attn": sum(SWIN_GEOMS.values()),
                        "layernorm": sum(LN_GEOMS.values()),
                        "flash_attn_fwd": FUSION_PER_BATCH}
+# serve_converted: the published configs (config.json) of
+# microsoft/deberta-v3-xsmall and microsoft/swinv2-base-patch4-window8-256,
+# the fields the port's config_from_hf reads; the weights come from seeds
+DEBERTA_V3_XSMALL_HF = {
+    "model_type": "deberta-v2", "vocab_size": 128100, "hidden_size": 384,
+    "num_hidden_layers": 12, "num_attention_heads": 6,
+    "intermediate_size": 1536, "hidden_act": "gelu",
+    "max_position_embeddings": 512, "max_relative_positions": -1,
+    "position_buckets": 256, "relative_attention": True,
+    "position_biased_input": False, "pos_att_type": "p2c|c2p",
+    "norm_rel_ebd": "layer_norm", "share_att_key": True,
+    "layer_norm_eps": 1e-7, "type_vocab_size": 0}
+SWINV2_BASE_HF = {
+    "model_type": "swinv2", "image_size": 256, "patch_size": 4,
+    "num_channels": 3, "embed_dim": 128, "depths": [2, 2, 18, 2],
+    "num_heads": [4, 8, 16, 32], "window_size": 8, "mlp_ratio": 4.0,
+    "qkv_bias": True, "hidden_act": "gelu", "layer_norm_eps": 1e-5,
+    "pretrained_window_sizes": [0, 0, 0, 0]}
+CONVERTED_SEEDS = {"deberta": 1, "swinv2": 2, "spm": 3, "fusion": 7}
+CONVERTED_REQUESTS = 32
 
 # The fusion train step at batch 256, fp32, dropout 0.1.
 TRAIN_B = 256
@@ -1393,30 +1427,40 @@ def _fp32(cfg, fused: bool):
     return dataclasses.replace(cfg, compute_dtype="float32", **kw)
 
 
-def serve(phase: str, card: str, tmp: Path, texts: list[str],
-          images: list[str], want_per_batch: dict, n_req: int,
-          reference_families: bool) -> dict:
-    """Drive a ServingEngine at full width from several threads; return
-    the kernel launches of the counted run, by kernel."""
-    from mmd_tpu_torch.core.config import ModelConfig
-    from mmd_tpu_torch.inference.predictor import MisinformationPredictor
-    from mmd_tpu_torch.inference.server import ServingEngine
-    from mmd_tpu_torch.models.frozen import load_or_init_frozen
-
-    t0 = time.perf_counter()
-    enc = load_or_init_frozen(tmp / f"assets_{phase}", vocab_texts=texts,
-                              vocab_size=30000, seed=0,
-                              reference_families=reference_families)
-    cfg = ModelConfig(fused_attn=True)
-    pred = MisinformationPredictor(cfg, encoders=enc, max_length=512,
-                                   batch_size=BATCH, device="cuda")
-    tc, vc = enc.text_cfg, enc.vit_cfg
+def _describe(phase: str, pred, setup: str) -> None:
+    tc, vc, cfg = pred.enc.text_cfg, pred.enc.vit_cfg, pred.cfg
     print(f"{phase}: encoders {type(tc).__name__} {tc.num_layers}x"
           f"{tc.hidden_size} (vocab {tc.vocab_size}, {tc.compute_dtype}), "
           f"{type(vc).__name__} {vc.num_tokens}x{vc.hidden_size} tokens at "
-          f"{vc.image_size} px ({vc.compute_dtype}); fusion {cfg.embed_dim}/"
-          f"{cfg.num_heads} heads, {cfg.compute_dtype}; set-up "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
+          f"{vc.image_size} px ({vc.compute_dtype}); tokenizer "
+          f"{type(pred.enc.tokenizer).__name__} (vocab "
+          f"{pred.enc.tokenizer.vocab_size}); fusion {cfg.embed_dim}/"
+          f"{cfg.num_heads} heads, {cfg.compute_dtype}; set-up {setup}",
+          flush=True)
+
+
+def _requests(texts: list[str], images: list[str], n_req: int) -> list:
+    reqs = []
+    for i in range(n_req):
+        ci = images[i % len(images)] if i % 2 == 0 else None
+        ei = images[(i * 5) % len(images)] if i % 3 != 2 else None
+        reqs.append((texts[i % len(texts)], ci,
+                     texts[(i * 7 + 3) % len(texts)], ei))
+    return reqs
+
+
+def _batch_of(reqs: list) -> tuple:
+    """The first BATCH requests as evaluate_batch's four lists."""
+    return tuple([r[k] for r in reqs[:BATCH]] for k in range(4))
+
+
+def _drive(phase: str, card: str, pred, texts: list[str],
+           images: list[str], want_per_batch: dict, n_req: int
+           ) -> tuple[dict, list, float]:
+    """Drive a ServingEngine at full width from several threads. Returns
+    the kernel launches of the counted run by kernel, the requests, and the
+    tokenizer's seconds a served batch (claims and evidence)."""
+    from mmd_tpu_torch.inference.server import ServingEngine
 
     # warm-up batch (allocator, cuBLAS handles) outside the counted run
     pred.evaluate_batch(texts[:BATCH], (images + [None] * BATCH)[:BATCH],
@@ -1424,12 +1468,7 @@ def serve(phase: str, card: str, tmp: Path, texts: list[str],
     torch.cuda.synchronize()
 
     n_threads = 6
-    reqs = []
-    for i in range(n_req):
-        ci = images[i % len(images)] if i % 2 == 0 else None
-        ei = images[(i * 5) % len(images)] if i % 3 != 2 else None
-        reqs.append((texts[i % len(texts)], ci,
-                     texts[(i * 7 + 3) % len(texts)], ei))
+    reqs = _requests(texts, images, n_req)
     results: dict[int, dict] = {}
     errors: list[BaseException] = []
     lock = threading.Lock()
@@ -1475,10 +1514,36 @@ def serve(phase: str, card: str, tmp: Path, texts: list[str],
           f"{st['latency_p50_ms']:.2f} ms, p95 {st['latency_p95_ms']:.2f} "
           f"ms, kernel launches {json.dumps(launches)} (want "
           f"{json.dumps(want)})  [{card}]", flush=True)
-    print(f"{phase}: stage seconds {json.dumps(st['stages_s'])}", flush=True)
+    tokenize_s = st["stages_s"].get("tokenize_s", 0.0) / st["batches"]
+    print(f"{phase}: stage seconds {json.dumps(st['stages_s'])}; tokenize "
+          f"{tokenize_s:.4f} s a batch ({type(pred.enc.tokenizer).__name__}"
+          f", claims and evidence, {BATCH} each)  [{card}]", flush=True)
     if launches != want:
         fail(f"{phase}: launches {launches} for {st['batches']} batches; the "
              f"path should launch {want}")
+    return launches, reqs, tokenize_s
+
+
+def serve(phase: str, card: str, tmp: Path, texts: list[str],
+          images: list[str], want_per_batch: dict, n_req: int,
+          reference_families: bool) -> tuple[dict, float]:
+    """Seeded encoders served through a ServingEngine; returns the kernel
+    launches of the counted run by kernel and the tokenizer's seconds a
+    batch."""
+    from mmd_tpu_torch.core.config import ModelConfig
+    from mmd_tpu_torch.inference.predictor import MisinformationPredictor
+    from mmd_tpu_torch.models.frozen import load_or_init_frozen
+
+    t0 = time.perf_counter()
+    enc = load_or_init_frozen(tmp / f"assets_{phase}", vocab_texts=texts,
+                              vocab_size=30000, seed=0,
+                              reference_families=reference_families)
+    cfg = ModelConfig(fused_attn=True)
+    pred = MisinformationPredictor(cfg, encoders=enc, max_length=512,
+                                   batch_size=BATCH, device="cuda")
+    _describe(phase, pred, f"{time.perf_counter() - t0:.1f} s")
+    launches, reqs, tokenize_s = _drive(phase, card, pred, texts, images,
+                                        want_per_batch, n_req)
 
     # one fp32 batch through the kernel path and the explicit path, same
     # params: the served probabilities must agree
@@ -1489,8 +1554,7 @@ def serve(phase: str, card: str, tmp: Path, texts: list[str],
             _fp32(cfg, fused), fusion_params=pred.params.state_dict(),
             encoders=e, max_length=512, batch_size=BATCH, device="cuda")
 
-    batch = ([r[0] for r in reqs[:BATCH]], [r[1] for r in reqs[:BATCH]],
-             [r[2] for r in reqs[:BATCH]], [r[3] for r in reqs[:BATCH]])
+    batch = _batch_of(reqs)
     got = fp32_predictor(True).evaluate_batch(*batch, detailed=True)
     ref = fp32_predictor(False).evaluate_batch(*batch, detailed=True)
     diff = max(abs(g[p]["probabilities"][c] - r[p]["probabilities"][c])
@@ -1500,6 +1564,109 @@ def serve(phase: str, card: str, tmp: Path, texts: list[str],
           f"difference {diff:.3e} (tol {PROB_TOL:.0e})", flush=True)
     if not diff <= PROB_TOL:
         fail(f"{phase}: the kernel path disagrees with the explicit path")
+    return launches, tokenize_s
+
+
+def _spm_pieces(texts: list[str]) -> list:
+    """A DeBERTa-convention unigram vocabulary from the corpus, built as
+    tests/test_spm.py builds its vocabularies: [PAD], [CLS], [SEP], [UNK]
+    at 0-3, then the metaspace, every character, and the corpus's words,
+    every other one with the metaspace in front, at seeded scores."""
+    from mmd_tpu_torch.data.spm import CONTROL, METASPACE, NORMAL, UNKNOWN
+
+    rng = np.random.default_rng(CONVERTED_SEEDS["spm"])
+    words = sorted({w for t in texts for w in t.split()})
+    chars = sorted({c for t in texts for c in t if not c.isspace()})
+    pieces = [("[PAD]", 0.0, CONTROL), ("[CLS]", 0.0, CONTROL),
+              ("[SEP]", 0.0, CONTROL), ("[UNK]", 0.0, UNKNOWN)]
+    for tok in ([METASPACE] + chars + [METASPACE + w for w in words[::2]]
+                + words[1::2]):
+        pieces.append((tok, float(-1.0 - 12.0 * rng.random()), NORMAL))
+    return pieces
+
+
+def phase_serve_converted(card: str, tmp: Path, texts: list[str],
+                          images: list[str], wordpiece_s: float) -> dict:
+    """Serve a trained model from files: converted DeBERTa-v3-xsmall and
+    Swinv2-base assets and an spm.json, written through convert_hf's
+    writer, and a fusion best_model.pt, all from seeds; returns the kernel
+    launches of the counted run by kernel."""
+    from mmd_tpu_torch.convert_hf import write_asset
+    from mmd_tpu_torch.core.checkpoint import save_params
+    from mmd_tpu_torch.core.config import ModelConfig
+    from mmd_tpu_torch.data.spm import UnigramTokenizer
+    from mmd_tpu_torch.inference.predictor import MisinformationPredictor
+    from mmd_tpu_torch.models import deberta as D
+    from mmd_tpu_torch.models import swin as SW
+    from mmd_tpu_torch.models.frozen import FrozenEncoders
+    from mmd_tpu_torch.models.fusion import init_fusion_params
+
+    phase = "serve_converted"
+    t0 = time.perf_counter()
+    assets, run = tmp / "assets_converted", tmp / "run_converted"
+    assets.mkdir()
+    text_cfg = D.config_from_hf(DEBERTA_V3_XSMALL_HF)
+    image_cfg = SW.config_from_hf(SWINV2_BASE_HF)
+    text = D.init_deberta(
+        torch.Generator().manual_seed(CONVERTED_SEEDS["deberta"]), text_cfg)
+    image = SW.init_swin(
+        torch.Generator().manual_seed(CONVERTED_SEEDS["swinv2"]), image_cfg)
+    write_asset(assets, "deberta", text, text_cfg)
+    write_asset(assets, "swinv2", image, image_cfg)
+    tokenizer = UnigramTokenizer(_spm_pieces(texts))
+    tokenizer.save(assets / "spm.json")
+    cfg = ModelConfig(fused_attn=True)
+    fusion = init_fusion_params(
+        torch.Generator().manual_seed(CONVERTED_SEEDS["fusion"]), cfg)
+    save_params(str(run / "best_model.pt"), fusion)
+    t1 = time.perf_counter()
+    pred = MisinformationPredictor(
+        cfg, checkpoint_path=str(run / "best_model.pt"),
+        assets_dir=str(assets), max_length=512, batch_size=BATCH,
+        device="cuda")
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    if (pred.enc.text_cfg != text_cfg or pred.enc.vit_cfg != image_cfg
+            or not isinstance(pred.enc.tokenizer, UnigramTokenizer)):
+        fail(f"{phase}: the assets resolved to {pred.enc.text_cfg}, "
+             f"{pred.enc.vit_cfg}, {type(pred.enc.tokenizer).__name__}")
+    _describe(phase, pred, f"{t2 - t0:.3f} s (write {t1 - t0:.3f} s, load "
+                           f"{t2 - t1:.3f} s)  [{card}]")
+    launches, reqs, tokenize_s = _drive(phase, card, pred, texts, images,
+                                        REFERENCE_PER_BATCH,
+                                        CONVERTED_REQUESTS)
+    print(f"{phase}: tokenize {tokenize_s:.4f} s a batch (UnigramTokenizer, "
+          f"pure Python) against {wordpiece_s:.4f} s (WordPieceTokenizer, "
+          f"serve_reference)  [{card}]", flush=True)
+
+    # the same batch through a predictor built in memory from the same
+    # modules, tokenizer and fusion params: bit-identical probabilities;
+    # the seeded head (seed 0) must give others
+    batch = _batch_of(reqs)
+    mem = MisinformationPredictor(
+        cfg, fusion_params=fusion.state_dict(),
+        encoders=FrozenEncoders(tokenizer, text_cfg, text, image_cfg, image),
+        max_length=512, batch_size=BATCH, device="cuda")
+    seeded = MisinformationPredictor(cfg, encoders=pred.enc, max_length=512,
+                                     batch_size=BATCH, device="cuda")
+    got, want, other = (p.evaluate_batch(*batch, detailed=True)
+                        for p in (pred, mem, seeded))
+
+    def probs(results):
+        return [[None if r[p] is None else list(r[p]["probabilities"].values())
+                 for p in r] for r in results]
+
+    same = probs(got) == probs(want)
+    moved = probs(got) != probs(other)
+    print(f"{phase}: {BATCH} pairs from files vs in memory, bit-identical "
+          f"probabilities: {same}; the loaded head moved them from the "
+          f"seeded head's: {moved}", flush=True)
+    if not same:
+        fail(f"{phase}: the predictor built from files disagrees with the "
+             f"one built in memory")
+    if not moved:
+        fail(f"{phase}: best_model.pt did not change the served output")
+    print(f"{phase}: phase wall {time.perf_counter() - t0:.1f} s", flush=True)
     return launches
 
 
@@ -1894,12 +2061,16 @@ def main() -> None:
     with tempfile.TemporaryDirectory(prefix="mmd_chip_smoke_") as tmp:
         tmp = Path(tmp)
         images = write_images(tmp, rng, 12)
+        served, _ = serve("serve", dev["card"], tmp, texts, images,
+                          {"flash_attn_fwd": LAUNCHES_PER_BATCH}, 48, False)
+        served_reference, wordpiece_s = serve(
+            "serve_reference", dev["card"], tmp, texts, images,
+            REFERENCE_PER_BATCH, 48, True)
         by_phase = {
-            "serve": serve("serve", dev["card"], tmp, texts, images,
-                           {"flash_attn_fwd": LAUNCHES_PER_BATCH}, 48, False),
-            "serve_reference": serve("serve_reference", dev["card"], tmp,
-                                     texts, images, REFERENCE_PER_BATCH, 48,
-                                     True),
+            "serve": served,
+            "serve_reference": served_reference,
+            "serve_converted": phase_serve_converted(
+                dev["card"], tmp, texts, images, wordpiece_s),
             "train": phase_train(dev["card"], tmp, "train", PER_STEP,
                                  ["--compute_dtype", "float32"]),
             "train_bf16": phase_train(dev["card"], tmp, "train_bf16",

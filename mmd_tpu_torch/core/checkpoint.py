@@ -6,8 +6,12 @@ with torch.save: the step, the fusion params (state_dict), the AdamW state
 generator is derived (training/trainer.py::step_generator), so a resumed
 run draws the same masks as an uninterrupted one. Files are
 <directory>/step_<N>.pt, written atomically; the oldest beyond
-`max_to_keep` are deleted. Reading the JAX package's orbax checkpoints
-belongs to the checkpoint port (ROADMAP A6).
+`max_to_keep` are deleted. Params alone (best_model.pt, the encoder
+assets) are save_params files: a module's state dict.
+
+The JAX package's orbax directories (best_model, <name>.ckpt) need JAX to
+read; tools/orbax_to_torch.py turns them into save_params files beside
+them. `read_params` refuses an orbax directory and names that script.
 """
 
 from __future__ import annotations
@@ -63,8 +67,23 @@ def save_params(path: str, params: torch.nn.Module) -> None:
     _save(params.state_dict(), Path(path))
 
 
+def orbax_error(path: str | os.PathLike, want: str | os.PathLike
+                ) -> FileNotFoundError:
+    return FileNotFoundError(
+        f"{path} is an orbax checkpoint of the JAX package, which the port "
+        f"does not read, and {want} is missing: convert it with "
+        f"`python tools/orbax_to_torch.py` where JAX is installed")
+
+
+def read_params(path: str | os.PathLike) -> dict:
+    """The state dict of a save_params file, on the CPU. An orbax
+    directory raises."""
+    if Path(path).is_dir():
+        raise orbax_error(path, Path(path).with_suffix(".pt"))
+    return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load_params(path: str, params: torch.nn.Module) -> torch.nn.Module:
     """Load a save_params file into a module of the same structure."""
-    params.load_state_dict(torch.load(path, map_location="cpu",
-                                      weights_only=True))
+    params.load_state_dict(read_params(path))
     return params

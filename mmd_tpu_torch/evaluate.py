@@ -3,6 +3,7 @@ counterpart of the repository's evaluate.py).
 
   python -m mmd_tpu_torch.evaluate --claim_text "..." --evidence_text "..." \\
       [--claim_image img.jpg] [--evidence_image img.jpg] [--detailed] \\
+      [--checkpoint <output_dir>/best_model.pt] [--assets assets/encoders] \\
       [--device cuda|cpu]
 
 Prints the per-path labels (text_text, text_image, image_text, image_image)
@@ -24,8 +25,10 @@ def main(argv=None):
     p.add_argument("--claim_image", type=str, default=None)
     p.add_argument("--evidence_image", type=str, default=None)
     p.add_argument("--checkpoint", type=str, default=None,
-                   help="orbax fusion checkpoint (not loadable until the "
-                        "checkpoint port; raises)")
+                   help="fusion params to serve: <output_dir>/best_model.pt "
+                        "of python -m mmd_tpu_torch.train, or the .pt that "
+                        "tools/orbax_to_torch.py writes beside a JAX "
+                        "best_model; omitted, a seeded init")
     p.add_argument("--assets", type=str, default="assets/encoders")
     p.add_argument("--detailed", action="store_true")
     p.add_argument("--text_input_dim", type=int, default=384)

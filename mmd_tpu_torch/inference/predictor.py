@@ -19,6 +19,7 @@ from typing import Mapping, Optional, Sequence
 import numpy as np
 import torch
 
+from mmd_tpu_torch.core.checkpoint import read_params
 from mmd_tpu_torch.core.config import ModelConfig
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.models.frozen import (
@@ -43,6 +44,19 @@ def resolve_device(device: str | torch.device) -> torch.device:
     return dev
 
 
+def read_fusion_checkpoint(path: str) -> dict:
+    """The fusion params of a save_params file. A joint fine-tuning state
+    ({fusion, text, vit}) and an orbax directory raise."""
+    state = read_params(path)
+    if state and all(k.split(".", 1)[0] in ("fusion", "text", "vit")
+                     for k in state):
+        raise ValueError(
+            f"{path} is a joint fine-tuning state (fusion, text and vit "
+            f"params); the predictor serves fusion params over frozen "
+            f"encoders")
+    return state
+
+
 def _add(timings: Optional[dict], key: str, seconds: float) -> None:
     if timings is not None:
         timings[key] = timings.get(key, 0.0) + seconds
@@ -57,12 +71,14 @@ class MisinformationPredictor:
                  max_length: int = 512, batch_size: int = 16,
                  device: str | torch.device = "cuda"):
         """fusion_params: a state dict of the port's fusion params (e.g.
-        `bridge.fusion_from_jax(tree, cfg).state_dict()`); None gives the
-        seeded init. The encoders are moved to `device`."""
+        `bridge.fusion_from_jax(tree, cfg).state_dict()`); checkpoint_path:
+        a save_params file of them (the trainer's best_model.pt, or one
+        tools/orbax_to_torch.py wrote); neither gives the seeded init. The
+        encoders are moved to `device`."""
+        if fusion_params is not None and checkpoint_path:
+            raise ValueError("pass fusion_params or checkpoint_path, not both")
         if checkpoint_path:
-            raise NotImplementedError(
-                "fusion checkpoints are orbax directories, which need JAX; "
-                "they load once the checkpoint port lands")
+            fusion_params = read_fusion_checkpoint(checkpoint_path)
         self.device = resolve_device(device)
         self.cfg = model_cfg
         self.enc = encoders or load_or_init_frozen(assets_dir)
@@ -73,7 +89,11 @@ class MisinformationPredictor:
         params = init_fusion_params(torch.Generator().manual_seed(0),
                                     model_cfg)
         if fusion_params is not None:
-            params.load_state_dict(fusion_params)
+            try:
+                params.load_state_dict(fusion_params)
+            except RuntimeError as e:
+                raise ValueError(f"the fusion params do not fit {model_cfg}: "
+                                 f"{e}") from e
         self.params = params.to(self.device).requires_grad_(False)
         self._vit_dtype = L.dtype_of(self.enc.vit_cfg.compute_dtype)
 

@@ -21,16 +21,18 @@ The kernel path is differentiable: `deberta_attention` is an autograd
 Function whose backward is the hand-written backward kernel (#11), so
 fine-tuning keeps the kernel, as the JAX package does with fused_train (the
 trainer takes the explicit path when fused_train is off). remat recomputes
-each layer in the backward (torch.utils.checkpoint). The
-sequence/pipeline-parallel variants and the HF converter arrive with later
-slices.
+each layer in the backward (torch.utils.checkpoint). `config_from_hf` and
+`load_hf_deberta_state_dict` read a HF DeBERTa-v3 download
+(mmd_tpu_torch/convert_hf.py). The sequence/pipeline-parallel variants
+arrive with the multi-device slice.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -274,3 +276,66 @@ def deberta_encode(params: L.ParamTree, cfg: DebertaConfig,
         x = (checkpoint(deberta_layer, *args, use_reentrant=False) if remat
              else deberta_layer(*args))
     return x
+
+
+# -- HF conversion ---------------------------------------------------------------
+
+def _att_types(value) -> set[str]:
+    return set(value.split("|") if isinstance(value, str) else value or ())
+
+
+def config_from_hf(config_json: Mapping) -> DebertaConfig:
+    """The DebertaConfig of a HF DeBERTa-v2/v3 `config.json` (a dict),
+    with tools/convert_hf.py's rules: max_relative_positions < 1 takes
+    max_position_embeddings, and the position terms must share the
+    attention's key (share_att_key, as in v3). Variants the encoder does
+    not compute (absolute positions, no relative attention, other position
+    terms or another activation) raise. The compute dtype stays float32,
+    as the JAX package's converter leaves it."""
+    c = config_json
+    if not c.get("share_att_key", False):
+        raise ValueError("only share_att_key=true DeBERTa (v3) converts")
+    if (c.get("position_biased_input", True)
+            or not c.get("relative_attention", False)
+            or _att_types(c.get("pos_att_type")) != {"c2p", "p2c"}
+            or "layer_norm" not in c.get("norm_rel_ebd", "none")
+            or c.get("hidden_act", "gelu") != "gelu"):
+        raise ValueError(
+            "the encoder computes DeBERTa-v3's attention only: relative "
+            "attention with c2p and p2c, a LayerNormed relative table, no "
+            "absolute positions, GELU")
+    max_rel = c.get("max_relative_positions", -1)
+    if max_rel < 1:
+        max_rel = c["max_position_embeddings"]
+    return DebertaConfig(
+        vocab_size=c["vocab_size"], hidden_size=c["hidden_size"],
+        num_layers=c["num_hidden_layers"],
+        num_heads=c["num_attention_heads"],
+        intermediate_size=c["intermediate_size"], max_position=max_rel,
+        position_buckets=c.get("position_buckets", -1),
+        layer_norm_eps=c.get("layer_norm_eps", 1e-7), share_att_key=True)
+
+
+def load_hf_deberta_state_dict(state_dict: Mapping, cfg: DebertaConfig
+                               ) -> L.ParamTree:
+    """A HF DebertaV2Model state dict (torch or numpy values, no task
+    prefix) as the port's encoder params."""
+    get = functools.partial(L.hf_tensor, state_dict)
+    tensors = {"embeddings.word": get("embeddings.word_embeddings.weight"),
+               "rel_embeddings": get("encoder.rel_embeddings.weight"),
+               **L.hf_modules(state_dict, {
+                   "embeddings.ln": "embeddings.LayerNorm",
+                   "rel_ln": "encoder.LayerNorm"})}
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layer.{i}"
+        tensors.update(L.hf_modules(state_dict, {
+            f"layers.{i}.q": f"{pre}.attention.self.query_proj",
+            f"layers.{i}.k": f"{pre}.attention.self.key_proj",
+            f"layers.{i}.v": f"{pre}.attention.self.value_proj",
+            f"layers.{i}.attn_out": f"{pre}.attention.output.dense",
+            f"layers.{i}.ln1": f"{pre}.attention.output.LayerNorm",
+            f"layers.{i}.ffn_in": f"{pre}.intermediate.dense",
+            f"layers.{i}.ffn_out": f"{pre}.output.dense",
+            f"layers.{i}.ln2": f"{pre}.output.LayerNorm"}))
+    params = init_deberta(torch.Generator().manual_seed(0), cfg)
+    return L.load_tensors(params, tensors, "deberta")

@@ -1,16 +1,26 @@
 """Frozen-encoder asset management (counterpart of mmd_tpu/models/frozen.py).
 
-The encoders come from a deterministic seeded init (same seed -> same
-params in every run of the port): the BERT-class text encoder and the ViT,
-or with `reference_families=True` the reference's own families,
-DeBERTa-v3-xsmall and Swinv2-base. The tokenizer is data-dependent and
-therefore always persisted (<assets>/tokenizer.json, the JAX package's
-format), trained on first use from the corpus text.
+Encoders resolve in the JAX package's priority order:
 
-Converted checkpoints (orbax directories, which need JAX to read) and the
-spm vocabulary exported with the DeBERTa checkpoint load with the
-checkpoint port. When one is present, loading raises instead of serving a
-different encoder or tokenizer.
+  1. converted checkpoints under <assets>: deberta.pt + deberta_config.json
+     (the reference's DeBERTa-v3) before text_encoder.pt (BERT-class),
+     swinv2.pt + swinv2_config.json (the reference's Swinv2) before vit.pt
+     (vit_config.json, when present, sets the ViT's shape);
+  2. a deterministic seeded init (same seed -> same params in every run of
+     the port): the BERT-class text encoder and the ViT, or with
+     `reference_families=True` the reference's own families,
+     DeBERTa-v3-xsmall and Swinv2-base.
+
+`python -m mmd_tpu_torch.convert_hf` writes these files from a HF download,
+tools/orbax_to_torch.py from the JAX package's orbax assets
+(<name>.ckpt). Each .pt file is a state dict of the port's module, loaded
+strictly; a <name>.ckpt with no <name>.pt beside it raises and names the
+script, never serving a seeded encoder in its place.
+
+The tokenizer is data-dependent and therefore always persisted: spm.json
+(the unigram vocab exported with a DeBERTa checkpoint, which reproduces
+DebertaV2Tokenizer's ids) before tokenizer.json (WordPiece, the JAX
+package's format), trained from the corpus text on first use.
 """
 
 from __future__ import annotations
@@ -23,6 +33,8 @@ from typing import Iterable, Optional
 
 import torch
 
+from mmd_tpu_torch.core.checkpoint import load_params, orbax_error
+from mmd_tpu_torch.data.spm import UnigramTokenizer
 from mmd_tpu_torch.data.tokenizer import WordPieceTokenizer
 from mmd_tpu_torch.models import deberta as D
 from mmd_tpu_torch.models import swin as SW
@@ -32,14 +44,10 @@ from mmd_tpu_torch.models.transformer import TransformerConfig
 
 DEFAULT_ASSETS = "assets/encoders"
 
-# converted assets; the checkpoint port loads them
-_UNPORTED_ASSETS = ("deberta.ckpt", "swinv2.ckpt", "text_encoder.ckpt",
-                    "vit.ckpt", "spm.json")
-
 
 @dataclasses.dataclass
 class FrozenEncoders:
-    tokenizer: WordPieceTokenizer
+    tokenizer: WordPieceTokenizer | UnigramTokenizer   # one encode_batch
     text_cfg: TransformerConfig | D.DebertaConfig
     text_params: torch.nn.Module
     vit_cfg: V.ViTConfig | SW.SwinConfig   # both expose image_size,
@@ -67,6 +75,21 @@ def image_encode(params, cfg, images):
     raise TypeError(f"no image encoder for {type(cfg).__name__}")
 
 
+def _asset(assets: Path, name: str) -> Optional[Path]:
+    """<assets>/<name>.pt, or None; an orbax <name>.ckpt in its place
+    raises."""
+    pt = assets / f"{name}.pt"
+    if pt.exists():
+        return pt
+    if (assets / f"{name}.ckpt").exists():
+        raise orbax_error(assets / f"{name}.ckpt", pt)
+    return None
+
+
+def _sidecar(assets: Path, name: str, cls):
+    return cls(**json.loads((assets / f"{name}_config.json").read_text()))
+
+
 def load_or_init_frozen(
     assets_dir: str | os.PathLike = DEFAULT_ASSETS,
     vocab_texts: Optional[Iterable[str]] = None,
@@ -75,26 +98,32 @@ def load_or_init_frozen(
     tiny: bool = False,
     reference_families: bool = False,
 ) -> FrozenEncoders:
-    """Same resolution as the JAX package, minus converted assets, which
-    raise NotImplementedError where the JAX package would load them.
-    `reference_families=True` seeds DeBERTa-v3-xsmall (bf16) and
-    Swinv2-base instead of the BERT-class/ViT substitutes; `tiny` ignores
-    it, as in the JAX package."""
+    """Converted checkpoints take priority either way.
+    `reference_families=True` makes the seeded fallbacks DeBERTa-v3-xsmall
+    (bf16) and Swinv2-base instead of the BERT-class/ViT substitutes.
+    `tiny` ignores it and the DeBERTa/Swinv2 checkpoints, as in the JAX
+    package; the BERT/ViT checkpoints and the tokenizers load either way.
+    A BERT checkpoint takes its shape from text_encoder_config.json when
+    the converter wrote one, else from the tokenizer (the JAX package's
+    rule)."""
     assets = Path(assets_dir)
-    # tiny configs ignore the DeBERTa/Swinv2 checkpoints in the JAX
-    # package; the BERT/ViT checkpoints and the spm vocabulary load either
-    # way
-    for name in _UNPORTED_ASSETS:
-        if tiny and name in ("deberta.ckpt", "swinv2.ckpt"):
-            continue
-        if (assets / name).exists():
-            raise NotImplementedError(
-                f"{assets / name} is present; converted assets load with "
-                f"the checkpoint port")
+    # every asset this call would read, before any is built: a missing
+    # conversion raises at once
+    deberta = None if tiny else _asset(assets, "deberta")
+    swin = None if tiny else _asset(assets, "swinv2")
+    seed_text = deberta is None and reference_families and not tiny
+    seed_image = swin is None and reference_families and not tiny
+    text_pt = (None if deberta is not None or seed_text
+               else _asset(assets, "text_encoder"))
+    vit_pt = (None if swin is not None or seed_image
+              else _asset(assets, "vit"))
     assets.mkdir(parents=True, exist_ok=True)
 
+    spm_path = assets / "spm.json"
     tok_path = assets / "tokenizer.json"
-    if tok_path.exists():
+    if spm_path.exists():
+        tokenizer = UnigramTokenizer.load(spm_path)
+    elif tok_path.exists():
         tokenizer = WordPieceTokenizer.load(tok_path)
     else:
         if vocab_texts is None:
@@ -118,15 +147,30 @@ def load_or_init_frozen(
 
     text_gen = torch.Generator().manual_seed(seed)
     vit_gen = torch.Generator().manual_seed(seed + 1)
-    if reference_families and not tiny:
+    if deberta is not None:
+        text_cfg = _sidecar(assets, "deberta", D.DebertaConfig)
+        text_params = load_params(deberta, D.init_deberta(text_gen, text_cfg))
+    elif seed_text:
         text_cfg = dataclasses.replace(
             D.DEBERTA_V3_XSMALL, vocab_size=max(tokenizer.vocab_size, 128),
             compute_dtype="bfloat16")
         text_params = D.init_deberta(text_gen, text_cfg)
+    else:
+        if text_pt is not None and (
+                assets / "text_encoder_config.json").exists():
+            text_cfg = _sidecar(assets, "text_encoder", TransformerConfig)
+        text_params = te.init_text_encoder(text_gen, text_cfg)
+        if text_pt is not None:
+            load_params(text_pt, text_params)
+    if swin is not None:
+        vit_cfg = _sidecar(assets, "swinv2", SW.SwinConfig)
+        vit_params = load_params(swin, SW.init_swin(vit_gen, vit_cfg))
+    elif seed_image:
         vit_cfg = SW.SWIN_BASE_256
         vit_params = SW.init_swin(vit_gen, vit_cfg)
     else:
-        text_params = te.init_text_encoder(text_gen, text_cfg)
         vit_params = V.init_vit(vit_gen, vit_cfg)
+        if vit_pt is not None:
+            load_params(vit_pt, vit_params)
     return FrozenEncoders(tokenizer, text_cfg, text_params, vit_cfg,
                           vit_params)

@@ -25,6 +25,7 @@ from __future__ import annotations
 
 from typing import Mapping, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -189,3 +190,48 @@ def head_apply(params: ParamTree, x: torch.Tensor, dropout_rate: float = 0.0,
         if i < n - 1:
             x = dropout(torch.relu(x), dropout_rate, seeds[i], deterministic)
     return x
+
+
+# -- HF state dicts -------------------------------------------------------------
+# The HF loaders of the encoder modules gather {port state-dict name:
+# tensor} from a HF state dict and load it with `load_tensors`. nn.Linear
+# and nn.LayerNorm keep HF's own names and HF's (out, in) weight layout, so
+# a module maps onto a HF module weight for weight, with no transpose.
+
+def hf_tensor(state_dict: Mapping, name: str) -> torch.Tensor:
+    """One entry of a HF state dict (torch or numpy values) as a float32
+    CPU tensor; a missing entry raises KeyError naming it."""
+    if name not in state_dict:
+        raise KeyError(f"the HF state dict has no {name!r}")
+    value = state_dict[name]
+    if isinstance(value, torch.Tensor):
+        return value.detach().to("cpu", torch.float32)
+    return torch.tensor(np.asarray(value, dtype=np.float32))
+
+
+def hf_modules(state_dict: Mapping, pairs: Mapping[str, str],
+               bias: bool = True) -> dict[str, torch.Tensor]:
+    """{port module: HF module} -> {port name: tensor} for the weight, and
+    with `bias` the bias, of each pair."""
+    leaves = ("weight", "bias") if bias else ("weight",)
+    return {f"{ours}.{leaf}": hf_tensor(state_dict, f"{theirs}.{leaf}")
+            for ours, theirs in pairs.items() for leaf in leaves}
+
+
+def load_tensors(module: nn.Module, tensors: Mapping[str, torch.Tensor],
+                 where: str) -> nn.Module:
+    """Copy `tensors` into `module` by state-dict name: every name of the
+    module, no other, each of the module's shape."""
+    own = module.state_dict()
+    missing = sorted(set(own) - set(tensors))
+    extra = sorted(set(tensors) - set(own))
+    if missing or extra:
+        raise KeyError(f"{where}: names missing {missing}, names the module "
+                       f"lacks {extra}")
+    for name, t in tensors.items():
+        if tuple(t.shape) != tuple(own[name].shape):
+            raise ValueError(f"{where}.{name}: shape {tuple(t.shape)} does "
+                             f"not match the module's "
+                             f"{tuple(own[name].shape)}")
+    module.load_state_dict(tensors)
+    return module

@@ -27,15 +27,17 @@ remat turns it off, as in the JAX package, and recomputes each block in
 the backward (torch.utils.checkpoint).
 
 The patch embedding is patchify + one linear, as in the JAX package (no
-Conv2d, which cuDNN runs in TF32). The HF converters arrive with a later
-slice.
+Conv2d, which cuDNN runs in TF32). `config_from_hf` and
+`load_hf_swinv2_state_dict` read a HF Swinv2 download
+(mmd_tpu_torch/convert_hf.py).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
-from typing import Optional
+from typing import Mapping, Optional
 
 import numpy as np
 import torch
@@ -414,3 +416,63 @@ def swin_forward(params: L.ParamTree, cfg: SwinConfig, images: torch.Tensor
             x = _patch_merge(stage["downsample"], x, res, eps, dtype, fln)
     return (fused_layernorm(params["ln_final"], x, eps) if fln
             else L.layernorm(params["ln_final"], x, eps))
+
+
+# -- HF conversion -------------------------------------------------------------
+
+def config_from_hf(config_json: Mapping) -> SwinConfig:
+    """The SwinConfig of a HF Swinv2 `config.json` (a dict)."""
+    c = config_json
+    if c.get("hidden_act", "gelu") != "gelu" or c.get("num_channels", 3) != 3:
+        raise ValueError("the encoder computes a 3-channel GELU Swinv2 only")
+    return SwinConfig(
+        image_size=c["image_size"], patch_size=c["patch_size"],
+        embed_dim=c["embed_dim"], depths=tuple(c["depths"]),
+        num_heads=tuple(c["num_heads"]), window_size=c["window_size"],
+        mlp_ratio=c["mlp_ratio"], qkv_bias=c["qkv_bias"],
+        layer_norm_eps=c["layer_norm_eps"],
+        pretrained_window_sizes=tuple(c.get("pretrained_window_sizes")
+                                      or (0,) * len(c["depths"])))
+
+
+def load_hf_swinv2_state_dict(state_dict: Mapping, cfg: SwinConfig
+                              ) -> L.ParamTree:
+    """A HF Swinv2Model state dict (torch or numpy values, no task prefix)
+    as the port's encoder params. The patch Conv2d (E, 3, p, p) becomes the
+    patchify linear, whose rows flatten in (c, py, px) order; each block's
+    logit scale (heads, 1, 1) becomes (heads,). The relative-coordinate
+    and position-index buffers are recomputed, not read."""
+    get = functools.partial(L.hf_tensor, state_dict)
+    conv = get("embeddings.patch_embeddings.projection.weight")
+    tensors = {"patch_embed.weight": conv.reshape(conv.shape[0], -1),
+               "patch_embed.bias": get(
+                   "embeddings.patch_embeddings.projection.bias"),
+               **L.hf_modules(state_dict, {"embed_ln": "embeddings.norm",
+                                           "ln_final": "layernorm"})}
+    for s in range(cfg.num_stages):
+        sp = f"encoder.layers.{s}"
+        for b in range(cfg.depths[s]):
+            ours, bp = f"stages.{s}.blocks.{b}", f"{sp}.blocks.{b}"
+            ap = f"{bp}.attention.self"
+            tensors[f"{ours}.logit_scale"] = get(
+                f"{ap}.logit_scale").reshape(-1)
+            tensors.update(L.hf_modules(state_dict, {
+                f"{ours}.q": f"{ap}.query", f"{ours}.v": f"{ap}.value",
+                f"{ours}.cpb1": f"{ap}.continuous_position_bias_mlp.0",
+                f"{ours}.attn_out": f"{bp}.attention.output.dense",
+                f"{ours}.ln1": f"{bp}.layernorm_before",
+                f"{ours}.ffn_in": f"{bp}.intermediate.dense",
+                f"{ours}.ffn_out": f"{bp}.output.dense",
+                f"{ours}.ln2": f"{bp}.layernorm_after"}))
+            tensors.update(L.hf_modules(state_dict, {
+                f"{ours}.k": f"{ap}.key",
+                f"{ours}.cpb2": f"{ap}.continuous_position_bias_mlp.2"},
+                bias=False))
+        if s < cfg.num_stages - 1:
+            tensors.update(L.hf_modules(state_dict, {
+                f"stages.{s}.downsample.norm": f"{sp}.downsample.norm"}))
+            tensors.update(L.hf_modules(state_dict, {
+                f"stages.{s}.downsample.reduction":
+                    f"{sp}.downsample.reduction"}, bias=False))
+    params = init_swin(torch.Generator().manual_seed(0), cfg)
+    return L.load_tensors(params, tensors, "swin")

@@ -1,5 +1,6 @@
 """Frozen image encoder: ViT-class, Swinv2-base output contract
-(counterpart of mmd_tpu/models/vit.py; the HF loaders arrive later).
+(counterpart of mmd_tpu/models/vit.py, with its HF ViT loader; the BLIP
+vision loader arrives with the captioner slice).
 
 A plain ViT with 32-px patches on 256-px inputs yields the Swinv2-base
 contract of 8x8 = 64 tokens of width 1024 in one stage (reference
@@ -13,6 +14,8 @@ Conv2d: cuDNN runs fp32 convolutions in TF32 by default.
 from __future__ import annotations
 
 import dataclasses
+import functools
+from typing import Mapping
 
 import torch
 from torch import nn
@@ -114,3 +117,61 @@ def vit_forward(params: L.ParamTree, cfg: ViTConfig, images: torch.Tensor
              else layer(p, x))
     x = L.layernorm(params["ln_post"], x, cfg.layer_norm_eps)
     return x[:, 1:] if (cfg.use_cls and not cfg.keep_cls) else x
+
+
+# -- HF conversion -------------------------------------------------------------
+
+def config_from_hf(config_json: Mapping) -> ViTConfig:
+    """The ViTConfig of a HF ViT `config.json` (a dict): pre-LN blocks, a
+    CLS token carried through them and dropped from the output, no
+    post-embedding LayerNorm (tools/convert_hf.py's settings)."""
+    c = config_json
+    if c.get("hidden_act", "gelu") != "gelu" or c.get("num_channels", 3) != 3:
+        raise ValueError("the encoder computes a 3-channel GELU ViT only")
+    return ViTConfig(
+        image_size=c["image_size"], patch_size=c["patch_size"],
+        hidden_size=c["hidden_size"], num_layers=c["num_hidden_layers"],
+        num_heads=c["num_attention_heads"],
+        intermediate_size=c["intermediate_size"],
+        layer_norm_eps=c["layer_norm_eps"], pre_ln=True, embed_ln=False,
+        use_cls=True)
+
+
+def load_hf_vit_state_dict(state_dict: Mapping, cfg: ViTConfig
+                           ) -> L.ParamTree:
+    """A HF ViTModel state dict (torch or numpy values, no task prefix) as
+    the port's encoder params. The config needs use_cls=True and
+    embed_ln=False (HF ViT has no post-embedding LayerNorm; ln_pre stays
+    at identity). The patch Conv2d (h, 3, p, p) becomes the patchify
+    linear, whose rows flatten in (c, py, px) order."""
+    if cfg.embed_ln or not cfg.use_cls:
+        raise ValueError("HF ViT converts with use_cls=True, embed_ln=False")
+    get = functools.partial(L.hf_tensor, state_dict)
+    conv = get("embeddings.patch_embeddings.projection.weight")
+    h = conv.shape[0]
+    tensors = {
+        "patch_embed.weight": conv.reshape(h, -1),
+        "patch_embed.bias": get("embeddings.patch_embeddings.projection.bias"),
+        "pos_embed": get("embeddings.position_embeddings")[0],
+        "cls_token": get("embeddings.cls_token")[0, 0],
+        "ln_pre.weight": torch.ones(h), "ln_pre.bias": torch.zeros(h),
+        **L.hf_modules(state_dict, {"ln_post": "layernorm"})}
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layer.{i}"
+        tensors.update(L.hf_modules(state_dict, {
+            f"layers.{i}.q": f"{pre}.attention.attention.query",
+            f"layers.{i}.k": f"{pre}.attention.attention.key",
+            f"layers.{i}.v": f"{pre}.attention.attention.value",
+            f"layers.{i}.attn_out": f"{pre}.attention.output.dense",
+            f"layers.{i}.ln1": f"{pre}.layernorm_before",
+            f"layers.{i}.ffn_in": f"{pre}.intermediate.dense",
+            f"layers.{i}.ffn_out": f"{pre}.output.dense",
+            f"layers.{i}.ln2": f"{pre}.layernorm_after"}))
+    params = init_vit(torch.Generator().manual_seed(0), cfg)
+    return L.load_tensors(params, tensors, "vit")
+
+
+def load_hf_blip_vision_state_dict(state_dict: Mapping, cfg: ViTConfig):
+    raise NotImplementedError(
+        "the BLIP vision loader arrives with the captioner slice "
+        "(ROADMAP A13)")

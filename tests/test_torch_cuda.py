@@ -9,7 +9,8 @@ It holds each hand-written kernel against its plain PyTorch version at the
 serving paths' geometries -- flash attention, (residual +) LayerNorm (at
 every C / 128 build, ragged tiles, twice bit for bit, on a side stream),
 Swinv2 window attention and DeBERTa disentangled attention -- and the
-small serving paths on the card against the same paths on the CPU; and
+small serving paths on the card against the same paths on the CPU (one
+of them served from converted assets and a best_model.pt); and
 the training kernels -- dropout (bit for bit), flash attention with
 dropout and its backward, the fused GELU-MLP forward and backward and their
 mask oracle -- and small fp32 and bf16 train steps on the card against the
@@ -437,6 +438,71 @@ def test_small_reference_serving_path_matches_cpu(cuda_device, tmp_path):
                 (DA.launches, SA.launches, LN.launches, A.launches), counts)]
             # per encode: 2 DeBERTa layers; 4 Swin blocks; 1 + 8 + 1 + 1
             # LayerNorms; 8 fusion attentions per batch
+            assert got == [2 * 2, 2 * 4, 2 * 11, 8]
+    for c, g in zip(out["cpu"], out["cuda"]):
+        for path in c:
+            assert (c[path] is None) == (g[path] is None)
+            if c[path] is not None:
+                assert g[path]["label"] == c[path]["label"]
+                for lab, p in c[path]["probabilities"].items():
+                    assert g[path]["probabilities"][lab] == pytest.approx(
+                        p, abs=1e-4)
+
+
+def test_converted_assets_serving_path_matches_cpu(cuda_device, tmp_path):
+    """A trained model served from files -- DeBERTa-v3 and Swinv2 assets
+    with sidecars, an spm.json and a fusion best_model.pt, written as
+    mmd_tpu_torch/convert_hf.py and the trainer write them -- at widths
+    that take every kernel (fp32): the card's run matches the CPU's and
+    goes through each kernel."""
+    from mmd_tpu_torch.convert_hf import write_asset
+    from mmd_tpu_torch.core.checkpoint import save_params
+    from mmd_tpu_torch.core.config import ModelConfig
+    from mmd_tpu_torch.data.spm import (
+        CONTROL, METASPACE, NORMAL, UNKNOWN, UnigramTokenizer,
+    )
+    from mmd_tpu_torch.inference.predictor import MisinformationPredictor
+    from mmd_tpu_torch.models import deberta, swin
+    from mmd_tpu_torch.models.fusion import init_fusion_params
+
+    texts = [f"claim {i} about the river rising again" for i in range(4)]
+    words = sorted({w for t in texts for w in t.split()})
+    chars = sorted({c for t in texts for c in t if c != " "})
+    pieces = [("[PAD]", 0.0, CONTROL), ("[CLS]", 0.0, CONTROL),
+              ("[SEP]", 0.0, CONTROL), ("[UNK]", 0.0, UNKNOWN)]
+    rng = np.random.default_rng(0)
+    for tok in [METASPACE] + chars + [METASPACE + w for w in words]:
+        pieces.append((tok, float(-1.0 - 12.0 * rng.random()), NORMAL))
+    UnigramTokenizer(pieces).save(tmp_path / "spm.json")
+    text_cfg = deberta.DebertaConfig(
+        vocab_size=128, hidden_size=128, num_layers=2, num_heads=2,
+        intermediate_size=256, max_position=64, position_buckets=16)
+    img_cfg = swin.SwinConfig(image_size=64, patch_size=4, embed_dim=128,
+                              depths=(2, 2), num_heads=(4, 8), window_size=8,
+                              pretrained_window_sizes=(0, 0),
+                              compute_dtype="float32")
+    gen = torch.Generator().manual_seed(5)
+    write_asset(tmp_path, "deberta", deberta.init_deberta(gen, text_cfg),
+                text_cfg)
+    write_asset(tmp_path, "swinv2", swin.init_swin(gen, img_cfg), img_cfg)
+    cfg = ModelConfig(text_input_dim=128, image_input_dim=256,
+                      compute_dtype="float32", fused_attn=True)
+    save_params(str(tmp_path / "best_model.pt"),
+                init_fusion_params(torch.Generator().manual_seed(7), cfg))
+    u8 = rng.integers(0, 256, (4, 64, 64, 3), dtype=np.uint8)
+    ok = np.array([True, False, True, True])
+    out = {}
+    for name in ("cpu", "cuda"):
+        pred = MisinformationPredictor(
+            cfg, checkpoint_path=str(tmp_path / "best_model.pt"),
+            assets_dir=str(tmp_path), batch_size=4, max_length=64,
+            device=name)
+        counts = (DA.launches, SA.launches, LN.launches, A.launches)
+        out[name] = pred.evaluate_arrays(texts, u8, ok, texts[::-1], u8,
+                                         ok[::-1], detailed=True)
+        if name == "cuda":
+            got = [now - was for now, was in zip(
+                (DA.launches, SA.launches, LN.launches, A.launches), counts)]
             assert got == [2 * 2, 2 * 4, 2 * 11, 8]
     for c, g in zip(out["cpu"], out["cuda"]):
         for path in c:

@@ -266,7 +266,7 @@ def test_encode_images_takes_uint8_batches(tiny_predictor):
     assert all(r["image_image"]["label"] in LABELS for r in res)
 
 
-# -- entry points and unported states -----------------------------------------
+# -- entry points and refusals -----------------------------------------------
 
 def test_evaluate_cli_on_cpu(tmp_path):
     """python -m mmd_tpu_torch.evaluate --device cpu on small assets: a
@@ -307,22 +307,28 @@ def test_cuda_device_without_card_raises(monkeypatch, tiny_predictor):
                                   "text_encoder.ckpt", "vit.ckpt",
                                   "spm.json"])
 def test_load_or_init_frozen_refuses_checkpoints(tmp_path, ckpt):
+    """An orbax <name>.ckpt with no <name>.pt beside it raises and names
+    the conversion script; an unreadable spm.json raises. Neither gives
+    way to a seeded encoder or a trained tokenizer."""
     (tmp_path / ckpt).mkdir()
-    with pytest.raises(NotImplementedError, match=ckpt):
+    match = (rf"{ckpt}.*orbax_to_torch" if ckpt.endswith(".ckpt")
+             else ckpt)
+    with pytest.raises(OSError, match=match):
         tfrozen.load_or_init_frozen(tmp_path, vocab_texts=CORPUS)
 
 
 def test_load_or_init_frozen_refuses_reference_families(tmp_path):
-    """The reference families' converted checkpoints, which the JAX
-    package loads with reference_families=True, are refused; `tiny`
-    ignores them there and here."""
+    """The reference families' orbax checkpoints, which the JAX package
+    loads ahead of its seeded init, raise without their .pt files rather
+    than give way to the seeded families; `tiny` ignores them there and
+    here."""
     (tmp_path / "deberta.ckpt").mkdir()
     (tmp_path / "swinv2.ckpt").mkdir()
-    with pytest.raises(NotImplementedError, match="deberta.ckpt"):
+    with pytest.raises(FileNotFoundError, match="deberta.ckpt"):
         tfrozen.load_or_init_frozen(tmp_path, vocab_texts=CORPUS,
                                     reference_families=True)
     (tmp_path / "deberta.ckpt").rmdir()
-    with pytest.raises(NotImplementedError, match="swinv2.ckpt"):
+    with pytest.raises(FileNotFoundError, match="swinv2.ckpt"):
         tfrozen.load_or_init_frozen(tmp_path, vocab_texts=CORPUS,
                                     reference_families=True)
     tiny = tfrozen.load_or_init_frozen(tmp_path, vocab_texts=CORPUS,
@@ -349,7 +355,9 @@ def test_load_or_init_frozen_resolves_reference_families(tmp_path):
 
 
 def test_predictor_checkpoint_path_raises(tiny_predictor):
-    with pytest.raises(NotImplementedError, match="checkpoint"):
+    """A fusion checkpoint that is not there raises; the seeded head is
+    not served in its place."""
+    with pytest.raises(FileNotFoundError, match="ckpt"):
         MisinformationPredictor(tiny_predictor.cfg, checkpoint_path="ckpt",
                                 encoders=tiny_predictor.enc, device="cpu")
 
