@@ -54,6 +54,10 @@ Phases, each of which exits nonzero on failure:
                              call twice and bit for bit; its device us a
                              call by torch.profiler beside its CUDA-event
                              us and its bound
+     * flash_attn_fwd        at the cross-encoder re-rank geometry of a
+       (rerank)              text search (B 50, T = S 256, 12 heads of dh
+                             32, padded key tails), bf16 and fp32, beside
+                             SDPA
      * swin_attn_train_fwd,  Swinv2 window attention for fine-tuning,
        swin_attn_train_bwd   forward and backward (dq, dk, dv, dbias) at the
                              four Swinv2-base stage geometries, B 8, and
@@ -130,14 +134,36 @@ Phases, each of which exits nonzero on failure:
                       main on the raw path, 2 epochs at batch 8, default
                       encoder families: frozen, then --finetune_encoders;
                       finite losses, metrics.jsonl, the launches a step
+ 14. retrieval        evidence retrieval at full width and Factify-2's
+                      corpus sizes, seeded weights: 1,024 traffic texts
+                      through TextCorpus.encode_corpus (MPNet
+                      BI_ENCODER_BASE, batch 64, 512 tokens) and 256 JPEGs
+                      plus a corrupt file through
+                      ImageCorpus.create_feature_corpus (ResNet50; exactly
+                      1 skipped); text_train / text_test / image_corpus
+                      written at 35,000 / 7,500 / 41,256 rows (built rows
+                      first, seeded rows after); 32 text searches
+                      (SemanticSearch over both corpora, the MiniLM
+                      cross-encoder re-ranking 50 pairs of 256 tokens:
+                      exactly 6 #1 launches a search) and 32 image searches
+                      (retrieve_similar_images: none), latency p50/p95 and
+                      seconds by stage; a query's scoring us over each
+                      corpus, bf16 and int8, beside its bound; checks (a)
+                      bf16 top-k against float64, (b) int8 planted top-1
+                      and recall@10 >= 0.9, (c) a duplicated row comes back
+                      lower index first and dedup drops its twin, (d)
+                      self-retrieval without re-rank, (e) the fp32 re-rank
+                      through #1 against the explicit path, (f) the fp32
+                      MPNet on the card against the CPU
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record, with each kernel's launches in the counted runs of
 the serve, serve_reference, serve_converted, train, train_bf16,
-finetune_reference and train_raw phases.
+finetune_reference, train_raw and retrieval phases.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import json
 import math
@@ -312,6 +338,38 @@ RAW_FROZEN_PER_STEP = {"flash_attn_fwd": 56, "flash_attn_bwd": 8,
                        "mlp_fwd": 6, "mlp_bwd": 6, "dropout": 8}
 RAW_FINETUNE_PER_STEP = {**RAW_FROZEN_PER_STEP, "flash_attn_bwd": 56}
 
+# Evidence retrieval at Factify-2's corpus sizes (SURVEY.md:312-316): the
+# MPNet bi-encoder (BI_ENCODER_BASE) and the ResNet50 features, rows by
+# corpus; a text search re-ranks top_k 5 x recall 5 from both text corpora
+# with the MiniLM cross-encoder (CROSS_ENCODER_MINI): 50 pairs of 256
+# tokens, one #1 launch a layer
+RETRIEVAL_ROWS = {"text_train": 35000, "text_test": 7500,
+                  "image_corpus": 41256}
+RETRIEVAL_TEXTS = 1024           # evidence texts encoded, batch 64, 512 tok
+RETRIEVAL_TRAIN_TEXTS = 768      # of them in text_train, the rest in test
+RETRIEVAL_IMAGES = 256           # JPEGs built into the image corpus
+RETRIEVAL_SEARCHES = 32          # text searches, and image searches
+RETRIEVAL_TOP_K, RETRIEVAL_RECALL = 5, 5
+RERANK = dict(name="rerank_50x256", b=50, t=256, s=256, d=384, h=12)
+RERANK_PER_SEARCH = 6            # the cross-encoder's 6 layers
+# (c) a seeded image row and its later twin (row indices)
+TWIN = (RETRIEVAL_IMAGES + 10, RETRIEVAL_IMAGES + 1000)
+# (a) card top-k against float64 on the host over the same bf16 rows:
+# fp32 sums of exact bf16 products over D 2048 err by ~1e-6; scores cast
+# to bf16 on the way out would err by up to half a bf16 step at [0.5, 1),
+# 2^-9 ~ 1.95e-3, which this limit refuses
+TOPK_SCORE_TOL = 1e-4
+# (a) the score gap past which the top-k' index sets must agree
+TOPK_GAP_TOL = 2e-3
+# (b) tests/test_topk.py's bar at full width
+INT8_RECALL_MIN = 0.9
+# (e) fp32 re-rank through #1 against the explicit path, relative to the
+# largest |score|; (f) the fp32 bi-encoder on the card against the CPU,
+# relative to the largest |embedding| (TF32 off: fp32 sums in another
+# order through 12 layers)
+RERANK_FP32_RTOL = 1e-3
+MPNET_CARD_CPU_RTOL = 1e-4
+
 
 def fail(msg: str) -> None:
     print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
@@ -402,6 +460,21 @@ def _bound_ms(nbytes: float, flops: float,
     return 1e3 * max(tb, tf), ("bytes" if tb >= tf else "operations")
 
 
+def _flash_bound_ms(q: torch.Tensor, k: torch.Tensor, h: int, mask,
+                    peak_flops: float = PEAK_BF16_FLOPS) -> tuple[float, str]:
+    """#1's forward over (B, T, D) q and (B, S, D) k, v under a (B, S) key
+    mask: Q and O, the K and V rows of the valid keys, the fp32 lse and
+    the mask moved once; 4 T D operations a valid key. A padded key adds
+    nothing to the output, so it counts neither bytes nor operations."""
+    b, t, d = q.shape
+    keys = k.shape[0] * k.shape[1] if mask is None else int(
+        mask.bool().sum())
+    nbytes = q.element_size() * (2 * b * t * d + 2 * keys * d) + 4 * b * h * t
+    if mask is not None:
+        nbytes += mask.numel() * mask.element_size()
+    return _bound_ms(nbytes, 4 * t * d * keys, peak_flops)
+
+
 def _bf16_step(ref: torch.Tensor) -> float:
     top = ref.abs().max().item()
     return 2.0 ** (math.floor(math.log2(max(top, 1e-30))) - 7)
@@ -482,14 +555,11 @@ def phase_flash(card: str) -> dict:
         qh, kh, vh = (x.view(b, -1, h, d // h).transpose(1, 2)
                       for x in (q, k, v))
         am = None if lib_mask is None else lib_mask[:, None, None, :]
-        nbytes = 2 * (2 * b * t * d + 2 * b * s * d) + 4 * b * h * t + (
-            b * s if mask is not None else 0)
         row = {"ms": _time_ms(lambda: A.flash_attention(q, k, v, h, mask)),
                "plain_ms": _time_ms(
                    lambda: A.flash_attention_plain(q, k, v, h, mask)),
                "library_ms": _time_ms(lambda: sdpa(qh, kh, vh, attn_mask=am))}
-        row["bound_ms"], row["bound_by"] = _bound_ms(nbytes,
-                                                     4 * b * t * s * d)
+        row["bound_ms"], row["bound_by"] = _flash_bound_ms(q, k, h, mask)
         _print_time("flash_attn_fwd", f"{g['name']} bf16 B={b} T={t} S={s} "
                     f"D={d} H={h}", row, card)
         rows.append((PER_BATCH[g["name"]], row))
@@ -864,6 +934,65 @@ def phase_flash_train(card: str) -> dict:
                 f"={rate}), {'bf16' if dtype == torch.bfloat16 else 'fp32'}, "
                 f"(B, H, T, dh) views", card)
             for (dtype, rate), key in TRAIN_TIMINGS.items()}
+
+
+def phase_flash_rerank(card: str) -> dict:
+    """#1 at the cross-encoder re-rank geometry of a text search: 50 pairs
+    (top_k 5 x recall 5 x 2 corpora), T = S = 256, 12 heads of dh 32,
+    padded key tails; bf16 (the served dtype) and fp32, each against its
+    plain version and timed beside SDPA."""
+    from mmd_tpu_torch.ops import attention as A
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    g = RERANK
+    b, t, s, d, h = g["b"], g["t"], g["s"], g["d"], g["h"]
+    q32, k32, v32 = (torch.randn(b, n, d, device=dev, generator=gen)
+                     for n in (t, s, s))
+    lengths = torch.linspace(24, s, b, device=dev).round().long()
+    mask = torch.arange(s, device=dev)[None] < lengths[:, None]
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = "bf16" if dtype == torch.bfloat16 else "fp32"
+        q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+        o, lse = A.flash_attention(q, k, v, h, mask)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = A.flash_attention_plain(q.float(), k.float(),
+                                                 v.float(), h, mask)
+        err = (o.float() - o_ref).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        ok = err <= KERNEL_TOL[dtype] and lse_err <= LSE_TOL
+        print(f"kernel flash_attn_fwd {g['name']:>14} {str(dtype):>14}: "
+              f"max_abs_err {err:.3e} (tol {KERNEL_TOL[dtype]:.0e}), lse "
+              f"err {lse_err:.3e}, key lengths 24-{s} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"flash kernel disagrees with its plain version at "
+                 f"{g['name']} {dtype}")
+        qh, kh, vh = (x.view(b, -1, h, d // h).transpose(1, 2)
+                      for x in (q, k, v))
+        am = mask[:, None, None, :]
+        row = {"ms": _time_ms(lambda: A.flash_attention(q, k, v, h, mask),
+                              iters=50),
+               "plain_ms": _time_ms(lambda: A.flash_attention_plain(
+                   q, k, v, h, mask), iters=5),
+               "library_ms": _time_ms(lambda: sdpa(qh, kh, vh, attn_mask=am),
+                                      iters=50)}
+        row["bound_ms"], row["bound_by"] = _flash_bound_ms(
+            q, k, h, mask, _peak(dtype))
+        # every key, padded tails included, as the kernel walks them
+        row["bound_all_keys_ms"], _ = _flash_bound_ms(q, k, h, None,
+                                                       _peak(dtype))
+        _print_time("flash_attn_fwd", f"{g['name']} {name} B={b} T={t} "
+                    f"S={s} D={d} H={h}, {int(mask.sum())} of {b * s} keys "
+                    f"valid (bound over every key "
+                    f"{row['bound_all_keys_ms']:.4f} ms)", row, card)
+        out[f"rerank_{name}"] = {
+            **row, "max_abs_err": err,
+            "launches_per_search": RERANK_PER_SEARCH,
+            "library_note": "torch.nn.functional.scaled_dot_product_attention"
+                            " with a boolean key mask, (B, H, T, dh) views"}
+    return out
 
 
 def _bwd_tol(dtype) -> float:
@@ -2041,6 +2170,453 @@ def phase_train_raw(card: str, tmp: Path) -> dict:
     return total
 
 
+class _StageClock:
+    """Exclusive host seconds by stage of wrapped bound methods: a call
+    made inside another wrapped call counts for its own stage only.
+    `sync` methods end in torch.cuda.synchronize(), so a stage that only
+    enqueues work is charged for it."""
+
+    def __init__(self):
+        self.seconds: dict[str, float] = {}
+        self._stack: list[float] = []
+
+    def wrap(self, obj, name: str, stage: str, sync: bool = False) -> None:
+        fn = getattr(obj, name)
+
+        def timed(*args, **kwargs):
+            self._stack.append(0.0)
+            t0 = time.perf_counter()
+            try:
+                out = fn(*args, **kwargs)
+                if sync:
+                    torch.cuda.synchronize()
+            finally:
+                spent = time.perf_counter() - t0
+                inner = self._stack.pop()
+                self.seconds[stage] = (self.seconds.get(stage, 0.0) + spent
+                                       - inner)
+                if self._stack:
+                    self._stack[-1] += spent
+            return out
+
+        setattr(obj, name, timed)
+
+
+def _mpnet_tokenizer(texts: list[str]):
+    """A WordPiece vocabulary of the traffic corpus laid out as convert_hf
+    lays out MPNet's: [CLS] [PAD] [SEP] [UNK] at ids 0-3 (MPNet's <s>
+    <pad> </s> <unk>) and [MASK] last, so that the pad id is
+    BI_ENCODER_BASE's pad_token_id, 1."""
+    from mmd_tpu_torch.data.tokenizer import (
+        SPECIALS, WordPieceTokenizer, train_wordpiece,
+    )
+    words = [w for w in train_wordpiece(texts, 30000) if w not in SPECIALS]
+    return WordPieceTokenizer(["[CLS]", "[PAD]", "[SEP]", "[UNK]"] + words
+                              + ["[MASK]"])
+
+
+def _write_jpegs(d: Path, rng: np.random.Generator, n: int) -> list[str]:
+    """n distinct smooth 256-px JPEGs (three sinusoids of seeded
+    frequency and phase a picture) under d."""
+    from PIL import Image
+    d.mkdir(parents=True, exist_ok=True)
+    yy, xx = np.mgrid[0:256, 0:256] / 256.0
+    paths = []
+    for i in range(n):
+        f = rng.uniform(0.5, 6.0, (3, 2))
+        ph = rng.uniform(0, 2 * np.pi, 3)
+        img = np.stack([np.sin(2 * np.pi * (a * xx + b * yy) + p)
+                        for (a, b), p in zip(f, ph)], -1)
+        paths.append(str(d / f"{i}_evidence.jpg"))
+        Image.fromarray(((img * 0.5 + 0.5) * 255).astype(np.uint8)).save(
+            paths[-1], quality=90)
+    return paths
+
+
+def _write_rows(d: Path, rows: np.ndarray, ids: list[str]) -> None:
+    """A text corpus store (TextCorpus.encode_corpus's layout)."""
+    from mmd_tpu_torch.data.store import ArrayStoreWriter
+    w = ArrayStoreWriter(d, capacity=len(rows),
+                         columns={"embeddings": ((rows.shape[1],),
+                                                 np.float16)})
+    w.append_batch({"embeddings": rows.astype(np.float16)})
+    w.finalize()
+    (d / "ids.json").write_text(json.dumps(ids))
+
+
+def _seeded_rows(rng: np.random.Generator, like: np.ndarray, n: int
+                 ) -> np.ndarray:
+    """n Gaussian rows at the encoded rows' per-dimension scale."""
+    scale = like.astype(np.float32).std(axis=0) + 1e-3
+    return (rng.standard_normal((n, like.shape[1])) * scale).astype(
+        np.float32)
+
+
+def _pct(xs: list[float], q: float) -> float:
+    return float(np.percentile(np.asarray(xs) * 1e3, q))
+
+
+def _score_us(fn, iters: int = 50) -> float:
+    return 1e3 * _time_ms(fn, iters=iters, warmup=5)
+
+
+def phase_retrieval(card: str, tmp: Path) -> dict:
+    """Evidence retrieval at full width and Factify-2's corpus sizes, as a
+    user runs it: build (TextCorpus.encode_corpus with the MPNet
+    bi-encoder, ImageCorpus.create_feature_corpus with ResNet50, a corrupt
+    file skipped), the three corpora written at their full row counts,
+    then 32 text searches (SemanticSearch: both corpora, the MiniLM
+    re-rank through #1) and 32 image searches (retrieve_similar_images);
+    checks (a)-(f). Returns the kernel launches of build and serve."""
+    from mmd_tpu_torch.inference.traffic import corpus as traffic_corpus
+    from mmd_tpu_torch.models import text_encoder as te
+    from mmd_tpu_torch.models.resnet import ResNetConfig, init_resnet
+    from mmd_tpu_torch.ops import topk as T
+    from mmd_tpu_torch.retrieval.image import ImageCorpus
+    from mmd_tpu_torch.retrieval.text import SemanticSearch, TextCorpus
+
+    phase = "retrieval"
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(18)
+    texts = traffic_corpus(rng, RETRIEVAL_TEXTS)
+    tok = _mpnet_tokenizer(texts)
+    bi_cfg, cross_cfg = te.BI_ENCODER_BASE, te.CROSS_ENCODER_MINI
+    bi = te.init_text_encoder(torch.Generator().manual_seed(11), bi_cfg)
+    cross = te.init_cross_encoder(torch.Generator().manual_seed(12),
+                                  cross_cfg, pooler=True)
+    rcfg = ResNetConfig()
+    resnet = init_resnet(torch.Generator().manual_seed(7), rcfg)
+    root = tmp / phase
+    print(f"{phase}: bi-encoder MPNet {bi_cfg.num_layers}x"
+          f"{bi_cfg.hidden_size}, {bi_cfg.num_heads} heads, relative "
+          f"bias {bi_cfg.relative_bias_buckets} buckets, "
+          f"{bi_cfg.compute_dtype}; cross-encoder {cross_cfg.num_layers}x"
+          f"{cross_cfg.hidden_size}, {cross_cfg.num_heads} heads (dh "
+          f"{cross_cfg.head_dim}), {cross_cfg.compute_dtype}; ResNet50 "
+          f"{rcfg.feature_dim}-d; tokenizer {tok.vocab_size} "
+          f"pieces (pad id {tok.pad_id})", flush=True)
+
+    torch.cuda.synchronize()
+    _reset_counts()                       # count the main path's run only
+    # -- build ---------------------------------------------------------------
+    enc = TextCorpus(root / "encoded", tok, cfg=bi_cfg, params=bi,
+                     device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    n_enc = enc.encode_corpus(texts, [f"enc_{i}" for i in range(len(texts))],
+                              batch_size=64)
+    torch.cuda.synchronize()
+    enc_s = time.perf_counter() - t0
+    enc_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    paths = _write_jpegs(root / "images", rng, RETRIEVAL_IMAGES)
+    corrupt = root / "images" / "corrupt_evidence.jpg"
+    corrupt.write_bytes(b"\xff\xd8\xff\xe0 not a jpeg")
+    img_build = ImageCorpus(root / "image_build", resnet_params=resnet,
+                            cfg=rcfg, device="cuda")
+    t0 = time.perf_counter()
+    n_img = img_build.create_feature_corpus(
+        paths[:RETRIEVAL_IMAGES // 2] + [str(corrupt)]
+        + paths[RETRIEVAL_IMAGES // 2:], batch_size=64)
+    torch.cuda.synchronize()
+    img_s = time.perf_counter() - t0
+    print(f"{phase}: build: {n_enc} texts encoded in {enc_s:.3f} s "
+          f"({n_enc / enc_s:.1f} rows/s, batch 64, 512 tokens, peak "
+          f"{enc_peak:.3f} GiB); {n_img} of {RETRIEVAL_IMAGES + 1} images in "
+          f"{img_s:.3f} s ({n_img / img_s:.1f} images/s, batch 64), "
+          f"{RETRIEVAL_IMAGES + 1 - n_img} skipped  [{card}]", flush=True)
+    if n_enc != RETRIEVAL_TEXTS or n_img != RETRIEVAL_IMAGES:
+        fail(f"{phase}: built {n_enc} texts and {n_img} images; want "
+             f"{RETRIEVAL_TEXTS} and {RETRIEVAL_IMAGES} (exactly 1 skipped)")
+
+    # the corpora at their full row counts: built rows first, then seeded
+    from mmd_tpu_torch.data.store import ArrayStore
+    emb = ArrayStore(enc.dir).col("embeddings")
+    feats = ArrayStore(img_build.dir).col("features")
+    split = RETRIEVAL_TRAIN_TEXTS
+    built = {"text_train": (emb[:split], [f"train_{i}" for i in range(split)]),
+             "text_test": (emb[split:], [f"test_{i}" for i in
+                                         range(RETRIEVAL_TEXTS - split)]),
+             "image_corpus": (feats, json.loads(
+                 (img_build.dir / "ids.json").read_text()))}
+    lookup = {}
+    for name, (rows, ids) in built.items():
+        n = RETRIEVAL_ROWS[name]
+        prefix = name.split("_")[-1]
+        extra = _seeded_rows(rng, rows, n - len(rows))
+        all_ids = ids + [f"{prefix}_seeded_{i}" for i in range(len(ids), n)]
+        all_rows = np.concatenate([rows.astype(np.float32), extra])
+        if name == "image_corpus":
+            # (c): a later twin of a seeded row
+            all_rows[TWIN[1]] = all_rows[TWIN[0]]
+            all_ids[TWIN[1]] = "twin"
+            ImageCorpus(root / name, resnet_params=resnet, cfg=rcfg,
+                        device="cuda").write_feature_corpus(all_rows, all_ids)
+        else:
+            _write_rows(root / name, all_rows, all_ids)
+            lookup.update({i: texts[(j + (0 if name == "text_train" else
+                                          split)) % len(texts)]
+                           for j, i in enumerate(all_ids)})
+
+    # -- serve ---------------------------------------------------------------
+    train = TextCorpus(root / "text_train", tok, cfg=bi_cfg, params=bi,
+                       device="cuda")
+    test = TextCorpus(root / "text_test", tok, cfg=bi_cfg, params=bi,
+                      device="cuda")
+    images = ImageCorpus(root / "image_corpus", resnet_params=resnet,
+                         cfg=rcfg, device="cuda")
+    search = SemanticSearch(train, [train, test],
+                            cross_encoder_params=cross, cross_cfg=cross_cfg,
+                            evidence_lookup=lookup)
+    t0 = time.perf_counter()
+    for c in (train, test):
+        c.load()
+    images._load()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    sizes = {"text_train": train._emb, "text_test": test._emb,
+             "image_corpus": images._features}
+    print(f"{phase}: corpora loaded in {load_s:.3f} s: " + ", ".join(
+        f"{k} {tuple(v.shape)} {v.numel() * v.element_size() / 1e6:.3f} MB "
+        f"bf16" for k, v in sizes.items()) + f"  [{card}]", flush=True)
+
+    clock = _StageClock()
+    clock.wrap(tok, "encode_batch", "tokenize")
+    clock.wrap(train, "encode_texts", "encode")
+    for c in (train, test):
+        clock.wrap(c, "topk", "score", sync=True)
+    clock.wrap(search, "_cross_scores", "rerank")
+    queries = ([texts[i] for i in range(0, RETRIEVAL_TEXTS, 64)]
+               + traffic_corpus(rng, RETRIEVAL_SEARCHES // 2))
+    from mmd_tpu_torch.ops import attention as A
+    text_lat, text_res = [], []
+    search.search(queries[0], RETRIEVAL_TOP_K, RETRIEVAL_RECALL)  # warm-up
+    clock.seconds.clear()
+    warm_launches = A.launches
+    for q in queries:
+        before = A.launches
+        t0 = time.perf_counter()
+        text_res.append(search.search(q, RETRIEVAL_TOP_K, RETRIEVAL_RECALL))
+        text_lat.append(time.perf_counter() - t0)
+        if A.launches - before != RERANK_PER_SEARCH:
+            fail(f"{phase}: a text search launched #1 "
+                 f"{A.launches - before} times; want {RERANK_PER_SEARCH}")
+    stages = {k: v / len(queries) for k, v in clock.seconds.items()}
+    stages["dedup"] = float(np.mean(text_lat)) - sum(stages.values())
+    built_rows = images._features[:RETRIEVAL_IMAGES].float()
+    gram = built_rows @ built_rows.T
+    built_cos = (gram.sum() - gram.trace()).item() / (
+        RETRIEVAL_IMAGES * (RETRIEVAL_IMAGES - 1))
+    img_clock = _StageClock()
+    img_clock.wrap(images, "extract_features", "extract", sync=True)
+    img_clock.wrap(images, "retrieve_by_features", "score_dedup")
+    image_queries = paths[:RETRIEVAL_SEARCHES]
+    images.retrieve_similar_images(image_queries[0])              # warm-up
+    img_clock.seconds.clear()
+    img_lat, img_res = [], []
+    for p in image_queries:
+        before = A.launches
+        t0 = time.perf_counter()
+        img_res.append(images.retrieve_similar_images(p, RETRIEVAL_TOP_K))
+        img_lat.append(time.perf_counter() - t0)
+        if A.launches != before:
+            fail(f"{phase}: an image search launched #1")
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = {k: 0 for k in launches}
+    want["flash_attn_fwd"] = RERANK_PER_SEARCH * (len(queries) + 1)
+    print(f"{phase}: {len(queries)} text searches (top_k "
+          f"{RETRIEVAL_TOP_K}, recall {RETRIEVAL_RECALL} from 2 corpora, "
+          f"{RETRIEVAL_TOP_K * RETRIEVAL_RECALL * 2} pairs re-ranked): "
+          f"latency p50 {_pct(text_lat, 50):.3f} ms, p95 "
+          f"{_pct(text_lat, 95):.3f} ms; seconds a search by stage "
+          f"{json.dumps({k: round(v, 6) for k, v in stages.items()})}  "
+          f"[{card}]", flush=True)
+    img_stages = {k: v / len(image_queries)
+                  for k, v in img_clock.seconds.items()}
+    print(f"{phase}: {len(image_queries)} image searches (top_k "
+          f"{RETRIEVAL_TOP_K}, fetch {4 * RETRIEVAL_TOP_K}): latency p50 "
+          f"{_pct(img_lat, 50):.3f} ms, p95 {_pct(img_lat, 95):.3f} ms; "
+          f"seconds a search by stage "
+          f"{json.dumps({k: round(v, 6) for k, v in img_stages.items()})}; "
+          f"own image at rank 1 in "
+          f"{sum(r[0][0] == p for r, p in zip(img_res, image_queries))} of "
+          f"{len(image_queries)} (seeded ResNet50: two built images at "
+          f"cosine {built_cos:.5f} on average)  [{card}]", flush=True)
+    print(f"{phase}: kernel launches {json.dumps(launches)} (want "
+          f"{json.dumps(want)}; {RERANK_PER_SEARCH} a text search with the "
+          f"warm-up, 0 an image search)  [{card}]", flush=True)
+    if launches != want:
+        fail(f"{phase}: launches {launches}, want {want}")
+    # exact-score dedup may return fewer than top_k, never none
+    if not all(r and all(math.isfinite(v) for _, v in r)
+               for r in text_res + img_res):
+        fail(f"{phase}: a search returned no result or a non-finite score")
+
+    # scoring a query (Q 1) on the card beside its bound: the corpus read
+    # once, bf16 (2 bytes a value) or int8 (1, and a 4-byte scale a row)
+    q_text = train.encode_texts(queries[:1])
+    q_img = images.extract_features(image_queries[0])[None]
+    int8_text = {n: TextCorpus(root / n, tok, cfg=bi_cfg, params=bi,
+                               int8=True, device="cuda")
+                 for n in ("text_train", "text_test")}
+    int8_images = ImageCorpus(root / "image_corpus", resnet_params=resnet,
+                              cfg=rcfg, int8=True, device="cuda")
+    for c in int8_text.values():
+        c.load()
+    int8_images._load()
+    qi = torch.as_tensor(q_img, device="cuda")
+    fetch = 4 * RETRIEVAL_TOP_K
+    for name, bf16_fn, int8_fn, n, d in (
+            ("text_train", lambda: train.topk(q_text, 25),
+             lambda: int8_text["text_train"].topk(q_text, 25),
+             RETRIEVAL_ROWS["text_train"], bi_cfg.hidden_size),
+            ("text_test", lambda: test.topk(q_text, 25),
+             lambda: int8_text["text_test"].topk(q_text, 25),
+             RETRIEVAL_ROWS["text_test"], bi_cfg.hidden_size),
+            ("image_corpus",
+             lambda: T.dense_topk(T.l2_normalize(qi.to(torch.bfloat16)),
+                                  images._features, fetch, normalize=False),
+             lambda: T.dense_topk_int8(qi, int8_images._features,
+                                       int8_images._scales, fetch),
+             RETRIEVAL_ROWS["image_corpus"], rcfg.feature_dim)):
+        row = {"bf16_us": _score_us(bf16_fn),
+               "bf16_bound_us": 1e6 * n * d * 2 / PEAK_BYTES_PER_S,
+               "int8_us": _score_us(int8_fn),
+               "int8_bound_us": 1e6 * (n * d + 4 * n) / PEAK_BYTES_PER_S,
+               "bf16_mb": n * d * 2 / 1e6, "int8_mb": (n * d + 4 * n) / 1e6}
+        print(f"{phase}: scoring a query over {name} ({n} x {d}): bf16 "
+              f"{row['bf16_us']:.3f} us (bound {row['bf16_bound_us']:.3f} "
+              f"us, bytes; {row['bf16_mb']:.3f} MB on the card), int8 "
+              f"{row['int8_us']:.3f} us (bound {row['int8_bound_us']:.3f} "
+              f"us; {row['int8_mb']:.3f} MB)  [{card}]", flush=True)
+
+    # -- checks ----------------------------------------------------------------
+    # (a) bf16 top-k on the card against float64 top-k on the host over
+    # the same bf16 rows, 64 queries at N 41,256
+    rows = images._features
+    picks = rng.integers(0, rows.shape[0], 64)
+    qa = T.l2_normalize((rows[picks].float() + 0.05 * torch.randn(
+        64, rows.shape[1], device="cuda")).to(torch.bfloat16))
+    k = fetch
+    s_card, i_card = T.dense_topk(qa, rows, k, normalize=False)
+    s64 = qa.double().cpu().numpy() @ rows.double().cpu().numpy().T
+    order = np.argsort(-s64, axis=1, kind="stable")[:, :k + 1]
+    s_host = np.take_along_axis(s64, order, axis=1)
+    score_err = float(np.abs(s_card.double().cpu().numpy()
+                             - s_host[:, :k]).max())
+    # for every k' <= k whose k'-th / (k'+1)-th gap exceeds the tolerance,
+    # the top-k' index sets must agree
+    card_i = i_card.cpu().numpy()
+    gaps = s_host[:, :k] - s_host[:, 1:k + 1]
+    checked = np.argwhere(gaps > TOPK_GAP_TOL)
+    sets_ok = all(set(card_i[r, :kk + 1]) == set(order[r, :kk + 1])
+                  for r, kk in checked)
+    print(f"{phase}: (a) bf16 top-{k} of 64 queries at N "
+          f"{rows.shape[0]}: max score error against float64 "
+          f"{score_err:.3e} (tol {TOPK_SCORE_TOL:.0e}); top-k' index sets "
+          f"equal for the {len(checked)} (query, k' <= {k}) pairs whose "
+          f"k'/k'+1 gap exceeds {TOPK_GAP_TOL:.0e}: {sets_ok}  [{card}]",
+          flush=True)
+    if not (score_err <= TOPK_SCORE_TOL and sets_ok and len(checked)):
+        fail(f"{phase}: (a) the card's top-k disagrees with float64")
+
+    # (b) the --int8 path: planted top-1 of 16 noisy copies of corpus rows,
+    # recall@10 against the bf16 path
+    planted = rng.integers(0, RETRIEVAL_ROWS["image_corpus"], 16)
+    fq = ArrayStore(images.dir).col("features")[planted].astype(np.float32)
+    fq = fq + 0.01 * fq.std() * rng.standard_normal(fq.shape).astype(
+        np.float32)
+    r8 = int8_images.retrieve_by_features(fq, top_k=10, dedup=False)
+    rb = images.retrieve_by_features(fq, top_k=10, dedup=False)
+    ids = images._ids
+    top1 = sum(r[0][0] == ids[j] for r, j in zip(r8, planted))
+    recall = float(np.mean([len({a for a, _ in x} & {a for a, _ in y}) / 10
+                            for x, y in zip(r8, rb)]))
+    print(f"{phase}: (b) int8: planted top-1 {top1} of 16, recall@10 "
+          f"against bf16 {recall:.4f} (min {INT8_RECALL_MIN})  [{card}]",
+          flush=True)
+    if top1 != 16 or recall < INT8_RECALL_MIN:
+        fail(f"{phase}: (b) the int8 path misses")
+
+    # (c) ties: the twin comes back after its row, with the same score,
+    # and dedup drops it -- bf16 and int8
+    first = TWIN[0]
+    row = ArrayStore(images.dir).col("features")[first:first + 1].astype(
+        np.float32)
+    for corpus, what in ((images, "bf16"), (int8_images, "int8")):
+        raw = corpus.retrieve_by_features(row, top_k=2, dedup=False)[0]
+        dd = corpus.retrieve_by_features(row, top_k=5)[0]
+        ok = ([p for p, _ in raw] == [ids[first], "twin"]
+              and raw[0][1] == raw[1][1] and dd[0][0] == ids[first]
+              and "twin" not in [p for p, _ in dd])
+        print(f"{phase}: (c) {what} ties: {[p for p, _ in raw]} scores "
+              f"{[v for _, v in raw]}, deduplicated top-5 keeps "
+              f"{dd[0][0]} and drops the twin: {ok}  [{card}]", flush=True)
+        if not ok:
+            fail(f"{phase}: (c) the {what} tie order or dedup is wrong")
+
+    # (d) self-retrieval without re-rank
+    plain = SemanticSearch(train, [train, test])
+    picked = [0, 5, split + 3, split + 100]
+    got = [plain.search(texts[i], top_k=1)[0][0] for i in picked]
+    want_ids = [f"train_{i}" if i < split else f"test_{i - split}"
+                for i in picked]
+    print(f"{phase}: (d) self-retrieval without re-rank: {got} (want "
+          f"{want_ids})  [{card}]", flush=True)
+    if got != want_ids:
+        fail(f"{phase}: (d) an encoded evidence text did not retrieve itself")
+
+    # (e) the fp32 re-rank through #1 against the explicit path, on one
+    # search's 50 candidate pairs
+    q_e = train.encode_texts(queries[1:2])
+    cands = []
+    for c in (train, test):
+        _, idx = c.topk(q_e, RETRIEVAL_TOP_K * RETRIEVAL_RECALL)
+        cands += [c.load()[1][j] for j in idx[0].tolist()]
+    ids_e, mask_e, types_e = tok.encode_batch(
+        [queries[1]] * len(cands), pairs=[lookup[c] for c in cands],
+        max_length=RERANK["t"])
+    args = [torch.from_numpy(x).to("cuda", torch.int64)
+            for x in (ids_e, mask_e, types_e)]
+    with torch.no_grad():
+        before = A.launches
+        fused = te.cross_encoder_score(cross, _fp32(cross_cfg, True), *args)
+        fused_launches = A.launches - before
+        explicit = te.cross_encoder_score(cross, _fp32(cross_cfg, False),
+                                          *args)
+    e_err = (fused - explicit).abs().max().item()
+    e_tol = RERANK_FP32_RTOL * explicit.abs().max().item()
+    print(f"{phase}: (e) fp32 re-rank of {len(cands)} pairs through #1 "
+          f"({fused_launches} launches) against the explicit path: max "
+          f"difference {e_err:.3e} (tol {e_tol:.3e})  [{card}]", flush=True)
+    if not (e_err <= e_tol and fused_launches == RERANK_PER_SEARCH):
+        fail(f"{phase}: (e) the fp32 re-rank disagrees with the explicit "
+             f"path")
+
+    # (f) the fp32 bi-encoder on the card against the same module on the
+    # CPU: 8 texts with padding, 128 tokens
+    cfg32 = _fp32(bi_cfg, False)
+    ids_f, mask_f, _ = tok.encode_batch(texts[::RETRIEVAL_TEXTS // 8],
+                                        max_length=128)
+    outs = []
+    for dev, params in (("cuda", bi), ("cpu", copy.deepcopy(bi).cpu())):
+        with torch.no_grad():
+            ids_t = torch.from_numpy(ids_f).to(dev, torch.int64)
+            mask_t = torch.from_numpy(mask_f).to(dev)
+            outs.append(te.mean_pool(te.encode(params, cfg32, ids_t, mask_t),
+                                     mask_t).cpu())
+    f_err = (outs[0] - outs[1]).abs().max().item()
+    f_tol = MPNET_CARD_CPU_RTOL * outs[1].abs().max().item()
+    print(f"{phase}: (f) fp32 MPNet on the card against the CPU, 8 texts "
+          f"({int(mask_f.sum(1).min())}-{int(mask_f.sum(1).max())} of 128 "
+          f"tokens): max difference {f_err:.3e} (tol {f_tol:.3e})  "
+          f"[{card}]", flush=True)
+    if not f_err <= f_tol:
+        fail(f"{phase}: (f) MPNet on the card disagrees with the CPU")
+    print(f"{phase}: phase wall {time.perf_counter() - t_phase:.1f} s  "
+          f"[{card}]", flush=True)
+    return launches
+
 
 def main() -> None:
     dev = phase_device()
@@ -2052,6 +2628,7 @@ def main() -> None:
             "dropout": phase_dropout(dev["card"]),
             "flash_attn_bwd": phase_flash_bwd(dev["card"])}
     recs["flash_attn_fwd"].update(phase_flash_train(dev["card"]))
+    recs["flash_attn_fwd"].update(phase_flash_rerank(dev["card"]))
     recs.update(phase_mlp(dev["card"]))
     recs["deberta_attn_bwd"] = phase_deberta_bwd(dev["card"])
     recs.update(phase_swin_train(dev["card"]))
@@ -2077,6 +2654,7 @@ def main() -> None:
                                       PER_STEP_BF16, []),
             "finetune_reference": phase_finetune_reference(dev["card"], tmp),
             "train_raw": phase_train_raw(dev["card"], tmp)}
+        by_phase["retrieval"] = phase_retrieval(dev["card"], tmp)
         phase_train_parity(dev["card"])
         phase_train_parity_bf16(dev["card"])
         phase_finetune_parity(dev["card"], tmp)

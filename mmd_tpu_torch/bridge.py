@@ -15,6 +15,9 @@ way (port module -> nested dicts and lists of float32 numpy arrays), so
 tests can compare params, or grads (`grads=True`), after a training step.
 `finetune_from_jax` loads a JAX fine-tuning state's joint params
 {"fusion", "text", "vit"}; `to_jax_tree` walks its gradients back.
+The ResNet's conv kernels are the one layout that differs: HWIO in the
+JAX tree, OIHW (F.conv2d's) in the port; `resnet_from_jax` transposes
+them, `resnet_to_jax` back.
 """
 
 from __future__ import annotations
@@ -29,8 +32,11 @@ from mmd_tpu_torch.core.config import ModelConfig
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.models.deberta import DebertaConfig, init_deberta
 from mmd_tpu_torch.models.fusion import init_fusion_params
+from mmd_tpu_torch.models.resnet import ResNetConfig, init_resnet
 from mmd_tpu_torch.models.swin import SwinConfig, init_swin
-from mmd_tpu_torch.models.text_encoder import init_text_encoder
+from mmd_tpu_torch.models.text_encoder import (
+    init_cross_encoder, init_text_encoder,
+)
 from mmd_tpu_torch.models.transformer import TransformerConfig
 from mmd_tpu_torch.models.vit import ViTConfig, init_vit
 
@@ -124,6 +130,44 @@ def text_encoder_from_jax(tree, cfg: TransformerConfig) -> L.ParamTree:
     params = init_text_encoder(torch.Generator().manual_seed(0), cfg)
     load_jax_tree(params, tree, "text_encoder")
     return params
+
+
+def cross_encoder_from_jax(tree, cfg: TransformerConfig) -> L.ParamTree:
+    """{"backbone", "scorer"} and, when the tree has one (a converted HF
+    cross-encoder), "pooler"."""
+    params = init_cross_encoder(torch.Generator().manual_seed(0), cfg,
+                                pooler="pooler" in tree)
+    load_jax_tree(params, tree, "cross_encoder")
+    return params
+
+
+_RESNET_CONVS = ("stem", "conv1", "conv2", "conv3", "proj")
+
+
+def _resnet_convs(tree, perm):
+    """The ResNet tree with every conv kernel transposed by `perm`."""
+    def block(b):
+        return {k: np.asarray(v).transpose(perm) if k in _RESNET_CONVS else v
+                for k, v in b.items()}
+    out = block({k: v for k, v in tree.items() if k != "blocks"})
+    out["blocks"] = [block(b) for b in tree["blocks"]]
+    return out
+
+
+def resnet_from_jax(tree, cfg: ResNetConfig) -> L.ParamTree:
+    """The JAX ResNet tree (HWIO kernels, a `blocks` list whose blocks may
+    have proj/bn_proj) as the port's module (OIHW)."""
+    if not isinstance(tree, Mapping) or "blocks" not in tree:
+        raise KeyError("resnet: a dict with a blocks list expected")
+    params = init_resnet(torch.Generator().manual_seed(0), cfg)
+    load_jax_tree(params, _resnet_convs(tree, (3, 2, 0, 1)), "resnet")
+    return params
+
+
+def resnet_to_jax(params: L.ParamTree):
+    """The JAX ResNet tree of the port's module (the inverse of
+    `resnet_from_jax`)."""
+    return _resnet_convs(to_jax_tree(params), (2, 3, 1, 0))
 
 
 def vit_from_jax(tree, cfg: ViTConfig) -> L.ParamTree:

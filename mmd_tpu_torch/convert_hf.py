@@ -2,7 +2,8 @@
 (counterpart of tools/convert_hf.py), with neither transformers nor JAX.
 
     python -m mmd_tpu_torch.convert_hf --text <hf dir> --image <hf dir> \\
-        --out assets/encoders
+        [--bi_encoder <hf dir>] [--cross_encoder <hf dir>] \\
+        [--resnet <torchvision state dict>] --out assets/encoders
 
 A HF model directory is what `save_pretrained` writes or a hub download
 holds: config.json and the weights as model.safetensors (read here with
@@ -18,14 +19,26 @@ config.json's model_type:
               specials
   swinv2      swinv2.pt + swinv2_config.json
   vit         vit.pt + vit_config.json
-  mpnet       raises: the MPNet loader arrives with the retrieval slice
+  mpnet       the retrieval bi-encoder (--text or --bi_encoder):
+              bi_encoder.pt + bi_encoder_config.json, and bi_tokenizer.json
+              from vocab.txt with the RoBERTa-style specials renamed to
+              the WordPiece ones (<s> [CLS], </s> [SEP], <pad> [PAD],
+              <unk> [UNK], <mask> [MASK]), as tools/convert_hf.py renames
+              them
 
-The task wrapper's prefix (deberta., bert., swinv2., vit.) is stripped.
-Heads the encoder does not run (lm_predictions, mask_predictions, cls,
-classifier, pooler) and buffers it recomputes (Swinv2's
-relative_coords_table and relative_position_index, position_ids) are
-skipped; any other key the encoder does not read raises, as does a key it
-needs that the file lacks. The .pt files are the modules' state dicts
+--cross_encoder takes a BertForSequenceClassification directory (the
+ms-marco MiniLM packaging): cross_encoder.pt (backbone, pooler, scorer) +
+cross_encoder_config.json. --resnet takes a torchvision resnet50 state
+dict saved with torch.save: resnet50.pt, its BN statistics folded (no
+sidecar: the retrieval code builds ResNetConfig()).
+
+The task wrapper's prefix (deberta., bert., swinv2., vit., mpnet.) is
+stripped. Heads the encoder does not run (lm_predictions,
+mask_predictions, lm_head, cls, classifier, pooler, torchvision's fc) and
+buffers it recomputes (Swinv2's relative_coords_table and
+relative_position_index, position_ids, num_batches_tracked) are skipped;
+any other key the encoder does not read raises, as does a key it needs
+that the file lacks. The .pt files are the modules' state dicts
 (core/checkpoint.save_params), which models/frozen.py loads. The sidecars
 hold the config dataclass's fields, which are those of the JAX package's
 config of the same name: a converted DeBERTa stays float32, as the JAX
@@ -47,6 +60,7 @@ from mmd_tpu_torch.core.checkpoint import save_params
 from mmd_tpu_torch.data.spm import UnigramTokenizer
 from mmd_tpu_torch.data.tokenizer import SPECIALS, WordPieceTokenizer
 from mmd_tpu_torch.models import deberta as D
+from mmd_tpu_torch.models import resnet as R
 from mmd_tpu_torch.models import swin as SW
 from mmd_tpu_torch.models import text_encoder as te
 from mmd_tpu_torch.models import vit as V
@@ -54,11 +68,14 @@ from mmd_tpu_torch.models import vit as V
 TEXT_FAMILIES = ("deberta-v2", "bert", "mpnet")
 IMAGE_FAMILIES = ("swinv2", "vit")
 _PREFIX = {"deberta-v2": "deberta.", "bert": "bert.", "swinv2": "swinv2.",
-           "vit": "vit."}
-_SKIPPED_HEADS = ("lm_predictions.", "mask_predictions.", "cls.",
-                  "classifier.", "pooler.")
+           "vit": "vit.", "mpnet": "mpnet."}
+_SKIPPED_HEADS = ("lm_predictions.", "mask_predictions.", "lm_head.",
+                  "cls.", "classifier.", "pooler.", "fc.")
 _SKIPPED_BUFFERS = ("relative_coords_table", "relative_position_index",
-                    "position_ids")
+                    "position_ids", "num_batches_tracked")
+# the MPNet tokenizer's RoBERTa-style specials -> the WordPiece names
+_MPNET_SPECIALS = {"<pad>": "[PAD]", "<unk>": "[UNK]", "<s>": "[CLS]",
+                   "</s>": "[SEP]", "<mask>": "[MASK]"}
 
 _SAFETENSORS_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
@@ -141,9 +158,13 @@ def write_asset(out: str | Path, name: str, params: torch.nn.Module,
             json.dumps(dataclasses.asdict(cfg), indent=1))
 
 
-def _wordpiece_vocab(hf_dir: Path) -> Optional[WordPieceTokenizer]:
+def _wordpiece_vocab(hf_dir: Path,
+                     rename: Optional[Mapping[str, str]] = None
+                     ) -> Optional[WordPieceTokenizer]:
     vocab = (hf_dir / "vocab.txt").read_text(encoding="utf-8")
-    tokens = [t.rstrip("\r") for t in vocab.split("\n")]
+    rename = rename or {}
+    tokens = [rename.get(t, t) for t in
+              (t.rstrip("\r") for t in vocab.split("\n"))]
     if tokens and tokens[-1] == "":
         tokens.pop()
     if not all(s in tokens for s in SPECIALS):
@@ -161,9 +182,6 @@ def convert(hf_dir: str | Path, out: str | Path,
     if model_type not in families:
         raise ValueError(f"{hf_dir}: model_type {model_type!r} is not one "
                          f"of {list(families)}")
-    if model_type == "mpnet":
-        raise NotImplementedError(
-            "the MPNet loader arrives with the retrieval slice (ROADMAP A12)")
     out.mkdir(parents=True, exist_ok=True)
     sd = encoder_state_dict(read_state_dict(hf_dir), model_type)
     if model_type == "deberta-v2":
@@ -191,6 +209,20 @@ def convert(hf_dir: str | Path, out: str | Path,
         else:
             tok.save(out / "tokenizer.json")
             print(f"tokenizer.json ({tok.vocab_size} tokens)")
+    elif model_type == "mpnet":
+        cfg = te.mpnet_config_from_hf(config)
+        params = te.load_hf_mpnet_state_dict(sd, cfg)
+        tok = _wordpiece_vocab(hf_dir, _MPNET_SPECIALS)
+        _check_all_read(sd, hf_dir)
+        write_asset(out, "bi_encoder", params, cfg)
+        print(f"bi-encoder: {hf_dir} -> {out}/bi_encoder.pt "
+              f"({cfg.num_layers}L, {cfg.hidden_size}d, mpnet arch)")
+        if tok is None:
+            print("bi_tokenizer.json not written: vocab.txt lacks the "
+                  "specials")
+        else:
+            tok.save(out / "bi_tokenizer.json")
+            print(f"bi_tokenizer.json ({tok.vocab_size} tokens)")
     elif model_type == "swinv2":
         cfg = SW.config_from_hf(config)
         params = SW.load_hf_swinv2_state_dict(sd, cfg)
@@ -208,22 +240,69 @@ def convert(hf_dir: str | Path, out: str | Path,
     return model_type
 
 
+def convert_cross_encoder(hf_dir: str | Path, out: str | Path) -> None:
+    """A BertForSequenceClassification directory (one label) ->
+    cross_encoder.pt + cross_encoder_config.json."""
+    hf_dir, out = Path(hf_dir), Path(out)
+    config = json.loads((hf_dir / "config.json").read_text())
+    if config.get("model_type") != "bert":
+        raise ValueError(f"{hf_dir}: a cross-encoder is a bert "
+                         f"BertForSequenceClassification, not "
+                         f"{config.get('model_type')!r}")
+    out.mkdir(parents=True, exist_ok=True)
+    sd = _Reads(read_state_dict(hf_dir))
+    cfg = te.config_from_hf(config, cap_positions=False)
+    params = te.load_hf_cross_encoder_state_dict(sd, cfg)
+    _check_all_read(sd, hf_dir)
+    write_asset(out, "cross_encoder", params, cfg)
+    print(f"cross-encoder: {hf_dir} -> {out}/cross_encoder.pt "
+          f"({cfg.num_layers}L, {cfg.hidden_size}d)")
+
+
+def convert_resnet(path: str | Path, out: str | Path) -> None:
+    """A torchvision resnet50 state dict file (torch.save) ->
+    resnet50.pt."""
+    path, out = Path(path), Path(out)
+    sd = _Reads(torch.load(path, map_location="cpu", weights_only=True))
+    params = R.load_torchvision_state_dict(sd, R.ResNetConfig())
+    _check_all_read(sd, path)
+    out.mkdir(parents=True, exist_ok=True)
+    write_asset(out, "resnet50", params)
+    print(f"resnet50: {path} -> {out}/resnet50.pt")
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         description="Convert local HF model directories into the port's "
                     "encoder assets")
     p.add_argument("--text", type=str, default=None,
-                   help="a DeBERTa-v2/v3 or BERT model directory")
+                   help="a DeBERTa-v2/v3, BERT or MPNet model directory")
     p.add_argument("--image", type=str, default=None,
                    help="a Swinv2 or ViT model directory")
+    p.add_argument("--bi_encoder", type=str, default=None,
+                   help="an MPNet model directory (the retrieval "
+                        "bi-encoder, e.g. multi-qa-mpnet-base-dot-v1)")
+    p.add_argument("--cross_encoder", type=str, default=None,
+                   help="a BertForSequenceClassification directory (e.g. "
+                        "ms-marco-MiniLM-L-6-v2)")
+    p.add_argument("--resnet", type=str, default=None,
+                   help="a torchvision resnet50 state dict file")
     p.add_argument("--out", type=str, default="assets/encoders")
     args = p.parse_args(argv)
-    if not (args.text or args.image):
-        p.error("nothing to convert: pass --text and/or --image")
+    if not (args.text or args.image or args.bi_encoder
+            or args.cross_encoder or args.resnet):
+        p.error("nothing to convert: pass --text, --image, --bi_encoder, "
+                "--cross_encoder and/or --resnet")
     if args.text:
         convert(args.text, args.out, TEXT_FAMILIES)
     if args.image:
         convert(args.image, args.out, IMAGE_FAMILIES)
+    if args.bi_encoder:
+        convert(args.bi_encoder, args.out, ("mpnet",))
+    if args.cross_encoder:
+        convert_cross_encoder(args.cross_encoder, args.out)
+    if args.resnet:
+        convert_resnet(args.resnet, args.out)
 
 
 if __name__ == "__main__":

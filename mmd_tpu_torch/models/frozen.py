@@ -75,7 +75,7 @@ def image_encode(params, cfg, images):
     raise TypeError(f"no image encoder for {type(cfg).__name__}")
 
 
-def _asset(assets: Path, name: str) -> Optional[Path]:
+def asset_path(assets: Path, name: str) -> Optional[Path]:
     """<assets>/<name>.pt, or None; an orbax <name>.ckpt in its place
     raises."""
     pt = assets / f"{name}.pt"
@@ -109,14 +109,14 @@ def load_or_init_frozen(
     assets = Path(assets_dir)
     # every asset this call would read, before any is built: a missing
     # conversion raises at once
-    deberta = None if tiny else _asset(assets, "deberta")
-    swin = None if tiny else _asset(assets, "swinv2")
+    deberta = None if tiny else asset_path(assets, "deberta")
+    swin = None if tiny else asset_path(assets, "swinv2")
     seed_text = deberta is None and reference_families and not tiny
     seed_image = swin is None and reference_families and not tiny
     text_pt = (None if deberta is not None or seed_text
-               else _asset(assets, "text_encoder"))
+               else asset_path(assets, "text_encoder"))
     vit_pt = (None if swin is not None or seed_image
-              else _asset(assets, "vit"))
+              else asset_path(assets, "vit"))
     assets.mkdir(parents=True, exist_ok=True)
 
     spm_path = assets / "spm.json"

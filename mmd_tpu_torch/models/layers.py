@@ -209,6 +209,28 @@ def hf_tensor(state_dict: Mapping, name: str) -> torch.Tensor:
     return torch.tensor(np.asarray(value, dtype=np.float32))
 
 
+class HFPrefixed(Mapping):
+    """The entries of a HF state dict under `prefix`, by their names
+    without it (a task wrapper's "bert." or "mpnet."). Reads go through to
+    the state dict itself, so a reader that records them sees them."""
+
+    def __init__(self, state_dict: Mapping, prefix: str):
+        self.state_dict, self.prefix = state_dict, prefix
+
+    def __getitem__(self, name: str):
+        return self.state_dict[self.prefix + name]
+
+    def __iter__(self):
+        n = len(self.prefix)
+        return (k[n:] for k in self.state_dict if k.startswith(self.prefix))
+
+    def __len__(self) -> int:
+        return sum(1 for _ in self)
+
+    def __contains__(self, name) -> bool:
+        return self.prefix + name in self.state_dict
+
+
 def hf_modules(state_dict: Mapping, pairs: Mapping[str, str],
                bias: bool = True) -> dict[str, torch.Tensor]:
     """{port module: HF module} -> {port name: tensor} for the weight, and

@@ -1,17 +1,22 @@
 """Transformer encoder stack (counterpart of mmd_tpu/models/transformer.py).
 
-BERT-style post-LN blocks (the text encoders) and pre-LN blocks (ViT) with
-learned positions, on ops.attention: key-padding masks stay on the fused
-CUDA kernel path. The decoder (causal self-attention, cross-attention, KV
-cache) arrives with the captioner slice and the MPNet relative position
-bias with the retrieval slice; until then they raise NotImplementedError.
+BERT-style post-LN blocks (the text encoders, the MiniLM cross-encoder)
+and pre-LN blocks (ViT) with learned positions, on ops.attention:
+key-padding masks stay on the fused CUDA kernel path. The MPNet family
+(the retrieval bi-encoder) adds RoBERTa-style position ids and a bucketed
+relative position bias shared by every layer; the bias rides the additive
+mask slot, so its layers take the explicit path, as in the JAX package.
+The decoder (causal self-attention, cross-attention, KV cache) arrives
+with the captioner slice; until then it raises NotImplementedError.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
@@ -60,10 +65,6 @@ def _require_encoder(cfg: TransformerConfig) -> None:
     if cfg.is_decoder:
         raise NotImplementedError(
             "the transformer decoder arrives with the captioner slice")
-    if cfg.relative_bias_buckets or cfg.mpnet_positions:
-        raise NotImplementedError(
-            "the MPNet relative bias and positions arrive with the "
-            "retrieval slice")
 
 
 # ----------------------------------------------------------------------------
@@ -98,11 +99,13 @@ def init_layer(gen: torch.Generator, cfg: TransformerConfig) -> L.ParamTree:
 def init_transformer(gen: torch.Generator, cfg: TransformerConfig
                      ) -> L.ParamTree:
     _require_encoder(cfg)
-    return L.ParamTree({
-        "embeddings": init_embeddings(gen, cfg),
-        "layers": nn.ModuleList(init_layer(gen, cfg)
-                                for _ in range(cfg.num_layers)),
-    })
+    p = {"embeddings": init_embeddings(gen, cfg),
+         "layers": nn.ModuleList(init_layer(gen, cfg)
+                                 for _ in range(cfg.num_layers))}
+    if cfg.relative_bias_buckets:
+        p["rel_bias"] = L.normal(
+            gen, (cfg.relative_bias_buckets, cfg.num_heads), 0.02)
+    return L.ParamTree(p)
 
 
 # ----------------------------------------------------------------------------
@@ -114,10 +117,16 @@ def embed(params: L.ParamTree, cfg: TransformerConfig,
           token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """(B, T) int -> (B, T, D) in the compute dtype. Positions past the
     position table take its last row, as the JAX package's gather clamps
-    them."""
+    them. With mpnet_positions (RoBERTa/MPNet, HF
+    create_position_ids_from_input_ids) non-pad tokens are numbered
+    pad_token_id + 1, + 2, ... and pads take the pad_token_id row."""
     _require_encoder(cfg)
     table = params["position"]
-    pos = torch.arange(input_ids.shape[1], device=table.device)
+    if cfg.mpnet_positions:
+        not_pad = (input_ids != cfg.pad_token_id).long()
+        pos = torch.cumsum(not_pad, dim=1) * not_pad + cfg.pad_token_id
+    else:
+        pos = torch.arange(input_ids.shape[1], device=table.device)
     e = params["word"][input_ids] + table[pos.clamp_max(table.shape[0] - 1)]
     if "token_type" in params:
         # segment 0 by default (HF semantics: token_type_ids default to 0)
@@ -177,6 +186,47 @@ def encoder_layer(p: L.ParamTree, cfg: TransformerConfig, x: torch.Tensor,
     return L.layernorm(p["ln2"], x + h, eps), None
 
 
+def relative_position_bucket(t: int, num_buckets: int = 32,
+                             max_distance: int = 128) -> np.ndarray:
+    """(t, t) int32 bucket ids, exactly HF
+    MPNetEncoder.relative_position_bucket (T5-style: half the buckets for
+    each sign, half of those exact, log-spaced beyond)."""
+    pos = np.arange(t, dtype=np.int64)
+    n = pos[:, None] - pos[None, :]        # -(memory - context) = ctx - mem
+    num_buckets //= 2
+    ret = (n < 0).astype(np.int64) * num_buckets
+    n = np.abs(n)
+    max_exact = num_buckets // 2
+    is_small = n < max_exact
+    with np.errstate(divide="ignore"):
+        val_if_large = max_exact + (
+            np.log(np.maximum(n, 1).astype(np.float32) / max_exact)
+            / np.log(max_distance / max_exact) * (num_buckets - max_exact)
+        ).astype(np.int64)
+    val_if_large = np.minimum(val_if_large, num_buckets - 1)
+    ret += np.where(is_small, n, val_if_large)
+    return ret.astype(np.int32)
+
+
+@functools.lru_cache(maxsize=16)
+def _bucket_index(t: int, num_buckets: int, device: torch.device
+                  ) -> torch.Tensor:
+    """relative_position_bucket as an int64 tensor on `device`, made once a
+    (length, table size, device)."""
+    return torch.from_numpy(
+        relative_position_bucket(t, num_buckets).astype(np.int64)).to(device)
+
+
+def mpnet_position_bias(params: L.ParamTree, cfg: TransformerConfig,
+                        t: int) -> torch.Tensor:
+    """(1, H, T, T) fp32 additive bias shared by every layer (HF
+    MPNetEncoder.compute_position_bias; the bucket count is the table size,
+    independent of padding)."""
+    table = params["rel_bias"]
+    idx = _bucket_index(t, cfg.relative_bias_buckets, table.device)
+    return table.float()[idx].permute(2, 0, 1)[None]
+
+
 def attention_mask_from_ids(attention_mask: torch.Tensor, tq: int
                             ) -> torch.Tensor:
     """(B, Tk) {0,1} -> additive (B, 1, tq, Tk) mask."""
@@ -198,13 +248,23 @@ def transformer_forward(params: L.ParamTree, cfg: TransformerConfig,
             "causal and cross-attending stacks arrive with the captioner "
             "slice")
     x = embed(params["embeddings"], cfg, input_ids, token_type_ids)
+    t = x.shape[1]
+    mask, key_mask = None, None
+    if cfg.relative_bias_buckets:
+        # the bias rides the additive-mask slot ((1,H,T,T) broadcasts
+        # against (B,1,T,T)); its layers take the explicit path
+        mask = mpnet_position_bias(params, cfg, t)
+        if attention_mask is not None:
+            mask = attention_mask_from_ids(attention_mask, t) + mask
+    else:
+        # pure key padding stays on the fused kernel path (boolean key mask)
+        key_mask = attention_mask
     remat = cfg.remat and torch.is_grad_enabled()
 
-    def layer(p, x, key_mask):
-        # pure key padding stays on the fused kernel path (boolean key mask)
-        return encoder_layer(p, cfg, x, key_mask=key_mask)[0]
+    def layer(p, x, mask, key_mask):
+        return encoder_layer(p, cfg, x, mask, key_mask=key_mask)[0]
 
     for p in params["layers"]:
-        x = (checkpoint(layer, p, x, attention_mask, use_reentrant=False)
-             if remat else layer(p, x, attention_mask))
+        x = (checkpoint(layer, p, x, mask, key_mask, use_reentrant=False)
+             if remat else layer(p, x, mask, key_mask))
     return x

@@ -33,6 +33,10 @@ TRAIN_TRANSFORM = ImageTransform()
 EVAL_TRANSFORM = ImageTransform(mean=(0.485, 0.456, 0.406),
                                 std=(0.229, 0.224, 0.225),
                                 resize_mode="exact")
+# ResNet ImageNet transform @224 (reference im2im_retrieval.py:19-27)
+RESNET_TRANSFORM = ImageTransform(size=224, mean=(0.485, 0.456, 0.406),
+                                  std=(0.229, 0.224, 0.225),
+                                  resize_mode="exact")
 
 
 def load_image_uint8(path: str, t: ImageTransform) -> Optional[np.ndarray]:

@@ -10,6 +10,7 @@
     python -m mmd_tpu_torch.profile_kernels mlp_bwd_calls
     python -m mmd_tpu_torch.profile_kernels mlp_fwd_calls
     python -m mmd_tpu_torch.profile_kernels ln_calls
+    python -m mmd_tpu_torch.profile_kernels topk_calls
 
 `ptxas` compiles sources under ops/csrc/ (all of them by default) with the
 build's flags plus `-Xptxas -v` and prints one JSON line a kernel
@@ -116,6 +117,17 @@ own us of each piece of the call path. Last, one line a dtype of the sums
 over a served batch's 106 calls.
 It runs on an older tree too (copy the new `profile_kernels.py` into it),
 for a parent/change comparison in one run. It needs a CUDA device.
+
+`topk_calls` times retrieval's scoring library calls at the three
+Factify-2-sized corpora (text_train 35,000 x 768 and text_test 7,500 x 768
+at k 25, image_corpus 41,256 x 2,048 at k 20) for Q 1 and 64 queries:
+`ops/topk.py::topk_lower_index_first` alone on fp32 (Q, N) scores rounded
+through bf16 (so ties occur), and the whole bf16 `dense_topk`, each as the
+us a call by CUDA events and host us a call, beside `torch.topk` on the
+same scores; a digest of the indices (inputs from a fixed seed: two trees
+compare bit for bit). It runs on an older tree too (copy the new
+`profile_kernels.py` into it), for a parent/change comparison in one run.
+It needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -949,6 +961,45 @@ def ln_calls() -> None:
                           "card": P.card()}), flush=True)
 
 
+TOPK_CORPORA = (("text_train", 35_000, 768, 25),
+                ("text_test", 7_500, 768, 25),
+                ("image_corpus", 41_256, 2_048, 20))
+
+
+def topk_calls() -> None:
+    from mmd_tpu_torch.ops import topk as T
+    if not torch.cuda.is_available():
+        raise SystemExit("topk_calls needs a CUDA device")
+    print(json.dumps({"card": P.card()}), flush=True)
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(18)
+    for name, n, d, k in TOPK_CORPORA:
+        corpus = T.l2_normalize(torch.randn(n, d, device=dev, generator=gen)
+                                .to(torch.bfloat16))
+        for q in (1, 64):
+            query = T.l2_normalize(torch.randn(
+                q, d, device=dev, generator=gen).to(torch.bfloat16))
+            scores = (query.float() @ corpus.float().t()).to(
+                torch.bfloat16).float()
+            call = lambda: T.topk_lower_index_first(scores, k)  # noqa: E731
+            whole = lambda: T.dense_topk(  # noqa: E731
+                query, corpus, k, normalize=False)
+            idx = torch.cat([call()[1], whole()[1]]).cpu().numpy()
+            print(json.dumps({
+                "corpus": name, "N": n, "D": d, "Q": q, "k": k,
+                "topk_event_us_a_call": _event_us(call),
+                "topk_host_us_a_call": _host_us(call, 200),
+                "dense_topk_event_us_a_call": _event_us(whole),
+                "dense_topk_host_us_a_call": _host_us(whole, 200),
+                "torch_topk_event_us_a_call": _event_us(
+                    lambda: torch.topk(scores, k)),
+                "indices_sha256": hashlib.sha256(
+                    idx.astype("int64").tobytes()).hexdigest()[:16],
+                "card": P.card()}), flush=True)
+        del corpus
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     sub = ap.add_subparsers(dest="what", required=True)
@@ -962,6 +1013,7 @@ def main(argv=None) -> None:
     sub.add_parser("mlp_bwd_calls")
     sub.add_parser("mlp_fwd_calls")
     sub.add_parser("ln_calls")
+    sub.add_parser("topk_calls")
     args = ap.parse_args(argv)
     if args.what == "ptxas":
         ptxas(args.sources or sorted(f.name for f in cuda_build.CSRC.glob(
@@ -982,6 +1034,8 @@ def main(argv=None) -> None:
         mlp_fwd_calls()
     elif args.what == "ln_calls":
         ln_calls()
+    elif args.what == "topk_calls":
+        topk_calls()
     else:
         mlp_bwd_calls()
 

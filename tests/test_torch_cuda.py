@@ -1159,3 +1159,105 @@ def test_deberta_head_dim_128_matches_the_explicit_path(cuda_device):
     # the table's gradient is a scatter-add, summed in no fixed order
     top = out[False][1].abs().max().item()
     assert (out[True][1] - out[False][1]).abs().max().item() <= 1e-5 * top
+
+
+# -- evidence retrieval: the re-rank geometry, dense and int8 top-k, ResNet --
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_at_the_rerank_geometry(cuda_device, dtype):
+    """#1 as a text search's cross-encoder re-rank runs it: 50 pairs,
+    T = S 256, 12 heads of dh 32, padded key tails."""
+    g = torch.Generator(device=cuda_device).manual_seed(18)
+    q, k, v = (torch.randn(50, 256, 384, device=cuda_device, generator=g)
+               .to(dtype) for _ in range(3))
+    lengths = torch.linspace(24, 256, 50, device=cuda_device).round().long()
+    mask = torch.arange(256, device=cuda_device)[None] < lengths[:, None]
+    before = A.launches
+    o, lse = A.flash_attention(q, k, v, 12, mask)
+    torch.cuda.synchronize()
+    assert A.launches == before + 1
+    o_p, lse_p = A.flash_attention_plain(q.float(), k.float(), v.float(), 12,
+                                         mask)
+    assert (o.float() - o_p).abs().max().item() < TOL[dtype]
+    assert (lse - lse_p).abs().max().item() < 1e-3
+
+
+def _topk_data(q, n, d, seed=0):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    c = torch.randn(n, d, generator=g)
+    c[n // 2] = c[3]                            # a duplicated row
+    qs = torch.randn(q, d, generator=g)
+    qs[0] = c[3] + 1e-3 * qs[0]
+    return qs, c
+
+
+@pytest.mark.parametrize("normalize", [True, False])
+def test_dense_topk_on_the_card_matches_the_cpu(cuda_device, normalize):
+    """bf16 operands, fp32 scores: the same indices (ties lower index
+    first: the duplicated row's twin after it) and scores within 1e-5 of
+    the largest."""
+    from mmd_tpu_torch.ops import topk as T
+    q, c = _topk_data(5, 4000, 768)
+    q, c = q.bfloat16(), c.bfloat16()
+    s_cpu, i_cpu = T.dense_topk(q, c, 25, normalize)
+    s, i = T.dense_topk(q.to(cuda_device), c.to(cuda_device), 25, normalize)
+    assert s.dtype == torch.float32
+    assert torch.equal(i.cpu(), i_cpu)
+    assert i_cpu[0, :2].tolist() == [3, 2000]
+    top = s_cpu.abs().max().item()
+    assert (s.cpu() - s_cpu).abs().max().item() <= 1e-5 * top
+
+
+@pytest.mark.parametrize("q_rows", [1, 64])
+def test_topk_lower_index_first_on_the_card_matches_the_cpu(cuda_device,
+                                                           q_rows):
+    """The stable sort on the card at the image corpus's N: integer-valued
+    scores (ties everywhere, zeros of both signs) give the CPU's values and
+    indices, lower index first among ties."""
+    from mmd_tpu_torch.ops import topk as T
+    rng = np.random.default_rng(q_rows)
+    s = rng.integers(-3, 4, (q_rows, 41_256)).astype(np.float32)
+    s[:, ::7] *= -0.0
+    s = torch.from_numpy(s)
+    v_cpu, i_cpu = T.topk_lower_index_first(s, 20)
+    v, i = T.topk_lower_index_first(s.to(cuda_device), 20)
+    assert torch.equal(i.cpu(), i_cpu)
+    assert torch.equal(v.cpu().view(torch.int32), v_cpu.view(torch.int32))
+    assert (i_cpu.diff(dim=-1) > 0).all()       # all 3s: ascending index
+
+
+@pytest.mark.parametrize("q_rows", [1, 5, 64])
+def test_dense_topk_int8_on_the_card_matches_the_cpu(cuda_device, q_rows):
+    """torch._int_mm on the card (the corpus supplies the rows, queries
+    padded to a multiple of 8). From the same normalized rows, codes and
+    scales equal the CPU's bit for bit; the query's norm may differ by an
+    ulp between the devices, so indices are equal and scores within
+    1e-6."""
+    from mmd_tpu_torch.ops import topk as T
+    q, c = _topk_data(q_rows, 3000, 2048, seed=q_rows)
+    cn = T.l2_normalize(c)
+    c8, cs = T.quantize_rows_int8(cn)
+    g8, gs = T.quantize_rows_int8(cn.to(cuda_device))
+    assert torch.equal(g8.cpu(), c8) and torch.equal(gs.cpu(), cs)
+    s_cpu, i_cpu = T.dense_topk_int8(q, c8, cs, 10)
+    s, i = T.dense_topk_int8(q.to(cuda_device), g8, gs, 10)
+    assert torch.equal(i.cpu(), i_cpu)
+    assert i_cpu[0, :2].tolist() == [3, 1500]
+    assert (s.cpu() - s_cpu).abs().max().item() <= 1e-6
+    raw = T.int8_products(c8[:5].to(cuda_device), c8[:12].to(cuda_device))
+    assert torch.equal(raw.cpu(), c8[:5].int() @ c8[:12].int().T)
+
+
+def test_resnet50_on_the_card_matches_the_cpu(cuda_device):
+    """ResNet50 in fp32 (TF32 off) at 224 px, batch 2: features within
+    1e-4 of the largest."""
+    from mmd_tpu_torch.models import resnet as R
+    cfg = R.ResNetConfig(compute_dtype="float32")
+    params = R.init_resnet(torch.Generator().manual_seed(7), cfg)
+    x = torch.randn(2, 224, 224, 3, generator=torch.Generator().manual_seed(1))
+    with torch.no_grad():
+        want = R.resnet_features(params, x, cfg)
+        got = R.resnet_features(params.to(cuda_device), x.to(cuda_device),
+                                cfg).cpu()
+    assert got.shape == (2, 2048)
+    assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()

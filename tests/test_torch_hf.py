@@ -1,7 +1,9 @@
 """The port's HF loaders and its converter (mmd_tpu_torch/convert_hf.py),
 fully offline.
 
-Each loader (DeBERTa-v3, Swinv2, BERT, ViT) reads the state dict of a
+Each loader (DeBERTa-v3, Swinv2, BERT, ViT, and the retrieval encoders:
+MPNet and the BertForSequenceClassification cross-encoder) reads the
+state dict of a
 random-init `transformers` model built from tests/test_hf_parity.py's config
 objects: the port's encoder must reproduce the HF model's output within
 that file's rtol=3e-4, atol=3e-5 (fp32), and every parameter must be
@@ -211,12 +213,111 @@ def test_swin_config_from_hf_matches_jax():
 
 
 def test_unported_loaders_name_their_slice():
-    with pytest.raises(NotImplementedError, match="A12"):
-        tte.load_hf_mpnet_state_dict({}, tte.TINY_TEST)
-    with pytest.raises(NotImplementedError, match="A12"):
-        tte.load_hf_cross_encoder_state_dict({}, tte.TINY_TEST)
     with pytest.raises(NotImplementedError, match="A13"):
         tvit.load_hf_blip_vision_state_dict({}, tvit.VIT_TEST)
+
+
+# -- the retrieval encoders: MPNet and the cross-encoder --------------------------
+
+def _mpnet():
+    cfg = transformers.MPNetConfig(
+        vocab_size=120, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=64,
+        max_position_embeddings=48, relative_attention_num_buckets=32,
+        hidden_dropout_prob=0.0, attention_probs_dropout_prob=0.0,
+        layer_norm_eps=1e-5)
+    return transformers.MPNetModel(cfg, add_pooling_layer=False).eval()
+
+
+def _cross():
+    cfg = transformers.BertConfig(
+        vocab_size=120, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=64,
+        max_position_embeddings=48, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0, layer_norm_eps=1e-12,
+        num_labels=1, classifier_dropout=0.0)
+    return transformers.BertForSequenceClassification(cfg).eval()
+
+
+def _mpnet_inputs():
+    """Row 1 padded from 10 with MPNet's pad id (1)."""
+    ids, mask = _text_inputs(3, 3, 10)
+    ids[1, 10:] = 1
+    return ids, mask
+
+
+def _cross_inputs():
+    rng = np.random.default_rng(4)
+    ids = rng.integers(0, 120, (3, 20)).astype(np.int64)
+    mask = np.ones((3, 20), np.int64)
+    mask[2, 12:] = 0
+    types = np.zeros((3, 20), np.int64)
+    types[:, 10:] = 1
+    return ids, mask, types
+
+
+def _mpnet_output(params, cfg):
+    ids, mask = _mpnet_inputs()
+    with torch.no_grad():
+        return _encode_text(params, cfg, ids, mask).numpy()
+
+
+def _cross_output(params, cfg):
+    with torch.no_grad():
+        return tte.cross_encoder_score(
+            params, cfg, *map(torch.from_numpy, _cross_inputs())).numpy()
+
+
+def test_mpnet_loader_matches_transformers():
+    hf = _mpnet()
+    cfg = _fp32(tte.mpnet_config_from_hf(hf.config.to_dict()))
+    assert (cfg.relative_bias_buckets, cfg.mpnet_positions, cfg.pad_token_id,
+            cfg.type_vocab_size, cfg.max_position) == (32, True, 1, 0, 48)
+    got = _mpnet_output(tte.load_hf_mpnet_state_dict(_state_dict(hf), cfg),
+                        cfg)
+    ids, mask = _mpnet_inputs()
+    with torch.no_grad():
+        want = hf(input_ids=torch.from_numpy(ids),
+                  attention_mask=torch.from_numpy(mask)
+                  ).last_hidden_state.numpy()
+    np.testing.assert_allclose(got[0], want[0], rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got[1, :10], want[1, :10], rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_cross_encoder_loader_matches_transformers():
+    hf = _cross()
+    cfg = _fp32(tte.config_from_hf(hf.config.to_dict(),
+                                   cap_positions=False))
+    got = _cross_output(
+        tte.load_hf_cross_encoder_state_dict(_state_dict(hf), cfg), cfg)
+    ids, mask, types = map(torch.from_numpy, _cross_inputs())
+    with torch.no_grad():
+        want = hf(input_ids=ids, attention_mask=mask,
+                  token_type_ids=types).logits.numpy()[:, 0]
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("which", ["mpnet", "cross_encoder"])
+def test_retrieval_loader_is_bit_identical_to_jax_loader(which):
+    hf = _mpnet() if which == "mpnet" else _cross()
+    c = hf.config.to_dict()
+    cfg = _fp32(tte.mpnet_config_from_hf(c) if which == "mpnet"
+                else tte.config_from_hf(c, cap_positions=False))
+    jcfg = JTransformer(**dataclasses.asdict(cfg))
+    sd = {k: v.detach().numpy() for k, v in hf.state_dict().items()}
+    if which == "mpnet":
+        want = jte.load_hf_mpnet_state_dict(sd, jcfg)
+        got = tte.load_hf_mpnet_state_dict(sd, cfg)
+    else:
+        want = jte.load_hf_cross_encoder_state_dict(sd, jcfg)
+        got = tte.load_hf_cross_encoder_state_dict(sd, cfg)
+    _assert_trees_identical(bridge.to_jax_tree(got), want)
+
+
+def test_mpnet_loader_refuses_a_bert_config():
+    with pytest.raises(ValueError, match="mpnet"):
+        tte.load_hf_mpnet_state_dict(_state_dict(_mpnet()), tte.TINY_TEST)
 
 
 # -- the converter --------------------------------------------------------------
@@ -338,11 +439,110 @@ def test_convert_hf_refuses_unread_keys_and_families(tmp_path):
     with pytest.raises(ValueError, match="vit"):
         convert_hf.convert(tmp_path / "hf", tmp_path / "out",
                            convert_hf.TEXT_FAMILIES)
-    cfg = hf.config.to_dict()
-    (tmp_path / "hf" / "config.json").write_text(
-        json.dumps(dict(cfg, model_type="mpnet")))
-    with pytest.raises(NotImplementedError, match="A12"):
-        convert_hf.convert(tmp_path / "hf", tmp_path / "out")
+    with pytest.raises(ValueError, match="vit"):
+        convert_hf.convert(tmp_path / "hf", tmp_path / "out", ("mpnet",))
+
+
+def _save_dir(path, hf, sd, vocab=None):
+    from safetensors.torch import save_file
+    path.mkdir(parents=True)
+    hf.config.to_json_file(path / "config.json")
+    save_file({k: v.detach().clone().contiguous() for k, v in sd.items()},
+              str(path / "model.safetensors"))
+    if vocab is not None:
+        (path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+
+
+# the head of MPNet's vocab.txt: RoBERTa-style specials first
+MPNET_VOCAB = (["<s>", "<pad>", "</s>", "<unk>"] + [f"w{i}" for i in range(115)]
+               + ["<mask>"])
+
+
+@pytest.mark.parametrize("flag", ["--text", "--bi_encoder"])
+def test_convert_hf_mpnet_writes_the_bi_encoder(tmp_path, flag):
+    """An MPNetForMaskedLM-style directory (mpnet. prefix, lm_head and
+    pooler keys): bi_encoder.pt equal to the loader's params, its sidecar,
+    and bi_tokenizer.json with the specials renamed; the converted files
+    give the HF output through resolve_retrieval_encoders."""
+    from mmd_tpu_torch.retrieval.text import resolve_retrieval_encoders
+    hf = _mpnet()
+    sd = {"mpnet." + k: v for k, v in hf.state_dict().items()}
+    sd["lm_head.bias"] = torch.zeros(120)
+    sd["mpnet.pooler.dense.weight"] = torch.zeros(32, 32)
+    _save_dir(tmp_path / "hf", hf, sd, MPNET_VOCAB)
+    out = tmp_path / "assets"
+    convert_hf.main([flag, str(tmp_path / "hf"), "--out", str(out)])
+    cfg = tte.mpnet_config_from_hf(hf.config.to_dict())
+    want = tte.load_hf_mpnet_state_dict(_state_dict(hf), cfg).state_dict()
+    got = torch.load(out / "bi_encoder.pt", weights_only=True)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    assert json.loads((out / "bi_encoder_config.json").read_text()) == \
+        json.loads(json.dumps(dataclasses.asdict(cfg)))
+    vocab = json.loads((out / "bi_tokenizer.json").read_text())["vocab"]
+    assert vocab[:4] == ["[CLS]", "[PAD]", "[SEP]", "[UNK]"]
+    assert vocab[-1] == "[MASK]"
+    enc = resolve_retrieval_encoders(out)
+    assert enc["bi_cfg"] == cfg and enc["bi_tokenizer"].pad_id == 1
+    np.testing.assert_allclose(
+        _mpnet_output(enc["bi_params"], _fp32(enc["bi_cfg"]))[0],
+        _mpnet_output(tte.load_hf_mpnet_state_dict(_state_dict(hf), cfg),
+                      _fp32(cfg))[0], rtol=0, atol=0)
+
+
+def test_convert_hf_writes_the_cross_encoder(tmp_path):
+    from mmd_tpu_torch.retrieval.text import resolve_retrieval_encoders
+    hf = _cross()
+    _save_dir(tmp_path / "hf", hf, hf.state_dict())
+    out = tmp_path / "assets"
+    convert_hf.main(["--cross_encoder", str(tmp_path / "hf"), "--out",
+                     str(out)])
+    cfg = tte.config_from_hf(hf.config.to_dict(), cap_positions=False)
+    want = tte.load_hf_cross_encoder_state_dict(_state_dict(hf), cfg)
+    got = torch.load(out / "cross_encoder.pt", weights_only=True)
+    assert got.keys() == want.state_dict().keys()
+    for k, v in want.state_dict().items():
+        assert torch.equal(got[k], v), k
+    enc = resolve_retrieval_encoders(out)
+    assert enc["cross_cfg"] == cfg and "pooler" in enc["cross_params"]
+    with torch.no_grad():
+        want_logits = hf(*map(torch.from_numpy, _cross_inputs())
+                         ).logits.numpy()[:, 0]
+    np.testing.assert_allclose(
+        _cross_output(enc["cross_params"], _fp32(cfg)), want_logits,
+        rtol=RTOL, atol=ATOL)
+    # a cross-encoder must be a BERT classifier; an unread key raises
+    sd = dict(hf.state_dict(), **{"bert.extra": torch.zeros(2)})
+    (tmp_path / "hf" / "model.safetensors").unlink()
+    from safetensors.torch import save_file
+    save_file({k: v.contiguous() for k, v in sd.items()},
+              str(tmp_path / "hf" / "model.safetensors"))
+    with pytest.raises(ValueError, match="bert.extra"):
+        convert_hf.convert_cross_encoder(tmp_path / "hf", tmp_path / "o2")
+    _save_dir(tmp_path / "mp", _mpnet(), _mpnet().state_dict())
+    with pytest.raises(ValueError, match="mpnet"):
+        convert_hf.convert_cross_encoder(tmp_path / "mp", tmp_path / "o3")
+
+
+def test_convert_hf_writes_resnet50(tmp_path):
+    """A torchvision resnet50 state dict file (its fc head and counters
+    included) -> resnet50.pt, the loader's params; an unread key raises."""
+    from mmd_tpu_torch.models import resnet as tresnet
+    from test_torch_resnet import _torchvision_state_dict
+    sd = {k: torch.from_numpy(v) for k, v in
+          _torchvision_state_dict(tresnet.ResNetConfig(), seed=5).items()}
+    torch.save(sd, tmp_path / "resnet50.pth")
+    convert_hf.main(["--resnet", str(tmp_path / "resnet50.pth"), "--out",
+                     str(tmp_path / "assets")])
+    want = tresnet.load_torchvision_state_dict(sd).state_dict()
+    got = torch.load(tmp_path / "assets" / "resnet50.pt", weights_only=True)
+    assert got.keys() == want.keys()
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
+    torch.save(dict(sd, extra=torch.zeros(1)), tmp_path / "bad.pth")
+    with pytest.raises(ValueError, match="extra"):
+        convert_hf.convert_resnet(tmp_path / "bad.pth", tmp_path / "o")
 
 
 def test_read_safetensors_matches_the_library(tmp_path):

@@ -124,6 +124,13 @@ def test_mlp_fwd_calls_needs_a_card():
         profile_kernels.main(["mlp_fwd_calls"])
 
 
+def test_topk_calls_needs_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("the refusal shows only without a CUDA device")
+    with pytest.raises(SystemExit, match="CUDA device"):
+        profile_kernels.main(["topk_calls"])
+
+
 def test_ptxas_remarks_keep_warnings_and_serialized_wgmma():
     log = PTXAS_LOG + (
         "ptxas info    : (C7514) Potential Performance Loss: wgmma.mma_async "

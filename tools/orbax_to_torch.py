@@ -8,13 +8,16 @@ Runs where JAX and orbax are installed; the port (mmd_tpu_torch) never
 imports it, and the machine that serves the port needs no JAX.
 
 --assets: each <name>.ckpt of the directory (deberta, swinv2,
-text_encoder, vit) becomes <name>.pt beside it. The restore template is
-built from the sidecar config the JAX converter wrote
-(<name>_config.json), so layer lists stay lists; a BERT-class
-text_encoder.ckpt without one takes the JAX package's frozen-encoder
-shape (TEXT_ENCODER_XSMALL at the vocabulary size of the directory's
-spm.json or tokenizer.json), and vit.ckpt without vit_config.json the
-default ViTConfig.
+text_encoder, vit, and the retrieval encoders bi_encoder, cross_encoder,
+resnet50) becomes <name>.pt beside it. The restore template is built from
+the sidecar config the JAX converter wrote (<name>_config.json), so layer
+lists stay lists; a BERT-class text_encoder.ckpt without one takes the JAX
+package's frozen-encoder shape (TEXT_ENCODER_XSMALL at the vocabulary size
+of the directory's spm.json or tokenizer.json), vit.ckpt without
+vit_config.json the default ViTConfig, and resnet50.ckpt (which the JAX
+converter writes without a sidecar) the default ResNetConfig. A
+cross_encoder.ckpt is the JAX converter's: backbone, the HF pooler and the
+scorer.
 
 --fusion: an orbax best_model (fusion params) becomes best_model.pt
 beside it, restored with the ModelConfig given by the flags (one for
@@ -43,6 +46,8 @@ from mmd_tpu.core import config as jconfig  # noqa: E402
 from mmd_tpu.core.checkpoint import load_params  # noqa: E402
 from mmd_tpu.models import deberta as jdeberta  # noqa: E402
 from mmd_tpu.models import fusion as jfusion  # noqa: E402
+from mmd_tpu.models import layers as jlayers  # noqa: E402
+from mmd_tpu.models import resnet as jresnet  # noqa: E402
 from mmd_tpu.models import swin as jswin  # noqa: E402
 from mmd_tpu.models import text_encoder as jte  # noqa: E402
 from mmd_tpu.models import vit as jvit  # noqa: E402
@@ -53,9 +58,20 @@ from mmd_tpu_torch.core.config import ModelConfig  # noqa: E402
 from mmd_tpu_torch.data.spm import UnigramTokenizer  # noqa: E402
 from mmd_tpu_torch.data.tokenizer import WordPieceTokenizer  # noqa: E402
 from mmd_tpu_torch.models import deberta as tdeberta  # noqa: E402
+from mmd_tpu_torch.models import resnet as tresnet  # noqa: E402
 from mmd_tpu_torch.models import swin as tswin  # noqa: E402
 from mmd_tpu_torch.models import vit as tvit  # noqa: E402
 from mmd_tpu_torch.models.transformer import TransformerConfig  # noqa: E402
+
+
+def _jax_cross_encoder(key, cfg):
+    """The tree tools/convert_hf.py saves for a cross-encoder:
+    init_cross_encoder's backbone and scorer, and the HF pooler."""
+    k1, k2 = jax.random.split(key)
+    return {**jte.init_cross_encoder(k1, cfg),
+            "pooler": jlayers.linear_init(k2, cfg.hidden_size,
+                                          cfg.hidden_size)}
+
 
 # asset name -> (JAX config class, JAX init, port config class, bridge map)
 ASSETS = {
@@ -67,6 +83,12 @@ ASSETS = {
                      bridge.text_encoder_from_jax),
     "vit": (jvit.ViTConfig, jvit.init_vit, tvit.ViTConfig,
             bridge.vit_from_jax),
+    "bi_encoder": (JTransformer, jte.init_text_encoder, TransformerConfig,
+                   bridge.text_encoder_from_jax),
+    "cross_encoder": (JTransformer, _jax_cross_encoder, TransformerConfig,
+                      bridge.cross_encoder_from_jax),
+    "resnet50": (jresnet.ResNetConfig, jresnet.init_resnet,
+                 tresnet.ResNetConfig, bridge.resnet_from_jax),
 }
 
 
@@ -84,7 +106,7 @@ def restore(path: Path, init, cfg):
 def _default_config(assets: Path, name: str, jcls):
     """The shape the JAX package's frozen-encoder resolver gives an asset
     that has no sidecar."""
-    if name == "vit":
+    if name in ("vit", "resnet50"):
         return jcls()
     if name == "text_encoder":
         if (assets / "spm.json").exists():
