@@ -155,10 +155,44 @@ Phases, each of which exits nonzero on failure:
                       self-retrieval without re-rank, (e) the fp32 re-rank
                       through #1 against the explicit path, (f) the fp32
                       MPNet on the card against the CPU
+ 15. caption          the reference's captioner at BLIP-base's published
+                      widths (Salesforce/blip-image-captioning-base: ViT-B/16
+                      at 384 px, 577 tokens; a 12-layer cross-attending
+                      decoder, vocabulary 30,524), fp32, seeded weights:
+                      written in HF's layout (config.json, model.safetensors,
+                      vocab.txt with [DEC]), converted by python -m
+                      mmd_tpu_torch.convert_hf --blip, then python -m
+                      mmd_tpu_torch.pipelines.caption over 32 rows (64
+                      images, one path missing: 2 batches of 32, 64 steps)
+                      and again after cutting 16 rows (the resume); checks
+                      (a) the captions equal those of the same params in
+                      memory, (b) the kernel path against the explicit
+                      path, teacher-forced logits within 1e-3 of the largest
+                      |logit| and equal tokens before any near tie, (c) a
+                      second decode bit for bit, (d) exactly 780 #1
+                      launches a batch and no other kernel; images/s, a
+                      batch's seconds by stage, peak memory, device time by
+                      group over 16 decode steps (torch.profiler), and #1
+                      alone at the decode (T 1, S 577) and ViT (T = S =
+                      577) geometries beside its plain version and SDPA
+ 16. train_captioner  python -m mmd_tpu_torch.pipelines.train_captioner with
+                      the default CaptionerConfig() (ViT 1024 x 12 at 64
+                      tokens, decoder 384 x 6, bf16) over 128 pairs, batch
+                      32, 2 epochs: finite losses, 18 / 18 launches of #1 /
+                      #2 a step, the median step time, peak memory and a
+                      step's device time by group (torch.profiler); #1
+                      and #2 at its two geometries beside SDPA; the caption
+                      pipeline with the captioner.pt it wrote (204 #1
+                      launches a batch), eval_prompting --llm captioner on 8
+                      rows (none) and the LVLM scorer with an image (18) and
+                      without (none); one step of the kernel path against
+                      the explicit path: fp32 loss within 1e-5, gradients
+                      within 1e-4, the bf16 loss within 1e-3
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record, with each kernel's launches in the counted runs of
 the serve, serve_reference, serve_converted, train, train_bf16,
-finetune_reference, train_raw and retrieval phases.
+finetune_reference, train_raw, retrieval, caption and train_captioner
+phases.
 """
 
 from __future__ import annotations
@@ -193,8 +227,10 @@ PROB_TOL = 1e-3
 # the card's published peaks (H100 SXM data sheet) for the bound
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_BF16_FLOPS = 989e12
-PEAK_FP32_FLOPS = 67e12       # CUDA cores: fp32 has no tensor-core rate
-                              # without TF32, which the port keeps off
+PEAK_FP32_FLOPS = 67e12       # CUDA cores (the elementwise dropout)
+# #1 and #2 run fp32 as 3xTF32 on the tensor cores: three TF32 products
+# (495 TFLOP/s) for each fp32 product, so fp32 work at a third of that
+PEAK_3XTF32_FLOPS = 495e12 / 3
 
 BATCH = 16
 TEXT = dict(name="text", t=512, s=512, d=384, h=6, masked=True)
@@ -369,6 +405,42 @@ INT8_RECALL_MIN = 0.9
 # order through 12 layers)
 RERANK_FP32_RTOL = 1e-3
 MPNET_CARD_CPU_RTOL = 1e-4
+
+# The captioner. `caption`: the published config of
+# Salesforce/blip-image-captioning-base (ViT-B/16 at 384 px, 577 tokens
+# with CLS; a 12-layer 768-wide cross-attending BERT decoder, vocabulary
+# 30,524 with [DEC] and [ENC]), fp32 as blip_config sets it, captions of
+# 64 tokens, batches of 32 (pipelines/caption.py): 12 #1 launches in the
+# ViT and one a decoder layer a step
+BLIP_VISION = dict(model_type="blip_vision_model", image_size=384,
+                   patch_size=16, hidden_size=768, num_hidden_layers=12,
+                   num_attention_heads=12, intermediate_size=3072,
+                   layer_norm_eps=1e-5, hidden_act="gelu")
+BLIP_TEXT = dict(model_type="blip_text_model", vocab_size=30524,
+                 hidden_size=768, num_hidden_layers=12,
+                 num_attention_heads=12, intermediate_size=3072,
+                 max_position_embeddings=512, layer_norm_eps=1e-12,
+                 hidden_act="gelu", encoder_hidden_size=768)
+CAPTION_B = 32
+CAPTION_STEPS = 64
+CAPTION_ROWS = 32                # 64 images (one path missing): 2 batches
+CAPTION_PER_BATCH = 12 + CAPTION_STEPS * 12                  # 780
+PROFILE_STEPS = 16               # decode steps under torch.profiler
+# (b) kernel path against the explicit path, teacher-forced logits
+# relative to the largest |logit|: the fp32 kernel (3xTF32 products, an
+# online softmax) and the explicit fp32 path differ by ~1e-6 an
+# attention; 1e-3 leaves room for 12 layers and the head. Tokens must
+# agree wherever the explicit path's top-2 gap exceeds it.
+CAPTION_LOGIT_RTOL = 1e-3
+# `train_captioner`: the default CaptionerConfig() (ViT 1024 x 12 at 64
+# tokens, decoder 384 x 6, bf16), 128 pairs, batch 32, 2 epochs
+TRAIN_CAP_PAIRS = 128
+TRAIN_CAP_B = 32
+TRAIN_CAP_EPOCHS = 2
+TRAIN_CAP_STEPS = TRAIN_CAP_EPOCHS * TRAIN_CAP_PAIRS // TRAIN_CAP_B   # 8
+TRAIN_CAP_PER_STEP = {"flash_attn_fwd": 18, "flash_attn_bwd": 18}
+DEFAULT_CAPTION_PER_BATCH = 12 + 32 * 6                      # 204
+LVLM_PER_IMAGE_SCORE = 18
 
 
 def fail(msg: str) -> None:
@@ -872,7 +944,8 @@ TRAIN_TIMINGS = {(torch.float32, DROPOUT_RATE): "train_step",
 
 
 def _peak(dtype) -> float:
-    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+    """#1's and #2's rate of operations in `dtype`."""
+    return PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_3XTF32_FLOPS
 
 
 def phase_flash_train(card: str) -> dict:
@@ -2618,6 +2691,769 @@ def phase_retrieval(card: str, tmp: Path) -> dict:
     return launches
 
 
+# -- the captioner -------------------------------------------------------------
+
+def _write_safetensors(path: Path, tensors: dict) -> None:
+    """A .safetensors file (HF's layout: a little-endian u64 header size, a
+    JSON header of dtype, shape and byte offsets, then the buffers), fp32
+    tensors only; the card's machine has no safetensors package."""
+    header, bufs, off = {}, [], 0
+    for name, t in tensors.items():
+        b = t.detach().to("cpu", torch.float32).contiguous().numpy().tobytes()
+        header[name] = {"dtype": "F32", "shape": list(t.shape),
+                        "data_offsets": [off, off + len(b)]}
+        bufs.append(b)
+        off += len(b)
+    head = json.dumps(header).encode()
+    head += b" " * (-len(head) % 8)
+    with open(path, "wb") as f:
+        f.write(len(head).to_bytes(8, "little"))
+        f.write(head)
+        for b in bufs:
+            f.write(b)
+
+
+def _blip_state_dict(seed: int) -> dict:
+    """Seeded BLIP-base weights under HF BlipForConditionalGeneration's
+    names (normal(0, 0.02) matrices and embeddings, as HF initializes
+    them; small random biases; LayerNorms at scale 1 + noise). The head's
+    output projection is left out, as save_pretrained leaves it out (tied
+    to the word embeddings)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    sd = {}
+
+    def put(name, *shape, std=0.02, mean=0.0):
+        sd[name] = (mean + std * torch.randn(*shape, device=dev,
+                                             generator=gen)).cpu()
+
+    def lin(name, o, i):
+        put(f"{name}.weight", o, i)
+        put(f"{name}.bias", o, std=0.01)
+
+    def ln(name, d):
+        put(f"{name}.weight", d, std=0.05, mean=1.0)
+        put(f"{name}.bias", d, std=0.02)
+
+    v, t = BLIP_VISION, BLIP_TEXT
+    d, p = v["hidden_size"], v["patch_size"]
+    n_pos = (v["image_size"] // p) ** 2 + 1
+    put("vision_model.embeddings.class_embedding", 1, 1, d)
+    put("vision_model.embeddings.position_embedding", 1, n_pos, d)
+    put("vision_model.embeddings.patch_embedding.weight", d, 3, p, p)
+    put("vision_model.embeddings.patch_embedding.bias", d, std=0.01)
+    for i in range(v["num_hidden_layers"]):
+        pre = f"vision_model.encoder.layers.{i}"
+        lin(f"{pre}.self_attn.qkv", 3 * d, d)
+        lin(f"{pre}.self_attn.projection", d, d)
+        ln(f"{pre}.layer_norm1", d)
+        lin(f"{pre}.mlp.fc1", v["intermediate_size"], d)
+        lin(f"{pre}.mlp.fc2", d, v["intermediate_size"])
+        ln(f"{pre}.layer_norm2", d)
+    ln("vision_model.post_layernorm", d)
+    h, e = t["hidden_size"], t["encoder_hidden_size"]
+    emb = "text_decoder.bert.embeddings"
+    put(f"{emb}.word_embeddings.weight", t["vocab_size"], h)
+    put(f"{emb}.position_embeddings.weight", t["max_position_embeddings"], h)
+    ln(f"{emb}.LayerNorm", h)
+    for i in range(t["num_hidden_layers"]):
+        pre = f"text_decoder.bert.encoder.layer.{i}"
+        for att, kv_in in (("attention", h), ("crossattention", e)):
+            lin(f"{pre}.{att}.self.query", h, h)
+            lin(f"{pre}.{att}.self.key", h, kv_in)
+            lin(f"{pre}.{att}.self.value", h, kv_in)
+            lin(f"{pre}.{att}.output.dense", h, h)
+            ln(f"{pre}.{att}.output.LayerNorm", h)
+        lin(f"{pre}.intermediate.dense", t["intermediate_size"], h)
+        lin(f"{pre}.output.dense", h, t["intermediate_size"])
+        ln(f"{pre}.output.LayerNorm", h)
+    lin("text_decoder.cls.predictions.transform.dense", h, h)
+    ln("text_decoder.cls.predictions.transform.LayerNorm", h)
+    put("text_decoder.cls.predictions.bias", t["vocab_size"], std=0.01)
+    return sd
+
+
+def _blip_vocab() -> list[str]:
+    """bert-base-uncased's layout ([PAD] 0, [UNK] 100, [CLS] 101, [SEP]
+    102, [MASK] 103), filler words up to 30,522, then BLIP's [DEC] and
+    [ENC]."""
+    n = BLIP_TEXT["vocab_size"] - 2
+    vocab = ["[PAD]"] + [f"[unused{i}]" for i in range(99)] + [
+        "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+    vocab += [f"w{i}" for i in range(n - len(vocab))]
+    return vocab + ["[DEC]", "[ENC]"]
+
+
+class _ViTLaunches:
+    """Splits a counted run's #1 and #2 launches between the ViT and the
+    decoder: patches vit.vit_forward to read the counts around each call
+    and, through a hook on its output, when the backward reaches the ViT
+    (the decoder's backward is done by then; the ViT's starts after)."""
+
+    def __init__(self):
+        self.fwd = 0            # #1 launches inside vit_forward
+        self.decoder_bwd = 0    # #2 launches before the ViT's backward
+
+    def __enter__(self):
+        from mmd_tpu_torch.models import vit as V
+        self._V, self._orig = V, V.vit_forward
+
+        def counted(*args, **kwargs):
+            before = _counts()
+            out = self._orig(*args, **kwargs)
+            self.fwd += _counts()["flash_attn_fwd"] - before["flash_attn_fwd"]
+            if out.requires_grad:
+                def reached(_grad):
+                    self.decoder_bwd += (_counts()["flash_attn_bwd"]
+                                         - before["flash_attn_bwd"])
+                out.register_hook(reached)
+            return out
+
+        V.vit_forward = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._V.vit_forward = self._orig
+
+
+def _time_flash_caption(card: str) -> dict:
+    """#1 alone at BLIP-base's decode geometry (B 32, T 1, S 577, 12 heads
+    of dh 64) and its ViT geometry (T = S = 577), fp32, beside its plain
+    version and SDPA."""
+    from mmd_tpu_torch.ops import attention as A
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    b, s, d, h = CAPTION_B, 577, 768, 12
+    out = {}
+    for name, t in (("caption_decode", 1), ("caption_vit", 577)):
+        q, k, v = (torch.randn(b, n, d, device=dev, generator=gen)
+                   for n in (t, s, s))
+        o, lse = A.flash_attention(q, k, v, h)
+        torch.cuda.synchronize()
+        o_ref, lse_ref = A.flash_attention_plain(q, k, v, h)
+        err = (o - o_ref).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        ok = err <= KERNEL_TOL[torch.float32] and lse_err <= LSE_TOL
+        print(f"kernel flash_attn_fwd {name:>14}  torch.float32: max_abs_err "
+              f"{err:.3e} (tol {KERNEL_TOL[torch.float32]:.0e}), lse err "
+              f"{lse_err:.3e} -> {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"flash kernel disagrees with its plain version at {name}")
+        qh, kh, vh = (x.view(b, -1, h, d // h).transpose(1, 2)
+                      for x in (q, k, v))
+        row = {"ms": _time_ms(lambda: A.flash_attention(q, k, v, h),
+                              iters=50),
+               "plain_ms": _time_ms(lambda: A.flash_attention_plain(
+                   q, k, v, h), iters=10),
+               "library_ms": _time_ms(lambda: sdpa(qh, kh, vh), iters=50)}
+        row["bound_ms"], row["bound_by"] = _flash_bound_ms(
+            q, k, h, None, _peak(torch.float32))
+        _print_time("flash_attn_fwd", f"{name} fp32 B={b} T={t} S={s} D={d} "
+                    f"H={h}", row, card)
+        out[name] = {**row, "max_abs_err": err,
+                     "library_note": "torch.nn.functional.scaled_dot_product"
+                                     "_attention, (B, H, T, dh) views"}
+    return out
+
+
+def _captions_by_path(csv: Path) -> dict:
+    import pandas as pd
+    df = pd.read_csv(csv)
+    caps = {}
+    for col, cap in (("claim_image", "claim_image_caption"),
+                     ("evidence_image", "evidence_image_caption")):
+        for p, c in zip(df[col], df[cap]):
+            caps[p] = "" if isinstance(c, float) else c
+    return caps
+
+
+def phase_caption(card: str, tmp: Path) -> tuple[dict, dict]:
+    """BLIP-base from files, as a user captions with it: seeded weights in
+    HF's layout -> python -m mmd_tpu_torch.convert_hf --blip -> python -m
+    mmd_tpu_torch.pipelines.caption over 32 preprocessed rows (64 images,
+    one path missing: 2 batches of 32), then again after cutting the last
+    16 rows (the resume). Checks (a) the captions from the files equal
+    those of the same params held in memory, (b) the kernel path against
+    the explicit path, teacher-forced, (c) a second decode bit for bit,
+    (d) 780 #1 launches a batch and no other kernel. Returns the counted
+    launches and #1's timings at the captioner's geometries."""
+    import pandas as pd
+
+    from mmd_tpu_torch import convert_hf
+    from mmd_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from mmd_tpu_torch.models import captioner as C
+    from mmd_tpu_torch.models import vit as V
+    from mmd_tpu_torch.ops.image_ops import (
+        load_images_parallel, normalize_on_device,
+    )
+    from mmd_tpu_torch.pipelines import caption as CP
+
+    phase = "caption"
+    t_phase = time.perf_counter()
+    hf_dir, assets, root = tmp / "blip_hf", tmp / "blip_assets", tmp / "cap"
+    hf_dir.mkdir()
+    sd = _blip_state_dict(19)
+    (hf_dir / "config.json").write_text(json.dumps({
+        "model_type": "blip",
+        "architectures": ["BlipForConditionalGeneration"],
+        "text_config": BLIP_TEXT, "vision_config": BLIP_VISION}))
+    _write_safetensors(hf_dir / "model.safetensors", sd)
+    vocab = _blip_vocab()
+    (hf_dir / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    t_write = time.perf_counter() - t_phase
+    t0 = time.perf_counter()
+    convert_hf.main(["--blip", str(hf_dir), "--out", str(assets)])
+    t_convert = time.perf_counter() - t0
+    print(f"{phase}: HF directory written in {t_write:.1f} s "
+          f"({(hf_dir / 'model.safetensors').stat().st_size / 2 ** 20:.0f} "
+          f"MiB), converted in {t_convert:.1f} s", flush=True)
+
+    rng = np.random.default_rng(19)
+    paths = _write_jpegs(root / "images", rng, 2 * CAPTION_ROWS - 1)
+    paths.insert(CAPTION_ROWS + 3, str(root / "images" / "missing.jpg"))
+    rel = [str(Path(p).relative_to(root)) for p in paths]
+    from mmd_tpu_torch.inference.traffic import corpus
+    texts = corpus(rng, 2 * CAPTION_ROWS)
+    pre = root / "data" / "preprocessed"
+    pre.mkdir(parents=True)
+    pd.DataFrame({"claim": texts[:CAPTION_ROWS],
+                  "evidence": texts[CAPTION_ROWS:],
+                  "claim_image": rel[:CAPTION_ROWS],
+                  "evidence_image": rel[CAPTION_ROWS:],
+                  "category": ["Support_Multimodal"] * CAPTION_ROWS}).to_csv(
+        pre / "train.csv", index=False)
+    out_csv = pre / "train_enriched.csv"
+    argv = ["--datasets", "train", "--root", str(root), "--assets",
+            str(assets), "--device", "cuda"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    in_vit = _ViTLaunches()
+    t0 = time.perf_counter()
+    with in_vit:
+        CP.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in launches}
+    want["flash_attn_fwd"] = 2 * CAPTION_PER_BATCH
+    print(f"{phase}: python -m mmd_tpu_torch.pipelines.caption, "
+          f"{CAPTION_ROWS} rows ({2 * CAPTION_ROWS} images, 1 missing, 2 "
+          f"batches of {CAPTION_B}, {CAPTION_STEPS} steps) in {run_s:.2f} s "
+          f"with loading the assets: {2 * CAPTION_ROWS / run_s:.2f} images/s; "
+          f"peak device memory {peak / 2 ** 30:.3f} GiB; launches "
+          f"{json.dumps(launches)} (want {json.dumps(want)})  [{card}]",
+          flush=True)
+    if launches != want:
+        fail(f"{phase}: (d) launches {launches}, want {want}")
+    first = pd.read_csv(out_csv)
+    caps = _captions_by_path(out_csv)
+    if caps[rel[CAPTION_ROWS + 3]] != "" or sum(
+            1 for c in caps.values() if c) != 2 * CAPTION_ROWS - 1:
+        fail(f"{phase}: want a caption for every image but the missing one")
+
+    # the resume: cut the last 16 rows, run again, the same file back
+    cut = first.copy()
+    cut.loc[CAPTION_ROWS // 2:, ["claim_image_caption",
+                                 "evidence_image_caption", "claim_enriched",
+                                 "evidence_enriched"]] = np.nan
+    cut.to_csv(out_csv, index=False)
+    _reset_counts()
+    with in_vit:
+        CP.main(argv)
+    torch.cuda.synchronize()
+    resumed = _counts()
+    for k, n in resumed.items():
+        launches[k] += n
+    again = pd.read_csv(out_csv)
+    same = again.equals(first)
+    print(f"{phase}: resumed at row {CAPTION_ROWS // 2}: launches "
+          f"{resumed['flash_attn_fwd']} of #1 (want {CAPTION_PER_BATCH}); "
+          f"the file {'equals' if same else 'DIFFERS from'} the first run's",
+          flush=True)
+    if resumed["flash_attn_fwd"] != CAPTION_PER_BATCH or not same:
+        fail(f"{phase}: the resume did not finish the file as the first run")
+    # (d) by stage over the 3 batches: the ViT's one a layer, the decode
+    # loop's one a layer a step
+    split = {"caption_vit": in_vit.fwd,
+             "caption_decode": launches["flash_attn_fwd"] - in_vit.fwd}
+    want_split = {"caption_vit": 3 * BLIP_VISION["num_hidden_layers"],
+                  "caption_decode": 3 * CAPTION_STEPS
+                  * BLIP_TEXT["num_hidden_layers"]}
+    print(f"{phase}: (d) #1 launches over the 3 batches, counted inside the "
+          f"ViT and the rest: {json.dumps(split)} (want "
+          f"{json.dumps(want_split)})", flush=True)
+    if split != want_split:
+        fail(f"{phase}: (d) #1 launches by stage {split}")
+
+    # (a) the same params held in memory, through the pipeline's engine
+    tok = WordPieceTokenizer(vocab)
+    cfg = C.blip_config(BLIP_VISION, BLIP_TEXT)
+    params = C.load_hf_blip_state_dict(sd, cfg).to("cuda")
+    engine = CP.CaptionEngine(tok, cfg=cfg, params=params,
+                              batch_size=CAPTION_B, device="cuda")
+    mem = engine.caption_paths([str(p) for p in paths])
+    diff = [p for p, c in zip(rel, mem) if caps[p] != c]
+    print(f"{phase}: (a) captions from the files against the params in "
+          f"memory: {len(paths) - len(diff)} of {len(paths)} identical; "
+          f"e.g. {mem[0][:60]!r}", flush=True)
+    if diff:
+        fail(f"{phase}: (a) {len(diff)} captions differ, e.g. {diff[:3]}")
+
+    # one batch by stage: decode on the host, the ViT, the decode loop
+    batch = [str(p) for p in paths[:CAPTION_B]]
+    stages = {"image_decode": [], "vit": [], "decode_loop": []}
+    for _ in range(3):
+        t0 = time.perf_counter()
+        u8, _ = load_images_parallel(batch, engine.transform)
+        t1 = time.perf_counter()
+        with torch.no_grad():
+            x = normalize_on_device(torch.from_numpy(u8).to("cuda"),
+                                    engine.transform, torch.float32)
+            enc = V.vit_forward(params["vit"], cfg.vit, x)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+            toks, _ = C.decode(params, cfg, enc, engine.bos_id, tok.sep_id,
+                               tok.pad_id)
+            torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        for k, dt in zip(stages, (t1 - t0, t2 - t1, t3 - t2)):
+            stages[k].append(dt)
+    by_stage = {k: float(np.median(v)) for k, v in stages.items()}
+    total = sum(by_stage.values())
+    print(f"{phase}: a batch of {CAPTION_B} by stage (median of 3, host "
+          f"clock, each ending in a synchronize): "
+          f"{json.dumps({k: round(v, 4) for k, v in by_stage.items()})} s; "
+          f"{CAPTION_B / total:.2f} images/s  [{card}]", flush=True)
+
+    # (b) the kernel path against the explicit path on that batch
+    explicit = dataclasses.replace(
+        cfg, vit=dataclasses.replace(cfg.vit, fused_attn=False),
+        decoder=dataclasses.replace(cfg.decoder, fused_attn=False))
+    with torch.no_grad():
+        enc_e = V.vit_forward(params["vit"], explicit.vit, x)
+        tok_e, _ = C.decode(params, explicit, enc_e, engine.bos_id,
+                            tok.sep_id, tok.pad_id)
+        _, logit_e = C.decode(params, explicit, enc_e, engine.bos_id,
+                              tok.sep_id, tok.pad_id, forced=tok_e)
+        _, logit_k = C.decode(params, cfg, enc, engine.bos_id, tok.sep_id,
+                              tok.pad_id, forced=tok_e)
+    scale = logit_e.abs().max().item()
+    err = (logit_k - logit_e).abs().max().item()
+    tol = CAPTION_LOGIT_RTOL * scale
+    top2 = logit_e.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    # tokens must agree up to the first step whose gap is within tol
+    decisive = torch.cumprod((gap > tol).long(), dim=1).bool()
+    agree = bool(((toks == tok_e) | ~decisive).all())
+    print(f"{phase}: (b) kernel path against the explicit path, "
+          f"teacher-forced over {CAPTION_B} x {CAPTION_STEPS} steps: logits "
+          f"max difference {err:.3e} (tol {tol:.3e}: {CAPTION_LOGIT_RTOL:.0e}"
+          f" of the largest |logit| {scale:.3f}); tokens "
+          f"{'equal' if agree else 'DIFFER'} at the "
+          f"{int(decisive.sum())} steps before a near tie (of "
+          f"{decisive.numel()}; {int((toks == tok_e).sum())} equal in all)",
+          flush=True)
+    if not (err <= tol and agree):
+        fail(f"{phase}: (b) the kernel path and the explicit path disagree")
+
+    # (c) a second decode, bit for bit
+    with torch.no_grad():
+        toks2, _ = C.decode(params, cfg, enc, engine.bos_id, tok.sep_id,
+                            tok.pad_id)
+        _, logit_k2 = C.decode(params, cfg, enc, engine.bos_id, tok.sep_id,
+                               tok.pad_id, forced=tok_e)
+    rep = torch.equal(toks2, toks) and torch.equal(logit_k2, logit_k)
+    print(f"{phase}: (c) a second decode {'bit-identical' if rep else 'DIFFERS'}",
+          flush=True)
+    if not rep:
+        fail(f"{phase}: (c) the decode is not repeatable")
+    # where a decode loop spends the card's time: its first
+    # PROFILE_STEPS steps (the steps are alike; reducing a whole loop's
+    # ~33,000 device events takes torch.profiler ~25 s)
+    from mmd_tpu_torch import profiling as PR
+    from mmd_tpu_torch.profile_train import KERNELS
+    prof = PR.profile_window(lambda: C.decode(
+        params, cfg, enc, engine.bos_id, tok.sep_id, tok.pad_id,
+        PROFILE_STEPS), 1, KERNELS)
+    print(f"{phase}: torch.profiler over a decode loop of {PROFILE_STEPS} "
+          f"steps (B {CAPTION_B}): window {prof['window_ms']:.1f} ms, device "
+          f"busy {prof['device_busy_ms']:.1f} ms, idle share "
+          f"{prof['idle_share']:.3f}, {prof['device_events']} device events; "
+          f"device ms by group "
+          f"{json.dumps({k: round(v, 2) for k, v in prof['device_ms_by_group'].items()})}"
+          f"  [{card}]", flush=True)
+    timings = _time_flash_caption(card)
+    for name, n in split.items():
+        timings[name]["launches_in_phase"] = n
+    del params, engine, sd, logit_e, logit_k, logit_k2
+    torch.cuda.empty_cache()
+    print(f"{phase}: phase wall {time.perf_counter() - t_phase:.1f} s  "
+          f"[{card}]", flush=True)
+    return launches, timings
+
+
+# the default captioner's geometries of #1 (and of #2 where it trains),
+# bf16, dh 64: the ViT's self-attention (T = S = 64, 16 heads) and a
+# 32-token caption's cross-attention over its 64 tokens (6 heads) in a
+# training step of 32; a decode step's cross-attention (T 1) in a caption
+# batch of 32; and the LVLM scorer's one image and its 64-token prompt
+TRAIN_CAP_GEOMS = [
+    dict(name="train_captioner_vit", b=32, t=64, s=64, d=1024, h=16,
+         bwd=True),
+    dict(name="train_captioner_cross", b=32, t=32, s=64, d=384, h=6,
+         bwd=True),
+    dict(name="train_captioner_decode", b=32, t=1, s=64, d=384, h=6,
+         bwd=False),
+    dict(name="lvlm_vit", b=1, t=64, s=64, d=1024, h=16, bwd=False),
+    dict(name="lvlm_cross", b=1, t=64, s=64, d=384, h=6, bwd=False)]
+# what train_captioner must launch at each, counted by _ViTLaunches: 8
+# steps (forward and backward), one caption batch of 32 steps, one LVLM
+# score with an image
+TRAIN_CAP_SPLIT = {
+    "flash_attn_fwd": {"train_captioner_vit": 8 * 12 + 12,
+                       "train_captioner_cross": 8 * 6,
+                       "train_captioner_decode": 32 * 6,
+                       "lvlm_vit": 12, "lvlm_cross": 6},
+    "flash_attn_bwd": {"train_captioner_vit": 8 * 12,
+                       "train_captioner_cross": 8 * 6}}
+
+
+def _time_flash_train_captioner(card: str) -> dict:
+    """#1 (and #2 where it trains) at the default captioner's geometries
+    in bf16, each against its plain version on the same inputs, timed
+    beside SDPA (and its backward)."""
+    from mmd_tpu_torch.ops import attention as A
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(21)
+    out = {"flash_attn_fwd": {}, "flash_attn_bwd": {}}
+    tol = KERNEL_TOL[torch.bfloat16]
+    for g in TRAIN_CAP_GEOMS:
+        b, t, s, d, h = g["b"], g["t"], g["s"], g["d"], g["h"]
+        q, k, v, do = (torch.randn(b, n, d, device=dev, generator=gen)
+                       .to(torch.bfloat16) for n in (t, s, s, t))
+        o, lse = A.flash_attention(q, k, v, h)
+        grads = A.flash_attention_bwd(q, k, v, o, lse, do, h) if g[
+            "bwd"] else None
+        torch.cuda.synchronize()
+        o_ref, lse_ref = A.flash_attention_plain(q.float(), k.float(),
+                                                 v.float(), h)
+        f_err = (o.float() - o_ref).abs().max().item()
+        lse_err = (lse - lse_ref).abs().max().item()
+        ok = f_err <= tol and lse_err <= LSE_TOL
+        what = (f"forward max_abs_err {f_err:.3e} (tol {tol:.0e}), lse err "
+                f"{lse_err:.3e}")
+        if grads is not None:
+            want = A.flash_attention_bwd_plain(
+                q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                h)
+            b_err = max((x.float() - w).abs().max().item()
+                        / max(w.abs().max().item(), 1e-30)
+                        for x, w in zip(grads, want))
+            ok = ok and b_err <= _bwd_tol(torch.bfloat16)
+            what += (f", backward {b_err:.3e} of each gradient's scale (tol "
+                     f"{_bwd_tol(torch.bfloat16):.0e})")
+            del want
+        print(f"kernel flash_attn_fwd{'/bwd' if grads is not None else ''} "
+              f"{g['name']}  torch.bfloat16: {what} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"flash kernels disagree with their plain versions at "
+                 f"{g['name']}")
+        qh, kh, vh = (x.view(b, -1, h, d // h).transpose(1, 2).detach()
+                      .requires_grad_(g["bwd"]) for x in (q, k, v))
+        fwd = {"ms": _time_ms(lambda: A.flash_attention(q, k, v, h),
+                              iters=50),
+               "plain_ms": _time_ms(lambda: A.flash_attention_plain(
+                   q, k, v, h), iters=10),
+               "library_ms": _time_ms(lambda: sdpa(qh, kh, vh), iters=50)}
+        fwd["bound_ms"], fwd["bound_by"] = _flash_bound_ms(q, k, h, None)
+        geom = f"{g['name']} bf16 B={b} T={t} S={s} D={d} H={h}"
+        _print_time("flash_attn_fwd", geom, fwd, card)
+        out["flash_attn_fwd"][g["name"]] = {
+            **fwd, "max_abs_err": f_err,
+            "library_note": "torch.nn.functional.scaled_dot_product_"
+                            "attention, (B, H, T, dh) views"}
+        if grads is not None:
+            lib = sdpa(qh, kh, vh)
+            gout = torch.randn_like(lib)
+            bwd = {"ms": _time_ms(lambda: A.flash_attention_bwd(
+                       q, k, v, o, lse, do, h), iters=50),
+                   "plain_ms": _time_ms(lambda: A.flash_attention_bwd_plain(
+                       q, k, v, o, lse, do, h), iters=10),
+                   "library_ms": _time_ms(lambda: torch.autograd.grad(
+                       lib, (qh, kh, vh), gout, retain_graph=True),
+                       iters=50)}
+            bwd["bound_ms"], bwd["bound_by"] = _bound_ms(
+                q.element_size() * (4 * b * t * d + 4 * b * s * d)
+                + 4 * b * h * t, 10 * b * t * s * d)
+            _print_time("flash_attn_bwd", geom, bwd, card)
+            out["flash_attn_bwd"][g["name"]] = {
+                **bwd, "max_rel_err": b_err,
+                "library_note": "the backward of torch.nn.functional.scaled_"
+                                "dot_product_attention (forward excluded)"}
+            del lib, gout
+        del o, lse, grads, qh, kh, vh
+    return out
+
+
+def _caption_pairs(d: Path, rng: np.random.Generator, n: int) -> Path:
+    """n (image, caption) pairs: JPEGs and seeded captions of 4-12 words."""
+    import pandas as pd
+    words = ["a", "photo", "of", "the", "river", "city", "crowd", "near",
+             "bridge", "man", "woman", "sign", "with", "red", "blue",
+             "flag", "street", "at", "night", "during", "protest", "market"]
+    paths = _write_jpegs(d / "images", rng, n)
+    caps = [" ".join(rng.choice(words, rng.integers(4, 13)))
+            for _ in range(n)]
+    csv = d / "pairs.csv"
+    pd.DataFrame({"claim_image": paths, "claim_image_caption": caps}
+                 ).to_csv(csv, index=False)
+    return csv
+
+
+def phase_train_captioner(card: str, tmp: Path) -> dict:
+    """python -m mmd_tpu_torch.pipelines.train_captioner with the default
+    CaptionerConfig() (bf16) over 128 pairs, batch 32, 2 epochs; then the
+    caption pipeline with the captioner.pt it wrote, eval_prompting --llm
+    captioner on 8 rows and the LVLM scorer with and without an image.
+    Checks: finite losses, the launches of each, and one fp32 step and
+    one bf16 loss of the kernel path against the explicit path. Returns
+    the counted launches and #1's and #2's split of them by geometry."""
+    import pandas as pd
+
+    from mmd_tpu_torch.baselines import eval_prompting as EP
+    from mmd_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from mmd_tpu_torch.inference.traffic import corpus
+    from mmd_tpu_torch.models import captioner as C
+    from mmd_tpu_torch.models import layers as L
+    from mmd_tpu_torch.ops.image_ops import (
+        load_images_parallel, normalize_on_device,
+    )
+    from mmd_tpu_torch.pipelines import caption as CP
+    from mmd_tpu_torch.pipelines import train_captioner as TRC
+
+    phase = "train_captioner"
+    t_phase = time.perf_counter()
+    d = tmp / "train_cap"
+    rng = np.random.default_rng(20)
+    csv = _caption_pairs(d, rng, TRAIN_CAP_PAIRS)
+    assets = d / "assets"
+    step_s = []
+    plain_step = TRC.train_step
+
+    def timed_step(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss = plain_step(*args)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        return loss
+
+    TRC.train_step = timed_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    in_train, in_cap, in_lvlm = _ViTLaunches(), _ViTLaunches(), _ViTLaunches()
+    try:
+        with in_train:
+            losses = TRC.main(["--csv", str(csv), "--assets", str(assets),
+                               "--epochs", str(TRAIN_CAP_EPOCHS),
+                               "--batch_size", str(TRAIN_CAP_B),
+                               "--max_len", "32", "--device", "cuda"])
+    finally:
+        TRC.train_step = plain_step
+    torch.cuda.synchronize()
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    want = {k: 0 for k in launches}
+    want.update({k: v * TRAIN_CAP_STEPS for k, v in TRAIN_CAP_PER_STEP.items()})
+    cfg_d = json.loads((assets / "captioner_config.json").read_text())
+    print(f"{phase}: ViT {cfg_d['vit']['hidden_size']} x "
+          f"{cfg_d['vit']['num_layers']} ({cfg_d['vit']['image_size']} px / "
+          f"{cfg_d['vit']['patch_size']}), decoder "
+          f"{cfg_d['decoder']['hidden_size']} x "
+          f"{cfg_d['decoder']['num_layers']}, vocabulary "
+          f"{cfg_d['decoder']['vocab_size']}, "
+          f"{cfg_d['decoder']['compute_dtype']}; {len(losses)} steps, loss "
+          f"by step {json.dumps([round(x, 4) for x in losses])}; step wall "
+          f"median {1e3 * float(np.median(step_s)):.3f} ms "
+          f"({json.dumps([round(1e3 * x, 3) for x in step_s])} ms, each "
+          f"ending in a synchronize); peak device memory "
+          f"{peak / 2 ** 30:.3f} GiB; launches {json.dumps(launches)} (want "
+          f"{json.dumps(want)})  [{card}]", flush=True)
+    if len(losses) != TRAIN_CAP_STEPS or not all(map(math.isfinite, losses)):
+        fail(f"{phase}: losses {losses}")
+    if launches != want:
+        fail(f"{phase}: launches {launches}, want {want}")
+
+    # caption with the trained captioner.pt, through the pipeline
+    root = d / "root"
+    pre = root / "data" / "preprocessed"
+    pre.mkdir(parents=True)
+    pairs = pd.read_csv(csv)
+    texts = corpus(rng, 32)
+    pd.DataFrame({"claim": texts[:16], "evidence": texts[16:],
+                  "claim_image": pairs["claim_image"][:16].tolist(),
+                  "evidence_image": pairs["claim_image"][16:32].tolist(),
+                  "category": ["Refute"] * 8 + ["Support_Text"] * 8}
+                 ).to_csv(pre / "test.csv", index=False)
+    _reset_counts()
+    with in_cap:
+        CP.main(["--datasets", "test", "--root", str(root), "--assets",
+                 str(assets), "--device", "cuda"])
+    torch.cuda.synchronize()
+    cap_launches = _counts()
+    enriched = pd.read_csv(pre / "test_enriched.csv")
+    n_caps = int((enriched["claim_image_caption"].fillna("") != "").sum()
+                 + (enriched["evidence_image_caption"].fillna("") != ""
+                    ).sum())
+    print(f"{phase}: the caption pipeline with the trained captioner.pt: 32 "
+          f"images, {n_caps} non-empty captions, e.g. "
+          f"{enriched['claim_image_caption'][0]!r}; #1 launches "
+          f"{cap_launches['flash_attn_fwd']} (want "
+          f"{DEFAULT_CAPTION_PER_BATCH})", flush=True)
+    if cap_launches != {**{k: 0 for k in cap_launches},
+                        "flash_attn_fwd": DEFAULT_CAPTION_PER_BATCH}:
+        fail(f"{phase}: the caption batch launched {cap_launches}")
+
+    # what the 8-step captioner emits first, over the same 32 images
+    tok = WordPieceTokenizer.load(assets / "tokenizer.json")
+    _, cfg_t, params_t = C.load_captioner_assets(assets, "cuda")
+    eng = CP.CaptionEngine(tok, cfg=cfg_t, params=params_t, device="cuda")
+    u8, _ = load_images_parallel(pairs["claim_image"][:32].tolist(),
+                                 eng.transform)
+    firsts = eng.generate_uint8(u8)[:, 0].cpu().tolist()
+    top = max(set(firsts), key=firsts.count)
+    print(f"{phase}: its first token: {tok.vocab[top]!r} in "
+          f"{firsts.count(top)} of 32 images (an empty caption when it is "
+          f"[SEP])", flush=True)
+    del eng, params_t
+
+    # eval_prompting --llm captioner on 8 rows, then the LVLM scorer
+    _reset_counts()
+    report = EP.main(["--csv", str(pre / "test.csv"), "--llm", "captioner",
+                      "--limit", "8", "--assets", str(assets),
+                      "--results_json", str(d / "prompting.json"),
+                      "--device", "cuda"])
+    torch.cuda.synchronize()
+    llm_launches = _counts()
+    score = EP.make_lvlm_scorer(str(assets), device="cuda")
+    prompt = "Claim: the river flooded the city. Evidence: a photo. Answer:"
+    _reset_counts()
+    p_text = score(prompt)
+    text_launches = _counts()["flash_attn_fwd"]
+    _reset_counts()
+    with in_lvlm:
+        p_image = score(prompt, image_path=pairs["claim_image"][0])
+    image_launches = _counts()
+    print(f"{phase}: eval_prompting --llm captioner, 8 rows: accuracy "
+          f"{report['accuracy']:.3f}, launches {sum(llm_launches.values())} "
+          f"(the decoder runs text-only: explicit causal attention); LVLM "
+          f"P(yes) {p_text:.4f} without the image ({text_launches} #1 "
+          f"launches), {p_image:.4f} with it "
+          f"({image_launches['flash_attn_fwd']}, want "
+          f"{LVLM_PER_IMAGE_SCORE})", flush=True)
+    if (sum(llm_launches.values()) or text_launches
+            or image_launches != {**{k: 0 for k in image_launches},
+                                  "flash_attn_fwd": LVLM_PER_IMAGE_SCORE}
+            or not (0.0 <= p_text <= 1.0 and 0.0 <= p_image <= 1.0)
+            or p_text == p_image):
+        fail(f"{phase}: the prompting baselines' launches or scores")
+    # the launches by geometry: inside the ViT, and the rest
+    split = {"flash_attn_fwd": {
+        "train_captioner_vit": in_train.fwd + in_cap.fwd,
+        "train_captioner_cross": launches["flash_attn_fwd"] - in_train.fwd,
+        "train_captioner_decode": cap_launches["flash_attn_fwd"] - in_cap.fwd,
+        "lvlm_vit": in_lvlm.fwd,
+        "lvlm_cross": image_launches["flash_attn_fwd"] - in_lvlm.fwd},
+        "flash_attn_bwd": {
+        "train_captioner_vit": (launches["flash_attn_bwd"]
+                                - in_train.decoder_bwd),
+        "train_captioner_cross": in_train.decoder_bwd}}
+    print(f"{phase}: launches by geometry, counted inside the ViT and the "
+          f"rest: {json.dumps(split)} (want {json.dumps(TRAIN_CAP_SPLIT)})",
+          flush=True)
+    if split != TRAIN_CAP_SPLIT:
+        fail(f"{phase}: launches by geometry {split}")
+    for k in launches:
+        launches[k] += (cap_launches[k] + llm_launches[k]
+                        + image_launches[k])
+
+    # one step of the kernel path against the explicit path: fp32 loss and
+    # gradients, then the bf16 loss
+    base = C.config_from_dict(cfg_d)
+    rows = pairs.iloc[:TRAIN_CAP_B]
+    tr = CP.image_transform(base)
+    u8, ok = load_images_parallel(rows["claim_image"].tolist(), tr)
+    ids, mask, _ = tok.encode_batch(rows["claim_image_caption"].tolist(),
+                                    max_length=base.max_caption_len)
+    ids_t = torch.from_numpy(ids).to("cuda", torch.int64)
+    mask_t = torch.from_numpy(mask * ok[:, None].astype(np.int32)).to("cuda")
+    u8_t = torch.from_numpy(u8).to("cuda")
+    params = C.init_captioner(torch.Generator().manual_seed(0), base).cuda()
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        for fused in (True, False):
+            cfg = dataclasses.replace(
+                base, vit=dataclasses.replace(base.vit, compute_dtype=dtype,
+                                              fused_attn=fused),
+                decoder=dataclasses.replace(base.decoder,
+                                            compute_dtype=dtype,
+                                            fused_attn=fused))
+            params.zero_grad(set_to_none=True)
+            x = normalize_on_device(u8_t, tr, L.dtype_of(dtype))
+            loss = C.caption_loss(params, cfg, x, ids_t, mask_t)
+            loss.backward()
+            res[dtype, fused] = (loss.item(), {
+                n: p.grad.detach().clone()
+                for n, p in params.named_parameters()})
+    (lf, gf), (le, ge) = res["float32", True], res["float32", False]
+    loss_rel = abs(lf - le) / abs(le)
+    worst, where = _grad_gap(gf, ge)
+    lb, lbe = res["bfloat16", True][0], res["bfloat16", False][0]
+    bf16_rel = abs(lb - lbe) / abs(lbe)
+    ok = (loss_rel <= PARITY_LOSS_RTOL and worst <= PARITY_GRAD_RTOL
+          and bf16_rel <= PARITY_BF16_LOSS_RTOL)
+    print(f"{phase}: one step, batch {TRAIN_CAP_B}, kernels against the "
+          f"explicit path: fp32 loss {lf:.7f} / {le:.7f}, relative "
+          f"{loss_rel:.3e} (tol {PARITY_LOSS_RTOL:.0e}); worst grad leaf "
+          f"{where} at {worst:.3e} of its scale (tol "
+          f"{PARITY_GRAD_RTOL:.0e}); bf16 loss {lb:.6f} / {lbe:.6f}, "
+          f"relative {bf16_rel:.3e} (tol {PARITY_BF16_LOSS_RTOL:.0e}) -> "
+          f"{'ok' if ok else 'FAIL'}  [{card}]", flush=True)
+    if not ok:
+        fail(f"{phase}: the kernel path and the explicit path disagree")
+
+    # where a bf16 training step spends the card's time
+    from mmd_tpu_torch import profiling as PR
+    from mmd_tpu_torch.profile_train import KERNELS, TRAIN_GROUPS
+    opt = TRC.make_optimizer(params, 3e-4)
+
+    def step():
+        return TRC.train_step(params, opt, base, tr, u8_t, ids_t, mask_t)
+
+    for _ in range(2):
+        step()
+    prof = PR.profile_window(step, 1, KERNELS, TRAIN_GROUPS + PR.GROUPS)
+    print(f"{phase}: torch.profiler over a bf16 step: window "
+          f"{prof['window_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms, idle share "
+          f"{prof['idle_share']:.3f}, {prof['device_events']} device events; "
+          f"device ms by group "
+          f"{json.dumps({k: round(v, 2) for k, v in prof['device_ms_by_group'].items()})}"
+          f"  [{card}]", flush=True)
+    del params, res, opt
+    torch.cuda.empty_cache()
+    print(f"{phase}: phase wall {time.perf_counter() - t_phase:.1f} s  "
+          f"[{card}]", flush=True)
+    return launches, split
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -2655,6 +3491,15 @@ def main() -> None:
             "finetune_reference": phase_finetune_reference(dev["card"], tmp),
             "train_raw": phase_train_raw(dev["card"], tmp)}
         by_phase["retrieval"] = phase_retrieval(dev["card"], tmp)
+        by_phase["caption"], caption_times = phase_caption(dev["card"], tmp)
+        recs["flash_attn_fwd"].update(caption_times)
+        train_cap_times = _time_flash_train_captioner(dev["card"])
+        by_phase["train_captioner"], split = phase_train_captioner(
+            dev["card"], tmp)
+        for name, times in train_cap_times.items():
+            for geom, row in times.items():
+                row["launches_in_phase"] = split[name][geom]
+            recs[name].update(times)
         phase_train_parity(dev["card"])
         phase_train_parity_bf16(dev["card"])
         phase_finetune_parity(dev["card"], tmp)

@@ -15,6 +15,8 @@ way (port module -> nested dicts and lists of float32 numpy arrays), so
 tests can compare params, or grads (`grads=True`), after a training step.
 `finetune_from_jax` loads a JAX fine-tuning state's joint params
 {"fusion", "text", "vit"}; `to_jax_tree` walks its gradients back.
+`captioner_from_jax` loads a captioner tree {"vit", "decoder"} and, for a
+converted BLIP, "lm_head".
 The ResNet's conv kernels are the one layout that differs: HWIO in the
 JAX tree, OIHW (F.conv2d's) in the port; `resnet_from_jax` transposes
 them, `resnet_to_jax` back.
@@ -30,6 +32,7 @@ from torch import nn
 
 from mmd_tpu_torch.core.config import ModelConfig
 from mmd_tpu_torch.models import layers as L
+from mmd_tpu_torch.models.captioner import CaptionerConfig, init_captioner
 from mmd_tpu_torch.models.deberta import DebertaConfig, init_deberta
 from mmd_tpu_torch.models.fusion import init_fusion_params
 from mmd_tpu_torch.models.resnet import ResNetConfig, init_resnet
@@ -210,3 +213,12 @@ def finetune_from_jax(tree, model_cfg: ModelConfig, text_cfg,
     return L.ParamTree({"fusion": fusion_from_jax(tree["fusion"], model_cfg),
                         "text": text_from_jax(tree["text"], text_cfg),
                         "vit": image_from_jax(tree["vit"], vit_cfg)})
+
+
+def captioner_from_jax(tree, cfg: CaptionerConfig) -> L.ParamTree:
+    """A JAX captioner tree ({"vit", "decoder"}, and "lm_head" when it has
+    BLIP's prediction head) as the port's captioner params."""
+    params = init_captioner(torch.Generator().manual_seed(0), cfg,
+                            lm_head="lm_head" in tree)
+    load_jax_tree(params, tree, "captioner")
+    return params

@@ -3,7 +3,8 @@
 
     python -m mmd_tpu_torch.convert_hf --text <hf dir> --image <hf dir> \\
         [--bi_encoder <hf dir>] [--cross_encoder <hf dir>] \\
-        [--resnet <torchvision state dict>] --out assets/encoders
+        [--resnet <torchvision state dict>] [--blip <hf dir>] \\
+        --out assets/encoders
 
 A HF model directory is what `save_pretrained` writes or a hub download
 holds: config.json and the weights as model.safetensors (read here with
@@ -31,6 +32,16 @@ ms-marco MiniLM packaging): cross_encoder.pt (backbone, pooler, scorer) +
 cross_encoder_config.json. --resnet takes a torchvision resnet50 state
 dict saved with torch.save: resnet50.pt, its BN statistics folded (no
 sidecar: the retrieval code builds ResNetConfig()).
+--blip takes a BlipForConditionalGeneration directory (the reference's
+captioner, Salesforce/blip-image-captioning-base): captioner.pt +
+captioner_config.json (models/captioner.blip_config: fp32, captions of
+64 tokens), and tokenizer.json from vocab.txt with the tokens added
+after it (added_tokens.json, or tokenizer_config.json's
+added_tokens_decoder), so BLIP's [DEC] start token is kept. A sub-config
+field that config.json leaves out takes transformers' default for it
+(save_pretrained writes only the fields that differ). The prediction
+head's decoder weight and bias, which save_pretrained drops as tied to
+the word embeddings and to the head's bias, are read when present.
 
 The task wrapper's prefix (deberta., bert., swinv2., vit., mpnet.) is
 stripped. Heads the encoder does not run (lm_predictions,
@@ -59,6 +70,7 @@ import torch
 from mmd_tpu_torch.core.checkpoint import save_params
 from mmd_tpu_torch.data.spm import UnigramTokenizer
 from mmd_tpu_torch.data.tokenizer import SPECIALS, WordPieceTokenizer
+from mmd_tpu_torch.models import captioner as C
 from mmd_tpu_torch.models import deberta as D
 from mmd_tpu_torch.models import resnet as R
 from mmd_tpu_torch.models import swin as SW
@@ -76,6 +88,19 @@ _SKIPPED_BUFFERS = ("relative_coords_table", "relative_position_index",
 # the MPNet tokenizer's RoBERTa-style specials -> the WordPiece names
 _MPNET_SPECIALS = {"<pad>": "[PAD]", "<unk>": "[UNK]", "<s>": "[CLS]",
                    "</s>": "[SEP]", "<mask>": "[MASK]"}
+
+# transformers' BlipTextConfig / BlipVisionConfig defaults, for the fields
+# a saved config.json leaves out
+_BLIP_TEXT_DEFAULTS = {
+    "vocab_size": 30524, "hidden_size": 768, "num_hidden_layers": 12,
+    "num_attention_heads": 8, "intermediate_size": 3072,
+    "max_position_embeddings": 512, "layer_norm_eps": 1e-12,
+    "hidden_act": "gelu"}
+_BLIP_VISION_DEFAULTS = {
+    "image_size": 384, "patch_size": 16, "hidden_size": 768,
+    "num_hidden_layers": 12, "num_attention_heads": 12,
+    "intermediate_size": 3072, "layer_norm_eps": 1e-5, "hidden_act": "gelu"}
+_BLIP_BIAS = "text_decoder.cls.predictions.bias"
 
 _SAFETENSORS_DTYPES = {
     "F64": torch.float64, "F32": torch.float32, "F16": torch.float16,
@@ -158,15 +183,38 @@ def write_asset(out: str | Path, name: str, params: torch.nn.Module,
             json.dumps(dataclasses.asdict(cfg), indent=1))
 
 
+def _added_tokens(hf_dir: Path) -> dict[int, str]:
+    """{id: token} of the tokens a HF tokenizer adds after vocab.txt:
+    added_tokens.json ({token: id}) or tokenizer_config.json's
+    added_tokens_decoder ({id: {"content": token}})."""
+    added = hf_dir / "added_tokens.json"
+    if added.exists():
+        return {int(i): t for t, i in json.loads(added.read_text()).items()}
+    config = hf_dir / "tokenizer_config.json"
+    if config.exists():
+        dec = json.loads(config.read_text()).get("added_tokens_decoder", {})
+        return {int(i): v["content"] for i, v in dec.items()}
+    return {}
+
+
 def _wordpiece_vocab(hf_dir: Path,
-                     rename: Optional[Mapping[str, str]] = None
-                     ) -> Optional[WordPieceTokenizer]:
+                     rename: Optional[Mapping[str, str]] = None,
+                     added: bool = False) -> Optional[WordPieceTokenizer]:
     vocab = (hf_dir / "vocab.txt").read_text(encoding="utf-8")
     rename = rename or {}
     tokens = [rename.get(t, t) for t in
               (t.rstrip("\r") for t in vocab.split("\n"))]
     if tokens and tokens[-1] == "":
         tokens.pop()
+    for i, t in sorted(_added_tokens(hf_dir).items() if added else ()):
+        if i < len(tokens) and tokens[i] != t:
+            raise ValueError(f"{hf_dir}: added token {t!r} at id {i} "
+                             f"collides with {tokens[i]!r}")
+        if i > len(tokens):
+            raise ValueError(f"{hf_dir}: added token {t!r} at id {i} "
+                             f"leaves a gap after {len(tokens)} tokens")
+        if i == len(tokens):
+            tokens.append(t)
     if not all(s in tokens for s in SPECIALS):
         return None
     return WordPieceTokenizer(tokens)
@@ -271,6 +319,43 @@ def convert_resnet(path: str | Path, out: str | Path) -> None:
     print(f"resnet50: {path} -> {out}/resnet50.pt")
 
 
+def convert_blip(hf_dir: str | Path, out: str | Path) -> None:
+    """A BlipForConditionalGeneration directory -> captioner.pt +
+    captioner_config.json, and tokenizer.json when the vocabulary holds
+    the WordPiece specials."""
+    hf_dir, out = Path(hf_dir), Path(out)
+    config = json.loads((hf_dir / "config.json").read_text())
+    if config.get("model_type") != "blip":
+        raise ValueError(f"{hf_dir}: --blip takes a blip model, not "
+                         f"{config.get('model_type')!r}")
+    text = {**_BLIP_TEXT_DEFAULTS, **config.get("text_config", {})}
+    vision = {**_BLIP_VISION_DEFAULTS, **config.get("vision_config", {})}
+    if text["hidden_act"] != "gelu" or vision["hidden_act"] != "gelu":
+        raise ValueError(f"{hf_dir}: the captioner computes exact GELU only")
+    cfg = C.blip_config(vision, text)
+    sd = _Reads(read_state_dict(hf_dir))
+    params = C.load_hf_blip_state_dict(sd, cfg)
+    alias = "text_decoder.cls.predictions.decoder.bias"
+    if alias in sd and not torch.equal(sd[alias], sd[_BLIP_BIAS]):
+        raise ValueError(f"{hf_dir}: {alias} differs from {_BLIP_BIAS}, "
+                         f"which the captioner reads")
+    _check_all_read(sd, hf_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    write_asset(out, "captioner", params, cfg)
+    print(f"captioner: {hf_dir} -> {out}/captioner.pt (vision "
+          f"{cfg.vit.num_layers}L/{cfg.vit.hidden_size}d, "
+          f"{cfg.vit.num_tokens + 1} tokens; decoder "
+          f"{cfg.decoder.num_layers}L/{cfg.decoder.hidden_size}d)")
+    tok = _wordpiece_vocab(hf_dir, added=True)
+    if tok is None:
+        print("tokenizer.json not written: the vocabulary lacks the "
+              "WordPiece specials")
+    else:
+        tok.save(out / "tokenizer.json")
+        print(f"tokenizer.json ({tok.vocab_size} tokens"
+              f"{', [DEC] kept' if '[DEC]' in tok.token_to_id else ''})")
+
+
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(
         description="Convert local HF model directories into the port's "
@@ -287,12 +372,15 @@ def main(argv=None) -> None:
                         "ms-marco-MiniLM-L-6-v2)")
     p.add_argument("--resnet", type=str, default=None,
                    help="a torchvision resnet50 state dict file")
+    p.add_argument("--blip", type=str, default=None,
+                   help="a BlipForConditionalGeneration directory (the "
+                        "captioner, e.g. blip-image-captioning-base)")
     p.add_argument("--out", type=str, default="assets/encoders")
     args = p.parse_args(argv)
     if not (args.text or args.image or args.bi_encoder
-            or args.cross_encoder or args.resnet):
+            or args.cross_encoder or args.resnet or args.blip):
         p.error("nothing to convert: pass --text, --image, --bi_encoder, "
-                "--cross_encoder and/or --resnet")
+                "--cross_encoder, --resnet and/or --blip")
     if args.text:
         convert(args.text, args.out, TEXT_FAMILIES)
     if args.image:
@@ -303,6 +391,8 @@ def main(argv=None) -> None:
         convert_cross_encoder(args.cross_encoder, args.out)
     if args.resnet:
         convert_resnet(args.resnet, args.out)
+    if args.blip:
+        convert_blip(args.blip, args.out)
 
 
 if __name__ == "__main__":

@@ -6,8 +6,16 @@ key-padding masks stay on the fused CUDA kernel path. The MPNet family
 (the retrieval bi-encoder) adds RoBERTa-style position ids and a bucketed
 relative position bias shared by every layer; the bias rides the additive
 mask slot, so its layers take the explicit path, as in the JAX package.
-The decoder (causal self-attention, cross-attention, KV cache) arrives
-with the captioner slice; until then it raises NotImplementedError.
+
+Decoder mode (the captioner's text decoder) adds causal self-attention,
+cross-attention over encoder states and a static KV cache: (B, t_max, D)
+tensors in the compute dtype, allocated once and written in place at the
+cache's position, the counterpart of the JAX package's
+dynamic_update_slice under lax.scan. The causal mask is additive, so
+self-attention takes the explicit path; unmasked cross-attention takes
+the fused kernel. A cache may also hold the cross-attention's K and V
+("xk", "xv"), which depend on the encoder states only: a decode computes
+them once a batch instead of once a step.
 """
 
 from __future__ import annotations
@@ -61,12 +69,6 @@ class TransformerConfig:
         return self.hidden_size // self.num_heads
 
 
-def _require_encoder(cfg: TransformerConfig) -> None:
-    if cfg.is_decoder:
-        raise NotImplementedError(
-            "the transformer decoder arrives with the captioner slice")
-
-
 # ----------------------------------------------------------------------------
 # Init
 # ----------------------------------------------------------------------------
@@ -86,19 +88,22 @@ def init_embeddings(gen: torch.Generator, cfg: TransformerConfig
 
 
 def init_layer(gen: torch.Generator, cfg: TransformerConfig) -> L.ParamTree:
-    _require_encoder(cfg)
-    d, f = cfg.hidden_size, cfg.intermediate_size
+    d, f, e = cfg.hidden_size, cfg.intermediate_size, cfg.enc_dim
     dims = {"q": (d, d), "k": (d, d), "v": (d, d), "attn_out": (d, d),
             "ffn_in": (d, f), "ffn_out": (f, d)}
+    if cfg.is_decoder:
+        dims.update({"xq": (d, d), "xk": (e, d), "xv": (e, d),
+                     "xattn_out": (d, d)})
     p = {n: L.linear_init(gen, *io) for n, io in dims.items()}
     p["ln1"] = L.layernorm_init(d)
     p["ln2"] = L.layernorm_init(d)
+    if cfg.is_decoder:
+        p["ln_x"] = L.layernorm_init(d)
     return L.ParamTree(p)
 
 
 def init_transformer(gen: torch.Generator, cfg: TransformerConfig
                      ) -> L.ParamTree:
-    _require_encoder(cfg)
     p = {"embeddings": init_embeddings(gen, cfg),
          "layers": nn.ModuleList(init_layer(gen, cfg)
                                  for _ in range(cfg.num_layers))}
@@ -114,19 +119,23 @@ def init_transformer(gen: torch.Generator, cfg: TransformerConfig
 
 def embed(params: L.ParamTree, cfg: TransformerConfig,
           input_ids: torch.Tensor,
-          token_type_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(B, T) int -> (B, T, D) in the compute dtype. Positions past the
-    position table take its last row, as the JAX package's gather clamps
-    them. With mpnet_positions (RoBERTa/MPNet, HF
-    create_position_ids_from_input_ids) non-pad tokens are numbered
-    pad_token_id + 1, + 2, ... and pads take the pad_token_id row."""
-    _require_encoder(cfg)
+          token_type_ids: Optional[torch.Tensor] = None,
+          position_offset: int = 0) -> torch.Tensor:
+    """(B, T) int -> (B, T, D) in the compute dtype. Token t sits at
+    position t + position_offset (a KV-cached decode step passes its
+    position). Positions past the position table take its last row, as
+    the JAX package's gather clamps them. With mpnet_positions
+    (RoBERTa/MPNet, HF create_position_ids_from_input_ids) non-pad tokens
+    are numbered pad_token_id + 1, + 2, ... and pads take the pad_token_id
+    row; the offset does not apply."""
     table = params["position"]
     if cfg.mpnet_positions:
         not_pad = (input_ids != cfg.pad_token_id).long()
         pos = torch.cumsum(not_pad, dim=1) * not_pad + cfg.pad_token_id
     else:
-        pos = torch.arange(input_ids.shape[1], device=table.device)
+        pos = torch.arange(position_offset,
+                           position_offset + input_ids.shape[1],
+                           device=table.device)
     e = params["word"][input_ids] + table[pos.clamp_max(table.shape[0] - 1)]
     if "token_type" in params:
         # segment 0 by default (HF semantics: token_type_ids default to 0)
@@ -148,6 +157,16 @@ def _masked_attention(q, k, v, num_heads, mask, fused, key_mask=None):
     return explicit_attention(q, k, v, num_heads, mask)
 
 
+def cross_keys_values(p: L.ParamTree, cfg: TransformerConfig,
+                      encoder_states: torch.Tensor) -> dict:
+    """A decoder layer's cross-attention K and V over `encoder_states`
+    ({"xk", "xv"}, (B, S, D) in the compute dtype): what encoder_layer
+    computes from the encoder states, for a cache to hold."""
+    dtype = L.dtype_of(cfg.compute_dtype)
+    return {"xk": L.linear(p["xk"], encoder_states, dtype),
+            "xv": L.linear(p["xv"], encoder_states, dtype)}
+
+
 def encoder_layer(p: L.ParamTree, cfg: TransformerConfig, x: torch.Tensor,
                   attn_mask: Optional[torch.Tensor] = None,
                   encoder_states: Optional[torch.Tensor] = None,
@@ -156,15 +175,19 @@ def encoder_layer(p: L.ParamTree, cfg: TransformerConfig, x: torch.Tensor,
                   key_mask: Optional[torch.Tensor] = None,
                   cross_key_mask: Optional[torch.Tensor] = None):
     """Transformer block, post-LN (BERT) or pre-LN (ViT). Returns
-    (x, new_cache); new_cache is always None until the decoder is ported."""
-    _require_encoder(cfg)
-    if (encoder_states is not None or cross_mask is not None
-            or cache is not None or cross_key_mask is not None):
-        raise NotImplementedError(
-            "cross-attention and the KV cache arrive with the captioner slice")
+    (x, new_cache).
+
+    With a cache {"k", "v": (B, t_max, D), "idx": int}, this step's K and
+    V are written in place at rows idx .. idx + T - 1 and attention runs
+    over all t_max rows (attn_mask hides the unwritten ones); new_cache
+    is the same tensors at idx + T. A decoder layer cross-attends to
+    `encoder_states`, with the cache's "xk"/"xv" when it holds them."""
     dtype = L.dtype_of(cfg.compute_dtype)
     eps = cfg.layer_norm_eps
     if cfg.pre_ln:
+        if cfg.is_decoder:
+            raise ValueError("a pre-LN decoder is not implemented (nor in "
+                             "the JAX package)")
         h = L.layernorm(p["ln1"], x, eps)
         q = L.linear(p["q"], h, dtype)
         k = L.linear(p["k"], h, dtype)
@@ -178,12 +201,30 @@ def encoder_layer(p: L.ParamTree, cfg: TransformerConfig, x: torch.Tensor,
     q = L.linear(p["q"], x, dtype)
     k = L.linear(p["k"], x, dtype)
     v = L.linear(p["v"], x, dtype)
+    new_cache = None
+    if cache is not None:
+        idx = cache["idx"]
+        cache["k"][:, idx:idx + x.shape[1]] = k
+        cache["v"][:, idx:idx + x.shape[1]] = v
+        k, v = cache["k"], cache["v"]
+        new_cache = {**cache, "idx": idx + x.shape[1]}
     ctx = _masked_attention(q, k, v, cfg.num_heads, attn_mask,
                             cfg.fused_attn, key_mask=key_mask)
     x = L.layernorm(p["ln1"], x + L.linear(p["attn_out"], ctx, dtype), eps)
+    if cfg.is_decoder and encoder_states is not None:
+        xq = L.linear(p["xq"], x, dtype)
+        if cache is not None and "xk" in cache:
+            xk, xv = cache["xk"], cache["xv"]
+        else:
+            kv = cross_keys_values(p, cfg, encoder_states)
+            xk, xv = kv["xk"], kv["xv"]
+        xctx = _masked_attention(xq, xk, xv, cfg.num_heads, cross_mask,
+                                 cfg.fused_attn, key_mask=cross_key_mask)
+        x = L.layernorm(p["ln_x"], x + L.linear(p["xattn_out"], xctx, dtype),
+                        eps)
     h = torch.nn.functional.gelu(L.linear(p["ffn_in"], x, dtype))
     h = L.linear(p["ffn_out"], h, dtype)
-    return L.layernorm(p["ln2"], x + h, eps), None
+    return L.layernorm(p["ln2"], x + h, eps), new_cache
 
 
 def relative_position_bucket(t: int, num_buckets: int = 32,
@@ -234,6 +275,12 @@ def attention_mask_from_ids(attention_mask: torch.Tensor, tq: int
     return m.expand(attention_mask.shape[0], 1, tq, attention_mask.shape[1])
 
 
+def causal_mask(t: int, device=None) -> torch.Tensor:
+    """(1, 1, t, t) additive mask: -1e9 above the diagonal."""
+    m = torch.ones(t, t, device=device).tril_()
+    return ((1.0 - m) * -1e9)[None, None]
+
+
 def transformer_forward(params: L.ParamTree, cfg: TransformerConfig,
                         input_ids: torch.Tensor,
                         attention_mask: Optional[torch.Tensor] = None,
@@ -241,30 +288,36 @@ def transformer_forward(params: L.ParamTree, cfg: TransformerConfig,
                         encoder_states: Optional[torch.Tensor] = None,
                         encoder_mask: Optional[torch.Tensor] = None,
                         causal: bool = False) -> torch.Tensor:
-    """Full-sequence encoder forward -> last_hidden_state (B, T, D)."""
-    _require_encoder(cfg)
-    if causal or encoder_states is not None or encoder_mask is not None:
-        raise NotImplementedError(
-            "causal and cross-attending stacks arrive with the captioner "
-            "slice")
+    """Full-sequence forward -> last_hidden_state (B, T, D). A pure
+    key-padding mask stays on the fused kernel path; a causal stack, or
+    one with the MPNet bias, adds the padding to the additive mask, whose
+    layers take the explicit path. A decoder cross-attends to
+    `encoder_states` under the (B, S) key mask `encoder_mask`."""
     x = embed(params["embeddings"], cfg, input_ids, token_type_ids)
     t = x.shape[1]
     mask, key_mask = None, None
+    if (attention_mask is not None and not causal
+            and not cfg.relative_bias_buckets):
+        key_mask = attention_mask
+    elif attention_mask is not None:
+        mask = attention_mask_from_ids(attention_mask, t)
+    if causal:
+        cm = causal_mask(t, x.device)
+        mask = cm if mask is None else mask + cm
     if cfg.relative_bias_buckets:
         # the bias rides the additive-mask slot ((1,H,T,T) broadcasts
         # against (B,1,T,T)); its layers take the explicit path
-        mask = mpnet_position_bias(params, cfg, t)
-        if attention_mask is not None:
-            mask = attention_mask_from_ids(attention_mask, t) + mask
-    else:
-        # pure key padding stays on the fused kernel path (boolean key mask)
-        key_mask = attention_mask
+        bias = mpnet_position_bias(params, cfg, t)
+        mask = bias if mask is None else mask + bias
     remat = cfg.remat and torch.is_grad_enabled()
 
-    def layer(p, x, mask, key_mask):
-        return encoder_layer(p, cfg, x, mask, key_mask=key_mask)[0]
+    def layer(p, x, mask, key_mask, encoder_states, encoder_mask):
+        return encoder_layer(p, cfg, x, mask, encoder_states,
+                             key_mask=key_mask,
+                             cross_key_mask=encoder_mask)[0]
 
     for p in params["layers"]:
-        x = (checkpoint(layer, p, x, mask, key_mask, use_reentrant=False)
-             if remat else layer(p, x, mask, key_mask))
+        args = (p, x, mask, key_mask, encoder_states, encoder_mask)
+        x = (checkpoint(layer, *args, use_reentrant=False) if remat
+             else layer(*args))
     return x

@@ -1,6 +1,6 @@
 """Frozen image encoder: ViT-class, Swinv2-base output contract
-(counterpart of mmd_tpu/models/vit.py, with its HF ViT loader; the BLIP
-vision loader arrives with the captioner slice).
+(counterpart of mmd_tpu/models/vit.py, with its HF ViT and BLIP vision
+loaders).
 
 A plain ViT with 32-px patches on 256-px inputs yields the Swinv2-base
 contract of 8x8 = 64 tokens of width 1024 in one stage (reference
@@ -171,7 +171,38 @@ def load_hf_vit_state_dict(state_dict: Mapping, cfg: ViTConfig
     return L.load_tensors(params, tensors, "vit")
 
 
-def load_hf_blip_vision_state_dict(state_dict: Mapping, cfg: ViTConfig):
-    raise NotImplementedError(
-        "the BLIP vision loader arrives with the captioner slice "
-        "(ROADMAP A13)")
+def load_hf_blip_vision_state_dict(state_dict: Mapping, cfg: ViTConfig
+                                   ) -> L.ParamTree:
+    """A HF BlipVisionModel state dict (keys relative to `vision_model.`,
+    torch or numpy values) as the port's encoder params. BLIP's vision
+    tower is a pre-LN ViT with one qkv projection, no post-embedding
+    LayerNorm, and a decoder that reads the whole sequence, CLS included:
+    the config needs pre_ln, use_cls and keep_cls, and embed_ln=False
+    (ln_pre stays at identity). The qkv rows split into q, k and v."""
+    if cfg.embed_ln or not (cfg.use_cls and cfg.keep_cls and cfg.pre_ln):
+        raise ValueError("BLIP vision converts with pre_ln, use_cls, "
+                         "keep_cls and embed_ln=False")
+    get = functools.partial(L.hf_tensor, state_dict)
+    conv = get("embeddings.patch_embedding.weight")
+    h = conv.shape[0]
+    tensors = {
+        "patch_embed.weight": conv.reshape(h, -1),
+        "patch_embed.bias": get("embeddings.patch_embedding.bias"),
+        "pos_embed": get("embeddings.position_embedding")[0],
+        "cls_token": get("embeddings.class_embedding")[0, 0],
+        "ln_pre.weight": torch.ones(h), "ln_pre.bias": torch.zeros(h),
+        **L.hf_modules(state_dict, {"ln_post": "post_layernorm"})}
+    for i in range(cfg.num_layers):
+        pre = f"encoder.layers.{i}"
+        for leaf in ("weight", "bias"):
+            qkv = get(f"{pre}.self_attn.qkv.{leaf}").chunk(3, dim=0)
+            for name, part in zip(("q", "k", "v"), qkv):
+                tensors[f"layers.{i}.{name}.{leaf}"] = part
+        tensors.update(L.hf_modules(state_dict, {
+            f"layers.{i}.attn_out": f"{pre}.self_attn.projection",
+            f"layers.{i}.ln1": f"{pre}.layer_norm1",
+            f"layers.{i}.ffn_in": f"{pre}.mlp.fc1",
+            f"layers.{i}.ffn_out": f"{pre}.mlp.fc2",
+            f"layers.{i}.ln2": f"{pre}.layer_norm2"}))
+    params = init_vit(torch.Generator().manual_seed(0), cfg)
+    return L.load_tensors(params, tensors, "vit")

@@ -8,7 +8,11 @@ JAX, where tests/conftest.py (which imports JAX) cannot load:
 It holds each hand-written kernel against its plain PyTorch version at the
 serving paths' geometries -- flash attention, (residual +) LayerNorm (at
 every C / 128 build, ragged tiles, twice bit for bit, on a side stream),
-Swinv2 window attention and DeBERTa disentangled attention -- and the
+Swinv2 window attention and DeBERTa disentangled attention, flash
+attention at the captioner's geometries (a decode step's query of 1 row
+against 64 and 577 keys, a caption against 64, BLIP's 577-token ViT; #2
+at the caption's) and a small captioner on the card against the CPU --
+and the
 small serving paths on the card against the same paths on the CPU (one
 of them served from converted assets and a best_model.pt); and
 the training kernels -- dropout (bit for bit), flash attention with
@@ -584,6 +588,83 @@ def test_flash_bwd_matches_plain(cuda_device, rate, dtype, t, s, d, h,
         assert _rel_err(g, w) <= tol
     if masked:                             # the row with no valid key
         assert torch.all(got[0][-1] == 0)
+
+
+# the captioner's geometries (T, S, D, H, dtype): a decode step of the
+# default captioner (bf16, 64 image tokens) and of BLIP-base (fp32, 577
+# image tokens: a ragged last key tile of one key), a 32-token caption's
+# cross-attention, and BLIP's ViT blocks
+CAPTION_GEOMETRIES = [(1, 64, 384, 6, torch.bfloat16),
+                      (1, 577, 768, 12, torch.float32),
+                      (32, 64, 384, 6, torch.bfloat16),
+                      (577, 577, 768, 12, torch.float32)]
+
+
+@pytest.mark.parametrize("t,s,d,h,dtype", CAPTION_GEOMETRIES)
+def test_flash_captioner_geometries_match_plain(cuda_device, t, s, d, h,
+                                                dtype):
+    q, k, v, _ = _inputs(cuda_device, t, s, d, False)
+    q, k, v = (x.to(dtype) for x in (q, k, v))
+    before = A.launches
+    o, lse = A.flash_attention(q, k, v, h)
+    torch.cuda.synchronize()
+    assert A.launches == before + 1
+    o_p, lse_p = A.flash_attention_plain(q.float(), k.float(), v.float(), h)
+    assert (o.float() - o_p).abs().max().item() <= _tol(dtype, o_p)
+    assert (lse - lse_p).abs().max().item() < 1e-3
+
+
+def test_flash_bwd_caption_geometry_matches_plain(cuda_device):
+    """#2 at a 32-token caption's cross-attention over 64 image tokens,
+    bf16 (the default captioner's training step)."""
+    q, k, v, _ = _inputs(cuda_device, 32, 64, 384, False)
+    q, k, v = (x.to(torch.bfloat16) for x in (q, k, v))
+    o, lse = A.flash_attention(q, k, v, 6)
+    do = torch.randn(q.shape, device=cuda_device).to(torch.bfloat16)
+    before = A.bwd_launches
+    got = A.flash_attention_bwd(q, k, v, o, lse, do, 6)
+    torch.cuda.synchronize()
+    assert A.bwd_launches == before + 1
+    want = A.flash_attention_bwd_plain(q.float(), k.float(), v.float(),
+                                       o.float(), lse, do.float(), 6)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16
+        assert _rel_err(g, w) <= 2 ** -7
+
+
+def test_small_captioner_on_the_card_matches_cpu(cuda_device):
+    """A small fp32 captioner with head dim 64 (so the ViT and the
+    cross-attention take #1): teacher-forced decode logits on the card
+    within 1e-4 of the CPU's, relative to the largest |logit|; one #1
+    launch a ViT block and a decode step's layer, none elsewhere."""
+    from mmd_tpu_torch.models import captioner as C
+    from mmd_tpu_torch.models import vit as V
+    from mmd_tpu_torch.models.transformer import TransformerConfig
+    cfg = C.CaptionerConfig(
+        vit=dataclasses.replace(V.VIT_TEST, hidden_size=128, num_heads=2),
+        decoder=TransformerConfig(
+            vocab_size=96, hidden_size=128, num_layers=2, num_heads=2,
+            intermediate_size=256, max_position=16, type_vocab_size=0,
+            is_decoder=True, encoder_hidden_size=128,
+            compute_dtype="float32"),
+        max_caption_len=8)
+    params = C.init_captioner(torch.Generator().manual_seed(3), cfg)
+    images = torch.randn(3, 32, 32, 3, generator=torch.Generator()
+                         .manual_seed(4))
+    forced = torch.randint(4, 96, (3, 8),
+                           generator=torch.Generator().manual_seed(5))
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = params.to(dev)
+        before = A.launches
+        enc = V.vit_forward(p["vit"], cfg.vit, images.to(dev))
+        out[dev] = C.decode(p, cfg, enc.detach(), 2, 3, 0,
+                            forced=forced.to(dev))[1].cpu()
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            assert A.launches - before == 2 + 8 * 2
+    scale = out["cpu"].abs().max().item()
+    assert (out["cuda"] - out["cpu"]).abs().max().item() <= 1e-4 * scale
 
 
 @pytest.mark.parametrize("rate", [0.0, 0.1])

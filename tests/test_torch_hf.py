@@ -1,9 +1,12 @@
 """The port's HF loaders and its converter (mmd_tpu_torch/convert_hf.py),
 fully offline.
 
-Each loader (DeBERTa-v3, Swinv2, BERT, ViT, and the retrieval encoders:
-MPNet and the BertForSequenceClassification cross-encoder) reads the
-state dict of a
+Each loader (DeBERTa-v3, Swinv2, BERT, ViT, the retrieval encoders:
+MPNet and the BertForSequenceClassification cross-encoder, and the BLIP
+captioner: its vision tower and its cross-attending text decoder, whose
+teacher-forced logits are held to tests/test_hf_parity.py's BLIP
+tolerances, rtol 2e-4 with atol 2e-5 for the vision states and 2e-4 for
+the logits) reads the state dict of a
 random-init `transformers` model built from tests/test_hf_parity.py's config
 objects: the port's encoder must reproduce the HF model's output within
 that file's rtol=3e-4, atol=3e-5 (fp32), and every parameter must be
@@ -22,6 +25,7 @@ import numpy as np
 import pytest
 import torch
 
+from mmd_tpu.models import captioner as jcaptioner
 from mmd_tpu.models import deberta as jdeberta
 from mmd_tpu.models import swin as jswin
 from mmd_tpu.models import text_encoder as jte
@@ -29,6 +33,7 @@ from mmd_tpu.models import vit as jvit
 from mmd_tpu.models.transformer import TransformerConfig as JTransformer
 from mmd_tpu_torch import bridge, convert_hf
 from mmd_tpu_torch.data.spm import CONTROL, NORMAL, UNKNOWN, build_spm_model
+from mmd_tpu_torch.models import captioner as tcaptioner
 from mmd_tpu_torch.models import deberta as tdeberta
 from mmd_tpu_torch.models import frozen as tfrozen
 from mmd_tpu_torch.models import swin as tswin
@@ -212,9 +217,157 @@ def test_swin_config_from_hf_matches_jax():
         jswin.config_from_hf(hf_cfg))
 
 
-def test_unported_loaders_name_their_slice():
-    with pytest.raises(NotImplementedError, match="A13"):
+# -- BLIP, the captioner --------------------------------------------------------
+
+def _blip():
+    """tests/test_hf_parity.py's random-init BlipForConditionalGeneration."""
+    vc = transformers.BlipVisionConfig(
+        image_size=32, patch_size=8, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=64, projection_dim=16,
+        attention_dropout=0.0)
+    tc = transformers.BlipTextConfig(
+        vocab_size=100, hidden_size=32, num_hidden_layers=2,
+        num_attention_heads=4, intermediate_size=64,
+        max_position_embeddings=32, encoder_hidden_size=32,
+        projection_dim=16, hidden_dropout_prob=0.0,
+        attention_probs_dropout_prob=0.0)
+    torch.manual_seed(0)
+    return transformers.BlipForConditionalGeneration(transformers.BlipConfig(
+        text_config=tc.to_dict(), vision_config=vc.to_dict())).eval()
+
+
+def _blip_cfg(hf):
+    return tcaptioner.blip_config(hf.config.vision_config.to_dict(),
+                                  hf.config.text_config.to_dict())
+
+
+def _blip_logits(params, cfg, images, ids, mask):
+    """The port's vision states and teacher-forced decoder logits."""
+    from mmd_tpu_torch.models.transformer import (
+        attention_mask_from_ids, causal_mask, embed,
+    )
+    with torch.no_grad():
+        vis = tvit.vit_forward(params["vit"], cfg.vit, images)
+        x = embed(params["decoder"]["embeddings"], cfg.decoder, ids)
+        t = ids.shape[1]
+        m = causal_mask(t) + attention_mask_from_ids(mask, t)
+        h, _ = tcaptioner._decoder_stack(params, cfg.decoder, x, m, vis)
+        return vis, tcaptioner._lm_logits(params, cfg.decoder, h)
+
+
+def test_blip_loader_matches_transformers():
+    hf = _blip()
+    cfg = _blip_cfg(hf)
+    params = tcaptioner.load_hf_blip_state_dict(_state_dict(hf), cfg)
+    rng = np.random.default_rng(0)
+    images = rng.standard_normal((2, 32, 32, 3)).astype(np.float32)
+    ids = rng.integers(0, 100, (2, 10)).astype(np.int64)
+    mask = np.ones((2, 10), np.int64)
+    mask[1, 7:] = 0
+    with torch.no_grad():
+        vis = hf.vision_model(pixel_values=torch.tensor(
+            images.transpose(0, 3, 1, 2))).last_hidden_state
+        want = hf.text_decoder(
+            input_ids=torch.tensor(ids), attention_mask=torch.tensor(mask),
+            encoder_hidden_states=vis,
+            encoder_attention_mask=torch.ones(2, vis.shape[1],
+                                              dtype=torch.long)).logits
+    got_vis, got = _blip_logits(params, cfg, torch.tensor(images),
+                                torch.tensor(ids), torch.tensor(mask))
+    np.testing.assert_allclose(got_vis.numpy(), vis.numpy(), rtol=2e-4,
+                               atol=2e-5)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=2e-4,
+                               atol=2e-4)
+
+
+def test_blip_loader_is_bit_identical_to_jax_loader():
+    hf = _blip()
+    sd = _state_dict(hf)
+    jcfg = jcaptioner.blip_config(hf.config.vision_config.to_dict(),
+                                  hf.config.text_config.to_dict())
+    cfg = _blip_cfg(hf)
+    assert dataclasses.asdict(cfg) == dataclasses.asdict(jcfg)
+    want = jcaptioner.load_hf_blip_state_dict(
+        {k: v.numpy() for k, v in sd.items()}, jcfg)
+    got = bridge.to_jax_tree(tcaptioner.load_hf_blip_state_dict(sd, cfg))
+    import jax
+    flat_got, tree_got = jax.tree_util.tree_flatten(got)
+    flat_want, tree_want = jax.tree_util.tree_flatten(want)
+    assert tree_got == tree_want
+    assert all(np.array_equal(a, np.asarray(b))
+               for a, b in zip(flat_got, flat_want))
+
+
+def test_blip_vision_loader_refuses_another_vit():
+    with pytest.raises(ValueError, match="keep_cls"):
         tvit.load_hf_blip_vision_state_dict({}, tvit.VIT_TEST)
+
+
+def _write_blip_dir(path, fmt):
+    """A BLIP model directory: save_pretrained's (model.safetensors
+    without the tied head weights, a config.json of the fields that differ
+    from the defaults) or a full pytorch_model.bin with a full config; a
+    vocab.txt with the WordPiece specials, and BLIP's [DEC] and [ENC] in
+    tokenizer_config.json's added_tokens_decoder (with the safetensors)
+    or in added_tokens.json (with the bin)."""
+    from mmd_tpu_torch.data.tokenizer import SPECIALS
+    hf = _blip()
+    if fmt == "safetensors":
+        hf.save_pretrained(path)
+    else:
+        path.mkdir(parents=True)
+        hf.config.to_json_file(path / "config.json", use_diff=False)
+        torch.save(_state_dict(hf), path / "pytorch_model.bin")
+    vocab = SPECIALS + [f"w{i}" for i in range(93)]
+    (path / "vocab.txt").write_text("\n".join(vocab) + "\n")
+    if fmt == "safetensors":
+        (path / "tokenizer_config.json").write_text(json.dumps(
+            {"added_tokens_decoder": {"98": {"content": "[DEC]"},
+                                      "99": {"content": "[ENC]"}}}))
+    else:
+        (path / "added_tokens.json").write_text(
+            json.dumps({"[DEC]": 98, "[ENC]": 99}))
+    return hf
+
+
+@pytest.mark.parametrize("fmt", ["bin", "safetensors"])
+def test_convert_hf_writes_the_captioner(tmp_path, fmt):
+    """captioner.pt equals the loader's params on the model's state dict;
+    the sidecar is blip_config's; tokenizer.json keeps [DEC]; the assets
+    caption as the params in memory do."""
+    hf = _write_blip_dir(tmp_path / "hf", fmt)
+    out = tmp_path / "assets"
+    convert_hf.main(["--blip", str(tmp_path / "hf"), "--out", str(out)])
+    cfg = _blip_cfg(hf)
+    want = tcaptioner.load_hf_blip_state_dict(_state_dict(hf), cfg)
+    got = torch.load(out / "captioner.pt", weights_only=True)
+    assert got.keys() == want.state_dict().keys()
+    for k, v in want.state_dict().items():
+        assert torch.equal(got[k], v), k
+    assert json.loads((out / "captioner_config.json").read_text()) == \
+        json.loads(json.dumps(dataclasses.asdict(cfg)))
+    tok, cfg2, params = tcaptioner.load_captioner_assets(out, "cpu")
+    assert tok.vocab[-2:] == ["[DEC]", "[ENC]"] and tok.vocab_size == 100
+    images = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        (2, 32, 32, 3)).astype(np.float32))
+    dec = tok.token_to_id["[DEC]"]
+    assert torch.equal(
+        tcaptioner.generate(params, cfg2, images, dec, tok.sep_id, 0, 6),
+        tcaptioner.generate(want, cfg, images, dec, tok.sep_id, 0, 6))
+
+
+def test_convert_hf_blip_refuses_a_head_bias_it_does_not_read(tmp_path):
+    _write_blip_dir(tmp_path / "hf", "bin")
+    path = tmp_path / "hf" / "pytorch_model.bin"
+    sd = torch.load(path, weights_only=True)
+    sd["text_decoder.cls.predictions.decoder.bias"] = sd[
+        "text_decoder.cls.predictions.bias"] + 1.0
+    torch.save(sd, path)
+    with pytest.raises(ValueError, match="decoder.bias"):
+        convert_hf.convert_blip(tmp_path / "hf", tmp_path / "assets")
+    _write_hf_dir(tmp_path / "bert", "bert", "bin")
+    with pytest.raises(ValueError, match="blip"):
+        convert_hf.convert_blip(tmp_path / "bert", tmp_path / "assets")
 
 
 # -- the retrieval encoders: MPNet and the cross-encoder --------------------------

@@ -17,7 +17,11 @@ of the directory's spm.json or tokenizer.json), vit.ckpt without
 vit_config.json the default ViTConfig, and resnet50.ckpt (which the JAX
 converter writes without a sidecar) the default ResNetConfig. A
 cross_encoder.ckpt is the JAX converter's: backbone, the HF pooler and the
-scorer.
+scorer. A captioner.ckpt (pipelines/train_captioner.py's, or a BLIP
+converted by tools/convert_hf.py --blip, whose tree adds BLIP's
+prediction head "lm_head") takes its config from captioner_config.json,
+or without one the JAX package's CAPTIONER_TEST at the vocabulary size of
+tokenizer.json, as models/captioner.load_captioner_assets does.
 
 --fusion: an orbax best_model (fusion params) becomes best_model.pt
 beside it, restored with the ModelConfig given by the flags (one for
@@ -41,9 +45,11 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
 import jax  # noqa: E402
 import numpy as np  # noqa: E402
+import orbax.checkpoint as ocp  # noqa: E402
 
 from mmd_tpu.core import config as jconfig  # noqa: E402
 from mmd_tpu.core.checkpoint import load_params  # noqa: E402
+from mmd_tpu.models import captioner as jcaptioner  # noqa: E402
 from mmd_tpu.models import deberta as jdeberta  # noqa: E402
 from mmd_tpu.models import fusion as jfusion  # noqa: E402
 from mmd_tpu.models import layers as jlayers  # noqa: E402
@@ -57,6 +63,7 @@ from mmd_tpu_torch.core.checkpoint import save_params  # noqa: E402
 from mmd_tpu_torch.core.config import ModelConfig  # noqa: E402
 from mmd_tpu_torch.data.spm import UnigramTokenizer  # noqa: E402
 from mmd_tpu_torch.data.tokenizer import WordPieceTokenizer  # noqa: E402
+from mmd_tpu_torch.models import captioner as tcaptioner  # noqa: E402
 from mmd_tpu_torch.models import deberta as tdeberta  # noqa: E402
 from mmd_tpu_torch.models import resnet as tresnet  # noqa: E402
 from mmd_tpu_torch.models import swin as tswin  # noqa: E402
@@ -119,8 +126,52 @@ def _default_config(assets: Path, name: str, jcls):
                             f"{name}.ckpt cannot be read without it")
 
 
+def _jax_captioner(lm_head: bool):
+    """The JAX captioner's init, with BLIP's prediction head when the
+    checkpoint holds one (load_hf_blip_state_dict's "lm_head")."""
+    def init(key, cfg):
+        k1, k2 = jax.random.split(key)
+        tree = jcaptioner.init_captioner(k1, cfg)
+        if lm_head:
+            d, v = cfg.decoder.hidden_size, cfg.decoder.vocab_size
+            tree["lm_head"] = {
+                "transform": jlayers.linear_init(k2, d, d),
+                "ln": jlayers.layernorm_init(d),
+                "decoder_w": np.zeros((v, d), np.float32),
+                "bias": np.zeros((v,), np.float32)}
+        return tree
+    return init
+
+
+def convert_captioner(assets: Path) -> Path:
+    """captioner.ckpt -> captioner.pt beside it."""
+    ckpt = assets / "captioner.ckpt"
+    sidecar = assets / "captioner_config.json"
+    if sidecar.exists():
+        d = json.loads(sidecar.read_text())
+        jcfg = jcaptioner.CaptionerConfig(
+            vit=jvit.ViTConfig(**d["vit"]),
+            decoder=JTransformer(**d["decoder"]),
+            max_caption_len=d["max_caption_len"])
+    else:
+        vocab = WordPieceTokenizer.load(assets / "tokenizer.json").vocab_size
+        base = jcaptioner.CAPTIONER_TEST
+        jcfg = dataclasses.replace(base, decoder=dataclasses.replace(
+            base.decoder, vocab_size=vocab))
+    meta = ocp.StandardCheckpointer().metadata(str(ckpt.absolute()))
+    keys = getattr(meta, "item_metadata", meta).keys()
+    tree = restore(ckpt, _jax_captioner("lm_head" in keys), jcfg)
+    params = bridge.captioner_from_jax(
+        tree, tcaptioner.config_from_dict(dataclasses.asdict(jcfg)))
+    out = assets / "captioner.pt"
+    save_params(str(out), params)
+    print(f"{ckpt} -> {out}")
+    return out
+
+
 def convert_assets(assets: str | Path) -> list[Path]:
-    """Write <name>.pt beside each <name>.ckpt of `assets`."""
+    """Write <name>.pt beside each <name>.ckpt of `assets` (the encoders
+    and the captioner)."""
     assets = Path(assets)
     written = []
     for name, (jcls, init, tcls, to_port) in ASSETS.items():
@@ -137,6 +188,8 @@ def convert_assets(assets: str | Path) -> list[Path]:
         save_params(str(assets / f"{name}.pt"), params)
         written.append(assets / f"{name}.pt")
         print(f"{ckpt} -> {assets / f'{name}.pt'}")
+    if (assets / "captioner.ckpt").exists():
+        written.append(convert_captioner(assets))
     return written
 
 
