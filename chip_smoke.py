@@ -188,11 +188,47 @@ Phases, each of which exits nonzero on failure:
                       without (none); one step of the kernel path against
                       the explicit path: fp32 loss within 1e-5, gradients
                       within 1e-4, the bf16 loss within 1e-3
+ 17. run_all          python -m mmd_tpu_torch.pipelines.run_all's default
+                      path in process (--synthetic 64 --image_size 256
+                      --epochs 2 --batch_size 32) at full width, seeded:
+                      the BERT-class text encoder (384 x 12, 512 tokens),
+                      ViTConfig(), CaptionerConfig(), MPNet and ResNet50
+                      retrieval, the default ModelConfig in bf16; seconds by
+                      stage, embed rows/s, peak memory; checks (a) every
+                      stage of the JAX run_all timed, (b) each store holds
+                      exactly the rows with both images, its csv_cursor the
+                      CSV's length, (c) a second embed appends nothing,
+                      (d) a store rewound to its first batch and resumed is
+                      bit-identical, (e) one batch re-encoded in fp32
+                      through the explicit path within 5e-2 relative L2,
+                      (f) eval.csv's four paths and unified, finite, (g)
+                      fp32 eval logits through the kernels within 1e-3 of
+                      the explicit path's and the same predictions outside
+                      near ties, (h) the demo's verdict with 3 text and 3
+                      image evidences, (i) its HTML report, (j) the
+                      streamlit page (a recording stand-in) over
+                      demo/app.build_pipeline from the files renders the
+                      in-memory pipeline's verdict, (k) dataset_stats,
+                      eval_models' CLI (the run's metrics exactly),
+                      eval_text, eval_factify and render_html's main, (l)
+                      the launches stage by stage: 48 #1 an embed batch,
+                      204 a caption batch, the train_bf16 step's, 8 an eval
+                      batch, serve's 56 in the demo's classify batch; and
+                      in situ: every launch of the run recorded with its
+                      geometry, the first inputs at each geometry held
+                      against the kernel's plain version (at its phase's
+                      tolerance) and timed beside its plain version, its
+                      bound and, where one call computes it, PyTorch's
+ 18. run_all_reference  the same with --reference_encoders --synthetic 32
+                      --epochs 1 (DeBERTa-v3-xsmall and Swinv2-base):
+                      checks (a)-(d), (f)-(i) and (l), 24 / 48 / 106 of #10
+                      / #7 / #6 an embed batch, serve_reference's launches
+                      in the classify batch, and the kernels in situ
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record, with each kernel's launches in the counted runs of
 the serve, serve_reference, serve_converted, train, train_bf16,
-finetune_reference, train_raw, retrieval, caption and train_captioner
-phases.
+finetune_reference, train_raw, retrieval, caption, train_captioner, run_all
+and run_all_reference phases.
 """
 
 from __future__ import annotations
@@ -3454,6 +3490,761 @@ def phase_train_captioner(card: str, tmp: Path) -> dict:
     return launches, split
 
 
+# run_all / run_all_reference: python -m mmd_tpu_torch.pipelines.run_all's
+# default path, in process, at full width (seeded weights): the BERT-class
+# text encoder (384 x 12, 512 tokens) and ViTConfig(), or with
+# --reference_encoders DeBERTa-v3-xsmall and Swinv2-base; CaptionerConfig();
+# MPNet and ResNet50 retrieval; the default ModelConfig in bf16. 256-px
+# images, batch 32 (embed, caption); the train batch is run_all's own,
+# half the train store at most.
+RUN_ALL_ARGS = ["--image_size", "256", "--batch_size", "32"]
+RUN_ALL = {"run_all": ["--synthetic", "64", "--epochs", "2"],
+           "run_all_reference": ["--reference_encoders", "--synthetic", "32",
+                                 "--epochs", "1"]}
+RUN_ALL_B = 32
+RUN_ALL_STAGES = ("synthesize", "preprocess", "assets", "caption", "embed",
+                  "retrieval_build", "train", "eval", "demo_verify")
+# an embed batch runs the frozen encoders of a served batch, not its
+# fusion model: serve's 56 #1 less 8, serve_reference's less its 8 #1
+EMBED_PER_BATCH = {"flash_attn_fwd": LAUNCHES_PER_BATCH - FUSION_PER_BATCH}
+EMBED_PER_BATCH_REFERENCE = {k: v for k, v in REFERENCE_PER_BATCH.items()
+                             if k != "flash_attn_fwd"}
+# (e) the stored float16 rows (bf16 through the kernels) against one batch
+# re-encoded in fp32 through the explicit path, relative L2 norm of each
+# column's difference: bf16 roundings through 12 layers come to ~1e-2; a
+# wrong kernel or a row out of place to ~1
+REENCODE_REL_L2 = 5e-2
+# (g) the fusion model's fp32 logits over the test store, kernels against
+# the explicit path, relative to the largest |logit|; the predictions
+# must agree wherever the explicit path's top-two gap exceeds it
+EVAL_LOGIT_RTOL = 1e-3
+LABELS = ("support", "not_enough_information", "refute")
+
+
+class _StageLaunches:
+    """Kernel launches by stage of a pipeline timed by core/profiling.py's
+    Stages: Stages.stage is patched to read the counters around every
+    logged stage (a stage's unlogged inner timers count in it)."""
+
+    def __init__(self):
+        self.by_stage: dict[str, dict] = {}
+
+    def __enter__(self):
+        import contextlib
+
+        from mmd_tpu_torch.core import profiling
+        self._orig = orig = profiling.Stages.stage
+        by_stage = self.by_stage
+
+        @contextlib.contextmanager
+        def stage(stages, name, log=True):
+            before = _counts()
+            with orig(stages, name, log):
+                yield
+            if log:
+                acc = by_stage.setdefault(name, {k: 0 for k in before})
+                for k, v in _counts().items():
+                    acc[k] += v - before[k]
+
+        profiling.Stages.stage = stage
+        return self
+
+    def __exit__(self, *exc):
+        from mmd_tpu_torch.core import profiling
+        profiling.Stages.stage = self._orig
+
+
+class _RecordingSt:
+    """A streamlit stand-in for demo/app.render_app: records every call;
+    the text area answers `text`, nothing is uploaded, the button is
+    pressed."""
+
+    def __init__(self, text: str):
+        self.calls: list[tuple] = []
+        self._text = text
+
+    def _ctx(self, *call):
+        import contextlib
+        self.calls.append(call)
+        return contextlib.nullcontext(self)
+
+    def __getattr__(self, kind):              # title, write, subheader, ...
+        return lambda *a, **k: self.calls.append(
+            (kind, " ".join(map(str, a))))
+
+    def text_area(self, label, value="", **k):
+        self.calls.append(("text_area", label))
+        return self._text if label.startswith("Enter text") else value
+
+    def file_uploader(self, *a, **k):
+        return None
+
+    def slider(self, label, lo, hi, default, **k):
+        return default
+
+    def button(self, label, **k):
+        return True
+
+    def container(self):
+        return self._ctx("container")
+
+    def spinner(self, label):
+        return self._ctx("spinner", label)
+
+    def columns(self, n):
+        return [self._ctx("column") for _ in range(n)]
+
+    def tabs(self, labels):
+        return [self._ctx("tab", label) for label in labels]
+
+    def progress(self, v):
+        self.calls.append(("progress", v))
+        return self
+
+
+def _f32(args) -> list:
+    """The arguments with every bf16 tensor widened to fp32."""
+    return [a.float() if isinstance(a, torch.Tensor)
+            and a.dtype == torch.bfloat16 else a for a in args]
+
+
+def _ln_params(weight, bias):
+    from types import SimpleNamespace
+    return SimpleNamespace(weight=weight, bias=bias)
+
+
+def _in_situ_kernels() -> dict:
+    """kernel -> (op module, the private function that launches it, the
+    public wrapper and the plain version, both called with the private
+    function's arguments, and the positions of its seed arguments)."""
+    from mmd_tpu_torch.ops import attention as A
+    from mmd_tpu_torch.ops import deberta_attention as DA
+    from mmd_tpu_torch.ops import dropout as D
+    from mmd_tpu_torch.ops import ln as LN
+    from mmd_tpu_torch.ops import mlp as M
+    from mmd_tpu_torch.ops import swin_attention as SA
+    return {
+        "flash_attn_fwd": (A, "_flash_attention_cuda",
+                           lambda a: A.flash_attention(*a),
+                           lambda a: A.flash_attention_plain(*_f32(a)), (6,)),
+        "flash_attn_bwd": (A, "_flash_attention_bwd_cuda",
+                           lambda a: A.flash_attention_bwd(*a),
+                           lambda a: A.flash_attention_bwd_plain(*_f32(a)),
+                           (9,)),
+        "mlp_fwd": (M, "_mlp_fwd_cuda", lambda a: M.fused_mlp_fwd(*a),
+                    lambda a: M.fused_mlp_plain(*a), (5,)),
+        "mlp_bwd": (M, "_mlp_bwd_cuda", lambda a: M.fused_mlp_bwd(*a),
+                    lambda a: M.fused_mlp_bwd_plain(*a), (5,)),
+        "dropout": (D, "_dropout_cuda", lambda a: D.dropout(*a),
+                    lambda a: D.dropout_plain(*a), (2,)),
+        "layernorm": (LN, "_layernorm_cuda",
+                      lambda a: LN.fused_layernorm(_ln_params(a[0], a[1]),
+                                                   a[2], a[3], a[4]),
+                      lambda a: LN.fused_layernorm_plain(
+                          _ln_params(a[0], a[1]), *_f32(a[2:3]), a[3],
+                          *_f32(a[4:5])), ()),
+        "swin_window_attn": (SA, "_swin_attention_cuda",
+                             lambda a: SA.swin_window_attention_infer(*a),
+                             lambda a: SA.swin_window_attention_infer_plain(
+                                 *_f32(a)), ()),
+        "deberta_attn_fwd": (DA, "_deberta_attention_cuda",
+                             lambda a: DA.deberta_attention_fwd(*a),
+                             lambda a: DA.deberta_attention_plain(*_f32(a)),
+                             ())}
+
+
+def _geom_key(args, seeds) -> tuple:
+    """A launch's geometry: each tensor's shape and dtype (None kept), every
+    other argument but the seeds."""
+    out = []
+    for i, a in enumerate(args):
+        if i in seeds:
+            continue
+        if isinstance(a, torch.Tensor):
+            out.append((tuple(a.shape), str(a.dtype).replace("torch.", "")))
+        else:
+            out.append(a if a is None or isinstance(a, (int, float, str))
+                       else repr(a))
+    return tuple(out)
+
+
+class _InSitu:
+    """The kernels of a counted run held at the geometries the run gives
+    them: while active, each kernel's launching function records every
+    launch's geometry with its count, and a copy of the inputs of the
+    first launch at each; `hold` then calls each kernel's wrapper on those
+    inputs against its plain version (at the tolerances of the kernel
+    phases) and times kernel, plain version and, where one PyTorch call
+    computes the same function, that call."""
+
+    def __init__(self):
+        self.kernels = _in_situ_kernels()
+        self.calls: dict[str, dict] = {k: {} for k in self.kernels}
+
+    def __enter__(self):
+        self._orig = {}
+        for name, (mod, fn_name, _, _, seeds) in self.kernels.items():
+            orig = self._orig[name] = getattr(mod, fn_name)
+            setattr(mod, fn_name, self._wrap(name, orig, seeds))
+        return self
+
+    def __exit__(self, *exc):
+        for name, (mod, fn_name, _, _, _) in self.kernels.items():
+            setattr(mod, fn_name, self._orig[name])
+
+    def _wrap(self, name, orig, seeds):
+        calls = self.calls[name]
+
+        def launch(*args):
+            key = _geom_key(args, seeds)
+            rec = calls.get(key)
+            if rec is None:
+                rec = calls[key] = {"n": 0, "args": [
+                    a.detach().clone() if isinstance(a, torch.Tensor) else
+                    (list(a) if isinstance(a, tuple) else a) for a in args]}
+            out = orig(*args)
+            rec["n"] += 1
+            return out
+        return launch
+
+    def launches(self) -> dict:
+        return {k: sum(r["n"] for r in c.values())
+                for k, c in self.calls.items()}
+
+    def hold(self, phase: str, card: str) -> dict:
+        """kernel -> {geometry: its row}, every geometry held and timed."""
+        out = {}
+        with torch.no_grad():
+            for name, calls in self.calls.items():
+                for i, (key, rec) in enumerate(calls.items()):
+                    geom = f"{phase}_{i}"
+                    row = self._hold_one(name, rec["args"])
+                    row["launches_in_phase"] = rec["n"]
+                    row["geometry"] = _describe_geom(name, rec["args"])
+                    _print_time(name, f"{geom} {row['geometry']} (x"
+                                f"{rec['n']})", row, card)
+                    out.setdefault(name, {})[geom] = row
+                    rec["args"] = None           # free the copy
+        torch.cuda.empty_cache()
+        return out
+
+    def _hold_one(self, name, args) -> dict:
+        _, _, kernel, plain, _ = self.kernels[name]
+        got = kernel(args)
+        torch.cuda.synchronize()
+        want = plain(args)
+        err, tol, ok = _in_situ_err(name, args, got, want)
+        fp32 = ""
+        if name == "flash_attn_bwd" and args[0].dtype == torch.bfloat16:
+            fp32 = (", against the fp32 plain version " + "/".join(
+                "%.3e" % _rel(x, w) for x, w in zip(got, want))
+                + " (dq/dk/dv)")
+        print(f"kernel {name} {_describe_geom(name, args)} in situ: error "
+              f"{err:.3e} (tol {tol:.3e}){fp32} -> "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            fail(f"{name} disagrees with its plain version at "
+                 f"{_describe_geom(name, args)}, in situ")
+        del got, want
+        row = {"ms": _time_ms(lambda: kernel(args), iters=20),
+               "plain_ms": _time_ms(lambda: plain(args), iters=3, warmup=1),
+               "library_ms": None, "max_abs_err": err}
+        lib = _in_situ_library(name, args)
+        if lib is not None:
+            row["library_ms"] = _time_ms(lib, iters=20)
+        row["bound_ms"], row["bound_by"] = _in_situ_bound(name, args)
+        return row
+
+
+def _describe_geom(name, a) -> str:
+    dt = "bf16" if a[0].dtype == torch.bfloat16 else str(a[0].dtype)[6:]
+    if name == "flash_attn_fwd":
+        return (f"B={a[0].shape[0]} T={a[0].shape[1]} S={a[1].shape[1]} "
+                f"D={a[0].shape[2]} H={a[3]} {dt}"
+                f"{' masked' if a[4] is not None else ''}"
+                f"{f' dropout {a[5]}' if a[5] else ''}")
+    if name == "flash_attn_bwd":
+        return (f"B={a[0].shape[0]} T={a[0].shape[1]} S={a[1].shape[1]} "
+                f"D={a[0].shape[2]} H={a[6]} {dt}"
+                f"{' masked' if a[7] is not None else ''}"
+                f"{f' dropout {a[8]}' if a[8] else ''}")
+    if name in ("mlp_fwd", "mlp_bwd"):
+        return (f"N={a[0].shape[0]} D={a[0].shape[1]} F={a[1].shape[1]} {dt}"
+                f" dropout {a[6]}")
+    if name == "dropout":
+        return f"{tuple(a[0].shape)} {dt} rate {a[1]}"
+    if name == "layernorm":
+        return (f"({a[2].numel() // a[2].shape[-1]}, {a[2].shape[-1]}) "
+                f"shortcut={a[4] is not None} "
+                f"{'bf16' if a[2].dtype == torch.bfloat16 else 'float32'}")
+    if name == "swin_window_attn":
+        nw, b, n, c = a[0].shape
+        return (f"nW={nw} B={b} n={n} C={c} h={a[5]} bias_windows="
+                f"{a[3].shape[0]} {dt}")
+    b, t, d = a[0].shape
+    return f"B={b} T={t} D={d} H={a[6]} {dt}"
+
+
+def _flash_bwd_bf16_mirror(q, k, v, o, lse, do, h, mask, rate, seed):
+    """flash_attention_bwd_plain with #2's two roundings in bf16: p keep
+    scale to bf16 before dv, and ds to bf16 before dq and dk
+    (flash_attn_bwd.cu, where the TPU kernel rounds them); fp32 otherwise.
+    Where a head's keys share a large common part (a text's padded tail),
+    dq = ds k cancels it exactly only with ds unrounded, so the fp32
+    plain version is no yardstick there."""
+    from mmd_tpu_torch.ops import attention as A
+    qh, kh, vh, oh, doh = (A._split_heads(x, h).float()
+                           for x in (q, k, v, o, do))
+    sm_scale = 1.0 / math.sqrt(qh.shape[-1])
+    live = torch.isfinite(lse)[..., None]
+    if mask is not None:
+        live = live & (mask != 0)[:, None, None, :]
+    shift = torch.where(torch.isfinite(lse), lse, torch.zeros_like(lse))
+    p = torch.where(live, torch.exp((qh @ kh.transpose(-1, -2)) * sm_scale
+                                    - shift[..., None]),
+                    torch.zeros((), device=q.device))
+    ks = A._keep_scale(p.shape, rate, seed, p.device) if rate > 0 else None
+    pd = (p if ks is None else p * ks).to(torch.bfloat16).float()
+    dp = doh @ vh.transpose(-1, -2)
+    if ks is not None:
+        dp = dp * ks
+    ds = (p * (dp - (doh * oh).sum(-1, keepdim=True))).to(
+        torch.bfloat16).float()
+    return (A._merge_heads((ds @ kh) * sm_scale),
+            A._merge_heads((ds.transpose(-1, -2) @ qh) * sm_scale),
+            A._merge_heads(pd.transpose(-1, -2) @ doh))
+
+
+def _in_situ_err(name, a, got, want) -> tuple[float, float, bool]:
+    """(error, tolerance, within it) of a kernel's output against its plain
+    version's, by the rule of the kernel's own phase."""
+    dtype = (a[2] if name == "layernorm" else a[0]).dtype
+    if name == "flash_attn_fwd":
+        # the flash phase's limits, widened to one bf16 step at the largest
+        # |o| and to LSE_TOL of the largest |lse| where the run's
+        # activations are larger than its unit Gaussians
+        (o, lse), (o_ref, lse_ref) = got, want
+        fin = torch.isfinite(lse_ref)
+        err = (o.float() - o_ref).abs().max().item()
+        tol = KERNEL_TOL[dtype]
+        if dtype == torch.bfloat16:
+            tol = max(tol, _bf16_step(o_ref))
+        lse_err, lse_tol = 0.0, LSE_TOL
+        if fin.any():
+            lse_err = (lse[fin] - lse_ref[fin]).abs().max().item()
+            lse_tol *= max(1.0, lse_ref[fin].abs().max().item())
+        ok = (lse_err <= lse_tol and torch.equal(torch.isfinite(lse), fin))
+        return err, tol, ok and err <= tol
+    if name == "flash_attn_bwd":
+        # bf16: against the plain version with the kernel's roundings
+        ref = (_flash_bwd_bf16_mirror(*a) if dtype == torch.bfloat16
+               else want)
+        err = max((x.float() - w).abs().max().item()
+                  / max(w.abs().max().item(), 1e-30)
+                  for x, w in zip(got, ref))
+        return err, _bwd_tol(dtype), err <= _bwd_tol(dtype)
+    if name in ("mlp_fwd", "mlp_bwd"):
+        pairs = [(got, want)] if name == "mlp_fwd" else list(zip(got, want))
+        err = max(_rel(g, w) for g, w in pairs)
+        return err, MLP_TOL, err <= MLP_TOL
+    if name == "dropout":
+        same = torch.equal(got, want)
+        return (got.float() - want.float()).abs().max().item(), 0.0, same
+    tol = (KERNEL_TOL[dtype] if dtype == torch.float32
+           else _bf16_step(want))
+    err = (got.float() - want.float()).abs().max().item()
+    return err, tol, err <= tol
+
+
+def _in_situ_library(name, a):
+    """One PyTorch call computing the same function on the same inputs, or
+    None where there is none (#3, #4: no single call; #7, #10: see the
+    kernel table)."""
+    fn = torch.nn.functional
+    if name in ("flash_attn_fwd", "flash_attn_bwd"):
+        h = a[3] if name == "flash_attn_fwd" else a[6]
+        mask = a[4] if name == "flash_attn_fwd" else a[7]
+        rate = a[5] if name == "flash_attn_fwd" else a[8]
+        b, d = a[0].shape[0], a[0].shape[2]
+        views = [x.view(b, -1, h, d // h).transpose(1, 2)
+                 for x in (a[0], a[1], a[2])]
+        am = None if mask is None else (mask != 0)[:, None, None, :]
+        if name == "flash_attn_fwd":
+            return lambda: fn.scaled_dot_product_attention(
+                *views, attn_mask=am, dropout_p=rate)
+        leaves = [v.detach().requires_grad_() for v in views]
+        with torch.enable_grad():
+            out = fn.scaled_dot_product_attention(*leaves, attn_mask=am,
+                                                  dropout_p=rate)
+        g = torch.randn_like(out)
+        return lambda: torch.autograd.grad(out, leaves, g,
+                                           retain_graph=True)
+    if name == "dropout":
+        return lambda: fn.dropout(a[0], a[1], training=True)
+    if name == "layernorm":
+        y = a[2]
+        wb, bb = a[0].to(y.dtype), a[1].to(y.dtype)
+        return lambda: fn.layer_norm(y, (y.shape[-1],), wb, bb, a[3])
+    return None
+
+
+def _in_situ_bound(name, a) -> tuple[float, str]:
+    """The least time of the call on these inputs: bytes moved once over
+    the memory rate, operations over the peak for their dtype."""
+    e = a[2 if name == "layernorm" else 0].element_size()
+    bf16 = e == 2
+    if name in ("flash_attn_fwd", "flash_attn_bwd"):
+        q, k = a[0], a[1]
+        h = a[3] if name == "flash_attn_fwd" else a[6]
+        mask = a[4] if name == "flash_attn_fwd" else a[7]
+        peak = PEAK_BF16_FLOPS if bf16 else PEAK_3XTF32_FLOPS
+        if name == "flash_attn_fwd":
+            return _flash_bound_ms(q, k, h, mask, peak)
+        b, t, d = q.shape
+        keys = k.shape[0] * k.shape[1] if mask is None else int(
+            (mask != 0).sum())
+        nbytes = e * (4 * b * t * d + 4 * keys * d) + 4 * b * h * t
+        return _bound_ms(nbytes, 10 * t * d * keys, peak)
+    if name in ("mlp_fwd", "mlp_bwd"):
+        n, d = a[0].shape
+        f = a[1].shape[1]
+        if name == "mlp_fwd":
+            return _bound_ms(2 * 2 * n * d + 2 * 2 * d * f + 4 * (f + d),
+                             4 * n * d * f)
+        return _bound_ms(2 * 3 * n * d + 2 * 2 * d * f + 4 * f
+                         + 4 * (2 * d * f + f + d), 10 * n * d * f)
+    if name == "dropout":
+        return _bound_ms(2 * e * a[0].numel(), a[0].numel(), PEAK_FP32_FLOPS)
+    peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
+    if name == "layernorm":
+        c = a[2].shape[-1]
+        r = a[2].numel() // c
+        return _bound_ms(e * r * c * (3 if a[4] is not None else 2) + 8 * c,
+                         8 * r * c, peak)
+    if name == "swin_window_attn":
+        nw, b, n, c = a[0].shape
+        nwb, h = a[3].shape[0], a[5]
+        return _bound_ms(e * 4 * nw * b * n * c + 4 * nwb * h * n * n + 4 * h,
+                         4 * nw * b * n * n * c, peak)
+    b, t, d = a[0].shape
+    return _bound_ms(e * (4 * b * t * d + 2 * 2 * t * d) + b * t,
+                     8 * b * t * t * d, peak)
+
+
+def _caption_generates(n_rows: int, batch: int) -> int:
+    """generate() calls of pipelines/caption.process_csv over n_rows rows:
+    each loop of `batch` rows captions its claim and evidence paths in
+    batches of `batch`."""
+    return sum(-(-2 * min(batch, n_rows - lo) // batch)
+               for lo in range(0, n_rows, batch))
+
+
+def _add(*dicts) -> dict:
+    out: dict = {}
+    for d in dicts:
+        for k, v in d.items():
+            out[k] = out.get(k, 0) + v
+    return out
+
+
+def _run_all_want(reference: bool, n_rows: dict, n_test_store: int,
+                  steps: int, bs: int, demo_image: bool) -> dict:
+    """The kernel launches each stage of run_all's default path must make."""
+    per_embed = EMBED_PER_BATCH_REFERENCE if reference else EMBED_PER_BATCH
+    per_classify = (REFERENCE_PER_BATCH if reference
+                    else {"flash_attn_fwd": LAUNCHES_PER_BATCH})
+    gens = sum(_caption_generates(n, RUN_ALL_B) for n in n_rows.values())
+    batches = sum(-(-n // RUN_ALL_B) for n in n_rows.values())
+    return {
+        "caption": {"flash_attn_fwd": DEFAULT_CAPTION_PER_BATCH * gens},
+        "embed": {k: v * batches for k, v in per_embed.items()},
+        "train": {k: v * steps for k, v in PER_STEP_BF16.items()},
+        "eval": {"flash_attn_fwd": FUSION_PER_BATCH * -(-n_test_store // bs)},
+        "demo_verify": _add(per_classify, {
+            "flash_attn_fwd": DEFAULT_CAPTION_PER_BATCH * int(demo_image)})}
+
+
+def _rel_l2(got: np.ndarray, want: np.ndarray) -> float:
+    g, w = got.astype(np.float64), want.astype(np.float64)
+    return float(np.linalg.norm(g - w) / max(np.linalg.norm(w), 1e-30))
+
+
+def phase_run_all(card: str, tmp: Path, phase: str) -> tuple[dict, dict]:
+    """python -m mmd_tpu_torch.pipelines.run_all's default path in process,
+    every kernel held in situ at each geometry the run gave it, then
+    checks (a)-(l) (run_all_reference: (a)-(d), (f)-(i), (l)). Returns the
+    kernel launches of the counted run and the in-situ rows by kernel."""
+    import os
+    import shutil
+
+    import pandas as pd
+
+    from mmd_tpu_torch.core.checkpoint import save_params
+    from mmd_tpu_torch.demo import app as DA
+    from mmd_tpu_torch.demo import render_html as RH
+    from mmd_tpu_torch.pipelines import (
+        dataset_stats, embed, eval_factify, eval_models, eval_text, run_all,
+    )
+
+    reference = phase == "run_all_reference"
+    root = tmp / phase
+    timings = root / "timings.json"
+    argv = [*RUN_ALL[phase], *RUN_ALL_ARGS, "--root", str(root),
+            "--timings_json", str(timings)]
+    print(f"{phase}: run_all.main({json.dumps(argv)})", flush=True)
+    old_root = os.environ.get("MMD_TPU_ROOT")
+    t_phase = time.perf_counter()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()                   # count the main path's run only
+        t0 = time.perf_counter()
+        with _StageLaunches() as stage_launches, _InSitu() as in_situ:
+            out = run_all.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        by_stage = stage_launches.by_stage
+        # every kernel of the run at each geometry it was given, against
+        # its plain version
+        recorded = in_situ.launches()
+        if any(launches[k] != n for k, n in recorded.items()):
+            fail(f"{phase}: the in-situ record {recorded} misses launches "
+                 f"of {launches}")
+        times = in_situ.hold(phase, card)
+
+        # (a) every stage of the JAX package's run_all, timed
+        doc = json.loads(timings.read_text())
+        secs = doc["stages_sec"]
+        missing = [s for s in RUN_ALL_STAGES if s not in secs]
+        if missing:
+            fail(f"{phase}: (a) no timing for stages {missing}")
+        pre = root / "data" / "preprocessed"
+        dfs = {s: pd.read_csv(pre / f"{s}.csv") for s in ("train", "test")}
+        n_rows = {s: len(df) for s, df in dfs.items()}
+        print(f"{phase}: {doc['text_encoder']} / {doc['image_encoder']}, "
+              f"rows {json.dumps(n_rows)}, stores {doc['n_train_rows']} / "
+              f"{doc['n_test_rows']}, train batch {out['batch_size']}, "
+              f"{out['state'].step} steps; seconds by stage "
+              f"{json.dumps(secs)}; wall {run_s:.1f} s (without synthesize "
+              f"{doc['wall_sec_excl_synthesize']} s); embed "
+              f"{sum(n_rows.values()) / secs['embed']:.1f} rows/s; peak "
+              f"device memory {peak / 2 ** 30:.3f} GiB "
+              f"(torch.cuda.max_memory_allocated)  [{card}]", flush=True)
+
+        # (b) each store holds exactly the rows with both images
+        for split, df in dfs.items():
+            store = out[f"{split}_store"]
+            both = (df["claim_image"].notna()
+                    & df["evidence_image"].notna()).to_numpy()
+            meta = json.loads((store.dir / "meta.json").read_text())
+            if (len(store) != both.sum() or not np.array_equal(
+                    store.col("id"), df["id"].to_numpy()[both])
+                    or meta["extra"].get("csv_cursor") != len(df)):
+                fail(f"{phase}: (b) {split} store: {len(store)} rows, "
+                     f"{both.sum()} with both images; cursor "
+                     f"{meta['extra']}, {len(df)} rows")
+            print(f"{phase}: (b) {split}: {len(store)} rows stored, "
+                  f"{len(df) - len(store)} skipped, csv_cursor "
+                  f"{meta['extra']['csv_cursor']}", flush=True)
+
+        # (c) a second embed over the finished store appends nothing
+        enc, train_store = out["enc"], out["train_store"]
+        train_csv = str(pre / "train.csv")
+        _reset_counts()
+        again = embed.embed_csv(train_csv, enc, batch_size=RUN_ALL_B,
+                                device="cuda")
+        if len(again) != len(train_store) or any(_counts().values()):
+            fail(f"{phase}: (c) the finished store took rows or launches: "
+                 f"{len(again)} rows, {_counts()}")
+
+        # (d) rewound to its first batch and resumed: bit for bit
+        resumed = root / "resumed.store"
+        shutil.copytree(train_store.dir, resumed)
+        meta = json.loads((resumed / "meta.json").read_text())
+        meta["count"] = int(np.isin(train_store.col("id"),
+                                    dfs["train"]["id"][:RUN_ALL_B]).sum())
+        meta["extra"] = {"csv_cursor": RUN_ALL_B}
+        (resumed / "meta.json").write_text(json.dumps(meta))
+        got = embed.embed_csv(train_csv, enc, batch_size=RUN_ALL_B,
+                              store_path=str(resumed), device="cuda")
+        for col in train_store.columns:
+            if not np.array_equal(got.col(col), train_store.col(col)):
+                fail(f"{phase}: (d) the resumed store's {col} differs")
+        print(f"{phase}: (c) the finished store took no rows and no "
+              f"launches; (d) rewound to {meta['count']} rows and resumed: "
+              f"every column bit for bit", flush=True)
+
+        # (e) one batch in fp32 through the explicit path
+        if not reference:
+            head = root / "head.csv"
+            dfs["train"].head(RUN_ALL_B).to_csv(head, index=False)
+            enc32 = dataclasses.replace(
+                enc, text_cfg=_fp32(enc.text_cfg, False),
+                vit_cfg=_fp32(enc.vit_cfg, False))
+            _reset_counts()
+            ref = embed.embed_csv(str(head), enc32, batch_size=RUN_ALL_B,
+                                  store_path=str(root / "head.store"),
+                                  device="cuda")
+            if any(_counts().values()):
+                fail(f"{phase}: (e) the explicit path launched {_counts()}")
+            errs = {c: _rel_l2(train_store.col(c)[:len(ref)], ref.col(c))
+                    for c in train_store.columns
+                    if c.endswith("_embeds")}
+            print(f"{phase}: (e) {len(ref)} rows re-encoded in fp32 through "
+                  f"the explicit path: relative L2 {json.dumps(errs)} (tol "
+                  f"{REENCODE_REL_L2})", flush=True)
+            if not np.array_equal(ref.col("id"),
+                                  train_store.col("id")[:len(ref)]) or \
+                    not max(errs.values()) <= REENCODE_REL_L2:
+                fail(f"{phase}: (e) the stored rows disagree with the "
+                     f"explicit fp32 path")
+
+        # (f) the results CSV: four paths and unified, all finite
+        ev = pd.read_csv(root / "results" / "eval.csv")
+        vals = ev.drop(columns=["timestamp", "path"]).to_numpy(float)
+        if list(ev["path"]) != ["text_text", "text_image", "image_text",
+                                "image_image", "unified"] or \
+                not np.isfinite(vals).all():
+            fail(f"{phase}: (f) eval.csv {ev.to_dict('list')}")
+
+        # (g) eval through the kernels against the explicit path, fp32
+        model, params, test_store = out["model"], out["state"].params, \
+            out["test_store"]
+        bs = out["batch_size"]
+        lk, _ = eval_models.store_logits(test_store, _fp32(model, True),
+                                         params, bs, device="cuda")
+        lx, _ = eval_models.store_logits(test_store, _fp32(model, False),
+                                         params, bs, device="cuda")
+        scale = float(np.abs(lx).max())
+        gap = np.diff(np.sort(lx, -1)[..., -2:], axis=-1)[..., 0]
+        decided = gap > EVAL_LOGIT_RTOL * scale
+        diff = float(np.abs(lk - lx).max()) / scale
+        same = np.array_equal(lk.argmax(-1)[decided], lx.argmax(-1)[decided])
+        print(f"{phase}: (f) eval.csv {json.dumps(out['metrics'])}; (g) "
+              f"fp32 logits, kernels vs explicit path: {diff:.3e} of the "
+              f"largest |logit| (tol {EVAL_LOGIT_RTOL}), predictions equal "
+              f"at {int(decided.sum())} of {decided.size} outside near "
+              f"ties: {same}", flush=True)
+        if not (diff <= EVAL_LOGIT_RTOL and same):
+            fail(f"{phase}: (g) the eval predictions disagree")
+
+        # (h) the demo's verdict and evidences; (i) its report
+        result = out["result"]
+        img = dfs["test"]["claim_image"][0]
+        demo_image = isinstance(img, str)
+        srcs = [e.source for e in result.evidences]
+        top_k = 3
+        if result.final_classification not in LABELS or \
+                srcs.count("text") != top_k or \
+                srcs.count("image") != top_k * int(demo_image):
+            fail(f"{phase}: (h) verdict {result.final_classification!r}, "
+                 f"evidence sources {srcs}")
+        html = RH.render_html(result, root / "report.html").read_text()
+        verdict = RH.CATEGORY_MAPPING[result.final_classification]
+        if f"Classification Result: <b>{verdict}</b>" not in html:
+            fail(f"{phase}: (i) the report lacks the verdict {verdict}")
+        print(f"{phase}: (h) verdict {result.final_classification} from "
+              f"{len(srcs)} evidences ({srcs.count('image')} by image), "
+              f"caption {result.caption[:60]!r}; (i) report "
+              f"{len(html)} bytes", flush=True)
+
+        # (j) the streamlit page over build_pipeline, from the files
+        if not reference:
+            ckpt = root / "results" / "best_model.pt"
+            save_params(str(ckpt), params)
+            DA.build_pipeline.cache_clear()
+            t0 = time.perf_counter()
+            pipe = DA.build_pipeline(str(root), checkpoint=str(ckpt),
+                                     assets=str(root / "assets" / "encoders"),
+                                     device="cuda")
+            claim = str(dfs["test"]["claim"][0])
+            st = _RecordingSt(claim)
+            DA.render_app(st, pipeline_factory=lambda: pipe)
+            want = out["pipeline"].verify(claim, None, top_k=5,
+                                          top_k_image=5)
+            line = ("write", "**Classification Result:** "
+                    + DA.CATEGORY_MAPPING[want.final_classification])
+            if line not in st.calls:
+                fail(f"{phase}: (j) the page did not render the in-memory "
+                     f"pipeline's verdict {want.final_classification}")
+            print(f"{phase}: (j) render_app over build_pipeline (set-up and "
+                  f"page {time.perf_counter() - t0:.1f} s, {len(st.calls)} "
+                  f"calls) renders {want.final_classification}, the "
+                  f"in-memory pipeline's verdict on the text-only claim",
+                  flush=True)
+            DA.build_pipeline.cache_clear()
+            del pipe
+
+            # (k) the other entry points over the tree and its test store
+            stats = dataset_stats.main(["--splits", "train", "test"])
+            if [s["rows"] for s in stats] != list(n_rows.values()):
+                fail(f"{phase}: (k) dataset_stats {stats}")
+            store_args = [
+                "--store", str(test_store.dir), "--batch_size", str(bs),
+                "--device", "cuda", "--text_input_dim",
+                str(model.text_input_dim), "--image_input_dim",
+                str(model.image_input_dim), "--embed_dim",
+                str(model.embed_dim), "--num_heads", str(model.num_heads),
+                "--hidden_dim", str(model.hidden_dim)]
+            cli = eval_models.main(store_args + [
+                "--checkpoint", str(ckpt), "--results_csv",
+                str(root / "results" / "eval_cli.csv")])
+            if cli != out["metrics"]:
+                fail(f"{phase}: (k) eval_models' CLI {cli} against "
+                     f"{out['metrics']}")
+            m_text = eval_text.main(store_args + [
+                "--results_csv", str(root / "results" / "eval_text.csv")])
+            m_fact = eval_factify.main(store_args + [
+                "--confusion_png", str(root / "cm.png")])
+            cm = [p for p in (root / "cm.png", root / "cm.png.txt")
+                  if p.exists()]
+            if not (all(map(math.isfinite, m_text.values()))
+                    and all(map(math.isfinite, m_fact.values())) and cm):
+                fail(f"{phase}: (k) eval_text {m_text}, eval_factify "
+                     f"{m_fact}, confusion {cm}")
+            demo = RH.main(["--device", "cuda", "--root",
+                            str(root / "demo_html"), "--out",
+                            str(root / "demo.html"), "--n", "8"])
+            if RH.CATEGORY_MAPPING[demo.final_classification] not in (
+                    root / "demo.html").read_text():
+                fail(f"{phase}: (k) render_html's main lacks its verdict")
+            print(f"{phase}: (k) dataset_stats rows "
+                  f"{[s['rows'] for s in stats]}; eval_models' CLI equals "
+                  f"the run's metrics; eval_text accuracy "
+                  f"{m_text['accuracy']:.4f}, eval_factify accuracy "
+                  f"{m_fact['accuracy']:.4f}, confusion {cm[0].name}; "
+                  f"render_html's main: {demo.final_classification}",
+                  flush=True)
+
+        # (l) the launches, stage by stage
+        want = _run_all_want(reference, n_rows, len(test_store),
+                             out["state"].step, bs, demo_image)
+        bad = {}
+        for name in set(by_stage) | set(want):
+            w = {k: want.get(name, {}).get(k, 0) for k in launches}
+            got = by_stage.get(name, {k: 0 for k in launches})
+            if got != w:
+                bad[name] = (got, w)
+        total = _add(*by_stage.values())
+        print(f"{phase}: (l) launches by stage "
+              f"{json.dumps({s: {k: v for k, v in c.items() if v} for s, c in by_stage.items()})}; "
+              f"total {json.dumps(launches)}  [{card}]", flush=True)
+        if bad or {k: total.get(k, 0) for k in launches} != launches:
+            fail(f"{phase}: (l) launches by stage (got, want): {bad}")
+    finally:
+        if old_root is None:
+            os.environ.pop("MMD_TPU_ROOT", None)
+        else:
+            os.environ["MMD_TPU_ROOT"] = old_root
+    del out
+    torch.cuda.empty_cache()
+    print(f"{phase}: phase wall {time.perf_counter() - t_phase:.1f} s  "
+          f"[{card}]", flush=True)
+    return launches, times
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -3500,6 +4291,10 @@ def main() -> None:
             for geom, row in times.items():
                 row["launches_in_phase"] = split[name][geom]
             recs[name].update(times)
+        for phase in RUN_ALL:
+            by_phase[phase], in_situ = phase_run_all(dev["card"], tmp, phase)
+            for name, rows in in_situ.items():
+                recs[name].update(rows)
         phase_train_parity(dev["card"])
         phase_train_parity_bf16(dev["card"])
         phase_finetune_parity(dev["card"], tmp)

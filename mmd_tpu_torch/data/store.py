@@ -3,7 +3,9 @@ mmd_tpu/data/store.py).
 
 Flat memory-mapped .npy columns plus a JSON manifest, in the JAX package's
 format, so each package reads what the other writes (the embed pipeline's
-stores for --pre_embed, the raw stores of pipelines/raw_store.py).
+stores for --pre_embed, the raw stores of pipelines/raw_store.py), and
+resumes what the other started: the manifest's `extra` (the embed
+pipeline's `csv_cursor`) is read back and rewritten with every count.
 
 Layout:  <dir>/meta.json
          <dir>/<column>.npy          (N, *shape) per column
@@ -46,8 +48,10 @@ class ArrayStoreWriter:
                 raise ValueError(f"existing store at {self.dir} is "
                                  f"incompatible")
             self.count = meta["count"]
+            self.extra: dict = meta.get("extra", {})
         else:
             self.count = 0
+            self.extra = {}
             self._write_meta()
         for name, (shape, dtype) in self.columns.items():
             path = self.dir / f"{name}.npy"
@@ -69,20 +73,31 @@ class ArrayStoreWriter:
                 k: {"shape": list(s), "dtype": d.str}
                 for k, (s, d) in self.columns.items()
             },
+            "extra": self.extra,
         }
         tmp = self.dir / (META_NAME + ".tmp")
         tmp.write_text(json.dumps(meta, indent=1))
         tmp.replace(self.dir / META_NAME)
 
-    def append_batch(self, batch: Dict[str, np.ndarray]) -> None:
-        """Append rows; the new count is committed by one atomic meta.json
-        write after the rows."""
+    def append_batch(self, batch: Dict[str, np.ndarray],
+                     extra: Optional[dict] = None) -> None:
+        """Append rows; the new count and `extra` (e.g. a producer's resume
+        cursor) are committed by one atomic meta.json write after the rows,
+        so a crash can never commit one without the other."""
         n = len(next(iter(batch.values())))
         if self.count + n > self.capacity:
             raise ValueError("store capacity exceeded")
         for name, arr in batch.items():
             self._mm[name][self.count:self.count + n] = arr
         self.count += n
+        if extra:
+            self.extra.update(extra)
+        self._write_meta()
+
+    def update_extra(self, **kv) -> None:
+        """Persist extra metadata without appending rows (e.g. advance the
+        resume cursor past a batch that produced no valid samples)."""
+        self.extra.update(kv)
         self._write_meta()
 
     def finalize(self) -> None:
@@ -101,6 +116,10 @@ class ArrayStore:
         self.column_specs = meta["columns"]
         self._cols: Dict[str, np.memmap] = {}
 
+    @property
+    def columns(self) -> Sequence[str]:
+        return list(self.column_specs)
+
     def col(self, name: str) -> np.ndarray:
         if name not in self._cols:
             self._cols[name] = np.lib.format.open_memmap(
@@ -110,6 +129,9 @@ class ArrayStore:
 
     def __len__(self) -> int:
         return self.count
+
+    def __getitem__(self, idx) -> Dict[str, np.ndarray]:
+        return {name: self.col(name)[idx] for name in self.column_specs}
 
     def batches(
         self,

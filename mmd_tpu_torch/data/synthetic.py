@@ -53,19 +53,42 @@ def synthetic_preembed_batch(
     return batch
 
 
+# Per-category signal for `learnable` trees: distinct vocabulary (text
+# signal for the classifiers) and a distinct RGB tint (image signal).
+CAT_SIGNAL_WORDS = {
+    "Support_Text": "confirmed verified corroborated accurate",
+    "Support_Multimodal": "authentic consistent matching documented",
+    "Insufficient_Text": "unclear ambiguous vague unspecified",
+    "Insufficient_Multimodal": "tangential mismatched stray unrelated",
+    "Refute": "false debunked fabricated misleading",
+}
+CAT_TINT = {
+    "Support_Text": (120, 0, 0),
+    "Support_Multimodal": (0, 120, 0),
+    "Insufficient_Text": (0, 0, 120),
+    "Insufficient_Multimodal": (90, 90, 0),
+    "Refute": (0, 90, 90),
+}
+
+
 def synthetic_factify_tree(
     root: str | os.PathLike,
     n_train: int = 20,
     n_test: int = 10,
     image_size: int = 64,
     seed: int = 0,
+    learnable: bool = False,
 ) -> Path:
     """Write a mini raw Factify tree: extracted/{train,test}.csv (TSV with
     HEADERS) + images/{split}/{id}_{claim|evidence}.jpg. Returns root.
 
-    About 15% of the images are left out, to exercise skip-and-count. (The
-    JAX package's `learnable` trees, which plant label signal for its
-    quality benchmarks, have no user in the port.)"""
+    About 15% of the images are left out, to exercise skip-and-count. With
+    `learnable`, label and retrieval signal is planted (the demo's report,
+    demo/render_html.py): category words, repeated so that they outweigh
+    the per-id tokens, in claim AND evidence; a per-id entity token shared
+    by claim and evidence (text retrieval signal); a per-id base image
+    shared by the claim and evidence images (image retrieval signal); and
+    a per-category tint (image classification signal)."""
     from PIL import Image
 
     rng = np.random.default_rng(seed)
@@ -78,13 +101,31 @@ def synthetic_factify_tree(
         for i in range(1, n + 1):
             cat = lb.CATEGORIES[int(rng.integers(0, len(lb.CATEGORIES)))]
             shape = (image_size, image_size, 3)
+            # `base` is drawn only on learnable trees, so the draws of the
+            # other trees (and which samples lack images) stay as they were
+            base = rng.integers(0, 255, shape) if learnable else None
             for kind in ("claim", "evidence"):
                 if rng.random() < 0.85:
-                    arr = rng.integers(0, 255, shape, dtype=np.uint8)
+                    if learnable:
+                        tint = np.asarray(CAT_TINT[cat], np.float32)
+                        noise = rng.standard_normal(shape) * 12.0
+                        arr = np.clip(base * 0.5 + tint + noise,
+                                      0, 255).astype(np.uint8)
+                    else:
+                        arr = rng.integers(0, 255, shape, dtype=np.uint8)
                     Image.fromarray(arr).save(img_dir / f"{i}_{kind}.jpg")
-            claim_txt = f"claim text number {i} about topic {i % 5}"
-            ev_txt = (f"evidence document {i} discussing topic "
-                      f"{i % 5} in detail")
+            if learnable:
+                words = CAT_SIGNAL_WORDS[cat]
+                claim_txt = (f"claim entity{split}{i} reports {words} "
+                             f"news about topic {i % 5} rated {words} "
+                             f"overall {words}")
+                ev_txt = (f"evidence entity{split}{i} is {words} "
+                          f"coverage discussing topic {i % 5} in detail "
+                          f"rated {words} overall {words}")
+            else:
+                claim_txt = f"claim text number {i} about topic {i % 5}"
+                ev_txt = (f"evidence document {i} discussing topic "
+                          f"{i % 5} in detail")
             rows.append([
                 str(i), claim_txt, f"http://example.com/{split}/{i}_claim.jpg",
                 ev_txt, f"http://example.com/{split}/{i}_evidence.jpg",

@@ -8,6 +8,10 @@ time, and so are the device-side spans of record-function ranges (such as
 `Optimizer.step#AdamW.step`), which cover kernels counted on their own. Each event is named by the port's kernel whose symbol it holds, or
 else kept under its own name and grouped by the first substring of GROUPS
 (or the caller's extra groups) that it contains.
+
+The pipelines' own stage timers and trace windows (the JAX package's
+core/profiling.py) are in mmd_tpu_torch/core/profiling.py; this module is
+the measurement scripts' reduction of a profiler window to device time.
 """
 
 from __future__ import annotations
