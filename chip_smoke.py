@@ -224,11 +224,39 @@ Phases, each of which exits nonzero on failure:
                       checks (a)-(d), (f)-(i) and (l), 24 / 48 / 106 of #10
                       / #7 / #6 an embed batch, serve_reference's launches
                       in the classify batch, and the kernels in situ
+ 19. run_all_fused    python -m mmd_tpu_torch.pipelines.run_all --fused in
+                      process with the README's flagship flags
+                      (--reference_encoders --synthetic 256 --epochs 2
+                      --train_batch 64 --steps_per_call 8 --chunk 256,
+                      256-px images): DeBERTa-v3-xsmall, Swinv2-base,
+                      CaptionerConfig(), MPNet, ResNet50, the default
+                      ModelConfig in bf16, seeded; seconds by stage, ingest
+                      rows/s, the banks' bytes, peak memory, ingest's
+                      host-to-device bytes; checks (a) every stage of the
+                      JAX _run_fused timed, (b) each bank's rows and
+                      skipped rows make the CSV's, its ids, tokens and
+                      labels the raw store's bit for bit, (c) the vis
+                      columns against the fp32 explicit encoder over the
+                      same images within 5e-2 relative L2, (d) a window of
+                      K bank steps against K plain steps on host-gathered
+                      batches bit for bit, (e) evaluate_from_bank over a
+                      raw-image bank equals evaluate_streaming, (f) the
+                      ingest hooks' captions equal dispatch_bank's and
+                      every banked row is enriched, (g) the hook's image
+                      corpus against build_image_corpus_from_bank within
+                      2e-2, ids the evidence paths, (h) finite metrics and
+                      a verdict, (i) the launches stage by stage (each
+                      stage's own thread) against the counts the banks,
+                      chunks and steps predict; every kernel in situ
+ 20. run_all_fused_default  the same with the default encoders (BERT-class
+                      text encoder, ViTConfig()) at --synthetic 64
+                      --epochs 1
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record, with each kernel's launches in the counted runs of
 the serve, serve_reference, serve_converted, train, train_bf16,
-finetune_reference, train_raw, retrieval, caption, train_captioner, run_all
-and run_all_reference phases.
+finetune_reference, train_raw, retrieval, caption, train_captioner,
+run_all, run_all_reference, run_all_fused and run_all_fused_default
+phases.
 """
 
 from __future__ import annotations
@@ -3526,24 +3554,27 @@ class _StageLaunches:
     Stages: Stages.stage is patched to read the counters around every
     logged stage (a stage's unlogged inner timers count in it)."""
 
-    def __init__(self):
+    def __init__(self, counts=None):
+        """counts() -> the counters to read (all launches by default; the
+        fused run reads the launches of the stage's own thread)."""
         self.by_stage: dict[str, dict] = {}
+        self._read = counts or _counts
 
     def __enter__(self):
         import contextlib
 
         from mmd_tpu_torch.core import profiling
         self._orig = orig = profiling.Stages.stage
-        by_stage = self.by_stage
+        by_stage, read = self.by_stage, self._read
 
         @contextlib.contextmanager
         def stage(stages, name, log=True):
-            before = _counts()
+            before = read()
             with orig(stages, name, log):
                 yield
             if log:
                 acc = by_stage.setdefault(name, {k: 0 for k in before})
-                for k, v in _counts().items():
+                for k, v in read().items():
                     acc[k] += v - before[k]
 
         profiling.Stages.stage = stage
@@ -3668,6 +3699,15 @@ def _geom_key(args, seeds) -> tuple:
     return tuple(out)
 
 
+def _owner_thread() -> int:
+    """The thread a launch is made for: autograd runs a backward on a
+    device thread of its own (not started by `threading`) for the thread
+    that called backward(), and only the main thread trains."""
+    if isinstance(threading.current_thread(), threading._DummyThread):
+        return threading.main_thread().ident
+    return threading.get_ident()
+
+
 class _InSitu:
     """The kernels of a counted run held at the geometries the run gives
     them: while active, each kernel's launching function records every
@@ -3680,6 +3720,17 @@ class _InSitu:
     def __init__(self):
         self.kernels = _in_situ_kernels()
         self.calls: dict[str, dict] = {k: {} for k in self.kernels}
+        # launches by thread and kernel; records and counts are updated
+        # under a lock (the fused run launches from two threads)
+        self.by_thread: dict[int, dict] = {}
+        self._lock = threading.Lock()
+
+    def thread_counts(self) -> dict:
+        """The calling thread's launches so far, every kernel of _kernels
+        (those not held in situ stay 0)."""
+        with self._lock:
+            mine = dict(self.by_thread.get(_owner_thread(), {}))
+        return {k: mine.get(k, 0) for k in _kernels()}
 
     def __enter__(self):
         self._orig = {}
@@ -3697,13 +3748,18 @@ class _InSitu:
 
         def launch(*args):
             key = _geom_key(args, seeds)
-            rec = calls.get(key)
-            if rec is None:
-                rec = calls[key] = {"n": 0, "args": [
-                    a.detach().clone() if isinstance(a, torch.Tensor) else
-                    (list(a) if isinstance(a, tuple) else a) for a in args]}
+            with self._lock:
+                rec = calls.get(key)
+                if rec is None:
+                    rec = calls[key] = {"n": 0, "args": [
+                        a.detach().clone() if isinstance(a, torch.Tensor)
+                        else (list(a) if isinstance(a, tuple) else a)
+                        for a in args]}
             out = orig(*args)
-            rec["n"] += 1
+            with self._lock:
+                rec["n"] += 1
+                mine = self.by_thread.setdefault(_owner_thread(), {})
+                mine[name] = mine.get(name, 0) + 1
             return out
         return launch
 
@@ -4245,6 +4301,336 @@ def phase_run_all(card: str, tmp: Path, phase: str) -> tuple[dict, dict]:
     return launches, times
 
 
+# run_all_fused / run_all_fused_default: python -m
+# mmd_tpu_torch.pipelines.run_all --fused in process at full width (seeded
+# weights), 256-px images: the README's flagship flags with DeBERTa-v3-xsmall
+# and Swinv2-base, then the default encoders (the BERT-class text encoder
+# and ViTConfig()); CaptionerConfig() in blocks of 64, MPNet, ResNet50, the
+# default ModelConfig in bf16. Depth cut to 256 / 64 synthetic train rows
+# (Factify-2: 35,000).
+RUN_ALL_FUSED_ARGS = ["--fused", "--image_size", "256", "--train_batch", "64",
+                      "--steps_per_call", "8", "--chunk", "256"]
+RUN_ALL_FUSED = {
+    "run_all_fused": ["--reference_encoders", "--synthetic", "256",
+                      "--epochs", "2"],
+    "run_all_fused_default": ["--synthetic", "64", "--epochs", "1"]}
+FUSED_STAGES = ("synthesize", "preprocess", "assets", "ingest",
+                "ingest_test_overlap", "caption", "retrieval_build", "train",
+                "caption_test", "retrieval_build_test", "eval", "demo_verify")
+# the launches of one image and one text forward of each family (False:
+# ViT / BERT-class, True: Swinv2 / DeBERTa): half a served batch's
+IMAGE_FORWARD = {False: {"flash_attn_fwd": PER_BATCH["vit"] // 2},
+                 True: {"swin_window_attn": sum(SWIN_GEOMS.values()) // 2,
+                        "layernorm": sum(LN_GEOMS.values()) // 2}}
+TEXT_FORWARD = {False: {"flash_attn_fwd": PER_BATCH["text"] // 2},
+                True: {"deberta_attn_fwd": DEBERTA["per_batch"] // 2}}
+# (g) the ingest hook's ResNet50 features against
+# build_image_corpus_from_bank's over the same images, the stored float16
+# rows, relative to the largest |feature| (the same bf16 network on the
+# same blocks of 64: a row out of place moves by ~1e-1)
+CORPUS_TOL = 2e-2
+
+
+def _scaled(d: dict, k: int) -> dict:
+    return {name: v * k for name, v in d.items()}
+
+
+def _ingest_want(reference: bool, n: int, chunk: int, sub: int,
+                 cap_b: int) -> dict:
+    """Launches of fused.ingest_split over n kept rows with embed_images
+    and the caption hook: every flushed chunk embeds its whole capacity in
+    blocks of `sub`, two images a row; the hook captions each chunk's rows
+    in blocks of cap_b, claim and evidence."""
+    flushes = -(-n // chunk)
+    gens = sum(2 * -(-min(chunk, n - f * chunk) // cap_b)
+               for f in range(flushes))
+    return _add(_scaled(IMAGE_FORWARD[reference],
+                        flushes * 2 * (chunk // sub)),
+                {"flash_attn_fwd": DEFAULT_CAPTION_PER_BATCH * gens})
+
+
+def _fused_want(reference: bool, out: dict, demo_image: bool) -> dict:
+    """The kernel launches each stage of run_all --fused must make, from the
+    run's banks, chunk, train steps and batch."""
+    chunk, cap_b = out["chunk"], out["cap_batch"]
+    sub = chunk
+    while sub > 64 and sub % 2 == 0:
+        sub //= 2
+    text2 = _scaled(TEXT_FORWARD[reference], 2)
+    n_test = out["test_bank"].n
+    eval_b = min(out["batch_size"], max(n_test, 1))
+    per_classify = (REFERENCE_PER_BATCH if reference
+                    else {"flash_attn_fwd": LAUNCHES_PER_BATCH})
+    return {
+        "ingest": _ingest_want(reference, out["train_bank"].n, chunk, sub,
+                               cap_b),
+        "ingest_test_overlap": _ingest_want(reference, n_test, chunk, sub,
+                                            cap_b),
+        "train": _scaled(_add(PER_STEP_BF16, text2), out["state"].step),
+        "eval": _scaled(_add(text2, {"flash_attn_fwd": FUSION_PER_BATCH}),
+                        -(-n_test // eval_b)),
+        "demo_verify": _add(per_classify, {
+            "flash_attn_fwd": DEFAULT_CAPTION_PER_BATCH * int(demo_image)})}
+
+
+def _bank_captions(csv: Path, ids) -> tuple[list, list]:
+    """The (claim, evidence) captions an enriched CSV holds for the bank's
+    rows, in bank order ("" for an empty caption)."""
+    import pandas as pd
+    df = pd.read_csv(csv).set_index("id").loc[list(map(int, ids))]
+    if df[["claim_enriched", "evidence_enriched"]].isna().any().any():
+        fail(f"(f) a banked row of {csv.name} is not enriched")
+    return tuple(df[c].fillna("").astype(str).tolist()
+                 for c in ("claim_image_caption", "evidence_image_caption"))
+
+
+def phase_run_all_fused(card: str, tmp: Path, phase: str
+                        ) -> tuple[dict, dict]:
+    """python -m mmd_tpu_torch.pipelines.run_all --fused in process, every
+    kernel held in situ at each geometry the run gave it, then checks
+    (a)-(i). Returns the kernel launches of the counted run and the in-situ
+    rows by kernel."""
+    import os
+
+    import pandas as pd
+
+    from mmd_tpu_torch.core.config import TrainConfig
+    from mmd_tpu_torch.data.store import ArrayStore
+    from mmd_tpu_torch.models.frozen import image_encode
+    from mmd_tpu_torch.ops.image_ops import (
+        TRAIN_TRANSFORM, normalize_on_device,
+    )
+    from mmd_tpu_torch.pipelines import fused as F
+    from mmd_tpu_torch.pipelines import run_all
+    from mmd_tpu_torch.pipelines.raw_store import build_raw_store
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    reference = phase == "run_all_fused"
+    root = tmp / phase
+    timings = root / "timings.json"
+    argv = [*RUN_ALL_FUSED[phase], *RUN_ALL_FUSED_ARGS, "--root", str(root),
+            "--timings_json", str(timings)]
+    print(f"{phase}: run_all.main({json.dumps(argv)})", flush=True)
+    old_root = os.environ.get("MMD_TPU_ROOT")
+    t_phase = time.perf_counter()
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        _reset_counts()                   # count the main path's run only
+        t0 = time.perf_counter()
+        with _InSitu() as in_situ, \
+                _StageLaunches(in_situ.thread_counts) as stage_launches:
+            out = run_all.main(argv)
+        torch.cuda.synchronize()
+        run_s = time.perf_counter() - t0
+        launches = _counts()
+        peak = torch.cuda.max_memory_allocated()
+        by_stage = stage_launches.by_stage
+        recorded = in_situ.launches()
+        if any(launches[k] != n for k, n in recorded.items()):
+            fail(f"{phase}: the in-situ record {recorded} misses launches "
+                 f"of {launches}")
+        times = in_situ.hold(phase, card)
+
+        # (a) every stage of the JAX package's _run_fused, timed
+        doc = json.loads(timings.read_text())
+        secs = doc["stages_sec"]
+        missing = [s for s in FUSED_STAGES if s not in secs]
+        if missing:
+            fail(f"{phase}: (a) no timing for stages {missing}")
+        pre = root / "data" / "preprocessed"
+        csvs = {s: pre / f"{s}.csv" for s in ("train", "test")}
+        banks = {"train": out["train_bank"], "test": out["test_bank"]}
+        rows = {s: b.n + b.skipped for s, b in banks.items()}
+        enc, model, bs = out["enc"], out["model"], out["batch_size"]
+        vc = enc.vit_cfg
+        emb_row = 2 * 2 * (banks["train"].data["claim_ids"].shape[1]
+                           * enc.text_cfg.hidden_size
+                           + vc.num_tokens * vc.hidden_size)
+        print(f"{phase}: {doc['text_encoder']} / {doc['image_encoder']}, "
+              f"rows {json.dumps(rows)}, banked {doc['n_train_rows']} / "
+              f"{doc['n_test_rows']}, chunk {out['chunk']}, train batch "
+              f"{bs}, {out['state'].step} steps; seconds by stage "
+              f"{json.dumps(secs)}; wall {run_s:.1f} s (without synthesize "
+              f"{doc['wall_sec_excl_synthesize']} s); ingest "
+              f"{rows['train'] / secs['ingest']:.1f} rows/s (train), "
+              f"{rows['test'] / secs['ingest_test_overlap']:.1f} (test, "
+              f"overlapped); banks {banks['train'].nbytes} / "
+              f"{banks['test'].nbytes} bytes; peak device memory "
+              f"{peak / 2 ** 30:.3f} GiB (torch.cuda.max_memory_allocated) "
+              f" [{card}]", flush=True)
+        print(f"{phase}: host-to-device bytes: ingest's staging copies "
+              f"{banks['train'].h2d_bytes} + {banks['test'].h2d_bytes} "
+              f"(counted); run_all's default, staged path at these rows "
+              f"uploads "
+              f"the train store's fp16 embeddings every epoch, "
+              f"{doc['args']['epochs']} x {banks['train'].n} x {emb_row} = "
+              f"{doc['args']['epochs'] * banks['train'].n * emb_row} bytes "
+              f"(arithmetic; its caption, embed and corpus uploads "
+              f"besides)", flush=True)
+
+        # (b) each bank against the raw store of the same CSV
+        stores = {}
+        for split, bank in banks.items():
+            store = stores[split] = build_raw_store(
+                str(csvs[split]), enc.tokenizer, image_size=256,
+                batch_size=64)
+            if bank.n + bank.skipped != len(pd.read_csv(csvs[split])) or \
+                    not np.array_equal(bank.ids, store.col("id")):
+                fail(f"{phase}: (b) {split} bank: {bank.n} rows + "
+                     f"{bank.skipped} skipped, store {len(store)}")
+            for col in ("claim_ids", "claim_mask", "doc_ids", "doc_mask",
+                        "labels"):
+                if not np.array_equal(bank.data[col][:bank.n].cpu().numpy(),
+                                      store.col(col)):
+                    fail(f"{phase}: (b) the {split} bank's {col} differs "
+                         f"from the raw store's")
+        print(f"{phase}: (b) both banks' ids, tokens and labels equal the "
+              f"raw store's bit for bit", flush=True)
+
+        # (c) the vis columns against the frozen encoder in fp32 through
+        # its explicit path, over the same images
+        vcfg32 = _fp32(vc, False)
+        errs = {}
+        _reset_counts()
+        with torch.no_grad():
+            for kind in ("claim", "doc"):
+                u8 = torch.from_numpy(np.array(
+                    stores["train"].col(f"{kind}_image")[:64])).cuda()
+                ref = image_encode(enc.vit_params, vcfg32,
+                                   normalize_on_device(u8, TRAIN_TRANSFORM,
+                                                       torch.float32))
+                got = banks["train"].data[f"{kind}_vis"][:len(u8)]
+                errs[kind] = _rel_l2(got.float().cpu().numpy(),
+                                     ref.cpu().numpy())
+        print(f"{phase}: (c) {len(u8)} rows' vis columns against the "
+              f"explicit fp32 encoder: relative L2 {json.dumps(errs)} (tol "
+              f"{REENCODE_REL_L2})", flush=True)
+        if any(_counts().values()) or max(errs.values()) > REENCODE_REL_L2:
+            fail(f"{phase}: (c) the vis columns disagree ({_counts()})")
+
+        # (d) one window of K bank steps against K plain raw steps on
+        # batches gathered on the host: bit for bit
+        bank = banks["train"]
+        b = min(bs, bank.n)
+        k = max(1, min(out["steps_per_call"], bank.n // b))
+        cfg = TrainConfig(model=model, batch_size=b, epochs=1, lr=1e-3,
+                          output_dir=str(root / "window"), save_every=0)
+        trainer = Trainer(cfg, device="cuda", encoders=enc)
+        idx = np.random.default_rng(1).permutation(bank.n)[:k * b].reshape(
+            k, b)
+        sw, aux = F.make_bank_window(cfg, enc, k)(
+            trainer.init(), bank.data, torch.from_numpy(idx).cuda())
+        host = {c: t.cpu() for c, t in bank.data.items()}
+        state = trainer.init()
+        for i in range(k):
+            state, a = trainer.train_step(state, {
+                c: v[torch.from_numpy(idx[i])].cuda()
+                for c, v in host.items()})
+            if not torch.equal(aux["loss"][i], a["loss"]):
+                fail(f"{phase}: (d) step {i}: window loss "
+                     f"{aux['loss'][i].item()} against {a['loss'].item()}")
+        same = all(torch.equal(p, q) for p, q in zip(
+            sw.params.parameters(), state.params.parameters()))
+        print(f"{phase}: (d) a window of {k} steps at batch {b} against "
+              f"{k} plain steps on host-gathered batches: losses "
+              f"{aux['loss'].tolist()} equal, params bit for bit: {same}",
+              flush=True)
+        if not same:
+            fail(f"{phase}: (d) the window's params differ")
+        del sw, state, trainer, host
+
+        # (e) eval over a raw-image test bank against the streaming eval,
+        # both at one batch size
+        raw_test = F.ingest_split(csvs["test"], enc, image_size=256,
+                                  chunk=out["chunk"], root=root,
+                                  device="cuda")
+        params = out["state"].params
+        eb = min(bs, raw_test.n)
+        m_bank = F.evaluate_from_bank(raw_test, enc, model, params,
+                                      batch_size=eb)
+        m_stream = F.evaluate_streaming(csvs["test"], enc, model, params,
+                                        batch_size=eb, image_size=256,
+                                        root=root, device="cuda")
+        print(f"{phase}: (e) evaluate_from_bank over a raw-image bank "
+              f"{json.dumps(m_bank)}; evaluate_streaming equal: "
+              f"{m_bank == m_stream}", flush=True)
+        if m_bank != m_stream:
+            fail(f"{phase}: (e) streaming eval {m_stream}")
+
+        # (f) the hook's captions against dispatch_bank's over raw-image
+        # banks; (g) the hook's corpus against build_image_corpus_from_bank
+        raw_train = F.ingest_split(csvs["train"], enc, image_size=256,
+                                   chunk=out["chunk"], root=root,
+                                   device="cuda")
+        n_caps = 0
+        for split, raw in (("train", raw_train), ("test", raw_test)):
+            capt = F.BankCaptioner(out["engine"], batch=out["cap_batch"],
+                                   bank_image_size=256)
+            capt.dispatch_bank(raw)
+            want = capt.collect(raw.n)
+            got = _bank_captions(pre / f"{split}_enriched.csv", raw.ids)
+            if got != tuple(want):
+                fail(f"{phase}: (f) the {split} hook's captions differ from "
+                     f"dispatch_bank's")
+            n_caps += 2 * raw.n
+        corpus_dir = root / "data" / "retrieval" / "image_corpus"
+        hook = ArrayStore(corpus_dir).col("features").astype(np.float32)
+        ids = json.loads((corpus_dir / "ids.json").read_text())
+        ref = F.build_image_corpus_from_bank(raw_train, root / "bank_corpus",
+                                             tiny=doc["args"]["tiny"],
+                                             batch=64)
+        want = ArrayStore(ref.dir).col("features").astype(np.float32)
+        gap = float(np.abs(hook - want).max() / np.abs(want).max())
+        print(f"{phase}: (f) {n_caps} captions of the ingest hooks equal "
+              f"dispatch_bank's, every banked row enriched; (g) the hook "
+              f"corpus ({hook.shape}) against build_image_corpus_from_bank: "
+              f"{gap:.3e} of the largest feature (tol {CORPUS_TOL}), ids the "
+              f"evidence paths", flush=True)
+        if gap > CORPUS_TOL or ids != [str(p) for p in bank.doc_paths] or \
+                not all(Path(p).is_file() for p in ids):
+            fail(f"{phase}: (g) the hook corpus disagrees")
+        del raw_train, raw_test, ref
+
+        # (h) finite metrics, a verdict
+        ev = pd.read_csv(root / "results" / "eval.csv")
+        vals = ev.drop(columns=["timestamp", "path"]).to_numpy(float)
+        result = out["result"]
+        if not np.isfinite(vals).all() or \
+                result.final_classification not in LABELS:
+            fail(f"{phase}: (h) eval.csv {ev.to_dict('list')}, verdict "
+                 f"{result.final_classification!r}")
+        print(f"{phase}: (h) eval {json.dumps(out['metrics'])}; verdict "
+              f"{result.final_classification} from {len(result.evidences)} "
+              f"evidences", flush=True)
+
+        # (i) the launches, stage by stage and thread by thread
+        img = pd.read_csv(csvs["test"])["claim_image"][0]
+        want = _fused_want(reference, out, isinstance(img, str))
+        bad = {}
+        for name in set(by_stage) | set(want):
+            w = {k_: want.get(name, {}).get(k_, 0) for k_ in launches}
+            got = by_stage.get(name, {k_: 0 for k_ in launches})
+            if got != w:
+                bad[name] = (got, w)
+        total = _add(*by_stage.values())
+        print(f"{phase}: (i) launches by stage "
+              f"{json.dumps({s: {k_: v for k_, v in c.items() if v} for s, c in by_stage.items()})}; "
+              f"total {json.dumps(launches)}  [{card}]", flush=True)
+        if bad or {k_: total.get(k_, 0) for k_ in launches} != launches:
+            fail(f"{phase}: (i) launches by stage (got, want): {bad}")
+    finally:
+        if old_root is None:
+            os.environ.pop("MMD_TPU_ROOT", None)
+        else:
+            os.environ["MMD_TPU_ROOT"] = old_root
+    del out
+    torch.cuda.empty_cache()
+    print(f"{phase}: phase wall {time.perf_counter() - t_phase:.1f} s  "
+          f"[{card}]", flush=True)
+    return launches, times
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -4293,6 +4679,11 @@ def main() -> None:
             recs[name].update(times)
         for phase in RUN_ALL:
             by_phase[phase], in_situ = phase_run_all(dev["card"], tmp, phase)
+            for name, rows in in_situ.items():
+                recs[name].update(rows)
+        for phase in RUN_ALL_FUSED:
+            by_phase[phase], in_situ = phase_run_all_fused(dev["card"], tmp,
+                                                           phase)
             for name, rows in in_situ.items():
                 recs[name].update(rows)
         phase_train_parity(dev["card"])

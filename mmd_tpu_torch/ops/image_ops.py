@@ -91,3 +91,49 @@ def normalize_on_device(images_uint8: torch.Tensor, t: ImageTransform,
     mean = torch.tensor(t.mean, dtype=torch.float32, device=x.device)
     std = torch.tensor(t.std, dtype=torch.float32, device=x.device)
     return ((x - mean) / std).to(dtype)
+
+
+def bilinear_weights(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) float32 weights of jax.image.resize's "bilinear" along
+    one axis (antialias on, its default): half-pixel centres, the triangle
+    kernel widened by 1 / scale when downsampling, each output's column of
+    weights renormalised to sum to 1, and zero for a sample whose centre
+    lies outside the input. Computed in float32 in JAX's order."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = ((np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale
+              - f32(0.0) - f32(0.5))
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) \
+        / kernel_scale
+    w = np.maximum(f32(0.0), f32(1.0) - x)
+    total = w.sum(axis=0, keepdims=True, dtype=f32)
+    w = np.where(np.abs(total) > f32(1000.0 * np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_bilinear(x: torch.Tensor, size: int) -> torch.Tensor:
+    """(N, H, W, C) -> (N, size, size, C) float32, the counterpart of
+    `jax.image.resize(x, (N, size, size, C), "bilinear")`: one product with
+    `bilinear_weights` along each spatial axis that changes size."""
+    x = x.float()
+    _, h, w, _ = x.shape
+    if h != size:
+        wh = torch.from_numpy(bilinear_weights(h, size)).to(x.device)
+        x = torch.einsum("nhwc,hH->nHwc", x, wh)
+    if w != size:
+        ww = torch.from_numpy(bilinear_weights(w, size)).to(x.device)
+        x = torch.einsum("nhwc,wW->nhWc", x, ww)
+    return x
+
+
+def resize_uint8(images_uint8: torch.Tensor, size: int) -> torch.Tensor:
+    """uint8 NHWC -> uint8 NHWC at `size`: `resize_bilinear`, rounded half
+    to even and clipped, as the JAX package resizes a bank image for the
+    captioner."""
+    if images_uint8.shape[1] == size and images_uint8.shape[2] == size:
+        return images_uint8
+    y = resize_bilinear(images_uint8, size)
+    return torch.clamp(torch.round(y), 0, 255).to(torch.uint8)

@@ -78,10 +78,11 @@ class CaptionEngine:
 
     @torch.no_grad()
     def generate_uint8(self, images_uint8) -> torch.Tensor:
-        """(B, S, S, 3) uint8 on the host -> (B, t_max) token ids on the
-        device."""
+        """(B, S, S, 3) uint8, a host array or a tensor (the fused
+        pipeline's banks hand over device tensors) -> (B, t_max) token ids
+        on the device."""
         x = normalize_on_device(
-            torch.from_numpy(images_uint8).to(self.device), self.transform,
+            torch.as_tensor(images_uint8).to(self.device), self.transform,
             L.dtype_of(self.cfg.vit.compute_dtype))
         return generate(self.params, self.cfg, x, bos_id=self.bos_id,
                         eos_id=self.tokenizer.sep_id,

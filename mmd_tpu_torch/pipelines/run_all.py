@@ -9,18 +9,22 @@ thing runs anywhere (no network). Every stage runs on `--device` (the card
 unless the caller asks for the CPU); on the card the fusion model's
 attention takes the kernels where the routing rules send it.
 
-The JAX package's `--fused` flow (pipelines/fused.py: images cross to the
-device once into resident banks) is not ported yet and raises.
+`--fused` runs the device-resident flow of pipelines/fused.py instead:
+each split is uploaded once into banks on the device, and captions, the
+image corpus, training and eval read from them (`_run_fused`).
 
 Usage:
   python -m mmd_tpu_torch.pipelines.run_all --synthetic 64 --tiny --epochs 2
       [--device cpu]
+  python -m mmd_tpu_torch.pipelines.run_all --synthetic 256 --image_size 256
+      --reference_encoders --fused --train_batch 64 --steps_per_call 8
   python -m mmd_tpu_torch.pipelines.run_all --epochs 5   # real data under ./data
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import tempfile
@@ -28,6 +32,7 @@ import time
 from pathlib import Path
 
 import pandas as pd
+import torch
 
 
 def parse_args(argv=None) -> argparse.Namespace:
@@ -55,14 +60,16 @@ def parse_args(argv=None) -> argparse.Namespace:
                    help="dump per-stage wall-clock timings (plus row "
                         "counts) as JSON")
     p.add_argument("--fused", action="store_true",
-                   help="the JAX package's device-centric fused flow "
-                        "(pipelines/fused.py); not ported yet")
+                   help="device-resident fused flow (pipelines/fused.py): "
+                        "images cross to the device once, into banks that "
+                        "captioning, the image corpus, training and eval "
+                        "read from")
     p.add_argument("--train_batch", type=int, default=64,
                    help="fused: train/eval batch")
     p.add_argument("--steps_per_call", type=int, default=8,
-                   help="fused: train steps per dispatch")
+                   help="fused: train steps per window of bank rows")
     p.add_argument("--chunk", type=int, default=256,
-                   help="fused: ingest chunk rows")
+                   help="fused: ingest chunk rows (the upload granularity)")
     p.add_argument("--device", type=str, default="cuda")
     return p.parse_args(argv)
 
@@ -70,16 +77,12 @@ def parse_args(argv=None) -> argparse.Namespace:
 def main(argv=None) -> dict:
     """Runs every stage; returns what a caller checks: the stage timer,
     the trained state, the eval metrics, the demo's verification result
-    and its pipeline, the two stores, the encoders, the fusion config and
-    the train batch."""
+    and its pipeline, the two stores (with --fused the two banks), the
+    encoders, the fusion config and the train batch."""
     from mmd_tpu_torch.core.profiling import Stages
     from mmd_tpu_torch.inference.predictor import resolve_device
 
     args = parse_args(argv)
-    if args.fused:
-        raise NotImplementedError(
-            "run_all --fused (the fused flow of pipelines/fused.py) is not "
-            "ported yet (ROADMAP A14, pipelines/fused.py)")
     device = resolve_device(args.device)
     stages = Stages()
 
@@ -121,6 +124,10 @@ def main(argv=None) -> dict:
                  + df["evidence"].fillna("").astype(str).tolist())
         enc = load_or_init_frozen(assets, vocab_texts=texts, tiny=args.tiny,
                                   reference_families=args.reference_encoders)
+
+    if args.fused:
+        return _run_fused(args, stages, root, train_csv, test_csv, enc,
+                          device)
 
     # 2. caption enrichment
     from mmd_tpu_torch.models.captioner import CAPTIONER_TEST
@@ -248,6 +255,142 @@ def _write_timings(args, stages, enc, n_train, n_test):
     }
     Path(args.timings_json).write_text(json.dumps(doc, indent=1))
     print(f"[run_all] timings -> {args.timings_json}")
+
+
+def _run_fused(args, stages, root, train_csv, test_csv, enc, device):
+    """The device-resident flow (pipelines/fused.py):
+
+      * ingest banks the frozen image encoder's output (the compute dtype,
+        smaller than the uint8 pixels) chunk by chunk; the raw chunk feeds
+        the caption generator and the ResNet retrieval features before it
+        is dropped, so every image crosses to the device once;
+      * the TEST split ingests on a thread, on a CUDA stream of its own,
+        while the train split's captions are collected and the train loop
+        runs; the thread is joined, its error re-raised and its stream
+        fenced before its bank and captions are read."""
+    import threading
+
+    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+    from mmd_tpu_torch.models.captioner import CAPTIONER_TEST
+    from mmd_tpu_torch.pipelines import fused as F
+    from mmd_tpu_torch.pipelines.build_retrieval import build_text_corpora
+    from mmd_tpu_torch.pipelines.caption import CaptionEngine
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    image_size = enc.vit_cfg.image_size
+    cap_batch = 8 if args.tiny else 64
+    chunk = max(args.chunk, cap_batch)
+    chunk -= chunk % cap_batch            # caption blocks must tile chunks
+    engine = CaptionEngine(enc.tokenizer,
+                           cfg=CAPTIONER_TEST if args.tiny else None,
+                           batch_size=cap_batch, device=device)
+    train_capt = F.BankCaptioner(engine, batch=cap_batch,
+                                 bank_image_size=image_size)
+    test_capt = F.BankCaptioner(engine, batch=cap_batch,
+                                bank_image_size=image_size)
+    resnet_feats = F.BankResNetFeatures(tiny=args.tiny)
+
+    model = ModelConfig(
+        text_input_dim=enc.text_cfg.hidden_size,
+        image_input_dim=enc.vit_cfg.hidden_size,
+        embed_dim=args.embed_dim if not args.tiny else 32,
+        num_heads=8 if not args.tiny else 4,
+        hidden_dim=64 if not args.tiny else 16,
+        fused_attn=device.type == "cuda")
+    n_train_csv = len(pd.read_csv(train_csv))
+    bs = min(args.train_batch, max(n_train_csv // 4, 1))
+    k = max(1, min(args.steps_per_call, n_train_csv // max(bs, 1)))
+    cfg = TrainConfig(model=model, batch_size=bs, epochs=args.epochs,
+                      lr=1e-3, output_dir=str(root / "results"),
+                      save_every=0, log_every=50)
+    trainer = Trainer(cfg, device=device, encoders=enc)
+
+    def train_hook(imgs, start, n):
+        train_capt.on_chunk(imgs, start, n)
+        resnet_feats.on_chunk(imgs, start, n)
+
+    ingest = dict(image_size=image_size, chunk=chunk, embed_images=True,
+                  vis_dtype=model.compute_dtype, root=root, device=device)
+    with stages.stage("ingest"):
+        bank = F.ingest_split(train_csv, enc, on_chunk=train_hook, **ingest)
+    print(f"[run_all] fused ingest: train {bank.n} rows "
+          f"({bank.skipped} skipped)")
+
+    # the test split ingests on a thread while captions collect and the
+    # train loop runs
+    test_box: dict = {}
+    test_stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                   else None)
+
+    def _ingest_test():
+        try:
+            with contextlib.ExitStack() as ctx:
+                if test_stream is not None:
+                    ctx.enter_context(torch.cuda.stream(test_stream))
+                with stages.stage("ingest_test_overlap"):
+                    test_box["bank"] = F.ingest_split(
+                        test_csv, enc, on_chunk=test_capt.on_chunk, **ingest)
+        except BaseException as e:               # re-raised on join
+            test_box["error"] = e
+
+    test_thread = threading.Thread(target=_ingest_test, daemon=True,
+                                   name="mmd-ingest-test")
+    test_thread.start()
+    try:
+        pre = root / "data" / "preprocessed"
+        with stages.stage("caption"):
+            cc, dc = train_capt.collect(bank.n)
+            F.write_enriched_csv(pd.read_csv(train_csv), bank.ids, cc, dc,
+                                 pre / "train_enriched.csv")
+
+        with stages.stage("retrieval_build"):
+            text_corpora = build_text_corpora(
+                ["train"], enc.tokenizer, root, tiny=args.tiny,
+                batch_size=max(args.batch_size, 64), device=device)
+            image_corpus = resnet_feats.write(bank, root)
+
+        with stages.stage("train"):
+            state = F.train_from_bank(trainer, bank, steps_per_call=k,
+                                      log_every=cfg.log_every)
+    finally:
+        test_thread.join()
+    if "error" in test_box:
+        raise test_box["error"]
+    test_bank = test_box["bank"]
+    if test_stream is not None:
+        # the main stream waits for the thread's work, and the allocator
+        # learns that the main stream uses the thread's tensors
+        torch.cuda.current_stream(device).wait_stream(test_stream)
+        for t in [*test_bank.data.values(), *test_capt.pending_tensors()]:
+            t.record_stream(torch.cuda.current_stream(device))
+    print(f"[run_all] fused ingest: test {test_bank.n} rows "
+          f"({test_bank.skipped} skipped)")
+
+    with stages.stage("caption_test"):
+        tcc, tdc = test_capt.collect(test_bank.n)
+        F.write_enriched_csv(pd.read_csv(test_csv), test_bank.ids, tcc, tdc,
+                             pre / "test_enriched.csv")
+    with stages.stage("retrieval_build_test"):
+        text_corpora += build_text_corpora(
+            ["test"], enc.tokenizer, root, tiny=args.tiny,
+            batch_size=max(args.batch_size, 64), device=device)
+
+    with stages.stage("eval"):
+        metrics = F.evaluate_from_bank(
+            test_bank, enc, model, state.params, batch_size=bs,
+            results_csv=str(root / "results" / "eval.csv"))
+    print("[run_all] eval:", {k_: round(v, 3) for k_, v in metrics.items()
+                              if "unified" in k_})
+
+    result, pipe = _demo_verify(args, stages, root, enc, engine, model,
+                                state.params, text_corpora, image_corpus,
+                                test_csv, bs, device)
+    _write_timings(args, stages, enc, bank.n, test_bank.n)
+    return {"stages": stages, "state": state, "metrics": metrics,
+            "result": result, "pipeline": pipe, "train_bank": bank,
+            "test_bank": test_bank, "enc": enc, "model": model,
+            "batch_size": bs, "steps_per_call": k, "chunk": chunk,
+            "cap_batch": cap_batch, "engine": engine}
 
 
 if __name__ == "__main__":

@@ -229,20 +229,27 @@ def _embed_raw(text_params, text_cfg, vit_params, vit_cfg, batch: dict,
                dtype: torch.dtype) -> dict:
     """A raw batch -> the fusion model's inputs: both texts through the text
     encoder, both images (uint8, normalized on the device with the training
-    transform) through the image encoder."""
+    transform) through the image encoder. A batch of an embed bank
+    (pipelines/fused.py) carries the frozen image encoder's output as
+    `claim_vis` / `doc_vis` instead of images: it is used as it is (the
+    fusion model casts its inputs to the compute dtype at entry)."""
     def image(u8):
         return image_encode(vit_params, vit_cfg,
                             normalize_on_device(u8, TRAIN_TRANSFORM, dtype))
 
+    if "claim_vis" in batch:
+        vis_c, vis_d = batch["claim_vis"], batch["doc_vis"]
+    else:
+        vis_c, vis_d = image(batch["claim_image"]), image(batch["doc_image"])
     return {
         "claim_text_embeds": text_encode(text_params, text_cfg,
                                          batch["claim_ids"],
                                          batch["claim_mask"]),
         "doc_text_embeds": text_encode(text_params, text_cfg,
                                        batch["doc_ids"], batch["doc_mask"]),
-        "claim_image_embeds": image(batch["claim_image"]),
-        "doc_image_embeds": image(batch["doc_image"]),
-        "labels": batch["labels"],
+        "claim_image_embeds": vis_c,
+        "doc_image_embeds": vis_d,
+        "labels": batch.get("labels"),       # none in a batch to predict
     }
 
 

@@ -28,7 +28,8 @@ its forward twice bit for bit at a partial row tile and at the text call's
 row count; and
 attention geometries the kernels do not take (flash dh 128, Swin windows
 of 16, DeBERTa dh 128) routed to the explicit path, whose results they
-give.
+give; and the fused pipeline's bank resize against the CPU and its
+ingest (pinned, double-buffered staging) against the raw store.
 Tolerances: fp32 within 1e-4 (summation order, exp2f); bf16 within one
 bf16 step at the largest |output| (the output is rounded to bf16 once);
 gradients relative to their largest |value| (1e-4 in fp32); the fused MLP
@@ -1342,3 +1343,59 @@ def test_resnet50_on_the_card_matches_the_cpu(cuda_device):
                                 cfg).cpu()
     assert got.shape == (2, 2048)
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("size_in,size_out", [(256, 224), (32, 24), (32, 48)])
+def test_resize_bilinear_on_the_card_matches_the_cpu(cuda_device, size_in,
+                                                     size_out):
+    """The fused pipeline's bank resize (pipelines/fused.py): floats within
+    1e-5 of the 255 range, uint8 within one level."""
+    from mmd_tpu_torch.ops.image_ops import resize_bilinear, resize_uint8
+    x = torch.from_numpy(np.random.default_rng(size_out).integers(
+        0, 256, (4, size_in, size_in, 3)).astype(np.uint8))
+    want = resize_bilinear(x, size_out)
+    got = resize_bilinear(x.to(cuda_device), size_out).cpu()
+    assert (got - want).abs().max().item() <= 1e-5 * 255
+    d8 = (resize_uint8(x.to(cuda_device), size_out).cpu().int()
+          - resize_uint8(x, size_out).int())
+    assert d8.abs().max().item() <= 1
+
+
+def test_ingest_on_the_card_equals_the_raw_store(cuda_device, tmp_path,
+                                                 monkeypatch):
+    """pipelines/fused.ingest_split on the card with chunks of 8 (fewer
+    than the split's rows: the pinned staging buffers are refilled behind
+    their events while non-blocking copies fly): every bank column equals
+    the raw store of the same CSV, and the chunks handed to a hook that
+    keeps them still hold their rows afterwards."""
+    import pandas as pd
+
+    from mmd_tpu_torch.data.synthetic import synthetic_factify_tree
+    from mmd_tpu_torch.data.tokenizer import WordPieceTokenizer
+    from mmd_tpu_torch.models.frozen import FrozenEncoders
+    from mmd_tpu_torch.pipelines import fused as FU
+    from mmd_tpu_torch.pipelines import raw_store as RS
+    from mmd_tpu_torch.pipelines.preprocess import preprocess_csv
+    synthetic_factify_tree(tmp_path, n_train=40, n_test=4, seed=3)
+    monkeypatch.setenv("MMD_TPU_ROOT", str(tmp_path))
+    csv = preprocess_csv("train", tmp_path)
+    df = pd.read_csv(csv)
+    tok = WordPieceTokenizer.train(
+        df[["claim", "evidence"]].stack().astype(str).tolist(), 200)
+    enc = FrozenEncoders(tok, None, None, None, None)
+    kept = []
+    bank = FU.ingest_split(csv, enc, max_length=32, image_size=64, chunk=8,
+                           keep_images=False, io_workers=2, sync_every=100,
+                           device=cuda_device,
+                           on_chunk=lambda imgs, s, n: kept.append(imgs))
+    store = RS.build_raw_store(str(csv), tok, max_length=32, image_size=64,
+                               batch_size=5, io_workers=2)
+    assert 8 < bank.n == len(store) and bank.n + bank.skipped == 40
+    torch.cuda.synchronize()
+    for col in ("claim_ids", "claim_mask", "doc_ids", "doc_mask", "labels"):
+        assert bank.data[col].device.type == "cuda"
+        np.testing.assert_array_equal(bank.data[col][:bank.n].cpu().numpy(),
+                                      store.col(col), err_msg=col)
+    for kind in ("claim", "doc"):
+        got = torch.cat([c[kind] for c in kept])[:bank.n].cpu().numpy()
+        np.testing.assert_array_equal(got, store.col(f"{kind}_image"))

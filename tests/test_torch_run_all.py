@@ -1,11 +1,13 @@
 """python -m mmd_tpu_torch.pipelines.run_all on the CPU at tiny widths: every
 stage of the JAX package's run_all runs and writes its files, the stores
 hold exactly the rows with both images and their cursor is the CSV's
-length, the timings JSON has the JAX run_all's keys and stages, `--fused`
-raises naming its slice, and without `--device cpu` run_all refuses a
-missing card before it writes anything. The stages themselves are held
-against the JAX package in tests/test_torch_{embed,eval_pipelines,demo}.py
-and the earlier slices' files."""
+length, the timings JSON has the JAX run_all's keys and stages; `--fused`
+runs every stage of the JAX package's fused flow and writes eval.csv, both
+enriched CSVs, the image corpus and final_model.pt; and without `--device
+cpu` run_all, fused or not, refuses a missing card before it writes
+anything. The stages themselves are held against the JAX package in
+tests/test_torch_{embed,eval_pipelines,demo,fused}.py and the earlier
+slices' files."""
 
 import json
 import os
@@ -23,6 +25,9 @@ torch.set_num_threads(2)
 
 STAGES = {"synthesize", "preprocess", "assets", "caption", "embed",
           "retrieval_build", "train", "eval", "demo_verify"}
+FUSED_STAGES = {"synthesize", "preprocess", "assets", "ingest",
+                "ingest_test_overlap", "caption", "retrieval_build", "train",
+                "caption_test", "retrieval_build_test", "eval", "demo_verify"}
 TIMING_KEYS = {"date", "args", "n_train_rows", "n_test_rows", "text_encoder",
                "image_encoder", "stages_sec", "wall_sec_excl_synthesize"}
 
@@ -96,11 +101,56 @@ def test_eval_csv_and_the_demo_verdict(run):
     assert out["model"].fused_attn is False      # the CPU: explicit path
 
 
-def test_fused_raises_naming_its_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="A14.*fused.py"):
-        RA.main(["--fused", "--synthetic", "8", "--tiny", "--device", "cpu",
-                 "--root", str(tmp_path)])
-    assert not any(tmp_path.iterdir())
+def test_fused_runs_every_stage_and_writes_its_files(tmp_path):
+    """--fused on the CPU: the JAX package's _run_fused stages, timed; the
+    banks hold the rows with both images; the enriched CSVs caption every
+    banked row; eval.csv, the image corpus over the train bank's evidence
+    paths, the two text corpora and final_model.pt."""
+    old = os.environ.get("MMD_TPU_ROOT")
+    try:
+        out = RA.main(["--fused", "--synthetic", "16", "--tiny", "--epochs",
+                       "2", "--device", "cpu", "--root", str(tmp_path),
+                       "--timings_json", str(tmp_path / "timings.json")])
+    finally:
+        if old is None:
+            os.environ.pop("MMD_TPU_ROOT", None)
+        else:
+            os.environ["MMD_TPU_ROOT"] = old
+    doc = json.loads((tmp_path / "timings.json").read_text())
+    assert set(doc) == TIMING_KEYS
+    assert set(doc["stages_sec"]) == FUSED_STAGES
+    pre = tmp_path / "data" / "preprocessed"
+    for split in ("train", "test"):
+        df = pd.read_csv(pre / f"{split}.csv")
+        bank = out[f"{split}_bank"]
+        both = (df["claim_image"].notna() & df["evidence_image"].notna()
+                ).to_numpy()
+        assert 0 < bank.n == both.sum() == doc[f"n_{split}_rows"]
+        assert bank.n + bank.skipped == len(df)
+        np.testing.assert_array_equal(bank.ids, df["id"].to_numpy()[both])
+        assert set(bank.data) >= {"claim_vis", "doc_vis"}
+        assert "claim_image" not in bank.data
+        enriched = pd.read_csv(pre / f"{split}_enriched.csv")
+        banked = enriched["id"].isin(set(map(int, bank.ids)))
+        assert enriched.loc[banked, ["claim_enriched", "evidence_enriched"]
+                            ].notna().all().all()
+    ev = pd.read_csv(tmp_path / "results" / "eval.csv")
+    assert list(ev["path"]) == ["text_text", "text_image", "image_text",
+                                "image_image", "unified"]
+    assert np.isfinite(ev.drop(columns=["timestamp", "path"]).to_numpy(
+        float)).all()
+    corpus = tmp_path / "data" / "retrieval" / "image_corpus"
+    ids = json.loads((corpus / "ids.json").read_text())
+    assert ids == [str(p) for p in out["train_bank"].doc_paths]
+    for d in ("text_train", "text_test"):
+        assert (tmp_path / "data" / "retrieval" / d / "meta.json").exists()
+    final = torch.load(tmp_path / "results" / "final_model.pt",
+                       weights_only=True)
+    for name, p in out["state"].params.state_dict().items():
+        assert torch.equal(final[name], p), name
+    assert out["result"].final_classification in (
+        "support", "not_enough_information", "refute")
+    assert out["model"].fused_attn is False
 
 
 def test_refuses_a_missing_card(tmp_path):
@@ -108,6 +158,15 @@ def test_refuses_a_missing_card(tmp_path):
         pytest.skip("a card is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         RA.main(["--synthetic", "8", "--tiny", "--root", str(tmp_path)])
+    assert not any(tmp_path.iterdir())
+
+
+def test_fused_refuses_a_missing_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        RA.main(["--fused", "--synthetic", "8", "--tiny", "--root",
+                 str(tmp_path)])
     assert not any(tmp_path.iterdir())
 
 
