@@ -5,8 +5,9 @@ on one NVIDIA GPU.
 
 Phases, each of which exits nonzero on failure:
   1. device   a CUDA device, its name and power limit (nvidia-smi), TF32 off
-  2. build    nvcc builds the eleven kernel libraries from ops/csrc/, all at
-              once
+  2. build    nvcc builds the eleven kernel libraries from ops/csrc/ and
+              the host's C++ compiler the three native libraries from
+              native/ (WordPiece, unigram, row gather), all at once
   3. kernels  each kernel against its plain PyTorch version on the card, at
               every geometry of the paths that run it, bf16 and fp32: max-abs
               error against its tolerance; kernel, plain and library times
@@ -38,8 +39,12 @@ Phases, each of which exits nonzero on failure:
                              with a row with no valid key, and two ragged
                              geometries (T 100, S 130, masked, dh 64; T 77,
                              S 50, dh 32) at both rates with the forward;
-                             every backward twice, bit-identical; timed in
-                             fp32 and bf16 at rates 0.1 and 0 beside SDPA's
+                             the head-dim-128 instantiations at FakeNet's
+                             four geometries (B 24) and two padded ones
+                             with a row with no valid key, both rates, the
+                             bf16 backward against the bf16 mirror; every
+                             backward twice, bit-identical; timed in fp32
+                             and bf16 at rates 0.1 and 0 beside SDPA's
                              backward
      * mlp_masks, mlp_fwd,   the fused MLP at the bf16 train step's two MLP
        mlp_bwd               geometries, rate 0.1 and 0: the dumped masks
@@ -251,12 +256,32 @@ Phases, each of which exits nonzero on failure:
  20. run_all_fused_default  the same with the default encoders (BERT-class
                       text encoder, ViTConfig()) at --synthetic 64
                       --epochs 1
+ 21. fakenet          python -m mmd_tpu_torch.baselines.fakenet_train in
+                      process at its CLI's full width (text 384, image
+                      1024, hidden 256 over 2 heads: head dim 128; bf16,
+                      batch 24, dropout 0.1) over a synthetic store of
+                      240 rows (text 512 x 384, image 64 x 1024 a side,
+                      five categories), 2 epochs; checks (a) exactly 12 #1,
+                      12 #2 and 48 #5 launches a step and 12 #1 a
+                      prediction batch, all at dh 128, (b) every launch's
+                      geometry held in situ, (c) one fp32 step through
+                      the kernels within 1e-4 of the explicit path in loss
+                      and logits, (d) two predictions bit for bit, (e) the
+                      answer CSV in the JAX CLI's columns; the median step
+                      time, peak memory, a step's idle share
+                      (torch.profiler), the fp32 #2 beside SDPA's backward
+The serve_converted, retrieval and run_all phases also hold the native
+libraries: each ran in the phase's counted run (unigram, WordPiece, row
+gather) and gives the Python path's output bit for bit on the phase's own
+inputs (retrieval: its shortest and longest build batch; run_all: a train
+batch's columns of at least NATIVE_GATHER_MIN_BYTES, against the store's
+numpy path), timed beside it in turns.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record, with each kernel's launches in the counted runs of
 the serve, serve_reference, serve_converted, train, train_bf16,
 finetune_reference, train_raw, retrieval, caption, train_captioner,
-run_all, run_all_reference, run_all_fused and run_all_fused_default
-phases.
+run_all, run_all_reference, run_all_fused, run_all_fused_default and
+fakenet phases.
 """
 
 from __future__ import annotations
@@ -563,18 +588,70 @@ def _counts() -> dict:
 
 
 def phase_build() -> None:
+    """nvcc builds each kernel library and the host's C++ compiler each
+    native library (mmd_tpu_torch/native/), all at once."""
+    from mmd_tpu_torch.native import bindings as NB
     from mmd_tpu_torch.ops import cuda_build
     kernels = _kernels()
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(len(kernels)) as ex:     # one nvcc per source
+    native_s = {}
+
+    def build_native(name):
+        t = time.perf_counter()
+        lib = NB.load(name)
+        native_s[name] = time.perf_counter() - t
+        return lib
+
+    with ThreadPoolExecutor(len(kernels) + len(NB.SOURCES)) as ex:
+        native = ex.map(build_native, NB.SOURCES)     # one compiler a source
         list(ex.map(lambda k: getattr(k[0], k[1])(), kernels.values()))
+        native = dict(zip(NB.SOURCES, native))
     for name in kernels:
         secs = cuda_build.build_seconds.get(name)
         print(f"build: {name} nvcc "
               f"{'%.3f s' % secs if secs is not None else 'skipped: built'}",
               flush=True)
-    print(f"build: all {len(kernels)} loaded in "
-          f"{time.perf_counter() - t0:.3f} s", flush=True)
+    for name, lib in native.items():
+        print(f"build: native {NB.SOURCES[name]} {NB.find_cxx()} "
+              f"{native_s[name]:.3f} s -> "
+              f"{'loaded' if lib is not None else 'FAILED'}", flush=True)
+        if lib is None:
+            fail(f"the native library {NB.SOURCES[name]} did not build: "
+                 f"{NB.build_errors.get(name)}")
+    print(f"build: all {len(kernels)} kernel and {len(native)} native "
+          f"libraries loaded in {time.perf_counter() - t0:.3f} s",
+          flush=True)
+
+
+def _reset_native() -> None:
+    from mmd_tpu_torch.native import bindings as NB
+    for key in NB.calls:
+        NB.calls[key] = 0
+
+
+def _check_native(phase: str, card: str, key: str, what: str, native,
+                  python) -> None:
+    """The native binding `key` ran in the phase's counted run, and on the
+    phase's own inputs `native()` gives `python()`'s arrays bit for bit;
+    both timed on the host clock, in turns (native/measure.py)."""
+    from mmd_tpu_torch.native import bindings as NB
+    from mmd_tpu_torch.native.measure import interleaved
+    calls = NB.calls[key]
+    got, want = native(), python()
+    same = len(got) == len(want) and all(
+        np.array_equal(a, b) for a, b in zip(got, want))
+    ms = interleaved({"native": native, "python": python}, 5, warmup=1)
+    native_ms, python_ms = (ms[k]["median_ms"] for k in ("native", "python"))
+    print(f"{phase}: native {key} ran {calls} times in the counted run; on "
+          f"{what}: native {native_ms:.3f} ms against the Python path "
+          f"{python_ms:.3f} ms (host clock, median), output "
+          f"{'bit-identical' if same else 'DIFFERS'} -> "
+          f"{'ok' if calls > 0 and same else 'FAIL'}  [{card}]", flush=True)
+    if calls <= 0:
+        fail(f"{phase}: the native {key} binding never ran")
+    if not same:
+        fail(f"{phase}: the native {key} output differs from the Python "
+             f"path's")
 
 
 def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -1146,9 +1223,12 @@ def _masked_lengths(b: int, s: int, dev) -> torch.Tensor:
                       torch.zeros(1, s, dtype=torch.bool, device=dev)]).int()
 
 
-def _check_flash(A, g, q32, k32, v32, do32, mask, rates, errs) -> None:
+def _check_flash(A, g, q32, k32, v32, do32, mask, rates, errs,
+                 mirror: bool = False) -> None:
     """Forward and backward against their plain versions in bf16 and fp32
-    at each rate; the backward twice, bit for bit the same."""
+    at each rate; the backward twice, bit for bit the same. With `mirror`
+    the bf16 backward is held against _flash_bwd_bf16_mirror (the plain
+    version with the kernel's two bf16 roundings) instead."""
     b, h = q32.shape[0], g["h"]
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
@@ -1164,6 +1244,9 @@ def _check_flash(A, g, q32, k32, v32, do32, mask, rates, errs) -> None:
             want = A.flash_attention_bwd_plain(
                 q.float(), k.float(), v.float(), o.float(), lse,
                 do.float(), h, mask, rate, 88)
+            if mirror and dtype == torch.bfloat16:
+                want = _flash_bwd_bf16_mirror(q, k, v, o, lse, do, h, mask,
+                                              rate, 88)
             o_err = (o.float() - o_ref).abs().max().item()
             fin = torch.isfinite(lse_ref)
             lse_err = (lse[fin] - lse_ref[fin]).abs().max().item()
@@ -1180,7 +1263,9 @@ def _check_flash(A, g, q32, k32, v32, do32, mask, rates, errs) -> None:
                 ok = ok and bool((o[-1] == 0).all()) and bool(
                     (got[0][-1] == 0).all())
             print(f"kernel flash_attn_bwd {g['name']:>14} B={b} "
-                  f"{str(dtype):>14} rate {rate}: o err {o_err:.3e}, lse "
+                  f"dh {q.shape[2] // h} {str(dtype):>14} rate {rate}"
+                  f"{' (bf16 mirror)' if mirror and dtype == torch.bfloat16 else ''}"
+                  f": o err {o_err:.3e}, lse "
                   f"err {lse_err:.3e}, max_abs_err dq/dk/dv "
                   f"{abs_errs[0]:.3e}/{abs_errs[1]:.3e}/{abs_errs[2]:.3e}, "
                   f"relative {max(rel):.3e} (tol {tol:.1e}), repeat "
@@ -1203,12 +1288,26 @@ RAGGED = [dict(name="ragged_100x130", b=BATCH, t=100, s=130, d=128, h=2,
                masked=False)]
 
 
+# head dim 128 (FakeNet: D 256 over 2 heads): its four geometries at its
+# batch of 24, then ragged, padded ones with a row with no valid key, at 2
+# and 4 heads; the bf16 backward held against the bf16 mirror
+DH128 = [*(dict(name=f"dh128_{t}x{s}", b=24, t=t, s=s, d=256, h=2,
+                masked=False) for t, s in ((512, 512), (64, 64), (512, 64),
+                                           (64, 512))),
+         dict(name="dh128_ragged_100x130", b=BATCH, t=100, s=130, d=256, h=2,
+              masked=True),
+         dict(name="dh128_masked_512x77", b=BATCH, t=512, s=77, d=512, h=4,
+              masked=True)]
+
+
 def phase_flash_bwd(card: str) -> dict:
     """dq, dk, dv against flash_attention_bwd_plain: the train step's
     geometries at batch 256 with and without dropout, the masked text
     geometry (batch 16, a row with no valid key) at rate 0, and the two
     ragged geometries at both rates (forward checked too); every backward
-    twice, bit-identical. Timed in fp32 and bf16 at rates 0.1 and 0."""
+    twice, bit-identical. Timed in fp32 and bf16 at rates 0.1 and 0. Then
+    the head-dim-128 instantiations at DH128's geometries, both rates, the
+    bf16 backward against the bf16 mirror."""
     from mmd_tpu_torch.ops import attention as A
     sdpa = torch.nn.functional.scaled_dot_product_attention
     dev = torch.device("cuda")
@@ -1216,14 +1315,15 @@ def phase_flash_bwd(card: str) -> dict:
     errs = []
     rows = {key: [] for key in TRAIN_TIMINGS.values()}
     text = dict(TEXT, b=BATCH, per_step=0)
-    for g in [*_train_geoms(), text, *RAGGED]:
+    for g in [*_train_geoms(), text, *RAGGED, *DH128]:
         b, t, s, d, h = g["b"], g["t"], g["s"], g["d"], g["h"]
         q32, k32, v32, do32 = (torch.randn(b, n, d, device=dev,
                                            generator=gen)
                                for n in (t, s, s, t))
         mask = _masked_lengths(b, s, dev) if g["masked"] else None
         rates = (0.0,) if g is text else (DROPOUT_RATE, 0.0)
-        _check_flash(A, g, q32, k32, v32, do32, mask, rates, errs)
+        _check_flash(A, g, q32, k32, v32, do32, mask, rates, errs,
+                     mirror=g in DH128)
         if not g.get("per_step"):
             continue
         for dtype in (torch.bfloat16, torch.float32):
@@ -1898,12 +1998,19 @@ def phase_serve_converted(card: str, tmp: Path, texts: list[str],
              f"{pred.enc.vit_cfg}, {type(pred.enc.tokenizer).__name__}")
     _describe(phase, pred, f"{t2 - t0:.3f} s (write {t1 - t0:.3f} s, load "
                            f"{t2 - t1:.3f} s)  [{card}]")
+    _reset_native()
     launches, reqs, tokenize_s = _drive(phase, card, pred, texts, images,
                                         REFERENCE_PER_BATCH,
                                         CONVERTED_REQUESTS)
     print(f"{phase}: tokenize {tokenize_s:.4f} s a batch (UnigramTokenizer, "
-          f"pure Python) against {wordpiece_s:.4f} s (WordPieceTokenizer, "
+          f"native Viterbi) against {wordpiece_s:.4f} s (WordPieceTokenizer, "
           f"serve_reference)  [{card}]", flush=True)
+    python_spm = UnigramTokenizer(_spm_pieces(texts))
+    python_spm._native = None                 # the Python Viterbi
+    _check_native(phase, card, "spm", f"the phase's {len(texts)} texts at "
+                  f"512 tokens", lambda: pred.enc.tokenizer.encode_batch(
+                      texts, max_length=512),
+                  lambda: python_spm.encode_batch(texts, max_length=512))
 
     # the same batch through a predictor built in memory from the same
     # modules, tokenizer and fusion params: bit-identical probabilities;
@@ -2435,6 +2542,7 @@ def phase_retrieval(card: str, tmp: Path) -> dict:
 
     torch.cuda.synchronize()
     _reset_counts()                       # count the main path's run only
+    _reset_native()
     # -- build ---------------------------------------------------------------
     enc = TextCorpus(root / "encoded", tok, cfg=bi_cfg, params=bi,
                      device="cuda")
@@ -2750,6 +2858,16 @@ def phase_retrieval(card: str, tmp: Path) -> dict:
           f"[{card}]", flush=True)
     if not f_err <= f_tol:
         fail(f"{phase}: (f) MPNet on the card disagrees with the CPU")
+    from mmd_tpu_torch.data.tokenizer import WordPieceTokenizer
+    python_tok = WordPieceTokenizer(tok.vocab)
+    python_tok._native = False                # the Python encoder
+    for part, words in ((slice(0, 64), "2-4"), (slice(-64, None),
+                                                "~600")):
+        _check_native(phase, card, "tokenizer", f"the build's batch of 64 "
+                      f"texts of {words} words at 512 tokens",
+                      lambda: tok.encode_batch(texts[part], max_length=512),
+                      lambda: python_tok.encode_batch(texts[part],
+                                                      max_length=512))
     print(f"{phase}: phase wall {time.perf_counter() - t_phase:.1f} s  "
           f"[{card}]", flush=True)
     return launches
@@ -4054,12 +4172,33 @@ def phase_run_all(card: str, tmp: Path, phase: str) -> tuple[dict, dict]:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         _reset_counts()                   # count the main path's run only
+        _reset_native()
         t0 = time.perf_counter()
         with _StageLaunches() as stage_launches, _InSitu() as in_situ:
             out = run_all.main(argv)
         torch.cuda.synchronize()
         run_s = time.perf_counter() - t0
         launches = _counts()
+        # the train stage's batches: the columns of at least
+        # NATIVE_GATHER_MIN_BYTES a batch gathered by the native row gather,
+        # held against the store's numpy path on one shuffled batch
+        from mmd_tpu_torch.data.store import NATIVE_GATHER_MIN_BYTES
+        from mmd_tpu_torch.native import bindings as NB
+        train_store = out["train_store"]
+        idx = np.random.default_rng(0).permutation(
+            len(train_store))[:out["batch_size"]]
+        pos = np.argsort(idx, kind="stable")
+        sidx, inv = idx[pos], np.argsort(pos)
+        wide = [train_store.col(c) for c in train_store.columns
+                if len(idx) * NB.row_bytes(train_store.col(c))
+                >= NATIVE_GATHER_MIN_BYTES]
+        _check_native(phase, card, "gather", f"one train batch of "
+                      f"{len(idx)} rows, its {len(wide)} of "
+                      f"{len(train_store.columns)} columns of "
+                      f"{sum(len(idx) * NB.row_bytes(c) for c in wide)} B",
+                      lambda: [NB.gather_rows(c, sidx, pos) for c in wide],
+                      lambda: [np.ascontiguousarray(c[sidx][inv])
+                               for c in wide])
         peak = torch.cuda.max_memory_allocated()
         by_stage = stage_launches.by_stage
         # every kernel of the run at each geometry it was given, against
@@ -4631,6 +4770,300 @@ def phase_run_all_fused(card: str, tmp: Path, phase: str
     return launches, times
 
 
+# fakenet: python -m mmd_tpu_torch.baselines.fakenet_train at its CLI's
+# full width (text_dim 384, image_dim 1024, hidden 256 over 2 heads: head
+# dim 128; bf16, batch 24, dropout 0.1) over a synthetic pre-embedded store
+# of 240 rows, five categories, text (512, 384) and image (64, 1024) per
+# side; depth cut to 2 epochs (the CLI's default is 15). A training step
+# runs #1 with dropout 12 times at (T, S) = FAKENET_GEOMS, #2 12 times, and
+# #5 24 times forward and 24 backward; a prediction batch runs #1 12 times.
+FAKENET_ROWS = 240
+FAKENET_B = 24
+FAKENET_EPOCHS = 2
+FAKENET_T, FAKENET_S = 512, 64
+FAKENET_GEOMS = {(512, 512): 2, (64, 64): 2, (512, 64): 4, (64, 512): 4}
+FAKENET_PER_STEP = {"flash_attn_fwd": 12, "flash_attn_bwd": 12,
+                    "dropout": 48}
+FAKENET_PER_PREDICT = {"flash_attn_fwd": 12}
+FAKENET_WARMUP_STEPS = 2         # steps left out of the median step time
+# (c) one fp32 step through the kernels against the explicit path, same
+# params and seed, batch 8: loss and the step's logits within 1e-4
+# relative (3xTF32 against fp32 sums in another order, 12 post-LN blocks),
+# and each gradient leaf as train_parity holds it
+FAKENET_PARITY_B = 8
+FAKENET_PARITY_RTOL = 1e-4
+
+
+def _fakenet_store(path: Path, rng: np.random.Generator) -> None:
+    """The CLI's store: fp16 token embeddings per side and (N, 4) per-path
+    labels of the five categories, written in chunks."""
+    from mmd_tpu_torch.data import labels as lb
+    from mmd_tpu_torch.data.store import ArrayStoreWriter
+    shapes = {"claim_text_embeds": (FAKENET_T, 384),
+              "doc_text_embeds": (FAKENET_T, 384),
+              "claim_image_embeds": (FAKENET_S, 1024),
+              "doc_image_embeds": (FAKENET_S, 1024)}
+    w = ArrayStoreWriter(path, FAKENET_ROWS, {
+        **{k: (v, np.float16) for k, v in shapes.items()},
+        "labels": ((4,), np.int32)})
+    cats = rng.permutation(np.arange(FAKENET_ROWS) % 5)
+    for lo in range(0, FAKENET_ROWS, 60):
+        n = min(60, FAKENET_ROWS - lo)
+        chunk = {k: rng.standard_normal((n, *v), dtype=np.float32).astype(
+            np.float16) for k, v in shapes.items()}
+        # plant the category in the claim text, so that training learns
+        chunk["claim_text_embeds"] += (
+            (cats[lo:lo + n] - 2)[:, None, None] * 0.5).astype(np.float16)
+        chunk["labels"] = lb.LABEL_TABLE[cats[lo:lo + n]].astype(np.int32)
+        w.append_batch(chunk)
+    w.finalize()
+
+
+class _FakeNetSteps:
+    """Wraps fakenet_train.make_fakenet_train_step while active: every
+    step ends in a device sync and records its host milliseconds and its
+    kernel launches."""
+
+    def __enter__(self):
+        from mmd_tpu_torch.baselines import fakenet_train as FT
+        self.steps: list[tuple[float, dict]] = []
+        self._orig = orig = FT.make_fakenet_train_step
+
+        def make(*args, **kwargs):
+            step = orig(*args, **kwargs)
+
+            def timed(batch, seed):
+                torch.cuda.synchronize()
+                before = _counts()
+                t0 = time.perf_counter()
+                out = step(batch, seed)
+                torch.cuda.synchronize()
+                ms = 1e3 * (time.perf_counter() - t0)
+                after = _counts()
+                self.steps.append((ms, {k: after[k] - before[k]
+                                        for k in after}))
+                return out
+            return timed
+        FT.make_fakenet_train_step = make
+        return self
+
+    def __exit__(self, *exc):
+        from mmd_tpu_torch.baselines import fakenet_train as FT
+        FT.make_fakenet_train_step = self._orig
+
+
+def _fakenet_parity(card: str, cfg, batch: dict) -> None:
+    """(c) one fp32 training step (forward with dropout, cross-entropy,
+    backward) through #1/#2 and through the explicit path: the same params
+    and seed."""
+    from mmd_tpu_torch.baselines import fakenet as FN
+    from mmd_tpu_torch.baselines import fakenet_train as FT
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    params = FN.init_fakenet(torch.Generator().manual_seed(22), cfg32)
+    inputs = FT._inputs(batch, "cuda")
+    labels = torch.as_tensor(batch["category"]).to("cuda")
+    orig = FN.multi_head_attention
+    res = {}
+    for fused in (True, False):
+        p = copy.deepcopy(params).to("cuda")
+        if not fused:
+            FN.multi_head_attention = lambda *a, **k: orig(
+                *a, **{**k, "fused": False})
+        try:
+            _reset_counts()
+            logits, _ = FN.fakenet_forward(p, cfg32, *inputs, seed=77,
+                                           deterministic=False)
+            loss = FT.cross_entropy(logits, labels)
+            loss.backward()
+            torch.cuda.synchronize()
+            counts = _counts()
+        finally:
+            FN.multi_head_attention = orig
+        res[fused] = (loss.item(), logits.detach(), counts, {
+            n: q.grad.detach().clone() for n, q in p.named_parameters()})
+    (lf, zf, cf, gf), (le, ze, ce, ge) = res[True], res[False]
+    loss_rel = abs(lf - le) / abs(le)
+    logit_rel = ((zf - ze).abs().max() / ze.abs().max()).item()
+    worst, where = _grad_gap(gf, ge)
+    ran = (cf["flash_attn_fwd"], cf["flash_attn_bwd"],
+           ce["flash_attn_fwd"], ce["flash_attn_bwd"])
+    ok = (loss_rel <= FAKENET_PARITY_RTOL and logit_rel <= FAKENET_PARITY_RTOL
+          and worst <= PARITY_GRAD_RTOL and ran == (12, 12, 0, 0))
+    print(f"fakenet: (c) one fp32 step, batch {FAKENET_PARITY_B}, dropout "
+          f"{cfg.dropout}, kernels (#1/#2 launches {ran[0]}/{ran[1]}) against "
+          f"the explicit path ({ran[2]}/{ran[3]}): loss {lf:.7f} / {le:.7f}, "
+          f"relative {loss_rel:.3e}; logits {logit_rel:.3e} of the largest "
+          f"(tol {FAKENET_PARITY_RTOL:.0e}); worst grad leaf {where} at "
+          f"{worst:.3e} of its scale (tol {PARITY_GRAD_RTOL:.0e}) -> "
+          f"{'ok' if ok else 'FAIL'}  [{card}]", flush=True)
+    if not ok:
+        fail("fakenet: (c) the kernel path and the explicit path disagree")
+
+
+def phase_fakenet(card: str, tmp: Path) -> tuple[dict, dict]:
+    """python -m mmd_tpu_torch.baselines.fakenet_train at full width on the
+    card, every kernel held in situ at each geometry the run gave it, then
+    checks (a)-(e). Returns the kernel launches of the counted run and the
+    in-situ rows by kernel."""
+    import csv
+
+    from mmd_tpu_torch import profiling as PR
+    from mmd_tpu_torch.baselines import fakenet_train as FT
+    from mmd_tpu_torch.data import labels as lb
+    from mmd_tpu_torch.data.store import ArrayStore
+    from mmd_tpu_torch.ops import attention as A
+    from mmd_tpu_torch.training.optim import make_optimizer
+    from mmd_tpu_torch.profile_train import KERNELS, TRAIN_GROUPS
+
+    phase = "fakenet"
+    t_phase = time.perf_counter()
+    root = tmp / phase
+    t0 = time.perf_counter()
+    _fakenet_store(root / "store", np.random.default_rng(22))
+    write_s = time.perf_counter() - t0
+    answer = root / "answer_fakenet.csv"
+    argv = ["--store", str(root / "store"), "--epochs", str(FAKENET_EPOCHS),
+            "--batch_size", str(FAKENET_B), "--answer_csv", str(answer),
+            "--device", "cuda"]
+    print(f"{phase}: store of {FAKENET_ROWS} rows written in {write_s:.2f} "
+          f"s; fakenet_train.main({json.dumps(argv)})", flush=True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()                       # count the main path's run only
+    t0 = time.perf_counter()
+    with _FakeNetSteps() as steps, _InSitu() as in_situ:
+        out = FT.main(argv)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    recorded = in_situ.launches()
+    if any(launches[k] != n for k, n in recorded.items()):
+        fail(f"{phase}: the in-situ record {recorded} misses launches of "
+             f"{launches}")
+
+    # (a) launches: each step exactly FAKENET_PER_STEP, all at dh 128
+    n_steps = FAKENET_EPOCHS * (FAKENET_ROWS // FAKENET_B)
+    want_step = {k: FAKENET_PER_STEP.get(k, 0) for k in launches}
+    bad = [i for i, (_, c) in enumerate(steps.steps) if c != want_step]
+    n_pred = FAKENET_ROWS // FAKENET_B
+    want = {k: n_steps * FAKENET_PER_STEP.get(k, 0)
+            + n_pred * FAKENET_PER_PREDICT.get(k, 0) for k in launches}
+    if not steps.steps:
+        fail(f"{phase}: no training step ran")
+    # a geometry key: (q, k, v[, o, lse, do]) as (shape, dtype), the heads
+    heads = {"flash_attn_fwd": 3, "flash_attn_bwd": 6}
+    flash = [(key[0][0], key[1][0], key[heads[name]]) for name in heads
+             for key in in_situ.calls[name]]
+    dh = {q[2] // h for q, _, h in flash}
+    geoms = {(q[1], k[1]) for q, k, _ in flash}
+    print(f"{phase}: (a) {len(steps.steps)} steps; launches a step "
+          f"{json.dumps({k: v for k, v in steps.steps[0][1].items() if v})}"
+          f" (want {json.dumps(FAKENET_PER_STEP)}); the run's "
+          f"{json.dumps({k: v for k, v in launches.items() if v})}; #1/#2 "
+          f"head dims {sorted(dh)}, (T, S) {sorted(geoms)}  [{card}]",
+          flush=True)
+    if (len(steps.steps) != n_steps or bad or launches != want
+            or dh != {128} or geoms != set(FAKENET_GEOMS)):
+        fail(f"{phase}: (a) launches: steps {len(steps.steps)} of "
+             f"{n_steps}, steps off {bad}, run {launches} against {want}, "
+             f"head dims {dh}, geometries {geoms}")
+    ms = [m for m, _ in steps.steps[FAKENET_WARMUP_STEPS:]]
+    print(f"{phase}: step time median {float(np.median(ms)):.3f} ms over "
+          f"{len(ms)} steps after {FAKENET_WARMUP_STEPS} (each ending in "
+          f"torch.cuda.synchronize(), host clock; min {min(ms):.3f}, max "
+          f"{max(ms):.3f}); fakenet_train.main {run_s:.2f} s; peak device "
+          f"memory {peak / 2 ** 30:.3f} GiB (torch.cuda.max_memory_allocated)"
+          f"; history {json.dumps(out['history'])}; weighted F1 on the "
+          f"store {out['weighted_f1']:.4f}  [{card}]", flush=True)
+
+    # (b) every launch's geometry held against its plain version, timed
+    # beside it, SDPA (F.dropout for #5) and the bound
+    times = in_situ.hold(phase, card)
+
+    # (d) two predictions, bit for bit, and the run's own
+    def eval_batches():
+        for b in ArrayStore(root / "store").batches(FAKENET_B,
+                                                    columns=FT.COLUMNS):
+            b = dict(b)
+            cat = lb.paths_to_category_idx(b["labels"])
+            b["category"] = np.where(cat >= 0, cat, 2).astype(np.int32)
+            b["add_feature"] = np.zeros((len(cat), 32), np.float32)
+            yield b
+
+    cfg = FT.FakeNetConfig(text_dim=384, image_dim=1024, hidden_dim=256,
+                           head=2)
+    preds = [FT.predict_fakenet(out["params"], cfg, eval_batches(),
+                                return_probs=True) for _ in range(2)]
+    same = all(np.array_equal(p[0], out["y_pred"])
+               and np.array_equal(p[2], out["probs"]) for p in preds)
+    print(f"{phase}: (d) two predictions of {len(preds[0][0])} rows and the "
+          f"run's own: bit-identical {same}", flush=True)
+    if not same:
+        fail(f"{phase}: (d) predictions differ between calls")
+
+    # (e) the answer CSV in the JAX CLI's columns
+    with open(answer) as f:
+        rows = list(csv.reader(f))
+    header = ["idx", "pred"] + [f"p{i}" for i in range(cfg.num_classes)]
+    ok = (rows[0] == header and len(rows) == 1 + FAKENET_ROWS and all(
+        abs(sum(float(x) for x in r[2:]) - 1.0) < 1e-4 for r in rows[1:]))
+    print(f"{phase}: (e) {answer.name}: columns {rows[0]}, {len(rows) - 1} "
+          f"rows -> {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        fail(f"{phase}: (e) the answer CSV is not the JAX CLI's")
+
+    # (c) fp32 kernels against the explicit path
+    batch = next(eval_batches())
+    batch = {k: v[:FAKENET_PARITY_B] for k, v in batch.items()}
+    _fakenet_parity(card, cfg, batch)
+
+    # where a bf16 step spends the card's time; fp32 #2 beside SDPA's
+    # backward
+    params = copy.deepcopy(out["params"])
+    opt = make_optimizer(params, 5e-5)
+    step = FT.make_fakenet_train_step(cfg, params, opt, lambda i: 5e-5)
+    full = next(eval_batches())
+    for _ in range(2):
+        step(full, 1)
+    prof = PR.profile_window(lambda: step(full, 1), 3, KERNELS,
+                             TRAIN_GROUPS + PR.GROUPS)
+    print(f"{phase}: torch.profiler over 3 bf16 steps: window "
+          f"{prof['window_ms']:.1f} ms, device busy "
+          f"{prof['device_busy_ms']:.1f} ms, idle share "
+          f"{prof['idle_share']:.3f}, {prof['device_events']} device events;"
+          f" device ms by group "
+          f"{json.dumps({k: round(v, 3) for k, v in prof['device_ms_by_group'].items()})}"
+          f"  [{card}]", flush=True)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    for (t, s) in FAKENET_GEOMS:
+        q, k, v, do = (torch.randn(FAKENET_B, n, 256, device="cuda",
+                                   generator=gen) for n in (t, s, s, t))
+        o, lse = A.flash_attention(q, k, v, 2, None, DROPOUT_RATE, 3)
+        leaves = [x.view(FAKENET_B, -1, 2, 128).transpose(1, 2).detach()
+                  .requires_grad_() for x in (q, k, v)]
+        lib = sdpa(*leaves, dropout_p=DROPOUT_RATE)
+        g = torch.randn_like(lib)
+        kern = _time_ms(lambda: A.flash_attention_bwd(
+            q, k, v, o, lse, do, 2, None, DROPOUT_RATE, 3), iters=10)
+        lib_ms = _time_ms(lambda: torch.autograd.grad(
+            lib, leaves, g, retain_graph=True), iters=10)
+        bound, by = _in_situ_bound("flash_attn_bwd", (
+            q, k, v, o, lse, do, 2, None, DROPOUT_RATE, 3))
+        print(f"time   flash_attn_bwd fakenet fp32 B={FAKENET_B} T={t} S={s} "
+              f"D=256 H=2 dropout {DROPOUT_RATE}: kernel {kern:.4f} ms, SDPA "
+              f"backward {lib_ms:.4f} ms, bound {bound:.4f} ms ({by})  "
+              f"[{card}]", flush=True)
+        del q, k, v, do, o, lse, leaves, lib, g
+    del out, params, opt, preds
+    torch.cuda.empty_cache()
+    print(f"{phase}: phase wall {time.perf_counter() - t_phase:.1f} s  "
+          f"[{card}]", flush=True)
+    return launches, times
+
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -4686,6 +5119,9 @@ def main() -> None:
                                                            phase)
             for name, rows in in_situ.items():
                 recs[name].update(rows)
+        by_phase["fakenet"], in_situ = phase_fakenet(dev["card"], tmp)
+        for name, rows in in_situ.items():
+            recs[name].update(rows)
         phase_train_parity(dev["card"])
         phase_train_parity_bf16(dev["card"])
         phase_finetune_parity(dev["card"], tmp)

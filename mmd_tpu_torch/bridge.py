@@ -16,7 +16,7 @@ tests can compare params, or grads (`grads=True`), after a training step.
 `finetune_from_jax` loads a JAX fine-tuning state's joint params
 {"fusion", "text", "vit"}; `to_jax_tree` walks its gradients back.
 `captioner_from_jax` loads a captioner tree {"vit", "decoder"} and, for a
-converted BLIP, "lm_head".
+converted BLIP, "lm_head". `fakenet_from_jax` loads a FakeNet tree.
 The ResNet's conv kernels are the one layout that differs: HWIO in the
 JAX tree, OIHW (F.conv2d's) in the port; `resnet_from_jax` transposes
 them, `resnet_to_jax` back.
@@ -30,6 +30,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from mmd_tpu_torch.baselines.fakenet import FakeNetConfig, init_fakenet
 from mmd_tpu_torch.core.config import ModelConfig
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.models.captioner import CaptionerConfig, init_captioner
@@ -221,4 +222,11 @@ def captioner_from_jax(tree, cfg: CaptionerConfig) -> L.ParamTree:
     params = init_captioner(torch.Generator().manual_seed(0), cfg,
                             lm_head="lm_head" in tree)
     load_jax_tree(params, tree, "captioner")
+    return params
+
+
+def fakenet_from_jax(tree, cfg: FakeNetConfig) -> L.ParamTree:
+    """A JAX FakeNet tree (init_fakenet's) as the port's FakeNet params."""
+    params = init_fakenet(torch.Generator().manual_seed(0), cfg)
+    load_jax_tree(params, tree, "fakenet")
     return params

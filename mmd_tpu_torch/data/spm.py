@@ -28,8 +28,10 @@ module so the port loads nothing of the JAX package:
     normalizer.cc::NormalizePrefix semantics). Corpus-trained tokenizers
     without a charsmap fall back to NFKC + whitespace collapsing.
 
-Encode runs in Python: the JAX package's optional C++ Viterbi and charsmap
-hooks are not carried over.
+As in the JAX package, the charsmap normalization and the Viterbi,
+unknown-fusing and layout loop of pair-free batches run in C++
+(native/spm.cpp, built at first use); the Python loops stay for pairs, a
+text holding NUL, and where no compiler is at hand.
 
 Batch output contract matches data/tokenizer.py: fixed-shape (B, L) int32
 ids/mask/token_type_ids, [CLS] x [SEP] structure, so the DeBERTa encoder
@@ -46,6 +48,8 @@ from pathlib import Path
 from typing import Optional, Sequence
 
 import numpy as np
+
+from mmd_tpu_torch.native.bindings import NativeSpm, charsmap_normalize
 
 METASPACE = "▁"
 UNK_PENALTY = 10.0
@@ -232,6 +236,9 @@ class PrecompiledCharsmap:
         return self._pool[off:end].decode("utf-8")
 
     def normalize(self, text: str) -> str:
+        native = charsmap_normalize(self.blob, str(text))
+        if native is not None:
+            return native
         data = str(text).encode("utf-8")
         out: list[str] = []
         i, n = 0, len(data)
@@ -446,11 +453,34 @@ class UnigramTokenizer:
             types = types + [1] * (len(pair) + 1)
         return ids[:max_length], types[:max_length]
 
+    def _get_native(self):
+        """The C++ Viterbi encoder (native/spm.cpp), built at first use;
+        None where it cannot be built or MMD_NATIVE=0."""
+        if not hasattr(self, "_native"):
+            try:
+                self._native = NativeSpm(
+                    self.pieces, self.unk_id, self.pad_id, self.cls_id,
+                    self.sep_id, self.unk_score)
+            except RuntimeError:
+                self._native = None
+        return self._native
+
     def encode_batch(self, texts: Sequence[str],
                      pairs: Optional[Sequence[str]] = None,
                      max_length: int = 512):
         """Fixed-shape batch: (ids (B, L) i32, mask (B, L) i32,
         token_type_ids (B, L) i32)."""
+        native = self._get_native() if pairs is None else None
+        if native is not None:
+            # normalization and the metaspace stay in Python (NFKC or the
+            # charsmap's own native port); Viterbi and layout run in C++
+            prepared = []
+            for t in texts:
+                s = self.normalize(t)
+                prepared.append(METASPACE + s.replace(" ", METASPACE)
+                                if s else "")
+            if not any("\x00" in s for s in prepared):   # NUL ends a text
+                return native.encode_batch(prepared, max_length)
         b = len(texts)
         out = np.full((b, max_length), self.pad_id, np.int32)
         mask = np.zeros((b, max_length), np.int32)

@@ -10,8 +10,12 @@ pipeline's `csv_cursor`) is read back and rewritten with every count.
 Layout:  <dir>/meta.json
          <dir>/<column>.npy          (N, *shape) per column
 
-The JAX reader gathers rows through an optional native extension; this one
-gathers with numpy, the same rows in the same order.
+A batch's sorted rows are gathered by the threaded C++ row gather
+(native/gather.cpp, built at first use), which writes each row to its
+batch position in the same copy, for a column whose batch holds at least
+NATIVE_GATHER_MIN_BYTES; with numpy (the sorted rows, then the batch
+order) below that and where the library cannot be built: the same rows in
+the same order. The JAX package sends every column to its gather.
 """
 
 from __future__ import annotations
@@ -23,8 +27,16 @@ from typing import Dict, Iterator, Optional, Sequence
 
 import numpy as np
 
+from mmd_tpu_torch.native.bindings import gather_rows, row_bytes
+
 
 META_NAME = "meta.json"
+# Below this many bytes a batch the numpy gather wins: on an H100
+# machine's 8-CPU host (`python -m mmd_tpu_torch.native.measure`, PERF.md
+# section 5) numpy took 0.02-0.10 ms for batches of 32 B to 128 KB, where
+# the binding's fixed cost alone is ~0.1 ms; at 512 KB the two tied, and
+# from 1 MB on the native gather was faster in every case measured.
+NATIVE_GATHER_MIN_BYTES = 512 * 1024
 
 
 class ArrayStoreWriter:
@@ -163,10 +175,19 @@ class ArrayStore:
                 out["_pad_mask"] = mask
                 yield out
                 return
-            sidx = np.sort(idx)  # sorted gather is much faster on memmaps
-            inv = np.argsort(np.argsort(idx))
-            yield {c: np.ascontiguousarray(self.col(c)[sidx][inv])
-                   for c in cols}
+            pos = np.argsort(idx, kind="stable")
+            sidx = idx[pos]  # sorted gather is much faster on memmaps
+            yield {c: self._gather(c, sidx, pos) for c in cols}
+
+    def _gather(self, col: str, sidx: np.ndarray, pos: np.ndarray
+                ) -> np.ndarray:
+        """Rows sidx (sorted) of `col`, row k at batch position pos[k]."""
+        src = self.col(col)
+        if len(sidx) * row_bytes(src) >= NATIVE_GATHER_MIN_BYTES:
+            out = gather_rows(src, sidx, pos)
+            if out is not None:
+                return out
+        return np.ascontiguousarray(src[sidx][np.argsort(pos)])
 
 
 def write_store(directory, arrays: Dict[str, np.ndarray]) -> ArrayStore:

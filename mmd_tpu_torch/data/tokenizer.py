@@ -4,9 +4,10 @@
 The same algorithm and the same vocabulary file format as the JAX
 package's tokenizer, so a `tokenizer.json` written by either package loads
 in the other and gives the same ids (tests/test_torch_serving.py). Kept as
-the port's own module so the port loads nothing of the JAX package. The
-JAX package's optional C++ batch encoder is not carried over: encode runs
-in Python.
+the port's own module so the port loads nothing of the JAX package. As in
+the JAX package, `encode_batch` hands ASCII, pair-free batches to the C++
+twin of its encode loop (native/tokenizer.cpp, built at first use) and
+keeps the Python loop for the rest and where no compiler is at hand.
 
 Vocabularies are TRAINED from the dataset text itself: whole-word
 vocabulary by frequency plus greedy longest-match "##" subword fallback —
@@ -24,6 +25,8 @@ from pathlib import Path
 from typing import Iterable, Optional, Sequence
 
 import numpy as np
+
+from mmd_tpu_torch.native.bindings import NativeTokenizer
 
 PAD, UNK, CLS, SEP, MASK = "[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"
 SPECIALS = [PAD, UNK, CLS, SEP, MASK]
@@ -93,6 +96,7 @@ class WordPieceTokenizer:
         self.unk_id = self.token_to_id[UNK]
         self.cls_id = self.token_to_id[CLS]
         self.sep_id = self.token_to_id[SEP]
+        self._native = None  # the C++ encoder, attached at first use
 
     # -- persistence -----------------------------------------------------
 
@@ -158,6 +162,13 @@ class WordPieceTokenizer:
                      max_length: int = 512):
         """Fixed-shape batch: (ids (B, L) i32, mask (B, L) i32,
         token_type_ids (B, L) i32)."""
+        native = self._get_native()
+        if (native is not None and pairs is None
+                and all(isinstance(t, str) and t.isascii() and "\x00" not in t
+                        for t in texts)):
+            # the native path is ASCII-exact; non-ASCII normalization (NFKC)
+            # stays in Python, and a NUL would split the C++ side's text
+            return native.encode_batch(texts, max_length)
         b = len(texts)
         out = np.full((b, max_length), self.pad_id, np.int32)
         mask = np.zeros((b, max_length), np.int32)
@@ -182,3 +193,13 @@ class WordPieceTokenizer:
             else:
                 words.append(tok)
         return " ".join(words)
+
+    def _get_native(self):
+        """The C++ batch encoder (native/tokenizer.cpp), built at first use;
+        None where it cannot be built or MMD_NATIVE=0."""
+        if self._native is None:
+            try:
+                self._native = NativeTokenizer(self.vocab)
+            except RuntimeError:
+                self._native = False
+        return self._native or None

@@ -49,7 +49,7 @@ bwd_launches = 0
 _launch_lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64)
+_HEAD_DIMS = (32, 64, 128)
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -280,8 +280,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `seed` (lse does not depend on it).
 
     CUDA tensors go to the hand-written kernel, which raises on shapes,
-    dtypes or layouts it does not take (head dims 32 and 64, float32 or
-    bfloat16, contiguous); CPU tensors go to `flash_attention_plain`."""
+    dtypes or layouts it does not take (head dims 32, 64 and 128, float32
+    or bfloat16, contiguous); CPU tensors go to `flash_attention_plain`."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, num_heads, key_mask,
                                      dropout_rate, seed)
@@ -386,8 +386,10 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def fused_ok(d: int, num_heads: int) -> bool:
     """Whether `fused_attention` takes D over num_heads heads: the kernels'
-    head dims. The JAX package sends every head dim from 32 up to its
-    kernel; here dh 96 or 128 takes the explicit path."""
+    head dims, 32, 64 and 128. The JAX package sends every head dim from
+    32 up to its kernel; here dh 96 (the fusion CLI's `--embed_dim 384
+    --num_heads 4`) is the one such head dim that takes the explicit path,
+    which draws the same dropout masks."""
     return d % num_heads == 0 and d // num_heads in _HEAD_DIMS
 
 

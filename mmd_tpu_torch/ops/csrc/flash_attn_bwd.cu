@@ -4,8 +4,16 @@
 // Replaces mmd_tpu/ops/attention.py::_flash_bwd (its Pallas body
 // _bwd_kernel, behind the custom VJPs _fused_attention_core[_masked]) on the
 // training path: the backward of each of the fusion model's eight
-// attentions, (T, S) in {512, 64}^2, D 256, 8 heads; and of the encoders'
-// attentions when they are fine-tuned.
+// attentions, (T, S) in {512, 64}^2, D 256, 8 heads; of the encoders'
+// attentions when they are fine-tuned; and of FakeNet's twelve
+// (baselines/fakenet.py: D 256, 2 heads of dh 128).
+//
+// Head dims 32, 64 and 128, in fp32 and bf16, with and without dropout. At
+// dh 128 the six tiles, the lse/delta rows and the keep tile take 109,312 B
+// in bf16 (two CTAs an SM) and 207,616 B in fp32, under the 227 KB opt-in
+// limit at one CTA an SM: no pass is split for shared memory. bf16 reads
+// the A fragments of its own tiles from shared memory at each use at dh
+// 128 (flash_common.cuh), and dkdv walks a query tile in four slices.
 //
 // What it computes, per batch row b and head h, from q, k, v, the forward's
 // o and natural-log lse, the output gradient do, and the dropout seed:
@@ -130,7 +138,13 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     constexpr int LD = Tile<T, DH>::LD;
     // fp32 at dh 64 spills with whole 64-query slices (and still with two of
     // 32, by ptxas -v): it takes four slices of 16, 143 registers, no spill.
-    constexpr int PARTS = (sizeof(T) == 4 && DH == 64) ? 4 : 1;
+    // dh 128 holds 128 dk/dv accumulators a lane and walks four slices of
+    // 16 in both dtypes, as a loop (ptxas -v, sm_90a): bf16 210 / 226
+    // registers (rate 0 / dropout), fp32 246 / 246, no spill. Two slices
+    // of 32 spilled in bf16 with dropout (255 registers, 36 bytes), and the
+    // four slices unrolled spilled 24 bytes there and 44 / 24 in fp32.
+    constexpr int PARTS = ((sizeof(T) == 4 && DH >= 64) || DH == 128) ? 4 : 1;
+    constexpr int PART_UNROLL = DH == 128 ? 1 : PARTS;
     constexpr int N = NT / PARTS;
     extern __shared__ float4 smem4[];
     T* ks = reinterpret_cast<T*>(smem4);     // [BLOCK][LD]
@@ -202,8 +216,10 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
         }
 
         // The tile's queries in PARTS slices of N n8 tiles: P^T rows are this
-        // warp's keys, columns the slice's queries.
-#pragma unroll
+        // warp's keys, columns the slice's queries. At dh 128 the slices
+        // run as a loop: unrolled, ptxas interleaves them beside the 128
+        // accumulators and spills.
+#pragma unroll(PART_UNROLL)
         for (int part = 0; part < PARTS; ++part) {
             const int c0 = part * 8 * N;
             float pt[N][4];
@@ -257,7 +273,9 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 }
 
 // ---------------------------------------------------------------------------
-// 3. dq: one CTA per (query tile, head, batch row)
+// 3. dq: one CTA per (query tile, head, batch row). ptxas -v (sm_90a) at
+// dh 128, rate 0 / dropout: bf16 175 / 178 registers, fp32 185 / 183; no
+// spill.
 // ---------------------------------------------------------------------------
 template <typename T, int DH, bool DROP>
 __global__ void __launch_bounds__(THREADS)
@@ -454,5 +472,7 @@ extern "C" int mmd_flash_attn_bwd(const void* q, const void* k, const void* v,
     if (dtype == 0 && head_dim == 64) return launch_rate<float, 64>(a, dp, dropout, st);
     if (dtype == 1 && head_dim == 32) return launch_rate<__nv_bfloat16, 32>(a, dp, dropout, st);
     if (dtype == 1 && head_dim == 64) return launch_rate<__nv_bfloat16, 64>(a, dp, dropout, st);
+    if (dtype == 0 && head_dim == 128) return launch_rate<float, 128>(a, dp, dropout, st);
+    if (dtype == 1 && head_dim == 128) return launch_rate<__nv_bfloat16, 128>(a, dp, dropout, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

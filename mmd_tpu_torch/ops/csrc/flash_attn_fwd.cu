@@ -5,7 +5,15 @@
 // _fwd_kernel) on the serving path: every text-encoder layer (T = S = 512,
 // masked), every ViT layer (T = S = 64) and the eight attentions of the
 // fusion model ((T, S) in {512, 64}^2); and on the training path the
-// fusion model's eight attentions with dropout on the attention weights.
+// fusion model's eight attentions with dropout on the attention weights,
+// and FakeNet's twelve (baselines/fakenet.py: 2 heads of dh 128).
+//
+// Head dims 32, 64 and 128, in fp32 and bf16, with and without dropout.
+// At dh 128 a tile is 17,408 B (bf16) or 33,792 B (fp32): the five tiles
+// and the keep tile take 91,648 B (two CTAs an SM) or 173,568 B (one).
+// bf16 reads Q's A fragments from its tile at each use at dh 128
+// (flash_common.cuh) instead of holding them. ptxas -v (sm_90a) at dh 128,
+// rate 0 / dropout: bf16 149 / 132 registers, fp32 167 / 137; no spill.
 //
 // What it computes, per batch row b and head h:
 //   o[b, t, h]   = sum_s softmax_s(q[b,t,h] . k[b,s,h] / sqrt(dh) | valid keys) v[b,s,h]
@@ -275,5 +283,11 @@ extern "C" int mmd_flash_attn_fwd(const void* q, const void* k, const void* v,
     if (dtype == 1 && head_dim == 64)
         return launch_rate<__nv_bfloat16, 64>(q, k, v, key_valid, o, lse, batch, t_len,
                                               s_len, num_heads, dp, dropout, st);
+    if (dtype == 0 && head_dim == 128)
+        return launch_rate<float, 128>(q, k, v, key_valid, o, lse, batch, t_len, s_len,
+                                       num_heads, dp, dropout, st);
+    if (dtype == 1 && head_dim == 128)
+        return launch_rate<__nv_bfloat16, 128>(q, k, v, key_valid, o, lse, batch, t_len,
+                                               s_len, num_heads, dp, dropout, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

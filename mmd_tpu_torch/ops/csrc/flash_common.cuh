@@ -17,9 +17,9 @@
 // m16k8 A fragment (tf32, 3xTF32) -- see Ops<float, DH>::pv.
 //
 // Tiles hold 64 rows of one head (DH elements) with rows padded by 16
-// bytes: row strides of 80, 144 (bf16) and 144, 272 (fp32) bytes put the 8
-// rows an ldmatrix reads, and the 32 scalar loads of an fp32 B fragment in
-// `pv`, in distinct banks.
+// bytes: row strides of 80, 144, 272 (bf16, dh 32, 64, 128) and 144, 272,
+// 528 (fp32) bytes put the 8 rows an ldmatrix reads, and the 32 scalar
+// loads of an fp32 B fragment in `pv`, in distinct banks.
 
 #pragma once
 
@@ -27,6 +27,8 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 #include "tensor_core.cuh"
 
@@ -68,32 +70,51 @@ __device__ __forceinline__ void store2(bf16* p, float v0, float v1) {
 template <typename T, int DH>
 struct Ops;
 
-// bf16: m16n8k16, the A operand of `scores` held in registers across the
-// kernel's loop, weights rounded to bf16 as the A operand of `pv` (the TPU
+// bf16: m16n8k16, weights rounded to bf16 as the A operand of `pv` (the TPU
 // kernel's rounding points: P before P V, p keep scale before dV, dS before
-// dQ and dK).
+// dQ and dK). Up to dh 64 the A operand of `scores` is held in registers
+// across the kernel's loop (DH / 4 registers a matrix). At dh 128 it is read
+// from its tile at each use, as fp32 does: held, the backward's two A
+// matrices (64 registers) beside its 128 dk/dv accumulators would spill.
 template <int DH>
 struct Ops<bf16, DH> {
     static constexpr int LD = Tile<bf16, DH>::LD;
-    struct A {
+    static constexpr bool kHeld = DH <= 64;
+    struct Held {
         uint32_t f[DH / 16][4];
     };
+    struct Streamed {
+        const bf16* s;
+        int m0;
+    };
+    using A = typename std::conditional<kHeld, Held, Streamed>::type;
 
     __device__ __forceinline__ static void load_a(A& a, const bf16* s, int m0) {
+        if constexpr (kHeld) {
 #pragma unroll
-        for (int ks = 0; ks < DH / 16; ++ks) mmd_tc::load_a(a.f[ks], s, LD, m0, 16 * ks);
+            for (int ks = 0; ks < DH / 16; ++ks) mmd_tc::load_a(a.f[ks], s, LD, m0, 16 * ks);
+        } else {
+            a = A{s, m0};
+        }
     }
 
     template <int N>
     __device__ __forceinline__ static void scores(float (&c)[N][4], const A& a, const bf16* b) {
 #pragma unroll
         for (int ks = 0; ks < DH / 16; ++ks) {
+            uint32_t fa[4];
+            if constexpr (kHeld) {
+#pragma unroll
+                for (int i = 0; i < 4; ++i) fa[i] = a.f[ks][i];
+            } else {
+                mmd_tc::load_a(fa, a.s, LD, a.m0, 16 * ks);
+            }
 #pragma unroll
             for (int np = 0; np < N / 2; ++np) {
                 uint32_t f[4];
                 mmd_tc::load_b(f, b, LD, 16 * ks, 16 * np);
-                mmd_tc::mma(c[2 * np], a.f[ks], f[0], f[1]);
-                mmd_tc::mma(c[2 * np + 1], a.f[ks], f[2], f[3]);
+                mmd_tc::mma(c[2 * np], fa, f[0], f[1]);
+                mmd_tc::mma(c[2 * np + 1], fa, f[2], f[3]);
             }
         }
     }

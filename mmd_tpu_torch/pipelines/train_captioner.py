@@ -9,11 +9,11 @@ to the schema) and this script teacher-forces the decoder. The params save
 to <assets>/captioner.pt with captioner_config.json beside it, which the
 caption pipeline picks up.
 
-The optimizer is the JAX package's optax.adamw(lr) with optax's defaults:
-betas (0.9, 0.999), eps 1e-8, weight decay 1e-4 on every leaf (not
-torch.optim.AdamW's default 1e-2). The data order is the JAX package's:
-epoch e visits the rows in np.random.default_rng(e).permutation order, in
-full batches.
+The optimizer is the JAX package's optax.adamw(lr) with optax's defaults
+(training/optim.py): betas (0.9, 0.999), eps 1e-8, weight decay 1e-4 on
+every leaf (not torch.optim.AdamW's default 1e-2). The data order is the
+JAX package's: epoch e visits the rows in
+np.random.default_rng(e).permutation order, in full batches.
 
 Usage: python -m mmd_tpu_torch.pipelines.train_captioner \\
     --csv data/preprocessed/train_enriched.csv \\
@@ -46,18 +46,7 @@ from mmd_tpu_torch.ops.image_ops import (
     load_images_parallel, normalize_on_device,
 )
 from mmd_tpu_torch.pipelines.caption import image_transform
-
-# optax.adamw's defaults
-ADAMW_BETAS = (0.9, 0.999)
-ADAMW_EPS = 1e-8
-ADAMW_WEIGHT_DECAY = 1e-4
-
-
-def make_optimizer(params: torch.nn.Module, lr: float
-                   ) -> torch.optim.AdamW:
-    """optax.adamw(lr): decoupled weight decay 1e-4 on every leaf."""
-    return torch.optim.AdamW(params.parameters(), lr=lr, betas=ADAMW_BETAS,
-                             eps=ADAMW_EPS, weight_decay=ADAMW_WEIGHT_DECAY)
+from mmd_tpu_torch.training.optim import make_optimizer
 
 
 def train_step(params, opt: torch.optim.Optimizer, cfg: CaptionerConfig,

@@ -57,7 +57,11 @@ B = 4
 # multiple of the kernels' 64-key tile) at dh 64 and dh 32
 GEOMETRIES = [(512, 512, 384, 6, True), (64, 64, 1024, 16, False),
               (512, 64, 256, 8, False), (64, 512, 256, 8, False),
-              (100, 130, 128, 2, True), (77, 50, 64, 2, False)]
+              (100, 130, 128, 2, True), (77, 50, 64, 2, False),
+              # head dim 128: FakeNet's (512 text, 64 image tokens, D 256,
+              # 2 heads) and a ragged, padded one
+              (512, 64, 256, 2, False), (64, 512, 256, 2, False),
+              (100, 130, 512, 4, True)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -1144,35 +1148,60 @@ def test_mlp_fwd_is_deterministic_and_matches_plain(cuda_device, rate, n, d,
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_fusion_step_at_head_dim_128_matches_the_explicit_path(cuda_device,
                                                                dtype):
-    """embed 512 over 4 heads (dh 128) with fused_attn: no flash kernel
-    runs, and the step is the explicit path's (fused_attn off), same
-    init and seed."""
+    """embed 512 over 4 heads (dh 128) with fused_attn: the flash kernels
+    run (8 forward and 8 backward launches a step), and the step is the
+    explicit path's (fused_attn off), same init and seed. fp32: loss within
+    1e-5 relative, each leaf within 1e-4 of its largest |g| (3xTF32 against
+    fp32 sums in another order; no leaf held below 1e-3 of the largest
+    gradient). bf16: the kernels round P unnormalized where the explicit
+    path rounds the normalized weights, and at batch 4 the heads' ReLU
+    gates carry those roundings into the gradient, so the two bf16 steps
+    are each held against the fp32 explicit step: the kernels' loss within
+    1e-3 relative of the bf16 explicit loss, and the kernels' gradient (as
+    one vector) no further from the fp32 step's than twice the bf16
+    explicit path's distance (a wrong mask or weight moves it by O(1))."""
     from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
     from mmd_tpu_torch.data.synthetic import synthetic_preembed_batch
     from mmd_tpu_torch.training.trainer import Trainer
 
     batch = synthetic_preembed_batch(np.random.default_rng(0), 4, 128, 64,
                                      64, 96)
+    runs = [(True, dtype), (False, dtype)]
+    if dtype == "bfloat16":
+        runs.append((False, "float32"))
     out = {}
-    for fused in (True, False):
+    for fused, dt in runs:
         cfg = TrainConfig(model=ModelConfig(
             text_input_dim=64, image_input_dim=96, embed_dim=512,
             num_heads=4, hidden_dim=16, fused_attn=fused,
-            compute_dtype=dtype), batch_size=4, lr=1e-3)
+            compute_dtype=dt), batch_size=4, lr=1e-3)
         tr = Trainer(cfg, device="cuda")
         state = tr.init()
         was = (A.launches, A.bwd_launches)
         state, aux = tr.train_step(state, tr.shard_batch(batch))
         torch.cuda.synchronize()
-        assert (A.launches, A.bwd_launches) == was
-        out[fused] = (float(aux["loss"]),
-                      {n: p.grad.detach().clone()
-                       for n, p in state.params.named_parameters()})
-    (lf, gf), (le, ge) = out[True], out[False]
-    assert np.isfinite(lf) and abs(lf - le) <= 1e-6 * abs(le)
-    for n, w in ge.items():
-        assert (gf[n] - w).abs().max().item() <= 1e-5 * max(
-            w.abs().max().item(), 1e-30), n
+        ran = (A.launches - was[0], A.bwd_launches - was[1])
+        assert ran == ((8, 8) if fused else (0, 0))
+        out[fused, dt] = (float(aux["loss"]),
+                          {n: p.grad.detach().float().clone()
+                           for n, p in state.params.named_parameters()})
+    (lf, gf), (le, ge) = out[True, dtype], out[False, dtype]
+    assert np.isfinite(lf)
+    if dtype == "float32":
+        assert abs(lf - le) <= 1e-5 * abs(le)
+        floor = 1e-3 * max(w.abs().max().item() for w in ge.values())
+        for n, w in ge.items():
+            assert (gf[n] - w).abs().max().item() <= 1e-4 * max(
+                w.abs().max().item(), floor), n
+    else:
+        assert abs(lf - le) <= 1e-3 * abs(le)
+        g32 = out[False, "float32"][1]
+
+        def gap(g):
+            return torch.cat([(g[n] - w).flatten()
+                              for n, w in g32.items()]).norm().item()
+
+        assert gap(gf) <= 2.0 * gap(ge)
 
 
 def test_swin_window_16_matches_the_explicit_path(cuda_device):

@@ -6,9 +6,11 @@ attention (`ops.swin_attention.fused_ok`, read by `models.swin._block`)
 and DeBERTa disentangled attention (`models.deberta.use_fused_attn`) -- is
 held against that kernel's own input checks over a grid of geometries:
 where the rule says yes, the checks accept. Where the JAX package's rule
-admits more (head dims 96 and 128, 16 x 16 windows), the port's rule is
-the JAX rule narrowed to the kernels' geometries, and those blocks take the
-explicit path, which draws the same dropout masks.
+admits more (head dim 96, 16 x 16 windows), the port's rule is the JAX
+rule narrowed to the kernels' geometries, and those blocks take the
+explicit path, which draws the same dropout masks. Head dim 128 (FakeNet's
+2 heads of 128, the fusion CLI's `--embed_dim 512 --num_heads 4`) takes
+the flash kernels.
 """
 
 import dataclasses
@@ -43,23 +45,47 @@ def test_flash_rule_admits_only_what_the_kernel_takes(d, heads):
                   and d // heads >= 32)
 
 
-@pytest.mark.parametrize("d,heads", [(384, 4), (512, 4), (256, 2)])
-def test_flash_rule_sends_dh_96_and_128_to_the_explicit_path(d, heads):
-    """The CLI's `--embed_dim 384 --num_heads 4` (dh 96) and `--embed_dim
-    512 --num_heads 4` (dh 128): the fused route gives the explicit path's
-    output, and no kernel (which would raise on a card) is asked."""
+def _fused_and_explicit(d, heads):
+    """multi_head_attention's fused and explicit routes on the same inputs,
+    a padded key tail and dropout on."""
     g = torch.Generator().manual_seed(d + heads)
     q, k, v = (torch.randn(2, 24, d, generator=g) for _ in range(3))
     mask = torch.ones(2, 24, dtype=torch.int32)
     mask[1, 17:] = 0
-    assert not A.fused_ok(d, heads)
 
     def run(fused):
         return A.multi_head_attention(q, k, v, heads, dropout_rate=0.1,
                                       dropout_seed=9, deterministic=False,
                                       fused=fused, key_mask=mask)
 
-    assert torch.equal(run(True), run(False))
+    return run(True), run(False)
+
+
+@pytest.mark.parametrize("d,heads", [(384, 4)])
+def test_flash_rule_sends_dh_96_and_128_to_the_explicit_path(d, heads):
+    """The CLI's `--embed_dim 384 --num_heads 4` (dh 96), the one head dim
+    that the JAX rule sends to its kernel and the port's does not: the fused
+    route gives the explicit path's output, and no kernel (which would
+    raise on a card) is asked. Head dim 128 now takes the kernels (the
+    test below)."""
+    assert not A.fused_ok(d, heads)
+    fused, explicit = _fused_and_explicit(d, heads)
+    assert torch.equal(fused, explicit)
+
+
+@pytest.mark.parametrize("d,heads", [(512, 4), (256, 2), (384, 3)])
+def test_flash_rule_admits_dh_128(d, heads):
+    """`--embed_dim 512 --num_heads 4` and FakeNet's 2 heads of 128: the
+    rule admits them, the kernels' checks accept them, and the fused route
+    on the CPU (the kernels' plain versions, the same dropout masks) gives
+    the explicit path's output to fp32 summation order."""
+    assert A.fused_ok(d, heads)
+    q = torch.zeros(2, 24, d)
+    assert _accepts(A._check_kernel_inputs, q, q, q, heads,
+                    torch.ones(2, 24, dtype=torch.int32))
+    fused, explicit = _fused_and_explicit(d, heads)
+    assert (fused - explicit).abs().max().item() <= 1e-5 * \
+        explicit.abs().max().item()
 
 
 # -- Swin window attention: (window, dh, heads) --------------------------------
