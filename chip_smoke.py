@@ -5,7 +5,7 @@ on one NVIDIA GPU.
 
 Phases, each of which exits nonzero on failure:
   1. device   a CUDA device, its name and power limit (nvidia-smi), TF32 off
-  2. build    nvcc builds the eleven kernel libraries from ops/csrc/ and
+  2. build    nvcc builds the twelve kernel libraries from ops/csrc/ and
               the host's C++ compiler the three native libraries from
               native/ (WordPiece, unigram, row gather), all at once
   3. kernels  each kernel against its plain PyTorch version on the card, at
@@ -270,6 +270,35 @@ Phases, each of which exits nonzero on failure:
                       answer CSV in the JAX CLI's columns; the median step
                       time, peak memory, a step's idle share
                       (torch.profiler), the fp32 #2 beside SDPA's backward
+ 22. serve_parallel   multi-device serving: a spawned world of 4 ranks (gloo
+                      sharing the card, nccl with a card a rank) serves 16
+                      requests at max_length 512 through
+                      MisinformationPredictor(mesh=, text_parallelism=)
+                      under sp over 2 and 4 ranks, sp_ring over 2, pp over
+                      2 and 4 stages and tp over 2, on the (2, 2) and
+                      (1, 4) meshes, for the default and the reference
+                      encoder families (seeded as serve and
+                      serve_reference seed them); rank 0 holds each run
+                      against the single-device predictor: the claims'
+                      text embeddings within 3e-2 relative L2 and the
+                      labels equal outside near ties (the smallest
+                      single-device logit margin printed); each rank's
+                      #1 / #10 launches against the count the run
+                      predicts, its text parameters on the card (PP and
+                      TP hold their slice) and the bytes its collectives
+                      staged through the host; #1 and #10 held in situ,
+                      one rank at a time
+ 23. retrieval_sharded  in the same world, ImageCorpus(mesh=) over the
+                      retrieval phase's 41,256-row image corpus, sharded
+                      over (2, 2) and (4, 1): 32 queries (a duplicated row
+                      among them) give the single-device corpus's paths
+                      on every rank
+ 24. the CLI          python -m torch.distributed.run --nproc_per_node 2
+                      -m mmd_tpu_torch.evaluate --text_parallelism sp
+                      --dist_backend gloo prints, from rank 0 alone, the
+                      labels of python -m mmd_tpu_torch.evaluate; on a
+                      machine with one card, --dist_backend nccl must
+                      refuse (one rank a card); both started beside 22
 The serve_converted, retrieval and run_all phases also hold the native
 libraries: each ran in the phase's counted run (unigram, WordPiece, row
 gather) and gives the Python path's output bit for bit on the phase's own
@@ -280,8 +309,9 @@ The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record, with each kernel's launches in the counted runs of
 the serve, serve_reference, serve_converted, train, train_bf16,
 finetune_reference, train_raw, retrieval, caption, train_captioner,
-run_all, run_all_reference, run_all_fused, run_all_fused_default and
-fakenet phases.
+run_all, run_all_reference, run_all_fused, run_all_fused_default,
+fakenet, serve_parallel (summed over its ranks) and retrieval_sharded
+phases.
 """
 
 from __future__ import annotations
@@ -3835,8 +3865,10 @@ class _InSitu:
     phases) and times kernel, plain version and, where one PyTorch call
     computes the same function, that call."""
 
-    def __init__(self):
-        self.kernels = _in_situ_kernels()
+    def __init__(self, only=None):
+        """only: the names of the kernels to record (default: all)."""
+        self.kernels = {k: v for k, v in _in_situ_kernels().items()
+                        if only is None or k in only}
         self.calls: dict[str, dict] = {k: {} for k in self.kernels}
         # launches by thread and kernel; records and counts are updated
         # under a lock (the fused run launches from two threads)
@@ -5064,6 +5096,398 @@ def phase_fakenet(card: str, tmp: Path) -> tuple[dict, dict]:
 
 
 
+# -- multi-device serving ----------------------------------------------------
+SERVE_PARALLEL_WORLD = 4
+# (text_parallelism, model_parallel) over the 4 ranks: sp over 2 and 4
+# ranks, ring attention over 2, GPipe over 2 and 4 stages (M = pp
+# microbatches, the JAX predictor's default), the Megatron split over 2
+SERVE_PARALLEL_RUNS = (("sp", 2), ("sp", 4), ("sp_ring", 2), ("pp", 2),
+                       ("pp", 4), ("tp", 2))
+# family -> load_or_init_frozen(reference_families=...)
+SERVE_PARALLEL_FAMILIES = {"default": False, "reference": True}
+SERVE_PARALLEL_KERNELS = ("flash_attn_fwd", "deberta_attn_fwd")
+# text encodes a served run: the claims once alone, then claims and
+# evidence in evaluate_batch; 12 layers each, so 36 attention launches a
+# rank on every split (PP: L/pp layers x pp microbatches)
+SERVE_PARALLEL_TEXT = 3 * 12
+# the parallel text embeddings against the single-device predictor's, L2
+# relative, both bf16, a limit for each (family, mode). SP over the
+# default family and PP over both run the single-device kernels on the
+# same rows (0 on the card), so they are held near exact. The ring's
+# online softmax, TP's bf16-rounded partial products summed in fp32, and
+# DeBERTa's SP attention (the explicit path against #10) may move a
+# layer's output by a bf16 rounding (2^-8 relative) that the next layers
+# carry on (5.3e-3 to 1.31e-2 on the card)
+SERVE_PARALLEL_EMB_EXACT_TOL = 1e-4
+SERVE_PARALLEL_EMB_BF16_TOL = 3e-2
+SERVE_PARALLEL_EMB_TOL = {
+    ("default", "sp"): SERVE_PARALLEL_EMB_EXACT_TOL,
+    ("default", "pp"): SERVE_PARALLEL_EMB_EXACT_TOL,
+    ("reference", "pp"): SERVE_PARALLEL_EMB_EXACT_TOL,
+    ("default", "sp_ring"): SERVE_PARALLEL_EMB_BF16_TOL,
+    ("default", "tp"): SERVE_PARALLEL_EMB_BF16_TOL,
+    ("reference", "sp"): SERVE_PARALLEL_EMB_BF16_TOL,
+    ("reference", "sp_ring"): SERVE_PARALLEL_EMB_BF16_TOL,
+    ("reference", "tp"): SERVE_PARALLEL_EMB_BF16_TOL,
+}
+# a served label may differ from the single-device one only where the
+# single-device logits of its two best classes lie closer than this
+SERVE_PARALLEL_MARGIN = 0.05
+SHARDED_QUERIES = 32
+SHARDED_TOP_K = 5
+SHARDED_SCORE_TOL = 1e-3         # bf16 rows, fp32 products, other GEMMs
+CLI_TIMEOUT_S = 600
+
+
+def _serve_parallel_want(family: str, mode: str) -> dict:
+    """The launches a rank makes in one served run."""
+    text = SERVE_PARALLEL_TEXT
+    if family == "default":
+        # ring attention runs the online softmax, not #1
+        return {"flash_attn_fwd": LAUNCHES_PER_BATCH - PER_BATCH["text"]
+                + (0 if mode == "sp_ring" else text)}
+    # DeBERTa's SP and ring attention take the explicit path, as in JAX
+    return {**REFERENCE_PER_BATCH,
+            "deberta_attn_fwd": 0 if mode in ("sp", "sp_ring") else text}
+
+
+def _param_bytes(module) -> int:
+    """Bytes of a module's parameters on the card."""
+    return sum(p.numel() * p.element_size() for p in module.parameters()
+               if p.device.type == "cuda")
+
+
+def _labels(results) -> list:
+    return [{p: (r[p] or {}).get("label") for p in r} for r in results]
+
+
+def _margins(results) -> dict:
+    """(request, path) -> the logit margin of its two most probable
+    classes, log p1 - log p2."""
+    out = {}
+    for j, r in enumerate(results):
+        for path, d in r.items():
+            if d is not None:
+                p = sorted(d["probabilities"].values(), reverse=True)
+                out[j, path] = math.log(p[0]) - math.log(max(p[1], 1e-30))
+    return out
+
+
+def _serve_parallel_rank(rank: int, world: int, dev, job: dict) -> dict:
+    """One rank of serve_parallel and retrieval_sharded: the predictor
+    over each (text_parallelism, mesh) of SERVE_PARALLEL_RUNS for both
+    encoder families, rank 0 also serving single-device; #1 and #10 held
+    in situ, one rank at a time; then the image corpus sharded over the
+    (2, 2) and (4, 1) meshes. Returns counts, results and rows."""
+    import torch.distributed as dist
+
+    from mmd_tpu_torch.core.config import ModelConfig
+    from mmd_tpu_torch.core.mesh import make_mesh
+    from mmd_tpu_torch.inference.predictor import MisinformationPredictor
+    from mmd_tpu_torch.models.frozen import load_or_init_frozen
+    from mmd_tpu_torch.parallel import collectives as C
+    from mmd_tpu_torch.retrieval.image import ImageCorpus
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {mp: make_mesh(mp, device=dev) for mp in (2, 4, 1)}
+    cfg = ModelConfig(fused_attn=True)
+    batch = job["batch"]
+    in_situ = _InSitu(only=SERVE_PARALLEL_KERNELS)
+    out = {"launches": {k: 0 for k in _kernels()}, "runs": []}
+
+    def serve(pred):
+        with torch.inference_mode():
+            emb = pred._encode_texts(batch[0]).float().cpu().numpy()
+        return emb, pred.evaluate_batch(*batch, detailed=True)
+
+    for family, reference in SERVE_PARALLEL_FAMILIES.items():
+        enc = load_or_init_frozen(job["assets"][family], seed=0,
+                                  reference_families=reference)
+
+        def predictor(**kw):
+            # one FrozenEncoders for every run: tp and pp split a copy
+            return MisinformationPredictor(cfg, encoders=enc,
+                                           max_length=512,
+                                           batch_size=BATCH, **kw)
+
+        if rank == 0:
+            pred = predictor(device=dev)
+            want_emb, want = serve(pred)
+            out[family] = {"bytes": _param_bytes(pred.enc.text_params),
+                           "labels": _labels(want),
+                           "margins": _margins(want)}
+            del pred
+        for mode, mp in SERVE_PARALLEL_RUNS:
+            pred = predictor(mesh=meshes[mp], text_parallelism=mode)
+            dist.barrier()
+            torch.cuda.synchronize()
+            C.staged_bytes = 0
+            _reset_counts()                   # count the served run only
+            t0 = time.perf_counter()
+            with in_situ:
+                emb, got = serve(pred)
+            torch.cuda.synchronize()
+            run = {"family": family, "mode": mode, "mp": mp,
+                   "launches": _counts(), "secs": time.perf_counter() - t0,
+                   "text_bytes": _param_bytes(pred.enc.text_params),
+                   "staged": C.staged_bytes, "labels": _labels(got)}
+            for k, n in run["launches"].items():
+                out["launches"][k] += n
+            if rank == 0:
+                run["emb_err"] = _rel_l2(emb, want_emb)
+            out["runs"].append(run)
+            del pred
+        del enc
+        torch.cuda.empty_cache()
+    # #1 and #10 at each geometry the runs gave them, one rank at a time,
+    # so that no two ranks' timings overlap on the card
+    out["in_situ"] = in_situ.launches()
+    for r in range(world):
+        if r == rank:
+            out["rows"] = in_situ.hold(f"serve_parallel_r{rank}",
+                                       job["card"])
+        dist.barrier()
+
+    # retrieval_sharded: the retrieval phase's image corpus, its rows over
+    # the data axis (retrieval by features reads the store only: no ResNet)
+    _reset_counts()
+    if rank == 0:
+        out["single"] = ImageCorpus(
+            job["store"], resnet_params=torch.nn.Module(),
+            device=dev).retrieve_by_features(job["queries"],
+                                             top_k=SHARDED_TOP_K)
+    for mp in (2, 1):
+        corpus = ImageCorpus(job["store"], resnet_params=torch.nn.Module(),
+                             mesh=meshes[mp])
+        corpus._load()
+        dist.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = corpus.retrieve_by_features(job["queries"],
+                                          top_k=SHARDED_TOP_K)
+        out["sharded", mp] = (got, time.perf_counter() - t0,
+                              tuple(corpus._features.shape))
+        del corpus
+    out["retrieval_launches"] = _counts()
+    torch.cuda.empty_cache()
+    return out
+
+
+def _start_clis(tmp: Path, texts: list[str], images: list[str]) -> dict:
+    """python -m mmd_tpu_torch.evaluate alone and over 2 gloo ranks of a
+    torch.distributed.run launch (--text_parallelism sp), and, on a machine
+    with one card, over 2 nccl ranks, which must refuse; all started at
+    once, in the background."""
+    root = Path(__file__).resolve().parent
+    args = ["--claim_text", texts[0], "--evidence_text", texts[1],
+            "--claim_image", images[0], "--evidence_image", images[1],
+            "--assets", str(tmp / "assets_serve"), "--detailed"]
+    run = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "mmd_tpu_torch.evaluate", *args,
+           "--text_parallelism", "sp"]
+    cmds = {"single": [sys.executable, "-m", "mmd_tpu_torch.evaluate",
+                       *args],
+            "torchrun_gloo": run + ["--dist_backend", "gloo"]}
+    if torch.cuda.device_count() < 2:
+        cmds["torchrun_nccl"] = run + ["--dist_backend", "nccl"]
+    return {k: subprocess.Popen(c, cwd=root, stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+            for k, c in cmds.items()}
+
+
+def _cli_result(stdout: str) -> tuple[dict, str]:
+    """(the JSON result, the final label) of evaluate's printout."""
+    lines = stdout.splitlines()
+    start = lines.index("{")
+    end = next(i for i, ln in enumerate(lines) if ln.startswith("final:"))
+    return (json.loads("\n".join(lines[start:end])),
+            lines[end].split(":", 1)[1].strip())
+
+
+def _check_clis(procs: dict, card: str, deadline: float) -> None:
+    phase = "serve_parallel_cli"
+    outs = {}
+    try:
+        for k, p in procs.items():
+            outs[k] = p.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        fail(f"{phase}: a CLI ran past {CLI_TIMEOUT_S} s")
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait(30)
+    for k in ("single", "torchrun_gloo"):
+        if procs[k].returncode != 0:
+            fail(f"{phase}: {k} exited {procs[k].returncode}: "
+                 f"{outs[k][1][-3000:]}")
+    single, s_final = _cli_result(outs["single"][0])
+    par, p_final = _cli_result(outs["torchrun_gloo"][0])
+    labels = [(r or {}).get("label") for r in single.values()]
+    par_labels = [(r or {}).get("label") for r in par.values()]
+    diff = max((abs(single[p]["probabilities"][c]
+                    - par[p]["probabilities"][c])
+                for p in single if single[p] is not None
+                for c in single[p]["probabilities"]), default=0.0)
+    printed = outs["torchrun_gloo"][0].count("final:")
+    ok = labels == par_labels and s_final == p_final and printed == 1
+    print(f"{phase}: python -m mmd_tpu_torch.evaluate alone: labels "
+          f"{labels}, final {s_final}; python -m torch.distributed.run "
+          f"--nproc_per_node 2 ... --text_parallelism sp --dist_backend "
+          f"gloo: labels {par_labels}, final {p_final}, printed by "
+          f"{printed} rank(s); largest probability difference {diff:.3e} "
+          f"-> {'ok' if ok else 'FAIL'}  [{card}]", flush=True)
+    if not ok:
+        fail(f"{phase}: the torchrun CLI does not print the single-device "
+             f"CLI's labels once")
+    if "torchrun_nccl" in procs:
+        rc, err = procs["torchrun_nccl"].returncode, outs["torchrun_nccl"][1]
+        refused = rc != 0 and "one rank a card" in err
+        print(f"{phase}: --dist_backend nccl, 2 ranks on "
+              f"{torch.cuda.device_count()} card: exit {rc}, "
+              f"{'raised: nccl runs one rank a card' if refused else 'ran'}"
+              f" -> {'ok' if refused else 'FAIL'}", flush=True)
+        if not refused:
+            fail(f"{phase}: nccl with two ranks on one card did not refuse: "
+                 f"exit {rc}, {err[-2000:]}")
+
+
+def _check_serve_parallel(outs: list, card: str) -> None:
+    phase = "serve_parallel"
+    for i, run in enumerate(outs[0]["runs"]):
+        fam, mode, mp = run["family"], run["mode"], run["mp"]
+        tol = SERVE_PARALLEL_EMB_TOL[fam, mode]
+        ranks = [o["runs"][i] for o in outs]
+        ref = outs[0][fam]
+        want = _serve_parallel_want(fam, mode)
+        want = {k: want.get(k, 0) for k in run["launches"]}
+        flips = [(j, p) for o in ranks for j, (g, w) in enumerate(
+            zip(o["labels"], ref["labels"])) for p in g if g[p] != w[p]]
+        hard = [f for f in flips if ref["margins"][f]
+                >= SERVE_PARALLEL_MARGIN]
+        print(f"{phase}: {fam} {mode} over (data, model) "
+              f"({SERVE_PARALLEL_WORLD // mp}, {mp}): embeddings rel L2 "
+              f"{run['emb_err']:.3e} (limit {tol:.0e}); "
+              f"labels off the single-device predictor's {len(flips)} of "
+              f"{len(ref['margins']) * len(ranks)}, smallest single-device "
+              f"logit margin {min(ref['margins'].values()):.4f}; #1 / #10 a "
+              f"rank {[(o['launches']['flash_attn_fwd'], o['launches']['deberta_attn_fwd']) for o in ranks]}"
+              f" (want {want['flash_attn_fwd']} / "
+              f"{want['deberta_attn_fwd']}); text params on the card a "
+              f"rank {[o['text_bytes'] for o in ranks]} B (single device "
+              f"{ref['bytes']}); staged through the host "
+              f"{[o['staged'] for o in ranks]} B; {run['secs']:.3f} s a "
+              f"batch (rank 0, host clock)  [{card}]", flush=True)
+        if not run["emb_err"] <= tol:
+            fail(f"{phase}: {fam} {mode} over {mp}: the embeddings are "
+                 f"{run['emb_err']:.3e} from the single-device predictor's "
+                 f"(limit {tol:.0e})")
+        if hard:
+            fail(f"{phase}: {fam} {mode} over {mp}: labels {hard} differ "
+                 f"from the single-device predictor's outside near ties")
+        if any(o["launches"] != want for o in ranks):
+            fail(f"{phase}: {fam} {mode} over {mp}: launches "
+                 f"{[o['launches'] for o in ranks]}, want {want} a rank")
+    for o in outs:
+        counted = {k: o["launches"][k] for k in SERVE_PARALLEL_KERNELS}
+        if o["in_situ"] != counted:
+            fail(f"{phase}: the in-situ record {o['in_situ']} misses "
+                 f"launches of {counted}")
+
+
+def _check_retrieval_sharded(outs: list, card: str) -> None:
+    phase = "retrieval_sharded"
+    want = outs[0]["single"]
+    for mp in (2, 1):
+        worst, same = 0.0, True
+        for o in outs:
+            got, secs, shape = o["sharded", mp]
+            same &= [[p for p, _ in r] for r in got] == [
+                [p for p, _ in r] for r in want]
+            worst = max([worst] + [abs(a - b) for g, w in zip(got, want)
+                                   for (_, a), (_, b) in zip(g, w)])
+        print(f"{phase}: ImageCorpus(mesh=) over (data, model) "
+              f"({SERVE_PARALLEL_WORLD // mp}, {mp}): a rank holds "
+              f"{outs[0]['sharded', mp][2]} bf16 rows; {SHARDED_QUERIES} "
+              f"queries top-{SHARDED_TOP_K}: paths as the single-device "
+              f"corpus's on every rank {same}, largest score difference "
+              f"{worst:.2e} (tol {SHARDED_SCORE_TOL:.0e}); "
+              f"{1e3 * outs[0]['sharded', mp][1]:.3f} ms for the "
+              f"{SHARDED_QUERIES} (rank 0, host clock)  [{card}]",
+              flush=True)
+        if not (same and worst <= SHARDED_SCORE_TOL):
+            fail(f"{phase}: the sharded corpus over {mp} disagrees with "
+                 f"the single-device corpus")
+
+
+def phase_serve_parallel(card: str, tmp: Path, texts: list[str],
+                         images: list[str]) -> tuple[dict, dict, dict]:
+    """Multi-device serving on the card: a spawned world of 4 ranks (gloo
+    on one card, sharing it; nccl with a card a rank) serves 16 requests
+    at max_length 512 through MisinformationPredictor(mesh=,
+    text_parallelism=) in each of SERVE_PARALLEL_RUNS, for the default
+    and the reference encoder families, seeded as the serve phases seed
+    them; each run held against the single-device predictor, with its
+    launches, the text parameters each rank holds on the card and the
+    bytes staged through the host; #1 and #10 in situ. Then
+    retrieval_sharded, and the torchrun CLI beside the single-device CLI.
+    Returns the launches of serve_parallel and of retrieval_sharded, and
+    the in-situ rows."""
+    from mmd_tpu_torch.data.store import ArrayStore
+    from mmd_tpu_torch.parallel.launch import spawn
+
+    t_phase = time.perf_counter()
+    procs = _start_clis(tmp, texts, images)
+    deadline = time.monotonic() + CLI_TIMEOUT_S
+    store = tmp / "retrieval" / "image_corpus"
+    feats = np.asarray(ArrayStore(store).col("features"), np.float32)
+    rng = np.random.default_rng(23)
+    # the twin row and seeded rows (the built ResNet rows lie nearly
+    # parallel, so their order among themselves is a near tie)
+    picks = np.concatenate([[TWIN[0]], rng.integers(
+        RETRIEVAL_IMAGES, len(feats), SHARDED_QUERIES - 1)])
+    queries = (feats[picks] + rng.normal(0, 0.01, (len(picks),
+                                                   feats.shape[1]))
+               ).astype(np.float32)
+    backend = ("nccl" if torch.cuda.device_count() >= SERVE_PARALLEL_WORLD
+               else "gloo")
+    job = {"card": card, "batch": _batch_of(_requests(texts, images, BATCH)),
+           "queries": queries, "store": str(store),
+           "assets": {"default": str(tmp / "assets_serve"),
+                      "reference": str(tmp / "assets_serve_reference")}}
+    print(f"serve_parallel: a world of {SERVE_PARALLEL_WORLD} ranks over "
+          f"{backend} on {torch.cuda.device_count()} card(s); runs "
+          f"{SERVE_PARALLEL_RUNS} for the default and the reference "
+          f"families, {BATCH} requests at max_length 512; the CLIs "
+          f"started beside it", flush=True)
+    t0 = time.perf_counter()
+    try:
+        outs = spawn(_serve_parallel_rank, SERVE_PARALLEL_WORLD, backend,
+                     "cuda", args=(job,), timeout_s=900)
+    except Exception as e:  # a rank that failed fails the phase
+        for p in procs.values():
+            p.kill()
+        fail(f"serve_parallel: a rank failed: {e!r}")
+    world_s = time.perf_counter() - t0
+    _check_serve_parallel(outs, card)
+    _check_retrieval_sharded(outs, card)
+    _check_clis(procs, card, deadline)
+    rows = {}
+    for o in outs:
+        for name, r in o["rows"].items():
+            rows.setdefault(name, {}).update(r)
+    launches = {k: sum(o["launches"][k] for o in outs) for k in _kernels()}
+    retrieval = {k: sum(o["retrieval_launches"][k] for o in outs)
+                 for k in _kernels()}
+    print(f"serve_parallel: the world {world_s:.1f} s, the phase with the "
+          f"CLIs {time.perf_counter() - t_phase:.1f} s; launches summed over "
+          f"the ranks {json.dumps({k: v for k, v in launches.items() if v})}"
+          f"  [{card}]", flush=True)
+    return launches, retrieval, rows
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -5120,6 +5544,10 @@ def main() -> None:
             for name, rows in in_situ.items():
                 recs[name].update(rows)
         by_phase["fakenet"], in_situ = phase_fakenet(dev["card"], tmp)
+        for name, rows in in_situ.items():
+            recs[name].update(rows)
+        (by_phase["serve_parallel"], by_phase["retrieval_sharded"],
+         in_situ) = phase_serve_parallel(dev["card"], tmp, texts, images)
         for name, rows in in_situ.items():
             recs[name].update(rows)
         phase_train_parity(dev["card"])

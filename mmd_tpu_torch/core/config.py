@@ -3,7 +3,7 @@
 One dataclass tree feeds every entry point; the CLI keeps the reference's flag
 names (--epochs --batch_size --lr --pre_embed --factify --text_only ...).
 The port trains on one device: the mesh, tensor parallelism and ZeRO belong
-to the multi-device slice (ROADMAP A16) and raise. `--device` picks the
+to multi-device training (ROADMAP A16b) and raise. `--device` picks the
 torch device (cuda unless the caller asks for cpu).
 """
 
@@ -38,13 +38,15 @@ class ModelConfig:
     # Compute dtype for matmuls/attention. Params stay float32; layernorm and
     # softmax accumulate in float32 either way.
     compute_dtype: str = "bfloat16"
-    # Megatron-style tensor parallelism belongs to the multi-device slice.
+    # Megatron-style tensor parallelism of the fusion model belongs to
+    # multi-device training (ROADMAP A16b).
     tensor_parallel: bool = False
 
     def __post_init__(self):
         if self.tensor_parallel:
             raise NotImplementedError(
-                "tensor_parallel arrives with the multi-device slice")
+                "tensor_parallel arrives with multi-device training "
+                "(ROADMAP A16b)")
 
     @property
     def head_dim(self) -> int:
@@ -54,14 +56,15 @@ class ModelConfig:
 
 def _multi_device(what: str) -> NotImplementedError:
     return NotImplementedError(
-        f"{what} belongs to the multi-device slice (ROADMAP A16), not "
+        f"{what} belongs to multi-device training (ROADMAP A16b), not "
         f"ported yet")
 
 
 @dataclass
 class MeshConfig:
-    """Device mesh layout (JAX names). The port runs on one device: any
-    setting other than the default raises."""
+    """Device mesh layout for training (JAX names). The port trains on one
+    device: any setting other than the default raises (multi-device
+    training is ROADMAP A16b; serving's mesh is core/mesh.py)."""
 
     data_axis: str = "data"
     model_axis: str = "model"
@@ -162,11 +165,12 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--wandb_entity", type=str, default=None)
     p.add_argument("--resume_from", type=str, default=None)
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="multi-device (ROADMAP A16): values above 1 raise")
+                   help="multi-device training (ROADMAP A16b): values "
+                        "above 1 raise")
     p.add_argument("--tensor_parallel", action="store_true",
-                   help="multi-device (ROADMAP A16): raises")
+                   help="multi-device training (ROADMAP A16b): raises")
     p.add_argument("--zero1", action="store_true",
-                   help="multi-device (ROADMAP A16): raises")
+                   help="multi-device training (ROADMAP A16b): raises")
     p.add_argument("--accum_steps", type=int, default=d.accum_steps,
                    help="micro-batches per step (gradient accumulation)")
     p.add_argument("--finetune_encoders", action="store_true",
@@ -174,9 +178,10 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
                         "encoders with the fusion model (end-to-end "
                         "fine-tuning)")
     p.add_argument("--text_parallelism", choices=["sp", "sp_ring", "pp"],
-                   default=None, help="multi-device (ROADMAP A16): raises")
+                   default=None,
+                   help="multi-device training (ROADMAP A16b): raises")
     p.add_argument("--zero3", action="store_true",
-                   help="multi-device (ROADMAP A16): raises")
+                   help="multi-device training (ROADMAP A16b): raises")
     p.add_argument("--compute_dtype", type=str, default=d.model.compute_dtype,
                    choices=["bfloat16", "float32"])
     p.add_argument("--remat", action="store_true",

@@ -8,6 +8,11 @@ dicts, and None for the paths whose image failed to load.
 `evaluate_batch()` classifies many (claim, evidence) pairs in fixed-size
 batches; embeddings stay on the device between the encoders and the fusion
 forward, and only the logits come back to the host.
+
+With a mesh of ranks (core/mesh.py) and `text_parallelism`, the frozen text
+encoder is served over the ranks (models/frozen.text_encode_parallel); the
+image encoder and the fusion forward run whole on every rank, so every rank
+computes the same labels.
 """
 
 from __future__ import annotations
@@ -23,7 +28,8 @@ from mmd_tpu_torch.core.checkpoint import read_params
 from mmd_tpu_torch.core.config import ModelConfig
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.models.frozen import (
-    FrozenEncoders, image_encode, load_or_init_frozen, text_encode,
+    TEXT_PARALLELISM, FrozenEncoders, image_encode, load_or_init_frozen,
+    text_encode, text_encode_parallel,
 )
 from mmd_tpu_torch.models.fusion import fusion_forward, init_fusion_params
 from mmd_tpu_torch.ops.image_ops import (
@@ -69,23 +75,52 @@ class MisinformationPredictor:
                  encoders: Optional[FrozenEncoders] = None,
                  assets_dir: str = "assets/encoders",
                  max_length: int = 512, batch_size: int = 16,
-                 device: str | torch.device = "cuda"):
+                 device: str | torch.device = "cuda", mesh=None,
+                 text_parallelism: Optional[str] = None):
         """fusion_params: a state dict of the port's fusion params (e.g.
         `bridge.fusion_from_jax(tree, cfg).state_dict()`); checkpoint_path:
         a save_params file of them (the trainer's best_model.pt, or one
         tools/orbax_to_torch.py wrote); neither gives the seeded init. The
-        encoders are moved to `device`."""
+        encoders are moved to `device`.
+
+        text_parallelism: serve the frozen text encoder over `mesh` (whose
+        device replaces `device`) -- "tp" (the Megatron split: each rank
+        holds a copy of its slices, parallel/tp.shard_encoder), "pp" (GPipe
+        stages: each rank holds a copy with its layers on its device,
+        parallel/pp.shard_stages; the caller's encoders stay as they
+        were), "sp" or
+        "sp_ring" (sequence parallel). None: single-device serving, the
+        reference's deployment shape (evaluate.py:12-33)."""
         if fusion_params is not None and checkpoint_path:
             raise ValueError("pass fusion_params or checkpoint_path, not both")
+        if text_parallelism is not None and mesh is None:
+            raise ValueError("text_parallelism requires a mesh")
+        if text_parallelism not in (None, *TEXT_PARALLELISM):
+            raise ValueError(f"unknown text parallelism mode: "
+                             f"{text_parallelism!r}")
         if checkpoint_path:
             fusion_params = read_fusion_checkpoint(checkpoint_path)
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         self.cfg = model_cfg
-        self.enc = encoders or load_or_init_frozen(assets_dir)
+        enc = encoders or load_or_init_frozen(assets_dir)
         self.max_length = max_length
         self.batch_size = batch_size
-        for tree in (self.enc.text_params, self.enc.vit_params):
-            tree.to(self.device).requires_grad_(False)
+        self.mesh = mesh
+        self.text_parallelism = text_parallelism
+        text = enc.text_params.requires_grad_(False)
+        if text_parallelism == "tp":
+            from mmd_tpu_torch.parallel.tp import shard_encoder
+            text = shard_encoder(text, mesh)
+        elif text_parallelism == "pp":
+            from mmd_tpu_torch.parallel.pp import shard_stages
+            text = shard_stages(text, mesh)
+        else:
+            text.to(self.device)
+        # a split tree is this predictor's own copy: the caller's encoders
+        # can serve another predictor, split or whole
+        self.enc = dataclasses.replace(enc, text_params=text)
+        self.enc.vit_params.to(self.device).requires_grad_(False)
         params = init_fusion_params(torch.Generator().manual_seed(0),
                                     model_cfg)
         if fusion_params is not None:
@@ -101,6 +136,14 @@ class MisinformationPredictor:
         size = self.enc.vit_cfg.image_size
         t = EVAL_TRANSFORM
         return t if t.size == size else dataclasses.replace(t, size=size)
+
+    def _text_encode(self, ids: torch.Tensor, mask: torch.Tensor):
+        if self.text_parallelism is None:
+            return text_encode(self.enc.text_params, self.enc.text_cfg, ids,
+                               mask)
+        return text_encode_parallel(self.enc.text_params, self.enc.text_cfg,
+                                    ids, mask, mesh=self.mesh,
+                                    mode=self.text_parallelism)
 
     def _padded(self, n: int) -> int:
         return -(-n // self.batch_size) * self.batch_size
@@ -121,8 +164,7 @@ class MisinformationPredictor:
             # buffers the tokenizer may reuse
             ids_t = torch.tensor(ids, dtype=torch.long, device=self.device)
             mask_t = torch.tensor(mask, dtype=torch.int32, device=self.device)
-            out.append(text_encode(self.enc.text_params, self.enc.text_cfg,
-                                   ids_t, mask_t))
+            out.append(self._text_encode(ids_t, mask_t))
             _add(timings, "tokenize_s", t1 - t0)
             _add(timings, "dispatch_s", time.perf_counter() - t1)
         return torch.cat(out)[:n]

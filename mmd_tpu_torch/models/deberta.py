@@ -23,8 +23,10 @@ fine-tuning keeps the kernel, as the JAX package does with fused_train (the
 trainer takes the explicit path when fused_train is off). remat recomputes
 each layer in the backward (torch.utils.checkpoint). `config_from_hf` and
 `load_hf_deberta_state_dict` read a HF DeBERTa-v3 download
-(mmd_tpu_torch/convert_hf.py). The sequence/pipeline-parallel variants
-arrive with the multi-device slice.
+(mmd_tpu_torch/convert_hf.py). Under tensor parallelism (`tp=`) a layer
+runs its attention on the rank's heads; the sequence-parallel layer
+(`deberta_layer_sp`) and its ring variant serve parallel/sp.py, on the
+explicit path, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -151,7 +153,8 @@ def _disentangled_attention_fused(p: L.ParamTree, cfg: DebertaConfig,
                                   key_mask: Optional[torch.Tensor], dtype
                                   ) -> torch.Tensor:
     """Kernel path: projections and the (2T, D) diagonal tables here, the
-    (T x T) work in `deberta_attention`."""
+    (T x T) work in `deberta_attention`. -> the context (B, T, D), before
+    the output projection."""
     dh = cfg.hidden_size // cfg.num_heads
     scale = 1.0 / math.sqrt(dh * 3.0)
     q = L.linear(p["q"], x, dtype)
@@ -162,9 +165,8 @@ def _disentangled_attention_fused(p: L.ParamTree, cfg: DebertaConfig,
     pad = pos_k.new_zeros((1, cfg.hidden_size))
     pos_k_d = torch.cat([pos_k[c2p_map], pad])              # (2T, D)
     pos_q_d = torch.cat([pos_q[p2c_map], pad])
-    ctx = deberta_attention(q, k, v, pos_k_d, pos_q_d, key_mask,
-                            cfg.num_heads, scale)
-    return L.linear(p["attn_out"], ctx, dtype)
+    return deberta_attention(q, k, v, pos_k_d, pos_q_d, key_mask,
+                             cfg.num_heads, scale)
 
 
 def _disentangled_attention(p: L.ParamTree, cfg: DebertaConfig,
@@ -172,7 +174,8 @@ def _disentangled_attention(p: L.ParamTree, cfg: DebertaConfig,
                             c2p_map: torch.Tensor, p2c_map: torch.Tensor,
                             key_mask: Optional[torch.Tensor], dtype
                             ) -> torch.Tensor:
-    """Explicit path, the JAX package's `_disentangled_attention`."""
+    """Explicit path, the JAX package's `_disentangled_attention`. -> the
+    context (B, T, D), before the output projection."""
     h = cfg.num_heads
     dh = cfg.hidden_size // h
     b, t, _ = x.shape
@@ -202,8 +205,7 @@ def _disentangled_attention(p: L.ParamTree, cfg: DebertaConfig,
                                     torch.finfo(torch.float32).min)
     w = torch.softmax(scores, dim=-1).to(dtype)
     ctx = (w.float() @ v.float()).to(dtype)
-    ctx = ctx.transpose(1, 2).reshape(b, t, cfg.hidden_size)
-    return L.linear(p["attn_out"], ctx, dtype)
+    return ctx.transpose(1, 2).reshape(b, t, cfg.hidden_size)
 
 
 def deberta_embed(params: L.ParamTree, cfg: DebertaConfig,
@@ -234,31 +236,48 @@ def use_fused_attn(cfg: DebertaConfig, t: int, device: torch.device) -> bool:
             and cfg.hidden_size // cfg.num_heads in _HEAD_DIMS)
 
 
-def deberta_layer(p: L.ParamTree, cfg: DebertaConfig, x: torch.Tensor,
-                  rel_emb: torch.Tensor, c2p_map, p2c_map,
-                  attention_mask: Optional[torch.Tensor], dtype,
-                  use_fused: bool) -> torch.Tensor:
-    """One DeBERTa-v3 encoder block (disentangled attention + FFN)."""
-    attn_fn = (_disentangled_attention_fused if use_fused
-               else _disentangled_attention)
-    dev = x.device
-    a = attn_fn(p, cfg, x, rel_emb, torch.as_tensor(c2p_map, device=dev,
-                                                   dtype=torch.long),
-                torch.as_tensor(p2c_map, device=dev, dtype=torch.long),
-                attention_mask, dtype)
-    x = L.layernorm(p["ln1"], x + a, cfg.layer_norm_eps)
+def _ffn(p: L.ParamTree, cfg: DebertaConfig, x: torch.Tensor, a, dtype,
+         tp=None) -> torch.Tensor:
+    """The block after its attention: residual, LayerNorm, FFN, residual,
+    LayerNorm; `a` is the attention's context before its projection."""
+    x = L.layernorm(p["ln1"], x + L.row_linear(p["attn_out"], a, dtype, tp),
+                    cfg.layer_norm_eps)
     # erf GELU in float32, tanh in bfloat16, as in layers.mlp
     hdn = F.gelu(L.linear(p["ffn_in"], x, dtype),
                  approximate="tanh" if dtype == torch.bfloat16 else "none")
-    return L.layernorm(p["ln2"], x + L.linear(p["ffn_out"], hdn, dtype),
+    return L.layernorm(p["ln2"],
+                       x + L.row_linear(p["ffn_out"], hdn, dtype, tp),
                        cfg.layer_norm_eps)
+
+
+def deberta_layer(p: L.ParamTree, cfg: DebertaConfig, x: torch.Tensor,
+                  rel_emb: torch.Tensor, c2p_map, p2c_map,
+                  attention_mask: Optional[torch.Tensor], dtype,
+                  use_fused: bool, tp=None) -> torch.Tensor:
+    """One DeBERTa-v3 encoder block (disentangled attention + FFN).
+
+    tp: a tensor-parallel axis (parallel/tp.TensorParallel) whose rank holds
+    the column slices of q, k, v, ffn_in and the row slices of attn_out,
+    ffn_out (tp.shard_encoder): the attention runs on the rank's h/tp heads
+    (the kernel, where `use_fused`, on that local geometry), and each
+    row-split projection sums its partial products over the axis before
+    its bias. None: the whole layer here."""
+    attn_fn = (_disentangled_attention_fused if use_fused
+               else _disentangled_attention)
+    dev = x.device
+    a = attn_fn(p, cfg if tp is None else tp.local_config(cfg), x, rel_emb,
+                torch.as_tensor(c2p_map, device=dev, dtype=torch.long),
+                torch.as_tensor(p2c_map, device=dev, dtype=torch.long),
+                attention_mask, dtype)
+    return _ffn(p, cfg, x, a, dtype, tp)
 
 
 def deberta_encode(params: L.ParamTree, cfg: DebertaConfig,
                    input_ids: torch.Tensor,
-                   attention_mask: Optional[torch.Tensor] = None
-                   ) -> torch.Tensor:
-    """(B, T) token ids -> last_hidden_state (B, T, D)."""
+                   attention_mask: Optional[torch.Tensor] = None,
+                   tp=None) -> torch.Tensor:
+    """(B, T) token ids -> last_hidden_state (B, T, D). tp: see
+    deberta_layer (the gate reads the model's width and head dim)."""
     dtype = L.dtype_of(cfg.compute_dtype)
     t = input_ids.shape[1]
     dev = input_ids.device
@@ -272,10 +291,142 @@ def deberta_encode(params: L.ParamTree, cfg: DebertaConfig,
     remat = cfg.remat and torch.is_grad_enabled()
     for p in params["layers"]:
         args = (p, cfg, x, rel_emb, c2p_map, p2c_map, key_mask, dtype,
-                fused)
+                fused, tp)
         x = (checkpoint(deberta_layer, *args, use_reentrant=False) if remat
              else deberta_layer(*args))
     return x
+
+
+# -- sequence parallelism (parallel/sp.py) ---------------------------------------
+
+def _gather_diagonal(x: torch.Tensor, rows: torch.Tensor,
+                     cols: torch.Tensor, t: int) -> torch.Tensor:
+    """out[..., r, c] = x[..., r, T-1-rows[r]+cols[c]]: the one-hot
+    selection onehot[r, j, c] = (j == T-1-rows[r]+cols[c]) of the JAX
+    package, rows and cols the absolute positions, as an index gather."""
+    idx = (t - 1) - rows[:, None] + cols[None, :]
+    return torch.gather(x, -1, idx.expand(*x.shape[:-1], cols.numel()))
+
+
+def _sp_tables(p, cfg: DebertaConfig, rel_emb, c2p_map, p2c_map, dtype):
+    """The diagonal tables PK, PQ (h, 2T-1, dh) in fp32."""
+    h = cfg.num_heads
+    pos_k = split_heads(L.linear(p["k"], rel_emb, dtype), h)
+    pos_q = split_heads(L.linear(p["q"], rel_emb, dtype), h)
+    return pos_k[:, c2p_map].float(), pos_q[:, p2c_map].float()
+
+
+def _disentangled_attention_sp(p, cfg: DebertaConfig, x_loc, rel_emb,
+                               c2p_map, p2c_map, key_mask_full, dtype, mesh,
+                               axis: str, t_full: int, row_offset: int):
+    """Sequence-parallel variant of _disentangled_attention: x_loc holds
+    this rank's T/sp query rows (absolute offset `row_offset`); K/V are
+    computed locally and all-gathered over `axis` to full T. The diagonal
+    selections are rebuilt from the absolute row positions, so every rank
+    picks exactly its rows of the unsplit selection. -> the context
+    (B, tl, D)."""
+    from mmd_tpu_torch.parallel import collectives as C
+    h = cfg.num_heads
+    dh = cfg.hidden_size // h
+    b, tl, _ = x_loc.shape
+    t = t_full
+    scale = math.sqrt(dh * 3.0)
+
+    q = split_heads(L.linear(p["q"], x_loc, dtype), h).float()  # (B,h,tl,dh)
+    k = C.all_gather(split_heads(L.linear(p["k"], x_loc, dtype), h), mesh,
+                     axis, dim=2).float()                       # (B,h,T,dh)
+    v = C.all_gather(split_heads(L.linear(p["v"], x_loc, dtype), h), mesh,
+                     axis, dim=2)
+    scores = (q @ k.transpose(-1, -2)) / scale                  # (B,h,tl,T)
+    pos_k_d, pos_q_d = _sp_tables(p, cfg, rel_emb, c2p_map, p2c_map, dtype)
+    c2p = (q @ pos_k_d.transpose(-1, -2)).to(dtype)             # local rows
+    p2c = (k @ pos_q_d.transpose(-1, -2)).to(dtype)             # every key
+    q_pos = torch.arange(tl, device=x_loc.device) + row_offset
+    k_pos = torch.arange(t, device=x_loc.device)
+    scores = scores + _gather_diagonal(c2p, q_pos, k_pos, t).float() / scale
+    scores = scores + _gather_diagonal(p2c, k_pos, q_pos, t).float(
+    ).transpose(-1, -2) / scale
+    if key_mask_full is not None:
+        scores = scores.masked_fill(~(key_mask_full != 0)[:, None, None, :],
+                                    torch.finfo(torch.float32).min)
+    w = torch.softmax(scores, dim=-1).to(dtype)
+    ctx = (w.float() @ v.float()).to(dtype)
+    return ctx.transpose(1, 2).reshape(b, tl, cfg.hidden_size)
+
+
+def _disentangled_attention_ring(p, cfg: DebertaConfig, x_loc, rel_emb,
+                                 c2p_map, p2c_map, key_mask_full, dtype,
+                                 mesh, axis: str, t_full: int, sp: int,
+                                 rank: int):
+    """Ring variant of _disentangled_attention_sp: the K/V blocks rotate
+    around the ring (ppermute) under an online softmax, so a rank holds one
+    (B, h, T/sp, dh) block at a time. The content-to-position term is
+    computed once for the local rows; each block's selections (its c2p
+    columns, the p2c term of the arriving K block) are rebuilt from the
+    block's absolute origin (rank - step) mod sp. Same math as the unsplit
+    attention up to fp reassociation. -> the context (B, tl, D)."""
+    from mmd_tpu_torch.parallel import collectives as C
+    h = cfg.num_heads
+    dh = cfg.hidden_size // h
+    b, tl, _ = x_loc.shape
+    t = t_full
+    scale = math.sqrt(dh * 3.0)
+    dev = x_loc.device
+
+    q = split_heads(L.linear(p["q"], x_loc, dtype), h).float()  # (B,h,tl,dh)
+    kh = split_heads(L.linear(p["k"], x_loc, dtype), h)
+    vh = split_heads(L.linear(p["v"], x_loc, dtype), h)
+    pos_k_d, pos_q_d = _sp_tables(p, cfg, rel_emb, c2p_map, p2c_map, dtype)
+    c2p = (q @ pos_k_d.transpose(-1, -2)).to(dtype)    # (B,h,tl,2T-1), once
+    q_pos = torch.arange(tl, device=dev) + rank * tl
+    neg = torch.finfo(torch.float32).min
+
+    m = torch.full((b, h, tl, 1), -math.inf, device=dev)
+    lsum = torch.zeros((b, h, tl, 1), device=dev)
+    o = torch.zeros((b, h, tl, dh), device=dev)
+    perm = [(s, (s + 1) % sp) for s in range(sp)]
+    for step in range(sp):
+        src = (rank - step) % sp
+        k_pos = torch.arange(tl, device=dev) + src * tl    # block's keys
+        s_blk = q @ kh.float().transpose(-1, -2)
+        s_blk = s_blk + _gather_diagonal(c2p, q_pos, k_pos, t).float()
+        # p2c from the arriving K block: its rows are the block's keys
+        p2c = (kh.float() @ pos_q_d.transpose(-1, -2)).to(dtype)
+        s_blk = (s_blk + _gather_diagonal(p2c, k_pos, q_pos, t).float()
+                 .transpose(-1, -2)) / scale
+        if key_mask_full is not None:
+            valid = key_mask_full[:, src * tl:(src + 1) * tl] != 0
+            s_blk = s_blk.masked_fill(~valid[:, None, None, :], neg)
+        m_new = torch.maximum(m, s_blk.amax(-1, keepdim=True))
+        corr = torch.exp(m - m_new)
+        pw = torch.exp(s_blk - m_new)
+        lsum = lsum * corr + pw.sum(-1, keepdim=True)
+        o = o * corr + pw.to(vh.dtype).float() @ vh.float()
+        m = m_new
+        if step < sp - 1:
+            kh = C.ppermute(kh, mesh, axis, perm)
+            vh = C.ppermute(vh, mesh, axis, perm)
+    ctx = (o / lsum).to(dtype)
+    return ctx.transpose(1, 2).reshape(b, tl, cfg.hidden_size)
+
+
+def deberta_layer_sp(p: L.ParamTree, cfg: DebertaConfig, x_loc, rel_emb,
+                     c2p_map, p2c_map, key_mask_full, dtype, mesh, axis: str,
+                     t_full: int, row_offset: int, sp: int = 0,
+                     rank: Optional[int] = None,
+                     ring: bool = False) -> torch.Tensor:
+    """deberta_layer with sequence-parallel attention; LN/FFN per token.
+    ring=True rotates the K/V blocks under an online softmax
+    (_disentangled_attention_ring) instead of the per-layer all-gather."""
+    if ring:
+        a = _disentangled_attention_ring(p, cfg, x_loc, rel_emb, c2p_map,
+                                         p2c_map, key_mask_full, dtype, mesh,
+                                         axis, t_full, sp, rank)
+    else:
+        a = _disentangled_attention_sp(p, cfg, x_loc, rel_emb, c2p_map,
+                                       p2c_map, key_mask_full, dtype, mesh,
+                                       axis, t_full, row_offset)
+    return _ffn(p, cfg, x_loc, a, dtype)
 
 
 # -- HF conversion ---------------------------------------------------------------

@@ -65,6 +65,45 @@ def text_encode(params, cfg, input_ids, attention_mask=None):
     raise TypeError(f"no text encoder for {type(cfg).__name__}")
 
 
+TEXT_PARALLELISM = ("tp", "pp", "sp", "sp_ring")
+
+
+def text_encode_parallel(params, cfg, input_ids, attention_mask=None, *,
+                         mesh, mode: str):
+    """text_encode under a parallelism strategy over the ranks of `mesh`
+    (core/mesh.py):
+
+      "tp"       Megatron head/FFN split (the params already sharded by
+                 parallel/tp.shard_encoder)
+      "pp"       GPipe layer stages over the model axis (BERT/MPNet/DeBERTa;
+                 each rank's stage placed by parallel/pp.shard_stages)
+      "sp"       sequence parallel: local query rows against all-gathered
+                 K/V (BERT/MPNet post-LN stacks and DeBERTa)
+      "sp_ring"  sequence parallel with ring attention
+
+    The (B, T, D) result is on every rank, as the JAX package's global
+    array; for "pp" and "sp" that costs one final gather (a broadcast from
+    the last stage, an all-gather of the sequence blocks)."""
+    is_deberta = isinstance(cfg, D.DebertaConfig)
+    if mode == "tp":
+        from mmd_tpu_torch.parallel.tp import tensor_parallel_encode
+        return tensor_parallel_encode(params, cfg, input_ids, attention_mask,
+                                      mesh=mesh)
+    if mode == "pp":
+        from mmd_tpu_torch.parallel.pp import (
+            pipeline_encode, pipeline_encode_deberta)
+        fn = pipeline_encode_deberta if is_deberta else pipeline_encode
+        return fn(params, cfg, input_ids, attention_mask, mesh=mesh)
+    if mode in ("sp", "sp_ring"):
+        from mmd_tpu_torch.parallel.sp import (
+            sequence_parallel_encode, sequence_parallel_encode_deberta)
+        fn = (sequence_parallel_encode_deberta if is_deberta
+              else sequence_parallel_encode)
+        return fn(params, cfg, input_ids, attention_mask, mesh=mesh,
+                  ring=(mode == "sp_ring"))
+    raise ValueError(f"unknown text parallelism mode: {mode!r}")
+
+
 def image_encode(params, cfg, images):
     """Image-encoder dispatch on the config family: Swinv2 or the ViT.
     images (B, H, W, 3) float NHWC -> (B, num_tokens, hidden)."""

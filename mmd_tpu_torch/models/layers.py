@@ -23,6 +23,7 @@ path. The CPU keeps the unfused path, as the JAX package does off the TPU.
 
 from __future__ import annotations
 
+import copy
 from typing import Mapping, Optional
 
 import numpy as np
@@ -55,6 +56,17 @@ class ParamTree(nn.Module):
 
     def keys(self) -> list[str]:
         return [*self._modules, *self._parameters]
+
+
+def shared_copy(tree: nn.Module) -> nn.Module:
+    """A copy of a param tree whose modules and parameters are new objects
+    over the same tensors: placing, slicing or replacing a leaf of the copy
+    leaves `tree` as it was, and nothing is copied until a leaf moves."""
+    memo = {id(b): b for b in tree.buffers()}
+    memo.update({id(p): nn.Parameter(p.detach(),
+                                     requires_grad=p.requires_grad)
+                 for p in tree.parameters()})
+    return copy.deepcopy(tree, memo)
 
 
 def dtype_of(name: str) -> torch.dtype:
@@ -96,6 +108,21 @@ def linear(lin: nn.Linear, x: torch.Tensor,
     if lin.bias is None:
         return y
     return (y.float() + lin.bias.float()).to(dtype)
+
+
+def row_linear(lin: nn.Linear, x: torch.Tensor,
+               dtype: torch.dtype = torch.float32, tp=None) -> torch.Tensor:
+    """`linear` of a projection whose input features are split over the
+    ranks of a tensor-parallel axis (`tp`, parallel/tp.TensorParallel):
+    each rank's partial product in the compute dtype (bf16-rounded under
+    bf16), the partials summed over the axis in fp32, then the whole bias,
+    added once. tp None: `linear`."""
+    if tp is None:
+        return linear(lin, x, dtype)
+    y = tp.reduce(F.linear(x.to(dtype), lin.weight.to(dtype)).float())
+    if lin.bias is not None:
+        y = y + lin.bias.float()
+    return y.to(dtype)
 
 
 # -- LayerNorm ----------------------------------------------------------------

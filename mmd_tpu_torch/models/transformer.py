@@ -173,9 +173,17 @@ def encoder_layer(p: L.ParamTree, cfg: TransformerConfig, x: torch.Tensor,
                   cross_mask: Optional[torch.Tensor] = None,
                   cache: Optional[dict] = None,
                   key_mask: Optional[torch.Tensor] = None,
-                  cross_key_mask: Optional[torch.Tensor] = None):
+                  cross_key_mask: Optional[torch.Tensor] = None,
+                  tp=None):
     """Transformer block, post-LN (BERT) or pre-LN (ViT). Returns
     (x, new_cache).
+
+    tp: a tensor-parallel axis (parallel/tp.TensorParallel) whose rank
+    holds the column slices of q, k, v, ffn_in and the row slices of
+    attn_out, ffn_out (tp.shard_encoder): attention runs on the rank's
+    num_heads/tp heads (attn_mask, where given, holds those heads), and
+    each row-split projection sums its partial products over the axis
+    before its bias. An encoder block only.
 
     With a cache {"k", "v": (B, t_max, D), "idx": int}, this step's K and
     V are written in place at rows idx .. idx + T - 1 and attention runs
@@ -184,6 +192,11 @@ def encoder_layer(p: L.ParamTree, cfg: TransformerConfig, x: torch.Tensor,
     `encoder_states`, with the cache's "xk"/"xv" when it holds them."""
     dtype = L.dtype_of(cfg.compute_dtype)
     eps = cfg.layer_norm_eps
+    heads = cfg.num_heads
+    if tp is not None:
+        if cfg.is_decoder:
+            raise ValueError("tensor parallelism serves encoder blocks")
+        heads //= tp.size
     if cfg.pre_ln:
         if cfg.is_decoder:
             raise ValueError("a pre-LN decoder is not implemented (nor in "
@@ -192,12 +205,12 @@ def encoder_layer(p: L.ParamTree, cfg: TransformerConfig, x: torch.Tensor,
         q = L.linear(p["q"], h, dtype)
         k = L.linear(p["k"], h, dtype)
         v = L.linear(p["v"], h, dtype)
-        ctx = _masked_attention(q, k, v, cfg.num_heads, attn_mask,
+        ctx = _masked_attention(q, k, v, heads, attn_mask,
                                 cfg.fused_attn, key_mask=key_mask)
-        x = x + L.linear(p["attn_out"], ctx, dtype)
+        x = x + L.row_linear(p["attn_out"], ctx, dtype, tp)
         h = L.layernorm(p["ln2"], x, eps)
         h = torch.nn.functional.gelu(L.linear(p["ffn_in"], h, dtype))
-        return x + L.linear(p["ffn_out"], h, dtype), None
+        return x + L.row_linear(p["ffn_out"], h, dtype, tp), None
     q = L.linear(p["q"], x, dtype)
     k = L.linear(p["k"], x, dtype)
     v = L.linear(p["v"], x, dtype)
@@ -208,9 +221,10 @@ def encoder_layer(p: L.ParamTree, cfg: TransformerConfig, x: torch.Tensor,
         cache["v"][:, idx:idx + x.shape[1]] = v
         k, v = cache["k"], cache["v"]
         new_cache = {**cache, "idx": idx + x.shape[1]}
-    ctx = _masked_attention(q, k, v, cfg.num_heads, attn_mask,
+    ctx = _masked_attention(q, k, v, heads, attn_mask,
                             cfg.fused_attn, key_mask=key_mask)
-    x = L.layernorm(p["ln1"], x + L.linear(p["attn_out"], ctx, dtype), eps)
+    x = L.layernorm(p["ln1"], x + L.row_linear(p["attn_out"], ctx, dtype,
+                                               tp), eps)
     if cfg.is_decoder and encoder_states is not None:
         xq = L.linear(p["xq"], x, dtype)
         if cache is not None and "xk" in cache:
@@ -223,7 +237,7 @@ def encoder_layer(p: L.ParamTree, cfg: TransformerConfig, x: torch.Tensor,
         x = L.layernorm(p["ln_x"], x + L.linear(p["xattn_out"], xctx, dtype),
                         eps)
     h = torch.nn.functional.gelu(L.linear(p["ffn_in"], x, dtype))
-    h = L.linear(p["ffn_out"], h, dtype)
+    h = L.row_linear(p["ffn_out"], h, dtype, tp)
     return L.layernorm(p["ln2"], x + h, eps), new_cache
 
 
@@ -287,12 +301,13 @@ def transformer_forward(params: L.ParamTree, cfg: TransformerConfig,
                         token_type_ids: Optional[torch.Tensor] = None,
                         encoder_states: Optional[torch.Tensor] = None,
                         encoder_mask: Optional[torch.Tensor] = None,
-                        causal: bool = False) -> torch.Tensor:
+                        causal: bool = False, tp=None) -> torch.Tensor:
     """Full-sequence forward -> last_hidden_state (B, T, D). A pure
     key-padding mask stays on the fused kernel path; a causal stack, or
     one with the MPNet bias, adds the padding to the additive mask, whose
     layers take the explicit path. A decoder cross-attends to
-    `encoder_states` under the (B, S) key mask `encoder_mask`."""
+    `encoder_states` under the (B, S) key mask `encoder_mask`. tp: see
+    encoder_layer; the MPNet bias keeps the rank's heads."""
     x = embed(params["embeddings"], cfg, input_ids, token_type_ids)
     t = x.shape[1]
     mask, key_mask = None, None
@@ -308,13 +323,15 @@ def transformer_forward(params: L.ParamTree, cfg: TransformerConfig,
         # the bias rides the additive-mask slot ((1,H,T,T) broadcasts
         # against (B,1,T,T)); its layers take the explicit path
         bias = mpnet_position_bias(params, cfg, t)
+        if tp is not None:
+            bias = bias[:, tp.heads(cfg.num_heads)]
         mask = bias if mask is None else mask + bias
     remat = cfg.remat and torch.is_grad_enabled()
 
     def layer(p, x, mask, key_mask, encoder_states, encoder_mask):
         return encoder_layer(p, cfg, x, mask, encoder_states,
                              key_mask=key_mask,
-                             cross_key_mask=encoder_mask)[0]
+                             cross_key_mask=encoder_mask, tp=tp)[0]
 
     for p in params["layers"]:
         args = (p, x, mask, key_mask, encoder_states, encoder_mask)

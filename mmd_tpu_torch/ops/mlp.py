@@ -351,10 +351,11 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """(..., D) -> (..., D) through Linear-GELU-Dropout-Linear-Dropout in one
     kernel; w1 (D, F) and w2 (F, D) in the JAX layout. x and the weights are
     cast to `dtype`, the biases to fp32; `seed` gives the masks when
-    rate > 0. Tensor parallelism is the multi-device slice and raises."""
+    rate > 0. Tensor parallelism belongs to multi-device training (ROADMAP
+    A16b) and raises."""
     if tp_mesh is not None:
         raise NotImplementedError("fused_mlp under tensor parallelism is not "
-                                  "ported yet (ROADMAP A16)")
+                                  "ported yet (ROADMAP A16b)")
     seeds = mask_seeds(rate, seed)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1]).to(dtype).contiguous()

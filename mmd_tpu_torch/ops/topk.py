@@ -12,8 +12,11 @@ the scores' order-preserving int32 bits (which, as `lax.top_k` does, put
 first, and `exact_score_dedup` keeps that one (the reference's
 duplicate-image heuristic).
 
-The sharded variant (`make_sharded_topk`) arrives with the multi-device
-slice.
+`make_sharded_topk` serves a corpus whose rows shard over a mesh axis
+(core/mesh.py): each rank takes its local top-k, offsets its indices by its
+first row, and the ranks all-gather the (Q, k) candidates for one global
+re-top-k in the same order, so the lower global index still comes first
+among equal scores.
 """
 
 from __future__ import annotations
@@ -63,10 +66,37 @@ def dense_topk(query: torch.Tensor, corpus: torch.Tensor, k: int,
     return topk_lower_index_first(_scores(query, corpus), k)
 
 
-def make_sharded_topk(*args, **kwargs):
-    raise NotImplementedError(
-        "sharded retrieval arrives with the multi-device slice (ROADMAP "
-        "A16)")
+def make_sharded_topk(mesh, axis: str, n_corpus: int, k: int,
+                      normalize: bool = True):
+    """Sharded retrieval: corpus rows sharded over `axis` (this rank holds
+    rows [i * n_local, (i + 1) * n_local), n_local = n_corpus / axis size),
+    the query replicated. -> fn(query (Q, D), corpus shard (n_local, D)) ->
+    (scores (Q, k) f32, global indices (Q, k) int64), the same on every
+    rank of the axis. n_corpus must divide evenly: pad the corpus with zero
+    rows otherwise and drop their indices."""
+    from mmd_tpu_torch.parallel import collectives as C
+
+    n_dev = mesh.shape[axis]
+    if n_corpus % n_dev:
+        raise ValueError(f"n_corpus={n_corpus} must divide by the {n_dev} "
+                         f"ranks of axis {axis!r}")
+    n_local = n_corpus // n_dev
+    offset = mesh.axis_index(axis) * n_local
+
+    def local(query: torch.Tensor, shard: torch.Tensor):
+        s, i = dense_topk(query, shard, min(k, n_local), normalize)
+        i = i + offset
+        # (n_dev * Q, k') in axis order -> (Q, n_dev * k'): rank r's
+        # candidates, all of lower index than rank r + 1's, come first
+        q_n = s.shape[0]
+        s_all = C.all_gather(s, mesh, axis, dim=0).view(n_dev, q_n, -1)
+        i_all = C.all_gather(i, mesh, axis, dim=0).view(n_dev, q_n, -1)
+        s_flat = s_all.transpose(0, 1).reshape(q_n, -1)
+        i_flat = i_all.transpose(0, 1).reshape(q_n, -1)
+        s_top, pos = topk_lower_index_first(s_flat, k)
+        return s_top, torch.gather(i_flat, 1, pos)
+
+    return local
 
 
 def quantize_rows_int8(x: torch.Tensor):

@@ -1,0 +1,26 @@
+"""Parallelism toolkit over torch.distributed (counterpart of
+mmd_tpu/parallel/__init__.py): the (data, model) mesh of ranks, sharded
+retrieval, and the sequence-, ring-, pipeline- and tensor-parallel text
+encoders for serving. Multi-device training (DP in the Trainer, the
+fusion model's TP, ZeRO) is ROADMAP A16b.
+"""
+
+from mmd_tpu_torch.core.mesh import (
+    DATA_AXIS, MODEL_AXIS, batch_sharding, corpus_sharding, local_mesh,
+    make_mesh, shard_batch,
+)
+from mmd_tpu_torch.ops.topk import make_sharded_topk
+from mmd_tpu_torch.parallel.launch import init_from_env, spawn
+from mmd_tpu_torch.parallel.pp import pipeline_encode, pipeline_encode_deberta
+from mmd_tpu_torch.parallel.sp import (
+    sequence_parallel_encode, sequence_parallel_encode_deberta,
+)
+from mmd_tpu_torch.parallel.tp import encoder_specs, shard_encoder
+
+__all__ = [
+    "DATA_AXIS", "MODEL_AXIS", "batch_sharding", "corpus_sharding",
+    "local_mesh", "make_mesh", "shard_batch",
+    "make_sharded_topk", "init_from_env", "spawn", "pipeline_encode",
+    "pipeline_encode_deberta", "sequence_parallel_encode",
+    "sequence_parallel_encode_deberta", "encoder_specs", "shard_encoder",
+]

@@ -10,8 +10,10 @@ forwards; a file that fails to decode is skipped and counted.
 Store layout: ArrayStore(features (N, D) f16) + ids.json (ordered paths),
 the JAX package's, so either package reads what the other writes. The rows
 are l2-normalized once, at load (the JAX package normalizes them on every
-call; the rows are the same either way). Sharding the corpus over several
-cards (the JAX package's `mesh=`) arrives with the multi-device slice.
+call; the rows are the same either way). With a mesh of ranks
+(core/mesh.py), the rows shard over its "data" axis: each rank holds
+1/data of them on its device and a query runs the local top-k, all-gather,
+global re-top-k reduction (ops/topk.make_sharded_topk).
 """
 
 from __future__ import annotations
@@ -24,6 +26,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from mmd_tpu_torch.core.mesh import DATA_AXIS, corpus_sharding
 from mmd_tpu_torch.data.store import ArrayStore, ArrayStoreWriter
 from mmd_tpu_torch.inference.predictor import resolve_device
 from mmd_tpu_torch.models.resnet import (
@@ -34,7 +37,7 @@ from mmd_tpu_torch.ops.image_ops import (
 )
 from mmd_tpu_torch.ops.topk import (
     dense_topk, dense_topk_int8, exact_score_dedup, l2_normalize,
-    quantize_rows_int8,
+    make_sharded_topk, quantize_rows_int8,
 )
 
 
@@ -42,18 +45,26 @@ class ImageCorpus:
     def __init__(self, store_dir: str | Path, resnet_params=None,
                  cfg: ResNetConfig = ResNetConfig(), mesh=None,
                  int8: bool = False, device: str | torch.device = "cuda"):
-        """With `int8`, the corpus lives as per-row-quantized int8 (+ f32
-        scales) and scoring runs the int8 GEMM (ops/topk.dense_topk_int8:
-        half the memory and traffic; near-tie ordering can differ by the
-        ~1/127 quantization step). Without params, a seeded ResNet."""
-        if mesh is not None:
-            raise NotImplementedError(
-                "a corpus sharded over several cards arrives with the "
-                "multi-device slice (ROADMAP A16)")
+        """With `mesh`, the corpus rows shard over its "data" axis (padded
+        with zero rows to a multiple of the mesh's size) on the mesh's
+        device, and queries run the local top-k -> all-gather -> re-top-k
+        reduction (ops/topk.make_sharded_topk); every rank gets the same
+        results. With `int8`, the corpus lives as per-row-quantized int8
+        (+ f32 scales) and scoring runs the int8 GEMM
+        (ops/topk.dense_topk_int8: half the memory and traffic; near-tie
+        ordering can differ by the ~1/127 quantization step). int8 is
+        single-device (exclusive with mesh). Without params, a seeded
+        ResNet."""
+        if int8 and mesh is not None:
+            raise ValueError("int8 corpus scoring is single-device "
+                             "(exclusive with mesh)")
         self.dir = Path(store_dir)
         self.cfg = cfg
         self.int8 = int8
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self._n_rows = 0                   # the corpus's rows, padded
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
         if resnet_params is None:
             resnet_params = init_resnet(torch.Generator().manual_seed(7), cfg)
         self.params = resnet_params.to(self.device)
@@ -116,8 +127,16 @@ class ImageCorpus:
     def _load(self):
         if self._ids is None:
             store = ArrayStore(self.dir)
-            feats = torch.from_numpy(np.array(
-                store.col("features"))).to(self.device)
+            feats = np.asarray(store.col("features"))
+            if self.mesh is not None:
+                # pad to the mesh's size with zero rows (they score 0 and
+                # their indices are dropped), keep this rank's rows
+                n_pad = -(-len(feats) // self.mesh.size) * self.mesh.size
+                feats = np.concatenate([feats, np.zeros(
+                    (n_pad - len(feats), feats.shape[1]), feats.dtype)])
+                feats = feats[corpus_sharding(self.mesh, n_pad)]
+                self._n_rows = n_pad
+            feats = torch.from_numpy(np.array(feats)).to(self.device)
             if self.int8:
                 self._features, self._scales = quantize_rows_int8(
                     l2_normalize(feats.float()))
@@ -156,16 +175,23 @@ class ImageCorpus:
         if self.int8:
             s, i = dense_topk_int8(q.float(), self._features, self._scales,
                                    fetch)
+        elif self.mesh is not None:
+            s, i = make_sharded_topk(self.mesh, DATA_AXIS, self._n_rows,
+                                     fetch, normalize=False)(
+                l2_normalize(q.to(torch.bfloat16)), self._features)
         else:
             s, i = dense_topk(l2_normalize(q.to(torch.bfloat16)),
                               self._features, fetch, normalize=False)
+        s, i = s.cpu().numpy(), i.cpu().numpy()
+        s = np.where(i < n, s, -np.inf)        # a padded row of the mesh
         out = []
-        for row_s, row_i in zip(s.cpu().numpy(), i.cpu().numpy()):
+        for row_s, row_i in zip(s, i):
             if dedup:
                 ds, di = exact_score_dedup(row_s, row_i, top_k)
             else:
                 ds, di = row_s[:top_k].tolist(), row_i[:top_k].tolist()
-            out.append([(self._ids[j], float(v)) for v, j in zip(ds, di)])
+            out.append([(self._ids[j], float(v)) for v, j in zip(ds, di)
+                        if j < n and np.isfinite(v)])
         return out
 
 

@@ -27,7 +27,7 @@ accumulated step -- so a resumed run draws the same masks, and no step ever
 touches the global RNG.
 
 The multi-device variants (zero1, zero3, tensor_parallel,
-text_parallelism) raise: ROADMAP A16.
+text_parallelism) raise: multi-device training is ROADMAP A16b.
 """
 
 from __future__ import annotations
@@ -376,7 +376,7 @@ class Trainer:
                 or self.text_parallelism is not None:
             raise NotImplementedError(
                 "multi-device training (tensor parallelism, ZeRO, text "
-                "parallelism) is not ported yet (ROADMAP A16)")
+                "parallelism) is not ported yet (ROADMAP A16b)")
         if self.finetune and self.encoders is None:
             raise ValueError("finetune=True requires encoders")
         if (self.cfg.accum_steps > 1

@@ -360,7 +360,9 @@ def test_swin_kernel_uneven_batch_zero_rows_scale_100(cuda_device, dtype, nw,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("t,d,heads", [(512, 384, 6), (128, 128, 4),
-                                       (64, 64, 2)])
+                                       (64, 64, 2),
+                                       # a rank's heads under TP 2
+                                       (512, 192, 3)])
 def test_deberta_kernel_matches_plain(cuda_device, dtype, t, d, heads):
     g = torch.Generator(device=cuda_device).manual_seed(3)
     q, k, v = (torch.randn(B, t, d, device=cuda_device, generator=g)
@@ -1428,3 +1430,110 @@ def test_ingest_on_the_card_equals_the_raw_store(cuda_device, tmp_path,
     for kind in ("claim", "doc"):
         got = torch.cat([c[kind] for c in kept])[:bank.n].cpu().numpy()
         np.testing.assert_array_equal(got, store.col(f"{kind}_image"))
+
+
+# -- multi-device serving: #1 at the sequence-parallel geometries, a world
+# of 2 gloo ranks sharing the card ------------------------------------------
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("tq", [256, 128])
+def test_kernel_at_sequence_parallel_geometries(cuda_device, dtype, tq):
+    """#1 with a rank's T/sp query rows against all T 512 keys (SP 2 and 4
+    at the served batch of 16), under the replicated key mask: padded
+    tails, a row with one valid key, a row with none."""
+    g = torch.Generator(device=cuda_device).manual_seed(11)
+    q = torch.randn(16, tq, 384, device=cuda_device, generator=g)
+    k, v = (torch.randn(16, 512, 384, device=cuda_device, generator=g)
+            for _ in range(2))
+    lengths = torch.randint(1, 513, (16,), device=cuda_device,
+                            generator=g)
+    lengths[0], lengths[1], lengths[2] = 512, 1, 0
+    mask = (torch.arange(512, device=cuda_device)[None]
+            < lengths[:, None]).int()
+    before = A.launches
+    o, lse = A.flash_attention(q.to(dtype), k.to(dtype), v.to(dtype), 6,
+                               mask)
+    torch.cuda.synchronize()
+    o_p, lse_p = A.flash_attention_plain(q.to(dtype).float(),
+                                         k.to(dtype).float(),
+                                         v.to(dtype).float(), 6, mask)
+    assert A.launches == before + 1 and o.shape == q.shape
+    assert (o.float() - o_p).abs().max().item() < TOL[dtype]
+    fin = torch.isfinite(lse_p)
+    assert torch.equal(torch.isfinite(lse), fin)
+    assert (lse[fin] - lse_p[fin]).abs().max().item() < 1e-3
+    assert torch.all(o[2] == 0) and torch.all(torch.isneginf(lse[2]))
+
+
+def _parallel_cases():
+    """A BERT-class stack on the flash kernel and a DeBERTa stack on #10
+    (hidden 128 passes its gate), fp32, seeded, with padded inputs."""
+    from mmd_tpu_torch.models import deberta as TD
+    from mmd_tpu_torch.models import text_encoder as TTE
+    bert = dataclasses.replace(TTE.TINY_TEST, hidden_size=128, num_heads=4,
+                               intermediate_size=256, num_layers=2,
+                               fused_attn=True)
+    deb = dataclasses.replace(TD.DEBERTA_TEST, hidden_size=128, num_heads=4,
+                              intermediate_size=256, max_position=128,
+                              position_buckets=32)
+    gen = torch.Generator().manual_seed(5)
+    ids = torch.randint(2, 100, (4, 128), generator=gen)
+    mask = (torch.arange(128)[None]
+            < torch.tensor([128, 100, 65, 3])[:, None]).int()
+    return {"bert": (bert, TTE.init_text_encoder(gen, bert), ids, mask),
+            "deberta": (deb, TD.init_deberta(gen, deb), ids, mask)}
+
+
+def _serve_parallel_rank(rank, world, dev):
+    from mmd_tpu_torch.core.mesh import make_mesh
+    from mmd_tpu_torch.models.frozen import text_encode_parallel
+    from mmd_tpu_torch.parallel import collectives as C
+    from mmd_tpu_torch.parallel.tp import shard_encoder
+    mesh = make_mesh(world, device=dev)
+    out = {}
+    with torch.no_grad():
+        for name, (cfg, params, ids, mask) in _parallel_cases().items():
+            for mode in ("sp", "tp"):
+                p = (shard_encoder(params, mesh) if mode == "tp"
+                     else params.to(dev))
+                before = (A.launches, DA.launches)
+                y = text_encode_parallel(p, cfg, ids.to(dev), mask.to(dev),
+                                         mesh=mesh, mode=mode)
+                out[name, mode] = (y.cpu(), A.launches - before[0],
+                                   DA.launches - before[1])
+    out["staged_bytes"] = C.staged_bytes
+    return out
+
+
+def test_two_gloo_ranks_on_the_card_match_the_unsplit_encode(cuda_device):
+    """A world of 2 gloo ranks sharing the card: the SP and TP encodes
+    (#1 at T/2 queries, #1 and #10 at 2 of 4 heads) match the unsplit
+    encode on the card within 1e-4, and the collectives staged their
+    tensors through host memory."""
+    from mmd_tpu_torch.models.frozen import text_encode
+    from mmd_tpu_torch.parallel.launch import spawn
+    outs = spawn(_serve_parallel_rank, 2, "gloo", "cuda", timeout_s=600)
+    with torch.no_grad():
+        for name, (cfg, params, ids, mask) in _parallel_cases().items():
+            want = text_encode(params.to(cuda_device), cfg,
+                               ids.to(cuda_device), mask.to(cuda_device))
+            want = want.cpu()
+            for rank, out in enumerate(outs):
+                for mode in ("sp", "tp"):
+                    y, flash, deb = out[name, mode]
+                    err = (y - want).abs().max().item()
+                    assert err < 1e-4, (name, mode, rank, err)
+                    # DeBERTa's SP attention takes the explicit path
+                    if name == "bert":
+                        assert flash > 0
+                    elif mode == "tp":
+                        assert deb > 0
+    assert all(out["staged_bytes"] > 0 for out in outs)
+
+
+def test_nccl_refuses_two_ranks_on_one_card(cuda_device):
+    from mmd_tpu_torch.parallel.launch import spawn
+    if torch.cuda.device_count() >= 2:
+        pytest.skip("checks the refusal on a machine with one card")
+    with pytest.raises(RuntimeError, match="one rank a card"):
+        spawn(_serve_parallel_rank, 2, "nccl", "cuda", timeout_s=60)

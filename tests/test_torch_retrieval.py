@@ -441,12 +441,6 @@ def test_image_store_written_by_jax_serves_in_the_port(image_setup,
     assert raw[0][1] == raw[1][1]
 
 
-def test_image_corpus_mesh_names_its_slice(tmp_path):
-    with pytest.raises(NotImplementedError, match="A16"):
-        TI.ImageCorpus(tmp_path, cfg=TR.RESNET_TEST, mesh=object(),
-                       device="cpu")
-
-
 # -- experiments ----------------------------------------------------------------
 
 def test_experiments_match_jax(image_setup, text_setup, tmp_path):

@@ -10,7 +10,9 @@ admits more (head dim 96, 16 x 16 windows), the port's rule is the JAX
 rule narrowed to the kernels' geometries, and those blocks take the
 explicit path, which draws the same dropout masks. Head dim 128 (FakeNet's
 2 heads of 128, the fusion CLI's `--embed_dim 512 --num_heads 4`) takes
-the flash kernels.
+the flash kernels. Under tensor parallelism the DeBERTa rule reads the
+model's geometry and the kernel receives the rank's heads, which its
+checks accept.
 """
 
 import dataclasses
@@ -132,6 +134,30 @@ def test_deberta_rule_admits_only_what_the_kernels_take(d, heads, t):
     assert not rule or accepted
     # the JAX gate (D and 2T multiples of 128) narrowed to the kernels
     assert rule == (d % 128 == 0 and (2 * t) % 128 == 0 and accepted)
+
+
+@pytest.mark.parametrize("tp", [1, 2, 3, 6])
+def test_deberta_rule_under_tp_reads_the_model_and_the_local_geometry(tp):
+    """Under tensor parallelism a rank hands #10 its h/tp heads of the same
+    head dim: DeBERTa-v3-xsmall at TP 2 is 3 heads of 64, D 192, no
+    multiple of 128. The gate reads the model's width and head dim, as the
+    JAX gate reads the unsplit width (the JAX package's GSPMD path runs no
+    kernel; the port runs it device-locally, as a shard_map would), and
+    the kernel's own checks accept the local geometry it then receives."""
+    from types import SimpleNamespace
+
+    from mmd_tpu_torch.parallel.tp import TensorParallel
+    cfg, t = TD.DEBERTA_V3_XSMALL, 512
+    mesh = SimpleNamespace(shape={"data": 1, "model": tp},
+                           axis_index=lambda axis: tp - 1)
+    local = TensorParallel(mesh).local_config(cfg)
+    assert (local.num_heads, local.hidden_size) == (6 // tp, 384 // tp)
+    assert local.hidden_size // local.num_heads == 64
+    assert TD.use_fused_attn(cfg, t, torch.device("cuda"))
+    q = torch.zeros(1, t, local.hidden_size)
+    tab = torch.zeros(2 * t, local.hidden_size)
+    assert _accepts(DA._check_kernel_inputs, q, q, q, tab, tab,
+                    torch.ones(1, t, dtype=torch.uint8), local.num_heads)
 
 
 def test_deberta_dh_128_takes_the_explicit_path():

@@ -170,8 +170,3 @@ def test_int8_topk_top1_and_recall():
     recall = np.mean([len(set(a) & set(b)) / k
                       for a, b in zip(i8.tolist(), ib.tolist())])
     assert recall >= 0.9, recall
-
-
-def test_sharded_topk_names_its_slice():
-    with pytest.raises(NotImplementedError, match="A16"):
-        T.make_sharded_topk(None, "data", 8, 2)

@@ -270,12 +270,12 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     out = ["--output_dir", str(tmp_path)]
     with pytest.raises(FileNotFoundError):
         T.main(ARGS + out + ["--train_data", str(tmp_path / "none.csv")])
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(NotImplementedError, match="A16b"):
         T.main(ARGS + out + ["--synthetic_samples", "4", "--zero1"])
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(NotImplementedError, match="A16b"):
         T.main(ARGS + out + ["--synthetic_samples", "4", "--model_parallel",
                              "2"])
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(NotImplementedError, match="A16b"):
         T.main(ARGS + out + ["--synthetic_samples", "4",
                              "--text_parallelism", "sp"])
 
@@ -328,7 +328,7 @@ def test_trainer_validates_like_the_jax_trainer():
         TT.Trainer(cfg, device="cpu")
     with pytest.raises(ValueError, match="requires encoders"):
         TT.Trainer(small_cfg(), device="cpu", finetune=True)
-    with pytest.raises(NotImplementedError, match="A16"):
+    with pytest.raises(NotImplementedError, match="A16b"):
         TT.Trainer(small_cfg(), device="cpu", tensor_parallel=True)
 
 
