@@ -299,6 +299,32 @@ Phases, each of which exits nonzero on failure:
                       labels of python -m mmd_tpu_torch.evaluate; on a
                       machine with one card, --dist_backend nccl must
                       refuse (one rank a card); both started beside 22
+ 25. train_parallel   multi-device training: a spawned world of 4 gloo ranks
+                      sharing the card trains the default train geometry
+                      (batch 256, text 512 x 384, image 64 x 1024, the
+                      default fusion model, fused_attn) through
+                      Trainer(mesh=, tensor_parallel=, zero1=, zero3=):
+                      DP, ZeRO-1 and ZeRO-3 on (4, 1), TP and TP + ZeRO-1
+                      on (2, 2), TP on (1, 4); in each, 2 fp32 steps at
+                      dropout 0 held against the single-device step on the
+                      card (losses within 1e-5 relative, the update the
+                      gathered params took within 0.2 lr a step of the
+                      single-device update, a limit that a run skipping
+                      its last step must break)
+                      and 2 bf16 steps at dropout 0.1: each rank's launches
+                      the single-device step's (#1 / #2 / #5 / #3 / #4 8 /
+                      8 / 8 / 6 / 6 a step on its rows, heads and hidden
+                      slice), the bytes its collectives staged through the
+                      host, its params + moments bytes, rank 0's step
+                      seconds; #1-#5 held in situ on every rank (timed on
+                      rank 0)
+ 26. the train CLI    python -m torch.distributed.run --nproc_per_node 2
+                      -m mmd_tpu_torch.train --model_parallel 2
+                      --tensor_parallel --zero1 --dist_backend gloo over
+                      512 synthetic rows (2 steps; started beside 25):
+                      metrics.jsonl and one checkpoint from rank 0 alone;
+                      the checkpoint (the single-device state) resumed on
+                      one device for one step
 The serve_converted, retrieval and run_all phases also hold the native
 libraries: each ran in the phase's counted run (unigram, WordPiece, row
 gather) and gives the Python path's output bit for bit on the phase's own
@@ -310,12 +336,14 @@ kernels' JSON record, with each kernel's launches in the counted runs of
 the serve, serve_reference, serve_converted, train, train_bf16,
 finetune_reference, train_raw, retrieval, caption, train_captioner,
 run_all, run_all_reference, run_all_fused, run_all_fused_default,
-fakenet, serve_parallel (summed over its ranks) and retrieval_sharded
-phases.
+fakenet, serve_parallel (summed over its ranks), retrieval_sharded,
+train_parallel (summed over its ranks) and train_parallel_cli (the
+resumed step) phases.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import dataclasses
 import json
@@ -3917,24 +3945,28 @@ class _InSitu:
         return {k: sum(r["n"] for r in c.values())
                 for k, c in self.calls.items()}
 
-    def hold(self, phase: str, card: str) -> dict:
-        """kernel -> {geometry: its row}, every geometry held and timed."""
+    def hold(self, phase: str, card: str, timed: bool = True) -> dict:
+        """kernel -> {geometry: its row}, every geometry held and, when
+        `timed`, timed (else only held, and no rows)."""
         out = {}
         with torch.no_grad():
             for name, calls in self.calls.items():
                 for i, (key, rec) in enumerate(calls.items()):
                     geom = f"{phase}_{i}"
-                    row = self._hold_one(name, rec["args"])
+                    row = self._hold_one(name, rec["args"], timed)
+                    described = _describe_geom(name, rec["args"])
+                    rec["args"] = None           # free the copy
+                    if not timed:
+                        continue
                     row["launches_in_phase"] = rec["n"]
-                    row["geometry"] = _describe_geom(name, rec["args"])
+                    row["geometry"] = described
                     _print_time(name, f"{geom} {row['geometry']} (x"
                                 f"{rec['n']})", row, card)
                     out.setdefault(name, {})[geom] = row
-                    rec["args"] = None           # free the copy
         torch.cuda.empty_cache()
         return out
 
-    def _hold_one(self, name, args) -> dict:
+    def _hold_one(self, name, args, timed: bool = True) -> dict:
         _, _, kernel, plain, _ = self.kernels[name]
         got = kernel(args)
         torch.cuda.synchronize()
@@ -3952,6 +3984,8 @@ class _InSitu:
             fail(f"{name} disagrees with its plain version at "
                  f"{_describe_geom(name, args)}, in situ")
         del got, want
+        if not timed:
+            return {}
         row = {"ms": _time_ms(lambda: kernel(args), iters=20),
                "plain_ms": _time_ms(lambda: plain(args), iters=3, warmup=1),
                "library_ms": None, "max_abs_err": err}
@@ -5488,6 +5522,337 @@ def phase_serve_parallel(card: str, tmp: Path, texts: list[str],
     return launches, retrieval, rows
 
 
+TRAIN_PARALLEL_WORLD = 4
+# (run, model_parallel, Trainer flags) over the 4 ranks: DP, ZeRO-1 and
+# ZeRO-3 on (4, 1), TP and TP + ZeRO-1 on (2, 2), TP on (1, 4)
+TRAIN_PARALLEL_RUNS = (("dp", 1, {}), ("zero1", 1, {"zero1": True}),
+                       ("zero3", 1, {"zero3": True}),
+                       ("tp", 2, {"tensor_parallel": True}),
+                       ("tp_zero1", 2, {"tensor_parallel": True,
+                                        "zero1": True}),
+                       ("tp_1x4", 4, {"tensor_parallel": True}))
+TRAIN_PARALLEL_STEPS = 2
+TRAIN_PARALLEL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "mlp_fwd",
+                          "mlp_bwd", "dropout")
+# a rank's launches a step: the bf16 step's at dropout 0.1 (every split
+# keeps the kernels on the rank's rows, heads and hidden slice), and the
+# fp32 step's at dropout 0, #1 and #2 alone
+TRAIN_PARALLEL_FP32_STEP = {"flash_attn_fwd": PER_STEP["flash_attn_fwd"],
+                            "flash_attn_bwd": PER_STEP["flash_attn_bwd"]}
+# fp32 at dropout 0 against the single-device step on the card: the loss
+# within 1e-5 relative (the mean over ranks, the partial products summed
+# in another order); the gathered params, that is the update p - p0 they
+# took, within a fifth of one lr a step of the single-device update. A
+# param AdamW moves by ~lr a step, so a rank that drops or misapplies one
+# step's update (the last one, say) lies ~lr away, 2.5 times the limit
+# at 2 steps: the check reads that planted fault on the single-device
+# params after one step and fails if it could not see it.
+TRAIN_PARALLEL_LOSS_RTOL = PARITY_LOSS_RTOL
+TRAIN_PARALLEL_UPDATE_ATOL_LR = 0.2
+TRAIN_CLI_TIMEOUT_S = 600
+TRAIN_CLI_ARGS = ["--synthetic_samples", str(2 * TRAIN_B), "--batch_size",
+                  str(TRAIN_B), "--epochs", "1", "--log_every", "1",
+                  "--save_every", "0", "--fused_attn"]
+TRAIN_CLI_MESH = ["--model_parallel", "2", "--tensor_parallel", "--zero1",
+                  "--dist_backend", "gloo"]
+
+
+def _train_parallel_cfg(dtype: str, dropout: float):
+    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+    return TrainConfig(model=ModelConfig(fused_attn=True, compute_dtype=dtype,
+                                         dropout=dropout),
+                       batch_size=TRAIN_B)
+
+
+def _train_parallel_batches() -> list:
+    """The phase's batches, the same on every rank (and in the parent)."""
+    from mmd_tpu_torch.data.synthetic import synthetic_preembed_batch
+    rng = np.random.default_rng(24)
+    return [synthetic_preembed_batch(rng, TRAIN_B)
+            for _ in range(TRAIN_PARALLEL_STEPS)]
+
+
+def _train_parallel_rank(rank: int, world: int, dev, job: dict) -> dict:
+    """One rank of train_parallel: each run of TRAIN_PARALLEL_RUNS in fp32
+    at dropout 0 (rank 0 keeps the losses and the gathered params) and in
+    bf16 at dropout 0.1 (the launches, the bytes staged through the host
+    and the state bytes of the rank; the step seconds on rank 0), #1-#5
+    held in situ at every geometry the bf16 runs gave them: ranks 1-3
+    together, then rank 0 alone, timed."""
+    import torch.distributed as dist
+
+    from mmd_tpu_torch.core.mesh import make_mesh
+    from mmd_tpu_torch.parallel import collectives as C
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    meshes = {mp: make_mesh(mp, device=dev) for mp in (1, 2, 4)}
+    batches = _train_parallel_batches()
+    in_situ = _InSitu(only=TRAIN_PARALLEL_KERNELS)
+    out = {"launches": {k: 0 for k in _kernels()}, "runs": []}
+    for name, mp, flags in TRAIN_PARALLEL_RUNS:
+        run = {"name": name, "mp": mp}
+        for dtype, rate in (("float32", 0.0), ("bfloat16", DROPOUT_RATE)):
+            cfg = _train_parallel_cfg(dtype, rate)
+            trainer = Trainer(cfg, mesh=meshes[mp], **flags)
+            state = trainer.init(seed=0)
+            rows = [trainer.shard_batch(b) for b in batches]
+            dist.barrier()
+            torch.cuda.synchronize()
+            C.staged_bytes = 0
+            _reset_counts()                  # count the runs only
+            losses, secs = [], []
+            with in_situ if dtype == "bfloat16" else contextlib.nullcontext():
+                for b in rows:
+                    t0 = time.perf_counter()
+                    state, aux = trainer.train_step(state, b)
+                    losses.append(float(aux["loss"]))
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+            launches = _counts()
+            for k, n in launches.items():
+                out["launches"][k] += n
+            run[dtype] = {"losses": losses, "secs": secs,
+                          "launches": launches, "staged": C.staged_bytes,
+                          "state_bytes": state.optimizer.state_bytes()}
+            if dtype == "float32":
+                whole = trainer.whole_params(state)
+                if rank == 0:
+                    run["params"] = {k: v.detach().cpu() for k, v in
+                                     whole.state_dict().items()}
+                del whole
+            del trainer, state, rows
+            torch.cuda.empty_cache()
+        out["runs"].append(run)
+    out["in_situ"] = in_situ.launches()
+    # ranks 1-3 hold their geometries together, untimed; then rank 0 holds
+    # and times its own alone on the card
+    if rank != 0:
+        out["rows"] = in_situ.hold(f"train_parallel_r{rank}", job["card"],
+                                   timed=False)
+    dist.barrier()
+    if rank == 0:
+        out["rows"] = in_situ.hold("train_parallel_r0", job["card"])
+    dist.barrier()
+    return out
+
+
+def _check_train_parallel(outs: list, job: dict, card: str) -> None:
+    phase = "train_parallel"
+    want_l, want_p, lr = job["losses"], job["params"], job["lr"]
+    atol = TRAIN_PARALLEL_UPDATE_ATOL_LR * TRAIN_PARALLEL_STEPS * lr
+
+    def worst_of(got: dict) -> tuple[float, str]:
+        """The largest |got - want| of any param over the limit, and its
+        leaf: p0 cancels, so this is the update's gap."""
+        worst, worst_at = 0.0, None
+        for k, w in want_p.items():
+            ratio = ((got[k] - w).abs() / atol).max().item()
+            if ratio > worst:
+                worst, worst_at = ratio, k
+        return worst, worst_at
+
+    fault, fault_at = worst_of(job["params_but_last"])
+    print(f"{phase}: the params check reads a run that skipped the last "
+          f"step at {fault:.3f} of its limit ({fault_at}; limit "
+          f"{TRAIN_PARALLEL_UPDATE_ATOL_LR} lr a step, lr {lr})  [{card}]",
+          flush=True)
+    if not fault > 1.0:
+        fail(f"{phase}: the params check cannot see a skipped step "
+             f"({fault:.3f} of its limit)")
+    bf16_want = {k: 0 for k in _kernels()}
+    bf16_want.update({k: v * TRAIN_PARALLEL_STEPS
+                      for k, v in PER_STEP_BF16.items()})
+    fp32_want = {k: 0 for k in _kernels()}
+    fp32_want.update({k: v * TRAIN_PARALLEL_STEPS
+                      for k, v in TRAIN_PARALLEL_FP32_STEP.items()})
+    for i, run in enumerate(outs[0]["runs"]):
+        ranks = [o["runs"][i] for o in outs]
+        name, mp = run["name"], run["mp"]
+        f32, b16 = run["float32"], run["bfloat16"]
+        loss_err = max(abs(g - w) / abs(w)
+                       for r in ranks for g, w in zip(r["float32"]["losses"],
+                                                      want_l))
+        worst, worst_at = worst_of(run["params"])
+        finite = all(math.isfinite(x) for r in ranks
+                     for x in r["bfloat16"]["losses"])
+        print(f"{phase}: {name} over (data, model) "
+              f"({TRAIN_PARALLEL_WORLD // mp}, {mp}): fp32 losses "
+              f"{[round(x, 6) for x in f32['losses']]} (single device "
+              f"{[round(x, 6) for x in want_l]}, worst rel {loss_err:.2e}, "
+              f"limit {TRAIN_PARALLEL_LOSS_RTOL:.0e}), params at "
+              f"{worst:.3f} of their limit (worst {worst_at}); bf16 losses "
+              f"{[round(x, 6) for x in b16['losses']]}; launches a rank "
+              f"fp32 {[sum(r['float32']['launches'].values()) for r in ranks]}"
+              f", bf16 {[{k: v for k, v in r['bfloat16']['launches'].items() if v} for r in ranks][0]}"
+              f"; staged through the host a rank (bf16 run) "
+              f"{[r['bfloat16']['staged'] for r in ranks]} B; state bytes a "
+              f"rank (params + moments) "
+              f"{[r['bfloat16']['state_bytes'] for r in ranks]} (single "
+              f"device {job['state_bytes']}); rank 0's bf16 step "
+              f"{[round(x, 3) for x in b16['secs']]} s, fp32 step "
+              f"{[round(x, 3) for x in f32['secs']]} s (host clock)  "
+              f"[{card}]", flush=True)
+        if not loss_err <= TRAIN_PARALLEL_LOSS_RTOL:
+            fail(f"{phase}: {name}: the fp32 losses are {loss_err:.2e} from "
+                 f"the single-device step's")
+        if worst > 1.0:
+            fail(f"{phase}: {name}: the fp32 params after "
+                 f"{TRAIN_PARALLEL_STEPS} steps lie {worst:.3f} times their "
+                 f"limit from the single-device params ({worst_at})")
+        if not finite:
+            fail(f"{phase}: {name}: a bf16 loss is not finite")
+        for r in ranks:
+            if r["float32"]["launches"] != fp32_want:
+                fail(f"{phase}: {name}: fp32 launches "
+                     f"{r['float32']['launches']}, want {fp32_want}")
+            if r["bfloat16"]["launches"] != bf16_want:
+                fail(f"{phase}: {name}: bf16 launches "
+                     f"{r['bfloat16']['launches']}, want {bf16_want}")
+    for o in outs:
+        counted = {k: sum(r["bfloat16"]["launches"][k] for r in o["runs"])
+                   for k in TRAIN_PARALLEL_KERNELS}
+        if o["in_situ"] != counted:
+            fail(f"{phase}: the in-situ record {o['in_situ']} misses "
+                 f"launches of {counted}")
+
+
+def _start_train_cli(tmp: Path):
+    """python -m torch.distributed.run --nproc_per_node 2 -m
+    mmd_tpu_torch.train over TP + ZeRO-1 on (1, 2), in the background."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "mmd_tpu_torch.train",
+           *TRAIN_CLI_ARGS, *TRAIN_CLI_MESH, "--output_dir",
+           str(tmp / "train_cli")]
+    return subprocess.Popen(cmd, cwd=root, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _check_train_cli(proc, tmp: Path, card: str, deadline: float) -> dict:
+    """The torchrun CLI's run, then its checkpoint resumed on one device
+    for one step (python -m mmd_tpu_torch.train's build and run_training,
+    in process). Returns the resumed run's launches."""
+    from mmd_tpu_torch import train as TR
+    from mmd_tpu_torch.training.loop import run_training
+
+    phase = "train_parallel_cli"
+    try:
+        stdout, stderr = proc.communicate(
+            timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+        fail(f"{phase}: the torchrun train CLI ran past "
+             f"{TRAIN_CLI_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        fail(f"{phase}: the torchrun train CLI exited {proc.returncode}: "
+             f"{stderr[-3000:]}")
+    out = tmp / "train_cli"
+    recs = [json.loads(x) for x in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/total_loss"] for r in recs]
+    ckpts = sorted(p.name for p in (out / "checkpoints").iterdir())
+    done = stdout.count("[train] done at step")
+    ok = (len(losses) == 2 and all(map(math.isfinite, losses))
+          and ckpts == ["step_2.pt"] and done == 1)
+    print(f"{phase}: python -m torch.distributed.run --nproc_per_node 2 -m "
+          f"mmd_tpu_torch.train {' '.join(TRAIN_CLI_MESH)}: losses "
+          f"{losses}, checkpoints {ckpts}, 'done' printed by {done} rank(s) "
+          f"-> {'ok' if ok else 'FAIL'}  [{card}]", flush=True)
+    if not ok:
+        fail(f"{phase}: the torchrun train CLI's run is not the expected "
+             f"one: {stdout[-2000:]}")
+    args = TR.parse_args(["--device", "cuda", *TRAIN_CLI_ARGS[:1], str(TRAIN_B),
+                          *TRAIN_CLI_ARGS[2:], "--resume_from",
+                          str(out / "checkpoints"), "--output_dir",
+                          str(tmp / "train_cli_resumed")])
+    cfg, trainer, train_batches, _ = TR.build(args)
+    saved = torch.load(out / "checkpoints" / "step_2.pt", map_location="cpu",
+                       weights_only=True)
+    _reset_counts()
+    state = run_training(trainer, train_batches)
+    torch.cuda.synchronize()
+    launches = _counts()
+    want = {k: 0 for k in launches}
+    want.update(PER_STEP_BF16)
+    recs = [json.loads(x) for x in (tmp / "train_cli_resumed" /
+                                    "metrics.jsonl").read_text().splitlines()]
+    moved = sum(not torch.equal(v.cpu(), saved["params"][k])
+                for k, v in state.params.state_dict().items())
+    ok = (state.step == 3 and [r["step"] for r in recs] == [3]
+          and math.isfinite(recs[0]["train/total_loss"])
+          and launches == want and moved > len(saved["params"]) // 2)
+    print(f"{phase}: its checkpoint resumed on one device for one step: at "
+          f"step {state.step}, loss {recs[0]['train/total_loss']:.6f}, "
+          f"{moved} of {len(saved['params'])} params moved, launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} -> "
+          f"{'ok' if ok else 'FAIL'}  [{card}]", flush=True)
+    if not ok:
+        fail(f"{phase}: the resumed run is not one more step of the saved "
+             f"one (launches want {want})")
+    return launches
+
+
+def phase_train_parallel(card: str, tmp: Path) -> tuple[dict, dict, dict]:
+    """Multi-device training on the card: a spawned world of 4 gloo ranks
+    sharing it runs the default train geometry (batch 256, text 512 x 384,
+    image 64 x 1024, the default fusion model with fused_attn) through
+    Trainer(mesh=, tensor_parallel=, zero1=, zero3=) in each run of
+    TRAIN_PARALLEL_RUNS: fp32 at dropout 0 against the single-device step
+    on the card, and bf16 at dropout 0.1 with #1-#5 in situ on every rank;
+    beside it the torchrun train CLI over TP + ZeRO-1, whose checkpoint
+    then resumes on one device. Returns the world's launches (summed over
+    its ranks), the resumed run's, and the in-situ rows."""
+    from mmd_tpu_torch.parallel.launch import spawn
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    proc = _start_train_cli(tmp)
+    deadline = time.monotonic() + TRAIN_CLI_TIMEOUT_S
+    cfg = _train_parallel_cfg("float32", 0.0)
+    trainer = Trainer(cfg, device="cuda")
+    state = trainer.init(seed=0)
+    losses, params = [], []
+    for b in _train_parallel_batches():
+        state, aux = trainer.train_step(state, trainer.shard_batch(b))
+        losses.append(float(aux["loss"]))
+        params.append({k: v.detach().cpu()
+                       for k, v in state.params.state_dict().items()})
+    job = {"card": card, "losses": losses, "lr": cfg.lr,
+           "params": params[-1], "params_but_last": params[-2],
+           "state_bytes": sum(p.numel() * p.element_size()
+                              for p in state.params.parameters()) * 3}
+    del trainer, state
+    torch.cuda.empty_cache()
+    print(f"train_parallel: a world of {TRAIN_PARALLEL_WORLD} gloo ranks "
+          f"sharing the card; runs {[r[:2] for r in TRAIN_PARALLEL_RUNS]} "
+          f"(name, model_parallel), {TRAIN_PARALLEL_STEPS} steps each in "
+          f"fp32 at dropout 0 and in bf16 at dropout {DROPOUT_RATE}, batch "
+          f"{TRAIN_B}; the torchrun train CLI started beside it", flush=True)
+    t0 = time.perf_counter()
+    try:
+        outs = spawn(_train_parallel_rank, TRAIN_PARALLEL_WORLD, "gloo",
+                     "cuda", args=(job,), timeout_s=900)
+    except Exception as e:  # a rank that failed fails the phase
+        proc.kill()
+        fail(f"train_parallel: a rank failed: {e!r}")
+    world_s = time.perf_counter() - t0
+    _check_train_parallel(outs, job, card)
+    resumed = _check_train_cli(proc, tmp, card, deadline)
+    rows = {}
+    for o in outs:
+        for name, r in o["rows"].items():
+            rows.setdefault(name, {}).update(r)
+    launches = {k: sum(o["launches"][k] for o in outs) for k in _kernels()}
+    print(f"train_parallel: the world {world_s:.1f} s, the phase with the "
+          f"CLI {time.perf_counter() - t_phase:.1f} s; launches summed over "
+          f"the ranks {json.dumps({k: v for k, v in launches.items() if v})}"
+          f"  [{card}]", flush=True)
+    return launches, resumed, rows
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -5548,6 +5913,10 @@ def main() -> None:
             recs[name].update(rows)
         (by_phase["serve_parallel"], by_phase["retrieval_sharded"],
          in_situ) = phase_serve_parallel(dev["card"], tmp, texts, images)
+        for name, rows in in_situ.items():
+            recs[name].update(rows)
+        (by_phase["train_parallel"], by_phase["train_parallel_cli"],
+         in_situ) = phase_train_parallel(dev["card"], tmp)
         for name, rows in in_situ.items():
             recs[name].update(rows)
         phase_train_parity(dev["card"])

@@ -2,9 +2,10 @@
 
 One dataclass tree feeds every entry point; the CLI keeps the reference's flag
 names (--epochs --batch_size --lr --pre_embed --factify --text_only ...).
-The port trains on one device: the mesh, tensor parallelism and ZeRO belong
-to multi-device training (ROADMAP A16b) and raise. `--device` picks the
-torch device (cuda unless the caller asks for cpu).
+`--device` picks the torch device (cuda unless the caller asks for cpu).
+The mesh, tensor parallelism and ZeRO train over the ranks of a
+`torch.distributed.run` launch (train.py, training/trainer.py); text
+parallelism in fine-tuning is ROADMAP A16b part 2 and raises.
 """
 
 from __future__ import annotations
@@ -38,15 +39,10 @@ class ModelConfig:
     # Compute dtype for matmuls/attention. Params stay float32; layernorm and
     # softmax accumulate in float32 either way.
     compute_dtype: str = "bfloat16"
-    # Megatron-style tensor parallelism of the fusion model belongs to
-    # multi-device training (ROADMAP A16b).
+    # Megatron-style tensor parallelism over the mesh "model" axis
+    # (parallel/tp.py). Trainer(tensor_parallel=True) sets this: the params
+    # are then the rank's slices, and the forward needs the mesh.
     tensor_parallel: bool = False
-
-    def __post_init__(self):
-        if self.tensor_parallel:
-            raise NotImplementedError(
-                "tensor_parallel arrives with multi-device training "
-                "(ROADMAP A16b)")
 
     @property
     def head_dim(self) -> int:
@@ -54,31 +50,17 @@ class ModelConfig:
         return self.embed_dim // self.num_heads
 
 
-def _multi_device(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} belongs to multi-device training (ROADMAP A16b), not "
-        f"ported yet")
-
-
 @dataclass
 class MeshConfig:
-    """Device mesh layout for training (JAX names). The port trains on one
-    device: any setting other than the default raises (multi-device
-    training is ROADMAP A16b; serving's mesh is core/mesh.py)."""
+    """Device mesh layout (JAX names): data = DP over the ranks, model =
+    the TP axis (core/mesh.py)."""
 
     data_axis: str = "data"
     model_axis: str = "model"
-    model_parallel: int = 1
-    tensor_parallel: bool = False
-    zero1: bool = False
-    zero3: bool = False
-
-    def __post_init__(self):
-        if self.model_parallel > 1:
-            raise _multi_device("model_parallel > 1")
-        for flag in ("tensor_parallel", "zero1", "zero3"):
-            if getattr(self, flag):
-                raise _multi_device(flag)
+    model_parallel: int = 1       # ranks along the model axis
+    tensor_parallel: bool = False  # run the train step TP-split (tp.py)
+    zero1: bool = False           # shard AdamW moments over the data axis
+    zero3: bool = False           # shard params AND moments over data
 
 
 @dataclass
@@ -165,12 +147,12 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--wandb_entity", type=str, default=None)
     p.add_argument("--resume_from", type=str, default=None)
     p.add_argument("--model_parallel", type=int, default=1,
-                   help="multi-device training (ROADMAP A16b): values "
-                        "above 1 raise")
+                   help="ranks along the mesh model axis")
     p.add_argument("--tensor_parallel", action="store_true",
-                   help="multi-device training (ROADMAP A16b): raises")
+                   help="Megatron-style TP over the mesh model axis "
+                        "(requires --model_parallel >= 2; parallel/tp.py)")
     p.add_argument("--zero1", action="store_true",
-                   help="multi-device training (ROADMAP A16b): raises")
+                   help="ZeRO-1: shard AdamW moments over the data axis")
     p.add_argument("--accum_steps", type=int, default=d.accum_steps,
                    help="micro-batches per step (gradient accumulation)")
     p.add_argument("--finetune_encoders", action="store_true",
@@ -179,9 +161,15 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
                         "fine-tuning)")
     p.add_argument("--text_parallelism", choices=["sp", "sp_ring", "pp"],
                    default=None,
-                   help="multi-device training (ROADMAP A16b): raises")
+                   help="text parallelism in fine-tuning (ROADMAP A16b "
+                        "part 2): raises")
     p.add_argument("--zero3", action="store_true",
-                   help="multi-device training (ROADMAP A16b): raises")
+                   help="ZeRO-3: shard params AND moments over the data "
+                        "axis (1/n a rank; gathered on use)")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="process-group backend under torch.distributed.run "
+                        "(nccl on CUDA by default, gloo on the CPU; nccl "
+                        "runs one rank a card)")
     p.add_argument("--compute_dtype", type=str, default=d.model.compute_dtype,
                    choices=["bfloat16", "float32"])
     p.add_argument("--remat", action="store_true",
@@ -220,7 +208,9 @@ def train_config_from_args(args: argparse.Namespace) -> TrainConfig:
                       tensor_parallel=args.tensor_parallel,
                       zero1=args.zero1, zero3=args.zero3)
     if args.text_parallelism:
-        raise _multi_device("--text_parallelism")
+        raise NotImplementedError(
+            "--text_parallelism in fine-tuning is ROADMAP A16b part 2, not "
+            "ported yet")
     return TrainConfig(
         model=model, data=data, mesh=mesh,
         epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,

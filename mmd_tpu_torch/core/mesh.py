@@ -145,10 +145,16 @@ def corpus_sharding(mesh: Mesh, n: int, axis: str = DATA_AXIS) -> slice:
     return shard_rows(mesh, n, axis)
 
 
+def host_rows(batch, mesh: Mesh) -> dict:
+    """This rank's rows of each array of a host batch (a dict of arrays or
+    tensors), still on the host."""
+    return {k: x[batch_sharding(mesh, len(x))] for k, x in batch.items()}
+
+
 def shard_batch(batch, mesh: Mesh, device: Optional[torch.device] = None):
     """A host batch (a dict of arrays or tensors) as this rank's rows of
     each, on the mesh's device."""
     dev = device or mesh.device
     # a copy: the rows never alias the caller's host buffers
-    return {k: torch.as_tensor(x[batch_sharding(mesh, len(x))]).to(
-        dev, copy=True) for k, x in batch.items()}
+    return {k: torch.as_tensor(x).to(dev, copy=True)
+            for k, x in host_rows(batch, mesh).items()}

@@ -359,7 +359,7 @@ def load_hf_blip_state_dict(state_dict: Mapping, cfg: CaptionerConfig
 
 # -- assets ----------------------------------------------------------------------
 
-def load_captioner_assets(assets, device: str | torch.device = "cpu"
+def load_captioner_assets(assets, device: str | torch.device = "cuda"
                           ) -> tuple:
     """(tokenizer, cfg, params on `device`) from an assets dir holding
     tokenizer.json and optionally captioner.pt + captioner_config.json

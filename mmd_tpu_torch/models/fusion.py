@@ -19,6 +19,17 @@ cfg.fused_attn, the explicit path otherwise. The training forward
 classifier-head activations at cfg.dropout, each site with its own seed
 drawn from the step's torch.Generator in the JAX package's call order
 (`_Rngs`).
+
+With a mesh (mmd_tpu/models/fusion.py:130-240,294-313 take a tp_mesh)
+every dropout seed is folded by the rank's indices
+(parallel/tp.FusionParallel), and when
+cfg.tensor_parallel the params are the rank's Megatron slices
+(parallel/tp.py): the column-split projections read replicated
+activations through `copy`, each attention runs the rank's num_heads/tp
+heads (ops/attention.sharded_attention; the cross attention's queries
+are the rank's columns of H), the row-split projections sum their partial
+products through `reduce`, and the MLPs and the heads run on the rank's
+hidden slice (models/layers.py).
 """
 
 from __future__ import annotations
@@ -29,7 +40,8 @@ import torch
 
 from mmd_tpu_torch.core.config import ModelConfig
 from mmd_tpu_torch.models import layers as L
-from mmd_tpu_torch.ops.attention import multi_head_attention
+from mmd_tpu_torch.ops.attention import (multi_head_attention,
+                                         sharded_attention)
 
 
 class _Rngs:
@@ -119,35 +131,58 @@ def init_fusion_params(gen: torch.Generator, cfg: ModelConfig) -> L.ParamTree:
 # Forward
 # -----------------------------------------------------------------------------
 
-def _core(cfg: ModelConfig, q, k, v, rngs: _Rngs, deterministic):
+def _core(cfg: ModelConfig, q, k, v, rngs: _Rngs, deterministic, par=None):
+    seed = rngs()
+    if par is not None:
+        seed = par.seed(seed, local=True)
+    if par is not None and par.tp is not None:
+        return sharded_attention(q, k, v, cfg.num_heads, par.mesh,
+                                 dropout_rate=cfg.dropout, dropout_seed=seed,
+                                 deterministic=deterministic,
+                                 fused=cfg.fused_attn)
     return multi_head_attention(q, k, v, cfg.num_heads,
                                 dropout_rate=cfg.dropout,
-                                dropout_seed=rngs(),
+                                dropout_seed=seed,
                                 deterministic=deterministic,
                                 fused=cfg.fused_attn)
 
 
+def _columns(p, names, x, dtype, tp):
+    """The column-split projections `names` of x (replicated under TP, read
+    through tp.copy once for all of them)."""
+    if x is None:
+        return [None] * len(names)
+    if tp is not None:
+        x = tp.copy(x)
+    return [L.linear(p[n], x, dtype) for n in names]
+
+
 def _representation(p, cfg: ModelConfig, X_t, X_i, rngs: _Rngs,
-                    deterministic, dtype):
+                    deterministic, dtype, par=None):
     """Multi-view claim representation. Returns (H_t, H_i) (either may be
     None)."""
+    tp = par.tp if par is not None else None
     if X_t is not None:
         X_t = L.linear(p["text_proj"], X_t, dtype)
-        tQ = L.linear(p["text_WQ"], X_t, dtype)
-        tK = L.linear(p["text_WK"], X_t, dtype)
-        tV = L.linear(p["text_WV"], X_t, dtype)
+        tQ, tK, tV = _columns(p, ("text_WQ", "text_WK", "text_WV"), X_t,
+                              dtype, tp)
     if X_i is not None:
         X_i = L.linear(p["image_proj"], X_i, dtype)
-        iQ = L.linear(p["image_WQ"], X_i, dtype)
-        iK = L.linear(p["image_WK"], X_i, dtype)
-        iV = L.linear(p["image_WV"], X_i, dtype)
+        iQ, iK, iV = _columns(p, ("image_WQ", "image_WK", "image_WV"), X_i,
+                              dtype, tp)
 
     def attn(q, k, v, out):
-        return L.linear(p[out], _core(cfg, q, k, v, rngs, deterministic),
-                        dtype)
+        return L.row_linear(p[out], _core(cfg, q, k, v, rngs, deterministic,
+                                          par), dtype, tp)
 
     def mlp(name, x):
-        return L.mlp(p[name], x, cfg.dropout, rngs(), deterministic, dtype)
+        return L.mlp(p[name], x, cfg.dropout, rngs(), deterministic, dtype,
+                     par=par)
+
+    def heads(h):
+        """The cross attention's queries: H itself, the rank's columns of
+        it under TP."""
+        return tp.columns(h) if tp is not None else h
 
     if X_t is not None and X_i is None:
         H_t = X_t + attn(tQ, tK, tV, "text_self_attn_out")
@@ -170,12 +205,12 @@ def _representation(p, cfg: ModelConfig, X_t, X_i, rngs: _Rngs,
     t_kv = (tK, tV) if cfg.parity_cross_kv else (iK, iV)
     i_kv = (iK, iV) if cfg.parity_cross_kv else (tK, tV)
 
-    C_t = H_t + attn(H_t, *t_kv, "text_cross_attn_out")
+    C_t = H_t + attn(heads(H_t), *t_kv, "text_cross_attn_out")
     C_t = L.layernorm(p["text_cross_ln1"], C_t)
     C_t = C_t + mlp("text_mlp", C_t)
     C_t = L.layernorm(p["text_cross_ln2"], C_t)
 
-    C_i = H_i + attn(H_i, *i_kv, "image_cross_attn_out")
+    C_i = H_i + attn(heads(H_i), *i_kv, "image_cross_attn_out")
     C_i = L.layernorm(p["image_cross_ln1"], C_i)
     C_i = C_i + mlp("image_mlp", C_i)
     C_i = L.layernorm(p["image_cross_ln2"], C_i)
@@ -183,24 +218,25 @@ def _representation(p, cfg: ModelConfig, X_t, X_i, rngs: _Rngs,
 
 
 def _evidence_conditioning(p, cfg: ModelConfig, H_t, H_i, E_t, E_i,
-                           rngs: _Rngs, deterministic, dtype):
+                           rngs: _Rngs, deterministic, dtype, par=None):
     """4-path evidence conditioning. Returns ((S_t_t, S_t_i), (S_i_t,
     S_i_i))."""
-    def lin(name, x):
-        return L.linear(p[name], x, dtype) if x is not None else None
-
-    tQ, iQ = lin("text_WQ", H_t), lin("image_WQ", H_i)
-    etK, etV = lin("text_evidence_key", E_t), lin("text_evidence_value", E_t)
-    eiK, eiV = lin("image_evidence_key", E_i), lin("image_evidence_value", E_i)
+    tp = par.tp if par is not None else None
+    (tQ,) = _columns(p, ("text_WQ",), H_t, dtype, tp)
+    (iQ,) = _columns(p, ("image_WQ",), H_i, dtype, tp)
+    etK, etV = _columns(p, ("text_evidence_key", "text_evidence_value"), E_t,
+                        dtype, tp)
+    eiK, eiV = _columns(p, ("image_evidence_key", "image_evidence_value"),
+                        E_i, dtype, tp)
 
     def path(H, Q, K, V, name, mlp_name):
         if H is None or K is None:
             return None
-        ctx = _core(cfg, Q, K, V, rngs, deterministic)
-        s = L.linear(p[f"{name}_out"], ctx, dtype)
+        ctx = _core(cfg, Q, K, V, rngs, deterministic, par)
+        s = L.row_linear(p[f"{name}_out"], ctx, dtype, tp)
         s = L.layernorm(p[f"{name}_ln1"], H + s)
         s = s + L.mlp(p[mlp_name], s, cfg.dropout, rngs(), deterministic,
-                      dtype)
+                      dtype, par=par)
         return L.layernorm(p[f"{name}_ln2"], s)
 
     return (
@@ -216,18 +252,19 @@ def _pool(x, dtype):
 
 
 def _classify(p, cfg: ModelConfig, S_t, S_i, rngs: _Rngs, deterministic,
-              dtype):
+              dtype, par=None):
     if cfg.factify:
         pooled = [_pool(s, dtype) for s in (*S_t, *S_i) if s is not None]
         logits = L.head_apply(p["unified_mlp"], torch.cat(pooled, dim=-1),
-                              cfg.dropout, rngs(), deterministic, dtype)
+                              cfg.dropout, rngs(), deterministic, dtype,
+                              par=par)
         return logits.float(), None
 
     def head(name, s):
         if s is None:
             return None
         return L.head_apply(p[name], _pool(s, dtype), cfg.dropout, rngs(),
-                            deterministic, dtype).float()
+                            deterministic, dtype, par=par).float()
 
     (S_t_t, S_t_i), (S_i_t, S_i_i) = S_t, S_i
     return (
@@ -242,15 +279,27 @@ def fusion_forward(params: L.ParamTree, cfg: ModelConfig,
                    E_t: Optional[torch.Tensor] = None,
                    E_i: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
-                   deterministic: bool = True):
+                   deterministic: bool = True, mesh=None):
     """Full model forward. The training forward (deterministic=False) draws
     one seed per dropout site from `generator`.
+
+    `mesh` (core/mesh.Mesh): the inputs are this rank's rows, its dropout
+    seeds are folded by the rank's indices, and with cfg.tensor_parallel
+    the params are its Megatron slices (parallel/tp.shard_tree), which
+    need the mesh.
 
     Returns, matching the reference's contract (model.py:426-468):
       text_only:  (logits (B, C), None)
       factify:    (logits (B, C), None)
       default:    ((y_t_t, y_t_i), (y_i_t, y_i_i)) each (B, C) or None
     """
+    par = None
+    if mesh is not None:
+        from mmd_tpu_torch.parallel.tp import FusionParallel
+        par = FusionParallel(mesh, cfg.tensor_parallel)
+    elif cfg.tensor_parallel:
+        raise ValueError("tensor_parallel params are a rank's slices: the "
+                         "forward needs the mesh")
     dtype = L.dtype_of(cfg.compute_dtype)
     rngs = _Rngs(generator)
 
@@ -261,18 +310,19 @@ def fusion_forward(params: L.ParamTree, cfg: ModelConfig,
 
     if cfg.text_only:
         H_t, _ = _representation(params["representation"], cfg, X_t, None,
-                                 rngs, deterministic, dtype)
+                                 rngs, deterministic, dtype, par)
         (S_t_t, _), _ = _evidence_conditioning(
             params["cross_attn"], cfg, H_t, None, E_t, None, rngs,
-            deterministic, dtype)
+            deterministic, dtype, par)
         logits = L.head_apply(params["classifier"]["text_classifier"],
                               _pool(S_t_t, dtype), cfg.dropout, rngs(),
-                              deterministic, dtype)
+                              deterministic, dtype, par=par)
         return logits.float(), None
 
     H_t, H_i = _representation(params["representation"], cfg, X_t, X_i,
-                               rngs, deterministic, dtype)
+                               rngs, deterministic, dtype, par)
     S_t, S_i = _evidence_conditioning(params["cross_attn"], cfg, H_t, H_i,
-                                      E_t, E_i, rngs, deterministic, dtype)
+                                      E_t, E_i, rngs, deterministic, dtype,
+                                      par)
     return _classify(params["classifier"], cfg, S_t, S_i, rngs,
-                     deterministic, dtype)
+                     deterministic, dtype, par)

@@ -19,6 +19,13 @@ of 128, on the TPU), `mlp` runs ops/mlp.py's fused MLP on CUDA tensors
 at the widths its kernels are built for (D 128 or 256):
 the forward and backward kernels, with the same two masks as the unfused
 path. The CPU keeps the unfused path, as the JAX package does off the TPU.
+
+Under a mesh (`par`, parallel/tp.FusionParallel) `mlp` and `head_apply`
+take their dropout seeds as `par.split` folds them; with tensor
+parallelism they run on the rank's hidden slice: the column-split layer
+reads its input through `par.tp.copy`, the row-split one sums its partial
+products through `par.tp.reduce` (`row_linear`), and the dropout of the
+rank's hidden slice (#5 on CUDA tensors) draws the rank's own mask.
 """
 
 from __future__ import annotations
@@ -176,7 +183,7 @@ def needs_fused_mlp(dtype: torch.dtype, dropout_rate: float,
 
 def mlp(params: ParamTree, x: torch.Tensor, dropout_rate: float = 0.0,
         seed: Optional[int] = None, deterministic: bool = True,
-        dtype: torch.dtype = torch.float32) -> torch.Tensor:
+        dtype: torch.dtype = torch.float32, par=None) -> torch.Tensor:
     """GELU MLP (reference layers.py:5-21, torch nn.GELU = erf-exact).
 
     Under float32 the erf form is used (parity with the reference); under
@@ -184,17 +191,28 @@ def mlp(params: ParamTree, x: torch.Tensor, dropout_rate: float = 0.0,
     from erf-GELU (~5e-4 relative) is below bf16 resolution (~4e-3). Its two
     dropouts take seeds split from `seed`, as the JAX package splits its
     key. Where `needs_fused_mlp` holds, the block runs as ops/mlp.fused_mlp
-    (kernels #3/#4), which draws the same two masks from the same seeds."""
+    (kernels #3/#4), which draws the same two masks from the same seeds.
+
+    `par` (parallel/tp.FusionParallel): the two seeds are split from
+    `seed` and folded by `par.split`; with tensor parallelism fc1 is the
+    rank's columns and fc2 its rows (the local F routes the fused
+    kernels)."""
+    tp = par.tp if par is not None else None
+    seeds = None if seed is None else tuple(
+        par.split(seed, 2) if par is not None else D.split_seed(seed, 2))
     if needs_fused_mlp(dtype, dropout_rate, deterministic, x.device,
                        x.shape[-1], params["fc1"].weight.shape[0]):
         fc1, fc2 = params["fc1"], params["fc2"]
         return fused_mlp(x, fc1.weight.T, fc1.bias, fc2.weight.T, fc2.bias,
-                         dropout_rate, seed, dtype)
-    s1, s2 = D.split_seed(seed, 2) if seed is not None else (None, None)
+                         dropout_rate, seeds, dtype,
+                         tp_mesh=par.mesh if tp is not None else None)
+    s1, s2 = seeds or (None, None)
+    if tp is not None:
+        x = tp.copy(x)
     h = linear(params["fc1"], x, dtype)
     h = F.gelu(h, approximate="tanh" if dtype == torch.bfloat16 else "none")
     h = dropout(h, dropout_rate, s1, deterministic)
-    h = linear(params["fc2"], h, dtype)
+    h = row_linear(params["fc2"], h, dtype, tp)
     return dropout(h, dropout_rate, s2, deterministic)
 
 
@@ -207,13 +225,25 @@ def head_init(gen: torch.Generator, dims: list[int]) -> ParamTree:
 
 def head_apply(params: ParamTree, x: torch.Tensor, dropout_rate: float = 0.0,
                seed: Optional[int] = None, deterministic: bool = True,
-               dtype: torch.dtype = torch.float32) -> torch.Tensor:
+               dtype: torch.dtype = torch.float32, par=None) -> torch.Tensor:
     """Linear -> ReLU -> Dropout between every pair; final Linear bare. The
-    dropouts take seeds split from `seed`."""
+    dropouts take seeds split from `seed`, folded by `par.split` under a
+    mesh (`par`). With tensor parallelism fc0 is the rank's columns and fc1
+    its rows (summed over the model axis), so the dropout after fc0 drops
+    the rank's slice; later layers run replicated."""
+    tp = par.tp if par is not None else None
     n = len(params.keys())
-    seeds = D.split_seed(seed, n) if seed is not None else [None] * n
+    if par is not None:
+        seeds = par.split(seed, n)
+    else:
+        seeds = D.split_seed(seed, n) if seed is not None else [None] * n
     for i in range(n):
-        x = linear(params[f"fc{i}"], x, dtype)
+        if tp is not None and i == 0:
+            x = linear(params["fc0"], tp.copy(x), dtype)
+        elif tp is not None and i == 1:
+            x = row_linear(params["fc1"], x, dtype, tp)
+        else:
+            x = linear(params[f"fc{i}"], x, dtype)
         if i < n - 1:
             x = dropout(torch.relu(x), dropout_rate, seeds[i], deterministic)
     return x

@@ -38,6 +38,7 @@ from typing import Optional
 
 import torch
 
+from mmd_tpu_torch.core.mesh import MODEL_AXIS
 from mmd_tpu_torch.ops import cuda_build
 from mmd_tpu_torch.ops import dropout as D
 
@@ -420,3 +421,43 @@ def multi_head_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if key_mask is not None:
         kb = ((1.0 - key_mask.float()) * -1e9)[:, None, None, :]
     return explicit_attention(q, k, v, num_heads, kb, rate, seed)
+
+
+# ----------------------------------------------------------------------------
+# The kernels on a rank's block of a (data, model) mesh
+# ----------------------------------------------------------------------------
+# The JAX package runs its Pallas kernels under shard_map when the heads are
+# split over the model axis (_shard_mapped_attention): each device computes
+# its num_heads/tp heads on its (B/dp, T, D/tp) block, and the row-split
+# output projection outside sums the partial products. Here a rank holds
+# that block already, and the kernels run on it.
+
+_SEED_ODD = (0x9E3779B97F4A7C15, 0xD1B54A32D192ED03)   # one per axis
+
+
+def fold_seed(seed: int, *indices: int) -> int:
+    """`seed` decorrelated across mesh ranks (_fold_seed): the index on each
+    axis times that axis's odd 64-bit constant is added, modulo 2^64.
+    Index 0 on every axis leaves the seed unchanged, so a world of one
+    draws the single-device masks."""
+    for j, i in enumerate(indices):
+        seed = (seed + i * _SEED_ODD[j % len(_SEED_ODD)]) & 0xFFFFFFFFFFFFFFFF
+    return seed
+
+
+def sharded_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                      num_heads: int, mesh, dropout_rate: float = 0.0,
+                      dropout_seed: Optional[int] = None,
+                      deterministic: bool = True, fused: bool = False
+                      ) -> torch.Tensor:
+    """`multi_head_attention` on this rank's (B/dp, T, D/tp) blocks of q, k
+    and v, whose columns hold num_heads/tp whole heads of the model's head
+    dim. `dropout_seed` is the rank's own, folded by its data and model
+    indices (parallel/tp.FusionParallel.seed), so every (rows, heads)
+    block draws its own mask."""
+    tp = mesh.shape[MODEL_AXIS]
+    if num_heads % tp:
+        raise ValueError(f"num_heads={num_heads} not divisible by model "
+                         f"axis {tp}")
+    return multi_head_attention(q, k, v, num_heads // tp, dropout_rate,
+                                dropout_seed, deterministic, fused)

@@ -71,16 +71,17 @@ def gelu_tanh_grad(a: torch.Tensor) -> torch.Tensor:
         1.0 + 3.0 * _K * a * a)
 
 
-def mask_seeds(rate: float, seed: Optional[int]
-               ) -> Optional[tuple[int, int]]:
+def mask_seeds(rate: float, seed) -> Optional[tuple[int, int]]:
     """(hidden, output) mask seeds of a layer seed, or None when there is no
-    dropout."""
+    dropout; a pair of seeds is taken as already split."""
     if rate <= 0.0:
         return None
     if not rate < 1.0:
         raise ValueError(f"dropout rate must lie in [0, 1), not {rate}")
     if seed is None:
         raise ValueError("fused_mlp dropout requires a seed")
+    if isinstance(seed, tuple):
+        return tuple(int(s) for s in seed)
     s1, s2 = D.split_seed(int(seed), 2)
     return s1, s2
 
@@ -345,18 +346,37 @@ class _FusedMLP(torch.autograd.Function):
 
 def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
               w2: torch.Tensor, b2: torch.Tensor, rate: float = 0.0,
-              seed: Optional[int] = None,
-              dtype: torch.dtype = torch.bfloat16,
+              seed=None, dtype: torch.dtype = torch.bfloat16,
               tp_mesh=None) -> torch.Tensor:
     """(..., D) -> (..., D) through Linear-GELU-Dropout-Linear-Dropout in one
     kernel; w1 (D, F) and w2 (F, D) in the JAX layout. x and the weights are
-    cast to `dtype`, the biases to fp32; `seed` gives the masks when
-    rate > 0. Tensor parallelism belongs to multi-device training (ROADMAP
-    A16b) and raises."""
-    if tp_mesh is not None:
-        raise NotImplementedError("fused_mlp under tensor parallelism is not "
-                                  "ported yet (ROADMAP A16b)")
+    cast to `dtype`, the biases to fp32. When rate > 0, `seed` gives the
+    masks: a layer seed (split by `mask_seeds`), or the (hidden, output)
+    mask seeds already split (and, under a mesh, folded by
+    parallel/tp.FusionParallel.split).
+
+    With `tp_mesh`, the rank's block of a Megatron split (the JAX
+    package's shard_map, mmd_tpu/ops/mlp.py:234-292): x is the rank's rows,
+    w1 (D, F/tp) and b1 (F/tp,) its columns, w2 (F/tp, D) its rows, b2
+    whole. The kernel computes the rank's full-D partial with b2/tp added,
+    and the partials are summed over the model axis in fp32. The seeds
+    must then be the folded pair: the hidden mask's folded by the data and
+    model indices (each rank's F/tp slice draws its own mask), the output
+    mask's by the data index alone, so every model rank draws the same
+    output mask, mask * sum(partials) == sum(mask * partials), and the sum
+    is the unsplit layer's output. x and b2 enter through `copy_to_axis`,
+    so their gradients are summed over the model axis as well."""
+    if tp_mesh is not None and rate > 0.0 and not isinstance(seed, tuple):
+        raise ValueError("fused_mlp under tp_mesh takes the (hidden, output) "
+                         "mask seeds parallel/tp.FusionParallel.split "
+                         "folded, not a layer seed")
     seeds = mask_seeds(rate, seed)
+    if tp_mesh is not None:
+        from mmd_tpu_torch.core.mesh import MODEL_AXIS
+        from mmd_tpu_torch.parallel import collectives as C
+        tp = tp_mesh.shape[MODEL_AXIS]
+        x = C.copy_to_axis(x, tp_mesh, MODEL_AXIS)
+        b2 = C.copy_to_axis(b2.float(), tp_mesh, MODEL_AXIS) * (1.0 / tp)
     shape = x.shape
     x2 = x.reshape(-1, shape[-1]).to(dtype).contiguous()
     y = _FusedMLP.apply(x2, w1.to(dtype).contiguous(),
@@ -364,4 +384,6 @@ def fused_mlp(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
                         w2.to(dtype).contiguous(),
                         b2.to(torch.float32).contiguous(), seeds,
                         float(rate) if seeds is not None else 0.0)
+    if tp_mesh is not None:
+        y = C.reduce_from_axis(y.float(), tp_mesh, MODEL_AXIS).to(y.dtype)
     return y.reshape(shape)

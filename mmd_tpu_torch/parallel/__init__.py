@@ -1,8 +1,9 @@
 """Parallelism toolkit over torch.distributed (counterpart of
 mmd_tpu/parallel/__init__.py): the (data, model) mesh of ranks, sharded
-retrieval, and the sequence-, ring-, pipeline- and tensor-parallel text
-encoders for serving. Multi-device training (DP in the Trainer, the
-fusion model's TP, ZeRO) is ROADMAP A16b.
+retrieval, the sequence-, ring-, pipeline- and tensor-parallel text
+encoders for serving, and the training state's specs and sharded AdamW
+(DP, ZeRO-1, ZeRO-3, the fusion model's TP; training/trainer.py).
+Fine-tuning under text parallelism is ROADMAP A16b part 2.
 """
 
 from mmd_tpu_torch.core.mesh import (
@@ -15,7 +16,11 @@ from mmd_tpu_torch.parallel.pp import pipeline_encode, pipeline_encode_deberta
 from mmd_tpu_torch.parallel.sp import (
     sequence_parallel_encode, sequence_parallel_encode_deberta,
 )
-from mmd_tpu_torch.parallel.tp import encoder_specs, shard_encoder
+from mmd_tpu_torch.parallel.tp import (
+    encoder_specs, shard_encoder, state_specs, tp_zero1_specs, zero1_specs,
+    zero3_specs,
+)
+from mmd_tpu_torch.parallel.zero import ShardedAdamW
 
 __all__ = [
     "DATA_AXIS", "MODEL_AXIS", "batch_sharding", "corpus_sharding",
@@ -23,4 +28,6 @@ __all__ = [
     "make_sharded_topk", "init_from_env", "spawn", "pipeline_encode",
     "pipeline_encode_deberta", "sequence_parallel_encode",
     "sequence_parallel_encode_deberta", "encoder_specs", "shard_encoder",
+    "state_specs", "zero1_specs", "tp_zero1_specs", "zero3_specs",
+    "ShardedAdamW",
 ]

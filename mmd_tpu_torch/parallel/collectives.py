@@ -1,7 +1,12 @@
 """Collectives over one axis of a mesh: the port's counterparts of
-`lax.all_gather(tiled=True)`, `lax.ppermute` and `lax.psum` inside the
-JAX package's shard_map bodies (`lax.axis_index` is `Mesh.axis_index`),
-plus the point-to-point hops and the broadcast of the pipeline schedule.
+`lax.all_gather(tiled=True)`, `lax.ppermute`, `lax.psum` and
+`lax.psum_scatter(tiled=True)` inside the JAX package's shard_map bodies
+(`lax.axis_index` is `Mesh.axis_index`), plus the point-to-point hops and
+the broadcast of the pipeline schedule, the in-place mean of a list of
+gradients, and the two Megatron operators that autograd sees:
+`copy_to_axis` (identity forward, psum of the gradient backward) and
+`reduce_from_axis` (psum forward, identity backward). `psum` itself is
+invisible to autograd.
 
 Each runs on the process group of this rank's line along the axis
 (core/mesh.py); an axis of size 1 returns its input. The backend is the
@@ -88,6 +93,131 @@ def psum(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
         w = x.clone()
     dist.all_reduce(w, op=dist.ReduceOp.SUM, group=group)
     return _from_wire(w, x)
+
+
+def reduce_scatter(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """lax.psum_scatter(x, axis, tiled=True): the sum of every rank's x
+    along `axis`, of which this rank keeps its tile of dim 0 (tile i for
+    axis index i)."""
+    n = mesh.shape[axis]
+    if n == 1:
+        return x
+    if x.shape[0] % n:
+        raise ValueError(f"dim 0 of {tuple(x.shape)} does not divide over "
+                         f"the {n} ranks of axis {axis!r}")
+    group = mesh.group(axis)
+    stage = _staged(group)
+    parts = [_to_wire(p, stage) for p in x.chunk(n)]
+    out = _wire_buffer(parts[0], stage)
+    dist.reduce_scatter(out, parts, op=dist.ReduceOp.SUM, group=group)
+    return _from_wire(out, x)
+
+
+def pmean_(tensors: list, mesh, axis: str) -> None:
+    """Replace each tensor of the list (one dtype and device) by its mean
+    over `axis`, in place, through one all-reduce of their concatenation."""
+    n = mesh.shape[axis]
+    if n == 1 or not tensors:
+        return
+    flat = psum(torch.cat([t.reshape(-1) for t in tensors]), mesh, axis)
+    flat.div_(n)
+    off = 0
+    for t in tensors:
+        t.copy_(flat[off:off + t.numel()].view_as(t))
+        off += t.numel()
+
+
+def _tiles(x: torch.Tensor, dim: int, n: int) -> list:
+    """x's n tiles along dim, each flattened with dim first."""
+    return [t.movedim(dim, 0).reshape(-1) for t in x.chunk(n, dim)]
+
+
+def _untile(flat: torch.Tensor, shape, dim: int) -> torch.Tensor:
+    """A flat tile back to `shape` (dim first when flattened)."""
+    moved = [shape[dim]] + [s for i, s in enumerate(shape) if i != dim]
+    return flat.view(moved).movedim(0, dim)
+
+
+def all_gather_many(tensors: list, dims: list, mesh, axis: str) -> list:
+    """[all_gather(x, mesh, axis, dim) for each x and dim], through one
+    all-gather of their concatenation (one dtype and device)."""
+    n = mesh.shape[axis]
+    if n == 1 or not tensors:
+        return list(tensors)
+    flat = torch.cat([x.movedim(d, 0).reshape(-1)
+                      for x, d in zip(tensors, dims)])
+    parts = all_gather(flat, mesh, axis).view(n, -1)
+    out, off = [], 0
+    for x, d in zip(tensors, dims):
+        k = x.numel()
+        out.append(torch.cat([_untile(parts[r, off:off + k], x.shape, d)
+                              for r in range(n)], d))
+        off += k
+    return out
+
+
+def reduce_scatter_many(tensors: list, dims: list, mesh, axis: str
+                        ) -> list:
+    """Each x's sum over `axis`, of which this rank keeps its tile along its
+    dim (`reduce_scatter` along any dim), through one reduce-scatter of
+    their tiles, rank by rank (one dtype and device)."""
+    n = mesh.shape[axis]
+    if n == 1 or not tensors:
+        return list(tensors)
+    for x, d in zip(tensors, dims):
+        if x.shape[d] % n:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not divide "
+                             f"over the {n} ranks of axis {axis!r}")
+    tiles = [_tiles(x, d, n) for x, d in zip(tensors, dims)]
+    flat = torch.cat([torch.cat([t[r] for t in tiles]) for r in range(n)])
+    mine = reduce_scatter(flat, mesh, axis)
+    out, off = [], 0
+    for x, d, t in zip(tensors, dims, tiles):
+        k = t[0].numel()
+        shape = list(x.shape)
+        shape[d] //= n
+        out.append(_untile(mine[off:off + k], shape, d))
+        off += k
+    return out
+
+
+class _CopyToAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        ctx.mesh, ctx.axis = mesh, axis
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return psum(g.float(), ctx.mesh, ctx.axis).to(g.dtype), None, None
+
+
+class _ReduceFromAxis(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis):
+        return psum(x, mesh, axis)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+def copy_to_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """x, unchanged, where a rank's column-split layers read it: the
+    backward sums the gradient over `axis` (in fp32), so a replicated
+    input collects every rank's part of its gradient."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _CopyToAxis.apply(x, mesh, axis)
+
+
+def reduce_from_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
+    """The sum over `axis` of every rank's x (a row-split layer's partial
+    products; pass fp32): the backward hands each rank the gradient as it
+    is."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _ReduceFromAxis.apply(x, mesh, axis)
 
 
 def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:

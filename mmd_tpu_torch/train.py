@@ -1,5 +1,6 @@
-"""Train the misinformation fusion model with PyTorch on one device
-(counterpart of the repository's train.py).
+"""Train the misinformation fusion model with PyTorch (counterpart of the
+repository's train.py), on one device or over the ranks of a
+torch.distributed.run launch.
 
     python -m mmd_tpu_torch.train --pre_embed --train_data data/preprocessed/train.csv \\
         --epochs 50 --batch_size 32 --lr 1e-4 --fused_attn \\
@@ -8,6 +9,9 @@
         --fused_attn [--compute_dtype float32]
     python -m mmd_tpu_torch.train --train_data data/preprocessed/train.csv \\
         --batch_size 8 --fused_attn [--finetune_encoders] [--remat]
+    python -m torch.distributed.run --nproc_per_node N -m mmd_tpu_torch.train \
+        --model_parallel M [--tensor_parallel] [--zero1 | --zero3] \
+        [--dist_backend nccl|gloo] ...
 
 --compute_dtype defaults to bfloat16, as in the JAX package: with dropout on
 the card the MLPs then run the fused GELU-MLP kernels (ops/mlp.py); on the
@@ -32,6 +36,15 @@ CLI contract of the JAX package's train.py (reference train.py:24-85):
   * metrics go to <output_dir>/metrics.jsonl always, wandb only if --wandb;
   * --device cuda (the default) raises where there is no card; the CPU is
     used only when asked for.
+
+Under torch.distributed.run each rank joins the world
+(parallel/launch.init_from_env: cuda:{LOCAL_RANK}, the --dist_backend
+asked for, nccl on CUDA by default; nccl refuses two ranks on one card and
+nothing switches backend), builds the (data, model) mesh of
+--model_parallel, and trains its rows of every batch (training/trainer.py);
+rank 0 writes. Without a launch the world is this process: --zero1 and
+--zero3 are legal there and change nothing, --model_parallel above 1 and
+--tensor_parallel raise the JAX package's ValueErrors.
 """
 
 from __future__ import annotations
@@ -61,6 +74,36 @@ def store_path_for_csv(csv_path: str, pre_embed: bool) -> str:
     return base + ("_embeddings.store" if pre_embed else ".store")
 
 
+def _mesh(args, cfg):
+    """The mesh to train on: the world of a torch.distributed.run launch
+    (or of a process group already made), else None, or the world of this
+    process where --model_parallel asks for more (which raises)."""
+    import torch.distributed as dist
+
+    from mmd_tpu_torch.core.mesh import make_mesh
+    from mmd_tpu_torch.parallel.launch import init_from_env
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        _, _, dev = init_from_env(args.dist_backend, args.device)
+        return make_mesh(cfg.mesh.model_parallel, device=dev)
+    if cfg.mesh.model_parallel > 1:
+        return make_mesh(cfg.mesh.model_parallel, device=args.device)
+    return None
+
+
+def _first_on_rank0(fn):
+    """fn() on rank 0, then on the other ranks (which then find what rank 0
+    wrote), so that files built at first use are built once."""
+    import torch.distributed as dist
+    if not dist.is_initialized():
+        return fn()
+    if dist.get_rank() == 0:
+        out = fn()
+        dist.barrier()
+        return out
+    dist.barrier()
+    return fn()
+
+
 def build(args):
     """(cfg, trainer, train_batches, val_batches) for parsed arguments: the
     set-up `main` runs before `run_training`."""
@@ -70,9 +113,13 @@ def build(args):
     from mmd_tpu_torch.training.trainer import Trainer
 
     cfg = train_config_from_args(args)
+    mesh = _mesh(args, cfg)
+    kw = dict(device=args.device, mesh=mesh,
+              tensor_parallel=cfg.mesh.tensor_parallel, zero1=cfg.mesh.zero1,
+              zero3=cfg.mesh.zero3)
     val_batches = None
     if args.synthetic_samples:
-        trainer = Trainer(cfg, device=args.device)
+        trainer = Trainer(cfg, **kw)
         rng = np.random.default_rng(cfg.seed)
         n_batches = max(1, args.synthetic_samples // cfg.batch_size)
         data = [synthetic_preembed_batch(rng, cfg.batch_size)
@@ -88,7 +135,7 @@ def build(args):
             def val_batches():
                 return iter([dict(b) for b in val])
     elif cfg.data.pre_embed:
-        trainer = Trainer(cfg, device=args.device)
+        trainer = Trainer(cfg, **kw)
         store = ArrayStore(store_path_for_csv(cfg.data.train_data, True))
         print(f"[train] {len(store)} pre-embedded samples")
 
@@ -116,14 +163,16 @@ def build(args):
         df = pd.read_csv(cfg.data.train_data)
         texts = (df["claim"].fillna("").astype(str).tolist()
                  + df["evidence"].fillna("").astype(str).tolist())
-        enc = load_or_init_frozen("assets/encoders", vocab_texts=texts)
+        enc = _first_on_rank0(lambda: load_or_init_frozen(
+            "assets/encoders", vocab_texts=texts))
         sp = raw_store_path(cfg.data.train_data)
         if not os.path.exists(os.path.join(sp, "meta.json")):
             print(f"[train] raw store not found at {sp}; building...")
-        store = build_raw_store(cfg.data.train_data, enc.tokenizer)
+        store = _first_on_rank0(lambda: build_raw_store(
+            cfg.data.train_data, enc.tokenizer))
         print(f"[train] {len(store)} raw samples (on-the-fly encoding)")
-        trainer = Trainer(cfg, device=args.device, encoders=enc,
-                          finetune=args.finetune_encoders)
+        trainer = Trainer(cfg, encoders=enc,
+                          finetune=args.finetune_encoders, **kw)
 
         def train_batches(epoch):
             return store.batches(cfg.batch_size, shuffle=cfg.data.shuffle,
@@ -133,15 +182,27 @@ def build(args):
 
 
 def main(argv=None):
+    import torch.distributed as dist
+
     from mmd_tpu_torch.training.loop import run_training
 
     args = parse_args(argv)
-    cfg, trainer, train_batches, val_batches = build(args)
-    print(f"[train] device {trainer.device}, {cfg.model.compute_dtype}, "
-          f"fused_attn={cfg.model.fused_attn}, dropout {cfg.model.dropout}")
-    state = run_training(trainer, train_batches, val_batches,
-                         use_wandb=args.wandb)
-    print(f"[train] done at step {state.step}")
+    own_group = not dist.is_initialized()
+    try:
+        cfg, trainer, train_batches, val_batches = build(args)
+        if trainer.is_writer:
+            where = (trainer.device if trainer.mesh is None
+                     else f"mesh {trainer.mesh.shape}")
+            print(f"[train] {where}, {cfg.model.compute_dtype}, "
+                  f"fused_attn={cfg.model.fused_attn}, dropout "
+                  f"{cfg.model.dropout}")
+        state = run_training(trainer, train_batches, val_batches,
+                             use_wandb=args.wandb)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
+    if trainer.is_writer:
+        print(f"[train] done at step {state.step}")
     return state
 
 

@@ -2,6 +2,14 @@
 over an ArrayStore (or any batch iterable), metric accumulation, periodic
 checkpoints, per-epoch validation, best-model tracking. Functional parity
 with reference train.py:109-246,388-434.
+
+Over a mesh every rank walks the same batches and steps on its rows of
+each (Trainer.host_rows); the step's metrics are already the whole
+batch's. Only the writer (rank 0) logs and writes metrics.jsonl,
+checkpoints and best_model.pt, and what it writes is the single-device
+state, gathered by every rank (the JAX package's orbax arrays are global):
+a run saved under one mesh resumes on one device or under another mesh,
+and its best_model.pt serves on one device.
 """
 
 from __future__ import annotations
@@ -102,18 +110,22 @@ def _flush_metrics(acc: dict, num_classes: int, prefix: str) -> dict:
     return out
 
 
-def _checkpoint(state: TrainState) -> dict:
-    return {"step": state.step, "params": state.params.state_dict(),
-            "optimizer": state.optimizer.state_dict(), "seed": state.seed}
-
-
-def restore_state(state: TrainState, directory: str) -> TrainState:
-    """Load the latest checkpoint of `directory` into `state` (same config)."""
+def restore_state(trainer: Trainer, state: TrainState, directory: str
+                  ) -> TrainState:
+    """Load the latest checkpoint of `directory` into `state` (same config;
+    over a mesh each rank takes its blocks of it)."""
     ckpt = CheckpointManager(directory).restore(map_location="cpu")
-    state.params.load_state_dict(ckpt["params"])
-    state.optimizer.load_state_dict(ckpt["optimizer"])
-    state.step, state.seed = int(ckpt["step"]), int(ckpt["seed"])
-    return state
+    return trainer.load_state_dict(state, ckpt)
+
+
+class _Silent:
+    """The logger of a rank that does not write."""
+
+    def log(self, metrics: dict, step: Optional[int] = None) -> None:
+        pass
+
+    def close(self) -> None:
+        pass
 
 
 def run_training(
@@ -131,19 +143,28 @@ def run_training(
     """
     cfg = trainer.cfg
     num_classes = cfg.model.num_classes
+    writer = trainer.is_writer
     own_logger = logger is None
-    logger = logger or MetricsLogger(
-        cfg.output_dir, use_wandb=use_wandb,
-        wandb_project=cfg.wandb_project, wandb_entity=cfg.wandb_entity,
-    )
-    ckpt = CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"))
+    if own_logger:
+        logger = MetricsLogger(
+            cfg.output_dir, use_wandb=use_wandb,
+            wandb_project=cfg.wandb_project,
+            wandb_entity=cfg.wandb_entity) if writer else _Silent()
+    ckpt = (CheckpointManager(os.path.join(cfg.output_dir, "checkpoints"))
+            if writer else None)
+
+    def save(step: int) -> None:
+        payload = trainer.state_dict(state)
+        if writer:
+            ckpt.save(step, payload)
 
     if state is None:
         state = trainer.init()
         if cfg.resume_from:
-            state = restore_state(state, cfg.resume_from)
-            print(f"[train] resumed from {cfg.resume_from} @ step "
-                  f"{state.step}")
+            state = restore_state(trainer, state, cfg.resume_from)
+            if writer:
+                print(f"[train] resumed from {cfg.resume_from} @ step "
+                      f"{state.step}")
 
     best_metric = float("-inf")
     acc: dict = {}
@@ -153,7 +174,8 @@ def run_training(
 
     for epoch in range(cfg.epochs):
         stream = prefetch_to_device(
-            ({k: v for k, v in b.items() if not k.startswith("_")}
+            (trainer.host_rows({k: v for k, v in b.items()
+                                if not k.startswith("_")})
              for b in train_batches(epoch)),
             trainer.device, cfg.prefetch_depth)
         for batch in stream:
@@ -172,7 +194,7 @@ def run_training(
                 samples, t_window = 0, time.time()
 
             if cfg.save_every and global_step % cfg.save_every == 0:
-                ckpt.save(global_step, _checkpoint(state))
+                save(global_step)
 
         if cfg.validate_every_epoch and val_batches is not None:
             val_logs = evaluate(trainer, state, val_batches(), num_classes)
@@ -183,12 +205,14 @@ def run_training(
                 cur = val_logs.get(key)
                 if cur is not None and cur > best_metric:
                     best_metric = cur
-                    save_params(os.path.join(cfg.output_dir,
-                                             "best_model.pt"), state.params)
+                    best = trainer.whole_params(state)
+                    if writer:
+                        save_params(os.path.join(cfg.output_dir,
+                                                 "best_model.pt"), best)
                     logger.log({"val/best_metric": best_metric},
                                step=global_step)
 
-    ckpt.save(global_step, _checkpoint(state))
+    save(global_step)
     if own_logger:
         logger.close()
     return state

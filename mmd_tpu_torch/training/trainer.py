@@ -26,8 +26,16 @@ fold_in(state.rng, step). The port derives the step's torch.Generator from
 accumulated step -- so a resumed run draws the same masks, and no step ever
 touches the global RNG.
 
-The multi-device variants (zero1, zero3, tensor_parallel,
-text_parallelism) raise: multi-device training is ROADMAP A16b.
+Over a mesh (core/mesh.py: a rank of a torch.distributed world a device)
+the Trainer runs the JAX Trainer's `mesh`, `tensor_parallel`, `zero1` and
+`zero3` (mmd_tpu/training/trainer.py:462-621): each rank takes its rows of
+the global batch, the forward folds its dropout seeds by the rank's
+indices and, under TP, runs on its Megatron slices (models/fusion.py),
+and parallel/zero.ShardedAdamW means the gradients over "data" and steps
+the rank's blocks of the state under parallel/tp.py's specs. The step's
+loss and per-path losses are global means, its preds and labels the
+global batch, on every rank. `text_parallelism` (fine-tuning the text
+encoder split over the model axis) is ROADMAP A16b part 2 and raises.
 """
 
 from __future__ import annotations
@@ -40,6 +48,8 @@ import numpy as np
 import torch
 
 from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+from mmd_tpu_torch.core.mesh import (DATA_AXIS, MODEL_AXIS, host_rows,
+                                     make_mesh, shard_batch)
 from mmd_tpu_torch.data.labels import (PATHS, paths_to_category_idx_torch,
                                        paths_to_simplified_torch)
 from mmd_tpu_torch.models import layers as L
@@ -48,6 +58,9 @@ from mmd_tpu_torch.models.frozen import image_encode, text_encode
 from mmd_tpu_torch.models.fusion import fusion_forward, init_fusion_params
 from mmd_tpu_torch.models.swin import SwinConfig
 from mmd_tpu_torch.ops.image_ops import TRAIN_TRANSFORM, normalize_on_device
+from mmd_tpu_torch.parallel import collectives as C
+from mmd_tpu_torch.parallel import tp as TP
+from mmd_tpu_torch.parallel import zero as Z
 from mmd_tpu_torch.training.losses import (cross_entropy_per_sample,
                                            multipath_loss, single_loss)
 
@@ -57,7 +70,9 @@ _MASK64 = 0xFFFFFFFFFFFFFFFF
 @dataclasses.dataclass
 class TrainState:
     """step, fusion params, the AdamW optimizer holding the moments, and the
-    seed every step's dropout generator derives from."""
+    seed every step's dropout generator derives from. Over a mesh the
+    params are the rank's blocks and the optimizer a
+    parallel/zero.ShardedAdamW."""
 
     step: int
     params: L.ParamTree
@@ -84,11 +99,13 @@ def step_generator(seed: int, step: int, micro: Optional[int] = None
     return torch.Generator().manual_seed(_mix(*words))
 
 
-def make_optimizer(cfg: TrainConfig, params: torch.nn.Module
-                   ) -> torch.optim.AdamW:
+def make_optimizer(cfg: TrainConfig, params) -> torch.optim.AdamW:
     """AdamW with torch-default hyperparameters (reference train.py:356;
-    the same decoupled decay as optax.adamw, trainer.py:34-42)."""
-    return torch.optim.AdamW(params.parameters(), lr=cfg.lr,
+    the same decoupled decay as optax.adamw, trainer.py:34-42) over a
+    module's parameters or a list of tensors."""
+    if isinstance(params, torch.nn.Module):
+        params = params.parameters()
+    return torch.optim.AdamW(params, lr=cfg.lr,
                              betas=(0.9, 0.999), eps=1e-8,
                              weight_decay=cfg.weight_decay)
 
@@ -104,16 +121,18 @@ def init_state(cfg: TrainConfig, device="cuda",
 
 
 def _loss_fn(params, mcfg: ModelConfig, batch: dict,
-             generator: Optional[torch.Generator], deterministic=False):
+             generator: Optional[torch.Generator], deterministic=False,
+             mesh=None):
     """(loss, aux): aux holds the detached loss, preds and labels, the
-    per-path losses, and per-sample nll when deterministic (eval)."""
+    per-path losses, and per-sample nll when deterministic (eval). Over a
+    mesh all are the rank's rows' (see `_global_aux`)."""
     outputs = fusion_forward(
         params, mcfg,
         X_t=batch["claim_text_embeds"],
         X_i=batch.get("claim_image_embeds"),
         E_t=batch["doc_text_embeds"],
         E_i=batch.get("doc_image_embeds"),
-        generator=generator, deterministic=deterministic,
+        generator=generator, deterministic=deterministic, mesh=mesh,
     )
     labels = batch["labels"]
     if mcfg.factify or mcfg.text_only:
@@ -187,42 +206,65 @@ def _accum_grads(loss_fn: Callable, params: torch.nn.Module, batch: dict,
     return {k: merge([a[k] for a in auxes]) for k in auxes[0]}
 
 
-def _make_step(cfg: TrainConfig, loss_fn: Callable
+def _global_aux(aux: dict, mesh) -> dict:
+    """A rank's aux over the whole batch: scalars (the losses) averaged
+    over "data" in one all-reduce, per-sample tensors all-gathered in rank
+    order."""
+    scalars = [k for k, v in aux.items() if v.dim() == 0]
+    out = {k: C.all_gather(v, mesh, DATA_AXIS) for k, v in aux.items()
+           if v.dim() >= 1}
+    if scalars:
+        vals = torch.stack([aux[k].float() for k in scalars])
+        vals = C.psum(vals, mesh, DATA_AXIS) / mesh.shape[DATA_AXIS]
+        out.update({k: vals[i] for i, k in enumerate(scalars)})
+    return {k: out[k] for k in aux}
+
+
+def _make_step(cfg: TrainConfig, loss_fn: Callable, mesh=None
                ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """step_fn(state, batch) -> (state, aux): one AdamW step of
     loss_fn(params, batch, generator) -> (loss, aux). cfg.accum_steps > 1
     runs the step as that many micro-batches with accumulated grads and ONE
     optimizer update. After the call each param's .grad holds the step's
-    gradient."""
+    gradient.
+
+    Over a mesh the batch is the rank's rows and state.optimizer a
+    ShardedAdamW: the loss is differentiated on the tree it gives
+    (`working`), its step means the gradients over "data", and the aux is
+    the whole batch's (`_global_aux`)."""
     accum = max(1, cfg.accum_steps)
 
     def step_fn(state: TrainState, batch: dict):
-        _zero_grads(state.params)
+        params = (state.optimizer.working() if mesh is not None
+                  else state.params)
+        _zero_grads(params)
         if accum > 1:
             gens = [step_generator(state.seed, state.step, i)
                     for i in range(accum)]
-            aux = _accum_grads(loss_fn, state.params, batch, gens, accum)
+            aux = _accum_grads(loss_fn, params, batch, gens, accum)
         else:
-            loss, aux = loss_fn(state.params, batch,
+            loss, aux = loss_fn(params, batch,
                                 step_generator(state.seed, state.step))
             loss.backward()
         state.optimizer.step()
         state.step += 1
+        if mesh is not None:
+            aux = _global_aux(aux, mesh)
         return state, aux
 
     return step_fn
 
 
-def make_raw_step(cfg: TrainConfig) -> Callable[[TrainState, dict],
-                                                tuple[TrainState, dict]]:
+def make_raw_step(cfg: TrainConfig, mesh=None
+                  ) -> Callable[[TrainState, dict], tuple[TrainState, dict]]:
     """step_fn(state, batch) -> (state, aux): one AdamW step on a batch of
     pre-embedded tensors on the params' device (see `_make_step`)."""
     mcfg = cfg.model
 
     def loss_fn(params, batch, generator):
-        return _loss_fn(params, mcfg, batch, generator)
+        return _loss_fn(params, mcfg, batch, generator, mesh=mesh)
 
-    return _make_step(cfg, loss_fn)
+    return _make_step(cfg, loss_fn, mesh)
 
 
 def _embed_raw(text_params, text_cfg, vit_params, vit_cfg, batch: dict,
@@ -253,7 +295,7 @@ def _embed_raw(text_params, text_cfg, vit_params, vit_cfg, batch: dict,
     }
 
 
-def make_encoding_raw_step(cfg: TrainConfig, enc
+def make_encoding_raw_step(cfg: TrainConfig, enc, mesh=None
                            ) -> Callable[[TrainState, dict],
                                          tuple[TrainState, dict]]:
     """step_fn(state, batch) -> (state, aux) on RAW batches: the frozen
@@ -269,9 +311,9 @@ def make_encoding_raw_step(cfg: TrainConfig, enc
         with torch.no_grad():
             emb = _embed_raw(enc.text_params, enc.text_cfg, enc.vit_params,
                              enc.vit_cfg, batch, dtype)
-        return _loss_fn(params, mcfg, emb, generator)
+        return _loss_fn(params, mcfg, emb, generator, mesh=mesh)
 
-    return _make_step(cfg, loss_fn)
+    return _make_step(cfg, loss_fn, mesh)
 
 
 def finetune_encoder_configs(cfg: TrainConfig, text_cfg, vit_cfg):
@@ -310,7 +352,7 @@ def init_finetune_state(cfg: TrainConfig, enc, device="cuda",
     return TrainState(0, params, make_optimizer(cfg, params), seed)
 
 
-def make_finetune_raw_step(cfg: TrainConfig, enc
+def make_finetune_raw_step(cfg: TrainConfig, enc, mesh=None
                            ) -> Callable[[TrainState, dict],
                                          tuple[TrainState, dict]]:
     """End-to-end fine-tuning step on RAW batches: the text and image
@@ -328,36 +370,57 @@ def make_finetune_raw_step(cfg: TrainConfig, enc
         emb = _embed_raw(params["text"], text_cfg, params["vit"], vit_cfg,
                          batch, dtype)
         return _loss_fn(params["fusion"], mcfg, emb, generator,
-                        deterministic=deterministic)
+                        deterministic=deterministic, mesh=mesh)
 
-    step_fn = _make_step(cfg, joint_loss)
+    step_fn = _make_step(cfg, joint_loss, mesh)
     step_fn.joint_loss = joint_loss
     return step_fn
 
 
-def make_eval_step(cfg: TrainConfig) -> Callable[[torch.nn.Module, dict],
-                                                 dict]:
-    """eval_fn(params, batch) -> aux: loss and preds without updates
-    (deterministic, no autograd)."""
-    mcfg = cfg.model
-
+def _eval_step(loss: Callable, mesh=None, layout=None
+               ) -> Callable[[torch.nn.Module, dict], dict]:
+    """eval_fn(params, batch) -> loss(params, batch)'s aux without autograd;
+    over a mesh the whole batch's, under ZeRO-3 (`layout`) with the params
+    gathered on use."""
     def eval_fn(params, batch):
         with torch.no_grad():
-            _, aux = _loss_fn(params, mcfg, batch, None, deterministic=True)
-        return aux
+            if layout is not None and layout.zero3:
+                params = layout.gather(params)
+            aux = loss(params, batch)
+        return aux if mesh is None else _global_aux(aux, mesh)
 
     return eval_fn
 
 
+def make_eval_step(cfg: TrainConfig, mesh=None, layout=None
+                   ) -> Callable[[torch.nn.Module, dict], dict]:
+    """eval_fn(params, batch) -> aux: loss and preds without updates
+    (deterministic, no autograd). Over a mesh: the rank's rows in, the
+    whole batch's aux out (see `_eval_step`)."""
+    mcfg = cfg.model
+    return _eval_step(lambda p, b: _loss_fn(p, mcfg, b, None,
+                                            deterministic=True,
+                                            mesh=mesh)[1], mesh, layout)
+
+
 @dataclasses.dataclass
 class Trainer:
-    """Config, device, and the step functions for the train loop on one
-    device.
+    """Config, device or mesh, and the step functions for the train loop.
 
     With `encoders` (a FrozenEncoders) batches are RAW (token ids and uint8
     images from pipelines/raw_store.py): the frozen encoders, moved to the
     device, run inside the step; with `finetune` as well, they train with
     the fusion model. Otherwise batches are pre-embedded.
+
+    `mesh` (core/mesh.Mesh) trains over the ranks of a torch.distributed
+    world, each on its own device (the mesh's): data parallelism over
+    "data", with `tensor_parallel` the Megatron split of the fusion model
+    over "model" (pre-embedded and raw paths; the frozen encoders whole
+    on every rank), with `zero1` the moments and with `zero3` the params
+    and the moments sharded over "data" (every path, fine-tuning included,
+    over the joint tree). zero1 or zero3 without a mesh trains on a mesh of
+    this one device, where they change nothing. The JAX Trainer's
+    validations hold (mmd_tpu/training/trainer.py:501-541).
 
     `device` defaults to cuda and never falls back: without a card it
     raises; tests pass "cpu"."""
@@ -370,51 +433,156 @@ class Trainer:
     zero3: bool = False
     finetune: bool = False
     text_parallelism: Optional[str] = None
+    mesh: Any = None
 
     def __post_init__(self):
-        if self.tensor_parallel or self.zero1 or self.zero3 \
-                or self.text_parallelism is not None:
+        if self.text_parallelism is not None:
             raise NotImplementedError(
-                "multi-device training (tensor parallelism, ZeRO, text "
-                "parallelism) is not ported yet (ROADMAP A16b)")
-        if self.finetune and self.encoders is None:
-            raise ValueError("finetune=True requires encoders")
+                "fine-tuning under text_parallelism is ROADMAP A16b part 2, "
+                "not ported yet")
+        if self.zero3 and (self.zero1 or self.tensor_parallel):
+            raise ValueError("zero3 is exclusive with zero1/tensor_parallel")
         if (self.cfg.accum_steps > 1
                 and self.cfg.batch_size % self.cfg.accum_steps != 0):
             raise ValueError(
                 f"batch_size={self.cfg.batch_size} must divide by "
                 f"accum_steps={self.cfg.accum_steps}")
-        self.device = torch.device(self.device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError("training on cuda, but torch sees no CUDA "
-                               "device; pass --device cpu to train on the "
-                               "CPU")
-        self.eval_step = make_eval_step(self.cfg)
         if self.finetune:
-            self.train_step = make_finetune_raw_step(self.cfg, self.encoders)
+            if self.encoders is None:
+                raise ValueError("finetune=True requires encoders")
+            if self.tensor_parallel:
+                raise ValueError(
+                    "finetune composes with zero1/zero3, not TP (the TP "
+                    "name rules cover the fusion tree only)")
+        if self.mesh is None and (self.tensor_parallel or self.zero1
+                                  or self.zero3):
+            self.mesh = make_mesh(1, device=self.device)
+        self._layout = None
+        if self.mesh is not None:
+            self._init_mesh()
+        else:
+            self.device = torch.device(self.device)
+            if self.device.type == "cuda" and not torch.cuda.is_available():
+                raise RuntimeError("training on cuda, but torch sees no CUDA "
+                                   "device; pass --device cpu to train on "
+                                   "the CPU")
+        mesh = self.mesh
+        self.eval_step = make_eval_step(self.cfg, mesh, self._layout)
+        if self.finetune:
+            self.train_step = make_finetune_raw_step(self.cfg, self.encoders,
+                                                     mesh)
             joint_loss = self.train_step.joint_loss
-
-            def eval_step(params, batch):
-                with torch.no_grad():
-                    return joint_loss(params, batch, None,
-                                      deterministic=True)[1]
-            self.eval_step = eval_step
+            self.eval_step = _eval_step(
+                lambda p, b: joint_loss(p, b, None, deterministic=True)[1],
+                mesh, self._layout)
         elif self.encoders is not None:
             for params in (self.encoders.text_params,
                            self.encoders.vit_params):
                 params.to(self.device).requires_grad_(False)
-            self.train_step = make_encoding_raw_step(self.cfg, self.encoders)
+            self.train_step = make_encoding_raw_step(self.cfg, self.encoders,
+                                                     mesh)
         else:
-            self.train_step = make_raw_step(self.cfg)
+            self.train_step = make_raw_step(self.cfg, mesh)
+
+    def _init_mesh(self) -> None:
+        mesh = self.mesh
+        self.device = mesh.device
+        dp, mp = mesh.shape[DATA_AXIS], mesh.shape[MODEL_AXIS]
+        if self.tensor_parallel:
+            if mp < 2:
+                raise ValueError("tensor_parallel needs a model axis >= 2")
+            TP.validate_tp_config(self.cfg.model, mesh)
+            self.cfg = dataclasses.replace(
+                self.cfg, model=dataclasses.replace(self.cfg.model,
+                                                    tensor_parallel=True))
+        local = self.cfg.batch_size // dp
+        if self.cfg.batch_size % dp or local % max(1, self.cfg.accum_steps):
+            raise ValueError(
+                f"batch_size={self.cfg.batch_size} must divide over the "
+                f"{dp} data ranks, and each rank's {local} rows by "
+                f"accum_steps={self.cfg.accum_steps}")
+        whole = self._whole(0)
+        self._layout = Z.Layout(whole, mesh, Z.train_specs(
+            whole, dp, self.tensor_parallel, self.zero1, self.zero3))
+
+    def _whole(self, seed: int) -> L.ParamTree:
+        """The whole trainable tree from `seed`, on the CPU (the
+        encoders' params as they are)."""
+        fusion = init_fusion_params(torch.Generator().manual_seed(seed),
+                                    self.cfg.model)
+        if not self.finetune:
+            return fusion
+        return L.ParamTree({"fusion": fusion,
+                            "text": self.encoders.text_params,
+                            "vit": self.encoders.vit_params})
+
+    @property
+    def is_writer(self) -> bool:
+        """Whether this process writes logs, metrics and checkpoints (rank
+        0 of the mesh; the one process without one)."""
+        return self.mesh is None or self.mesh.rank == 0
 
     def init(self, seed: Optional[int] = None) -> TrainState:
-        if self.finetune:
-            return init_finetune_state(self.cfg, self.encoders, self.device,
-                                       seed)
-        return init_state(self.cfg, self.device, seed)
+        """Step 0: the whole state from the seed, as the JAX package builds
+        it, then, over a mesh, the rank's blocks of it."""
+        if self.mesh is None:
+            if self.finetune:
+                return init_finetune_state(self.cfg, self.encoders,
+                                           self.device, seed)
+            return init_state(self.cfg, self.device, seed)
+        seed = self.cfg.seed if seed is None else seed
+        params = self._layout.shard(self._whole(seed))
+        for p in params.parameters():
+            p.requires_grad_(True)
+        cfg = self.cfg
+        return TrainState(0, params, Z.ShardedAdamW(
+            params, self._layout, lambda ps: make_optimizer(cfg, ps)), seed)
+
+    def host_rows(self, batch: dict) -> dict:
+        """This rank's rows of a host batch (the batch itself without a
+        mesh), for a stream that copies them to the device itself."""
+        if self.mesh is None:
+            return batch
+        return host_rows(batch, self.mesh)
 
     def shard_batch(self, batch: dict) -> dict:
-        """Host numpy batch -> tensors on the device (a copy: no aliasing
-        of the caller's arrays)."""
+        """Host numpy batch -> this rank's rows as tensors on the device (a
+        copy: no aliasing of the caller's arrays)."""
+        if self.mesh is not None:
+            return shard_batch(batch, self.mesh)
         return {k: torch.tensor(np.asarray(v)).to(self.device)
                 for k, v in batch.items()}
+
+    # -- the single-device layout (checkpoints, best_model.pt) -------------
+    # Over a mesh each of these is a collective: every rank calls it.
+
+    def whole_params(self, state: TrainState) -> torch.nn.Module:
+        """The single-device params of `state` (over a mesh gathered from
+        the ranks' blocks; leaves kept whole are shared, not copied)."""
+        if self._layout is None:
+            return state.params
+        return self._layout.gather(state.params)
+
+    def load_params(self, state: TrainState, params: dict) -> None:
+        """Load a single-device params state dict into `state` (over a mesh
+        the rank keeps its blocks of it)."""
+        if self._layout is None:
+            state.params.load_state_dict(params)
+        else:
+            self._layout.load(state.params, params)
+
+    def state_dict(self, state: TrainState) -> dict:
+        """`state` as one device holds it: step, params, the AdamW state
+        (as torch.optim.AdamW over the whole params gives it) and seed."""
+        return {"step": state.step,
+                "params": self.whole_params(state).state_dict(),
+                "optimizer": state.optimizer.state_dict(),
+                "seed": state.seed}
+
+    def load_state_dict(self, state: TrainState, ckpt: dict) -> TrainState:
+        """Load a `state_dict` (saved under any mesh, or none) into
+        `state`."""
+        self.load_params(state, ckpt["params"])
+        state.optimizer.load_state_dict(ckpt["optimizer"])
+        state.step, state.seed = int(ckpt["step"]), int(ckpt["seed"])
+        return state

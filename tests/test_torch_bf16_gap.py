@@ -61,7 +61,7 @@ def _step(dtype: str, fused: bool = False, gates=None):
     pre = {}
 
     def head_apply(params, x, dropout_rate=0.0, seed=None,
-                   deterministic=True, dtype=torch.float32):
+                   deterministic=True, dtype=torch.float32, par=None):
         # layers.head_apply with its ReLU written as x * gate
         n = len(params.keys())
         seeds = D.split_seed(seed, n)

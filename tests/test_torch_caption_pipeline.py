@@ -196,10 +196,10 @@ def test_orbax_captioner_carries_over(tmp_path, rng, head):
         json.dumps(dataclasses.asdict(jcfg)))
     jsave_params(str(tmp_path / "captioner.ckpt"), tree)
     with pytest.raises(FileNotFoundError, match="orbax_to_torch"):
-        TC.load_captioner_assets(tmp_path)
+        TC.load_captioner_assets(tmp_path, "cpu")
     assert [p.name for p in orbax_to_torch.convert_assets(tmp_path)] == [
         "captioner.pt"]
-    _, cfg, params = TC.load_captioner_assets(tmp_path)
+    _, cfg, params = TC.load_captioner_assets(tmp_path, "cpu")
     got = jax.tree_util.tree_leaves(bridge.to_jax_tree(params))
     assert all(np.array_equal(a, b) for a, b in
                zip(got, jax.tree_util.tree_leaves(tree)))

@@ -1537,3 +1537,45 @@ def test_nccl_refuses_two_ranks_on_one_card(cuda_device):
         pytest.skip("checks the refusal on a machine with one card")
     with pytest.raises(RuntimeError, match="one rank a card"):
         spawn(_serve_parallel_rank, 2, "nccl", "cuda", timeout_s=60)
+
+
+def _mlp_tp_inputs():
+    gen = torch.Generator().manual_seed(7)
+    x = torch.randn(2, 256, 256, generator=gen)
+    w1 = torch.randn(256, 1024, generator=gen) * 0.05
+    b1 = torch.randn(1024, generator=gen) * 0.1
+    w2 = torch.randn(1024, 256, generator=gen) * 0.05
+    b2 = torch.randn(256, generator=gen) * 0.1
+    return x, w1, b1, w2, b2
+
+
+def _mlp_tp_rank(rank, world, dev):
+    from mmd_tpu_torch.core.mesh import make_mesh
+    from mmd_tpu_torch.parallel import collectives as C
+    mesh = make_mesh(world, device=dev)
+    x, w1, b1, w2, b2 = (t.to(dev) for t in _mlp_tp_inputs())
+    f = w1.shape[1] // world
+    cols = slice(rank * f, (rank + 1) * f)
+    before = M.launches
+    with torch.no_grad():
+        y = M.fused_mlp(x, w1[:, cols], b1[cols], w2[cols], b2, 0.0, None,
+                        torch.bfloat16, tp_mesh=mesh)
+    return y.float().cpu(), M.launches - before, C.staged_bytes
+
+
+def test_fused_mlp_tp_over_two_gloo_ranks_matches_the_kernel(cuda_device):
+    """fused_mlp(tp_mesh=) over a world of 2 gloo ranks sharing the card,
+    F 1024 split into two 512-wide slices at rate 0: each rank's #3 on its
+    slice with b2 / 2, the partials summed in fp32, against the unsplit
+    kernel within two bf16 roundings (2^-6 of the largest |y|: each
+    partial's and the sum's)."""
+    from mmd_tpu_torch.parallel.launch import spawn
+    outs = spawn(_mlp_tp_rank, 2, "gloo", "cuda", timeout_s=600)
+    x, w1, b1, w2, b2 = (t.to(cuda_device) for t in _mlp_tp_inputs())
+    with torch.no_grad():
+        want = M.fused_mlp(x, w1, b1, w2, b2, 0.0, None,
+                           torch.bfloat16).float().cpu()
+    for rank, (y, launches, staged) in enumerate(outs):
+        err = (y - want).abs().max().item()
+        assert err <= 2.0 ** -6 * want.abs().max().item(), (rank, err)
+        assert launches == 1 and staged > 0, (rank, launches, staged)

@@ -189,8 +189,6 @@ def test_layers_mlp_takes_fused_mlp_where_the_rule_holds(monkeypatch):
 def test_fused_mlp_refuses_what_is_not_ported():
     x, w1, b1 = torch.randn(4, DIM), torch.randn(DIM, HID), torch.zeros(HID)
     w2, b2 = torch.randn(HID, DIM), torch.zeros(DIM)
-    with pytest.raises(NotImplementedError, match="A16b"):
-        M.fused_mlp(x, w1, b1, w2, b2, 0.1, 1, tp_mesh=object())
     with pytest.raises(ValueError, match="seed"):
         M.fused_mlp(x, w1, b1, w2, b2, 0.1, None)
     with pytest.raises(ValueError, match="cuda or cpu"):

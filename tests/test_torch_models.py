@@ -298,8 +298,13 @@ def test_fusion_training_forward_raises():
 
 
 def test_tensor_parallel_config_raises():
-    with pytest.raises(NotImplementedError):
-        ModelConfig(tensor_parallel=True)
+    """A tensor_parallel config names params that are a rank's slices: the
+    forward refuses it without the mesh."""
+    cfg = ModelConfig(**FUSION_KW, tensor_parallel=True)
+    params = tfusion.init_fusion_params(torch.Generator().manual_seed(0), cfg)
+    x = [torch.from_numpy(a) for a in _fusion_inputs()]
+    with pytest.raises(ValueError, match="needs the mesh"):
+        tfusion.fusion_forward(params, cfg, *x)
 
 
 def test_seeded_init_is_deterministic():

@@ -264,18 +264,23 @@ def test_cli_trains_logs_checkpoints_and_resumes(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """Multi-device training raises; the raw path and fine-tuning are
-    ported (tests/test_torch_raw_training.py), so a raw run without its
-    csv stops at reading the csv, as the JAX package's does."""
+    """Text parallelism in fine-tuning raises (ROADMAP A16b part 2); the
+    raw path and fine-tuning are ported (tests/test_torch_raw_training.py),
+    so a raw run without its csv stops at reading the csv, as the JAX
+    package's does. Without a torch.distributed.run launch the world is
+    this process: a model axis of 2 and TP without one raise the JAX
+    package's ValueErrors (multi-device training over a world:
+    tests/test_torch_tp_training.py, tests/test_torch_zero.py)."""
     out = ["--output_dir", str(tmp_path)]
     with pytest.raises(FileNotFoundError):
         T.main(ARGS + out + ["--train_data", str(tmp_path / "none.csv")])
-    with pytest.raises(NotImplementedError, match="A16b"):
-        T.main(ARGS + out + ["--synthetic_samples", "4", "--zero1"])
-    with pytest.raises(NotImplementedError, match="A16b"):
+    with pytest.raises(ValueError, match="must divide device count 1"):
         T.main(ARGS + out + ["--synthetic_samples", "4", "--model_parallel",
                              "2"])
-    with pytest.raises(NotImplementedError, match="A16b"):
+    with pytest.raises(ValueError, match="model axis >= 2"):
+        T.main(ARGS + out + ["--synthetic_samples", "4",
+                             "--tensor_parallel"])
+    with pytest.raises(NotImplementedError, match="A16b part 2"):
         T.main(ARGS + out + ["--synthetic_samples", "4",
                              "--text_parallelism", "sp"])
 
@@ -328,8 +333,12 @@ def test_trainer_validates_like_the_jax_trainer():
         TT.Trainer(cfg, device="cpu")
     with pytest.raises(ValueError, match="requires encoders"):
         TT.Trainer(small_cfg(), device="cpu", finetune=True)
-    with pytest.raises(NotImplementedError, match="A16b"):
+    with pytest.raises(ValueError, match="model axis >= 2"):
         TT.Trainer(small_cfg(), device="cpu", tensor_parallel=True)
+    with pytest.raises(ValueError, match="exclusive"):
+        TT.Trainer(small_cfg(), device="cpu", zero3=True, zero1=True)
+    with pytest.raises(NotImplementedError, match="A16b part 2"):
+        TT.Trainer(small_cfg(), device="cpu", text_parallelism="sp")
 
 
 def test_steps_per_call_window_gives_the_same_numbers(tmp_path):
