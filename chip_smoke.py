@@ -325,6 +325,34 @@ Phases, each of which exits nonzero on failure:
                       metrics.jsonl and one checkpoint from rank 0 alone;
                       the checkpoint (the single-device state) resumed on
                       one device for one step
+ 27. finetune_parallel  fine-tuning under text parallelism: a spawned world
+                      of 4 gloo ranks sharing the card fine-tunes, batch 8
+                      and 256 tokens, the reference families (DeBERTa-v3-
+                      xsmall + Swinv2-base, fused_train, seeded as
+                      finetune_reference) under pp on (2, 2) with ZeRO-3,
+                      sp on (2, 2) and sp_ring on (1, 4), and the default
+                      families (the BERT-class encoder at D 384, 12 layers,
+                      6 heads + the ViT) under sp on (1, 4) (#1 / #2 at
+                      Tq 64 against Tk 256) and pp on (2, 2) with remat,
+                      through Trainer(finetune=True, text_parallelism=);
+                      in each, 2 fp32 steps at dropout 0 against the
+                      single-device fine-tuning step on the card (losses
+                      within 1e-5 relative, the gathered params' update
+                      within 0.2 lr a step, a limit the single-device run
+                      one step short must break) and 2 bf16 steps at
+                      dropout 0.1: each rank's launches of #1 / #2 / #3 /
+                      #4 / #5 / #8 / #9 / #10 / #11 against the count the
+                      run predicts, the bytes its collectives staged
+                      through the host, its params + moments bytes, rank
+                      0's step seconds; #1, #2, #8, #9, #10 and #11 held in
+                      situ at the ranks' geometries (timed on rank 0)
+ 28. the fine-tuning  python -m torch.distributed.run --nproc_per_node 2
+     CLI              -m mmd_tpu_torch.train --finetune_encoders
+                      --model_parallel 2 --text_parallelism pp
+                      --dist_backend gloo on train_raw's raw store (one
+                      epoch, started beside 27): metrics.jsonl and one
+                      checkpoint from rank 0 alone; the checkpoint resumed
+                      on one device for one step
 The serve_converted, retrieval and run_all phases also hold the native
 libraries: each ran in the phase's counted run (unigram, WordPiece, row
 gather) and gives the Python path's output bit for bit on the phase's own
@@ -337,8 +365,9 @@ the serve, serve_reference, serve_converted, train, train_bf16,
 finetune_reference, train_raw, retrieval, caption, train_captioner,
 run_all, run_all_reference, run_all_fused, run_all_fused_default,
 fakenet, serve_parallel (summed over its ranks), retrieval_sharded,
-train_parallel (summed over its ranks) and train_parallel_cli (the
-resumed step) phases.
+train_parallel (summed over its ranks), train_parallel_cli (the resumed
+step), finetune_parallel (summed over its ranks) and
+finetune_parallel_cli (the resumed step) phases.
 """
 
 from __future__ import annotations
@@ -3857,7 +3886,27 @@ def _in_situ_kernels() -> dict:
         "deberta_attn_fwd": (DA, "_deberta_attention_cuda",
                              lambda a: DA.deberta_attention_fwd(*a),
                              lambda a: DA.deberta_attention_plain(*_f32(a)),
-                             ())}
+                             ()),
+        "deberta_attn_bwd": (DA, "_deberta_attention_bwd_cuda",
+                             lambda a: DA.deberta_attention_bwd(*a),
+                             lambda a: DA.deberta_attention_bwd_plain(
+                                 *_f32(a)), ()),
+        "swin_attn_train_fwd": (SA, "_swin_train_fwd_cuda",
+                                lambda a: SA.swin_window_attention_fwd(*a),
+                                lambda a: SA.swin_window_attention_plain(
+                                    *_f32(a)), ()),
+        "swin_attn_train_bwd": (SA, "_swin_train_bwd_cuda",
+                                lambda a: SA.swin_window_attention_bwd(*a),
+                                lambda a: SA.swin_window_attention_bwd_plain(
+                                    *_f32(a)), ())}
+
+
+# the kernels _InSitu records unless told otherwise: the serving and the
+# fusion model's training kernels (the fine-tuning backwards only where a
+# phase names them)
+IN_SITU_DEFAULT = ("flash_attn_fwd", "flash_attn_bwd", "mlp_fwd", "mlp_bwd",
+                   "dropout", "layernorm", "swin_window_attn",
+                   "deberta_attn_fwd")
 
 
 def _geom_key(args, seeds) -> tuple:
@@ -3893,10 +3942,10 @@ class _InSitu:
     phases) and times kernel, plain version and, where one PyTorch call
     computes the same function, that call."""
 
-    def __init__(self, only=None):
-        """only: the names of the kernels to record (default: all)."""
+    def __init__(self, only=IN_SITU_DEFAULT):
+        """only: the names of the kernels to record."""
         self.kernels = {k: v for k, v in _in_situ_kernels().items()
-                        if only is None or k in only}
+                        if k in only}
         self.calls: dict[str, dict] = {k: {} for k in self.kernels}
         # launches by thread and kernel; records and counts are updated
         # under a lock (the fused run launches from two threads)
@@ -4021,8 +4070,13 @@ def _describe_geom(name, a) -> str:
         nw, b, n, c = a[0].shape
         return (f"nW={nw} B={b} n={n} C={c} h={a[5]} bias_windows="
                 f"{a[3].shape[0]} {dt}")
+    if name.startswith("swin_attn_train"):
+        nw, b, n, c = a[0].shape
+        return f"nW={nw} B={b} n={n} C={c} h={a[-1]} {dt}"
     b, t, d = a[0].shape
-    return f"B={b} T={t} D={d} H={a[6]} {dt}"
+    h = a[7] if name == "deberta_attn_bwd" else a[6]
+    return (f"B={b} T={t} D={d} H={h} {dt}"
+            f"{' masked' if a[5] is not None else ''}")
 
 
 def _flash_bwd_bf16_mirror(q, k, v, o, lse, do, h, mask, rate, seed):
@@ -4090,6 +4144,22 @@ def _in_situ_err(name, a, got, want) -> tuple[float, float, bool]:
     if name == "dropout":
         same = torch.equal(got, want)
         return (got.float() - want.float()).abs().max().item(), 0.0, same
+    if name in ("deberta_attn_bwd", "swin_attn_train_bwd"):
+        # the backward phases' rule (_check_grads): each output within
+        # _rel_tol of its plain version, the tables' and dbias in fp32;
+        # the error is the worst share of its tolerance, times the
+        # tolerance of the output where it was largest
+        outs = (dtype,) * 3 + (torch.float32,) * (len(want) - 3)
+        worst, worst_tol = 0.0, 1.0
+        for x, w, dt in zip(got, want, outs):
+            e, t = (x.float() - w).abs().max().item(), _rel_tol(dt, w)
+            if e / max(t, 1e-30) >= worst / max(worst_tol, 1e-30):
+                worst, worst_tol = e, t
+        return worst, worst_tol, worst <= worst_tol
+    if name == "swin_attn_train_fwd":
+        tol = _rel_tol(dtype, want)
+        err = (got.float() - want.float()).abs().max().item()
+        return err, tol, err <= tol
     tol = (KERNEL_TOL[dtype] if dtype == torch.float32
            else _bf16_step(want))
     err = (got.float() - want.float()).abs().max().item()
@@ -4125,6 +4195,30 @@ def _in_situ_library(name, a):
         y = a[2]
         wb, bb = a[0].to(y.dtype), a[1].to(y.dtype)
         return lambda: fn.layer_norm(y, (y.shape[-1],), wb, bb, a[3])
+    if name.startswith("swin_attn_train"):
+        # SDPA on (nW B, h, n, dh), exp2(x) = exp(ln2 x), the log2-domain
+        # bias an additive mask in the inputs' dtype (phase_swin_train)
+        q, k, v, bias, h = a[0], a[1], a[2], a[3], a[-1]
+        nw, b, n, c = q.shape
+        ln2 = math.log(2.0)
+        q4, k4, v4 = (x.reshape(nw, b, n, h, c // h).transpose(2, 3)
+                      .reshape(nw * b, h, n, c // h).contiguous()
+                      for x in (q, k, v))
+        m4 = (ln2 * bias)[:, None].expand(nw, b, h, n, n).reshape(
+            nw * b, h, n, n).to(q.dtype).contiguous()
+        if name == "swin_attn_train_fwd":
+            return lambda: fn.scaled_dot_product_attention(
+                q4, k4, v4, attn_mask=m4, scale=ln2)
+        leaves = [x.detach().requires_grad_() for x in (q4, k4, v4, m4)]
+        try:
+            with torch.enable_grad():
+                o4 = fn.scaled_dot_product_attention(
+                    *leaves[:3], attn_mask=leaves[3], scale=ln2)
+            g = torch.randn_like(o4)
+            torch.autograd.grad(o4, leaves, g, retain_graph=True)
+        except RuntimeError:                # no backend gives dmask
+            return None
+        return lambda: torch.autograd.grad(o4, leaves, g, retain_graph=True)
     return None
 
 
@@ -4156,6 +4250,23 @@ def _in_situ_bound(name, a) -> tuple[float, str]:
     if name == "dropout":
         return _bound_ms(2 * e * a[0].numel(), a[0].numel(), PEAK_FP32_FLOPS)
     peak = PEAK_BF16_FLOPS if bf16 else PEAK_FP32_FLOPS
+    if name.startswith("swin_attn_train"):
+        # phase_swin_train's counts: q, k, v, o (and do, dq, dk, dv) in the
+        # inputs' dtype, the fp32 bias (and dbias)
+        nw, b, n, c = a[0].shape
+        h, elems = a[-1], nw * b * n * c
+        if name == "swin_attn_train_fwd":
+            return _bound_ms(e * 4 * elems + 4 * nw * h * n * n,
+                             4 * nw * b * n * n * c, peak)
+        return _bound_ms(e * 7 * elems + 8 * nw * h * n * n,
+                         10 * nw * b * n * n * c, peak)
+    if name == "deberta_attn_bwd":
+        # phase_deberta_bwd's counts: q, k, v, do and both tables read, dq,
+        # dk, dv written, the tables' fp32 gradients; 20 B T^2 D operations
+        b, t, d = a[0].shape
+        return _bound_ms(e * (7 * b * t * d + 2 * 2 * t * d)
+                         + 4 * 2 * 2 * t * d + b * t, 20 * b * t * t * d,
+                         peak)
     if name == "layernorm":
         c = a[2].shape[-1]
         r = a[2].numel() // c
@@ -5853,6 +5964,460 @@ def phase_train_parallel(card: str, tmp: Path) -> tuple[dict, dict, dict]:
     return launches, resumed, rows
 
 
+FINETUNE_PARALLEL_WORLD = 4
+# (run, encoder families, text_parallelism, model axis, Trainer flags,
+# remat) over the 4 ranks at FT_BATCH and FT_SEQ
+FINETUNE_PARALLEL_RUNS = (
+    ("reference_pp_zero3", "reference", "pp", 2, {"zero3": True}, False),
+    ("reference_sp", "reference", "sp", 2, {}, False),
+    ("reference_sp_ring_1x4", "reference", "sp_ring", 4, {}, False),
+    ("default_sp_1x4", "default", "sp", 4, {}, False),
+    ("default_pp_remat", "default", "pp", 2, {}, True))
+FINETUNE_PARALLEL_STEPS = 2
+FINETUNE_PARALLEL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "mlp_fwd",
+                             "mlp_bwd", "dropout", "deberta_attn_fwd",
+                             "deberta_attn_bwd", "swin_attn_train_fwd",
+                             "swin_attn_train_bwd")
+FINETUNE_PARALLEL_HELD = ("flash_attn_fwd", "flash_attn_bwd",
+                          "deberta_attn_fwd", "deberta_attn_bwd",
+                          "swin_attn_train_fwd", "swin_attn_train_bwd")
+# the default families' text encoder: the BERT-class stack at
+# TEXT_ENCODER_XSMALL's width (12 layers, D 384, 6 heads of 64), 24 of
+# its launches and 24 of the ViT's a step
+FT_TEXT_PER_STEP, FT_VIT_PER_STEP = 24, 24
+# The fp32 params check is train_parallel's: the update within 0.2 lr a
+# step of the single-device update. Where a gradient is within ~100 times
+# Adam's eps (1e-8), Adam's step lr g / (|g| + eps) turns its last digits
+# into up to ~lr a step: a key bias (zero in exact arithmetic: softmax
+# ignores a constant a query row) holds fp32 noise of ~1e-9, and elements
+# of the deep Swin and ViT weights cancel to ~1e-8 as well, so no split of
+# the sums reproduces their steps. Those elements are held instead to
+# FT_NOISE_ATOL_LR lr a step: two runs' Adam steps (at most lr and ~1.42
+# lr apart at steps 1 and 2) can take them no further apart. Above it
+# eps / |g| < 1% and a step is its gradient's sign and scale. One step in
+# the noise is enough, so an element counts as noise where its smallest
+# gradient over the steps is below FT_NOISE_GRAD.
+FT_NOISE_GRAD = 1e-6
+FT_NOISE_ATOL_LR = 2.5
+
+
+def _finetune_parallel_want(family: str, mode: str, remat: bool,
+                            dtype: str) -> dict:
+    """A rank's launches a step. Every split keeps the single-device
+    step's counts on the rank's rows: a stage runs half the layers on two
+    microbatches, a sequence block attends with every layer. DeBERTa's SP
+    and ring take the explicit path (as in the JAX package), so #10 / #11
+    run under pp alone; remat runs each encoder layer's forward again in
+    the backward. fp32 at dropout 0 runs no #3 / #4 / #5."""
+    if family == "reference":
+        want = dict(FT_PER_STEP)
+        if mode != "pp":
+            want["deberta_attn_fwd"] = want["deberta_attn_bwd"] = 0
+    else:
+        want = dict(RAW_FINETUNE_PER_STEP)
+        if remat:
+            want["flash_attn_fwd"] += FT_TEXT_PER_STEP + FT_VIT_PER_STEP
+    if dtype == "float32":
+        want.update(mlp_fwd=0, mlp_bwd=0, dropout=0)
+    out = {k: 0 for k in _kernels()}
+    out.update({k: v * FINETUNE_PARALLEL_STEPS for k, v in want.items()})
+    return out
+
+
+def _finetune_parallel_encoders(family: str, tmp: Path):
+    """The phase's encoders, seeded as finetune_reference (reference) and
+    train_raw (default) seed theirs."""
+    from mmd_tpu_torch.inference.traffic import corpus
+    from mmd_tpu_torch.models.frozen import load_or_init_frozen
+    from mmd_tpu_torch.profile_train import reference_encoders
+    if family == "reference":
+        return reference_encoders(tmp / "ft_assets")
+    return load_or_init_frozen(tmp / "ftp_default_assets",
+                               vocab_texts=corpus(np.random.default_rng(0),
+                                                  64))
+
+
+def _in_dtype(enc, dtype: str):
+    """The encoders (the same params) with both configs in `dtype`."""
+    return dataclasses.replace(
+        enc, text_cfg=dataclasses.replace(enc.text_cfg, compute_dtype=dtype),
+        vit_cfg=dataclasses.replace(enc.vit_cfg, compute_dtype=dtype))
+
+
+def _finetune_parallel_cfg(enc, dtype: str, dropout: float, remat: bool):
+    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+    from mmd_tpu_torch.profile_train import FT_BATCH
+    model = ModelConfig(text_input_dim=enc.text_cfg.hidden_size,
+                        image_input_dim=enc.vit_cfg.hidden_size,
+                        fused_attn=True, compute_dtype=dtype,
+                        dropout=dropout)
+    return TrainConfig(model=model, batch_size=FT_BATCH, remat=remat)
+
+
+def _finetune_parallel_batches(enc) -> list:
+    """The phase's raw batches, the same on every rank (and in the
+    parent)."""
+    from mmd_tpu_torch.profile_train import FT_BATCH, FT_SEQ, raw_batch
+    rng = np.random.default_rng(25)
+    return [raw_batch(rng, FT_BATCH, FT_SEQ, enc.text_cfg.vocab_size,
+                      enc.vit_cfg.image_size)
+            for _ in range(FINETUNE_PARALLEL_STEPS)]
+
+
+def _worst_update(got, want: dict, grad_min: dict, atol: float,
+                  noise_atol: float) -> tuple[float, str, float, int]:
+    """The largest |got - want| of any param element over `atol` (over
+    `noise_atol` where its smallest single-device gradient `grad_min` is
+    below FT_NOISE_GRAD), its leaf, that element's smallest gradient, and
+    the count of elements over their limit (p0 cancels: the gap of the
+    update)."""
+    worst, worst_at, worst_g, over = 0.0, None, 0.0, 0
+    for k, p in got.items():
+        g = grad_min[k].to(p.device).float()
+        gap = (p.float() - want[k].to(p.device)).abs()
+        gap = torch.where(g < FT_NOISE_GRAD, gap / noise_atol, gap / atol)
+        over += int((gap > 1.0).sum())
+        i = int(gap.argmax())
+        if gap.view(-1)[i].item() > worst:
+            worst, worst_at = gap.view(-1)[i].item(), k
+            worst_g = g.view(-1)[i].item()
+    return worst, worst_at, worst_g, over
+
+
+def _finetune_parallel_rank(rank: int, world: int, dev, job: dict) -> dict:
+    """One rank of finetune_parallel: each run of FINETUNE_PARALLEL_RUNS in
+    fp32 at dropout 0 (rank 0 holds the gathered params against the
+    single-device run's) and in bf16 at dropout 0.1 (launches, bytes staged
+    through the host, state bytes; step seconds on rank 0), the kernels of
+    FINETUNE_PARALLEL_HELD recorded in situ in the bf16 runs and held:
+    ranks 1-3 together, then rank 0 alone, timed."""
+    import torch.distributed as dist
+
+    from mmd_tpu_torch.core.mesh import make_mesh
+    from mmd_tpu_torch.parallel import collectives as C
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    tmp = Path(job["tmp"])
+    meshes = {mp: make_mesh(mp, device=dev) for mp in (2, 4)}
+    in_situ = _InSitu(only=FINETUNE_PARALLEL_HELD)
+    out = {"launches": {k: 0 for k in _kernels()}, "runs": []}
+    encoders = {f: _finetune_parallel_encoders(f, tmp)
+                for f in ("reference", "default")}
+    for name, family, mode, mp, flags, remat in FINETUNE_PARALLEL_RUNS:
+        run = {"name": name, "mp": mp}
+        for dtype, rate in (("float32", 0.0), ("bfloat16", DROPOUT_RATE)):
+            enc = _in_dtype(encoders[family], dtype)
+            cfg = _finetune_parallel_cfg(enc, dtype, rate, remat)
+            trainer = Trainer(cfg, mesh=meshes[mp], encoders=enc,
+                              finetune=True, text_parallelism=mode, **flags)
+            state = trainer.init(seed=0)
+            rows = [trainer.shard_batch(b)
+                    for b in _finetune_parallel_batches(enc)]
+            del enc
+            dist.barrier()
+            torch.cuda.synchronize()
+            C.staged_bytes = 0
+            _reset_counts()                  # count the runs only
+            losses, secs = [], []
+            with in_situ if dtype == "bfloat16" else contextlib.nullcontext():
+                for b in rows:
+                    t0 = time.perf_counter()
+                    state, aux = trainer.train_step(state, b)
+                    losses.append(float(aux["loss"]))
+                    torch.cuda.synchronize()
+                    secs.append(time.perf_counter() - t0)
+            launches = _counts()
+            for k, n in launches.items():
+                out["launches"][k] += n
+            run[dtype] = {"losses": losses, "secs": secs,
+                          "launches": launches, "staged": C.staged_bytes,
+                          "state_bytes": state.optimizer.state_bytes()}
+            if dtype == "float32":
+                whole = trainer.whole_params(state)
+                if rank == 0:
+                    want = torch.load(job["params"][family], mmap=True,
+                                      weights_only=True)
+                    run["worst"] = _worst_update(
+                        {k: v.detach() for k, v in
+                         whole.state_dict().items()},
+                        want["params"], want["grad_min"], job["atol"],
+                        job["noise_atol"])
+                    del want
+                del whole
+            del trainer, state, rows
+            torch.cuda.empty_cache()
+        out["runs"].append(run)
+    out["in_situ"] = in_situ.launches()
+    if rank != 0:
+        out["rows"] = in_situ.hold(f"finetune_parallel_r{rank}", job["card"],
+                                   timed=False)
+    dist.barrier()
+    if rank == 0:
+        out["rows"] = in_situ.hold("finetune_parallel_r0", job["card"])
+    dist.barrier()
+    return out
+
+
+def _check_finetune_parallel(outs: list, job: dict, card: str) -> None:
+    phase = "finetune_parallel"
+    faults = []                 # every run reported first, then failed
+    for family, (fault, fault_at, _, fault_n) in job["fault"].items():
+        print(f"{phase}: the params check reads the {family} families' "
+              f"single-device run one step short at {fault:.3f} of its "
+              f"limit ({fault_at}, {fault_n} elements over it; limit "
+              f"{TRAIN_PARALLEL_UPDATE_ATOL_LR} lr "
+              f"a step, lr {job['lr']}; the {job['noise_share'][family]:.4%}"
+              f" of the elements whose gradient stays below "
+              f"{FT_NOISE_GRAD:g} held to {FT_NOISE_ATOL_LR} lr a step)  "
+              f"[{card}]", flush=True)
+        if not fault > 1.0:
+            faults.append(f"the params check cannot see a skipped step "
+                 f"({family}: {fault:.3f} of its limit)")
+    for i, (name, family, mode, mp, flags, remat) in enumerate(
+            FINETUNE_PARALLEL_RUNS):
+        ranks = [o["runs"][i] for o in outs]
+        run = outs[0]["runs"][i]
+        f32, b16 = run["float32"], run["bfloat16"]
+        want_l = job["losses"][family]
+        loss_err = max(abs(g - w) / abs(w)
+                       for r in ranks for g, w in zip(r["float32"]["losses"],
+                                                      want_l))
+        worst, worst_at, worst_g, over = run["worst"]
+        finite = all(math.isfinite(x) for r in ranks
+                     for x in r["bfloat16"]["losses"])
+        print(f"{phase}: {name} ({mode} over (data, model) "
+              f"({FINETUNE_PARALLEL_WORLD // mp}, {mp}), {flags or 'DP'}"
+              f"{', remat' if remat else ''}): fp32 losses "
+              f"{[round(x, 6) for x in f32['losses']]} (single device "
+              f"{[round(x, 6) for x in want_l]}, worst rel {loss_err:.2e}, "
+              f"limit {TRAIN_PARALLEL_LOSS_RTOL:.0e}), params at "
+              f"{worst:.3f} of their limit (worst {worst_at}, its smallest "
+              f"single-device gradient {worst_g:.3e}; {over} elements over "
+              f"it); bf16 losses "
+              f"{[round(x, 6) for x in b16['losses']]}; launches a rank "
+              f"bf16 {[{k: v for k, v in r['bfloat16']['launches'].items() if v} for r in ranks][0]}"
+              f"; staged through the host a rank (bf16 run) "
+              f"{[r['bfloat16']['staged'] for r in ranks]} B; state bytes a "
+              f"rank (params + moments) "
+              f"{[r['bfloat16']['state_bytes'] for r in ranks]} (single "
+              f"device {job['state_bytes'][family]}); rank 0's bf16 step "
+              f"{[round(x, 3) for x in b16['secs']]} s, fp32 step "
+              f"{[round(x, 3) for x in f32['secs']]} s (host clock)  "
+              f"[{card}]", flush=True)
+        if not loss_err <= TRAIN_PARALLEL_LOSS_RTOL:
+            faults.append(f"{name}: the fp32 losses are {loss_err:.2e} from "
+                 f"the single-device step's")
+        if worst > 1.0:
+            faults.append(f"{name}: the fp32 params after "
+                 f"{FINETUNE_PARALLEL_STEPS} steps lie {worst:.3f} times "
+                 f"their limit from the single-device params ({worst_at})")
+        if not finite:
+            faults.append(f"{name}: a bf16 loss is not finite")
+        for dtype in ("float32", "bfloat16"):
+            want = _finetune_parallel_want(family, mode, remat, dtype)
+            for r in ranks:
+                if r[dtype]["launches"] != want:
+                    faults.append(f"{name}: {dtype} launches "
+                                  f"{r[dtype]['launches']}, want {want}")
+    for o in outs:
+        counted = {k: sum(r["bfloat16"]["launches"][k] for r in o["runs"])
+                   for k in FINETUNE_PARALLEL_HELD}
+        if o["in_situ"] != counted:
+            faults.append(f"the in-situ record {o['in_situ']} misses "
+                          f"launches of {counted}")
+    if faults:
+        fail(f"{phase}: " + "; ".join(faults))
+
+
+FT_CLI_ARGS = ["--batch_size", "8", "--epochs", "1", "--log_every", "1",
+               "--save_every", "0", "--fused_attn", "--finetune_encoders"]
+FT_CLI_MESH = ["--model_parallel", "2", "--text_parallelism", "pp",
+               "--dist_backend", "gloo"]
+
+
+def _start_finetune_cli(tmp: Path):
+    """python -m torch.distributed.run --nproc_per_node 2 -m
+    mmd_tpu_torch.train --finetune_encoders --model_parallel 2
+    --text_parallelism pp on train_raw's tree, in the background."""
+    import os
+    root = tmp / "factify"
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", "2", "-m", "mmd_tpu_torch.train",
+           "--train_data", str(root / "data" / "preprocessed" / "train.csv"),
+           *FT_CLI_ARGS, *FT_CLI_MESH, "--output_dir", str(tmp / "ft_cli")]
+    env = {**os.environ, "MMD_TPU_ROOT": str(root),
+           "PYTHONPATH": os.pathsep.join(
+               [str(Path(__file__).resolve().parent),
+                os.environ.get("PYTHONPATH", "")])}
+    return subprocess.Popen(cmd, cwd=root, env=env, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def _check_finetune_cli(proc, tmp: Path, card: str, deadline: float
+                        ) -> dict:
+    """The torchrun fine-tuning CLI's run, then its checkpoint resumed on
+    one device for one step (python -m mmd_tpu_torch.train's build and
+    run_training, in process). Returns the resumed step's launches."""
+    import itertools
+    import os
+
+    from mmd_tpu_torch import train as TR
+    from mmd_tpu_torch.training.loop import run_training
+
+    phase = "finetune_parallel_cli"
+    try:
+        stdout, stderr = proc.communicate(
+            timeout=max(deadline - time.monotonic(), 1.0))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(30)
+        fail(f"{phase}: the torchrun fine-tuning CLI ran past "
+             f"{TRAIN_CLI_TIMEOUT_S} s")
+    if proc.returncode != 0:
+        fail(f"{phase}: the torchrun fine-tuning CLI exited "
+             f"{proc.returncode}: {stderr[-3000:]}")
+    out = tmp / "ft_cli"
+    recs = [json.loads(x) for x in
+            (out / "metrics.jsonl").read_text().splitlines()]
+    losses = [r["train/total_loss"] for r in recs]
+    ckpts = sorted(p.name for p in (out / "checkpoints").iterdir())
+    done = stdout.count("[train] done at step")
+    steps = len(losses)
+    ok = (steps >= 2 and all(map(math.isfinite, losses))
+          and ckpts == [f"step_{steps}.pt"] and done == 1
+          and sorted(p.name for p in out.iterdir()) == [
+              "checkpoints", "metrics.jsonl"])
+    print(f"{phase}: python -m torch.distributed.run --nproc_per_node 2 -m "
+          f"mmd_tpu_torch.train {' '.join(FT_CLI_ARGS + FT_CLI_MESH)}: "
+          f"losses {losses}, checkpoints {ckpts}, 'done' printed by {done} "
+          f"rank(s) -> {'ok' if ok else 'FAIL'}  [{card}]", flush=True)
+    if not ok:
+        fail(f"{phase}: the torchrun fine-tuning CLI's run is not the "
+             f"expected one: {stdout[-2000:]}")
+    root = tmp / "factify"
+    cwd = os.getcwd()
+    os.environ["MMD_TPU_ROOT"] = str(root)
+    os.chdir(root)
+    try:
+        args = TR.parse_args([
+            "--device", "cuda", "--train_data",
+            str(root / "data" / "preprocessed" / "train.csv"), *FT_CLI_ARGS,
+            "--resume_from", str(out / "checkpoints"), "--output_dir",
+            str(tmp / "ft_cli_resumed")])
+        cfg, trainer, train_batches, _ = TR.build(args)
+        saved = torch.load(out / "checkpoints" / f"step_{steps}.pt",
+                           map_location="cpu", weights_only=True)
+        _reset_counts()
+        state = run_training(
+            trainer, lambda epoch: itertools.islice(train_batches(epoch), 1))
+        torch.cuda.synchronize()
+    finally:
+        os.chdir(cwd)
+        del os.environ["MMD_TPU_ROOT"]
+    launches = _counts()
+    want = {k: 0 for k in launches}
+    want.update(RAW_FINETUNE_PER_STEP)
+    recs = [json.loads(x) for x in (tmp / "ft_cli_resumed" /
+                                    "metrics.jsonl").read_text().splitlines()]
+    moved = sum(not torch.equal(v.cpu(), saved["params"][k])
+                for k, v in state.params.state_dict().items())
+    ok = (state.step == steps + 1 and [r["step"] for r in recs] == [steps + 1]
+          and math.isfinite(recs[0]["train/total_loss"])
+          and launches == want and moved > len(saved["params"]) // 2)
+    print(f"{phase}: its checkpoint resumed on one device for one step: at "
+          f"step {state.step}, loss {recs[0]['train/total_loss']:.6f}, "
+          f"{moved} of {len(saved['params'])} params moved, launches "
+          f"{json.dumps({k: v for k, v in launches.items() if v})} -> "
+          f"{'ok' if ok else 'FAIL'}  [{card}]", flush=True)
+    if not ok:
+        fail(f"{phase}: the resumed run is not one more step of the saved "
+             f"one (launches want {want})")
+    return launches
+
+
+def phase_finetune_parallel(card: str, tmp: Path) -> tuple[dict, dict, dict]:
+    """Fine-tuning under text parallelism on the card: a spawned world of 4
+    gloo ranks sharing it runs each run of FINETUNE_PARALLEL_RUNS through
+    Trainer(finetune=True, text_parallelism=): fp32 at dropout 0 against
+    the single-device fine-tuning step on the card, bf16 at dropout 0.1
+    with the fine-tuning kernels in situ on every rank; beside it the
+    torchrun fine-tuning CLI under pp, whose checkpoint then resumes on
+    one device. Returns the world's launches (summed over its ranks), the
+    resumed step's, and the in-situ rows."""
+    from mmd_tpu_torch.parallel.launch import spawn
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    t_phase = time.perf_counter()
+    proc = _start_finetune_cli(tmp)
+    deadline = time.monotonic() + TRAIN_CLI_TIMEOUT_S
+    job = {"card": card, "tmp": str(tmp), "params": {}, "noise_share": {},
+           "losses": {}, "fault": {}, "state_bytes": {}}
+    for family in ("reference", "default"):
+        enc = _in_dtype(_finetune_parallel_encoders(family, tmp), "float32")
+        cfg = _finetune_parallel_cfg(enc, "float32", 0.0, False)
+        trainer = Trainer(cfg, device="cuda", encoders=enc, finetune=True)
+        state = trainer.init(seed=0)
+        losses, params, grad_min = [], [], {}
+        for b in _finetune_parallel_batches(enc):
+            state, aux = trainer.train_step(state, trainer.shard_batch(b))
+            losses.append(float(aux["loss"]))
+            params.append({k: v.detach().to("cpu", copy=True) for k, v in
+                           state.params.state_dict().items()})
+            for k, v in state.params.named_parameters():
+                g = v.grad.abs()
+                grad_min[k] = g if k not in grad_min else torch.minimum(
+                    grad_min[k], g)
+        grad_min = {k: g.to("cpu", torch.bfloat16)
+                    for k, g in grad_min.items()}
+        job["lr"] = cfg.lr
+        job["atol"] = (TRAIN_PARALLEL_UPDATE_ATOL_LR * FINETUNE_PARALLEL_STEPS
+                       * cfg.lr)
+        job["noise_atol"] = FT_NOISE_ATOL_LR * FINETUNE_PARALLEL_STEPS * cfg.lr
+        path = tmp / f"ftp_single_{family}.pt"
+        torch.save({"params": params[-1], "grad_min": grad_min}, path)
+        job["params"][family], job["losses"][family] = str(path), losses
+        job["noise_share"][family] = (
+            sum(int((g < FT_NOISE_GRAD).sum()) for g in grad_min.values())
+            / sum(g.numel() for g in grad_min.values()))
+        job["fault"][family] = _worst_update(
+            params[-2], params[-1], grad_min, job["atol"], job["noise_atol"])
+        job["state_bytes"][family] = sum(
+            p.numel() * p.element_size()
+            for p in state.params.parameters()) * 3
+        del trainer, state, params, enc
+        torch.cuda.empty_cache()
+    print(f"finetune_parallel: a world of {FINETUNE_PARALLEL_WORLD} gloo "
+          f"ranks sharing the card; runs "
+          f"{[r[:4] for r in FINETUNE_PARALLEL_RUNS]} (name, families, "
+          f"text_parallelism, model axis), {FINETUNE_PARALLEL_STEPS} steps "
+          f"each in fp32 at dropout 0 and in bf16 at dropout "
+          f"{DROPOUT_RATE}; the torchrun fine-tuning CLI started beside it; "
+          f"the single-device references in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    try:
+        outs = spawn(_finetune_parallel_rank, FINETUNE_PARALLEL_WORLD, "gloo",
+                     "cuda", args=(job,), timeout_s=900)
+    except Exception as e:  # a rank that failed fails the phase
+        proc.kill()
+        fail(f"finetune_parallel: a rank failed: {e!r}")
+    world_s = time.perf_counter() - t0
+    _check_finetune_parallel(outs, job, card)
+    resumed = _check_finetune_cli(proc, tmp, card, deadline)
+    rows = {}
+    for o in outs:
+        for name, r in o["rows"].items():
+            rows.setdefault(name, {}).update(r)
+    launches = {k: sum(o["launches"][k] for o in outs) for k in _kernels()}
+    print(f"finetune_parallel: the world {world_s:.1f} s, the phase with the "
+          f"CLI {time.perf_counter() - t_phase:.1f} s; launches summed over "
+          f"the ranks {json.dumps({k: v for k, v in launches.items() if v})}"
+          f"  [{card}]", flush=True)
+    return launches, resumed, rows
+
+
 def main() -> None:
     dev = phase_device()
     phase_build()
@@ -5917,6 +6482,10 @@ def main() -> None:
             recs[name].update(rows)
         (by_phase["train_parallel"], by_phase["train_parallel_cli"],
          in_situ) = phase_train_parallel(dev["card"], tmp)
+        for name, rows in in_situ.items():
+            recs[name].update(rows)
+        (by_phase["finetune_parallel"], by_phase["finetune_parallel_cli"],
+         in_situ) = phase_finetune_parallel(dev["card"], tmp)
         for name, rows in in_situ.items():
             recs[name].update(rows)
         phase_train_parity(dev["card"])

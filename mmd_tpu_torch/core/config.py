@@ -3,9 +3,9 @@
 One dataclass tree feeds every entry point; the CLI keeps the reference's flag
 names (--epochs --batch_size --lr --pre_embed --factify --text_only ...).
 `--device` picks the torch device (cuda unless the caller asks for cpu).
-The mesh, tensor parallelism and ZeRO train over the ranks of a
-`torch.distributed.run` launch (train.py, training/trainer.py); text
-parallelism in fine-tuning is ROADMAP A16b part 2 and raises.
+The mesh, tensor parallelism, ZeRO and the text parallelism of
+fine-tuning train over the ranks of a `torch.distributed.run` launch
+(train.py, training/trainer.py).
 """
 
 from __future__ import annotations
@@ -161,8 +161,9 @@ def add_train_flags(p: argparse.ArgumentParser) -> None:
                         "fine-tuning)")
     p.add_argument("--text_parallelism", choices=["sp", "sp_ring", "pp"],
                    default=None,
-                   help="text parallelism in fine-tuning (ROADMAP A16b "
-                        "part 2): raises")
+                   help="with --finetune_encoders and --model_parallel>=2: "
+                        "run the text-encoder fwd+bwd sequence- or "
+                        "pipeline-parallel over the mesh model axis")
     p.add_argument("--zero3", action="store_true",
                    help="ZeRO-3: shard params AND moments over the data "
                         "axis (1/n a rank; gathered on use)")
@@ -207,10 +208,6 @@ def train_config_from_args(args: argparse.Namespace) -> TrainConfig:
     mesh = MeshConfig(model_parallel=args.model_parallel,
                       tensor_parallel=args.tensor_parallel,
                       zero1=args.zero1, zero3=args.zero3)
-    if args.text_parallelism:
-        raise NotImplementedError(
-            "--text_parallelism in fine-tuning is ROADMAP A16b part 2, not "
-            "ported yet")
     return TrainConfig(
         model=model, data=data, mesh=mesh,
         epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,

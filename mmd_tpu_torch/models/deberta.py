@@ -26,7 +26,10 @@ each layer in the backward (torch.utils.checkpoint). `config_from_hf` and
 (mmd_tpu_torch/convert_hf.py). Under tensor parallelism (`tp=`) a layer
 runs its attention on the rank's heads; the sequence-parallel layer
 (`deberta_layer_sp`) and its ring variant serve parallel/sp.py, on the
-explicit path, as in the JAX package.
+explicit path, as in the JAX package, and differentiate through the
+collectives autograd sees (parallel/collectives.py): the shared relative
+table and the position projections of it collect this rank's part of
+their gradient.
 """
 
 from __future__ import annotations
@@ -40,7 +43,6 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.ops.deberta_attention import (
@@ -288,13 +290,13 @@ def deberta_encode(params: L.ParamTree, cfg: DebertaConfig,
     key_mask = attention_mask
     if fused and key_mask is not None:
         key_mask = key_bytes(key_mask)      # the kernels' view, once a call
-    remat = cfg.remat and torch.is_grad_enabled()
-    for p in params["layers"]:
-        args = (p, cfg, x, rel_emb, c2p_map, p2c_map, key_mask, dtype,
-                fused, tp)
-        x = (checkpoint(deberta_layer, *args, use_reentrant=False) if remat
-             else deberta_layer(*args))
-    return x
+
+    def layer(p, x, rel_emb, key_mask):
+        return deberta_layer(p, cfg, x, rel_emb, c2p_map, p2c_map, key_mask,
+                             dtype, fused, tp)
+
+    return L.run_layers(layer, params["layers"], x, rel_emb, key_mask,
+                        remat=cfg.remat)
 
 
 # -- sequence parallelism (parallel/sp.py) ---------------------------------------
@@ -333,10 +335,10 @@ def _disentangled_attention_sp(p, cfg: DebertaConfig, x_loc, rel_emb,
     scale = math.sqrt(dh * 3.0)
 
     q = split_heads(L.linear(p["q"], x_loc, dtype), h).float()  # (B,h,tl,dh)
-    k = C.all_gather(split_heads(L.linear(p["k"], x_loc, dtype), h), mesh,
-                     axis, dim=2).float()                       # (B,h,T,dh)
-    v = C.all_gather(split_heads(L.linear(p["v"], x_loc, dtype), h), mesh,
-                     axis, dim=2)
+    k = C.all_gather_grad(split_heads(L.linear(p["k"], x_loc, dtype), h),
+                          mesh, axis, dim=2).float()            # (B,h,T,dh)
+    v = C.all_gather_grad(split_heads(L.linear(p["v"], x_loc, dtype), h),
+                          mesh, axis, dim=2)
     scores = (q @ k.transpose(-1, -2)) / scale                  # (B,h,tl,T)
     pos_k_d, pos_q_d = _sp_tables(p, cfg, rel_emb, c2p_map, p2c_map, dtype)
     c2p = (q @ pos_k_d.transpose(-1, -2)).to(dtype)             # local rows
@@ -404,8 +406,8 @@ def _disentangled_attention_ring(p, cfg: DebertaConfig, x_loc, rel_emb,
         o = o * corr + pw.to(vh.dtype).float() @ vh.float()
         m = m_new
         if step < sp - 1:
-            kh = C.ppermute(kh, mesh, axis, perm)
-            vh = C.ppermute(vh, mesh, axis, perm)
+            kh = C.ppermute_grad(kh, mesh, axis, perm)
+            vh = C.ppermute_grad(vh, mesh, axis, perm)
     ctx = (o / lsum).to(dtype)
     return ctx.transpose(1, 2).reshape(b, tl, cfg.hidden_size)
 

@@ -69,7 +69,7 @@ TEXT_PARALLELISM = ("tp", "pp", "sp", "sp_ring")
 
 
 def text_encode_parallel(params, cfg, input_ids, attention_mask=None, *,
-                         mesh, mode: str):
+                         mesh, mode: str, local_rows: bool = False):
     """text_encode under a parallelism strategy over the ranks of `mesh`
     (core/mesh.py):
 
@@ -83,7 +83,13 @@ def text_encode_parallel(params, cfg, input_ids, attention_mask=None, *,
 
     The (B, T, D) result is on every rank, as the JAX package's global
     array; for "pp" and "sp" that costs one final gather (a broadcast from
-    the last stage, an all-gather of the sequence blocks)."""
+    the last stage, an all-gather of the sequence blocks).
+
+    "pp", "sp" and "sp_ring" are also the fine-tuning step's training call
+    (training/trainer.py): where autograd records, gradients reach every
+    text param, and `local_rows=True` says the batch is this rank's rows
+    of the global batch already, which is then never split or gathered
+    over "data"."""
     is_deberta = isinstance(cfg, D.DebertaConfig)
     if mode == "tp":
         from mmd_tpu_torch.parallel.tp import tensor_parallel_encode
@@ -93,14 +99,15 @@ def text_encode_parallel(params, cfg, input_ids, attention_mask=None, *,
         from mmd_tpu_torch.parallel.pp import (
             pipeline_encode, pipeline_encode_deberta)
         fn = pipeline_encode_deberta if is_deberta else pipeline_encode
-        return fn(params, cfg, input_ids, attention_mask, mesh=mesh)
+        return fn(params, cfg, input_ids, attention_mask, mesh=mesh,
+                  local_rows=local_rows)
     if mode in ("sp", "sp_ring"):
         from mmd_tpu_torch.parallel.sp import (
             sequence_parallel_encode, sequence_parallel_encode_deberta)
         fn = (sequence_parallel_encode_deberta if is_deberta
               else sequence_parallel_encode)
         return fn(params, cfg, input_ids, attention_mask, mesh=mesh,
-                  ring=(mode == "sp_ring"))
+                  ring=(mode == "sp_ring"), local_rows=local_rows)
     raise ValueError(f"unknown text parallelism mode: {mode!r}")
 
 

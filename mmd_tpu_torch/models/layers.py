@@ -37,6 +37,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from mmd_tpu_torch.ops import dropout as D
 from mmd_tpu_torch.ops.mlp import WIDTHS, fused_mlp
@@ -82,6 +83,18 @@ def dtype_of(name: str) -> torch.dtype:
     if not isinstance(dtype, torch.dtype):
         raise ValueError(f"unknown compute dtype {name!r}")
     return dtype
+
+
+def run_layers(fn, layers, h: torch.Tensor, *args, remat: bool
+               ) -> torch.Tensor:
+    """h through fn(p, h, *args) for each layer p, each under
+    torch.utils.checkpoint when `remat` and autograd records (the layer
+    runs again in the backward)."""
+    remat = remat and torch.is_grad_enabled()
+    for p in layers:
+        h = (checkpoint(fn, p, h, *args, use_reentrant=False) if remat
+             else fn(p, h, *args))
+    return h
 
 
 def xavier_uniform(gen: torch.Generator, in_dim: int, out_dim: int

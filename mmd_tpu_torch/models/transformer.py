@@ -27,7 +27,6 @@ from typing import Optional
 import numpy as np
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.ops.attention import (
@@ -326,15 +325,11 @@ def transformer_forward(params: L.ParamTree, cfg: TransformerConfig,
         if tp is not None:
             bias = bias[:, tp.heads(cfg.num_heads)]
         mask = bias if mask is None else mask + bias
-    remat = cfg.remat and torch.is_grad_enabled()
 
     def layer(p, x, mask, key_mask, encoder_states, encoder_mask):
         return encoder_layer(p, cfg, x, mask, encoder_states,
                              key_mask=key_mask,
                              cross_key_mask=encoder_mask, tp=tp)[0]
 
-    for p in params["layers"]:
-        args = (p, x, mask, key_mask, encoder_states, encoder_mask)
-        x = (checkpoint(layer, *args, use_reentrant=False) if remat
-             else layer(*args))
-    return x
+    return L.run_layers(layer, params["layers"], x, mask, key_mask,
+                        encoder_states, encoder_mask, remat=cfg.remat)

@@ -19,7 +19,6 @@ from typing import Mapping
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.models.transformer import (
@@ -107,14 +106,11 @@ def vit_forward(params: L.ParamTree, cfg: ViTConfig, images: torch.Tensor
     x = x + params["pos_embed"].to(dtype)[None]
     if cfg.embed_ln:
         x = L.layernorm(params["ln_pre"], x, cfg.layer_norm_eps)
-    remat = cfg.remat and torch.is_grad_enabled()
 
     def layer(p, x):
         return encoder_layer(p, block, x)[0]
 
-    for p in params["layers"]:
-        x = (checkpoint(layer, p, x, use_reentrant=False) if remat
-             else layer(p, x))
+    x = L.run_layers(layer, params["layers"], x, remat=cfg.remat)
     x = L.layernorm(params["ln_post"], x, cfg.layer_norm_eps)
     return x[:, 1:] if (cfg.use_cls and not cfg.keep_cls) else x
 

@@ -1,9 +1,9 @@
 """Parallelism toolkit over torch.distributed (counterpart of
 mmd_tpu/parallel/__init__.py): the (data, model) mesh of ranks, sharded
 retrieval, the sequence-, ring-, pipeline- and tensor-parallel text
-encoders for serving, and the training state's specs and sharded AdamW
-(DP, ZeRO-1, ZeRO-3, the fusion model's TP; training/trainer.py).
-Fine-tuning under text parallelism is ROADMAP A16b part 2.
+encoders for serving (the first three also for fine-tuning, gradients
+included), and the training state's specs and sharded AdamW (DP, ZeRO-1,
+ZeRO-3, the fusion model's TP, text parallelism; training/trainer.py).
 """
 
 from mmd_tpu_torch.core.mesh import (

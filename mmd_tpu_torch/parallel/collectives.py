@@ -2,11 +2,26 @@
 `lax.all_gather(tiled=True)`, `lax.ppermute`, `lax.psum` and
 `lax.psum_scatter(tiled=True)` inside the JAX package's shard_map bodies
 (`lax.axis_index` is `Mesh.axis_index`), plus the point-to-point hops and
-the broadcast of the pipeline schedule, the in-place mean of a list of
-gradients, and the two Megatron operators that autograd sees:
-`copy_to_axis` (identity forward, psum of the gradient backward) and
-`reduce_from_axis` (psum forward, identity backward). `psum` itself is
-invisible to autograd.
+the broadcast of the pipeline schedule and the in-place sum and mean of a
+list of gradients.
+
+These return fresh tensors that autograd cannot see through. The
+operators that it can see through each carry their JAX transpose:
+  * `copy_to_axis` (identity forward, psum of the gradient backward) and
+    `reduce_from_axis` (psum forward, identity backward), the two
+    Megatron operators;
+  * `all_gather_grad` (a reduce-scatter of the gradient backward), for a
+    gathered block every rank reads, as the K/V blocks of sequence
+    parallelism;
+  * `gather_replicated` (this rank's tile of the gradient backward), for
+    a result that work repeated along the axis reads, as the encoder
+    output that every model rank's fusion model reads: each rank then
+    holds the whole gradient, and a reduce-scatter would count it once a
+    rank;
+  * `ppermute_grad` (the ppermute of the gradient along the inverted
+    pairs backward), for ring attention.
+The pipeline's hops go back one stage in its own backward schedule
+(parallel/pp.py).
 
 Each runs on the process group of this rank's line along the axis
 (core/mesh.py); an axis of size 1 returns its input. The backend is the
@@ -113,18 +128,25 @@ def reduce_scatter(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     return _from_wire(out, x)
 
 
-def pmean_(tensors: list, mesh, axis: str) -> None:
-    """Replace each tensor of the list (one dtype and device) by its mean
-    over `axis`, in place, through one all-reduce of their concatenation."""
+def psum_(tensors: list, mesh, axis: str, mean: bool = False) -> None:
+    """Replace each tensor of the list (one dtype and device) by its sum
+    over `axis` (its mean with `mean`), in place, through one all-reduce of
+    their concatenation."""
     n = mesh.shape[axis]
     if n == 1 or not tensors:
         return
     flat = psum(torch.cat([t.reshape(-1) for t in tensors]), mesh, axis)
-    flat.div_(n)
+    if mean:
+        flat.div_(n)
     off = 0
     for t in tensors:
         t.copy_(flat[off:off + t.numel()].view_as(t))
         off += t.numel()
+
+
+def pmean_(tensors: list, mesh, axis: str) -> None:
+    """psum_ with the mean."""
+    psum_(tensors, mesh, axis, mean=True)
 
 
 def _tiles(x: torch.Tensor, dim: int, n: int) -> list:
@@ -218,6 +240,71 @@ def reduce_from_axis(x: torch.Tensor, mesh, axis: str) -> torch.Tensor:
     if mesh.shape[axis] == 1:
         return x
     return _ReduceFromAxis.apply(x, mesh, axis)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        g32 = reduce_scatter_many([g.float()], [ctx.dim], ctx.mesh,
+                                  ctx.axis)[0]
+        return g32.to(g.dtype), None, None, None
+
+
+class _GatherReplicated(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.n, ctx.i, ctx.dim = (mesh.shape[axis], mesh.axis_index(axis),
+                                 dim)
+        return all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.chunk(ctx.n, ctx.dim)[ctx.i].contiguous(), None, None, None
+
+
+class _Ppermute(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, perm):
+        ctx.mesh, ctx.axis, ctx.perm = mesh, axis, perm
+        return ppermute(x, mesh, axis, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        back = [(d, s) for s, d in ctx.perm]
+        return ppermute(g, ctx.mesh, ctx.axis, back), None, None, None
+
+
+def all_gather_grad(x: torch.Tensor, mesh, axis: str, dim: int = 0
+                    ) -> torch.Tensor:
+    """all_gather for autograd: every rank reads the gathered whole, so the
+    backward sums the ranks' gradients of it and keeps this rank's tile
+    (a reduce-scatter along `dim`, in fp32)."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _AllGather.apply(x, mesh, axis, dim)
+
+
+def gather_replicated(x: torch.Tensor, mesh, axis: str, dim: int = 0
+                      ) -> torch.Tensor:
+    """all_gather for autograd where the ranks along `axis` go on with the
+    same work on the gathered whole, so each holds its whole gradient:
+    the backward keeps this rank's tile of it."""
+    if mesh.shape[axis] == 1:
+        return x
+    return _GatherReplicated.apply(x, mesh, axis, dim)
+
+
+def ppermute_grad(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:
+    """ppermute for autograd: the backward sends the gradient back along
+    the inverted pairs."""
+    if mesh.shape[axis] == 1:
+        return ppermute(x, mesh, axis, perm)
+    return _Ppermute.apply(x, mesh, axis, perm)
 
 
 def ppermute(x: torch.Tensor, mesh, axis: str, perm) -> torch.Tensor:

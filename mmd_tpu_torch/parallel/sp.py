@@ -1,5 +1,5 @@
-"""Sequence (context) parallelism for encoder serving (counterpart of
-mmd_tpu/parallel/sp.py).
+"""Sequence (context) parallelism for the text encoders, serving and
+fine-tuning (counterpart of mmd_tpu/parallel/sp.py).
 
 Activations shard along T over the `sp` ranks of a mesh axis, so the
 per-token work -- projections, residuals, LayerNorms, the FFN -- runs on
@@ -16,9 +16,22 @@ the ring under an online softmax, so a rank holds one block at a time.
 
 The batch shards over the mesh's "data" axis when it divides evenly
 (`_batch_axis`), else every data rank runs it whole, as for a ragged
-serving batch. The result is (B, T, D) on every rank, as the JAX package's
-global array: that costs one final gather over the axis (and one over
-"data" when the batch was sharded). Serving only: no remat.
+serving batch; `local_rows=True` says the batch is this rank's rows
+already (the Trainer's), and nothing splits or gathers it over "data".
+The result is (B, T, D) on every rank, as the JAX package's global array:
+that costs one final gather over the axis (and one over "data" when the
+batch was sharded).
+
+Gradients go through as through the JAX package's shard_map: the K/V
+gather's backward reduce-scatters (collectives.all_gather_grad), the
+ring's ppermute sends the gradient back along the inverted pairs, and the
+final gather hands each rank its own block of the output gradient
+(collectives.gather_replicated: the work downstream is repeated on every
+model rank). Every text param's gradient is then this rank's part of the
+whole, to be summed over the axis (training/trainer.py). With cfg.remat
+each layer runs under torch.utils.checkpoint, as the JAX bodies wrap each
+layer in jax.checkpoint; its collectives then run again in the backward,
+in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -36,19 +49,23 @@ from mmd_tpu_torch.ops.attention import (
 from mmd_tpu_torch.parallel import collectives as C
 
 
-def _batch_axis(mesh, b: int) -> Optional[str]:
+def _batch_axis(mesh, b: int, local_rows: bool = False) -> Optional[str]:
     """Shard the batch over the mesh's data axis when it divides evenly, so
     SP composes with DP (each data rank runs the sequence-parallel schedule
-    on its rows); replicated for ragged serving batches."""
+    on its rows); replicated for ragged serving batches, and never split
+    when it is the rank's rows already."""
     d = mesh.shape.get(DATA_AXIS, 1)
-    return DATA_AXIS if (d > 1 and b % d == 0) else None
+    return (DATA_AXIS if (d > 1 and b % d == 0 and not local_rows)
+            else None)
 
 
 def _gather_sequence(h_loc: torch.Tensor, mesh, axis: str,
                     ba: Optional[str]) -> torch.Tensor:
     """(B_loc, T/sp, D) blocks -> (B, T, D) on every rank."""
-    h = C.all_gather(h_loc, mesh, axis, dim=1)
-    return C.all_gather(h, mesh, ba, dim=0) if ba is not None else h
+    h = C.gather_replicated(h_loc, mesh, axis, dim=1)
+    return (C.gather_replicated(h, mesh, ba, dim=0) if ba is not None
+            else h)
+
 
 
 def _ring_attention(q, k_loc, v_loc, num_heads: int, mesh, axis: str,
@@ -85,8 +102,8 @@ def _ring_attention(q, k_loc, v_loc, num_heads: int, mesh, axis: str,
         o = o * corr + p.to(vh.dtype).float() @ vh.float()
         m = m_new
         if step < sp - 1:
-            kh = C.ppermute(kh, mesh, axis, perm)
-            vh = C.ppermute(vh, mesh, axis, perm)
+            kh = C.ppermute_grad(kh, mesh, axis, perm)
+            vh = C.ppermute_grad(vh, mesh, axis, perm)
     return _merge_heads(o / lsum).to(q.dtype)
 
 
@@ -94,10 +111,12 @@ def sequence_parallel_encode(params, cfg, input_ids: torch.Tensor,
                              attention_mask: Optional[torch.Tensor] = None,
                              *, mesh, axis: str = MODEL_AXIS,
                              token_type_ids: Optional[torch.Tensor] = None,
-                             ring: bool = False) -> torch.Tensor:
+                             ring: bool = False, local_rows: bool = False
+                             ) -> torch.Tensor:
     """last_hidden_state (B, T, D) == text_encoder.encode, with the
     activations sequence-sharded over `axis` (weights replicated). ring=True
-    swaps the per-layer K/V all-gather for ring attention."""
+    swaps the per-layer K/V all-gather for ring attention; local_rows: see
+    the module docstring."""
     from mmd_tpu_torch.models.transformer import embed, mpnet_position_bias
 
     if cfg.pre_ln or cfg.is_decoder:
@@ -112,7 +131,7 @@ def sequence_parallel_encode(params, cfg, input_ids: torch.Tensor,
     eps = cfg.layer_norm_eps
 
     x = embed(params["embeddings"], cfg, input_ids, token_type_ids)
-    ba = _batch_axis(mesh, b)
+    ba = _batch_axis(mesh, b, local_rows)
     rows = shard_rows(mesh, b, ba) if ba else slice(0, b)
     i = mesh.axis_index(axis)
     h = x[rows, i * tl:(i + 1) * tl].contiguous()
@@ -127,7 +146,7 @@ def sequence_parallel_encode(params, cfg, input_ids: torch.Tensor,
         if km is not None:
             mask_loc = mask_loc + (1.0 - km[:, None, None, :]) * -1e9
 
-    for p in params["layers"]:
+    def layer(p, h, km, mask_loc):
         q = L.linear(p["q"], h, dtype)
         k = L.linear(p["k"], h, dtype)
         v = L.linear(p["v"], h, dtype)
@@ -138,8 +157,8 @@ def sequence_parallel_encode(params, cfg, input_ids: torch.Tensor,
                                   i, None if mask_loc is not None else km,
                                   mask_loc)
         else:
-            k_full = C.all_gather(k, mesh, axis, dim=1)
-            v_full = C.all_gather(v, mesh, axis, dim=1)
+            k_full = C.all_gather_grad(k, mesh, axis, dim=1)
+            v_full = C.all_gather_grad(v, mesh, axis, dim=1)
             if mask_loc is not None:
                 ctx = explicit_attention(q, k_full, v_full, cfg.num_heads,
                                          mask_loc)
@@ -149,14 +168,20 @@ def sequence_parallel_encode(params, cfg, input_ids: torch.Tensor,
         h = L.layernorm(p["ln1"], h + L.linear(p["attn_out"], ctx, dtype),
                         eps)
         f = torch.nn.functional.gelu(L.linear(p["ffn_in"], h, dtype))
-        h = L.layernorm(p["ln2"], h + L.linear(p["ffn_out"], f, dtype), eps)
+        return L.layernorm(p["ln2"], h + L.linear(p["ffn_out"], f, dtype),
+                           eps)
+
+    h = L.run_layers(layer, params["layers"], h, km, mask_loc,
+                     remat=cfg.remat)
     return _gather_sequence(h, mesh, axis, ba)
 
 
 def sequence_parallel_encode_deberta(params, cfg, input_ids: torch.Tensor,
                                      attention_mask: Optional[torch.Tensor]
                                      = None, *, mesh, axis: str = MODEL_AXIS,
-                                     ring: bool = False) -> torch.Tensor:
+                                     ring: bool = False,
+                                     local_rows: bool = False
+                                     ) -> torch.Tensor:
     """last_hidden_state (B, T, D) == deberta.deberta_encode, with the
     activations sequence-sharded over `axis`: local Q rows against the
     all-gathered K/V, the diagonal selections rebuilt from each rank's
@@ -164,7 +189,7 @@ def sequence_parallel_encode_deberta(params, cfg, input_ids: torch.Tensor,
     rotates the K/V blocks under an online softmax instead
     (deberta._disentangled_attention_ring). The shared relative-position
     table and the key mask are replicated. Both take the explicit path,
-    as in the JAX package."""
+    as in the JAX package. local_rows: see the module docstring."""
     from mmd_tpu_torch.models import deberta as D
 
     sp = mesh.shape[axis]
@@ -177,14 +202,18 @@ def sequence_parallel_encode_deberta(params, cfg, input_ids: torch.Tensor,
     c2p_map, p2c_map = (torch.as_tensor(m, device=dev, dtype=torch.long)
                         for m in D._diag_maps(t, cfg))
     x, rel_emb = D.deberta_embed(params, cfg, input_ids, attention_mask)
-    ba = _batch_axis(mesh, b)
+    ba = _batch_axis(mesh, b, local_rows)
     rows = shard_rows(mesh, b, ba) if ba else slice(0, b)
     rank = mesh.axis_index(axis)
     h = x[rows, rank * tl:(rank + 1) * tl].contiguous()
     km = (attention_mask[rows].float() if attention_mask is not None
           else None)
-    for p in params["layers"]:
-        h = D.deberta_layer_sp(p, cfg, h, rel_emb, c2p_map, p2c_map, km,
-                               dtype, mesh, axis, t, rank * tl, sp=sp,
-                               rank=rank, ring=ring)
+
+    def layer(p, h, rel_emb, km):
+        return D.deberta_layer_sp(p, cfg, h, rel_emb, c2p_map, p2c_map, km,
+                                  dtype, mesh, axis, t, rank * tl, sp=sp,
+                                  rank=rank, ring=ring)
+
+    h = L.run_layers(layer, params["layers"], h, rel_emb, km,
+                     remat=cfg.remat)
     return _gather_sequence(h, mesh, axis, ba)

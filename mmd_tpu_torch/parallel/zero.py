@@ -22,6 +22,14 @@ do not follow the per-leaf rule):
     reduce-scatters each gradient into the rank's shard (and
     mean-all-reduces the leaves kept whole), and AdamW updates the shards.
 
+On a (data, model) mesh without TP the state is replicated along "model".
+Where the text encoder fine-tunes split over "model" (sequence or
+pipeline parallel), each model rank's gradient of a text leaf is its part
+of the whole: `Layout(model_partial=)` names those leaves, and the step
+sums their gradients over "model" (one all-reduce) before anything
+above. The other leaves' gradients are the same on every model rank and
+are not summed.
+
 Weight decay and the step count are make_optimizer's (torch's AdamW runs
 on the blocks); Adam's count is replicated. `ShardedAdamW.state_dict` /
 `load_state_dict` and `Layout.gather` / `load` speak the single-device
@@ -37,7 +45,7 @@ from typing import Optional
 import torch
 from torch import nn
 
-from mmd_tpu_torch.core.mesh import DATA_AXIS
+from mmd_tpu_torch.core.mesh import DATA_AXIS, MODEL_AXIS
 from mmd_tpu_torch.parallel import collectives as C
 from mmd_tpu_torch.parallel import tp as TP
 
@@ -65,10 +73,14 @@ def train_specs(whole: nn.Module, data_size: int, tensor_parallel: bool,
 class Layout:
     """The specs of the params and of the AdamW moments on a mesh, and the
     port dims they split (`param_dims`, `moment_dims`: {name: {axis:
-    dim}}), for a whole tree's names in the optimizer's order."""
+    dim}}), for a whole tree's names in the optimizer's order;
+    `model_partial`, the names whose gradients are partial sums over
+    "model"."""
 
-    def __init__(self, whole: nn.Module, mesh, specs: dict):
+    def __init__(self, whole: nn.Module, mesh, specs: dict,
+                 model_partial=()):
         self.mesh = mesh
+        self.model_partial = set(model_partial)
         self.param_specs, self.moment_specs = specs["params"], specs["moments"]
         self.names = list(self.param_specs)
         self.param_dims = TP.port_dims(whole, self.param_specs)
@@ -128,6 +140,8 @@ class ShardedAdamW:
     def step(self) -> None:
         lay, mesh = self.layout, self.layout.mesh
         work = dict(self._work.named_parameters())
+        C.psum_([work[n].grad for n in lay.names if n in lay.model_partial],
+                mesh, MODEL_AXIS)
         split, whole = [], []
         for name, leaf in zip(lay.names, self._leaves):
             dim = lay.param_dims[name].get(DATA_AXIS)

@@ -9,9 +9,12 @@ torch.distributed.run launch.
         --fused_attn [--compute_dtype float32]
     python -m mmd_tpu_torch.train --train_data data/preprocessed/train.csv \\
         --batch_size 8 --fused_attn [--finetune_encoders] [--remat]
-    python -m torch.distributed.run --nproc_per_node N -m mmd_tpu_torch.train \
-        --model_parallel M [--tensor_parallel] [--zero1 | --zero3] \
+    python -m torch.distributed.run --nproc_per_node N -m mmd_tpu_torch.train \\
+        --model_parallel M [--tensor_parallel] [--zero1 | --zero3] \\
         [--dist_backend nccl|gloo] ...
+    python -m torch.distributed.run --nproc_per_node N -m mmd_tpu_torch.train \\
+        --train_data <csv> --finetune_encoders --model_parallel M \\
+        --text_parallelism sp|sp_ring|pp [--zero1 | --zero3] [--remat] ...
 
 --compute_dtype defaults to bfloat16, as in the JAX package: with dropout on
 the card the MLPs then run the fused GELU-MLP kernels (ops/mlp.py); on the
@@ -42,9 +45,11 @@ Under torch.distributed.run each rank joins the world
 asked for, nccl on CUDA by default; nccl refuses two ranks on one card and
 nothing switches backend), builds the (data, model) mesh of
 --model_parallel, and trains its rows of every batch (training/trainer.py);
-rank 0 writes. Without a launch the world is this process: --zero1 and
---zero3 are legal there and change nothing, --model_parallel above 1 and
---tensor_parallel raise the JAX package's ValueErrors.
+rank 0 writes. --text_parallelism (with --finetune_encoders) trains the
+text encoder sequence-, ring- or pipeline-parallel over the model axis.
+Without a launch the world is this process: --zero1 and --zero3 are legal
+there and change nothing, --model_parallel above 1, --tensor_parallel and
+--text_parallelism raise the JAX package's ValueErrors.
 """
 
 from __future__ import annotations
@@ -116,7 +121,7 @@ def build(args):
     mesh = _mesh(args, cfg)
     kw = dict(device=args.device, mesh=mesh,
               tensor_parallel=cfg.mesh.tensor_parallel, zero1=cfg.mesh.zero1,
-              zero3=cfg.mesh.zero3)
+              zero3=cfg.mesh.zero3, text_parallelism=args.text_parallelism)
     val_batches = None
     if args.synthetic_samples:
         trainer = Trainer(cfg, **kw)

@@ -9,7 +9,9 @@ Three steps, as in the JAX package:
     step when accumulating;
   * `make_finetune_raw_step`: raw batches, and the encoders' params train
     with the fusion model's under one AdamW (`init_finetune_state`), with
-    the JAX package's kernel gating (`finetune_encoder_configs`).
+    the JAX package's kernel gating (`finetune_encoder_configs`); over a
+    mesh the text encoder can train sequence-, ring- or pipeline-parallel
+    over "model" (`text_mode`).
 
 The JAX package compiles one function per step: loss, grads, AdamW update.
 Here the step runs eagerly: `fusion_forward(deterministic=False)` ->
@@ -34,8 +36,13 @@ indices and, under TP, runs on its Megatron slices (models/fusion.py),
 and parallel/zero.ShardedAdamW means the gradients over "data" and steps
 the rank's blocks of the state under parallel/tp.py's specs. The step's
 loss and per-path losses are global means, its preds and labels the
-global batch, on every rank. `text_parallelism` (fine-tuning the text
-encoder split over the model axis) is ROADMAP A16b part 2 and raises.
+global batch, on every rank. With `text_parallelism` ("sp", "sp_ring" or
+"pp", fine-tuning only) the text encoder's forward and backward run split
+over "model" (models/frozen.text_encode_parallel on the rank's rows,
+parallel/sp.py, parallel/pp.py) while the fusion model and the image
+encoder run whole on every model rank: the text leaves' gradients are
+then each rank's part of the whole, which ShardedAdamW sums over "model"
+(parallel/zero.Layout's `model_partial`) before it means over "data".
 """
 
 from __future__ import annotations
@@ -54,7 +61,8 @@ from mmd_tpu_torch.data.labels import (PATHS, paths_to_category_idx_torch,
                                        paths_to_simplified_torch)
 from mmd_tpu_torch.models import layers as L
 from mmd_tpu_torch.models.deberta import DebertaConfig
-from mmd_tpu_torch.models.frozen import image_encode, text_encode
+from mmd_tpu_torch.models.frozen import (image_encode, text_encode,
+                                         text_encode_parallel)
 from mmd_tpu_torch.models.fusion import fusion_forward, init_fusion_params
 from mmd_tpu_torch.models.swin import SwinConfig
 from mmd_tpu_torch.ops.image_ops import TRAIN_TRANSFORM, normalize_on_device
@@ -268,11 +276,11 @@ def make_raw_step(cfg: TrainConfig, mesh=None
 
 
 def _embed_raw(text_params, text_cfg, vit_params, vit_cfg, batch: dict,
-               dtype: torch.dtype) -> dict:
+               dtype: torch.dtype, text_fn=text_encode) -> dict:
     """A raw batch -> the fusion model's inputs: both texts through the text
-    encoder, both images (uint8, normalized on the device with the training
-    transform) through the image encoder. A batch of an embed bank
-    (pipelines/fused.py) carries the frozen image encoder's output as
+    encoder (`text_fn`), both images (uint8, normalized on the device with
+    the training transform) through the image encoder. A batch of an embed
+    bank (pipelines/fused.py) carries the frozen image encoder's output as
     `claim_vis` / `doc_vis` instead of images: it is used as it is (the
     fusion model casts its inputs to the compute dtype at entry)."""
     def image(u8):
@@ -284,11 +292,10 @@ def _embed_raw(text_params, text_cfg, vit_params, vit_cfg, batch: dict,
     else:
         vis_c, vis_d = image(batch["claim_image"]), image(batch["doc_image"])
     return {
-        "claim_text_embeds": text_encode(text_params, text_cfg,
-                                         batch["claim_ids"],
-                                         batch["claim_mask"]),
-        "doc_text_embeds": text_encode(text_params, text_cfg,
-                                       batch["doc_ids"], batch["doc_mask"]),
+        "claim_text_embeds": text_fn(text_params, text_cfg,
+                                     batch["claim_ids"], batch["claim_mask"]),
+        "doc_text_embeds": text_fn(text_params, text_cfg, batch["doc_ids"],
+                                   batch["doc_mask"]),
         "claim_image_embeds": vis_c,
         "doc_image_embeds": vis_d,
         "labels": batch.get("labels"),       # none in a batch to predict
@@ -352,23 +359,35 @@ def init_finetune_state(cfg: TrainConfig, enc, device="cuda",
     return TrainState(0, params, make_optimizer(cfg, params), seed)
 
 
-def make_finetune_raw_step(cfg: TrainConfig, enc, mesh=None
+def make_finetune_raw_step(cfg: TrainConfig, enc, mesh=None,
+                           text_mode: Optional[str] = None
                            ) -> Callable[[TrainState, dict],
                                          tuple[TrainState, dict]]:
     """End-to-end fine-tuning step on RAW batches: the text and image
     encoders run inside the step with gradients, their params in
     state.params next to the fusion model's (`init_finetune_state`), one
     AdamW over the joint tree; composes with accumulation and cfg.remat.
+    text_mode ("sp" | "sp_ring" | "pp", with `mesh`): the text encoder's
+    forward and backward run under that parallelism over the mesh's
+    "model" axis, on the rank's rows (models/frozen.text_encode_parallel).
     `step_fn.joint_loss(params, batch, generator, deterministic=False)` is
     the loss, for the eval step."""
     mcfg = cfg.model
     dtype = L.dtype_of(mcfg.compute_dtype)
     text_cfg, vit_cfg = finetune_encoder_configs(cfg, enc.text_cfg,
                                                  enc.vit_cfg)
+    text_fn = text_encode
+    if text_mode is not None:
+        if mesh is None:
+            raise ValueError("text parallelism requires a mesh")
+
+        def text_fn(p, c, ids, mask):
+            return text_encode_parallel(p, c, ids, mask, mesh=mesh,
+                                        mode=text_mode, local_rows=True)
 
     def joint_loss(params, batch, generator, deterministic=False):
         emb = _embed_raw(params["text"], text_cfg, params["vit"], vit_cfg,
-                         batch, dtype)
+                         batch, dtype, text_fn)
         return _loss_fn(params["fusion"], mcfg, emb, generator,
                         deterministic=deterministic, mesh=mesh)
 
@@ -419,8 +438,12 @@ class Trainer:
     on every rank), with `zero1` the moments and with `zero3` the params
     and the moments sharded over "data" (every path, fine-tuning included,
     over the joint tree). zero1 or zero3 without a mesh trains on a mesh of
-    this one device, where they change nothing. The JAX Trainer's
-    validations hold (mmd_tpu/training/trainer.py:501-541).
+    this one device, where they change nothing. With `finetune` and
+    `text_parallelism` ("sp", "sp_ring" or "pp") the text encoder's
+    forward and backward run sequence-, ring- or pipeline-parallel over
+    "model" (a model axis >= 2), the batch still split over "data"; it
+    composes with zero1, zero3, accumulation and cfg.remat. The JAX
+    Trainer's validations hold (mmd_tpu/training/trainer.py:501-541).
 
     `device` defaults to cuda and never falls back: without a card it
     raises; tests pass "cpu"."""
@@ -436,10 +459,6 @@ class Trainer:
     mesh: Any = None
 
     def __post_init__(self):
-        if self.text_parallelism is not None:
-            raise NotImplementedError(
-                "fine-tuning under text_parallelism is ROADMAP A16b part 2, "
-                "not ported yet")
         if self.zero3 and (self.zero1 or self.tensor_parallel):
             raise ValueError("zero3 is exclusive with zero1/tensor_parallel")
         if (self.cfg.accum_steps > 1
@@ -454,6 +473,17 @@ class Trainer:
                 raise ValueError(
                     "finetune composes with zero1/zero3, not TP (the TP "
                     "name rules cover the fusion tree only)")
+        if self.text_parallelism is not None:
+            if not self.finetune:
+                raise ValueError(
+                    "text_parallelism on the Trainer is the fine-tuning "
+                    "surface (serving uses MisinformationPredictor)")
+            if self.text_parallelism not in ("sp", "sp_ring", "pp"):
+                raise ValueError(
+                    f"unknown text_parallelism {self.text_parallelism!r}")
+            model = 1 if self.mesh is None else self.mesh.shape[MODEL_AXIS]
+            if model < 2:
+                raise ValueError("text_parallelism needs a model axis >= 2")
         if self.mesh is None and (self.tensor_parallel or self.zero1
                                   or self.zero3):
             self.mesh = make_mesh(1, device=self.device)
@@ -469,8 +499,8 @@ class Trainer:
         mesh = self.mesh
         self.eval_step = make_eval_step(self.cfg, mesh, self._layout)
         if self.finetune:
-            self.train_step = make_finetune_raw_step(self.cfg, self.encoders,
-                                                     mesh)
+            self.train_step = make_finetune_raw_step(
+                self.cfg, self.encoders, mesh, self.text_parallelism)
             joint_loss = self.train_step.joint_loss
             self.eval_step = _eval_step(
                 lambda p, b: joint_loss(p, b, None, deterministic=True)[1],
@@ -502,8 +532,12 @@ class Trainer:
                 f"{dp} data ranks, and each rank's {local} rows by "
                 f"accum_steps={self.cfg.accum_steps}")
         whole = self._whole(0)
+        partial = ([n for n, _ in whole.named_parameters()
+                    if n.startswith("text.")]
+                   if self.text_parallelism else ())
         self._layout = Z.Layout(whole, mesh, Z.train_specs(
-            whole, dp, self.tensor_parallel, self.zero1, self.zero3))
+            whole, dp, self.tensor_parallel, self.zero1, self.zero3),
+            model_partial=partial)
 
     def _whole(self, seed: int) -> L.ParamTree:
         """The whole trainable tree from `seed`, on the CPU (the

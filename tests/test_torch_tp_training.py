@@ -579,7 +579,8 @@ def test_tp_validation_refuses_what_jax_refuses():
         shape = {"data": 1, "model": 3}
     with pytest.raises(ValueError, match="num_heads"):
         TP.validate_tp_config(ModelConfig(**MODEL), Axis())
-    with pytest.raises(NotImplementedError, match="A16b part 2"):
+    with pytest.raises(ValueError,
+                       match="text_parallelism needs a model axis >= 2"):
         TT.Trainer(_cfg(), mesh=mesh, encoders=_encoders(), finetune=True,
                    text_parallelism="pp")
 

@@ -264,13 +264,14 @@ def test_cli_trains_logs_checkpoints_and_resumes(tmp_path):
 
 
 def test_cli_refuses_what_is_not_ported(tmp_path):
-    """Text parallelism in fine-tuning raises (ROADMAP A16b part 2); the
-    raw path and fine-tuning are ported (tests/test_torch_raw_training.py),
-    so a raw run without its csv stops at reading the csv, as the JAX
-    package's does. Without a torch.distributed.run launch the world is
-    this process: a model axis of 2 and TP without one raise the JAX
-    package's ValueErrors (multi-device training over a world:
-    tests/test_torch_tp_training.py, tests/test_torch_zero.py)."""
+    """The raw path and fine-tuning are ported
+    (tests/test_torch_raw_training.py), so a raw run without its csv stops
+    at reading the csv, as the JAX package's does. Without a
+    torch.distributed.run launch the world is this process: a model axis
+    of 2 and TP without one raise the JAX package's ValueErrors, and text
+    parallelism outside fine-tuning the JAX Trainer's (multi-device
+    training over a world: tests/test_torch_tp_training.py,
+    tests/test_torch_zero.py, tests/test_torch_finetune_parallel.py)."""
     out = ["--output_dir", str(tmp_path)]
     with pytest.raises(FileNotFoundError):
         T.main(ARGS + out + ["--train_data", str(tmp_path / "none.csv")])
@@ -280,7 +281,7 @@ def test_cli_refuses_what_is_not_ported(tmp_path):
     with pytest.raises(ValueError, match="model axis >= 2"):
         T.main(ARGS + out + ["--synthetic_samples", "4",
                              "--tensor_parallel"])
-    with pytest.raises(NotImplementedError, match="A16b part 2"):
+    with pytest.raises(ValueError, match="fine-tuning surface"):
         T.main(ARGS + out + ["--synthetic_samples", "4",
                              "--text_parallelism", "sp"])
 
@@ -337,7 +338,7 @@ def test_trainer_validates_like_the_jax_trainer():
         TT.Trainer(small_cfg(), device="cpu", tensor_parallel=True)
     with pytest.raises(ValueError, match="exclusive"):
         TT.Trainer(small_cfg(), device="cpu", zero3=True, zero1=True)
-    with pytest.raises(NotImplementedError, match="A16b part 2"):
+    with pytest.raises(ValueError, match="fine-tuning surface"):
         TT.Trainer(small_cfg(), device="cpu", text_parallelism="sp")
 
 
