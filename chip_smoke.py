@@ -311,7 +311,7 @@ Phases, each of which exits nonzero on failure:
                       gathered params took within 0.2 lr a step of the
                       single-device update, a limit that a run skipping
                       its last step must break)
-                      and 2 bf16 steps at dropout 0.1: each rank's launches
+                      and 1 bf16 step at dropout 0.1: each rank's launches
                       the single-device step's (#1 / #2 / #5 / #3 / #4 8 /
                       8 / 8 / 6 / 6 a step on its rows, heads and hidden
                       slice), the bytes its collectives staged through the
@@ -339,7 +339,7 @@ Phases, each of which exits nonzero on failure:
                       single-device fine-tuning step on the card (losses
                       within 1e-5 relative, the gathered params' update
                       within 0.2 lr a step, a limit the single-device run
-                      one step short must break) and 2 bf16 steps at
+                      one step short must break) and 1 bf16 step at
                       dropout 0.1: each rank's launches of #1 / #2 / #3 /
                       #4 / #5 / #8 / #9 / #10 / #11 against the count the
                       run predicts, the bytes its collectives staged
@@ -353,6 +353,31 @@ Phases, each of which exits nonzero on failure:
                       epoch, started beside 27): metrics.jsonl and one
                       checkpoint from rank 0 alone; the checkpoint resumed
                       on one device for one step
+ 29. run_all_parallel  python -m mmd_tpu_torch.pipelines.run_all over a
+                      spawned world of 2 gloo ranks sharing the card, first
+                      in fp32 at dropout 0 on a copy of run_all's stores,
+                      against the single-device run_all on another copy,
+                      run beside the world (losses within 1e-5 relative,
+                      params within 0.2 lr a step but the attention key
+                      biases, whose exact gradient is 0, within 2; the
+                      single-device run one step short must break the
+                      limit); then as it is on a copy of run_all's raw
+                      tree (80 rows, 256-px images, the default encoders,
+                      bf16, train batch 24: 12 a rank), the counted run:
+                      rank 0 alone runs the stages that write the tree,
+                      every rank trains its rows, rank 0 alone evaluates
+                      and verifies; each rank's launches by stage against
+                      the count predicted (rank 0 run_all's, rank 1 the
+                      train stage's), #1-#5 held in situ at the ranks'
+                      train geometries (timed on rank 0), rank 0's stage
+                      seconds, the bytes staged through the host; --fused
+                      over the 2 ranks must raise before writing
+ 30. the run_all CLI  python -m torch.distributed.run --nproc_per_node 2
+                      -m mmd_tpu_torch.pipelines.run_all --dist_backend
+                      gloo on another copy (started beside 29): eval.csv,
+                      the timings and the reports from rank 0 alone; over
+                      nccl the launch must refuse two ranks on one card
+                      and leave its root absent
 The serve_converted, retrieval and run_all phases also hold the native
 libraries: each ran in the phase's counted run (unigram, WordPiece, row
 gather) and gives the Python path's output bit for bit on the phase's own
@@ -366,8 +391,8 @@ finetune_reference, train_raw, retrieval, caption, train_captioner,
 run_all, run_all_reference, run_all_fused, run_all_fused_default,
 fakenet, serve_parallel (summed over its ranks), retrieval_sharded,
 train_parallel (summed over its ranks), train_parallel_cli (the resumed
-step), finetune_parallel (summed over its ranks) and
-finetune_parallel_cli (the resumed step) phases.
+step), finetune_parallel (summed over its ranks), finetune_parallel_cli
+(the resumed step) and run_all_parallel (summed over its ranks) phases.
 """
 
 from __future__ import annotations
@@ -5643,6 +5668,10 @@ TRAIN_PARALLEL_RUNS = (("dp", 1, {}), ("zero1", 1, {"zero1": True}),
                                         "zero1": True}),
                        ("tp_1x4", 4, {"tensor_parallel": True}))
 TRAIN_PARALLEL_STEPS = 2
+# the bf16 runs of train_parallel and finetune_parallel take one step of
+# their batches: it gives a step's launches and every geometry held in
+# situ (the fp32 runs take two, which the params check needs)
+PARALLEL_BF16_STEPS = 1
 TRAIN_PARALLEL_KERNELS = ("flash_attn_fwd", "flash_attn_bwd", "mlp_fwd",
                           "mlp_bwd", "dropout")
 # a rank's launches a step: the bf16 step's at dropout 0.1 (every split
@@ -5709,6 +5738,8 @@ def _train_parallel_rank(rank: int, world: int, dev, job: dict) -> dict:
             trainer = Trainer(cfg, mesh=meshes[mp], **flags)
             state = trainer.init(seed=0)
             rows = [trainer.shard_batch(b) for b in batches]
+            if dtype == "bfloat16":
+                rows = rows[:PARALLEL_BF16_STEPS]
             dist.barrier()
             torch.cuda.synchronize()
             C.staged_bytes = 0
@@ -5773,7 +5804,7 @@ def _check_train_parallel(outs: list, job: dict, card: str) -> None:
         fail(f"{phase}: the params check cannot see a skipped step "
              f"({fault:.3f} of its limit)")
     bf16_want = {k: 0 for k in _kernels()}
-    bf16_want.update({k: v * TRAIN_PARALLEL_STEPS
+    bf16_want.update({k: v * PARALLEL_BF16_STEPS
                       for k, v in PER_STEP_BF16.items()})
     fp32_want = {k: 0 for k in _kernels()}
     fp32_want.update({k: v * TRAIN_PARALLEL_STEPS
@@ -5940,7 +5971,8 @@ def phase_train_parallel(card: str, tmp: Path) -> tuple[dict, dict, dict]:
     print(f"train_parallel: a world of {TRAIN_PARALLEL_WORLD} gloo ranks "
           f"sharing the card; runs {[r[:2] for r in TRAIN_PARALLEL_RUNS]} "
           f"(name, model_parallel), {TRAIN_PARALLEL_STEPS} steps each in "
-          f"fp32 at dropout 0 and in bf16 at dropout {DROPOUT_RATE}, batch "
+          f"fp32 at dropout 0 and {PARALLEL_BF16_STEPS} in bf16 at dropout "
+          f"{DROPOUT_RATE}, batch "
           f"{TRAIN_B}; the torchrun train CLI started beside it", flush=True)
     t0 = time.perf_counter()
     try:
@@ -6017,10 +6049,13 @@ def _finetune_parallel_want(family: str, mode: str, remat: bool,
         want = dict(RAW_FINETUNE_PER_STEP)
         if remat:
             want["flash_attn_fwd"] += FT_TEXT_PER_STEP + FT_VIT_PER_STEP
+    steps = FINETUNE_PARALLEL_STEPS
     if dtype == "float32":
         want.update(mlp_fwd=0, mlp_bwd=0, dropout=0)
+    else:
+        steps = PARALLEL_BF16_STEPS
     out = {k: 0 for k in _kernels()}
-    out.update({k: v * FINETUNE_PARALLEL_STEPS for k, v in want.items()})
+    out.update({k: v * steps for k, v in want.items()})
     return out
 
 
@@ -6115,6 +6150,8 @@ def _finetune_parallel_rank(rank: int, world: int, dev, job: dict) -> dict:
             state = trainer.init(seed=0)
             rows = [trainer.shard_batch(b)
                     for b in _finetune_parallel_batches(enc)]
+            if dtype == "bfloat16":
+                rows = rows[:PARALLEL_BF16_STEPS]
             del enc
             dist.barrier()
             torch.cuda.synchronize()
@@ -6392,8 +6429,9 @@ def phase_finetune_parallel(card: str, tmp: Path) -> tuple[dict, dict, dict]:
           f"ranks sharing the card; runs "
           f"{[r[:4] for r in FINETUNE_PARALLEL_RUNS]} (name, families, "
           f"text_parallelism, model axis), {FINETUNE_PARALLEL_STEPS} steps "
-          f"each in fp32 at dropout 0 and in bf16 at dropout "
-          f"{DROPOUT_RATE}; the torchrun fine-tuning CLI started beside it; "
+          f"each in fp32 at dropout 0 and {PARALLEL_BF16_STEPS} in bf16 at "
+          f"dropout {DROPOUT_RATE}; the torchrun fine-tuning CLI started "
+          f"beside it; "
           f"the single-device references in "
           f"{time.perf_counter() - t_phase:.1f} s", flush=True)
     t0 = time.perf_counter()
@@ -6416,6 +6454,428 @@ def phase_finetune_parallel(card: str, tmp: Path) -> tuple[dict, dict, dict]:
           f"the ranks {json.dumps({k: v for k, v in launches.items() if v})}"
           f"  [{card}]", flush=True)
     return launches, resumed, rows
+
+
+# run_all_parallel: python -m mmd_tpu_torch.pipelines.run_all over a
+# spawned world of 2 gloo ranks sharing the card (rank 0 writes the tree,
+# every rank trains its rows), on copies of the run_all phase's synthetic
+# tree ((j): 80 rows, 256-px images, the default encoders, bf16, fused
+# attention, --batch_size 32): the train batch of 24 gives each rank 12.
+RUN_ALL_PARALLEL_WORLD = 2
+RUN_ALL_PARALLEL_ARGS = [*RUN_ALL["run_all"], *RUN_ALL_ARGS, "--reuse_tree"]
+RUN_ALL_PARALLEL_KERNELS = TRAIN_PARALLEL_KERNELS
+RUN_ALL_CLI_TIMEOUT_S = 600
+# fp32 at dropout 0 against the single-device run: train_parallel's limits
+# (losses 1e-5 relative, the params 0.2 lr a step), but for the attention
+# key biases. Softmax ignores a bias that every key shares, so their exact
+# gradient is 0, and AdamW turns each run's rounding noise into steps of
+# up to lr: they are held to the most two such walks can part, 2 lr a
+# step (tests/test_torch_fused.py holds them the same way).
+KEY_BIASES = ("representation.text_WK.bias", "representation.image_WK.bias",
+              "cross_attn.text_evidence_key.bias",
+              "cross_attn.image_evidence_key.bias")
+KEY_BIAS_ATOL_LR = 2.0
+
+
+def _raw_tree(src: Path, dst: Path) -> Path:
+    """dst holding src's raw Factify tree (the CSVs and the images)."""
+    import shutil
+    shutil.copytree(src / "data" / "raw", dst / "data" / "raw")
+    return dst
+
+
+def _processed_tree(src: Path, dst: Path) -> Path:
+    """dst holding what src's stages wrote up to the embed stage: the raw
+    tree, the preprocessed and enriched CSVs and the stores (which run_all
+    --reuse_tree resumes at their ends) and the encoders' assets; the
+    retrieval build, which writes its corpora anew, runs again."""
+    import shutil
+    for d in ("data/raw", "data/preprocessed", "assets"):
+        shutil.copytree(src / d, dst / d)
+    return dst
+
+
+@contextlib.contextmanager
+def _exact_configs(save_every: int = 0):
+    """run_all's fusion model in fp32 at dropout 0, logging every step
+    (and checkpointing every save_every): ModelConfig and TrainConfig made
+    with those fields, whatever run_all passes."""
+    from mmd_tpu_torch.core import config as CF
+    model, train = CF.ModelConfig, CF.TrainConfig
+    CF.ModelConfig = lambda *a, **kw: model(
+        *a, **{**kw, "dropout": 0.0, "compute_dtype": "float32"})
+    CF.TrainConfig = lambda *a, **kw: train(
+        *a, **{**kw, "log_every": 1, "save_every": save_every})
+    try:
+        yield
+    finally:
+        CF.ModelConfig, CF.TrainConfig = model, train
+
+
+class _InStage:
+    """`ctx` (an _InSitu) held open during the named stage of every
+    core/profiling.Stages while active."""
+
+    def __init__(self, name: str, ctx):
+        self.name, self.ctx = name, ctx
+
+    def __enter__(self):
+        from mmd_tpu_torch.core import profiling
+        self._orig = orig = profiling.Stages.stage
+        name, ctx = self.name, self.ctx
+
+        @contextlib.contextmanager
+        def stage(stages, stage_name, log=True):
+            with orig(stages, stage_name, log), (
+                    ctx if stage_name == name else contextlib.nullcontext()):
+                yield
+
+        profiling.Stages.stage = stage
+        return self
+
+    def __exit__(self, *exc):
+        from mmd_tpu_torch.core import profiling
+        profiling.Stages.stage = self._orig
+
+
+def _run_all_parallel_rank(rank: int, world: int, dev, job: dict) -> dict:
+    """One rank of run_all_parallel: run_all.main in fp32 at dropout 0 on
+    a copy of the run_all phase's stores (the gathered params kept; the
+    ranks' first run, which also takes each new process's first-use
+    costs), then as it is on a copy of its raw tree (bf16, dropout 0.1;
+    the counted run: launches by stage, #1-#5 recorded in situ in the
+    train stage, the bytes staged through the host), then with --fused,
+    which must raise; #1-#5 held in situ, rank 1 first, then rank 0
+    alone, timed."""
+    import torch.distributed as dist
+
+    from mmd_tpu_torch.parallel import collectives as C
+    from mmd_tpu_torch.pipelines import run_all
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    with _exact_configs():
+        out = run_all.main([*RUN_ALL_PARALLEL_ARGS, "--root",
+                            job["exact_root"]])
+    got = {"params": {k: v.detach().cpu() for k, v in
+                      out["params"].state_dict().items()},
+           "exact_s": time.perf_counter() - t0}
+    del out
+    torch.cuda.empty_cache()
+
+    root = Path(job["root"])
+    in_situ = _InSitu(only=RUN_ALL_PARALLEL_KERNELS)
+    dist.barrier()
+    torch.cuda.synchronize()
+    C.staged_bytes = 0
+    _reset_counts()                        # count the main path's run only
+    t0 = time.perf_counter()
+    with _StageLaunches() as stage_launches, _InStage("train", in_situ):
+        out = run_all.main([*RUN_ALL_PARALLEL_ARGS, "--root", str(root),
+                            "--timings_json", str(root / "timings.json")])
+    torch.cuda.synchronize()
+    got.update({"launches": _counts(), "by_stage": stage_launches.by_stage,
+                "staged": C.staged_bytes, "run_s": time.perf_counter() - t0,
+                "in_situ": in_situ.launches(), "step": out["state"].step,
+                "batch_size": out["batch_size"],
+                "finite": all(bool(torch.isfinite(p).all())
+                              for p in out["params"].parameters())})
+    if rank == 0:
+        got["n_test_store"] = len(out["test_store"])
+    del out
+    torch.cuda.empty_cache()
+    try:
+        run_all.main(["--fused", *RUN_ALL_PARALLEL_ARGS, "--root",
+                      job["fused_root"]])
+        got["fused"] = None
+    except ValueError as e:
+        got["fused"] = str(e)
+    if rank != 0:
+        got["rows"] = in_situ.hold(f"run_all_parallel_r{rank}", job["card"],
+                                   timed=False)
+    dist.barrier()
+    if rank == 0:
+        got["rows"] = in_situ.hold("run_all_parallel_r0", job["card"])
+    dist.barrier()
+    return got
+
+
+def _start_run_all_clis(base: Path, src: Path) -> dict:
+    """python -m torch.distributed.run --nproc_per_node 2 -m
+    mmd_tpu_torch.pipelines.run_all in the background: over gloo on a copy
+    of src's raw tree, and over nccl, which must refuse two ranks on one
+    card, at a root that must stay absent."""
+    repo = Path(__file__).resolve().parent
+    procs = {}
+    for backend in ("gloo", "nccl"):
+        root = base / f"cli_{backend}"
+        if backend == "gloo":
+            _raw_tree(src, root)
+        cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+               "--nproc_per_node", str(RUN_ALL_PARALLEL_WORLD), "-m",
+               "mmd_tpu_torch.pipelines.run_all", *RUN_ALL_PARALLEL_ARGS,
+               "--root", str(root), "--timings_json",
+               str(root / "timings.json"), "--dist_backend", backend]
+        procs[backend] = (root, subprocess.Popen(
+            cmd, cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+            text=True))
+    return procs
+
+
+def _check_run_all_clis(procs: dict, card: str, deadline: float) -> None:
+    import pandas as pd
+
+    phase = "run_all_parallel_cli"
+    outs = {}
+    for backend, (root, proc) in procs.items():
+        try:
+            outs[backend] = proc.communicate(
+                timeout=max(deadline - time.monotonic(), 1.0))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(30)
+            fail(f"{phase}: the torchrun run_all CLI over {backend} ran "
+                 f"past {RUN_ALL_CLI_TIMEOUT_S} s")
+    root, proc = procs["gloo"]
+    stdout, stderr = outs["gloo"]
+    if proc.returncode != 0:
+        fail(f"{phase}: the torchrun run_all CLI over gloo exited "
+             f"{proc.returncode}: {stderr[-3000:]}")
+    ev = pd.read_csv(root / "results" / "eval.csv")
+    doc = json.loads((root / "timings.json").read_text())
+    printed = {k: stdout.count(k) for k in (
+        "[run_all] eval:", "[run_all] timings ->", "[stage] caption:",
+        "[stage] embed:", "[stage] train:")}
+    ok = (len(ev) == 5 and printed == {
+        "[run_all] eval:": 1, "[run_all] timings ->": 1,
+        "[stage] caption:": 1, "[stage] embed:": 1,
+        "[stage] train:": RUN_ALL_PARALLEL_WORLD})
+    print(f"{phase}: python -m torch.distributed.run --nproc_per_node "
+          f"{RUN_ALL_PARALLEL_WORLD} -m mmd_tpu_torch.pipelines.run_all "
+          f"--dist_backend gloo: eval.csv {len(ev)} rows, timings of "
+          f"{doc['n_train_rows']} / {doc['n_test_rows']} rows, stages "
+          f"{json.dumps(doc['stages_sec'])}; printed {json.dumps(printed)} "
+          f"(rank 0 alone writes and reports; every rank trains) -> "
+          f"{'ok' if ok else 'FAIL'}  [{card}]", flush=True)
+    if not ok:
+        fail(f"{phase}: the gloo launch's tree or output is not one "
+             f"writer's: {stdout[-2000:]}")
+    root, proc = procs["nccl"]
+    said = "nccl runs one rank a card"
+    refused = (proc.returncode != 0 and said in "".join(outs["nccl"])
+               and not root.exists())
+    print(f"{phase}: --dist_backend nccl with {RUN_ALL_PARALLEL_WORLD} ranks "
+          f"on the one card exited {proc.returncode}, said {said!r}: "
+          f"{said in ''.join(outs['nccl'])}, its root left absent: "
+          f"{not root.exists()} -> {'ok' if refused else 'FAIL'}  [{card}]",
+          flush=True)
+    if not refused:
+        fail(f"{phase}: the nccl launch did not refuse: "
+             f"{''.join(outs['nccl'])[-2000:]}")
+
+
+def _check_run_all_parallel(outs: list, single: dict, base: Path,
+                            card: str) -> None:
+    import pandas as pd
+
+    phase = "run_all_parallel"
+    world = base / "world"
+    dfs = {s: pd.read_csv(world / "data" / "preprocessed" / f"{s}.csv")
+           for s in ("train", "test")}
+    r0 = outs[0]
+    steps, bs = r0["step"], r0["batch_size"]
+    train = {k: v * steps for k, v in PER_STEP_BF16.items()}
+    demo_image = isinstance(dfs["test"]["claim_image"][0], str)
+    wants = [_run_all_want(False, {s: len(df) for s, df in dfs.items()},
+                           r0["n_test_store"], steps, bs, demo_image),
+             {"train": train}]
+    doc = json.loads((world / "timings.json").read_text())
+    print(f"{phase}: {RUN_ALL_PARALLEL_WORLD} gloo ranks sharing the card, "
+          f"train batch {bs} ({bs // RUN_ALL_PARALLEL_WORLD} a rank), "
+          f"{steps} steps; rank 0's seconds by stage "
+          f"{json.dumps(doc['stages_sec'])}, run_all.main "
+          f"{[round(o['run_s'], 1) for o in outs]} s by rank (host clock); "
+          f"staged through the host {[o['staged'] for o in outs]} B by "
+          f"rank  [{card}]", flush=True)
+    for rank, (o, want) in enumerate(zip(outs, wants)):
+        if o["step"] != steps or o["batch_size"] != bs or not o["finite"]:
+            fail(f"{phase}: rank {rank} took {o['step']} steps of "
+                 f"{o['batch_size']}, finite params {o['finite']}")
+        bad = {}
+        for name in set(o["by_stage"]) | set(want):
+            w = {k: want.get(name, {}).get(k, 0) for k in o["launches"]}
+            g = o["by_stage"].get(name, {k: 0 for k in o["launches"]})
+            if g != w:
+                bad[name] = (g, w)
+        total = _add(*o["by_stage"].values())
+        held = {k: o["by_stage"].get("train", {}).get(k, 0)
+                for k in RUN_ALL_PARALLEL_KERNELS}
+        shown = {s: {k: v for k, v in c.items() if v}
+                 for s, c in o["by_stage"].items() if any(c.values())}
+        print(f"{phase}: rank {rank} launches by stage "
+              f"{json.dumps(shown)} (predicted {json.dumps(want)}) -> "
+              f"{'ok' if not bad else 'FAIL'}  [{card}]", flush=True)
+        if bad or {k: total.get(k, 0) for k in o["launches"]} \
+                != o["launches"]:
+            fail(f"{phase}: rank {rank}'s launches by stage (got, want): "
+                 f"{bad}")
+        if o["in_situ"] != held:
+            fail(f"{phase}: rank {rank}'s in-situ record {o['in_situ']} "
+                 f"misses the train stage's launches {held}")
+        if not (o["fused"] and "pipelines/fused.py" in o["fused"]):
+            fail(f"{phase}: rank {rank}: --fused over "
+                 f"{RUN_ALL_PARALLEL_WORLD} ranks did not refuse: "
+                 f"{o['fused']!r}")
+    if (base / "fused").exists():
+        fail(f"{phase}: --fused over {RUN_ALL_PARALLEL_WORLD} ranks wrote "
+             f"{sorted(str(p) for p in (base / 'fused').rglob('*'))}")
+
+    # fp32 at dropout 0 against the single-device run
+    def losses(root: Path) -> list:
+        return [json.loads(x)["train/total_loss"] for x in
+                (root / "results" / "metrics.jsonl").read_text()
+                .splitlines()]
+
+    got_l, want_l = losses(base / "world_exact"), losses(single["root"])
+    lr = single["lr"]
+    atol = {k: (KEY_BIAS_ATOL_LR if k in KEY_BIASES
+                else TRAIN_PARALLEL_UPDATE_ATOL_LR) * steps * lr
+            for k in single["params"]}
+
+    def worst_of(got: dict, want: dict, keys) -> tuple[float, str]:
+        """The largest |got - want| of the keys' params over their limit,
+        and its leaf."""
+        worst, worst_at = 0.0, None
+        for k in keys:
+            ratio = ((got[k] - want[k]).abs() / atol[k]).max().item()
+            if ratio > worst:
+                worst, worst_at = ratio, k
+        return worst, worst_at
+
+    rest = [k for k in single["params"] if k not in KEY_BIASES]
+    fault, fault_at = worst_of(single["params_but_last"], single["params"],
+                               rest)
+    loss_err = (max(abs(g - w) / abs(w) for g, w in zip(got_l, want_l))
+                if len(got_l) == len(want_l) == steps else math.inf)
+    worst = [worst_of(o["params"], single["params"], rest) for o in outs]
+    keys = [worst_of(o["params"], single["params"], KEY_BIASES)
+            for o in outs]
+    same = all(torch.equal(outs[0]["params"][k], o["params"][k])
+               for o in outs for k in outs[0]["params"])
+    print(f"{phase}: fp32 at dropout 0 against the single-device run: "
+          f"losses {[round(x, 6) for x in got_l]} (single device "
+          f"{[round(x, 6) for x in want_l]}, worst rel {loss_err:.2e}, "
+          f"limit {TRAIN_PARALLEL_LOSS_RTOL:.0e}); params at "
+          f"{[round(w, 3) for w, _ in worst]} of their limit by rank (worst "
+          f"{worst[0][1]}; limit {TRAIN_PARALLEL_UPDATE_ATOL_LR} lr a step), "
+          f"the key biases at {[round(w, 3) for w, _ in keys]} of theirs "
+          f"({KEY_BIAS_ATOL_LR} lr a step); the ranks' params equal: "
+          f"{same}; the single-device run one step short reads "
+          f"{fault:.3f} ({fault_at}); --fused refused on both ranks: "
+          f"{outs[0]['fused'][:80]!r}  [{card}]", flush=True)
+    if not fault > 1.0:
+        fail(f"{phase}: the params check cannot see a skipped step "
+             f"({fault:.3f} of its limit)")
+    if not loss_err <= TRAIN_PARALLEL_LOSS_RTOL:
+        fail(f"{phase}: the fp32 losses are {loss_err:.2e} from the "
+             f"single-device run's")
+    if max(w for w, _ in worst + keys) > 1.0 or not same:
+        fail(f"{phase}: the fp32 params lie {worst} ({keys} for the key "
+             f"biases) times their limit from the single-device params, or "
+             f"the ranks differ ({same})")
+
+
+def phase_run_all_parallel(card: str, tmp: Path) -> tuple[dict, dict]:
+    """run_all over the ranks of a launch on the card: a spawned world of 2
+    gloo ranks sharing it runs run_all.main in fp32 at dropout 0 on a copy
+    of the run_all phase's stores, against the single-device run_all on
+    another copy (run beside the world in this process), then as it is on
+    a copy of the run_all phase's raw tree (the counted run, bf16 at
+    dropout 0.1: each rank's launches by stage against the count
+    predicted, #1-#5 in situ at the ranks' train geometries on both ranks,
+    rank 0's stage seconds, the bytes staged through the host), then with
+    --fused, which must refuse; beside it the torchrun CLI over gloo (rank
+    0 alone writes) and over nccl (which must refuse two ranks on one
+    card). Returns the counted run's launches summed over the ranks, and
+    the in-situ rows."""
+    import os
+
+    from mmd_tpu_torch.parallel.launch import spawn
+    from mmd_tpu_torch.pipelines import run_all
+
+    phase = "run_all_parallel"
+    t_phase = time.perf_counter()
+    src, base = tmp / "run_all", tmp / phase
+    procs = _start_run_all_clis(base, src)
+    deadline = time.monotonic() + RUN_ALL_CLI_TIMEOUT_S
+    job = {"card": card, "root": str(_raw_tree(src, base / "world")),
+           "exact_root": str(_processed_tree(src, base / "world_exact")),
+           "fused_root": str(base / "fused")}
+    single_root = _processed_tree(src, base / "single")
+    print(f"{phase}: a world of {RUN_ALL_PARALLEL_WORLD} gloo ranks sharing "
+          f"the card runs run_all.main({json.dumps(RUN_ALL_PARALLEL_ARGS)}) "
+          f"in fp32 at dropout 0 on a copy of the run_all phase's stores "
+          f"(the single-device run beside it), then as it is on a copy of "
+          f"its raw tree, then with --fused; the torchrun CLI over gloo and "
+          f"over nccl started beside it", flush=True)
+    world: dict = {}
+
+    def run_world():
+        t0 = time.perf_counter()
+        try:
+            world["outs"] = spawn(_run_all_parallel_rank,
+                                  RUN_ALL_PARALLEL_WORLD, "gloo", "cuda",
+                                  args=(job,), timeout_s=900)
+        except Exception as e:  # re-raised below
+            world["error"] = e
+        world["s"] = time.perf_counter() - t0
+
+    thread = threading.Thread(target=run_world, name="run_all_parallel")
+    thread.start()
+    # the single-device run in fp32 at dropout 0, a checkpoint a step
+    old_root = os.environ.get("MMD_TPU_ROOT")
+    t0 = time.perf_counter()
+    try:
+        with _exact_configs(save_every=1):
+            out = run_all.main([*RUN_ALL_PARALLEL_ARGS, "--root",
+                                str(single_root)])
+        single_s = time.perf_counter() - t0
+    finally:
+        if old_root is None:
+            os.environ.pop("MMD_TPU_ROOT", None)
+        else:
+            os.environ["MMD_TPU_ROOT"] = old_root
+        thread.join()
+    if "error" in world:
+        for _, proc in procs.values():
+            proc.kill()
+        fail(f"{phase}: a rank failed: {world['error']!r}")
+    steps = out["state"].step
+    ckpt = torch.load(single_root / "results" / "checkpoints" /
+                      f"step_{steps - 1}.pt", map_location="cpu",
+                      weights_only=True)
+    single = {"root": single_root, "lr": 1e-3,
+              "params_but_last": ckpt["params"],
+              "params": {k: v.detach().cpu() for k, v in
+                         out["params"].state_dict().items()}}
+    del out
+    torch.cuda.empty_cache()
+    outs = world["outs"]
+    _check_run_all_parallel(outs, single, base, card)
+    _check_run_all_clis(procs, card, deadline)
+    rows = {}
+    for o in outs:
+        for name, r in o["rows"].items():
+            rows.setdefault(name, {}).update(r)
+    launches = {k: sum(o["launches"][k] for o in outs) for k in _kernels()}
+    print(f"{phase}: the world {world['s']:.1f} s (its fp32 run "
+          f"{[round(o['exact_s'], 1) for o in outs]} s by rank), the "
+          f"single-device run beside it {single_s:.1f} s, the phase with the "
+          f"CLIs {time.perf_counter() - t_phase:.1f} s; launches summed over "
+          f"the ranks {json.dumps({k: v for k, v in launches.items() if v})}"
+          f"  [{card}]", flush=True)
+    return launches, rows
 
 
 def main() -> None:
@@ -6486,6 +6946,10 @@ def main() -> None:
             recs[name].update(rows)
         (by_phase["finetune_parallel"], by_phase["finetune_parallel_cli"],
          in_situ) = phase_finetune_parallel(dev["card"], tmp)
+        for name, rows in in_situ.items():
+            recs[name].update(rows)
+        by_phase["run_all_parallel"], in_situ = phase_run_all_parallel(
+            dev["card"], tmp)
         for name, rows in in_situ.items():
             recs[name].update(rows)
         phase_train_parity(dev["card"])

@@ -5,7 +5,10 @@ WORLD_SIZE, LOCAL_RANK, LOCAL_WORLD_SIZE and the rendezvous address in the
 environment): rank r takes cuda:{LOCAL_RANK % device_count}, unless the
 caller asks for the CPU. `spawn` starts a world of its own in this
 process's children, each with its process group on a file store, and
-returns what each rank's function returned.
+returns what each rank's function returned. `launch_mesh` gives an entry
+point the (data, model) mesh of its launch, or None outside one;
+`on_rank0` runs a stage that writes files on rank 0 alone, and
+`first_on_rank0` a call that writes only at first use on rank 0 first.
 
 The backend is the caller's choice. NCCL runs one rank a card: asked to
 put two ranks on one card it raises, and never goes over to gloo. gloo
@@ -86,6 +89,55 @@ def init_from_env(backend: str | None = None, device="cuda",
         backend, init_method="env://", rank=rank, world_size=world,
         timeout=datetime.timedelta(seconds=timeout_s))
     return rank, world, dev
+
+
+def launch_mesh(backend: str | None = None, device="cuda",
+                model_parallel: int = 1,
+                timeout_s: float = DEFAULT_TIMEOUT_S):
+    """The (data, model) mesh of a torch.distributed.run launch (or of a
+    process group already made), else None; outside a launch a
+    model_parallel above 1 asks for a mesh of this one process, which
+    raises the JAX package's ValueError."""
+    from mmd_tpu_torch.core.mesh import make_mesh
+    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
+        _, _, dev = init_from_env(backend, device, timeout_s)
+        return make_mesh(model_parallel, device=dev)
+    if model_parallel > 1:
+        return make_mesh(model_parallel, device=device)
+    return None
+
+
+def on_rank0(fn):
+    """fn() on rank 0 alone -> its result there, None on the other ranks,
+    which run nothing and wait for rank 0 to finish: for a stage that
+    writes files every rank then reads. Every rank must call it. A raise
+    on rank 0 is raised on every rank (as a RuntimeError on the others).
+    Without a process group, fn()."""
+    if not dist.is_initialized():
+        return fn()
+    status, out = [None], None
+    if dist.get_rank() == 0:
+        try:
+            out = fn()
+        except BaseException as e:
+            status[0] = f"{type(e).__name__}: {e}"
+            dist.broadcast_object_list(status, src=0)
+            raise
+    dist.broadcast_object_list(status, src=0)       # the ranks meet here
+    if status[0] is not None:
+        raise RuntimeError(f"rank 0 failed: {status[0]}")
+    return out
+
+
+def first_on_rank0(fn):
+    """fn() on rank 0, then on the other ranks, which find what rank 0
+    wrote: for a call that writes only at first use and only reads after
+    (the tokenizer of models/frozen.load_or_init_frozen). A call that
+    would write again is on_rank0's."""
+    out = on_rank0(fn)
+    if dist.is_initialized() and dist.get_rank() != 0:
+        return fn()
+    return out
 
 
 def _rank_main(rank: int, fn, world: int, backend: str, device, store: str,

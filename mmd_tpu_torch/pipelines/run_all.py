@@ -13,9 +13,25 @@ attention takes the kernels where the routing rules send it.
 each split is uploaded once into banks on the device, and captions, the
 image corpus, training and eval read from them (`_run_fused`).
 
+Under torch.distributed.run the fusion model trains data-parallel over the
+ranks of the launch, as the JAX package's default path trains over every
+local device (`Trainer(cfg, make_mesh())`): each rank joins the world
+(parallel/launch.init_from_env: cuda:{LOCAL_RANK}, the --dist_backend
+asked for, nccl on CUDA by default, which runs one rank a card), rank 0
+alone runs the stages that write the tree while the others wait, every
+rank trains its rows of each batch from the train store rank 0 wrote
+(training/trainer.py over a data-parallel mesh), and rank 0 alone
+evaluates, verifies the demo claim and writes the results and the
+timings. The batch must divide over the ranks. The ranks share one host
+and read the tree at --root. `--fused` runs on one device, as the JAX
+package's bank lives on one chip: a launch of more ranks raises before
+any stage.
+
 Usage:
   python -m mmd_tpu_torch.pipelines.run_all --synthetic 64 --tiny --epochs 2
       [--device cpu]
+  python -m torch.distributed.run --standalone --nproc_per_node N \\
+      -m mmd_tpu_torch.pipelines.run_all --synthetic 64 [--dist_backend gloo]
   python -m mmd_tpu_torch.pipelines.run_all --synthetic 256 --image_size 256
       --reference_encoders --fused --train_batch 64 --steps_per_call 8
   python -m mmd_tpu_torch.pipelines.run_all --epochs 5   # real data under ./data
@@ -71,25 +87,119 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--chunk", type=int, default=256,
                    help="fused: ingest chunk rows (the upload granularity)")
     p.add_argument("--device", type=str, default="cuda")
+    p.add_argument("--dist_backend", choices=["nccl", "gloo"], default=None,
+                   help="process-group backend under torch.distributed.run "
+                        "(nccl on CUDA by default, gloo on the CPU; nccl "
+                        "runs one rank a card)")
     return p.parse_args(argv)
+
+
+# Under a launch the other ranks wait while rank 0 captions and embeds every
+# row of both splits, which takes hours on a real split: the world's
+# collectives time out after this long.
+STAGES_TIMEOUT_S = 6 * 3600.0
 
 
 def main(argv=None) -> dict:
     """Runs every stage; returns what a caller checks: the stage timer,
-    the trained state, the eval metrics, the demo's verification result
-    and its pipeline, the two stores (with --fused the two banks), the
-    encoders, the fusion config and the train batch."""
-    from mmd_tpu_torch.core.profiling import Stages
-    from mmd_tpu_torch.inference.predictor import resolve_device
+    the trained state and its whole params, the eval metrics, the demo's
+    verification result and its pipeline, the two stores (with --fused the
+    two banks), the encoders, the fusion config and the train batch. Under
+    a launch the ranks but rank 0 return the training's entries alone
+    (the others None)."""
+    import torch.distributed as dist
 
     args = parse_args(argv)
-    device = resolve_device(args.device)
-    stages = Stages()
+    own_group = not dist.is_initialized()
+    try:
+        return _main(args)
+    finally:
+        if own_group and dist.is_initialized():
+            dist.destroy_process_group()
 
+
+def _main(args) -> dict:
+    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+    from mmd_tpu_torch.core.profiling import Stages
+    from mmd_tpu_torch.data.schema import preprocessed_dir
+    from mmd_tpu_torch.data.store import ArrayStore
+    from mmd_tpu_torch.inference.predictor import resolve_device
+    from mmd_tpu_torch.parallel.launch import launch_mesh, on_rank0
+    from mmd_tpu_torch.pipelines.embed import store_path_for_csv
+    from mmd_tpu_torch.training.loop import run_training
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    mesh = launch_mesh(args.dist_backend, args.device,
+                       timeout_s=STAGES_TIMEOUT_S)
+    if args.fused and mesh is not None and mesh.size > 1:
+        raise ValueError(
+            f"--fused runs on one device: pipelines/fused.py banks each "
+            f"split on one card, as the JAX package's fused flow banks it "
+            f"on one chip; this launch has {mesh.size} ranks (run --fused "
+            f"without torch.distributed.run)")
+    device = resolve_device(args.device) if mesh is None else mesh.device
+    stages = Stages()
+    root = _tree_root(args)
+    made = on_rank0(lambda: _write_tree(args, stages, root, device))
+    if args.fused:
+        return _run_fused(args, stages, device=device, **made)
+
+    # 5. train the fusion classifier: every rank its rows of each batch
+    train_store = ArrayStore(store_path_for_csv(
+        str(preprocessed_dir() / "train.csv")))
+    dims = {c: train_store.column_specs[c]["shape"][-1]
+            for c in ("claim_text_embeds", "claim_image_embeds")}
+    model = ModelConfig(
+        text_input_dim=dims["claim_text_embeds"],
+        image_input_dim=dims["claim_image_embeds"],
+        embed_dim=args.embed_dim if not args.tiny else 32,
+        num_heads=8 if not args.tiny else 4,
+        hidden_dim=64 if not args.tiny else 16,
+        fused_attn=device.type == "cuda")
+    bs = min(args.batch_size, max(len(train_store) // 2, 1))
+    cfg = TrainConfig(model=model, batch_size=bs, epochs=args.epochs,
+                      lr=1e-3, output_dir=str(root / "results"),
+                      save_every=0, log_every=5)
+    trainer = Trainer(cfg, device=device, mesh=mesh)
+    columns = [c for c in train_store.columns if c != "id"]
+    with stages.stage("train"):
+        state = run_training(
+            trainer,
+            lambda e: train_store.batches(bs, shuffle=True, seed=e,
+                                          columns=columns))
+    params = trainer.whole_params(state)      # a collective: every rank
+
+    # 6.-7. evaluation and the demo on rank 0; the ranks meet at its end
+    shown = on_rank0(lambda: _evaluate_and_verify(
+        args, stages, root, made, model, params, bs, len(train_store),
+        device)) or {}
+    made = made or {}
+    return {"stages": stages, "state": state, "params": params,
+            "metrics": shown.get("metrics"), "result": shown.get("result"),
+            "pipeline": shown.get("pipeline"), "train_store": train_store,
+            "test_store": made.get("test_store"), "enc": made.get("enc"),
+            "model": model, "batch_size": bs}
+
+
+def _tree_root(args) -> Path:
+    """The tree's root; MMD_TPU_ROOT points at it for the rest of the
+    process (on every rank)."""
+    from mmd_tpu_torch.data.schema import get_project_root
+    if args.synthetic:
+        os.environ["MMD_TPU_ROOT"] = str(
+            args.root or Path(tempfile.gettempdir()) / "mmd_pipeline")
+    elif args.root:
+        os.environ["MMD_TPU_ROOT"] = str(args.root)
+    return get_project_root()
+
+
+def _write_tree(args, stages, root: Path, device) -> dict:
+    """The stages that write the tree (rank 0's under a launch):
+    synthesize, preprocess and the encoders' assets, then, but for
+    --fused, the captions, the embedding stores and the retrieval
+    corpora."""
     if args.synthetic:
         from mmd_tpu_torch.data.synthetic import synthetic_factify_tree
-        root = Path(args.root or Path(tempfile.gettempdir())
-                    / "mmd_pipeline")
         marker = (root / "data" / "raw" / "factify" / "extracted"
                   / "train.csv")
         if args.reuse_tree and marker.exists():
@@ -99,12 +209,6 @@ def main(argv=None) -> dict:
                 synthetic_factify_tree(root, n_train=args.synthetic,
                                        n_test=max(args.synthetic // 4, 4),
                                        image_size=args.image_size or 64)
-        os.environ["MMD_TPU_ROOT"] = str(root)
-    elif args.root:
-        os.environ["MMD_TPU_ROOT"] = str(args.root)
-
-    from mmd_tpu_torch.data.schema import get_project_root
-    root = get_project_root()
     assets = root / "assets" / "encoders"
     stages.wall_t0 = time.perf_counter()   # excludes synthesize
 
@@ -124,10 +228,9 @@ def main(argv=None) -> dict:
                  + df["evidence"].fillna("").astype(str).tolist())
         enc = load_or_init_frozen(assets, vocab_texts=texts, tiny=args.tiny,
                                   reference_families=args.reference_encoders)
-
     if args.fused:
-        return _run_fused(args, stages, root, train_csv, test_csv, enc,
-                          device)
+        return {"root": root, "train_csv": train_csv, "test_csv": test_csv,
+                "enc": enc}
 
     # 2. caption enrichment
     from mmd_tpu_torch.models.captioner import CAPTIONER_TEST
@@ -143,8 +246,8 @@ def main(argv=None) -> dict:
     # 3. embed
     from mmd_tpu_torch.pipelines.embed import embed_csv
     with stages.stage("embed"):
-        train_store = embed_csv(str(train_csv), enc, enriched=False,
-                                batch_size=args.batch_size, device=device)
+        embed_csv(str(train_csv), enc, enriched=False,
+                  batch_size=args.batch_size, device=device)
         test_store = embed_csv(str(test_csv), enc, enriched=False,
                                batch_size=args.batch_size, device=device)
 
@@ -160,34 +263,19 @@ def main(argv=None) -> dict:
         image_corpus = build_image_corpus(["train"], root, tiny=args.tiny,
                                           batch_size=args.batch_size,
                                           device=device)
+    return {"enc": enc, "engine": engine, "test_csv": test_csv,
+            "test_store": test_store, "text_corpora": text_corpora,
+            "image_corpus": image_corpus}
 
-    # 5. train the fusion classifier
-    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
-    from mmd_tpu_torch.training.loop import run_training
-    from mmd_tpu_torch.training.trainer import Trainer
-    model = ModelConfig(
-        text_input_dim=enc.text_cfg.hidden_size,
-        image_input_dim=enc.vit_cfg.hidden_size,
-        embed_dim=args.embed_dim if not args.tiny else 32,
-        num_heads=8 if not args.tiny else 4,
-        hidden_dim=64 if not args.tiny else 16,
-        fused_attn=device.type == "cuda")
-    bs = min(args.batch_size, max(len(train_store) // 2, 1))
-    cfg = TrainConfig(model=model, batch_size=bs, epochs=args.epochs,
-                      lr=1e-3, output_dir=str(root / "results"),
-                      save_every=0, log_every=5)
-    trainer = Trainer(cfg, device=device)
-    columns = [c for c in train_store.columns if c != "id"]
-    with stages.stage("train"):
-        state = run_training(
-            trainer,
-            lambda e: train_store.batches(bs, shuffle=True, seed=e,
-                                          columns=columns))
 
-    # 6. evaluation
+def _evaluate_and_verify(args, stages, root: Path, made: dict, model,
+                         params, bs: int, n_train: int, device) -> dict:
+    """Evaluation over the test store (appending to results/eval.csv), the
+    demo's verification of one claim and the timings (rank 0's under a
+    launch)."""
     from mmd_tpu_torch.pipelines.eval_models import evaluate_store
     with stages.stage("eval"):
-        metrics = evaluate_store(test_store, model, state.params,
+        metrics = evaluate_store(made["test_store"], model, params,
                                  batch_size=bs,
                                  results_csv=str(root / "results"
                                                  / "eval.csv"),
@@ -196,14 +284,13 @@ def main(argv=None) -> dict:
                               if "unified" in k})
 
     # 7. demo verification of one claim
-    result, pipe = _demo_verify(args, stages, root, enc, engine, model,
-                                state.params, text_corpora, image_corpus,
-                                test_csv, bs, device)
-    _write_timings(args, stages, enc, len(train_store), len(test_store))
-    return {"stages": stages, "state": state, "metrics": metrics,
-            "result": result, "pipeline": pipe, "train_store": train_store,
-            "test_store": test_store, "enc": enc, "model": model,
-            "batch_size": bs}
+    result, pipe = _demo_verify(args, stages, root, made["enc"],
+                                made["engine"], model, params,
+                                made["text_corpora"], made["image_corpus"],
+                                made["test_csv"], bs, device)
+    _write_timings(args, stages, made["enc"], n_train,
+                   len(made["test_store"]))
+    return {"metrics": metrics, "result": result, "pipeline": pipe}
 
 
 def _demo_verify(args, stages, root, enc, engine, model, fusion_params,

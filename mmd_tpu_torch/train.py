@@ -79,46 +79,18 @@ def store_path_for_csv(csv_path: str, pre_embed: bool) -> str:
     return base + ("_embeddings.store" if pre_embed else ".store")
 
 
-def _mesh(args, cfg):
-    """The mesh to train on: the world of a torch.distributed.run launch
-    (or of a process group already made), else None, or the world of this
-    process where --model_parallel asks for more (which raises)."""
-    import torch.distributed as dist
-
-    from mmd_tpu_torch.core.mesh import make_mesh
-    from mmd_tpu_torch.parallel.launch import init_from_env
-    if dist.is_initialized() or "WORLD_SIZE" in os.environ:
-        _, _, dev = init_from_env(args.dist_backend, args.device)
-        return make_mesh(cfg.mesh.model_parallel, device=dev)
-    if cfg.mesh.model_parallel > 1:
-        return make_mesh(cfg.mesh.model_parallel, device=args.device)
-    return None
-
-
-def _first_on_rank0(fn):
-    """fn() on rank 0, then on the other ranks (which then find what rank 0
-    wrote), so that files built at first use are built once."""
-    import torch.distributed as dist
-    if not dist.is_initialized():
-        return fn()
-    if dist.get_rank() == 0:
-        out = fn()
-        dist.barrier()
-        return out
-    dist.barrier()
-    return fn()
-
-
 def build(args):
     """(cfg, trainer, train_batches, val_batches) for parsed arguments: the
     set-up `main` runs before `run_training`."""
     from mmd_tpu_torch.core.config import train_config_from_args
     from mmd_tpu_torch.data.store import ArrayStore
     from mmd_tpu_torch.data.synthetic import synthetic_preembed_batch
+    from mmd_tpu_torch.parallel.launch import launch_mesh
     from mmd_tpu_torch.training.trainer import Trainer
 
     cfg = train_config_from_args(args)
-    mesh = _mesh(args, cfg)
+    mesh = launch_mesh(args.dist_backend, args.device,
+                       cfg.mesh.model_parallel)
     kw = dict(device=args.device, mesh=mesh,
               tensor_parallel=cfg.mesh.tensor_parallel, zero1=cfg.mesh.zero1,
               zero3=cfg.mesh.zero3, text_parallelism=args.text_parallelism)
@@ -161,6 +133,7 @@ def build(args):
         import pandas as pd
 
         from mmd_tpu_torch.models.frozen import load_or_init_frozen
+        from mmd_tpu_torch.parallel.launch import first_on_rank0, on_rank0
         from mmd_tpu_torch.pipelines.raw_store import (
             TRAIN_COLUMNS, build_raw_store, raw_store_path,
         )
@@ -168,13 +141,14 @@ def build(args):
         df = pd.read_csv(cfg.data.train_data)
         texts = (df["claim"].fillna("").astype(str).tolist()
                  + df["evidence"].fillna("").astype(str).tolist())
-        enc = _first_on_rank0(lambda: load_or_init_frozen(
+        enc = first_on_rank0(lambda: load_or_init_frozen(
             "assets/encoders", vocab_texts=texts))
         sp = raw_store_path(cfg.data.train_data)
         if not os.path.exists(os.path.join(sp, "meta.json")):
             print(f"[train] raw store not found at {sp}; building...")
-        store = _first_on_rank0(lambda: build_raw_store(
-            cfg.data.train_data, enc.tokenizer))
+        # rank 0 builds (or resumes) the store; every rank then reads it
+        on_rank0(lambda: build_raw_store(cfg.data.train_data, enc.tokenizer))
+        store = ArrayStore(sp)
         print(f"[train] {len(store)} raw samples (on-the-fly encoding)")
         trainer = Trainer(cfg, encoders=enc,
                           finetune=args.finetune_encoders, **kw)

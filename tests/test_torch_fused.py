@@ -296,6 +296,29 @@ def test_window_matches_jax(world, tmp_path):
                                    err_msg=name)
 
 
+def test_jax_bank_window_refuses_a_mesh_of_more_than_one_device(world):
+    """The JAX fused flow is one device's: its bank is committed to
+    jax.devices()[0] (mmd_tpu/pipelines/fused.py:250) and its Trainer
+    replicates the state over the whole mesh, so over the default mesh
+    of the conftest's 8 CPU devices its first bank window raises. The
+    port's run_all --fused refuses a launch of more ranks before any stage
+    (tests/test_torch_run_all_parallel.py)."""
+    jenc = world["jenc"]
+    assert len(jax.devices()) > 1
+    jcfg = JTrainConfig(model=JModelConfig(
+        text_input_dim=jenc.text_cfg.hidden_size,
+        image_input_dim=jenc.vit_cfg.hidden_size, **DIMS),
+        batch_size=len(jax.devices()), lr=1e-3, epochs=1, save_every=0)
+    jtrainer = JT.Trainer(jcfg, make_mesh(), encoders=jenc)
+    state = jtrainer.init()
+    bank = world["jbank"].data
+    assert all(x.devices() == {jax.devices()[0]} for x in bank.values())
+    idx = jnp.arange(jcfg.batch_size, dtype=jnp.int32)[None] % world["jbank"].n
+    frozen = {"text": jenc.text_params, "vit": jenc.vit_params}
+    with pytest.raises(ValueError, match="incompatible devices"):
+        JFU.make_bank_window(jcfg, jenc, 1)(state, frozen, bank, idx)
+
+
 def test_embed_bank_equals_raw_bank_in_window_and_eval(world, ebank,
                                                        tmp_path):
     bank = world["bank"]
