@@ -5,7 +5,8 @@ on one NVIDIA GPU.
 
 Phases, each of which exits nonzero on failure:
   1. device   a CUDA device, its name and power limit (nvidia-smi), TF32 off
-  2. build    nvcc builds the twelve kernel libraries from ops/csrc/ and
+  2. build    nvcc builds the twelve kernels from ops/csrc/ (the flash
+              forward and backward one library a head dim: 24) and
               the host's C++ compiler the three native libraries from
               native/ (WordPiece, unigram, row gather), all at once
   3. kernels  each kernel against its plain PyTorch version on the card, at
@@ -17,7 +18,9 @@ Phases, each of which exits nonzero on failure:
               cores, 67 TFLOP/s for fp32, which has no tensor-core rate
               without TF32 (H100 SXM data sheet) -- whichever is larger),
               all beside the card's name
-     * flash_attn_fwd        exact zeros for a row with no valid key, lse
+     * flash_attn_fwd        exact zeros for a row with no valid key, lse;
+                             a served batch of the embed-384 model (dh 96)
+                             and dh 48 masked, held only
      * layernorm             (residual +) LayerNorm, the 53 of a Swinv2 forward
      * swin_window_attn      Swinv2 window attention, the 24 of a forward,
                              fp32 and bf16, each call twice and bit for bit
@@ -31,9 +34,10 @@ Phases, each of which exits nonzero on failure:
                              the train step: bit-identical to its plain
                              version, kept fraction within 4 sigma of 1 - rate
      * flash_attn_fwd        with attention dropout at the fusion model's
-       (train)               four geometries, batch 256; rate 0 unchanged;
-                             timed in fp32 and bf16 at rates 0.1 and 0
-                             beside SDPA in the same dtype and rate
+       (train)               four geometries, batch 256, at dh 32 (D 256, 8
+                             heads) and dh 96 (D 384, 4 heads); rate 0
+                             unchanged; timed in fp32 and bf16 at rates 0.1
+                             and 0 beside SDPA in the same dtype and rate
      * flash_attn_bwd        dq, dk, dv at the same geometries with and
                              without dropout, the masked text geometry
                              with a row with no valid key, and two ragged
@@ -42,12 +46,18 @@ Phases, each of which exits nonzero on failure:
                              the head-dim-128 instantiations at FakeNet's
                              four geometries (B 24) and two padded ones
                              with a row with no valid key, both rates, the
-                             bf16 backward against the bf16 mirror; every
-                             backward twice, bit-identical; timed in fp32
-                             and bf16 at rates 0.1 and 0 beside SDPA's
-                             backward
+                             bf16 backward against the bf16 mirror; the
+                             wider head dims 96 and 112 at the train
+                             step's four geometries (B 256, 4 heads) and
+                             masked at B 16, both rates, against the bf16
+                             mirror too; every backward twice,
+                             bit-identical; timed in fp32 and bf16 at
+                             rates 0.1 and 0 beside SDPA's backward (dh 96
+                             as the embed-384 step)
      * mlp_masks, mlp_fwd,   the fused MLP at the bf16 train step's two MLP
-       mlp_bwd               geometries, rate 0.1 and 0: the dumped masks
+       mlp_bwd               geometries at D 256, 384 and 512 (F = 4 D; the
+                             two-launch path above D 256), rate 0.1 and
+                             0: the dumped masks
                              bit-identical to their plain version; y and
                              dx, dW1, db1, dW2, db2 against the plain
                              versions and against a float64 oracle built
@@ -99,9 +109,9 @@ Phases, each of which exits nonzero on failure:
   7. train            python -m mmd_tpu_torch.train's main path (build, then
                       run_training) at full width, batch 256, float32,
                       fused_attn, dropout 0.1, on synthetic learnable batches:
-                      8 steps and one validation pass; every loss finite,
-                      exactly 8 / 8 / 32 launches of the flash forward,
-                      backward and dropout kernels a step (and 8 flash
+                      4 steps and one validation pass; every loss
+                      finite, exactly 8 / 8 / 32 launches of the flash
+                      forward, backward and dropout kernels a step (and 8 flash
                       forwards a validation batch), params moved,
                       metrics.jsonl and checkpoints written; wall time a
                       step and peak device memory
@@ -109,6 +119,16 @@ Phases, each of which exits nonzero on failure:
                       exactly 6 / 6 / 8 / 8 / 8 launches of the fused MLP
                       forward and backward, the flash forward and backward
                       and the dropout kernel a step, none of the mask oracle
+     train_wide       the same at the fusion CLI's wider widths,
+                      --embed_dim 384 and 512 --num_heads 4 (head dims 96
+                      and 128, the MLPs at D 384 / F 1536 and D 512 / F
+                      2048, the wide MLP path): the same launches a step,
+                      no call of the explicit attention, a falling loss;
+                      then each run's best_model.pt served through
+                      MisinformationPredictor(checkpoint_path=...) and a
+                      ServingEngine, 32 requests at batch 16: 56 #1
+                      launches a batch, 8 of them at the fusion model's
+                      head dim
   9. train_parity     one fp32 step at batch 16 and full width, dropout on,
                       one seed, through fused_attn=True and fused_attn=False:
                       loss within 1e-5 relative, every grad leaf within 1e-4
@@ -400,6 +420,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import dataclasses
+import functools
 import json
 import math
 import re
@@ -506,13 +527,40 @@ TRAIN_PER_STEP = {"fusion_512x512": 3, "fusion_64x64": 3,
 PER_STEP = {"flash_attn_fwd": sum(TRAIN_PER_STEP.values()),
             "flash_attn_bwd": sum(TRAIN_PER_STEP.values()),
             "dropout": sum(DROPOUT_GEOMS.values())}          # 8 / 8 / 32
-TRAIN_STEPS = 8
+TRAIN_STEPS = 4
 # The bf16 train step: the six MLPs run the fused kernels (#3 forward, #4
 # backward), so only the heads' (256, 64) dropouts stay elementwise.
 # (N rows, D, F) -> MLP calls a step: the three text-query MLPs and the
 # three image-query MLPs.
 MLP_GEOMS = {(131072, 256, 1024): 3, (16384, 256, 1024): 3}
 MLP_PER_STEP = sum(MLP_GEOMS.values())                     # 6
+# The fusion CLI's wider widths, --embed_dim 384 | 512 --num_heads 4: #1 and
+# #2 at head dims 96 / 128, the MLPs at D 384 / F 1536 and D 512 / F 2048,
+# the same launches a step as (d). #1/#2 are held at dh 96 (timed: the
+# embed-384 step) and dh 112 at the step's geometries, masked at B 16 too,
+# and #1 at dh 96 and 48 at a served batch's; #3/#4/#12 at both widths.
+WIDE_EMBEDS = (384, 512)
+WIDE_HEADS = 4
+WIDE_MLP_GEOMS = {e: {(131072, e, 4 * e): 3, (16384, e, 4 * e): 3}
+                  for e in WIDE_EMBEDS}
+WIDE_TRAIN = [dict(name=f"dh96_{t}x{s}", t=t, s=s, d=96 * WIDE_HEADS,
+                   h=WIDE_HEADS, masked=False, b=TRAIN_B,
+                   per_step=TRAIN_PER_STEP[f"fusion_{t}x{s}"],
+                   suffix="_embed384") for t in (512, 64) for s in (512, 64)]
+WIDE_BWD = [*WIDE_TRAIN,
+            *(dict(g, name=g["name"].replace("dh96", "dh112"), d=112 * 4,
+                   per_step=0) for g in WIDE_TRAIN),
+            dict(name="dh96_masked_512x512", b=BATCH, t=512, s=512, d=384,
+                 h=4, masked=True),
+            dict(name="dh112_ragged_100x130", b=BATCH, t=100, s=130, d=448,
+                 h=4, masked=True)]
+WIDE_SERVE = [*(dict(name=f"dh96_{t}x{s}", t=t, s=s, d=384, h=4,
+                     masked=False) for t in (512, 64) for s in (512, 64)),
+              dict(name="dh48_masked_512x64", t=512, s=64, d=192, h=4,
+                   masked=True)]
+# train_wide: the fusion model's #1 launches a served batch, and its head
+# dim at each width
+WIDE_SERVE_REQUESTS = 32          # 2 batches of 16
 PER_STEP_BF16 = {"flash_attn_fwd": PER_STEP["flash_attn_fwd"],
                  "flash_attn_bwd": PER_STEP["flash_attn_bwd"],
                  "dropout": DROPOUT_GEOMS[(256, 64)],
@@ -699,6 +747,23 @@ def _counts() -> dict:
             for name, (mod, _, counter) in _kernels().items()}
 
 
+def _build_jobs() -> list:
+    """(library, loader) for every kernel library: the flash kernels build
+    one library a head dim (ops/attention.py), the others one each."""
+    from mmd_tpu_torch.ops import attention as A
+    jobs = []
+    for name, (mod, loader, _) in _kernels().items():
+        if mod is A:
+            kernel = "flash_attn_fwd" if loader == "load_kernel" \
+                else "flash_attn_bwd"
+            jobs += [(A.library_name(kernel, dh),
+                      functools.partial(getattr(A, loader), dh))
+                     for dh in A._HEAD_DIMS]
+        else:
+            jobs.append((name, getattr(mod, loader)))
+    return jobs
+
+
 def phase_build() -> None:
     """nvcc builds each kernel library and the host's C++ compiler each
     native library (mmd_tpu_torch/native/), all at once."""
@@ -714,13 +779,14 @@ def phase_build() -> None:
         native_s[name] = time.perf_counter() - t
         return lib
 
-    with ThreadPoolExecutor(len(kernels) + len(NB.SOURCES)) as ex:
+    jobs = _build_jobs()
+    with ThreadPoolExecutor(len(jobs) + len(NB.SOURCES)) as ex:
         native = ex.map(build_native, NB.SOURCES)     # one compiler a source
-        list(ex.map(lambda k: getattr(k[0], k[1])(), kernels.values()))
+        list(ex.map(lambda job: job[1](), jobs))
         native = dict(zip(NB.SOURCES, native))
-    for name in kernels:
-        secs = cuda_build.build_seconds.get(name)
-        print(f"build: {name} nvcc "
+    for library, _ in jobs:
+        secs = cuda_build.build_seconds.get(library)
+        print(f"build: {library} nvcc "
               f"{'%.3f s' % secs if secs is not None else 'skipped: built'}",
               flush=True)
     for name, lib in native.items():
@@ -730,7 +796,8 @@ def phase_build() -> None:
         if lib is None:
             fail(f"the native library {NB.SOURCES[name]} did not build: "
                  f"{NB.build_errors.get(name)}")
-    print(f"build: all {len(kernels)} kernel and {len(native)} native "
+    print(f"build: all {len(kernels)} kernels ({len(jobs)} libraries: the "
+          f"flash kernels one a head dim) and {len(native)} native "
           f"libraries loaded in {time.perf_counter() - t0:.3f} s",
           flush=True)
 
@@ -888,6 +955,32 @@ def phase_flash(card: str) -> dict:
         _print_time("flash_attn_fwd", f"{g['name']} bf16 B={b} T={t} S={s} "
                     f"D={d} H={h}", row, card)
         rows.append((PER_BATCH[g["name"]], row))
+    for g in WIDE_SERVE:                  # the wider head dims, held only
+        b, t, s, d, h = BATCH, g["t"], g["s"], g["d"], g["h"]
+        q32, k32, v32 = (torch.randn(b, n, d, device=dev, generator=gen)
+                         for n in (t, s, s))
+        mask = _masked_lengths(b, s, dev) if g["masked"] else None
+        for dtype in (torch.bfloat16, torch.float32):
+            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+            o, lse = A.flash_attention(q, k, v, h, mask)
+            torch.cuda.synchronize()
+            o_ref, lse_ref = A.flash_attention_plain(
+                q.float(), k.float(), v.float(), h, mask)
+            err = (o.float() - o_ref).abs().max().item()
+            fin = torch.isfinite(lse_ref)
+            lse_err = (lse[fin] - lse_ref[fin]).abs().max().item()
+            ok = (err <= KERNEL_TOL[dtype] and lse_err <= LSE_TOL
+                  and torch.equal(torch.isfinite(lse), fin))
+            if mask is not None:
+                ok = ok and bool((o[-1] == 0).all())
+            print(f"kernel flash_attn_fwd {g['name']:>18} {str(dtype):>14}: "
+                  f"max_abs_err {err:.3e} (tol {KERNEL_TOL[dtype]:.0e}), lse "
+                  f"err {lse_err:.3e} -> {'ok' if ok else 'FAIL'}",
+                  flush=True)
+            if not ok:
+                fail(f"flash kernel disagrees with its plain version at "
+                     f"{g['name']} {dtype}")
+            errs.append(err)
     rec = _record("flash_attn_fwd", "mmd_tpu_torch/ops/csrc/flash_attn_fwd.cu",
                   "mmd_tpu/ops/attention.py:430", rows, errs,
                   "torch.nn.functional.scaled_dot_product_attention with a "
@@ -1211,8 +1304,9 @@ def phase_flash_train(card: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     errs = []
-    rows = {key: [] for key in TRAIN_TIMINGS.values()}
-    for g in _train_geoms():
+    rows = {key + sfx: [] for key in TRAIN_TIMINGS.values()
+            for sfx in ("", "_embed384")}
+    for g in [*_train_geoms(), *WIDE_TRAIN]:
         b, t, s, d, h = g["b"], g["t"], g["s"], g["d"], g["h"]
         q32, k32, v32 = (torch.randn(b, n, d, device=dev, generator=gen)
                          for n in (t, s, s))
@@ -1251,15 +1345,16 @@ def phase_flash_train(card: str) -> dict:
                             f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}"
                             f" dropout {rate} B={b} T={t} S={s} D={d} H={h}",
                             row, card)
-                rows[TRAIN_TIMINGS[(dtype, rate)]].append((g["per_step"],
-                                                           row))
+                rows[TRAIN_TIMINGS[(dtype, rate)] + g.get("suffix", "")
+                     ].append((g["per_step"], row))
         torch.cuda.empty_cache()
-    return {key: _step_record(
-                rows[key], errs, f"flash_attn_fwd {key}",
+    return {key + sfx: _step_record(
+                rows[key + sfx], errs, f"flash_attn_fwd {key + sfx}",
                 f"torch.nn.functional.scaled_dot_product_attention(dropout_p"
                 f"={rate}), {'bf16' if dtype == torch.bfloat16 else 'fp32'}, "
                 f"(B, H, T, dh) views", card)
-            for (dtype, rate), key in TRAIN_TIMINGS.items()}
+            for (dtype, rate), key in TRAIN_TIMINGS.items()
+            for sfx in ("", "_embed384")}
 
 
 def phase_flash_rerank(card: str) -> dict:
@@ -1425,9 +1520,10 @@ def phase_flash_bwd(card: str) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(6)
     errs = []
-    rows = {key: [] for key in TRAIN_TIMINGS.values()}
+    rows = {key + sfx: [] for key in TRAIN_TIMINGS.values()
+            for sfx in ("", "_embed384")}
     text = dict(TEXT, b=BATCH, per_step=0)
-    for g in [*_train_geoms(), text, *RAGGED, *DH128]:
+    for g in [*_train_geoms(), text, *RAGGED, *DH128, *WIDE_BWD]:
         b, t, s, d, h = g["b"], g["t"], g["s"], g["d"], g["h"]
         q32, k32, v32, do32 = (torch.randn(b, n, d, device=dev,
                                            generator=gen)
@@ -1435,7 +1531,7 @@ def phase_flash_bwd(card: str) -> dict:
         mask = _masked_lengths(b, s, dev) if g["masked"] else None
         rates = (0.0,) if g is text else (DROPOUT_RATE, 0.0)
         _check_flash(A, g, q32, k32, v32, do32, mask, rates, errs,
-                     mirror=g in DH128)
+                     mirror=g in DH128 or g in WIDE_BWD)
         if not g.get("per_step"):
             continue
         for dtype in (torch.bfloat16, torch.float32):
@@ -1462,18 +1558,19 @@ def phase_flash_bwd(card: str) -> dict:
                             f"{'bf16' if dtype == torch.bfloat16 else 'fp32'}"
                             f" dropout {rate} B={b} T={t} S={s} D={d} H={h}",
                             row, card)
-                rows[TRAIN_TIMINGS[(dtype, rate)]].append((g["per_step"],
-                                                           row))
+                rows[TRAIN_TIMINGS[(dtype, rate)] + g.get("suffix", "")
+                     ].append((g["per_step"], row))
                 del o, lse
             del out, gout, qh, kh, vh
         torch.cuda.empty_cache()
-    steps = {key: _step_record(
-                 rows[key], errs, f"flash_attn_bwd {key}",
+    steps = {key + sfx: _step_record(
+                 rows[key + sfx], errs, f"flash_attn_bwd {key + sfx}",
                  f"the backward of torch.nn.functional.scaled_dot_product_"
                  f"attention at rate 0, "
                  f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} (forward "
                  f"excluded)", card)
-             for (dtype, rate), key in TRAIN_TIMINGS.items()}
+             for (dtype, rate), key in TRAIN_TIMINGS.items()
+             for sfx in ("", "_embed384")}
     rec = _record("flash_attn_bwd", "mmd_tpu_torch/ops/csrc/flash_attn_bwd.cu",
                   "mmd_tpu/ops/attention.py:471", rows["train_step"], errs,
                   steps["train_step"]["library_note"])
@@ -1506,11 +1603,12 @@ def _mlp_oracle(x, w1, b1, w2, b2, dy, m1, m2):
 
 def phase_mlp(card: str) -> dict:
     """Kernels #12, #3 and #4 at the bf16 train step's MLP geometries, rate
-    0.1 and 0: the masks bit-identical to their plain version, the forward
-    and the backward against their plain versions and against the float64
-    oracle of the dumped masks, the forward and the backward twice bit for
-    bit; times per train step, and #4's device time a call split by
-    launch."""
+    0.1 and 0, at D 256 and at the wider widths (D 384 / F 1536, D 512 / F
+    2048: the two-launch forward and the streamed backward): the masks
+    bit-identical to their plain version, the forward and the backward
+    against their plain versions and against the float64 oracle of the
+    dumped masks, the forward and the backward twice bit for bit; times per
+    train step, and #4's device time a call split by launch."""
     from mmd_tpu_torch.ops import dropout as D
     from mmd_tpu_torch.ops import mlp as M
     fn = torch.nn.functional
@@ -1518,8 +1616,12 @@ def phase_mlp(card: str) -> dict:
     gen = torch.Generator(device=dev).manual_seed(7)
     names = ("mlp_fwd", "mlp_bwd", "mlp_masks")
     errs = {k: [] for k in names}
-    rows = {k: [] for k in names}
-    for (n, d, f), count in MLP_GEOMS.items():
+    groups = {"": MLP_GEOMS, **{f"_embed{e}": WIDE_MLP_GEOMS[e]
+                                for e in WIDE_EMBEDS}}
+    rows = {k: {sfx: [] for sfx in groups} for k in names}
+    geoms = [(sfx, geom, count) for sfx, g in groups.items()
+             for geom, count in g.items()]
+    for sfx, (n, d, f), count in geoms:
         x = torch.randn(n, d, device=dev, generator=gen).bfloat16()
         w1 = (torch.randn(d, f, device=dev, generator=gen)
               / math.sqrt(d)).bfloat16()
@@ -1630,32 +1732,41 @@ def phase_mlp(card: str) -> dict:
         for name, row in zip(names, (fwd, bwd, masks)):
             _print_time(name, f"N={n} D={d} F={f} bf16 dropout "
                         f"{DROPOUT_RATE}", row, card)
-            rows[name].append((count if name != "mlp_masks" else 1, row))
+            rows[name][sfx].append((count if name != "mlp_masks" else 1,
+                                    row))
         del x, w1, w2, dy, w1t, w2t, leaves, out
         torch.cuda.empty_cache()
     composition = ("not one call: the unfused bf16 composition -- F.linear "
                    "(cuBLAS, bias in its epilogue), F.gelu(approximate="
                    "'tanh'), kernel #5, F.linear, kernel #5")
-    recs = {
-        "mlp_fwd": _record("mlp_fwd", "mmd_tpu_torch/ops/csrc/mlp_fwd.cu",
-                           "mmd_tpu/ops/mlp.py:158", rows["mlp_fwd"],
-                           errs["mlp_fwd"], composition),
-        "mlp_bwd": _record("mlp_bwd", "mmd_tpu_torch/ops/csrc/mlp_bwd.cu",
-                           "mmd_tpu/ops/mlp.py:179", rows["mlp_bwd"],
-                           errs["mlp_bwd"], "the backward of " + composition
-                           + " (forward excluded)"),
-        "mlp_masks": _record("mlp_masks",
-                             "mmd_tpu_torch/ops/csrc/mlp_masks.cu",
-                             "benchmarks/validate_mlp_tpu.py:53",
-                             rows["mlp_masks"], errs["mlp_masks"],
-                             "none: no PyTorch call draws these masks; "
-                             "times are one dump at each geometry")}
+    sources = {
+        "mlp_fwd": ("mmd_tpu_torch/ops/csrc/mlp_fwd.cu",
+                    "mmd_tpu/ops/mlp.py:158", composition),
+        "mlp_bwd": ("mmd_tpu_torch/ops/csrc/mlp_bwd.cu",
+                    "mmd_tpu/ops/mlp.py:179",
+                    "the backward of " + composition + " (forward excluded)"),
+        "mlp_masks": ("mmd_tpu_torch/ops/csrc/mlp_masks.cu",
+                      "benchmarks/validate_mlp_tpu.py:53",
+                      "none: no PyTorch call draws these masks; times are "
+                      "one dump at each geometry")}
+    recs = {name: _record(name, *sources[name][:2], rows[name][""],
+                          errs[name], sources[name][2]) for name in names}
+    for name in names:                    # the wider widths' steps
+        for sfx in groups:
+            if sfx:
+                step = _record(name, *sources[name][:2], rows[name][sfx],
+                               errs[name], sources[name][2])
+                recs[name]["train_step" + sfx] = {
+                    k: step[k] for k in ("ms", "plain_ms", "library_ms",
+                                         "bound_ms", "bound_by")}
     for name in ("mlp_fwd", "mlp_bwd"):
-        r = recs[name]
-        print(f"kernel {name} per bf16 train step ({MLP_PER_STEP} launches):"
-              f" kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"unfused composition {r['library_ms']:.4f} ms, bound "
-              f"{r['bound_ms']:.4f} ms  [{card}]", flush=True)
+        for sfx in groups:
+            r = recs[name] if not sfx else recs[name]["train_step" + sfx]
+            print(f"kernel {name} per bf16 train step{sfx} ({MLP_PER_STEP} "
+                  f"launches): kernel {r['ms']:.4f} ms, plain "
+                  f"{r['plain_ms']:.4f} ms, unfused composition "
+                  f"{r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms  "
+                  f"[{card}]", flush=True)
     return recs
 
 
@@ -2155,6 +2266,32 @@ def phase_serve_converted(card: str, tmp: Path, texts: list[str],
     return launches
 
 
+# The synthetic batches of phase_train's runs. Every run draws the same
+# ones (one seed, one batch size, one count), so the first run's draws are
+# kept and the runs after it get copies of them in draw order: the same
+# data, without drawing 134 M normals a batch again.
+_SYNTHETIC: list = []
+
+
+def _synthetic_draws(real):
+    """A stand-in for data.synthetic.synthetic_preembed_batch (`real`)
+    within one train build: the k-th call gives a copy of the k-th batch
+    the runs have drawn, drawing it with `real` at its first call."""
+    calls = iter(range(1 << 30))
+
+    def draw(rng, batch_size: int = 32):
+        i = next(calls)
+        if i == len(_SYNTHETIC):
+            _SYNTHETIC.append(real(rng, batch_size))
+        batch = _SYNTHETIC[i]
+        if batch["labels"].shape[0] != batch_size:
+            fail(f"a train run drew batch {i} at size {batch_size}, the "
+                 f"first run at {batch['labels'].shape[0]}")
+        return {k: v.copy() for k, v in batch.items()}
+
+    return draw
+
+
 def phase_train(card: str, tmp: Path, phase: str, per_step: dict,
                 dtype_args: list) -> dict:
     """python -m mmd_tpu_torch.train's main path at full width, with
@@ -2168,11 +2305,16 @@ def phase_train(card: str, tmp: Path, phase: str, per_step: dict,
             str(TRAIN_STEPS * TRAIN_B), "--batch_size", str(TRAIN_B),
             "--epochs", "1", *dtype_args, "--fused_attn",
             "--dropout", str(DROPOUT_RATE), "--log_every", "1",
-            "--save_every", "4", "--validate_every_epoch",
+            "--save_every", "2", "--validate_every_epoch",
             "--output_dir", str(out)]
     t0 = time.perf_counter()
     args = TR.parse_args(argv)
-    cfg, trainer, train_batches, val_batches = TR.build(args)
+    from unittest import mock
+
+    from mmd_tpu_torch.data import synthetic as SD
+    with mock.patch.object(SD, "synthetic_preembed_batch",
+                           _synthetic_draws(SD.synthetic_preembed_batch)):
+        cfg, trainer, train_batches, val_batches = TR.build(args)
     n_val = len(list(val_batches()))
     m = cfg.model
     print(f"{phase}: fusion {m.embed_dim} wide, {m.num_heads} heads, hidden "
@@ -2211,7 +2353,7 @@ def phase_train(card: str, tmp: Path, phase: str, per_step: dict,
     if len(val) != 1 or not math.isfinite(val[0]["val/loss"]):
         fail(f"{phase}: validation records {val}")
     ckpts = sorted(p.name for p in (out / "checkpoints").iterdir())
-    want_ckpts = sorted({f"step_{i}.pt" for i in range(4, TRAIN_STEPS + 1, 4)}
+    want_ckpts = sorted({f"step_{i}.pt" for i in range(2, TRAIN_STEPS + 1, 2)}
                         | {f"step_{TRAIN_STEPS}.pt"})
     if ckpts != want_ckpts:
         fail(f"{phase}: checkpoints {ckpts}, want {want_ckpts}")
@@ -2235,6 +2377,96 @@ def phase_train(card: str, tmp: Path, phase: str, per_step: dict,
           f"peak device memory {peak / 2 ** 30:.3f} GiB "
           f"(torch.cuda.max_memory_allocated)  [{card}]", flush=True)
     return launches
+
+
+def phase_train_wide(card: str, tmp: Path, texts: list[str],
+                     images: list[str]) -> dict:
+    """phase_train's main path at the fusion CLI's wider widths, bf16,
+    dropout 0.1, batch 256: `--embed_dim 384 | 512 --num_heads 4` (head
+    dims 96 / 128, F 1536 / 2048), exactly the launches of (d) a step and
+    no call of the explicit attention; the losses finite and falling (the
+    last half of the steps' mean below the first half's). Then the saved
+    best_model.pt served through MisinformationPredictor(ModelConfig(
+    embed_dim=..., num_heads=4), checkpoint_path=...) and a ServingEngine
+    over the serve phase's encoders, batch 16: 56 #1 launches a batch, of
+    which the fusion model's 8 at its head dim. Returns each run's
+    launches by phase."""
+    from mmd_tpu_torch.core.config import ModelConfig
+    from mmd_tpu_torch.inference.predictor import MisinformationPredictor
+    from mmd_tpu_torch.models.frozen import load_or_init_frozen
+    from mmd_tpu_torch.ops import attention as A
+
+    explicit, flash = A.explicit_attention, A._flash_attention_cuda
+    explicit_calls, by_dh = [0], {}
+
+    def counted_explicit(*a, **k):
+        explicit_calls[0] += 1
+        return explicit(*a, **k)
+
+    def counted_flash(q, k, v, num_heads, *a):
+        dh = q.shape[-1] // num_heads
+        by_dh[dh] = by_dh.get(dh, 0) + 1
+        return flash(q, k, v, num_heads, *a)
+
+    by_phase = {}
+    enc = load_or_init_frozen(tmp / "assets_serve", vocab_texts=texts,
+                              vocab_size=30000, seed=0)
+    for embed in WIDE_EMBEDS:
+        phase, dh = f"train_wide_{embed}", embed // WIDE_HEADS
+        A.explicit_attention = counted_explicit
+        try:
+            t0 = time.perf_counter()
+            by_phase[phase] = phase_train(
+                card, tmp, phase, PER_STEP_BF16,
+                ["--embed_dim", str(embed), "--num_heads", str(WIDE_HEADS),
+                 "--save_best"])
+            train_s = time.perf_counter() - t0
+            recs = [json.loads(x) for x in (tmp / phase / "metrics.jsonl")
+                    .read_text().splitlines()]
+            losses = [r["train/total_loss"] for r in recs
+                      if "train/total_loss" in r]
+            half = len(losses) // 2
+            first, last = np.mean(losses[:half]), np.mean(losses[-half:])
+            print(f"{phase}: explicit attention calls {explicit_calls[0]} "
+                  f"(want 0); mean loss of the first / last {half} steps "
+                  f"{first:.4f} / {last:.4f}; phase {train_s:.1f} s  "
+                  f"[{card}]", flush=True)
+            if explicit_calls[0]:
+                fail(f"{phase}: the explicit attention path ran")
+            if not last < first:
+                fail(f"{phase}: the loss did not fall: {losses}")
+
+            serve_phase = f"serve_wide_{embed}"
+            t0 = time.perf_counter()
+            pred = MisinformationPredictor(
+                ModelConfig(embed_dim=embed, num_heads=WIDE_HEADS,
+                            fused_attn=True),
+                checkpoint_path=str(tmp / phase / "best_model.pt"),
+                encoders=enc, max_length=512, batch_size=BATCH,
+                device="cuda")
+            _describe(serve_phase, pred, f"{time.perf_counter() - t0:.1f} s")
+            by_dh.clear()
+            A._flash_attention_cuda = counted_flash
+            launches, _, _ = _drive(serve_phase, card, pred, texts, images,
+                                    {"flash_attn_fwd": LAUNCHES_PER_BATCH},
+                                    WIDE_SERVE_REQUESTS)
+        finally:
+            A.explicit_attention = explicit
+            A._flash_attention_cuda = flash
+        # _drive's warm-up batch ran before its counted run
+        batches = launches["flash_attn_fwd"] // LAUNCHES_PER_BATCH + 1
+        print(f"{serve_phase}: #1 launches by head dim {json.dumps(by_dh)} "
+              f"over {batches} batches with the warm-up (want "
+              f"{FUSION_PER_BATCH} a batch at dh {dh}); explicit attention "
+              f"calls {explicit_calls[0]}  [{card}]", flush=True)
+        if by_dh.get(dh) != FUSION_PER_BATCH * batches or explicit_calls[0]:
+            fail(f"{serve_phase}: the fusion model's #1 launches "
+                 f"{by_dh.get(dh)}, want {FUSION_PER_BATCH * batches}")
+        by_phase[serve_phase] = launches
+        del pred
+        torch.cuda.empty_cache()
+    _SYNTHETIC.clear()                    # the last of phase_train's runs
+    return by_phase
 
 
 def phase_train_parity(card: str) -> None:
@@ -6912,6 +7144,7 @@ def main() -> None:
                                  ["--compute_dtype", "float32"]),
             "train_bf16": phase_train(dev["card"], tmp, "train_bf16",
                                       PER_STEP_BF16, []),
+            **phase_train_wide(dev["card"], tmp, texts, images),
             "finetune_reference": phase_finetune_reference(dev["card"], tmp),
             "train_raw": phase_train_raw(dev["card"], tmp)}
         by_phase["retrieval"] = phase_retrieval(dev["card"], tmp)

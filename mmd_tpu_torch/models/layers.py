@@ -40,7 +40,7 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from mmd_tpu_torch.ops import dropout as D
-from mmd_tpu_torch.ops.mlp import WIDTHS, fused_mlp
+from mmd_tpu_torch.ops.mlp import fused_mlp, kernel_widths_ok
 
 
 class ParamTree(nn.Module):
@@ -185,13 +185,13 @@ def needs_fused_mlp(dtype: torch.dtype, dropout_rate: float,
                     hidden: int) -> bool:
     """The JAX package's rule for its fused MLP kernel (layers.py:121-128),
     with "backend is TPU" read as "tensors on CUDA": bf16, dropout active,
-    both widths multiples of 128 -- and D one of the widths the kernels
-    are built for (ops/mlp.py WIDTHS). Another D takes the unfused
-    composition, which draws the same masks, so the step computes the same
-    function."""
+    both widths multiples of 128 -- with D up to the kernels' cap
+    (ops/mlp.py MAX_WIDTH, 1024). A wider D takes the unfused composition
+    (ROADMAP §C), which draws the same masks, so the step computes the
+    same function."""
     return (dropout_rate > 0.0 and not deterministic
             and dtype == torch.bfloat16 and torch.device(device).type == "cuda"
-            and embed_dim in WIDTHS and hidden % 128 == 0)
+            and kernel_widths_ok(embed_dim, hidden))
 
 
 def mlp(params: ParamTree, x: torch.Tensor, dropout_rate: float = 0.0,

@@ -50,7 +50,9 @@ bwd_launches = 0
 _launch_lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (32, 64, 128)
+# The head dims the kernels take (flash_common.cuh MMD_FLASH_HEAD_DIMS): the
+# JAX package's "dh >= 32" up to 128, in the steps of 16 of an mma.sync k.
+_HEAD_DIMS = tuple(range(32, 129, 16))
 
 
 def _split_heads(x: torch.Tensor, num_heads: int) -> torch.Tensor:
@@ -202,12 +204,27 @@ _DROP_ARGTYPES = [ctypes.c_uint64, ctypes.c_uint32, ctypes.c_float,
 _HEADERS = ["flash_common.cuh", "tensor_core.cuh", "philox.cuh"]
 
 
+def library_name(kernel: str, head_dim: int) -> str:
+    """The library of one head dim of `kernel` ("flash_attn_fwd" or
+    "flash_attn_bwd"): each is built on its own (-DMMD_HEAD_DIM), so the
+    seven builds run side by side and a run builds the head dims it meets."""
+    return f"{kernel}_dh{head_dim}"
+
+
+def _load(kernel: str, head_dim: int):
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"the kernel takes head dims {_HEAD_DIMS}, "
+                         f"not {head_dim}")
+    return cuda_build.load_library(library_name(kernel, head_dim),
+                                   [f"{kernel}.cu"], _HEADERS,
+                                   [f"MMD_HEAD_DIM={head_dim}"])
+
+
 @functools.cache
-def load_kernel():
-    """Build (at first use) and load the forward kernel; returns its C entry
-    point (cached: a served batch calls it 56 times)."""
-    fn = cuda_build.load_library("flash_attn_fwd", ["flash_attn_fwd.cu"],
-                                 _HEADERS).mmd_flash_attn_fwd
+def load_kernel(head_dim: int):
+    """Build (at first use) and load the forward kernel at `head_dim`;
+    returns its C entry point (cached: a served batch calls it 56 times)."""
+    fn = _load("flash_attn_fwd", head_dim).mmd_flash_attn_fwd
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 6
                    + _DROP_ARGTYPES + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -215,11 +232,10 @@ def load_kernel():
 
 
 @functools.cache
-def load_bwd_kernel():
-    """Build (at first use) and load the backward kernels; returns their C
-    entry point (cached)."""
-    fn = cuda_build.load_library("flash_attn_bwd", ["flash_attn_bwd.cu"],
-                                 _HEADERS).mmd_flash_attn_bwd
+def load_bwd_kernel(head_dim: int):
+    """Build (at first use) and load the backward kernels at `head_dim`;
+    returns their C entry point (cached)."""
+    fn = _load("flash_attn_bwd", head_dim).mmd_flash_attn_bwd
     fn.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 6
                    + _DROP_ARGTYPES + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
@@ -250,8 +266,8 @@ def _flash_attention_cuda(q, k, v, num_heads, key_mask, dropout_rate, seed):
     _check_kernel_inputs(q, k, v, num_heads, key_mask)
     cuda_build.check_aligned(q, k, v)
     drop = _dropout_args(dropout_rate, seed)
-    fn = load_kernel()
     b, t, d = q.shape
+    fn = load_kernel(d // num_heads)
     s = k.shape[1]
     valid = _key_valid(key_mask)
     o = torch.empty_like(q)
@@ -281,8 +297,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     `seed` (lse does not depend on it).
 
     CUDA tensors go to the hand-written kernel, which raises on shapes,
-    dtypes or layouts it does not take (head dims 32, 64 and 128, float32
-    or bfloat16, contiguous); CPU tensors go to `flash_attention_plain`."""
+    dtypes or layouts it does not take (head dims 32 to 128 in steps of
+    16, float32 or bfloat16, contiguous); CPU tensors go to
+    `flash_attention_plain`."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, num_heads, key_mask,
                                      dropout_rate, seed)
@@ -313,7 +330,7 @@ def _flash_attention_bwd_cuda(q, k, v, o, lse, do, num_heads, key_mask,
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if t == 0 or s == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    fn = load_bwd_kernel()
+    fn = load_bwd_kernel(d // num_heads)
     valid = _key_valid(key_mask)
     delta = torch.empty((b, num_heads, t), dtype=torch.float32,
                         device=q.device)
@@ -387,10 +404,11 @@ def fused_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def fused_ok(d: int, num_heads: int) -> bool:
     """Whether `fused_attention` takes D over num_heads heads: the kernels'
-    head dims, 32, 64 and 128. The JAX package sends every head dim from
-    32 up to its kernel; here dh 96 (the fusion CLI's `--embed_dim 384
-    --num_heads 4`) is the one such head dim that takes the explicit path,
-    which draws the same dropout masks."""
+    head dims, every multiple of 16 from 32 to 128 (the fusion CLI's
+    `--embed_dim 384 --num_heads 4` is dh 96, `--embed_dim 512` dh 128).
+    The JAX package sends every head dim from 32 up to its kernel; a head
+    dim above 128 or off the multiples of 16 takes the explicit path here
+    (ROADMAP §C), which draws the same dropout masks."""
     return d % num_heads == 0 and d // num_heads in _HEAD_DIMS
 
 

@@ -8,12 +8,14 @@
 // attentions when they are fine-tuned; and of FakeNet's twelve
 // (baselines/fakenet.py: D 256, 2 heads of dh 128).
 //
-// Head dims 32, 64 and 128, in fp32 and bf16, with and without dropout. At
-// dh 128 the six tiles, the lse/delta rows and the keep tile take 109,312 B
-// in bf16 (two CTAs an SM) and 207,616 B in fp32, under the 227 KB opt-in
-// limit at one CTA an SM: no pass is split for shared memory. bf16 reads
-// the A fragments of its own tiles from shared memory at each use at dh
-// 128 (flash_common.cuh), and dkdv walks a query tile in four slices.
+// Head dims 32 to 128 in steps of 16 (MMD_FLASH_HEAD_DIMS), in fp32 and
+// bf16, with and without dropout. At dh 128 the six tiles, the lse/delta
+// rows and the keep tile take 109,312 B in bf16 (two CTAs an SM) and
+// 207,616 B in fp32, under the 227 KB opt-in limit at one CTA an SM (dh
+// 112: 97,024 B and 183,040 B; dh 96: 84,736 B and 158,464 B): no pass is
+// split for shared memory. bf16 reads the A fragments of its own tiles
+// from shared memory at each use from dh 80 up (flash_common.cuh), and
+// dkdv walks a query tile in four slices there (see dkdv_kernel).
 //
 // What it computes, per batch row b and head h, from q, k, v, the forward's
 // o and natural-log lse, the output gradient do, and the dropout seed:
@@ -143,8 +145,16 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
     // registers (rate 0 / dropout), fp32 246 / 246, no spill. Two slices
     // of 32 spilled in bf16 with dropout (255 registers, 36 bytes), and the
     // four slices unrolled spilled 24 bytes there and 44 / 24 in fp32.
-    constexpr int PARTS = ((sizeof(T) == 4 && DH >= 64) || DH == 128) ? 4 : 1;
-    constexpr int PART_UNROLL = DH == 128 ? 1 : PARTS;
+    // The head dims between take the choice of their neighbour above:
+    // fp32 dh 48 that of fp32 dh 64 (four slices, unrolled), dh 80-112 that
+    // of dh 128 (four slices as a loop) in both dtypes, since 80-112
+    // accumulators a lane sit closer to dh 128's 128 than to dh 64's 64.
+    // ptxas -v, rate 0 / dropout: dh 96 bf16 173 / 165 registers, fp32
+    // 168 / 168; dh 112 bf16 168 / 168, fp32 180 / 172; no spill. fp32 dh
+    // 80 at rate 0 spills 8 bytes (168 registers); the rest of dh 48 and
+    // 80 none.
+    constexpr int PARTS = ((sizeof(T) == 4 && DH >= 48) || DH > 64) ? 4 : 1;
+    constexpr int PART_UNROLL = DH > 64 ? 1 : PARTS;
     constexpr int N = NT / PARTS;
     extern __shared__ float4 smem4[];
     T* ks = reinterpret_cast<T*>(smem4);     // [BLOCK][LD]
@@ -273,9 +283,11 @@ dkdv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restric
 }
 
 // ---------------------------------------------------------------------------
-// 3. dq: one CTA per (query tile, head, batch row). ptxas -v (sm_90a) at
-// dh 128, rate 0 / dropout: bf16 175 / 178 registers, fp32 185 / 183; no
-// spill.
+// 3. dq: one CTA per (query tile, head, batch row). ptxas -v (sm_90a),
+// rate 0 / dropout: dh 128 bf16 175 / 178 registers, fp32 185 / 183; dh 96
+// bf16 164 / 168, fp32 179 / 179; dh 112 bf16 165 / 177, fp32 198 / 179;
+// no spill, but bf16 dh 48 with dropout (8 bytes at 128 registers: its
+// two A matrices are held).
 // ---------------------------------------------------------------------------
 template <typename T, int DH, bool DROP>
 __global__ void __launch_bounds__(THREADS)
@@ -445,7 +457,8 @@ cudaError_t launch_rate(const Args& a, const mmd_philox::Dropout& drop, int drop
 }  // namespace
 
 // C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16 for
-// q, k, v, o, do and the outputs dq, dk, dv (all 16-byte aligned); lse is
+// q, k, v, o, do and the outputs dq, dk, dv (all 16-byte aligned);
+// head_dim one of the library's MMD_FLASH_HEAD_DIMS; lse is
 // (B, H, T) fp32 natural log; delta is a (B, H, T) fp32 scratch. key_valid
 // is a (B, S) uint8 array (nonzero = valid key) or NULL. dropout: 0 = none,
 // 1 = regenerate the forward's attention-dropout mask from (seed,
@@ -468,11 +481,12 @@ extern "C" int mmd_flash_attn_bwd(const void* q, const void* k, const void* v,
                  batch, t_len, s_len, num_heads};
     const mmd_philox::Dropout dp{seed, threshold, drop_scale};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
-    if (dtype == 0 && head_dim == 32) return launch_rate<float, 32>(a, dp, dropout, st);
-    if (dtype == 0 && head_dim == 64) return launch_rate<float, 64>(a, dp, dropout, st);
-    if (dtype == 1 && head_dim == 32) return launch_rate<__nv_bfloat16, 32>(a, dp, dropout, st);
-    if (dtype == 1 && head_dim == 64) return launch_rate<__nv_bfloat16, 64>(a, dp, dropout, st);
-    if (dtype == 0 && head_dim == 128) return launch_rate<float, 128>(a, dp, dropout, st);
-    if (dtype == 1 && head_dim == 128) return launch_rate<__nv_bfloat16, 128>(a, dp, dropout, st);
+#define MMD_BWD_CASE(DH)                                                     \
+    if (head_dim == DH) {                                                    \
+        if (dtype == 0) return launch_rate<float, DH>(a, dp, dropout, st);   \
+        if (dtype == 1) return launch_rate<__nv_bfloat16, DH>(a, dp, dropout, st); \
+    }
+    MMD_FLASH_HEAD_DIMS(MMD_BWD_CASE)
+#undef MMD_BWD_CASE
     return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -8,12 +8,19 @@
 // fusion model's eight attentions with dropout on the attention weights,
 // and FakeNet's twelve (baselines/fakenet.py: 2 heads of dh 128).
 //
-// Head dims 32, 64 and 128, in fp32 and bf16, with and without dropout.
-// At dh 128 a tile is 17,408 B (bf16) or 33,792 B (fp32): the five tiles
-// and the keep tile take 91,648 B (two CTAs an SM) or 173,568 B (one).
-// bf16 reads Q's A fragments from its tile at each use at dh 128
-// (flash_common.cuh) instead of holding them. ptxas -v (sm_90a) at dh 128,
-// rate 0 / dropout: bf16 149 / 132 registers, fp32 167 / 137; no spill.
+// Head dims 32 to 128 in steps of 16 (MMD_FLASH_HEAD_DIMS), in fp32 and
+// bf16, with and without dropout: one template on DH, whose tiles, products
+// and loops all follow DH / 16 and DH / 8. A tile is 64 (DH + 16 / sizeof)
+// elements: at dh 128 17,408 B (bf16) or 33,792 B (fp32), so the five tiles
+// and the keep tile take 91,648 B (two CTAs an SM) or 173,568 B (one); at
+// dh 96 71,168 B or 132,608 B; at dh 112 81,408 B or 153,088 B. bf16 reads
+// Q's A fragments from its tile at each use from dh 80 up
+// (flash_common.cuh) instead of holding them. ptxas -v (sm_90a), rate 0 /
+// dropout: dh 128 bf16 149 / 132 registers, fp32 167 / 137; dh 96 bf16
+// 129 / 127, fp32 138 / 156; dh 112 bf16 127 / 145, fp32 144 / 128, the
+// last with 28 bytes of spill stores (20 of loads: ptxas kept it to 128
+// registers though one CTA an SM fits its shared memory); dh 48 and 80
+// no spill.
 //
 // What it computes, per batch row b and head h:
 //   o[b, t, h]   = sum_s softmax_s(q[b,t,h] . k[b,s,h] / sqrt(dh) | valid keys) v[b,s,h]
@@ -94,7 +101,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  T* __restrict__ o, float* __restrict__ lse,
                  int t_len, int s_len, int num_heads, float scale_log2,
                  mmd_philox::Dropout drop) {
-    static_assert(DH % 16 == 0, "head dim must be a multiple of 16");
+    static_assert(DH % 16 == 0 && DH >= 32 && DH <= 128,
+                  "head dim must be a multiple of 16 in [32, 128]");
     using Op = Ops<T, DH>;
     constexpr int TE = Tile<T, DH>::ELEMS;
 
@@ -252,7 +260,8 @@ cudaError_t launch_rate(const void* q, const void* k, const void* v, const void*
 }  // namespace
 
 // C entry point, bound with ctypes. dtype: 0 = float32, 1 = bfloat16.
-// q, k, v and o are 16-byte aligned. key_valid is a (B, S) uint8 array
+// head_dim: one of the library's MMD_FLASH_HEAD_DIMS (any other returns
+// cudaErrorInvalidValue). q, k, v and o are 16-byte aligned. key_valid is a (B, S) uint8 array
 // (nonzero = valid key) or NULL. dropout: 0 = none (seed, threshold and
 // drop_scale unused), 1 = attention dropout with keep threshold `threshold`
 // and scale `drop_scale`. Returns the cudaError_t of the launch (0 on
@@ -271,23 +280,17 @@ extern "C" int mmd_flash_attn_fwd(const void* q, const void* k, const void* v,
     }
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     const mmd_philox::Dropout dp{seed, threshold, drop_scale};
-    if (dtype == 0 && head_dim == 32)
-        return launch_rate<float, 32>(q, k, v, key_valid, o, lse, batch, t_len, s_len,
-                                      num_heads, dp, dropout, st);
-    if (dtype == 0 && head_dim == 64)
-        return launch_rate<float, 64>(q, k, v, key_valid, o, lse, batch, t_len, s_len,
-                                      num_heads, dp, dropout, st);
-    if (dtype == 1 && head_dim == 32)
-        return launch_rate<__nv_bfloat16, 32>(q, k, v, key_valid, o, lse, batch, t_len,
-                                              s_len, num_heads, dp, dropout, st);
-    if (dtype == 1 && head_dim == 64)
-        return launch_rate<__nv_bfloat16, 64>(q, k, v, key_valid, o, lse, batch, t_len,
-                                              s_len, num_heads, dp, dropout, st);
-    if (dtype == 0 && head_dim == 128)
-        return launch_rate<float, 128>(q, k, v, key_valid, o, lse, batch, t_len, s_len,
-                                       num_heads, dp, dropout, st);
-    if (dtype == 1 && head_dim == 128)
-        return launch_rate<__nv_bfloat16, 128>(q, k, v, key_valid, o, lse, batch, t_len,
-                                               s_len, num_heads, dp, dropout, st);
+#define MMD_FWD_CASE(DH)                                                                   \
+    if (head_dim == DH) {                                                                  \
+        if (dtype == 0)                                                                    \
+            return launch_rate<float, DH>(q, k, v, key_valid, o, lse, batch, t_len, s_len, \
+                                          num_heads, dp, dropout, st);                     \
+        if (dtype == 1)                                                                    \
+            return launch_rate<__nv_bfloat16, DH>(q, k, v, key_valid, o, lse, batch,       \
+                                                  t_len, s_len, num_heads, dp, dropout,    \
+                                                  st);                                     \
+    }
+    MMD_FLASH_HEAD_DIMS(MMD_FWD_CASE)
+#undef MMD_FWD_CASE
     return static_cast<int>(cudaErrorInvalidValue);
 }

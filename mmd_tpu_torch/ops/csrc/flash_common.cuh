@@ -17,9 +17,11 @@
 // m16k8 A fragment (tf32, 3xTF32) -- see Ops<float, DH>::pv.
 //
 // Tiles hold 64 rows of one head (DH elements) with rows padded by 16
-// bytes: row strides of 80, 144, 272 (bf16, dh 32, 64, 128) and 144, 272,
-// 528 (fp32) bytes put the 8 rows an ldmatrix reads, and the 32 scalar
-// loads of an fp32 B fragment in `pv`, in distinct banks.
+// bytes. A row is then DH / 2 + 4 words (bf16) or DH + 4 (fp32): for DH a
+// multiple of 16 an odd multiple of 4 words, so the 8 rows an ldmatrix
+// reads start in 8 distinct 4-bank groups, and the 32 scalar loads of an
+// fp32 B fragment in `pv` (word 2 q LD + g, LD = 4 or 20 mod 32) hit 32
+// distinct banks.
 
 #pragma once
 
@@ -43,6 +45,19 @@ constexpr int NT = BLOCK / 8;                // n8 tiles of a score row
 constexpr int KEEP_STRIDE = BLOCK + 4;       // dropout-mask bytes per row
 constexpr float LN2 = 0.69314718055994531f;
 constexpr float LOG2E = 1.4426950408889634f;
+
+// The head dims both kernels take: every multiple of 16 from 32 to 128, as
+// the JAX package sends every head dim from 32 up to its kernel (dh above
+// 128, or off the multiples of 16, takes the explicit path: ROADMAP §C).
+// ops/attention.py builds one library a head dim (-DMMD_HEAD_DIM=96), so
+// that the builds run side by side and a run builds only the head dims it
+// meets; without the define a source instantiates all seven (so
+// `profile_kernels ptxas` reports every instantiation).
+#ifdef MMD_HEAD_DIM
+#define MMD_FLASH_HEAD_DIMS(X) X(MMD_HEAD_DIM)
+#else
+#define MMD_FLASH_HEAD_DIMS(X) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+#endif
 
 template <typename T, int DH>
 struct Tile {
@@ -73,9 +88,10 @@ struct Ops;
 // bf16: m16n8k16, weights rounded to bf16 as the A operand of `pv` (the TPU
 // kernel's rounding points: P before P V, p keep scale before dV, dS before
 // dQ and dK). Up to dh 64 the A operand of `scores` is held in registers
-// across the kernel's loop (DH / 4 registers a matrix). At dh 128 it is read
-// from its tile at each use, as fp32 does: held, the backward's two A
-// matrices (64 registers) beside its 128 dk/dv accumulators would spill.
+// across the kernel's loop (DH / 4 registers a matrix). From dh 80 up it is
+// read from its tile at each use, as fp32 does: held, the backward's two A
+// matrices (40-64 registers) beside its 80-128 dk/dv accumulators would
+// spill, as they did at dh 128.
 template <int DH>
 struct Ops<bf16, DH> {
     static constexpr int LD = Tile<bf16, DH>::LD;

@@ -3,7 +3,8 @@
 //
 // Replaces mmd_tpu/ops/mlp.py::_mlp_bwd_call (its Pallas body _bwd_kernel):
 // the backward of each of the fusion model's six MLPs in a bf16 train step
-// with dropout (N = 256 x 512 or 256 x 64 rows, D 256, F 1024).
+// with dropout (N = 256 x 512 or 256 x 64 rows, D 256, F 1024; at the CLI's
+// --embed_dim 384 and 512, D 384 / F 1536 and D 512 / F 2048).
 //
 // What it computes, from x, w1, b1, w2, the output gradient dy (all as the
 // forward takes them) and the two mask seeds, with the rounding points of
@@ -45,13 +46,16 @@
 //        w1^T) (K-major, K = F, no split). No Philox, nothing recomputed.
 //   C. mlp_bwd_reduce_kernel  sums the groups' dW partials and the row
 //        tiles' db1 and db2 partials, in a fixed order.
-// 10 N D F operations, the TPU body's count. D 128 or 256; F a multiple of
-// 128; any N (missing rows of the last tile read zeros and contribute
-// nothing).
+// 10 N D F operations, the TPU body's count. D 128 or 256 as above; every
+// other multiple of 128 up to MAX_D (mlp_common.cuh) runs pass A as the two
+// launches A0 and A1 described before pass B, with x and dyb streamed along
+// D; F a multiple of 128; any N (missing rows of the last tile read zeros
+// and contribute nothing).
 
 #include <atomic>
 
 #include "mlp_common.cuh"
+#include "mlp_tile.cuh"
 #include "tensor_core.cuh"
 #include "wgmma.cuh"
 
@@ -66,11 +70,11 @@ using mmd_wgmma::fence_async_shared;
 using mmd_wgmma::static_for;
 using mmd_wgmma::wgmma_commit;
 using mmd_wgmma::wgmma_fence;
-using mmd_wgmma::wgmma_n128;
 using mmd_wgmma::wgmma_n64;
 using mmd_wgmma::wgmma_wait;
 
 constexpr int THREADS = 256;
+static_assert(THREADS == mmd_mlp_tile::THREADS, "pass B's tiles are two warpgroups");
 
 // pass A
 constexpr int BM = 128;           // rows a CTA: two warpgroups of 64
@@ -78,12 +82,13 @@ constexpr int FC = 64;            // hidden columns a chunk
 constexpr int KS = 64;            // rows of w1 (columns of w2) a weight stage
 constexpr int STAGES_A = 4;
 
-// pass B
-constexpr int BT = 128;           // output tile, both sides: two warpgroups of 64 rows
-constexpr int BKW = 64;           // contraction a stage: one 128-byte swizzle row
-constexpr int STAGES_B = 3;
-constexpr int TILE_B = BT * BKW * 2;                 // bytes of an operand's stage
-constexpr int SMEM_B = STAGES_B * 2 * TILE_B + 1024; // + the 1024-byte alignment
+// pass B: 128 x 128 output tiles of mlp_tile.cuh, 3 stages of 64
+using mmd_mlp_tile::BKW;
+using mmd_mlp_tile::BT;
+using mmd_mlp_tile::product_tile;
+using mmd_mlp_tile::TILE_K_K;
+using mmd_mlp_tile::TILE_MN_MN;
+constexpr int SMEM_B = mmd_mlp_tile::SMEM;
 constexpr int GROUP_ALIGN = 64;   // group_rows is a multiple of this
 
 // pass C
@@ -368,96 +373,200 @@ mlp_bwd_hidden_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
     hidden_db1(h, db1s, (chunks - 1) * FC, ws);
 }
 
-// -- pass B: dW1, dW2 partials and dx -------------------------------------------
+// -- pass A at D above 256: dyb first, then (row tile, 128 hidden columns) tiles ----
+// Pass A above holds x and dyb for 128 rows in shared memory: 192 KB at D
+// 384 and 256 KB at D 512, with the weight stages beside them past the 227
+// KB a CTA may have. So above D 256 pass A streams x and dyb along D, in
+// two launches:
+//   A0. mlp_bwd_dyb_kernel  dyb = bf16(dy m2) into the workspace and each
+//       row tile's column sums of dyf (its db2 partial row);
+//   A1. mlp_bwd_hidden_wide_kernel  one CTA per (128-row tile, 128 hidden
+//       columns): a = x w1[:, f0..] and dh = dyb w2[f0.., :]^T over D in
+//       stages of 64 (x, w1, dyb and w2 slices, 64 KB a stage, 3 stages:
+//       one CTA an SM), then the epilogue of pass A above on the tile:
+//       hb, dab and the tile's db1 partial (its 8 warps' column sums in
+//       order). x and dyb are read from L2 once per 128 hidden columns.
+//       ptxas -v (sm_90a): A1 247 registers (its two m64n128
+//       accumulators are 128 a thread), A0 54; no spill.
+// Passes B and C are the same launches at every D.
 
-// A K-major stage: ROWS rows of 64 bf16 from src (row stride ld), rows at or
-// past `valid` zero.
-template <int ROWS>
-__device__ __forceinline__ void load_kmajor(unsigned char* dst, const bf16* src, int64_t ld,
-                                            int64_t valid) {
-    for (int i = threadIdx.x; i < ROWS * 8; i += THREADS) {
-        const int r = i >> 3, c = i & 7;
-        const bool ok = r < valid;
-        mmd_tc::cp_async16(dst + r * 128 + ((c ^ (r & 7)) << 4), ok ? src + r * ld + c * 8 : src,
-                           ok);
-    }
-}
-
-// An MN-major stage: BKW rows of 128 bf16 (two atoms) from src (row stride
-// ld), rows at or past `valid` zero.
-__device__ __forceinline__ void load_mnmajor(unsigned char* dst, const bf16* src, int64_t ld,
-                                             int64_t valid) {
-    for (int i = threadIdx.x; i < BKW * 16; i += THREADS) {
-        const int k = i >> 4, c = i & 15;
-        const bool ok = k < valid;
-        mmd_tc::cp_async16(dst + (c >> 3) * (BKW * 128) + k * 128 + (((c & 7) ^ (k & 7)) << 4),
-                           ok ? src + k * ld + c * 8 : src, ok);
-    }
-}
-
-// One 128 x 128 output tile over `iters` stages of BKW: warpgroup wg's 64 x
-// 128 half in acc (the wgmma accumulator layout). TRANS: both operands are
-// contracted over their rows (dW1 = x^T dab, dW2 = hb^T dyb) and stored
-// MN-major: a and b point at the first row, rows advance by lda / ldb, rows
-// at or past `valid` read zeros. Otherwise (dx = dab w1^T) both are
-// contracted over their columns, K-major: a is [BT rows][K] with `valid`
-// rows, b [BT rows][K]. A stage is overwritten two iterations after its
-// products were issued: wgmma.wait_group 1 has retired them by then.
-template <bool TRANS>
-__device__ __forceinline__ void product_tile(float (&acc)[64], unsigned char* smem,
-                                             const bf16* a, int64_t lda, const bf16* b,
-                                             int64_t ldb, int64_t valid, int iters) {
-    const int wg = threadIdx.x >> 7;
-    auto load = [&](int i) {
-        unsigned char* as = smem + (i % STAGES_B) * 2 * TILE_B;
-        const int64_t k = static_cast<int64_t>(i) * BKW;
-        if constexpr (TRANS) {
-            load_mnmajor(as, a + k * lda, lda, valid - k);
-            load_mnmajor(as + TILE_B, b + k * ldb, ldb, valid - k);
-        } else {
-            load_kmajor<BT>(as, a + k, lda, valid);
-            load_kmajor<BT>(as + TILE_B, b + k, ldb, BT);
+// One CTA per (128-row tile, 128 columns of D); thread t keeps the 8
+// columns 8 (t % 16) of the slice and walks rows t / 16, t / 16 + 16, ...;
+// the 16 row slices' column sums are added in order.
+__global__ void __launch_bounds__(THREADS)
+mlp_bwd_dyb_kernel(const bf16* __restrict__ dy, Work ws, int64_t n, int d, Mask m2) {
+    constexpr int SLICES = THREADS / (BT / 8);
+    __shared__ float part[SLICES][BT];
+    const int ct = d / BT;
+    const int64_t tile = blockIdx.x / ct;
+    const int d0 = static_cast<int>(blockIdx.x % ct) * BT;
+    const int64_t row0 = tile * BM;
+    const int64_t valid = n - row0;
+    const int u = threadIdx.x % (BT / 8), slice = threadIdx.x / (BT / 8);
+    const int c = d0 + 8 * u;
+    float colsum[8] = {};
+    for (int r = slice; r < BM && r < valid; r += SLICES) {
+        const int64_t row = row0 + r;
+        const uint4 raw = *reinterpret_cast<const uint4*>(dy + row * d + c);
+        const uint32_t bits = mmd_mlp::keep_byte(m2, static_cast<uint64_t>(row), d, c);
+        const __nv_bfloat162* hv = reinterpret_cast<const __nv_bfloat162*>(&raw);
+        uint4 out;
+        __nv_bfloat162* ho = reinterpret_cast<__nv_bfloat162*>(&out);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+            const float2 p = __bfloat1622float2(hv[j]);
+            const float v0 = p.x * ((bits >> (2 * j)) & 1u ? m2.scale : 0.f);
+            const float v1 = p.y * ((bits >> (2 * j + 1)) & 1u ? m2.scale : 0.f);
+            colsum[2 * j] += v0;
+            colsum[2 * j + 1] += v1;
+            ho[j] = __floats2bfloat162_rn(v0, v1);
         }
+        *reinterpret_cast<uint4*>(ws.dyb + row * d + c) = out;
+    }
+#pragma unroll
+    for (int j = 0; j < 8; ++j) part[slice][8 * u + j] = colsum[j];
+    __syncthreads();
+    if (threadIdx.x < BT) {
+        float s = 0.f;
+#pragma unroll
+        for (int sl = 0; sl < SLICES; ++sl) s += part[sl][threadIdx.x];
+        ws.db2[tile * d + d0 + threadIdx.x] = s;
+    }
+}
+
+struct SmemW {
+    static constexpr int TILE = mmd_mlp_tile::TILE;    // 128 x 64 bf16
+    static constexpr int STAGE = 4 * TILE;             // x, w1, dyb, w2 slices
+    static constexpr int STAGES = mmd_mlp_tile::STAGES;
+    static constexpr int KEEP = STAGES * STAGE;        // [BT][BT / 8] hidden keep bits
+    static constexpr int DB1 = KEEP + BT * BT / 8;     // [8 warps][BT] fp32
+    static constexpr int BYTES = DB1 + 8 * BT * 4 + 1024;      // + the alignment
+    static_assert(BYTES <= 232448, "one CTA an SM");
+};
+
+__global__ void __launch_bounds__(THREADS, 1)
+mlp_bwd_hidden_wide_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1,
+                           const float* __restrict__ b1, const bf16* __restrict__ w2, Work ws,
+                           int64_t n, int d, int f, Mask m1) {
+    using S = SmemW;
+    using mmd_mlp_tile::load_kmajor;
+    using mmd_mlp_tile::load_mnmajor;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = align_1024(smem_raw);
+    uint8_t* keep = smem + S::KEEP;
+    float* db1s = reinterpret_cast<float*>(smem + S::DB1);
+    const int ft = f / BT;
+    const int64_t tile = blockIdx.x / ft;
+    const int f0 = static_cast<int>(blockIdx.x % ft) * BT;
+    const int64_t row0 = tile * BM;
+    const int64_t valid = n - row0;
+    const int warp = threadIdx.x >> 5, wg = warp >> 2;
+    const int g = (threadIdx.x & 31) >> 2, q = threadIdx.x & 3;
+    const bf16* xt = x + row0 * d;
+    const bf16* dyt = ws.dyb + row0 * d;
+    const int iters = d / BKW;
+    auto load = [&](int i) {
+        unsigned char* st = smem + (i % S::STAGES) * S::STAGE;
+        const int64_t k = static_cast<int64_t>(i) * BKW;
+        load_kmajor<BT>(st, xt + k, d, valid);
+        load_mnmajor(st + S::TILE, w1 + k * f + f0, f, BKW);
+        load_kmajor<BT>(st + 2 * S::TILE, dyt + k, d, valid);
+        load_kmajor<BT>(st + 3 * S::TILE, w2 + static_cast<int64_t>(f0) * d + k, d, BT);
     };
 #pragma unroll
-    for (int s = 0; s < STAGES_B - 2; ++s) {
+    for (int s = 0; s < S::STAGES - 2; ++s) {
         if (s < iters) load(s);
         mmd_tc::cp_async_commit();
     }
+    // the tile's hidden keep bits while the first stage lands
+    mmd_mlp::fill_keep<BT, BT>(keep, m1, row0, f, f0);
+
+    // a stage is overwritten two iterations after its products were issued
+    // (wgmma.wait_group 1 has retired them by then); the epilogue waits for
+    // all of them
+    float acc_a[64] = {}, acc_d[64] = {};
     for (int i = 0; i < iters; ++i) {
-        mmd_tc::cp_async_wait<STAGES_B - 3>();
+        mmd_tc::cp_async_wait<S::STAGES - 3>();
         fence_async_shared();
         __syncthreads();                        // stage i is in; stage i - 2 is retired
-        if (i + STAGES_B - 2 < iters) load(i + STAGES_B - 2);
+        if (i + S::STAGES - 2 < iters) load(i + S::STAGES - 2);
         mmd_tc::cp_async_commit();
-        const uint32_t as = mmd_tc::smem_addr(smem + (i % STAGES_B) * 2 * TILE_B);
-        const uint32_t bs = as + TILE_B;
+        const uint32_t st = mmd_tc::smem_addr(smem + (i % S::STAGES) * S::STAGE);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BKW; kk += 16) {
-            if constexpr (TRANS) {
-                wgmma_n128<1, 1>(acc, desc_mnmajor(as + wg * (BKW * 128) + kk * 128, BKW * 128),
-                                 desc_mnmajor(bs + kk * 128, BKW * 128), i > 0 || kk > 0);
-            } else {
-                wgmma_n128<0, 0>(acc, desc_kmajor(as + wg * 64 * 128 + kk * 2),
-                                 desc_kmajor(bs + kk * 2), i > 0 || kk > 0);
-            }
+            const int acc = i > 0 || kk > 0;
+            mmd_wgmma::wgmma_n128<0, 1>(acc_a, desc_kmajor(st + wg * 64 * 128 + kk * 2),
+                                        desc_mnmajor(st + S::TILE + kk * 128, BKW * 128), acc);
+            mmd_wgmma::wgmma_n128<0, 0>(acc_d,
+                                        desc_kmajor(st + 2 * S::TILE + wg * 64 * 128 + kk * 2),
+                                        desc_kmajor(st + 3 * S::TILE + kk * 2), acc);
         }
         wgmma_commit();
         wgmma_wait<1>();
     }
     wgmma_wait<0>();
+
+    // hb = bf16(gelu(a + b1) m1), dab = bf16(dh m1 gelu'(a + b1)), and the
+    // warps' column sums of da (rows past the end add 0: their dyb is 0)
+    const int wm = wg * 64 + (warp & 3) * 16;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + 2 * q;
+        const float2 bias = *reinterpret_cast<const float2*>(b1 + f0 + col);
+        float dsum[2] = {0.f, 0.f};
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int r = wm + g + 8 * half;
+            float hv[2], dv[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const float av = acc_a[4 * j + 2 * half + e] + (e ? bias.y : bias.x);
+                const float k = mmd_mlp::keep_scale<BT>(keep, m1, r, col + e);
+                float gl, dg;
+                mmd_mlp::gelu_tanh_and_grad_fast(av, gl, dg);
+                hv[e] = gl * k;
+                dv[e] = acc_d[4 * j + 2 * half + e] * k * dg;
+                dsum[e] += dv[e];
+            }
+            if (r < valid) {
+                const int64_t at = (row0 + r) * f + f0 + col;
+                mmd_tc::store_bf16x2(ws.hb + at, hv[0], hv[1]);
+                mmd_tc::store_bf16x2(ws.dab + at, dv[0], dv[1]);
+            }
+        }
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+            float v = dsum[e];
+            v += __shfl_xor_sync(0xFFFFFFFFu, v, 4);
+            v += __shfl_xor_sync(0xFFFFFFFFu, v, 8);
+            v += __shfl_xor_sync(0xFFFFFFFFu, v, 16);
+            if (g == 0) db1s[warp * BT + col + e] = v;
+        }
+    }
+    __syncthreads();
+    if (threadIdx.x < BT) {
+        float s = 0.f;
+#pragma unroll
+        for (int w = 0; w < 8; ++w) s += db1s[w * BT + threadIdx.x];
+        ws.db1[tile * f + f0 + threadIdx.x] = s;
+    }
 }
+
+// -- pass B: dW1, dW2 partials and dx -------------------------------------------
+// (the tile: mlp_tile.cuh's product_tile)
 
 // Block order: the dW tiles of group 0 (dW1 then dW2), of group 1, ...,
 // then the dx tiles, the D / 128 tiles of a row block side by side, so that
-// the tiles that read the same rows run together.
-template <int D>
+// the tiles that read the same rows run together. DC: D as a constant (128,
+// 256), or 0 for the wide path's D, which `d` gives.
+template <int DC>
 __global__ void __launch_bounds__(THREADS, 2)
 mlp_bwd_product_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, Work ws,
-                       bf16* __restrict__ dx, int64_t n, int f, int groups,
+                       bf16* __restrict__ dx, int64_t n, int d, int f, int groups,
                        int64_t group_rows) {
-    constexpr int DT = D / BT;
+    const int D = DC ? DC : d;
+    const int DT = D / BT;
     extern __shared__ __align__(16) unsigned char smem_raw[];
     unsigned char* smem = align_1024(smem_raw);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -478,15 +587,15 @@ mlp_bwd_product_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, 
         int64_t ld;
         if (t < DT * ft) {                      // dW1[d0.., f0..] = x^T dab
             const int d0 = (t / ft) * BT, f0 = (t % ft) * BT;
-            product_tile<true>(acc, smem, x + r0 * D + d0, D, ws.dab + r0 * f + f0, f, rows,
-                               iters);
+            product_tile<TILE_MN_MN>(acc, smem, x + r0 * D + d0, D, ws.dab + r0 * f + f0, f,
+                                     rows, iters);
             out += static_cast<int64_t>(d0) * f + f0;
             ld = f;
         } else {                                // dW2[f0.., d0..] = hb^T dyb
             t -= DT * ft;
             const int f0 = (t / DT) * BT, d0 = (t % DT) * BT;
-            product_tile<true>(acc, smem, ws.hb + r0 * f + f0, f, ws.dyb + r0 * D + d0, D, rows,
-                               iters);
+            product_tile<TILE_MN_MN>(acc, smem, ws.hb + r0 * f + f0, f, ws.dyb + r0 * D + d0, D,
+                                     rows, iters);
             out += static_cast<int64_t>(D) * f + static_cast<int64_t>(f0) * D + d0;
             ld = D;
         }
@@ -505,8 +614,8 @@ mlp_bwd_product_kernel(const bf16* __restrict__ x, const bf16* __restrict__ w1, 
     const int64_t row0 = (t / DT) * BT;
     const int d0 = static_cast<int>(t % DT) * BT;
     const int64_t valid = n - row0;
-    product_tile<false>(acc, smem, ws.dab + row0 * f, f, w1 + static_cast<int64_t>(d0) * f, f,
-                        valid, f / BKW);
+    product_tile<TILE_K_K>(acc, smem, ws.dab + row0 * f, f, w1 + static_cast<int64_t>(d0) * f,
+                           f, valid, f / BKW);
 #pragma unroll
     for (int j = 0; j < 16; ++j)
 #pragma unroll
@@ -570,6 +679,28 @@ mlp_bwd_reduce_kernel(Work ws, float* __restrict__ grads, int d, int f, int grou
     }
 }
 
+// Passes B and C, the same launches at every D (DC: D as a constant, or 0).
+template <int DC>
+cudaError_t launch_products_and_sums(const bf16* x, const bf16* w1, bf16* dx, float* grads,
+                                     const Work& ws, int64_t n, int d, int f, int groups,
+                                     int64_t group_rows, cudaStream_t stream) {
+    const int64_t tiles = row_tiles(n);
+    const int64_t products = static_cast<int64_t>(groups) * 2 * (d / BT) * (f / BT) +
+                             (n + BT - 1) / BT * (d / BT);
+    mlp_bwd_product_kernel<DC><<<static_cast<unsigned>(products), THREADS, SMEM_B, stream>>>(
+        x, w1, ws, dx, n, d, f, groups, group_rows);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+
+    const int64_t quads = 2 * static_cast<int64_t>(d) * f / 4;
+    int64_t dw_blocks = (quads + THREADS - 1) / THREADS;
+    if (dw_blocks > DW_BLOCKS_C) dw_blocks = DW_BLOCKS_C;
+    mlp_bwd_reduce_kernel<<<static_cast<unsigned>(dw_blocks + f / 8 + d / 8), THREADS, 0,
+                            stream>>>(ws, grads, d, f, groups, tiles,
+                                      static_cast<int>(dw_blocks));
+    return cudaGetLastError();
+}
+
 // Above 48 KB of dynamic shared memory a kernel has to be allowed it, once
 // per device: `raised` holds a bit for each device where that is done.
 template <int D>
@@ -593,22 +724,40 @@ cudaError_t launch(const bf16* x, const bf16* w1, const float* b1, const bf16* w
     const int64_t tiles = row_tiles(n);
     mlp_bwd_hidden_kernel<D><<<static_cast<unsigned>(tiles), THREADS, SmemA<D>::BYTES, stream>>>(
         x, w1, b1, w2, dy, ws, n, f, m1, m2);
+    const cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    return launch_products_and_sums<D>(x, w1, dx, grads, ws, n, D, f, groups, group_rows,
+                                       stream);
+}
+
+// D above 256: passes A0 and A1, then B and C.
+cudaError_t launch_wide(const bf16* x, const bf16* w1, const float* b1, const bf16* w2,
+                        const bf16* dy, bf16* dx, float* grads, const Work& ws, int64_t n, int d,
+                        int f, int groups, int64_t group_rows, const Mask& m1, const Mask& m2,
+                        int device, cudaStream_t stream) {
+    static std::atomic<uint64_t> raised{0};
+    const uint64_t bit = uint64_t{1} << device;
+    if (!(raised.load(std::memory_order_relaxed) & bit)) {
+        cudaError_t err = cudaFuncSetAttribute(mlp_bwd_hidden_wide_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               SmemW::BYTES);
+        if (err == cudaSuccess) {
+            err = cudaFuncSetAttribute(mlp_bwd_product_kernel<0>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_B);
+        }
+        if (err != cudaSuccess) return err;
+        raised.fetch_or(bit, std::memory_order_relaxed);
+    }
+    const int64_t tiles = row_tiles(n);
+    mlp_bwd_dyb_kernel<<<static_cast<unsigned>(tiles * (d / BT)), THREADS, 0, stream>>>(
+        dy, ws, n, d, m2);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-
-    const int64_t products = static_cast<int64_t>(groups) * 2 * (D / BT) * (f / BT) +
-                             (n + BT - 1) / BT * (D / BT);
-    mlp_bwd_product_kernel<D><<<static_cast<unsigned>(products), THREADS, SMEM_B, stream>>>(
-        x, w1, ws, dx, n, f, groups, group_rows);
+    mlp_bwd_hidden_wide_kernel<<<static_cast<unsigned>(tiles * (f / BT)), THREADS, SmemW::BYTES,
+                                 stream>>>(x, w1, b1, w2, ws, n, d, f, m1);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-
-    const int64_t quads = 2 * static_cast<int64_t>(D) * f / 4;
-    int64_t dw_blocks = (quads + THREADS - 1) / THREADS;
-    if (dw_blocks > DW_BLOCKS_C) dw_blocks = DW_BLOCKS_C;
-    mlp_bwd_reduce_kernel<<<static_cast<unsigned>(dw_blocks + f / 8 + D / 8), THREADS, 0,
-                            stream>>>(ws, grads, D, f, groups, tiles,
-                                      static_cast<int>(dw_blocks));
-    return cudaGetLastError();
+    return launch_products_and_sums<0>(x, w1, dx, grads, ws, n, d, f, groups, group_rows,
+                                       stream);
 }
 
 }  // namespace
@@ -624,8 +773,8 @@ extern "C" int64_t mmd_mlp_bwd_workspace(int64_t n, int d, int f, int groups) {
 // (d, f) | dW2 (f, d) | db1 (f) | db2 (d)], written whole; ws a workspace
 // of mmd_mlp_bwd_workspace(n, d, f, groups) bytes, 16-byte aligned, that
 // needs no zeroing. Rows [g * group_rows, (g + 1) * group_rows) form group
-// g: group_rows is a multiple of 64 and every group holds rows. d is 128 or
-// 256, f a multiple of 128. dropout: 0 = none, 1 = the forward's masks of
+// g: group_rows is a multiple of 64 and every group holds rows. d is a
+// multiple of 128 up to MAX_D, f a multiple of 128. dropout: 0 = none, 1 = the forward's masks of
 // seed1 (hidden) and seed2 (output). Returns the cudaError_t of the
 // launches (0 on success).
 extern "C" int mmd_mlp_bwd(const void* x, const void* w1, const void* b1, const void* w2,
@@ -636,7 +785,8 @@ extern "C" int mmd_mlp_bwd(const void* x, const void* w1, const void* b1, const 
     if (n <= 0 || f <= 0 || f % BT != 0 || f % FC != 0 || groups <= 0 || groups > 65535 ||
         group_rows <= 0 || group_rows % GROUP_ALIGN != 0 || (groups - 1) * group_rows >= n ||
         groups * group_rows < n || row_tiles(n) > 0x7FFFFFFF / 2 || device < 0 ||
-        device >= 64 || (d != 128 && d != 256) || ws_bytes < workspace_bytes(n, d, f, groups)) {
+        device >= 64 || d <= 0 || d % BT != 0 || d > mmd_mlp::MAX_D ||
+        row_tiles(n) > 0x7FFFFFFF / (f / BT) / 2 || ws_bytes < workspace_bytes(n, d, f, groups)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     int current = -1;
@@ -658,6 +808,10 @@ extern "C" int mmd_mlp_bwd(const void* x, const void* w1, const void* b1, const 
         return launch<128>(xb, w1b, b1f, w2b, dyb, dxb, gf, w, n, f, groups, group_rows, m1, m2,
                            device, st);
     }
-    return launch<256>(xb, w1b, b1f, w2b, dyb, dxb, gf, w, n, f, groups, group_rows, m1, m2,
+    if (d == 256) {
+        return launch<256>(xb, w1b, b1f, w2b, dyb, dxb, gf, w, n, f, groups, group_rows, m1, m2,
+                           device, st);
+    }
+    return launch_wide(xb, w1b, b1f, w2b, dyb, dxb, gf, w, n, d, f, groups, group_rows, m1, m2,
                        device, st);
 }

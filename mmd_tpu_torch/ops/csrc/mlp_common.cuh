@@ -20,6 +20,13 @@
 
 namespace mmd_mlp {
 
+// The widest D the forward and backward kernels take (D a multiple of 128
+// up to it). D 128 and 256 run the one-kernel forward and pass A with x
+// resident; above 256 both run on mlp_tile.cuh's tiles, whose shared memory
+// and registers do not grow with D. 1024 is the widest D held against the
+// plain versions on the card.
+constexpr int MAX_D = 1024;
+
 constexpr float GELU_C = 0.7978845608028654f;   // sqrt(2 / pi)
 constexpr float GELU_K = 0.044715f;
 

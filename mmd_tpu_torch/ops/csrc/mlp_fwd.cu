@@ -3,7 +3,8 @@
 // Replaces mmd_tpu/ops/mlp.py::_mlp_fwd_call (its Pallas body _fwd_kernel):
 // the forward of each of the fusion model's six MLPs in a bf16 train step
 // with dropout, rows N = 256 x 512 (text queries) or 256 x 64 (image
-// queries), D 256, F 1024.
+// queries), D 256, F 1024; at the CLI's --embed_dim 384 and 512, D 384 / F
+// 1536 and D 512 / F 2048 (the two-launch path at the end of this note).
 //
 // What it computes, for x (N, D) bf16, w1 (D, F) bf16, b1 (F,) fp32, w2
 // (F, D) bf16 and b2 (D,) fp32, with the rounding points of the TPU kernel:
@@ -55,12 +56,40 @@
 //     warpgroup's own rows of the x tile and stored 16 bytes a thread.
 // Any N (the last tile's missing rows read zeros and store nothing); D 128
 // or 256; F a multiple of 128.
+//
+// D above 256 (the fusion CLI's --embed_dim 384 and 512; every multiple of
+// 128 up to MAX_D, mlp_common.cuh) takes a design of its own: the one above
+// does not stretch. x resident is 96 KB a 128-row tile at D 384, a stage of
+// w1 and w2 96 KB, and each consumer's 64 x D fp32 y accumulator is 192
+// registers a thread at D 384 and 256 at D 512, past the 224 a consumer
+// gets. Of the two ways out -- (a) split y's columns over CTAs, each
+// recomputing the hidden chunk for its slice (at D 512, 1.5 times the
+// products and twice the hidden Philox draws with two slices of 256
+// columns, 2.5 and 4 times with four of 128), or
+// (b) two launches with h in device memory -- this takes (b), the way #4's
+// pass A already works: no product or mask bit is computed twice, and both
+// launches are one tile shape, mlp_tile.cuh's 128 x 128 wgmma tile over a
+// 3-stage cp.async ring (A K-major, B MN-major as the weights lie), two
+// CTAs an SM:
+//   1. h = bf16(gelu(x w1 + b1) m1) into an (N, F) bf16 workspace: a tile
+//      per (128 rows, 128 hidden columns), the contraction over D;
+//   2. y = bf16((h w2 + b2) m2): a tile per (128 rows, 128 output columns),
+//      the contraction over F in order, so each row's y sums F in one fixed
+//      order and has the same bits every call.
+// The rounding points, the GELU and the masks are those above (the keep
+// bits of a tile drawn into shared memory with mlp_common.cuh's fill_keep
+// before its products). It costs 4 N F bytes of h written and read back
+// (1.07 GB at N 131,072, F 2,048) that the fused design never moves: at
+// the text MLP of D 512 that is 0.32 ms at 3.35 TB/s beside the products'
+// 0.56 ms bound. ptxas -v (sm_90a): both launches 126 registers, no spill
+// (two CTAs an SM allow 128).
 
 #include <cuda.h>
 
 #include <atomic>
 
 #include "mlp_common.cuh"
+#include "mlp_tile.cuh"
 #include "tensor_core.cuh"
 #include "wgmma.cuh"
 
@@ -383,6 +412,94 @@ mlp_fwd_kernel(const bf16* __restrict__ x, const __grid_constant__ CUtensorMap w
     consume<D>(smem, x, b2, y, tl);
 }
 
+// -- D above 256: two launches of 128 x 128 tiles ---------------------------------
+
+constexpr int WIDE_SMEM = mmd_mlp_tile::SMEM + mmd_mlp_tile::BT * mmd_mlp_tile::BT / 8;
+
+// One 128 x 128 tile of out (n, cols) = epilogue(a (n, k) b (k, cols) +
+// bias) m: HIDDEN, out = h = bf16(gelu(a w1 + b1) m1) (a = x, k = D, cols =
+// F); otherwise out = y = bf16((h w2 + b2) m2) (a = h, k = F, cols = D).
+// Block t is row tile t / (cols / 128), column tile t % (cols / 128): the
+// tiles that read the same rows of a run side by side.
+template <bool HIDDEN>
+__global__ void __launch_bounds__(mmd_mlp_tile::THREADS, 2)
+mlp_fwd_wide_kernel(const bf16* __restrict__ a, const bf16* __restrict__ b,
+                    const float* __restrict__ bias, bf16* __restrict__ out, int64_t n, int k,
+                    int cols, Mask m) {
+    using namespace mmd_mlp_tile;
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    unsigned char* smem = mmd_wgmma::align_1024(smem_raw);
+    uint8_t* keep = smem + STAGES * 2 * TILE;              // [BT][BT / 8]
+    const int ct = cols / BT;
+    const int64_t row0 = static_cast<int64_t>(blockIdx.x / ct) * BT;
+    const int c0 = static_cast<int>(blockIdx.x % ct) * BT;
+    const int64_t valid = n - row0;
+    // the tile's keep bits; product_tile's barriers make them visible
+    mmd_mlp::fill_keep<BT, BT>(keep, m, row0, cols, c0);
+    float acc[64] = {};
+    product_tile<TILE_K_MN>(acc, smem, a + row0 * k, k, b + c0, cols, valid, k / BKW);
+
+    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, q = lane & 3;
+    const int wm = (warp >> 2) * 64 + (warp & 3) * 16;  // the warp's 16 rows of the tile
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+        const int col = 8 * j + 2 * q;
+        const float2 bb = *reinterpret_cast<const float2*>(bias + c0 + col);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+            const int r = wm + g + 8 * half;
+            float v[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+                const float x = acc[4 * j + 2 * half + e] + (e ? bb.y : bb.x);
+                const float ks = mmd_mlp::keep_scale<BT>(keep, m, r, col + e);
+                if constexpr (HIDDEN) {
+                    float gl, dg;
+                    mmd_mlp::gelu_tanh_and_grad_fast(x, gl, dg);
+                    v[e] = gl * ks;
+                } else {
+                    v[e] = x * ks;
+                }
+            }
+            if (r < valid) mmd_tc::store_bf16x2(out + (row0 + r) * cols + c0 + col, v[0], v[1]);
+        }
+    }
+}
+
+int64_t wide_workspace_bytes(int64_t n, int d, int f) {
+    return d > 256 ? 2 * n * f : 0;
+}
+
+cudaError_t launch_wide(const void* x, const void* w1, const void* b1, const void* w2,
+                        const void* b2, void* y, void* h, int64_t n, int d, int f,
+                        const Mask& m1, const Mask& m2, int device, cudaStream_t stream) {
+    static std::atomic<uint64_t> raised{0};
+    const uint64_t bit = uint64_t{1} << device;
+    if (!(raised.load(std::memory_order_relaxed) & bit)) {
+        cudaError_t err = cudaFuncSetAttribute(
+            mlp_fwd_wide_kernel<true>, cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_SMEM);
+        if (err == cudaSuccess) {
+            err = cudaFuncSetAttribute(mlp_fwd_wide_kernel<false>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize, WIDE_SMEM);
+        }
+        if (err != cudaSuccess) return err;
+        raised.fetch_or(bit, std::memory_order_relaxed);
+    }
+    constexpr int BT = mmd_mlp_tile::BT;
+    const int64_t tiles = (n + BT - 1) / BT;
+    mlp_fwd_wide_kernel<true>
+        <<<static_cast<unsigned>(tiles * (f / BT)), mmd_mlp_tile::THREADS, WIDE_SMEM, stream>>>(
+            static_cast<const bf16*>(x), static_cast<const bf16*>(w1),
+            static_cast<const float*>(b1), static_cast<bf16*>(h), n, d, f, m1);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    mlp_fwd_wide_kernel<false>
+        <<<static_cast<unsigned>(tiles * (d / BT)), mmd_mlp_tile::THREADS, WIDE_SMEM, stream>>>(
+            static_cast<const bf16*>(h), static_cast<const bf16*>(w2),
+            static_cast<const float*>(b2), static_cast<bf16*>(y), n, f, d, m2);
+    return cudaGetLastError();
+}
+
 // cuTensorMapEncodeTiled, from the driver through the runtime (no link to
 // libcuda), looked up once.
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -449,17 +566,25 @@ cudaError_t launch(const void* x, const void* w1, const void* b1, const void* w2
 
 }  // namespace
 
+// Bytes of the workspace mmd_mlp_fwd takes for n rows and widths d, f: the
+// (n, f) bf16 h of the two-launch path at d above 256, none at 128 and 256.
+extern "C" int64_t mmd_mlp_fwd_workspace(int64_t n, int d, int f) {
+    return wide_workspace_bytes(n, d, f);
+}
+
 // C entry point, bound with ctypes. x (n, d), w1 (d, f), w2 (f, d) and y
-// (n, d) are contiguous bf16; b1 (f,) and b2 (d,) fp32. d is 128 or 256, f a
-// multiple of 128. dropout: 0 = none, 1 = the masks of seed1 (hidden) and
-// seed2 (output) with `threshold` and `scale`. Returns the cudaError_t of
-// the launch (0 on success).
+// (n, d) are contiguous bf16; b1 (f,) and b2 (d,) fp32. d is a multiple of
+// 128 up to MAX_D, f a multiple of 128; ws a 16-byte aligned workspace of
+// mmd_mlp_fwd_workspace(n, d, f) bytes (NULL when that is 0). dropout: 0 =
+// none, 1 = the masks of seed1 (hidden) and seed2 (output) with `threshold`
+// and `scale`. Returns the cudaError_t of the launches (0 on success).
 extern "C" int mmd_mlp_fwd(const void* x, const void* w1, const void* b1, const void* w2,
-                           const void* b2, void* y, int64_t n, int d, int f, uint64_t seed1,
-                           uint64_t seed2, uint32_t threshold, float scale, int dropout,
-                           int device, void* stream) {
-    if (n <= 0 || f <= 0 || f % 128 != 0 || (n + BM - 1) / BM > 0x7FFFFFFF || device < 0 ||
-        device >= 64 || (d != 128 && d != 256)) {
+                           const void* b2, void* y, void* ws, int64_t ws_bytes, int64_t n, int d,
+                           int f, uint64_t seed1, uint64_t seed2, uint32_t threshold, float scale,
+                           int dropout, int device, void* stream) {
+    if (n <= 0 || f <= 0 || f % 128 != 0 || d <= 0 || d % 128 != 0 || d > mmd_mlp::MAX_D ||
+        (n + BM - 1) / BM > 0x7FFFFFFF / ((f > d ? f : d) / 128) || device < 0 ||
+        device >= 64 || ws_bytes < wide_workspace_bytes(n, d, f)) {
         return static_cast<int>(cudaErrorInvalidValue);
     }
     int current = -1;
@@ -470,5 +595,6 @@ extern "C" int mmd_mlp_fwd(const void* x, const void* w1, const void* b1, const 
     const Mask m1{seed1, threshold, s, dropout}, m2{seed2, threshold, s, dropout};
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (d == 128) return launch<128>(x, w1, b1, w2, b2, y, n, f, m1, m2, device, st);
-    return launch<256>(x, w1, b1, w2, b2, y, n, f, m1, m2, device, st);
+    if (d == 256) return launch<256>(x, w1, b1, w2, b2, y, n, f, m1, m2, device, st);
+    return launch_wide(x, w1, b1, w2, b2, y, ws, n, d, f, m1, m2, device, st);
 }

@@ -47,17 +47,20 @@ def find_nvcc() -> str:
 
 
 def load_library(name: str, sources: Sequence[str],
-                 headers: Sequence[str] = ()) -> ctypes.CDLL:
+                 headers: Sequence[str] = (),
+                 defines: Sequence[str] = ()) -> ctypes.CDLL:
     """Compile `sources` (names under csrc/) into lib<name>-<hash>.so if that
     build does not exist yet, and load it once per process. `headers` (names
-    under csrc/ that the sources include) are part of the hash only."""
+    under csrc/ that the sources include) are part of the hash only;
+    `defines` ("NAME=VALUE") go to nvcc as -D flags and into the hash."""
     with _lock:
         lib_lock = _lib_locks.setdefault(name, threading.Lock())
     with lib_lock:
         if name in _loaded:
             return _loaded[name]
         paths = [CSRC / s for s in sources]
-        digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+        flags = [*NVCC_FLAGS, *(f"-D{d}" for d in defines)]
+        digest = hashlib.sha256(" ".join(flags).encode())
         for p in [*paths, *(CSRC / h for h in headers)]:
             digest.update(p.name.encode())
             digest.update(p.read_bytes())
@@ -65,7 +68,7 @@ def load_library(name: str, sources: Sequence[str],
         if not out.exists():
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, paths)]
+            cmd = [find_nvcc(), *flags, "-o", str(tmp), *map(str, paths)]
             t0 = time.perf_counter()
             res = subprocess.run(cmd, capture_output=True, text=True)
             if res.returncode != 0:

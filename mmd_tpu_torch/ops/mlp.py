@@ -16,8 +16,11 @@ gradients.
   * `mlp_masks_plain` -- the two keep * scale masks (N, F) and (N, D).
   * `fused_mlp_fwd` / `fused_mlp_bwd` / `mlp_masks` -- CUDA tensors go to
     the kernels (ops/csrc/mlp_fwd.cu, mlp_bwd.cu, mlp_masks.cu), which take
-    bf16 with D of 128 or 256 and F a multiple of 128 and raise on anything
-    else; CPU tensors go to the plain versions.
+    bf16 with D and F multiples of 128, D up to MAX_WIDTH, and raise on
+    anything else; CPU tensors go to the plain versions. D 128 and 256 run
+    the one-kernel forward; a wider D runs it as two launches through an
+    (N, F) workspace (mlp_fwd.cu), and the backward's first pass streams x
+    and dy along D (mlp_bwd.cu).
   * `fused_mlp` -- the layer: (..., D) -> (..., D), differentiable through
     a torch.autograd.Function whose backward is the backward kernel, as
     _fused_mlp_core's custom VJP is.
@@ -52,11 +55,11 @@ _launch_lock = threading.Lock()
 
 _C = math.sqrt(2.0 / math.pi)
 _K = 0.044715
-WIDTHS = (128, 256)          # the D the kernels are built for
+MAX_WIDTH = 1024             # the widest D the kernels take (mlp_common.cuh MAX_D)
 _ROWS = 64                    # a row group of the backward holds whole 64s
 _MAX_GROUPS = 16              # row groups of the backward's weight products
-_HEADERS = ["mlp_common.cuh", "philox.cuh", "tensor_core.cuh",
-            "wgmma.cuh"]
+_HEADERS = ["mlp_common.cuh", "mlp_tile.cuh", "philox.cuh",
+            "tensor_core.cuh", "wgmma.cuh"]
 
 
 def gelu_tanh(a: torch.Tensor) -> torch.Tensor:
@@ -145,9 +148,11 @@ _DROP_ARGS = [ctypes.c_uint64, ctypes.c_uint64, ctypes.c_uint32,
 # The C entry points: name -> (library, argtypes, restype); each bound once,
 # its argtypes set at load.
 _ENTRIES = {
-    "mmd_mlp_fwd": ("mlp_fwd", [ctypes.c_void_p] * 6 + [
-        ctypes.c_int64, ctypes.c_int, ctypes.c_int] + _DROP_ARGS,
-        ctypes.c_int),
+    "mmd_mlp_fwd": ("mlp_fwd", [ctypes.c_void_p] * 7 + [
+        ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int]
+        + _DROP_ARGS, ctypes.c_int),
+    "mmd_mlp_fwd_workspace": ("mlp_fwd", [ctypes.c_int64, ctypes.c_int,
+                                          ctypes.c_int], ctypes.c_int64),
     "mmd_mlp_bwd": ("mlp_bwd", [ctypes.c_void_p] * 8 + [
         ctypes.c_int64, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int64] + _DROP_ARGS, ctypes.c_int),
@@ -195,14 +200,20 @@ def _drop_args(seeds, rate: float, t: torch.Tensor) -> list:
             torch.cuda.current_stream(t.device).cuda_stream]
 
 
+def kernel_widths_ok(d: int, f: int) -> bool:
+    """Whether the kernels take widths D and F: both multiples of 128, D
+    up to MAX_WIDTH."""
+    return 0 < d <= MAX_WIDTH and d % 128 == 0 and f > 0 and f % 128 == 0
+
+
 def _check_kernel_inputs(x2, w1, b1, w2, b2=None) -> tuple[int, int, int]:
     if x2.dim() != 2:
         raise ValueError(f"x must be (N, D), not {tuple(x2.shape)}")
     n, d = x2.shape
     f = w1.shape[1] if w1.dim() == 2 else -1
-    if d not in WIDTHS or f <= 0 or f % 128:
-        raise ValueError(f"the fused MLP kernels take D in {WIDTHS} and F a "
-                         f"multiple of 128, not D {d}, F {f}")
+    if not kernel_widths_ok(d, f):
+        raise ValueError(f"the fused MLP kernels take D and F multiples of "
+                         f"128, D up to {MAX_WIDTH}, not D {d}, F {f}")
     want = [("x", x2, (n, d), torch.bfloat16), ("w1", w1, (d, f),
                                                 torch.bfloat16),
             ("b1", b1, (f,), torch.float32), ("w2", w2, (f, d),
@@ -226,12 +237,17 @@ def _mlp_fwd_cuda(x2, w1, b1, w2, b2, seeds, rate):
     if n == 0:
         return y
     fn = load_kernel()
+    nbytes = _entry("mmd_mlp_fwd_workspace")(n, d, f)
+    # the two-launch path's (N, F) bf16 h (D above 256); none otherwise
+    ws = torch.empty(nbytes, dtype=torch.uint8, device=x2.device) \
+        if nbytes else None
     s1, s2 = seeds if seeds is not None else (0, 0)
     idx = x2.get_device()
     rc = fn(x2.data_ptr(), w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
-            b2.data_ptr(), y.data_ptr(), n, d, f, s1, s2, D.threshold(rate),
-            1.0 / (1.0 - rate), int(seeds is not None), idx,
-            torch._C._cuda_getCurrentRawStream(idx))
+            b2.data_ptr(), y.data_ptr(),
+            ws.data_ptr() if ws is not None else None, nbytes, n, d, f, s1,
+            s2, D.threshold(rate), 1.0 / (1.0 - rate), int(seeds is not None),
+            idx, torch._C._cuda_getCurrentRawStream(idx))
     if rc:
         cuda_build.check_launch(rc, f"mlp_fwd x {tuple(x2.shape)}, F {f}, "
                                     f"dropout {rate}")

@@ -25,8 +25,11 @@ twice bit for bit -- with the autograd graph kept through every trainable
 wrapper and the fused-MLP routing limited to the kernels' widths; the
 fused MLP backward twice bit for bit at the train step's geometries, and
 its forward twice bit for bit at a partial row tile and at the text call's
-row count; and
-attention geometries the kernels do not take (flash dh 128, Swin windows
+row count; the fusion step's wider widths (--embed_dim 384 and 512 over 4
+heads): flash attention at head dims 96 and 112 at the step's geometries
+and the fused MLP at D 384 / F 1536 and D 512 / F 2048, and the step's
+kernel launches; and
+attention geometries the kernels do not take (flash dh 256, Swin windows
 of 16, DeBERTa dh 128) routed to the explicit path, whose results they
 give; and the fused pipeline's bank resize against the CPU and its
 ingest (pinned, double-buffered staging) against the raw store.
@@ -61,7 +64,11 @@ GEOMETRIES = [(512, 512, 384, 6, True), (64, 64, 1024, 16, False),
               # head dim 128: FakeNet's (512 text, 64 image tokens, D 256,
               # 2 heads) and a ragged, padded one
               (512, 64, 256, 2, False), (64, 512, 256, 2, False),
-              (100, 130, 512, 4, True)]
+              (100, 130, 512, 4, True),
+              # head dims 96 (the fusion CLI's --embed_dim 384
+              # --num_heads 4), 48 and 112, one ragged and padded
+              (512, 64, 384, 4, False), (64, 512, 384, 4, False),
+              (100, 130, 192, 4, True), (77, 50, 448, 4, False)]
 TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
 
 
@@ -824,9 +831,12 @@ def test_mlp_kernels_refuse_what_they_do_not_take(cuda_device):
     seeds = M.mask_seeds(0.1, 1)
     with pytest.raises(ValueError, match="bfloat16"):
         M.fused_mlp_fwd(x.float(), w1, b1, w2, b2, seeds, 0.1)
-    with pytest.raises(ValueError, match="D in"):
+    with pytest.raises(ValueError, match="D and F multiples of 128"):
         M.fused_mlp_fwd(x[:, :64].contiguous(), w1[:64].contiguous(), b1,
                         w2[:, :64].contiguous(), b2[:64], seeds, 0.1)
+    wide = _mlp_inputs(cuda_device, 8, 1152, 128)
+    with pytest.raises(ValueError, match="D up to 1024"):
+        M.fused_mlp_fwd(*wide[:5], seeds, 0.1)
     with pytest.raises(ValueError, match="multiple of 128"):
         M.fused_mlp_bwd(x, w1[:, :200].contiguous(), b1[:200],
                         w2[:200].contiguous(), dy, seeds, 0.1)
@@ -1083,8 +1093,9 @@ def test_kernel_wrappers_keep_the_graph(cuda_device):
 
 
 def test_bf16_dropout_step_at_embed_384_runs(cuda_device):
-    """The fused-MLP routing takes only the widths the kernels are built
-    for: at embed_dim 384 the bf16 dropout step runs the unfused MLP."""
+    """The fused-MLP routing takes every D a multiple of 128 up to the
+    kernels' cap: at embed_dim 384 (F 1536) the bf16 dropout step runs
+    the six MLPs on #3 and #4, the two-launch path above D 256."""
     from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
     from mmd_tpu_torch.data.synthetic import synthetic_preembed_batch
     from mmd_tpu_torch.training.trainer import Trainer
@@ -1094,12 +1105,13 @@ def test_bf16_dropout_step_at_embed_384_runs(cuda_device):
         hidden_dim=16, fused_attn=True), batch_size=4, lr=1e-3)
     tr = Trainer(cfg, device="cuda")
     state = tr.init()
-    before = M.launches
+    before = (M.launches, M.bwd_launches)
     batch = synthetic_preembed_batch(np.random.default_rng(0), 4, 128, 64,
                                      64, 96)
     state, aux = tr.train_step(state, tr.shard_batch(batch))
     torch.cuda.synchronize()
-    assert M.launches == before and np.isfinite(float(aux["loss"]))
+    assert (M.launches - before[0], M.bwd_launches - before[1]) == (6, 6)
+    assert np.isfinite(float(aux["loss"]))
 
 
 # -- #4 at the bf16 train step's MLP geometries --------------------------------
@@ -1143,6 +1155,105 @@ def test_mlp_fwd_is_deterministic_and_matches_plain(cuda_device, rate, n, d,
     assert _rel_err(first, want) <= MLP_TOL
     if rate:
         assert torch.equal(first == 0, want == 0)
+
+
+# -- the fusion step's wider widths: --embed_dim 384 | 512, 4 heads ------------
+
+# (B, T, S): the step's four attention geometries at batch 256
+WIDE_ATTN = [(256, 512, 512), (256, 64, 64), (256, 512, 64), (256, 64, 512)]
+
+
+@pytest.mark.parametrize("dh", [96, 112])
+@pytest.mark.parametrize("b,t,s", WIDE_ATTN)
+def test_flash_at_wide_head_dims_matches_plain(cuda_device, dh, b, t, s):
+    """#1 and #2 over 4 heads of dh 96 (--embed_dim 384) and 112 at the
+    step's geometries, bf16 and fp32, rates 0.1 and 0, against the plain
+    versions: o within TOL, each gradient within 1e-4 (fp32) or 2^-7
+    (bf16) of its largest |value|."""
+    d, h = 4 * dh, 4
+    g = torch.Generator(device=cuda_device).manual_seed(dh + t + s)
+    q32, k32, v32, do32 = (torch.randn(b, n, d, device=cuda_device,
+                                       generator=g) for n in (t, s, s, t))
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
+        for rate in (0.1, 0.0):
+            o, lse = A.flash_attention(q, k, v, h, None, rate, 5)
+            got = A.flash_attention_bwd(q, k, v, o, lse, do, h, None, rate,
+                                        5)
+            torch.cuda.synchronize()
+            o_p, _ = A.flash_attention_plain(q.float(), k.float(), v.float(),
+                                             h, None, rate, 5)
+            assert (o.float() - o_p).abs().max().item() < TOL[dtype]
+            want = A.flash_attention_bwd_plain(
+                q.float(), k.float(), v.float(), o.float(), lse, do.float(),
+                h, None, rate, 5)
+            tol = 1e-4 if dtype == torch.float32 else 2 ** -7
+            for a, w in zip(got, want):
+                assert _rel_err(a, w) <= tol
+            del o, lse, got, want, o_p
+
+
+# (N, D, F): the step's text-query and image-query MLPs at both widths
+MLP_WIDE_GEOMS = [(131072, 384, 1536), (16384, 384, 1536),
+                  (131072, 512, 2048), (16384, 512, 2048)]
+
+
+@pytest.mark.parametrize("rate", [0.1, 0.0])
+@pytest.mark.parametrize("n,d,f", MLP_WIDE_GEOMS)
+def test_mlp_kernels_match_plain_at_wide_d(cuda_device, rate, n, d, f):
+    """#12 bit for bit, #3 and #4 within MLP_TOL of each output's largest
+    |value|, and each twice bit for bit, at the step's wider geometries."""
+    x, w1, b1, w2, b2, dy = _mlp_inputs(cuda_device, n, d, f, seed=9)
+    seeds = M.mask_seeds(rate, 0xCAFE + d)
+    m1, m2 = M.mlp_masks(n, d, f, seeds, rate, cuda_device)
+    p1, p2 = M.mlp_masks_plain(n, d, f, seeds, rate, cuda_device)
+    assert torch.equal(m1, p1) and torch.equal(m2, p2)
+    del m1, m2, p1, p2
+    y = M.fused_mlp_fwd(x, w1, b1, w2, b2, seeds, rate)
+    got = M.fused_mlp_bwd(x, w1, b1, w2, dy, seeds, rate)
+    again = M.fused_mlp_bwd(x, w1, b1, w2, dy, seeds, rate)
+    torch.cuda.synchronize()
+    assert torch.equal(y, M.fused_mlp_fwd(x, w1, b1, w2, b2, seeds, rate))
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert _rel_err(y, M.fused_mlp_plain(x, w1, b1, w2, b2, seeds,
+                                         rate)) <= MLP_TOL
+    want = M.fused_mlp_bwd_plain(x, w1, b1, w2, dy, seeds, rate)
+    for name, a, b in zip(("dx", "dw1", "db1", "dw2", "db2"), got, want):
+        assert a.shape == b.shape and _rel_err(a, b) <= MLP_TOL, name
+
+
+@pytest.mark.parametrize("embed", [384, 512])
+def test_bf16_step_at_wide_embed_runs_every_kernel(cuda_device, embed):
+    """A bf16 dropout step at --embed_dim 384 | 512 --num_heads 4 runs #1
+    and #2 eight times each, #3 and #4 six times each, and the heads'
+    dropouts on #5, and nothing on the explicit attention path."""
+    from mmd_tpu_torch.core.config import ModelConfig, TrainConfig
+    from mmd_tpu_torch.data.synthetic import synthetic_preembed_batch
+    from mmd_tpu_torch.training.trainer import Trainer
+
+    cfg = TrainConfig(model=ModelConfig(
+        text_input_dim=64, image_input_dim=96, embed_dim=embed, num_heads=4,
+        hidden_dim=16, fused_attn=True), batch_size=4, lr=1e-3)
+    tr = Trainer(cfg, device="cuda")
+    state = tr.init()
+    batch = synthetic_preembed_batch(np.random.default_rng(1), 4, 128, 64,
+                                     64, 96)
+    counts = (A.launches, A.bwd_launches, M.launches, M.bwd_launches,
+              D.launches)
+    explicit = A.explicit_attention
+    calls = []
+    A.explicit_attention = lambda *a, **k: calls.append(1) or explicit(
+        *a, **k)
+    try:
+        state, aux = tr.train_step(state, tr.shard_batch(batch))
+        torch.cuda.synchronize()
+    finally:
+        A.explicit_attention = explicit
+    ran = tuple(c - b for c, b in zip(
+        (A.launches, A.bwd_launches, M.launches, M.bwd_launches,
+         D.launches), counts))
+    assert ran == (8, 8, 6, 6, 8) and not calls
+    assert np.isfinite(float(aux["loss"]))
 
 
 # -- attention geometries the kernels do not take take the explicit path ------

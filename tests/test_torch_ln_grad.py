@@ -87,11 +87,15 @@ def test_fused_ln_ok_admits_only_what_the_kernel_takes(c, want):
 
 
 @pytest.mark.parametrize("d,f,want", [(128, 512, True), (256, 1024, True),
-                                      (384, 1536, False), (512, 2048, False),
-                                      (1024, 4096, False)])
+                                      (384, 1536, True), (512, 2048, True),
+                                      (1024, 4096, True), (640, 2560, True),
+                                      (1152, 4608, False), (2048, 8192, False),
+                                      (192, 768, False), (384, 1000, False)])
 def test_fused_mlp_routing_takes_only_the_kernels_widths(d, f, want):
-    """needs_fused_mlp sends #3/#4 only the D they are built for; other
-    multiples of 128 take the unfused composition."""
+    """needs_fused_mlp sends #3/#4 every D and F that are multiples of 128,
+    as the JAX rule does, with D up to the kernels' cap (MAX_WIDTH, 1024);
+    a wider D takes the unfused composition (ROADMAP §C)."""
     assert L.needs_fused_mlp(torch.bfloat16, 0.1, False,
                              torch.device("cuda"), d, f) is want
-    assert (d in M.WIDTHS) is want
+    assert M.kernel_widths_ok(d, f) is want
+    assert (d % 128 == 0 and f % 128 == 0 and d <= M.MAX_WIDTH) is want

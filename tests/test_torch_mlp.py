@@ -164,10 +164,15 @@ def test_mask_draws(seed):
     (torch.bfloat16, 0.1, True, "cuda", 256, 1024, False),
     (torch.bfloat16, 0.1, False, "cpu", 256, 1024, False),
     (torch.bfloat16, 0.1, False, "cuda", 192, 768, False),
-    (torch.bfloat16, 0.1, False, "cuda", 128, 320, False)])
+    (torch.bfloat16, 0.1, False, "cuda", 128, 320, False),
+    (torch.bfloat16, 0.1, False, "cuda", 384, 1536, True),
+    (torch.bfloat16, 0.1, False, "cuda", 512, 2048, True),
+    (torch.bfloat16, 0.1, False, "cuda", 1024, 4096, True),
+    (torch.bfloat16, 0.1, False, "cuda", 1152, 4608, False)])
 def test_routing_rule(dtype, rate, det, device, d, f, want):
     """The JAX package's rule (mmd_tpu/models/layers.py:121-128) with CUDA
-    tensors for the TPU."""
+    tensors for the TPU, D up to the kernels' cap of 1024 (a wider D takes
+    the unfused composition, ROADMAP §C)."""
     assert L.needs_fused_mlp(dtype, rate, det, torch.device(device), d,
                              f) is want
 

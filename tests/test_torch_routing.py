@@ -5,14 +5,17 @@ Each rule that sends a geometry to a hand-written kernel -- flash attention
 attention (`ops.swin_attention.fused_ok`, read by `models.swin._block`)
 and DeBERTa disentangled attention (`models.deberta.use_fused_attn`) -- is
 held against that kernel's own input checks over a grid of geometries:
-where the rule says yes, the checks accept. Where the JAX package's rule
-admits more (head dim 96, 16 x 16 windows), the port's rule is the JAX
-rule narrowed to the kernels' geometries, and those blocks take the
-explicit path, which draws the same dropout masks. Head dim 128 (FakeNet's
-2 heads of 128, the fusion CLI's `--embed_dim 512 --num_heads 4`) takes
-the flash kernels. Under tensor parallelism the DeBERTa rule reads the
-model's geometry and the kernel receives the rank's heads, which its
-checks accept.
+where the rule says yes, the checks accept. Flash attention's rule is the
+JAX rule (every head dim from 32 up) except above head dim 128 and off the
+multiples of 16, which take the explicit path (ROADMAP §C); head dims 96
+(the fusion CLI's `--embed_dim 384 --num_heads 4`) and 128 (FakeNet's 2
+heads of 128, `--embed_dim 512 --num_heads 4`) take the flash kernels.
+Where the JAX package's rule admits more (16 x 16 windows, DeBERTa head
+dims other than 32 and 64), the port's rule is the JAX rule narrowed to
+the kernels' geometries, and those blocks take the explicit path, which
+draws the same dropout masks. Under tensor parallelism the DeBERTa rule
+reads the model's geometry and the kernel receives the rank's heads, which
+its checks accept.
 """
 
 import dataclasses
@@ -39,12 +42,18 @@ def _accepts(check, *args) -> bool:
 # -- flash attention: (D, heads) -------------------------------------------------
 
 @pytest.mark.parametrize("d,heads", list(itertools.product(
-    (64, 96, 128, 256, 384, 512, 1024), (1, 2, 3, 4, 6, 8, 16))))
+    (64, 96, 128, 192, 256, 320, 384, 448, 512, 1024),
+    (1, 2, 3, 4, 6, 8, 16))))
 def test_flash_rule_admits_only_what_the_kernel_takes(d, heads):
+    """The rule is the kernels' checks, and it is the JAX rule (head dim
+    32 and up) but for head dims above 128 or off the multiples of 16."""
     q = torch.zeros(1, 16, d)
     ok = A.fused_ok(d, heads)
     assert ok == (_accepts(A._check_kernel_inputs, q, q, q, heads, None)
                   and d // heads >= 32)
+    dh = d // heads
+    jax_rule = d % heads == 0 and dh >= 32
+    assert ok == (jax_rule and dh <= 128 and dh % 16 == 0)
 
 
 def _fused_and_explicit(d, heads):
@@ -63,14 +72,32 @@ def _fused_and_explicit(d, heads):
     return run(True), run(False)
 
 
-@pytest.mark.parametrize("d,heads", [(384, 4)])
-def test_flash_rule_sends_dh_96_and_128_to_the_explicit_path(d, heads):
-    """The CLI's `--embed_dim 384 --num_heads 4` (dh 96), the one head dim
-    that the JAX rule sends to its kernel and the port's does not: the fused
-    route gives the explicit path's output, and no kernel (which would
-    raise on a card) is asked. Head dim 128 now takes the kernels (the
-    test below)."""
-    assert not A.fused_ok(d, heads)
+@pytest.mark.parametrize("d,heads", [(384, 4), (192, 4), (320, 4),
+                                     (448, 4), (768, 8)])
+def test_flash_rule_sends_dh_96_to_the_kernels(d, heads):
+    """The CLI's `--embed_dim 384 --num_heads 4` (dh 96), and dh 48, 80 and
+    112: the rule admits them as the JAX rule does, the kernels' checks
+    accept them, and the fused route on the CPU (the kernels' plain
+    versions, the same dropout masks) gives the explicit path's output to
+    fp32 summation order."""
+    assert A.fused_ok(d, heads)
+    q = torch.zeros(2, 24, d)
+    assert _accepts(A._check_kernel_inputs, q, q, q, heads,
+                    torch.ones(2, 24, dtype=torch.int32))
+    fused, explicit = _fused_and_explicit(d, heads)
+    assert (fused - explicit).abs().max().item() <= 1e-5 * \
+        explicit.abs().max().item()
+
+
+@pytest.mark.parametrize("d,heads", [(1024, 4), (576, 4), (160, 4),
+                                     (200, 5)])
+def test_flash_rule_keeps_dh_above_128_or_off_16_explicit(d, heads):
+    """The two divergences from the JAX rule that remain (ROADMAP §C): a
+    head dim above 128 (256, 144) or not a multiple of 16 (40), which the
+    JAX rule sends to its kernel, takes the explicit path: the fused route
+    gives the explicit path's output, and no kernel (which would raise on a
+    card) is asked."""
+    assert d // heads >= 32 and not A.fused_ok(d, heads)
     fused, explicit = _fused_and_explicit(d, heads)
     assert torch.equal(fused, explicit)
 
