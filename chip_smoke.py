@@ -23,7 +23,12 @@ Phases, each of which exits nonzero on failure:
                              and dh 48 masked, held only
      * layernorm             (residual +) LayerNorm, the 53 of a Swinv2 forward
      * swin_window_attn      Swinv2 window attention, the 24 of a forward,
-                             fp32 and bf16, each call twice and bit for bit
+                             fp32 and bf16, each call twice and bit for bit;
+                             at 16 x 16 windows (n 256) the window-16
+                             checkpoint's stages 0-2 at a served batch, at
+                             24 x 24 (n 576) the window-24 checkpoint's
+                             (held at B 2, timed at B 16) and one stage of
+                             32 x 32 windows (n 1024, held at B 2)
      * deberta_attn_fwd      DeBERTa attention at the served (B 16, T 512)
                              and the fine-tuning (B 8, T 256) geometry,
                              fp32 and bf16: the uniform row of a row with
@@ -78,8 +83,11 @@ Phases, each of which exits nonzero on failure:
                              four Swinv2-base stage geometries, B 8, and
                              three at B 7 (one with head dim 64), fp32 and
                              bf16, the forward and the backward twice bit
-                             for bit; per stage the forward's and SDPA's us
-                             a call
+                             for bit, the bf16 backward against its mirror
+                             (P and dS as hi + lo); per stage the forward's
+                             and SDPA's us a call; the same at n 256 (B 8),
+                             n 576 (held at B 2, timed at B 8) and n 1024
+                             (held at B 2)
   4. serve            full-width serving with the BERT-class text encoder
                       (512 tokens) and the ViT, ModelConfig(fused_attn=True),
                       bf16, batch 16: a ServingEngine answers requests from
@@ -149,6 +157,20 @@ Phases, each of which exits nonzero on failure:
                       backward, the fusion model's kernels, none of the
                       serving Swin kernel or the LayerNorm; wall time a
                       step and peak device memory
+     swin_window16    a Swinv2 window-16 checkpoint served and fine-tuned
+                      from converted assets: DeBERTa-v3-xsmall (fp32, as
+                      converted) and the published config of
+                      microsoft/swinv2-base-patch4-window16-256, seeded,
+                      written by convert_hf's writer with an spm.json;
+                      2 batches of 16 through MisinformationPredictor
+                      (serve_reference's launches a batch, 44 of #7 at
+                      n 256 and 4 at n 64), then 2 bf16 steps of
+                      Trainer(finetune=True) with fused_train at batch 8
+                      and 256 tokens (finetune_reference's launches a
+                      step, 44 each of #8 and #9 at n 256 and 4 at n 64);
+                      no window attention on the explicit path; every
+                      geometry held in situ (#9 in bf16 against its
+                      mirror)
  12. finetune_parity  one fp32 step of the same at batch 2, dropout 0,
                       through the kernels and through both encoders'
                       explicit paths: loss within 1e-4 relative, each
@@ -407,7 +429,7 @@ numpy path), timed beside it in turns.
 The last line is {"ok": true, "device": {...}}; the line before it holds the
 kernels' JSON record, with each kernel's launches in the counted runs of
 the serve, serve_reference, serve_converted, train, train_bf16,
-finetune_reference, train_raw, retrieval, caption, train_captioner,
+finetune_reference, train_raw, swin_window16, retrieval, caption, train_captioner,
 run_all, run_all_reference, run_all_fused, run_all_fused_default,
 fakenet, serve_parallel (summed over its ranks), retrieval_sharded,
 train_parallel (summed over its ranks), train_parallel_cli (the resumed
@@ -483,6 +505,21 @@ SWIN_GEOMS = {(64, 128, 4, 1): 2, (64, 128, 4, 64): 2,
               (16, 256, 8, 1): 2, (16, 256, 8, 16): 2,
               (4, 512, 16, 1): 18, (4, 512, 16, 4): 18,
               (1, 1024, 32, 1): 4}
+# Swinv2-base at 16 x 16 windows (microsoft/swinv2-base-patch4-window16-256:
+# res 64, 32, 16, 8, windows 16, 16, 16, 8) and at 24 x 24
+# (microsoft/swinv2-base-patch4-window12to24-192to384-22kto1k-ft at 384 px:
+# res 96, 48, 24, 12, windows 24, 24, 24, 12): the window attentions of
+# stages 0-2 a served batch, n 256 and n 576, by (nW, C, heads, bias
+# windows) -- one table for both; stage 3 takes n 64 (window 16's
+# (1, 1024, 32, 1), 4 a batch) or, at 12 x 12, the explicit path
+SWIN_BLOCKED_GEOMS = {(16, 128, 4, 1): 2, (16, 128, 4, 16): 2,
+                      (4, 256, 8, 1): 2, (4, 256, 8, 4): 2,
+                      (1, 512, 16, 1): 36}
+SWIN_BLOCKED_TOKENS = {"window16": 256, "window24": 576}
+# a stage of 32 x 32 windows (n 1024), held only; n 576 and 1024 are held
+# at this batch (and n 576 timed at the path's)
+SWIN_N1024 = (4, 128, 4, 4)
+SWIN_HELD_B = 2
 DEBERTA = dict(t=512, d=384, h=6, per_batch=24)
 REFERENCE_PER_BATCH = {"deberta_attn_fwd": DEBERTA["per_batch"],
                        "swin_window_attn": sum(SWIN_GEOMS.values()),
@@ -508,6 +545,15 @@ SWINV2_BASE_HF = {
     "pretrained_window_sizes": [0, 0, 0, 0]}
 CONVERTED_SEEDS = {"deberta": 1, "swinv2": 2, "spm": 3, "fusion": 7}
 CONVERTED_REQUESTS = 32
+# swin_window16: the published config of
+# microsoft/swinv2-base-patch4-window16-256, Swinv2-base with 16 x 16
+# windows; 2 served batches of 16, then 2 bf16 fine-tuning steps; #7's
+# launches a served batch and #8's and #9's a step by tokens a window
+# (stages 0-2: 2 + 2 + 18 blocks at n 256, stage 3: 2 at n 64, two images)
+SWINV2_BASE_W16_HF = {**SWINV2_BASE_HF, "window_size": 16}
+W16_REQUESTS = 32
+W16_FT_STEPS = 2
+W16_BY_TOKENS = {256: 44, 64: 4}
 
 # The fusion train step at batch 256, fp32, dropout 0.1.
 TRAIN_B = 256
@@ -606,6 +652,9 @@ FT_SWIN_GEOMS = {(64, 128, 4): 4, (16, 256, 8): 4, (4, 512, 16): 36,
 # (nW, C, heads) checked at B 7 (prime): stage 0 (one row a CTA), 512
 # (window, head) pairs (one CTA walks all seven rows), head dim 64
 FT_SWIN_CHECK_B7 = [(64, 128, 4), (64, 256, 8), (16, 256, 4)]
+# the window attentions of stages 0-2 a fine-tuning step at 16 x 16 (n 256)
+# and 24 x 24 (n 576) windows: (nW, C, heads) -> blocks x 2 images
+FT_SWIN_BLOCKED_GEOMS = {(16, 128, 4): 4, (4, 256, 8): 4, (1, 512, 16): 36}
 FT_PER_STEP = {"deberta_attn_fwd": 24, "deberta_attn_bwd": 24,
                "swin_attn_train_fwd": 48, "swin_attn_train_bwd": 48,
                "flash_attn_fwd": 8, "flash_attn_bwd": 8, "mlp_fwd": 6,
@@ -1052,66 +1101,138 @@ def phase_layernorm(card: str) -> dict:
     return rec
 
 
+def _swin_serving_inputs(gen, n: int, nw: int, b: int, c: int, h: int,
+                         nwb: int):
+    """Raw q, k, v (fp32), the natural-log bias and the clamped logit scale
+    of one serving window attention."""
+    dev = torch.device("cuda")
+    q32, k32, v32 = (torch.randn(nw, b, n, c, device=dev, generator=gen)
+                     for _ in range(3))
+    # position bias in (0, 16) plus, for shifted windows, twice a 0 / -100
+    # region mask
+    bias = 16 * torch.rand(1, h, n, n, device=dev, generator=gen)
+    if nwb > 1:
+        region = torch.rand(nwb, 1, n, n, device=dev, generator=gen) < 0.3
+        bias = bias - 200.0 * region
+    bias = bias.expand(nwb, h, n, n).contiguous()
+    scale = torch.exp(torch.clamp(
+        torch.rand(h, device=dev, generator=gen) * 5, max=math.log(100)))
+    return q32, k32, v32, bias, scale
+
+
+def _hold_swin(SA, inputs, h: int, errs: list) -> None:
+    """#7 against its plain version on `inputs`, both dtypes, each call
+    twice and bit for bit."""
+    q32, k32, v32, bias, scale = inputs
+    nw, b, n, c = q32.shape
+    nwb = bias.shape[0]
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (x.to(dtype) for x in (q32, k32, v32))
+        o = SA.swin_window_attention_infer(q, k, v, bias, scale, h)
+        again = SA.swin_window_attention_infer(q, k, v, bias, scale, h)
+        torch.cuda.synchronize()
+        if not torch.equal(o, again):
+            fail(f"swin kernel: two calls differ at nW={nw} n={n} C={c} "
+                 f"{dtype}")
+        ref = SA.swin_window_attention_infer_plain(
+            q.float(), k.float(), v.float(), bias, scale, h)
+        err = (o.float() - ref).abs().max().item()
+        tol = (KERNEL_TOL[dtype] if dtype == torch.float32
+               else _bf16_step(ref))
+        print(f"kernel swin_window_attn nW={nw} B={b} n={n} C={c} h={h} "
+              f"bias_windows={nwb} {str(dtype):>14}: max_abs_err "
+              f"{err:.3e} (tol {tol:.3e}) -> "
+              f"{'ok' if err <= tol else 'FAIL'}", flush=True)
+        if not err <= tol:
+            fail(f"swin kernel disagrees with its plain version at nW={nw}"
+                 f" n={n} C={c} {dtype}")
+        errs.append(err)
+
+
+def _time_swin(SA, inputs, h: int, card: str) -> dict:
+    """#7's bf16 row on `inputs`: kernel, plain and bound."""
+    q32, k32, v32, bias, scale = inputs
+    nw, b, n, c = q32.shape
+    nwb = bias.shape[0]
+    q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
+    row = {"ms": _time_ms(
+        lambda: SA.swin_window_attention_infer(q, k, v, bias, scale, h)),
+           "plain_ms": _time_ms(
+        lambda: SA.swin_window_attention_infer_plain(q, k, v, bias, scale,
+                                                     h)),
+           "library_ms": None}
+    row["bound_ms"], row["bound_by"] = _bound_ms(
+        2 * 4 * nw * b * n * c + 4 * nwb * h * n * n + 4 * h,
+        4 * nw * b * n * n * c)
+    _print_time("swin_window_attn", f"nW={nw} B={b} n={n} C={c} h={h} "
+                f"bias_windows={nwb} bf16", row, card)
+    return row
+
+
+def _sub_record(rec: dict, calls: int, n: int) -> dict:
+    """The timing fields of a _record, for a path's share of a kernel:
+    `calls_timed` is the weight of the timing sum (the path's table of
+    calls a batch or step), not a count; the launches this run made at n
+    come from the swin_window16 phase (_set_blocked_launches)."""
+    return {**{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms")},
+            "calls_timed": calls, "tokens": n}
+
+
+def _set_blocked_launches(recs: dict, by_n: dict) -> None:
+    """Each window16_* / window24_* row's launches at its n, as the
+    swin_window16 phase counted them (by_n: kernel -> tokens -> launches)."""
+    for name, counts in by_n.items():
+        for key, row in recs[name].items():
+            if isinstance(row, dict) and key.startswith("window"):
+                row["launches_in_phase"] = counts.get(row["tokens"], 0)
+                row["phase"] = "swin_window16"
+
+
 def phase_swin(card: str) -> dict:
     from mmd_tpu_torch.ops import swin_attention as SA
-    dev = torch.device("cuda")
-    gen = torch.Generator(device=dev).manual_seed(2)
+    gen = torch.Generator(device="cuda").manual_seed(2)
     errs, rows = [], []
-    n = 64
     for (nw, c, h, nwb), count in SWIN_GEOMS.items():
-        q32, k32, v32 = (torch.randn(nw, BATCH, n, c, device=dev,
-                                     generator=gen) for _ in range(3))
-        # position bias in (0, 16) plus, for shifted windows, twice a
-        # 0 / -100 region mask
-        bias = 16 * torch.rand(1, h, n, n, device=dev, generator=gen)
-        if nwb > 1:
-            region = torch.rand(nwb, 1, n, n, device=dev, generator=gen) < 0.3
-            bias = bias - 200.0 * region
-        bias = bias.expand(nwb, h, n, n).contiguous()
-        scale = torch.exp(torch.clamp(
-            torch.rand(h, device=dev, generator=gen) * 5, max=math.log(100)))
-        for dtype in (torch.bfloat16, torch.float32):
-            q, k, v = (x.to(dtype) for x in (q32, k32, v32))
-            o = SA.swin_window_attention_infer(q, k, v, bias, scale, h)
-            again = SA.swin_window_attention_infer(q, k, v, bias, scale, h)
-            torch.cuda.synchronize()
-            if not torch.equal(o, again):
-                fail(f"swin kernel: two calls differ at nW={nw} C={c} {dtype}")
-            ref = SA.swin_window_attention_infer_plain(
-                q.float(), k.float(), v.float(), bias, scale, h)
-            err = (o.float() - ref).abs().max().item()
-            tol = (KERNEL_TOL[dtype] if dtype == torch.float32
-                   else _bf16_step(ref))
-            print(f"kernel swin_window_attn nW={nw} C={c} h={h} "
-                  f"bias_windows={nwb} {str(dtype):>14}: max_abs_err "
-                  f"{err:.3e} (tol {tol:.3e}) -> "
-                  f"{'ok' if err <= tol else 'FAIL'}", flush=True)
-            if not err <= tol:
-                fail(f"swin kernel disagrees with its plain version at nW={nw}"
-                     f" C={c} {dtype}")
-            errs.append(err)
-        q, k, v = (x.to(torch.bfloat16) for x in (q32, k32, v32))
-        row = {"ms": _time_ms(
-            lambda: SA.swin_window_attention_infer(q, k, v, bias, scale, h)),
-               "plain_ms": _time_ms(
-            lambda: SA.swin_window_attention_infer_plain(q, k, v, bias, scale,
-                                                         h)),
-               "library_ms": None}
-        row["bound_ms"], row["bound_by"] = _bound_ms(
-            2 * 4 * nw * BATCH * n * c + 4 * nwb * h * n * n + 4 * h,
-            4 * nw * BATCH * n * n * c)
-        _print_time("swin_window_attn", f"nW={nw} B={BATCH} n={n} C={c} h={h} "
-                    f"bias_windows={nwb} bf16", row, card)
-        rows.append((count, row))
+        inputs = _swin_serving_inputs(gen, 64, nw, BATCH, c, h, nwb)
+        _hold_swin(SA, inputs, h, errs)
+        rows.append((count, _time_swin(SA, inputs, h, card)))
+    # 16 x 16 and 24 x 24 windows (the blocked kernel): n 256 held and
+    # timed at a served batch; n 576 held at SWIN_HELD_B, timed at a
+    # served batch; a stage of 32 x 32 windows held
+    blocked = {}
+    for label, n in SWIN_BLOCKED_TOKENS.items():
+        blocked[label] = []
+        for (nw, c, h, nwb), count in SWIN_BLOCKED_GEOMS.items():
+            inputs = _swin_serving_inputs(gen, n, nw, BATCH, c, h, nwb)
+            if n == 256:
+                _hold_swin(SA, inputs, h, errs)
+            else:
+                _hold_swin(SA, _swin_serving_inputs(gen, n, nw, SWIN_HELD_B,
+                                                    c, h, nwb), h, errs)
+            blocked[label].append((count, _time_swin(SA, inputs, h, card)))
+            del inputs
+    nw, c, h, nwb = SWIN_N1024
+    _hold_swin(SA, _swin_serving_inputs(gen, 1024, nw, SWIN_HELD_B, c, h,
+                                        nwb), h, errs)
+    note = ("no single PyTorch call computes it: the per-head L2 "
+            "normalization of q and k is part of the function")
     rec = _record("swin_window_attn",
                   "mmd_tpu_torch/ops/csrc/swin_window_attn.cu",
-                  "mmd_tpu/ops/swin_attention.py:151", rows, errs,
-                  "no single PyTorch call computes it: the per-head L2 "
-                  "normalization of q and k is part of the function")
+                  "mmd_tpu/ops/swin_attention.py:151", rows, errs, note)
     print(f"kernel swin_window_attn per served batch "
           f"({sum(SWIN_GEOMS.values())} launches): kernel {rec['ms']:.4f} ms, "
           f"plain {rec['plain_ms']:.4f} ms, bound {rec['bound_ms']:.4f} ms  "
           f"[{card}]", flush=True)
+    for label, n in SWIN_BLOCKED_TOKENS.items():
+        sub = _record("swin_window_attn", "", "", blocked[label], errs)
+        calls = sum(SWIN_BLOCKED_GEOMS.values())
+        rec[f"{label}_served_batch"] = _sub_record(sub, calls, n)
+        print(f"kernel swin_window_attn {label} (n {n}), stages 0-2 of a "
+              f"served batch ({calls} calls): kernel {sub['ms']:.4f} "
+              f"ms, plain {sub['plain_ms']:.4f} ms, bound "
+              f"{sub['bound_ms']:.4f} ms ({sub['bound_by']})  [{card}]",
+              flush=True)
     return rec
 
 
@@ -1864,10 +1985,10 @@ def phase_deberta_bwd(card: str) -> dict:
     return rec
 
 
-def _swin_train_inputs(gen, nw: int, b: int, c: int, h: int):
+def _swin_train_inputs(gen, nw: int, b: int, c: int, h: int, n: int = 64):
     """q', k, v, do (fp32) and the log2-domain bias of one window attention
     of the fine-tuning path."""
-    dev, n, dh, log2e = torch.device("cuda"), 64, c // h, 1.4426950408889634
+    dev, dh, log2e = torch.device("cuda"), c // h, 1.4426950408889634
 
     def unit(x):
         x = x.reshape(nw, b, n, h, dh)
@@ -1888,11 +2009,12 @@ def _swin_train_inputs(gen, nw: int, b: int, c: int, h: int):
     return q32, k32, v32, do32, (bias * log2e).contiguous()
 
 
-def _check_swin_train(SA, gen, nw, b, c, h, errs):
+def _check_swin_train(SA, gen, nw, b, c, h, errs, n: int = 64):
     """#8 and #9 against their plain versions at one geometry, both dtypes,
-    each twice and bit-identical; returns the fp32 inputs."""
-    q32, k32, v32, do32, bias = _swin_train_inputs(gen, nw, b, c, h)
-    what = f"nW={nw} B={b} C={c} h={h}"
+    each twice and bit-identical, the bf16 backward against its mirror (P
+    and dS as hi + lo, `split_weights`); returns the fp32 inputs."""
+    q32, k32, v32, do32, bias = _swin_train_inputs(gen, nw, b, c, h, n)
+    what = f"nW={nw} B={b} n={n} C={c} h={h}"
     for dtype in (torch.bfloat16, torch.float32):
         q, k, v, do = (x.to(dtype) for x in (q32, k32, v32, do32))
         o = SA.swin_window_attention_fwd(q, k, v, bias, h)
@@ -1912,7 +2034,8 @@ def _check_swin_train(SA, gen, nw, b, c, h, errs):
             "swin_attn_train_fwd", f"{what} {dtype}", {"o": o}, [ref],
             (dtype,)))
         want = SA.swin_window_attention_bwd_plain(
-            q.float(), k.float(), v.float(), bias, do.float(), h)
+            q.float(), k.float(), v.float(), bias, do.float(), h,
+            split_weights=dtype == torch.bfloat16)
         errs["bwd"].append(_check_grads(
             "swin_attn_train_bwd", f"{what} {dtype}",
             dict(zip(("dq", "dk", "dv", "dbias"), got)), want,
@@ -1920,74 +2043,115 @@ def _check_swin_train(SA, gen, nw, b, c, h, errs):
     return q32, k32, v32, do32, bias
 
 
+def _time_swin_train(SA, inputs, h: int, card: str, what: str):
+    """#8's and #9's bf16 rows on `inputs`, beside SDPA (forward, and its
+    backward with the mask's gradient where a backend gives one); returns
+    (forward row, backward row, the library note or None)."""
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q32, k32, v32, do32, bias = inputs
+    nw, b, n, c = q32.shape
+    dh = c // h
+    q, k, v, do = (x.to(torch.bfloat16) for x in (q32, k32, v32, do32))
+    # the library call: SDPA on (nW B, h, n, dh), exp2(x) = exp(ln2 x), the
+    # bias as an additive mask in the inputs' dtype
+    ln2 = math.log(2.0)
+    q4, k4, v4, do4 = (x.reshape(nw, b, n, h, dh).transpose(2, 3)
+                       .reshape(nw * b, h, n, dh).contiguous()
+                       for x in (q, k, v, do))
+    m4 = (ln2 * bias)[:, None].expand(nw, b, h, n, n).reshape(
+        nw * b, h, n, n).to(torch.bfloat16).contiguous()
+    fwd = {"ms": _time_ms(lambda: SA.swin_window_attention_fwd(
+        q, k, v, bias, h)),
+           "plain_ms": _time_ms(lambda: SA.swin_window_attention_plain(
+               q, k, v, bias, h)),
+           "library_ms": _time_ms(lambda: sdpa(q4, k4, v4, attn_mask=m4,
+                                               scale=ln2))}
+    bwd = {"ms": _time_ms(lambda: SA.swin_window_attention_bwd(
+        q, k, v, bias, do, h)),
+           "plain_ms": _time_ms(lambda: SA.swin_window_attention_bwd_plain(
+               q, k, v, bias, do, h))}
+    leaves = [x.detach().requires_grad_() for x in (q4, k4, v4, m4)]
+    note = None
+    try:
+        o4 = sdpa(*leaves[:3], attn_mask=leaves[3], scale=ln2)
+        bwd["library_ms"] = _time_ms(lambda: torch.autograd.grad(
+            o4, leaves, do4, retain_graph=True))
+    except RuntimeError as e:           # no backend gives dmask
+        bwd["library_ms"] = None
+        note = f"SDPA's backward with a mask gradient: {e}"[:200]
+    elems = nw * b * n * c
+    fwd["bound_ms"], fwd["bound_by"] = _bound_ms(
+        2 * 4 * elems + 4 * nw * h * n * n, 4 * nw * b * n * n * c)
+    bwd["bound_ms"], bwd["bound_by"] = _bound_ms(
+        2 * 7 * elems + 2 * 4 * nw * h * n * n, 10 * nw * b * n * n * c)
+    for kind, row in (("fwd", fwd), ("bwd", bwd)):
+        _print_time(f"swin_attn_train_{kind}", f"{what} n={n} bf16", row,
+                    card)
+    return fwd, bwd, note
+
+
 def phase_swin_train(card: str) -> dict:
     from mmd_tpu_torch.ops import swin_attention as SA
-    sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device="cuda").manual_seed(8)
-    b, n = FT_DEBERTA["b"], 64
+    b = FT_DEBERTA["b"]
     errs = {"fwd": [], "bwd": []}
     rows = {"fwd": [], "bwd": []}
     lib_note = None
     for nw, c, h in FT_SWIN_CHECK_B7:
         _check_swin_train(SA, gen, nw, 7, c, h, errs)
     for stage, ((nw, c, h), count) in enumerate(FT_SWIN_GEOMS.items()):
-        dh = c // h
         what = f"nW={nw} B={b} C={c} h={h}"
-        q32, k32, v32, do32, bias = _check_swin_train(SA, gen, nw, b, c, h,
-                                                      errs)
-        q, k, v, do = (x.to(torch.bfloat16) for x in (q32, k32, v32, do32))
-        # the library call: SDPA on (nW B, h, n, dh), exp2(x) = exp(ln2 x),
-        # the bias as an additive mask in the inputs' dtype
-        ln2 = math.log(2.0)
-        q4, k4, v4, do4 = (x.reshape(nw, b, n, h, dh).transpose(2, 3)
-                           .reshape(nw * b, h, n, dh).contiguous()
-                           for x in (q, k, v, do))
-        m4 = (ln2 * bias)[:, None].expand(nw, b, h, n, n).reshape(
-            nw * b, h, n, n).to(torch.bfloat16).contiguous()
-        fwd = {"ms": _time_ms(lambda: SA.swin_window_attention_fwd(
-            q, k, v, bias, h)),
-               "plain_ms": _time_ms(lambda: SA.swin_window_attention_plain(
-                   q, k, v, bias, h)),
-               "library_ms": _time_ms(lambda: sdpa(q4, k4, v4, attn_mask=m4,
-                                                   scale=ln2))}
-        bwd = {"ms": _time_ms(lambda: SA.swin_window_attention_bwd(
-            q, k, v, bias, do, h)),
-               "plain_ms": _time_ms(lambda: SA.swin_window_attention_bwd_plain(
-                   q, k, v, bias, do, h))}
-        leaves = [x.detach().requires_grad_() for x in (q4, k4, v4, m4)]
-        try:
-            o4 = sdpa(*leaves[:3], attn_mask=leaves[3], scale=ln2)
-            bwd["library_ms"] = _time_ms(lambda: torch.autograd.grad(
-                o4, leaves, do4, retain_graph=True))
-        except RuntimeError as e:           # no backend gives dmask
-            bwd["library_ms"] = None
-            lib_note = f"SDPA's backward with a mask gradient: {e}"[:200]
-        elems = nw * b * n * c
-        fwd["bound_ms"], fwd["bound_by"] = _bound_ms(
-            2 * 4 * elems + 4 * nw * h * n * n, 4 * nw * b * n * n * c)
-        bwd["bound_ms"], bwd["bound_by"] = _bound_ms(
-            2 * 7 * elems + 2 * 4 * nw * h * n * n, 10 * nw * b * n * n * c)
+        inputs = _check_swin_train(SA, gen, nw, b, c, h, errs)
+        fwd, bwd, note = _time_swin_train(SA, inputs, h, card, what)
+        lib_note = lib_note or note
         for kind, row in (("fwd", fwd), ("bwd", bwd)):
-            _print_time(f"swin_attn_train_{kind}", f"{what} n={n} bf16", row,
-                        card)
             rows[kind].append((count, row))
         print(f"time   swin_attn_train_fwd stage {stage} ({what}, bf16, "
               f"{count} a step): kernel {1e3 * fwd['ms']:.3f} us a call, "
               f"SDPA {1e3 * fwd['library_ms']:.3f} us, bound "
               f"{1e3 * fwd['bound_ms']:.3f} us  [{card}]", flush=True)
+    # 16 x 16 and 24 x 24 windows (the blocked kernels): n 256 held and
+    # timed at the step's batch; n 576 held at SWIN_HELD_B, timed at the
+    # step's batch; a stage of 32 x 32 windows held
+    blocked = {}
+    for label, n in SWIN_BLOCKED_TOKENS.items():
+        blocked[label] = {"fwd": [], "bwd": []}
+        for (nw, c, h), count in FT_SWIN_BLOCKED_GEOMS.items():
+            what = f"nW={nw} B={b} C={c} h={h}"
+            if n == 256:
+                inputs = _check_swin_train(SA, gen, nw, b, c, h, errs, n)
+            else:
+                _check_swin_train(SA, gen, nw, SWIN_HELD_B, c, h, errs, n)
+                inputs = _swin_train_inputs(gen, nw, b, c, h, n)
+            fwd, bwd, note = _time_swin_train(SA, inputs, h, card, what)
+            lib_note = lib_note or note
+            del inputs
+            for kind, row in (("fwd", fwd), ("bwd", bwd)):
+                blocked[label][kind].append((count, row))
+    nw, c, h, _ = SWIN_N1024
+    _check_swin_train(SA, gen, nw, SWIN_HELD_B, c, h, errs, 1024)
     recs = {}
     for kind, line in (("fwd", 211), ("bwd", 314)):
         name = f"swin_attn_train_{kind}"
+        note = None if kind == "fwd" or lib_note is None else lib_note
         recs[name] = _record(
             name, "mmd_tpu_torch/ops/csrc/swin_window_attn_train.cu",
             f"mmd_tpu/ops/swin_attention.py:{line}", rows[kind],
-            errs[kind],
-            None if kind == "fwd" or lib_note is None else lib_note)
+            errs[kind], note)
         print(f"kernel {name} per fine-tuning step "
               f"({sum(FT_SWIN_GEOMS.values())} launches): kernel "
               f"{recs[name]['ms']:.4f} ms, plain {recs[name]['plain_ms']:.4f} "
               f"ms, library {recs[name]['library_ms']}, bound "
               f"{recs[name]['bound_ms']:.4f} ms  [{card}]", flush=True)
+        for label, n in SWIN_BLOCKED_TOKENS.items():
+            sub = _record(name, "", "", blocked[label][kind], errs[kind])
+            calls = sum(FT_SWIN_BLOCKED_GEOMS.values())
+            recs[name][f"{label}_step"] = _sub_record(sub, calls, n)
+            print(f"kernel {name} {label} (n {n}), stages 0-2 of a "
+                  f"fine-tuning step ({calls} calls): kernel "
+                  f"{sub['ms']:.4f} ms, plain {sub['plain_ms']:.4f} ms, "
+                  f"library {sub['library_ms']}, bound {sub['bound_ms']:.4f}"
+                  f" ms ({sub['bound_by']})  [{card}]", flush=True)
     return recs
 
 
@@ -2644,6 +2808,156 @@ def phase_finetune_reference(card: str, tmp: Path) -> dict:
     if not all(map(math.isfinite, losses)):
         fail(f"finetune_reference: losses {losses}")
     return launches
+
+
+class _ExplicitSwin:
+    """Counts the Swin window attentions that take the explicit path
+    (models/swin.py::_cosine_window_attention) while active."""
+
+    def __enter__(self):
+        from mmd_tpu_torch.models import swin as SW
+        self.calls, self._orig = 0, SW._cosine_window_attention
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self._orig(*args, **kw)
+
+        SW._cosine_window_attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        from mmd_tpu_torch.models import swin as SW
+        SW._cosine_window_attention = self._orig
+
+
+def _by_tokens(calls: dict) -> dict:
+    """An _InSitu record's launches summed by tokens a window (the third
+    dim of the first tensor argument)."""
+    out: dict[int, int] = {}
+    for key, rec in calls.items():
+        n = key[0][0][2]
+        out[n] = out.get(n, 0) + rec["n"]
+    return out
+
+
+def phase_swin_window16(card: str, tmp: Path, texts: list[str],
+                        images: list[str]) -> tuple[dict, dict]:
+    """A Swinv2 window-16 checkpoint (SWINV2_BASE_W16_HF, seeded) and
+    DeBERTa-v3-xsmall served from converted assets, then fine-tuned: #7 at
+    n 256 and 64 a served batch, #8 and #9 a step, no window attention on
+    the explicit path; every geometry held in situ. Returns the kernel
+    launches of both counted runs, the in-situ rows and the Swin kernels'
+    launches by tokens a window (kernel -> n -> launches)."""
+    from mmd_tpu_torch.convert_hf import write_asset
+    from mmd_tpu_torch.core.config import ModelConfig
+    from mmd_tpu_torch.data.spm import UnigramTokenizer
+    from mmd_tpu_torch.inference.predictor import MisinformationPredictor
+    from mmd_tpu_torch.models import deberta as D
+    from mmd_tpu_torch.models import swin as SW
+    from mmd_tpu_torch.profile_train import (FT_BATCH, FT_SEQ, raw_batch,
+                                             reference_encoders,
+                                             reference_finetune)
+
+    phase = "swin_window16"
+    t0 = time.perf_counter()
+    assets = tmp / "assets_window16"
+    assets.mkdir()
+    text_cfg = D.config_from_hf(DEBERTA_V3_XSMALL_HF)
+    image_cfg = SW.config_from_hf(SWINV2_BASE_W16_HF)
+    write_asset(assets, "deberta", D.init_deberta(
+        torch.Generator().manual_seed(CONVERTED_SEEDS["deberta"]), text_cfg),
+        text_cfg)
+    write_asset(assets, "swinv2", SW.init_swin(
+        torch.Generator().manual_seed(CONVERTED_SEEDS["swinv2"]), image_cfg),
+        image_cfg)
+    UnigramTokenizer(_spm_pieces(texts)).save(assets / "spm.json")
+    cfg = ModelConfig(fused_attn=True)
+    pred = MisinformationPredictor(cfg, assets_dir=str(assets),
+                                   max_length=512, batch_size=BATCH,
+                                   device="cuda")
+    vc = pred.enc.vit_cfg
+    if vc != image_cfg or vc.window_size != 16:
+        fail(f"{phase}: the assets resolved to {vc}")
+    _describe(phase, pred, f"{time.perf_counter() - t0:.3f} s  [{card}]")
+    stages = [(vc.stage_res(i), vc.stage_window_shift(i, 0)[0])
+              for i in range(vc.num_stages)]
+    print(f"{phase}: Swinv2 window {vc.window_size}, stages (res, window) "
+          f"{stages}", flush=True)
+    reqs = _requests(texts, images, W16_REQUESTS)
+    batches = [tuple([r[k] for r in reqs[j:j + BATCH]] for k in range(4))
+               for j in range(0, W16_REQUESTS, BATCH)]
+    pred.evaluate_batch(*batches[0])          # warm-up, outside the count
+    torch.cuda.synchronize()
+
+    # (a) served batches: #7 at n 256 and 64, the reference's other kernels
+    _reset_counts()
+    t1 = time.perf_counter()
+    with _ExplicitSwin() as explicit, \
+            _InSitu(only=("swin_window_attn",)) as in_situ:
+        results = [r for batch in batches
+                   for r in pred.evaluate_batch(*batch, detailed=True)]
+        torch.cuda.synchronize()
+    serve_s = time.perf_counter() - t1
+    served = _counts()
+    for r, (_, ci, _, ei) in zip(results, reqs):
+        _check_result(r, ci is not None, ei is not None)
+    by_n = _by_tokens(in_situ.calls["swin_window_attn"])
+    counted_by_n = {"swin_window_attn": by_n}
+    want = {k: REFERENCE_PER_BATCH.get(k, 0) * len(batches) for k in served}
+    want_n = {n: c * len(batches) for n, c in W16_BY_TOKENS.items()}
+    print(f"{phase}: {len(results)} requests in {len(batches)} batches of "
+          f"{BATCH}, {serve_s:.3f} s; launches {json.dumps(served)} (want "
+          f"{json.dumps(want)}); #7 by tokens a window {json.dumps(by_n)} "
+          f"(want {json.dumps(want_n)}); explicit-path window attentions "
+          f"{explicit.calls}  [{card}]", flush=True)
+    if served != want or by_n != want_n or explicit.calls:
+        fail(f"{phase}: served launches {served}, #7 by tokens {by_n}, "
+             f"{explicit.calls} explicit window attentions")
+    rows = in_situ.hold(phase, card)
+
+    # (b) fine-tuning steps: #8 and #9 at n 256 and 64, bf16
+    enc = reference_encoders(assets)
+    enc.text_cfg = dataclasses.replace(enc.text_cfg, compute_dtype="bfloat16")
+    trainer = reference_finetune(enc)
+    state = trainer.init()
+    tc, vc = enc.text_cfg, enc.vit_cfg
+    if vc.window_size != 16 or not vc.fused_train:
+        fail(f"{phase}: fine-tuning resolved {vc}")
+    rng = np.random.default_rng(9)
+    steps = [raw_batch(rng, FT_BATCH, FT_SEQ, tc.vocab_size, vc.image_size)
+             for _ in range(W16_FT_STEPS)]
+    torch.cuda.synchronize()
+    _reset_counts()
+    losses, times = [], []
+    train = ("swin_attn_train_fwd", "swin_attn_train_bwd")
+    with _ExplicitSwin() as explicit, _InSitu(only=train) as in_situ:
+        for batch in steps:
+            t1 = time.perf_counter()
+            state, aux = trainer.train_step(state, trainer.shard_batch(batch))
+            losses.append(float(aux["loss"]))    # synchronizes
+            times.append(1e3 * (time.perf_counter() - t1))
+    tuned = _counts()
+    want = {k: FT_PER_STEP.get(k, 0) * W16_FT_STEPS for k in tuned}
+    by_n = {k: _by_tokens(in_situ.calls[k]) for k in train}
+    counted_by_n.update(by_n)
+    want_n = {n: c * W16_FT_STEPS for n, c in W16_BY_TOKENS.items()}
+    print(f"{phase}: {W16_FT_STEPS} bf16 fine-tuning steps at batch "
+          f"{FT_BATCH}, {FT_SEQ} tokens: loss {json.dumps(losses)}, wall "
+          f"{json.dumps([round(x, 3) for x in times])} ms; launches "
+          f"{json.dumps(tuned)} (want {json.dumps(want)}); by tokens a "
+          f"window {json.dumps(by_n)} (want {json.dumps(want_n)} each); "
+          f"explicit-path window attentions {explicit.calls}  [{card}]",
+          flush=True)
+    if (tuned != want or any(v != want_n for v in by_n.values())
+            or explicit.calls or not all(map(math.isfinite, losses))):
+        fail(f"{phase}: fine-tuning launches {tuned}, by tokens {by_n}, "
+             f"{explicit.calls} explicit window attentions, losses {losses}")
+    for name, got in in_situ.hold(phase, card).items():
+        rows[name] = got
+    del trainer, state, pred
+    torch.cuda.empty_cache()
+    print(f"{phase}: phase wall {time.perf_counter() - t0:.1f} s", flush=True)
+    return {k: served[k] + tuned[k] for k in served}, rows, counted_by_n
 
 
 def phase_finetune_parity(card: str, tmp: Path) -> None:
@@ -4405,7 +4719,12 @@ def _in_situ_err(name, a, got, want) -> tuple[float, float, bool]:
         # the backward phases' rule (_check_grads): each output within
         # _rel_tol of its plain version, the tables' and dbias in fp32;
         # the error is the worst share of its tolerance, times the
-        # tolerance of the output where it was largest
+        # tolerance of the output where it was largest. #9 in bf16 against
+        # its mirror, P and dS as the kernel feeds them (hi + lo)
+        if name == "swin_attn_train_bwd" and dtype == torch.bfloat16:
+            from mmd_tpu_torch.ops import swin_attention as SA
+            want = SA.swin_window_attention_bwd_plain(*_f32(a),
+                                                      split_weights=True)
         outs = (dtype,) * 3 + (torch.float32,) * (len(want) - 3)
         worst, worst_tol = 0.0, 1.0
         for x, w, dt in zip(got, want, outs):
@@ -7147,6 +7466,11 @@ def main() -> None:
             **phase_train_wide(dev["card"], tmp, texts, images),
             "finetune_reference": phase_finetune_reference(dev["card"], tmp),
             "train_raw": phase_train_raw(dev["card"], tmp)}
+        by_phase["swin_window16"], in_situ, by_n = phase_swin_window16(
+            dev["card"], tmp, texts, images)
+        _set_blocked_launches(recs, by_n)
+        for name, rows in in_situ.items():
+            recs[name].update(rows)
         by_phase["retrieval"] = phase_retrieval(dev["card"], tmp)
         by_phase["caption"], caption_times = phase_caption(dev["card"], tmp)
         recs["flash_attn_fwd"].update(caption_times)

@@ -43,6 +43,26 @@
 //     unnormalized P is rounded to bf16 before P V and l is the fp32 sum of
 //     the unrounded weights, as the TPU kernel's p16 and ls; no atomics, so
 //     the results are deterministic.
+//
+// Larger windows (n = 64 T, T > 1: 16 x 16 windows n 256, 24 x 24 n 576,
+// 32 x 32 n 1024) run `forward_blocked`: a window's scores no longer fit a
+// warp's registers (16 rows x n keys: 128 floats a thread at n 256), so
+//   * one CTA of 4 warps per (query tile of 64 rows, head, window, group of
+//     batch rows), each warp 16 rows, the same products as above;
+//   * it walks the window's keys in blocks of 64, an online softmax per row
+//     (exp2, fp32 running max m and sum l, acc rescaled by exp2(m_old -
+//     m_new); the final sum floored at 1e-37). It keeps the running max:
+//     in bf16 the weight rounded before P V is exp2(s - m_running), not the
+//     TPU's exp2(s - m_final) -- the same relative rounding, at another
+//     point; tests/test_torch_swin_blocked_mirror.py mirrors this order;
+//   * the bias is read per key block (the 16 x 64 part a warp needs, 32
+//     floats a thread, issued before the block's copy is awaited), not held
+//     for the whole window;
+//   * the k and v blocks come by cp.async through a ring of two stages, the
+//     query tile of each batch row into one of two buffers by the row's
+//     parity: the next block lands while this one computes;
+//   * kRaw's norms per key block as above (raw_factors: the block's keys,
+//     and the query rows' again).
 
 #pragma once
 
@@ -291,6 +311,157 @@ __device__ __forceinline__ void forward(const T* __restrict__ q, const T* __rest
     }
 }
 
+// -- n = 64 T, T > 1 ----------------------------------------------------------
+
+template <typename T, int DH>
+constexpr size_t blocked_fwd_smem_bytes() {
+    return 2 * F::Tile<T, DH>::BYTES         // the query tiles of two batch rows
+           + 2 * 2 * F::Tile<T, DH>::BYTES;  // two stages of k and v blocks
+}
+
+// The body of both kernels for n = 64 T, T > 1 (see the top of the file).
+// Grid (heads x T, windows, groups): blockIdx.x = h T + query tile;
+// F::THREADS threads, blocked_fwd_smem_bytes<T, DH>() of dynamic shared
+// memory; each CTA walks per_group batch rows, each of them T key blocks.
+template <typename T, int DH, Inputs IN>
+__device__ __forceinline__ void forward_blocked(const T* __restrict__ q, const T* __restrict__ k,
+                                                const T* __restrict__ v,
+                                                const float* __restrict__ bias,
+                                                const float* __restrict__ scale,
+                                                T* __restrict__ o, int batch, int heads, int n,
+                                                bool shared_bias, int per_group) {
+    constexpr bool RAW = IN == Inputs::kRaw;
+    using Op = F::Ops<T, DH>;
+    constexpr int TE = F::Tile<T, DH>::ELEMS;
+    constexpr int NT = F::NT;
+    extern __shared__ float4 smem4[];
+    T* qbuf = reinterpret_cast<T*>(smem4);   // [2 rows][N][LD]
+    T* ring = qbuf + 2 * TE;                 // [2 stages][k, v][N][LD]
+
+    const int tiles = n / N;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+    const int h = blockIdx.x / tiles, qt = blockIdx.x - h * tiles;
+    const int w = blockIdx.y;
+    const int b0 = blockIdx.z * per_group;
+    const int c = heads * DH;
+    const size_t head_base = static_cast<size_t>(w) * batch * n * c + static_cast<size_t>(h) * DH;
+    auto row_base = [&](int b) { return head_base + static_cast<size_t>(b) * n * c; };
+    const int steps = per_group * tiles;     // (batch row, key block) in order
+    auto copy_step = [&](int s) {
+        const int i = s / tiles, kt = s - i * tiles;
+        const size_t off = row_base(b0 + i);
+        T* st = ring + (s & 1) * 2 * TE;
+        F::copy_tile<T, DH>(st, k + off, c, N * kt, n);
+        F::copy_tile<T, DH>(st + TE, v + off, c, N * kt, n);
+        if (kt == 0) F::copy_tile<T, DH>(qbuf + (i & 1) * TE, q + off, c, N * qt, n);
+    };
+    copy_step(0);
+    mmd_tc::cp_async_commit();
+
+    // this lane's bias rows (query N qt + 16 warp + g + 8 r) of the (bw, h)
+    // tile; a key block's part at + N kt
+    const int bw = RAW && shared_bias ? 0 : w;
+    const float* bt = bias +
+                      (static_cast<size_t>(bw * heads + h) * n + N * qt + 16 * warp + g) * n +
+                      2 * qd;
+    float qscale = 0.f;
+    if constexpr (RAW) qscale = __ldg(scale + h) * F::LOG2E;
+
+    typename Op::A qa;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, acc[DH / 8][4];
+    for (int s = 0; s < steps; ++s) {
+        const int i = s / tiles, kt = s - i * tiles;
+        if (s + 1 < steps) copy_step(s + 1);  // under this block's work
+        mmd_tc::cp_async_commit();
+        float bs[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const float2 x = __ldg(reinterpret_cast<const float2*>(
+                    bt + static_cast<size_t>(8 * r) * n + N * kt + 8 * nt));
+                bs[nt][2 * r] = RAW ? x.x * F::LOG2E : x.x;
+                bs[nt][2 * r + 1] = RAW ? x.y * F::LOG2E : x.y;
+            }
+        mmd_tc::cp_async_wait<1>();          // this block's tiles have landed
+        __syncthreads();
+        const T* ks = ring + (s & 1) * 2 * TE;
+        if (kt == 0) {                       // a new batch row
+            Op::load_a(qa, qbuf + (i & 1) * TE, 16 * warp);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                mx[r] = -CUDART_INF_F;
+                l[r] = 0.f;
+            }
+            F::zero(acc);
+        }
+        float sc[NT][4];
+        F::zero(sc);
+        Op::template scores<NT>(sc, qa, ks);
+        if constexpr (RAW) {
+            // the query norms again with each block's key norms: a few
+            // FMAs a row beside the block's products
+            float qf[2], kf[NT][2];
+            raw_factors<T, DH>(qf, kf, qa, ks, qscale);
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e)
+                    sc[nt][e] = fmaf(sc[nt][e] * qf[e >> 1], kf[nt][e & 1], bs[nt][e]);
+        } else {
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) sc[nt][e] += bs[nt][e];
+        }
+        float bm[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) bm[e >> 1] = fmaxf(bm[e >> 1], sc[nt][e]);
+        float alpha[2];
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+            bm[r] = fmaxf(bm[r], __shfl_xor_sync(0xffffffffu, bm[r], 1));
+            bm[r] = fmaxf(bm[r], __shfl_xor_sync(0xffffffffu, bm[r], 2));
+            const float m_new = fmaxf(mx[r], bm[r]);
+            alpha[r] = exp2f(mx[r] - m_new);  // 0 at the first block
+            mx[r] = m_new;
+            l[r] *= alpha[r];
+        }
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const float p = exp2f(sc[nt][e] - mx[e >> 1]);
+                l[e >> 1] += p;              // the fp32 weights
+                sc[nt][e] = p;
+            }
+#pragma unroll
+        for (int d = 0; d < DH / 8; ++d)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[d][e] *= alpha[e >> 1];
+        Op::template pv<NT>(acc, sc, ks + TE);
+
+        if (kt == tiles - 1) {               // the row's last key block
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+                l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+                const float inv = 1.f / fmaxf(l[r], 1e-37f);
+                T* orow = o + row_base(b0 + i) +
+                          static_cast<size_t>(N * qt + 16 * warp + g + 8 * r) * c;
+#pragma unroll
+                for (int d = 0; d < DH / 8; ++d)
+                    F::store2(orow + 8 * d + 2 * qd, acc[d][2 * r] * inv,
+                              acc[d][2 * r + 1] * inv);
+            }
+        }
+        __syncthreads();                     // this stage is free for the block after next
+    }
+}
+
 // Above 48 KB of dynamic shared memory a kernel has to be allowed it, once
 // per device: `raised`, the caller's own for each kernel, holds a bit for
 // each device where that is done.
@@ -304,12 +475,13 @@ cudaError_t allow_smem(Kernel kernel, size_t smem, int device, std::atomic<uint6
     return err;
 }
 
-// The checks of the entry points, then `device` made current if it is not
+// The checks of the entry points (n = 64, or 64 T for `forward_blocked`
+// and the blocked backward), then `device` made current if it is not
 // already.
 inline cudaError_t enter(int windows, int batch, int n, int heads, int groups, int device) {
-    if (n != N || windows <= 0 || windows > 65535 || batch <= 0 || batch > 65535 ||
-        heads <= 0 || heads > 65535 || groups <= 0 || groups > 65535 || batch % groups != 0 ||
-        device < 0 || device >= 64) {
+    if (n < N || n % N != 0 || n > 65535 || windows <= 0 || windows > 65535 || batch <= 0 ||
+        batch > 65535 || heads <= 0 || heads > 65535 || groups <= 0 || groups > 65535 ||
+        batch % groups != 0 || device < 0 || device >= 64) {
         return cudaErrorInvalidValue;
     }
     int current = -1;

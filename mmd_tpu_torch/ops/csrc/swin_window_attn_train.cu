@@ -96,7 +96,41 @@
 //     distributed shared memory (19.6 us at 4 groups, 14.7 at 2: clusters
 //     of 4-8 CTAs of 76 KB schedule worse). No atomics either way: two
 //     calls give the same bits.
-// n = 64 and dh in {32, 64} throughout.
+// dh in {32, 64} throughout; all of the above is n = 64.
+//
+// Larger windows, n = 64 T with T > 1 (16 x 16: n 256; 24 x 24: n 576):
+//   * #8 runs the blocked forward body both forwards share
+//     (swin_fwd.cuh, forward_blocked): a CTA a (query tile, head, window,
+//     group), the keys in blocks of 64, an online softmax;
+//   * #9 no longer fits one CTA a window: the 64 x 64 ownership above
+//     becomes T x T tile pairs, so dk and dv would need sums over query
+//     tiles and dq over key tiles across CTAs. Instead, as a flash
+//     backward does, two launches (and the dbias sum):
+//       - query side (swin_train_bwd_q_kernel), a CTA a (query tile, head,
+//         window, group), 4 warps of 16 query rows: per batch row it walks
+//         the key blocks twice -- first S and dP for the row statistics m,
+//         l and D = rowsum(P dP) (online: l and sum_j exp2(s - m) dP
+//         rescaled together as m grows), then S and dP again for P = exp2(S
+//         - m) / l, dS = ln2 P (dP - D), dQ' += dS K (hi + lo in bf16) and
+//         the dbias tile of the (query tile, key block), which the CTA owns
+//         for its group: written at its first batch row, read, added to
+//         and written again at the next, each lane its own fragment, so the
+//         group's sum runs in row order with no atomics (in L2: 16 KB a
+//         tile pair). It writes dq and m, 1 / l and D (fp32, a row each) to
+//         the workspace;
+//       - key side (swin_train_bwd_kv_kernel), a CTA a (key tile, head,
+//         window, group), 4 warps of 16 keys: per batch row it walks the
+//         query blocks (and their statistics, 768 bytes, by the same
+//         cp.async) once: S^T = K Q'^T + bias^T, dP^T = V dO^T, P^T and dS^T
+//         from the statistics, dV += P^T dO and dK += dS^T Q' (hi + lo);
+//       - the groups' dbias parts summed in group order
+//         (swin_train_dbias_kernel) where there are groups.
+//     The workspace is [groups parts of dbias when groups > 1][m, 1 / l,
+//     D: 3 x (windows, batch, heads, n) fp32] (swin_attention.py sizes it).
+//     Recomputing S and dP three times (twice on the query side, once
+//     transposed) costs 9 products a tile pair against the 5 the function
+//     needs; no cross-CTA sum of dq, dk or dv is needed. Both launches
+//     stay deterministic: two calls give the same bits.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -127,6 +161,17 @@ swin_train_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
                       int per_group) {
     S::forward<T, DH, S::Inputs::kNormalized>(q, k, v, bias, nullptr, o, batch, heads, false,
                                               per_group);
+}
+
+// n = 64 T, T > 1: the blocked body (swin_fwd.cuh), a CTA a (query tile, head,
+// window, group of batch rows)
+template <typename T, int DH>
+__global__ void __launch_bounds__(F::THREADS)
+swin_train_fwd_blocked_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                              const T* __restrict__ v, const float* __restrict__ bias,
+                              T* __restrict__ o, int batch, int heads, int n, int per_group) {
+    S::forward_blocked<T, DH, S::Inputs::kNormalized>(q, k, v, bias, nullptr, o, batch, heads, n,
+                                                      false, per_group);
 }
 
 // ---------------------------------------------------------------------------
@@ -455,6 +500,304 @@ swin_train_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T*
             F::store2(o + (r0 + 8 * r) * N + 8 * nt + 2 * qd, db[nt][2 * r], db[nt][2 * r + 1]);
 }
 
+// ---------------------------------------------------------------------------
+// #9 at n = 64 T, T > 1: the query side and the key side (see the top)
+// ---------------------------------------------------------------------------
+template <typename T, int DH>
+constexpr size_t bwd_q_smem_bytes() {
+    // q' and do of two batch rows (by parity); two stages of k and v blocks
+    return 2 * 2 * F::Tile<T, DH>::BYTES + 2 * 2 * F::Tile<T, DH>::BYTES;
+}
+
+template <typename T, int DH>
+constexpr size_t bwd_kv_smem_bytes() {
+    // k and v of two batch rows; two stages of q' and do blocks and of the
+    // blocks' m, 1 / l and D
+    return 2 * 2 * F::Tile<T, DH>::BYTES + 2 * 2 * F::Tile<T, DH>::BYTES +
+           2 * 3 * N * sizeof(float);
+}
+
+// Query side. `parts` is dbias with one group, else the (groups, nW, heads,
+// n, n) part of the workspace; `stats` the workspace's m, 1 / l and D, each
+// (nW, batch, heads, n).
+template <typename T, int DH>
+__global__ void __launch_bounds__(F::THREADS)
+swin_train_bwd_q_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        const float* __restrict__ bias, const T* __restrict__ dout,
+                        T* __restrict__ dq, float* __restrict__ parts, float* __restrict__ stats,
+                        int batch, int heads, int n, int per_group) {
+    using Op = F::Ops<T, DH>;
+    constexpr int TE = F::Tile<T, DH>::ELEMS;
+    constexpr int NT = F::NT;
+    extern __shared__ float4 smem4[];
+    T* rows = reinterpret_cast<T*>(smem4);   // [2 rows][q', do][N][LD]
+    T* ring = rows + 2 * 2 * TE;             // [2 stages][k, v][N][LD]
+
+    const int tiles = n / N;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+    const int h = blockIdx.x / tiles, qt = blockIdx.x - h * tiles;
+    const int w = blockIdx.y;
+    const int b0 = blockIdx.z * per_group;
+    const int c = heads * DH;
+    const int r0 = N * qt + 16 * warp + g;   // this lane's query rows: r0, r0 + 8
+    const size_t head_base = static_cast<size_t>(w) * batch * n * c + static_cast<size_t>(h) * DH;
+    auto row_base = [&](int b) { return head_base + static_cast<size_t>(b) * n * c; };
+    // per batch row, the key blocks twice: statistics, then the gradients
+    const int steps = per_group * 2 * tiles;
+    auto copy_step = [&](int s) {
+        const int i = s / (2 * tiles), rr = s - i * 2 * tiles;
+        const int kt = rr < tiles ? rr : rr - tiles;
+        const size_t off = row_base(b0 + i);
+        T* st = ring + (s & 1) * 2 * TE;
+        F::copy_tile<T, DH>(st, k + off, c, N * kt, n);
+        F::copy_tile<T, DH>(st + TE, v + off, c, N * kt, n);
+        if (rr == 0) {
+            T* rt = rows + (i & 1) * 2 * TE;
+            F::copy_tile<T, DH>(rt, q + off, c, N * qt, n);
+            F::copy_tile<T, DH>(rt + TE, dout + off, c, N * qt, n);
+        }
+    };
+    copy_step(0);
+    mmd_tc::cp_async_commit();
+
+    const size_t pair = static_cast<size_t>(w) * heads + h;
+    const float* bt = bias + (pair * n + r0) * n + 2 * qd;
+    float* dbt =
+        parts + ((static_cast<size_t>(blockIdx.z) * gridDim.y * heads + pair) * n + r0) * n + 2 * qd;
+    const size_t count = static_cast<size_t>(gridDim.y) * batch * heads * n;
+
+    typename Op::A qa, oa;
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, l[2] = {0.f, 0.f}, dd[2] = {0.f, 0.f};
+    float inv[2] = {0.f, 0.f}, dsum[2] = {0.f, 0.f};
+    float acc[DH / 8][4];
+    F::zero(acc);
+    for (int s = 0; s < steps; ++s) {
+        const int i = s / (2 * tiles), rr = s - i * 2 * tiles;
+        const bool grads = rr >= tiles;
+        const int kt = grads ? rr - tiles : rr;
+        if (s + 1 < steps) copy_step(s + 1);  // under this block's work
+        mmd_tc::cp_async_commit();
+        float bs[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                const float2 x = __ldg(reinterpret_cast<const float2*>(
+                    bt + static_cast<size_t>(8 * r) * n + N * kt + 8 * nt));
+                bs[nt][2 * r] = x.x;
+                bs[nt][2 * r + 1] = x.y;
+            }
+        mmd_tc::cp_async_wait<1>();          // this block's tiles have landed
+        __syncthreads();
+        const T* ks = ring + (s & 1) * 2 * TE;
+        const T* vs = ks + TE;
+        if (rr == 0) {                       // a new batch row
+            const T* rt = rows + (i & 1) * 2 * TE;
+            Op::load_a(qa, rt, 16 * warp);
+            Op::load_a(oa, rt + TE, 16 * warp);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                mx[r] = -CUDART_INF_F;
+                l[r] = dd[r] = 0.f;
+            }
+            F::zero(acc);
+        }
+        float p[NT][4], dp[NT][4];
+        F::zero(p);
+        F::zero(dp);
+        Op::template scores<NT>(p, qa, ks);
+        Op::template scores<NT>(dp, oa, vs);  // dP, under the softmax
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) p[nt][e] += bs[nt][e];
+        if (!grads) {
+            // the statistics: running max, l and sum_j exp2(s - m) dP
+            float bm[2] = {-CUDART_INF_F, -CUDART_INF_F};
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) bm[e >> 1] = fmaxf(bm[e >> 1], p[nt][e]);
+#pragma unroll
+            for (int r = 0; r < 2; ++r) {
+                bm[r] = fmaxf(bm[r], __shfl_xor_sync(0xffffffffu, bm[r], 1));
+                bm[r] = fmaxf(bm[r], __shfl_xor_sync(0xffffffffu, bm[r], 2));
+                const float m_new = fmaxf(mx[r], bm[r]);
+                const float alpha = exp2f(mx[r] - m_new);
+                mx[r] = m_new;
+                l[r] *= alpha;
+                dd[r] *= alpha;
+            }
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float pe = exp2f(p[nt][e] - mx[e >> 1]);
+                    l[e >> 1] += pe;
+                    dd[e >> 1] = fmaf(pe, dp[nt][e], dd[e >> 1]);
+                }
+            if (kt == tiles - 1) {
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+                    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+                    dd[r] += __shfl_xor_sync(0xffffffffu, dd[r], 1);
+                    dd[r] += __shfl_xor_sync(0xffffffffu, dd[r], 2);
+                    inv[r] = 1.f / fmaxf(l[r], 1e-37f);
+                    dsum[r] = dd[r] * inv[r];
+                }
+            }
+        } else {
+            // P, dS, this tile pair's dbias and dQ'
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) {
+                    const float pe = exp2f(p[nt][e] - mx[e >> 1]) * inv[e >> 1];
+                    dp[nt][e] = LN2 * pe * (dp[nt][e] - dsum[e >> 1]);
+                }
+            float* db = dbt + N * kt;
+#pragma unroll
+            for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+                for (int r = 0; r < 2; ++r) {
+                    float2* at = reinterpret_cast<float2*>(db + static_cast<size_t>(8 * r) * n +
+                                                           8 * nt);
+                    float2 x = make_float2(dp[nt][2 * r], dp[nt][2 * r + 1]);
+                    if (i > 0) {             // the group's rows before this one
+                        const float2 y = *at;
+                        x.x += y.x;
+                        x.y += y.y;
+                    }
+                    *at = x;
+                }
+            pv_exact<DH>(acc, dp, ks);
+            if (kt == tiles - 1) {
+                const int b = b0 + i;
+                store_rows<T, DH>(dq + row_base(b) + static_cast<size_t>(N * qt) * c, c, acc);
+                if (qd == 0) {
+#pragma unroll
+                    for (int r = 0; r < 2; ++r) {
+                        const size_t at = ((static_cast<size_t>(w) * batch + b) * heads + h) * n +
+                                          r0 + 8 * r;
+                        stats[at] = mx[r];
+                        stats[count + at] = inv[r];
+                        stats[2 * count + at] = dsum[r];
+                    }
+                }
+            }
+        }
+        __syncthreads();                     // this stage is free for the block after next
+    }
+}
+
+// Key side: dK and dV of a key tile from the query side's statistics.
+template <typename T, int DH>
+__global__ void __launch_bounds__(F::THREADS)
+swin_train_bwd_kv_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                         const T* __restrict__ v, const float* __restrict__ bias,
+                         const T* __restrict__ dout, T* __restrict__ dk, T* __restrict__ dv,
+                         const float* __restrict__ stats, int batch, int heads, int n,
+                         int per_group) {
+    using Op = F::Ops<T, DH>;
+    constexpr int TE = F::Tile<T, DH>::ELEMS;
+    constexpr int NT = F::NT;
+    extern __shared__ float4 smem4[];
+    T* rows = reinterpret_cast<T*>(smem4);   // [2 rows][k, v][N][LD]
+    T* ring = rows + 2 * 2 * TE;             // [2 stages][q', do][N][LD]
+    float* sring = reinterpret_cast<float*>(ring + 2 * 2 * TE);   // [2 stages][m, 1/l, D][N]
+
+    const int tiles = n / N;
+    const int tid = threadIdx.x;
+    const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, qd = lane & 3;
+    const int h = blockIdx.x / tiles, kt = blockIdx.x - h * tiles;
+    const int w = blockIdx.y;
+    const int b0 = blockIdx.z * per_group;
+    const int c = heads * DH;
+    const int k0 = N * kt + 16 * warp + g;   // this lane's keys: k0, k0 + 8
+    const size_t head_base = static_cast<size_t>(w) * batch * n * c + static_cast<size_t>(h) * DH;
+    auto row_base = [&](int b) { return head_base + static_cast<size_t>(b) * n * c; };
+    const size_t count = static_cast<size_t>(gridDim.y) * batch * heads * n;
+    const int steps = per_group * tiles;     // (batch row, query block) in order
+    auto copy_step = [&](int s) {
+        const int i = s / tiles, qt = s - i * tiles;
+        const int b = b0 + i;
+        const size_t off = row_base(b);
+        T* st = ring + (s & 1) * 2 * TE;
+        F::copy_tile<T, DH>(st, q + off, c, N * qt, n);
+        F::copy_tile<T, DH>(st + TE, dout + off, c, N * qt, n);
+        if (tid < 3 * N / 4) {               // the block's statistics, 16 bytes a thread
+            const int which = tid / (N / 4), part = tid - which * (N / 4);
+            const size_t at = which * count +
+                              ((static_cast<size_t>(w) * batch + b) * heads + h) * n + N * qt +
+                              4 * part;
+            mmd_tc::cp_async16(sring + (s & 1) * 3 * N + which * N + 4 * part, stats + at, true);
+        }
+        if (qt == 0) {
+            T* rt = rows + (i & 1) * 2 * TE;
+            F::copy_tile<T, DH>(rt, k + off, c, N * kt, n);
+            F::copy_tile<T, DH>(rt + TE, v + off, c, N * kt, n);
+        }
+    };
+    copy_step(0);
+    mmd_tc::cp_async_commit();
+
+    // bias^T: the lane's keys k0 + 8 r against the block's queries
+    const float* bt = bias + (static_cast<size_t>(w) * heads + h) * n * n + k0;
+
+    typename Op::A ka, va;
+    float dva[DH / 8][4], dka[DH / 8][4];
+    F::zero(dva);
+    F::zero(dka);
+    for (int s = 0; s < steps; ++s) {
+        const int i = s / tiles, qt = s - i * tiles;
+        if (s + 1 < steps) copy_step(s + 1);  // under this block's work
+        mmd_tc::cp_async_commit();
+        float bs[NT][4];
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e)
+                bs[nt][e] = __ldg(bt + static_cast<size_t>(N * qt + 8 * nt + 2 * qd + (e & 1)) * n +
+                                  8 * (e >> 1));
+        mmd_tc::cp_async_wait<1>();          // this block's tiles have landed
+        __syncthreads();
+        const T* qs = ring + (s & 1) * 2 * TE;
+        const T* dos = qs + TE;
+        const float* sm = sring + (s & 1) * 3 * N;
+        if (qt == 0) {                       // a new batch row
+            const T* rt = rows + (i & 1) * 2 * TE;
+            Op::load_a(ka, rt, 16 * warp);
+            Op::load_a(va, rt + TE, 16 * warp);
+            F::zero(dva);
+            F::zero(dka);
+        }
+        float pt[NT][4], dst[NT][4];
+        F::zero(pt);
+        F::zero(dst);
+        Op::template scores<NT>(pt, ka, qs);     // S^T
+        Op::template scores<NT>(dst, va, dos);   // dP^T
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+                const int qi = 8 * nt + 2 * qd + (e & 1);
+                const float pe = exp2f(pt[nt][e] + bs[nt][e] - sm[qi]) * sm[N + qi];
+                pt[nt][e] = pe;
+                dst[nt][e] = LN2 * pe * (dst[nt][e] - sm[2 * N + qi]);
+            }
+        pv_exact<DH>(dva, pt, dos);
+        pv_exact<DH>(dka, dst, qs);
+        if (qt == tiles - 1) {
+            const size_t base = row_base(b0 + i) + static_cast<size_t>(N * kt) * c;
+            store_rows<T, DH>(dv + base, c, dva);
+            store_rows<T, DH>(dk + base, c, dka);
+        }
+        __syncthreads();                     // this stage is free for the block after next
+    }
+}
+
 // dbias[e] = sum over groups g of ws[g, e], in the order of g.
 __global__ void __launch_bounds__(SUM_THREADS)
 swin_train_dbias_kernel(const float* __restrict__ ws, float* __restrict__ dbias, int groups,
@@ -468,8 +811,21 @@ swin_train_dbias_kernel(const float* __restrict__ ws, float* __restrict__ dbias,
 
 template <typename T, int DH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* bias, void* o,
-                       int windows, int batch, int heads, int groups, int device,
+                       int windows, int batch, int n, int heads, int groups, int device,
                        cudaStream_t stream) {
+    if (n != N) {
+        constexpr size_t smem = S::blocked_fwd_smem_bytes<T, DH>();
+        static std::atomic<uint64_t> raised{0};
+        cudaError_t err =
+            S::allow_smem(swin_train_fwd_blocked_kernel<T, DH>, smem, device, raised);
+        if (err != cudaSuccess) return err;
+        swin_train_fwd_blocked_kernel<T, DH>
+            <<<dim3(heads * (n / N), windows, groups), F::THREADS, smem, stream>>>(
+                static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+                static_cast<const float*>(bias), static_cast<T*>(o), batch, heads, n,
+                batch / groups);
+        return cudaGetLastError();
+    }
     constexpr size_t smem = S::fwd_smem_bytes<T, DH>();
     static std::atomic<uint64_t> raised{0};
     cudaError_t err = S::allow_smem(swin_train_fwd_kernel<T, DH>, smem, device, raised);
@@ -480,11 +836,51 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, const void* 
     return cudaGetLastError();
 }
 
+// n = 64 T, T > 1: the query side, the key side, and the dbias sum where
+// there are groups
+template <typename T, int DH>
+cudaError_t launch_bwd_blocked(const void* q, const void* k, const void* v, const void* bias,
+                               const void* dout, void* dq, void* dk, void* dv, void* dbias,
+                               void* ws, int windows, int batch, int n, int heads, int groups,
+                               int device, cudaStream_t stream) {
+    const int64_t elems = static_cast<int64_t>(windows) * heads * n * n;
+    float* parts = static_cast<float*>(groups == 1 ? dbias : ws);
+    float* stats = static_cast<float*>(ws) + (groups == 1 ? 0 : groups * elems);
+    const dim3 grid(heads * (n / N), windows, groups);
+    constexpr size_t smem_q = bwd_q_smem_bytes<T, DH>();
+    static std::atomic<uint64_t> raised_q{0};
+    cudaError_t err = S::allow_smem(swin_train_bwd_q_kernel<T, DH>, smem_q, device, raised_q);
+    if (err != cudaSuccess) return err;
+    swin_train_bwd_q_kernel<T, DH><<<grid, F::THREADS, smem_q, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const float*>(bias), static_cast<const T*>(dout), static_cast<T*>(dq), parts,
+        stats, batch, heads, n, batch / groups);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    constexpr size_t smem_kv = bwd_kv_smem_bytes<T, DH>();
+    static std::atomic<uint64_t> raised_kv{0};
+    err = S::allow_smem(swin_train_bwd_kv_kernel<T, DH>, smem_kv, device, raised_kv);
+    if (err != cudaSuccess) return err;
+    swin_train_bwd_kv_kernel<T, DH><<<grid, F::THREADS, smem_kv, stream>>>(
+        static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
+        static_cast<const float*>(bias), static_cast<const T*>(dout), static_cast<T*>(dk),
+        static_cast<T*>(dv), stats, batch, heads, n, batch / groups);
+    err = cudaGetLastError();
+    if (err != cudaSuccess || groups == 1) return err;
+    swin_train_dbias_kernel<<<static_cast<unsigned>((elems + SUM_THREADS - 1) / SUM_THREADS),
+                              SUM_THREADS, 0, stream>>>(parts, static_cast<float*>(dbias), groups,
+                                                        elems);
+    return cudaGetLastError();
+}
+
 template <typename T, int DH>
 cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* bias,
                        const void* dout, void* dq, void* dk, void* dv, void* dbias, void* ws,
-                       int windows, int batch, int heads, int groups, int device,
+                       int windows, int batch, int n, int heads, int groups, int device,
                        cudaStream_t stream) {
+    if (n != N)
+        return launch_bwd_blocked<T, DH>(q, k, v, bias, dout, dq, dk, dv, dbias, ws, windows,
+                                         batch, n, heads, groups, device, stream);
     constexpr size_t smem = bwd_smem_bytes<T, DH>();
     static std::atomic<uint64_t> raised{0};
     cudaError_t err = S::allow_smem(swin_train_bwd_kernel<T, DH>, smem, device, raised);
@@ -507,11 +903,13 @@ cudaError_t launch_bwd(const void* q, const void* k, const void* v, const void* 
 }  // namespace
 
 // C entry points, bound with ctypes. q, k, v, o, dout, dq, dk, dv are
-// (windows, batch, 64, heads * head_dim) contiguous, of one dtype (0 =
-// float32, 1 = bfloat16); bias and dbias (windows, heads, 64, 64) fp32;
-// groups divides batch; ws is an fp32 workspace of groups * windows * heads
-// * 64 * 64 floats, unused (and may be NULL) when groups is 1. Each returns
-// the cudaError_t of its launches (0 on success).
+// (windows, batch, n, heads * head_dim) contiguous with n = 64 T (T >= 1),
+// of one dtype (0 = float32, 1 = bfloat16); bias and dbias (windows, heads,
+// n, n) fp32; groups divides batch; ws is an fp32 workspace: groups *
+// windows * heads * n * n floats when groups > 1, then, when n > 64, 3 *
+// windows * batch * heads * n floats (the row statistics); it may be NULL
+// when it would be empty. Each returns the cudaError_t of its launches (0
+// on success).
 extern "C" int mmd_swin_attn_train_fwd(const void* q, const void* k, const void* v,
                                        const void* bias, void* o, int windows, int batch,
                                        int n, int heads, int head_dim, int groups, int dtype,
@@ -520,15 +918,17 @@ extern "C" int mmd_swin_attn_train_fwd(const void* q, const void* k, const void*
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0 && head_dim == 32)
-        return launch_fwd<float, 32>(q, k, v, bias, o, windows, batch, heads, groups, device, st);
+        return launch_fwd<float, 32>(q, k, v, bias, o, windows, batch, n, heads, groups, device,
+                                     st);
     if (dtype == 0 && head_dim == 64)
-        return launch_fwd<float, 64>(q, k, v, bias, o, windows, batch, heads, groups, device, st);
+        return launch_fwd<float, 64>(q, k, v, bias, o, windows, batch, n, heads, groups, device,
+                                     st);
     if (dtype == 1 && head_dim == 32)
-        return launch_fwd<__nv_bfloat16, 32>(q, k, v, bias, o, windows, batch, heads, groups,
-                                             device, st);
+        return launch_fwd<__nv_bfloat16, 32>(q, k, v, bias, o, windows, batch, n, heads,
+                                             groups, device, st);
     if (dtype == 1 && head_dim == 64)
-        return launch_fwd<__nv_bfloat16, 64>(q, k, v, bias, o, windows, batch, heads, groups,
-                                             device, st);
+        return launch_fwd<__nv_bfloat16, 64>(q, k, v, bias, o, windows, batch, n, heads,
+                                             groups, device, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -538,20 +938,21 @@ extern "C" int mmd_swin_attn_train_bwd(const void* q, const void* k, const void*
                                        int n, int heads, int head_dim, int groups, int dtype,
                                        int device, void* stream) {
     cudaError_t err = S::enter(windows, batch, n, heads, groups, device);
-    if (err == cudaSuccess && groups > 1 && ws == nullptr) err = cudaErrorInvalidValue;
+    if (err == cudaSuccess && (groups > 1 || n != N) && ws == nullptr)
+        err = cudaErrorInvalidValue;
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaStream_t st = static_cast<cudaStream_t>(stream);
     if (dtype == 0 && head_dim == 32)
         return launch_bwd<float, 32>(q, k, v, bias, dout, dq, dk, dv, dbias, ws, windows, batch,
-                                     heads, groups, device, st);
+                                     n, heads, groups, device, st);
     if (dtype == 0 && head_dim == 64)
         return launch_bwd<float, 64>(q, k, v, bias, dout, dq, dk, dv, dbias, ws, windows, batch,
-                                     heads, groups, device, st);
+                                     n, heads, groups, device, st);
     if (dtype == 1 && head_dim == 32)
         return launch_bwd<__nv_bfloat16, 32>(q, k, v, bias, dout, dq, dk, dv, dbias, ws, windows,
-                                             batch, heads, groups, device, st);
+                                             batch, n, heads, groups, device, st);
     if (dtype == 1 && head_dim == 64)
         return launch_bwd<__nv_bfloat16, 64>(q, k, v, bias, dout, dq, dk, dv, dbias, ws, windows,
-                                             batch, heads, groups, device, st);
+                                             batch, n, heads, groups, device, st);
     return static_cast<int>(cudaErrorInvalidValue);
 }

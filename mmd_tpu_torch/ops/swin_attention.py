@@ -18,11 +18,14 @@ bf16 kernel also rounds the squares before the norms.)
 
   * CUDA tensors go to the kernel (ops/csrc/swin_window_attn.cu over the
     forward body it shares with the fine-tuning forward, swin_fwd.cuh): n
-    = 64, head dims 32 and 64, float32 or bfloat16, the batch split into
-    the groups of `batch_groups`; in bf16 it rounds the unnormalized P to
-    bf16 before P.V, as the JAX kernel does. It raises on the rest, and on
-    inputs that require grad while grad is enabled, since it has no
-    backward (neither has the JAX package's serving kernel).
+    = 64 (8 x 8 windows) or any multiple of 64 (16 x 16: 256, 24 x 24:
+    576, 32 x 32: 1024, which walk the keys in blocks of 64 with an online
+    softmax), head dims 32 and 64, float32 or bfloat16, the batch split
+    into the groups of `batch_groups`; in bf16 it rounds the unnormalized P
+    to bf16 before P.V, as the JAX kernel does (above n 64, P relative to
+    the running max). It raises on the rest, and on inputs that require
+    grad while grad is enabled, since it has no backward (neither has the
+    JAX package's serving kernel).
   * CPU tensors go to `swin_window_attention_infer_plain`.
 
 Fine-tuning: `swin_window_attention`, the counterpart of the JAX package's
@@ -39,10 +42,13 @@ and the backward returns dq', dk, dv and dbias (summed over the batch,
 the gradient of the continuous position bias MLP):
 
   * CUDA tensors go to the kernels (ops/csrc/swin_window_attn_train.cu):
-    n = 64, head dims 32 and 64, float32 or bfloat16; in bf16 the forward
-    rounds the unnormalized P to bf16 before P.V, as the JAX kernel does,
-    and the backward keeps P and dS to ~2^-17 (bf16 hi + lo) in its
-    products, as the JAX kernel keeps them in fp32;
+    n = 64 or any multiple of 64, head dims 32 and 64, float32 or
+    bfloat16; in bf16 the forward rounds the unnormalized P to bf16 before
+    P.V, as the JAX kernel does, and the backward keeps P and dS to ~2^-17
+    (bf16 hi + lo) in its products, as the JAX kernel keeps them in fp32.
+    Above n 64 the backward is two launches (a query side that makes the
+    row statistics, dq and dbias, a key side that makes dk and dv) over a
+    workspace of `bwd_workspace_floats`;
   * CPU tensors go to `swin_window_attention_plain` and
     `swin_window_attention_bwd_plain`.
 """
@@ -67,7 +73,15 @@ _launch_lock = threading.Lock()
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (32, 64)
-_TOKENS = 64
+# The tokens a window the kernels take: 64 (an 8 x 8 window, one tile) and
+# every larger multiple of 64 (16 x 16, 24 x 24, 32 x 32, ...: the blocked
+# kernels, which walk 64 keys at a time), below the entry points' 65536.
+_BLOCK = 64
+_MAX_TOKENS = 65535
+
+
+def _tokens_ok(n: int) -> bool:
+    return 0 < n <= _MAX_TOKENS and n % _BLOCK == 0
 
 
 def _group_size(dh: int, heads: int) -> int:
@@ -80,12 +94,15 @@ def _group_size(dh: int, heads: int) -> int:
 
 def fused_ok(window: int, dh: int, heads: int) -> bool:
     """Which blocks take the fused kernels: the JAX package's rule
-    (models/swin.py::_fused_ok), narrowed to what kernels #7, #8 and #9
-    take -- windows of 64 tokens and head dims 32 or 64. Another window
-    (16 x 16, say, which the JAX rule admits) takes the explicit path."""
+    (models/swin.py::_fused_ok: n % 8 == 0 and (g n) % 128 == 0 for the
+    group size g of `_group_size`), narrowed to the head dims kernels #7,
+    #8 and #9 take, 32 and 64 (the JAX rule also admits 128). For those
+    head dims it admits windows 8 (n 64), 16 (n 256), 24 (n 576, where g
+    is even) and 32 (n 1024): every admitted window is a multiple of 8, so
+    its n is a multiple of 64, which the kernels take."""
     n = window * window
-    return (n == _TOKENS and dh in _HEAD_DIMS
-            and (_group_size(dh, heads) * n) % 128 == 0)
+    return (dh in _HEAD_DIMS and n % 8 == 0
+            and (_group_size(dh, heads) * n) % 128 == 0 and _tokens_ok(n))
 
 
 def _split(x: torch.Tensor, heads: int) -> torch.Tensor:
@@ -149,9 +166,9 @@ def _check_kernel_inputs(q, k, v, bias, scale, heads):
         raise ValueError(f"q, k, v must be (nW, B, n, C) of one shape, not "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     nw, b, n, c = q.shape
-    if n != _TOKENS:
-        raise ValueError(f"the kernel takes windows of {_TOKENS} tokens, "
-                         f"not {n}")
+    if not _tokens_ok(n):
+        raise ValueError(f"the kernel takes windows of a multiple of "
+                         f"{_BLOCK} tokens, not {n}")
     if c % heads or c // heads not in _HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {_HEAD_DIMS}; C={c} "
                          f"over {heads} heads")
@@ -187,8 +204,9 @@ def _swin_attention_cuda(q, k, v, bias, scale, heads):
     dev = q.get_device()
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             scale.data_ptr(), o.data_ptr(), nw, b, n, heads, c // heads,
-            bias.shape[0], batch_groups(nw, b, heads), _DTYPE_CODES[q.dtype],
-            dev, torch._C._cuda_getCurrentRawStream(dev))
+            bias.shape[0], batch_groups(nw, b, heads, n),
+            _DTYPE_CODES[q.dtype], dev,
+            torch._C._cuda_getCurrentRawStream(dev))
     if rc:
         cuda_build.check_launch(rc, f"swin_window_attn {tuple(q.shape)} "
                                     f"{heads} heads {q.dtype}")
@@ -240,18 +258,28 @@ def swin_window_attention_plain(q, k, v, bias, heads: int) -> torch.Tensor:
     return _merge(_softmax2(qh, kh, bias) @ vh).to(q.dtype)
 
 
-def swin_window_attention_bwd_plain(q, k, v, bias, do, heads: int):
+def _hi_lo(w: torch.Tensor) -> torch.Tensor:
+    """w as the bf16 backward feeds it to a product: bf16 hi plus bf16 lo
+    (what rounding to bf16 left, rounded in turn), ~2^-17 of w."""
+    hi = w.to(torch.bfloat16).float()
+    return hi + (w - hi).to(torch.bfloat16).float()
+
+
+def swin_window_attention_bwd_plain(q, k, v, bias, do, heads: int,
+                                    split_weights: bool = False):
     """The backward kernel's function in plain PyTorch, fp32 throughout
     (`_bwd_kernel`: ds = ln2 P (dP - rowsum(dP P))) -> dq, dk, dv in q's
-    dtype and dbias (nW, heads, n, n) fp32, the sum of ds over the
-    batch."""
+    dtype and dbias (nW, heads, n, n) fp32, the sum of ds over the batch.
+    split_weights: P and dS enter dq, dk and dv as the bf16 kernel feeds
+    them, bf16 hi + lo (its mirror, against which the card holds it)."""
     qh, kh, vh, doh = (_split(x, heads).float() for x in (q, k, v, do))
     p = _softmax2(qh, kh, bias)
-    dv = p.transpose(-1, -2) @ doh
     dp = doh @ vh.transpose(-1, -2)
     ds = _LN2 * p * (dp - (dp * p).sum(dim=-1, keepdim=True))
-    dq = ds @ kh
-    dk = ds.transpose(-1, -2) @ qh
+    pw, dsw = (_hi_lo(p), _hi_lo(ds)) if split_weights else (p, ds)
+    dv = pw.transpose(-1, -2) @ doh
+    dq = dsw @ kh
+    dk = dsw.transpose(-1, -2) @ qh
     return (*(_merge(x).to(q.dtype) for x in (dq, dk, dv)), ds.sum(dim=1))
 
 
@@ -268,21 +296,34 @@ def load_train_bwd_kernel():
 
 
 @functools.lru_cache(maxsize=256)
-def batch_groups(windows: int, batch: int, heads: int) -> int:
+def batch_groups(windows: int, batch: int, heads: int, n: int) -> int:
     """Batch groups of the forwards, serving (#7) and fine-tuning (#8):
-    their CTAs are (head, window, group), each walking batch / groups rows. The fewest groups (a divisor
-    of the batch) that give `_CTAS` CTAs, or one group per batch row."""
-    return _fewest_groups(windows * heads, batch, _CTAS)
+    their CTAs are (query tile, head, window, group) -- n / 64 query tiles
+    of a window -- each walking batch / groups rows. The fewest groups (a
+    divisor of the batch) that give `_CTAS` CTAs, or one group per batch
+    row."""
+    return _fewest_groups(windows * heads * (n // _BLOCK), batch, _CTAS)
 
 
 @functools.lru_cache(maxsize=256)
-def bwd_batch_groups(windows: int, batch: int, heads: int) -> int:
-    """Batch groups of the fine-tuning backward, whose CTAs are (head,
-    window, group) too. One group (every batch row of a (window, head) in
-    one CTA, dbias written by it, one launch) unless that leaves the card
-    short of `_BWD_CTAS` CTAs; then the fewest groups that give them, each
-    writing its part of dbias to a workspace that a second launch sums."""
-    return _fewest_groups(windows * heads, batch, _BWD_CTAS)
+def bwd_batch_groups(windows: int, batch: int, heads: int, n: int) -> int:
+    """Batch groups of the fine-tuning backward, whose CTAs are (query or
+    key tile, head, window, group) too. One group (every batch row of a
+    tile in one CTA, dbias written by the CTAs, no sum) unless that leaves
+    the card short of `_BWD_CTAS` CTAs; then the fewest groups that give
+    them, each writing its part of dbias to a workspace that a last launch
+    sums."""
+    return _fewest_groups(windows * heads * (n // _BLOCK), batch, _BWD_CTAS)
+
+
+def bwd_workspace_floats(windows: int, batch: int, heads: int, n: int,
+                         groups: int) -> int:
+    """The fp32 workspace of the fine-tuning backward: the groups' parts of
+    dbias when there are groups, then, above n 64, the query side's row
+    statistics (m, 1 / l and D, each (nW, B, heads, n)) for the key
+    side."""
+    parts = groups * windows * heads * n * n if groups > 1 else 0
+    return parts + (3 * windows * batch * heads * n if n > _BLOCK else 0)
 
 
 def _fewest_groups(pairs: int, batch: int, ctas: int) -> int:
@@ -300,9 +341,9 @@ def _check_train_inputs(q, k, v, bias, heads, do=None):
         raise ValueError(f"q, k, v must be (nW, B, n, C) of one shape, not "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
     nw, b, n, c = shape
-    if n != _TOKENS:
-        raise ValueError(f"the kernel takes windows of {_TOKENS} tokens, "
-                         f"not {n}")
+    if not _tokens_ok(n):
+        raise ValueError(f"the kernel takes windows of a multiple of "
+                         f"{_BLOCK} tokens, not {n}")
     dh, rem = divmod(c, heads)
     if rem or dh not in _HEAD_DIMS:
         raise ValueError(f"the kernel takes head dims {_HEAD_DIMS}; C={c} "
@@ -341,7 +382,8 @@ def _swin_train_fwd_cuda(q, k, v, bias, heads):
     stream = torch._C._cuda_getCurrentRawStream(dev)
     rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             o.data_ptr(), nw, b, n, heads, c // heads,
-            batch_groups(nw, b, heads), _DTYPE_CODES[q.dtype], dev, stream)
+            batch_groups(nw, b, heads, n), _DTYPE_CODES[q.dtype], dev,
+            stream)
     if rc:
         cuda_build.check_launch(rc, f"swin_attn_train_fwd {tuple(q.shape)} "
                                     f"{heads} heads {q.dtype}")
@@ -354,12 +396,14 @@ def _swin_train_bwd_cuda(q, k, v, bias, do, heads):
     global train_bwd_launches
     _check_train_inputs(q, k, v, bias, heads, do)
     nw, b, n, c = q.shape
-    groups = bwd_batch_groups(nw, b, heads)
+    groups = bwd_batch_groups(nw, b, heads, n)
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
-    # the groups' parts of dbias, for the second launch to sum
-    ws = torch.empty((groups, *bias.shape), dtype=torch.float32,
-                     device=q.device) if groups > 1 else None
+    # the groups' parts of dbias, for the last launch to sum, and above n 64
+    # the row statistics
+    floats = bwd_workspace_floats(nw, b, heads, n, groups)
+    ws = torch.empty(floats, dtype=torch.float32,
+                     device=q.device) if floats else None
     cuda_build.check_aligned(q, k, v, bias, do, dq, dk, dv, dbias)
     fn = load_train_bwd_kernel()
     dev = q.get_device()

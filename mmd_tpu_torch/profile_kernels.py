@@ -27,12 +27,13 @@ calls timed with CUDA events measures the host, not the kernel. It needs
 a CUDA device.
 
 `swin_calls` does the same for the Swin fine-tuning forward (#8,
-`swin_window_attention_fwd`) at the four Swinv2-base stage geometries of a
+`swin_window_attention_fwd`) at the Swinv2-base stage geometries of a
 fine-tuning step (batch 8, bf16), beside one SDPA call that computes the
 same function on the same inputs, as chip_smoke.py times it (its host us a
-call and its device us, all kernels of the call), and a digest of the
+call and its device us, all kernels of the call), a digest of the
 forward's output (inputs from a fixed seed: two trees compare bit for
-bit). It also times each piece of the wrapper's call path alone (2000
+bit), and the device us of the C entry point at each batch split that
+divides the batch. It also times each piece of the wrapper's call path alone (2000
 calls each), down to the C entry point with its arguments, which launches
 the kernel: what is left of a host-bound call past those pieces is
 Python's own calls and the launch counter. It needs a CUDA device.
@@ -60,6 +61,14 @@ that divides the batch (the grid's groups: one launch with one group, a
 second that sums dbias with more). Last, the bf16 and fp32 device us summed
 over a fine-tuning step's 48 calls. It runs on an older tree too, for a
 parent/change comparison in one run. It needs a CUDA device.
+
+The three Swin subcommands run at every window size the tree's wrappers
+take: Swinv2-base's four stages at 8 x 8 windows (64 tokens), then its
+stages 0-2 at 16 x 16 (256) and 24 x 24 (576) windows, the blocked kernels
+(an older tree: 64 tokens only). Each line names its `n`; the sums are a
+window size's calls of a served batch or a step (stages 0-2 only above 64
+tokens), at the wrapper's split and, where every split is timed, at the
+fastest.
 
 `deberta_fwd_calls` times the DeBERTa attention forward (#10,
 `deberta_attention`) at the served geometry (B 16, T 512) and the
@@ -175,6 +184,16 @@ SWIN_SERVED = {(64, 128, 4, 1): 2, (64, 128, 4, 64): 2, (16, 256, 8, 1): 2,
 # the backward's calls a fine-tuning step at each stage: 2 images x the
 # stage's blocks (chip_smoke.py's FT_SWIN_GEOMS)
 SWIN_CALLS_A_STEP = {"stage0": 4, "stage1": 4, "stage2": 36, "stage3": 4}
+# stages 0-2 of Swinv2-base at 16 x 16 and 24 x 24 windows, the blocked
+# kernels (chip_smoke.py's SWIN_BLOCKED_GEOMS and FT_SWIN_BLOCKED_GEOMS):
+# a served batch's calls by (windows, C, heads, bias windows), a
+# fine-tuning step's stages as SWIN_GEOMETRIES
+SWIN_TOKENS = (64, 256, 576)
+SWIN_BLOCKED_SERVED = {(16, 128, 4, 1): 2, (16, 128, 4, 16): 2,
+                       (4, 256, 8, 1): 2, (4, 256, 8, 4): 2,
+                       (1, 512, 16, 1): 36}
+SWIN_BLOCKED_GEOMETRIES = [("stage0", 16, 128, 4), ("stage1", 4, 256, 8),
+                           ("stage2", 1, 512, 16)]
 # the DeBERTa attention backward of a fine-tuning step (chip_smoke.py's
 # FT_DEBERTA): B, T, D, heads
 DEBERTA_BWD = (8, 256, 384, 6)
@@ -297,12 +316,29 @@ def flash_calls() -> None:
             / 200, "card": P.card()}), flush=True)
 
 
-def _swin_inputs(dev, gen, nw: int, c: int, h: int,
+def _swin_tables(SA) -> list:
+    """(n, a served batch's calls, a step's stages) at each window size
+    this tree's wrappers take (an older tree's: 64 tokens only)."""
+    ok = getattr(SA, "_tokens_ok", lambda n: n == 64)
+    return [(n, SWIN_SERVED, SWIN_GEOMETRIES) if n == 64 else
+            (n, SWIN_BLOCKED_SERVED, SWIN_BLOCKED_GEOMETRIES)
+            for n in SWIN_TOKENS if ok(n)]
+
+
+def _groups(split, nw: int, b: int, h: int, n: int) -> int:
+    """The wrapper's batch split; an older tree's takes no n (64 only)."""
+    try:
+        return split(nw, b, h, n)
+    except TypeError:
+        return split(nw, b, h)
+
+
+def _swin_inputs(dev, gen, nw: int, c: int, h: int, n: int,
                  dtype=torch.bfloat16):
     """q', k, v and the log2-domain bias as the model makes them (see
     chip_smoke.py's phase_swin_train), in `dtype` (bias fp32); and SDPA's
     view of them."""
-    b, n, dh, log2e = SWIN_BATCH, 64, c // h, 1.4426950408889634
+    b, dh, log2e = SWIN_BATCH, c // h, 1.4426950408889634
 
     def unit(x):
         x = x.reshape(nw, b, n, h, dh)
@@ -343,7 +379,7 @@ def _swin_pieces(SA, q, k, v, bias, h: int) -> dict:
     def c_call(dtype=None):
         o, fn, dev = torch.empty_like(q), SA.load_train_kernel(), \
             q.get_device()
-        args = (nw, b, n, h, c // h, SA.batch_groups(nw, b, h),
+        args = (nw, b, n, h, c // h, _groups(SA.batch_groups, nw, b, h, n),
                 SA._DTYPE_CODES[q.dtype] if dtype is None else dtype, dev,
                 torch._C._cuda_getCurrentRawStream(dev))
         if len(fn.argtypes) != 5 + len(args):   # another tree's signature
@@ -360,7 +396,8 @@ def _swin_pieces(SA, q, k, v, bias, h: int) -> dict:
         "get_device": lambda: q.get_device,
         "raw_stream": lambda: partial(torch._C._cuda_getCurrentRawStream,
                                       dev),
-        "batch_groups": lambda: partial(SA.batch_groups, nw, b, h),
+        "batch_groups": lambda: partial(_groups, SA.batch_groups, nw, b, h,
+                                        n),
         # the entry point refusing dtype code -1 before any launch: ctypes
         # and the C function's own checks
         "c_entry": lambda: c_call(dtype=-1),
@@ -384,38 +421,63 @@ def swin_calls() -> None:
     print(json.dumps({"card": P.card()}), flush=True)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    for name, nw, c, h in SWIN_GEOMETRIES:
-        (q, k, v, bias), (q4, k4, v4, m4) = _swin_inputs(dev, gen, nw, c, h)
-        call = lambda: SA.swin_window_attention_fwd(  # noqa: E731
-            q, k, v, bias, h)
-        lib = lambda: sdpa(q4, k4, v4, attn_mask=m4,  # noqa: E731
-                           scale=math.log(2.0))
-        host_us = _host_us(call)
-        win = P.profile_window(call, 200,
-                               {"swin_train_fwd_kernel": "swin"})
-        lib_host_us = _host_us(lib)
-        lib_win = P.profile_window(lib, 200, {})
-        piece_us = _swin_pieces(SA, q, k, v, bias, h)
-        out = call().float().cpu().numpy()
-        print(json.dumps({
-            "geometry": name, "nW": nw, "B": SWIN_BATCH, "C": c, "H": h,
-            "o_sha256": hashlib.sha256(out.tobytes()).hexdigest()[:16],
-            "host_us_a_call": host_us,
-            "kernel_device_us_a_launch": win["kernels_ms"]["swin"] * 1e3
-            / 200,
-            "sdpa_host_us_a_call": lib_host_us,
-            "sdpa_device_us_a_call": lib_win["device_busy_ms"] * 1e3 / 200,
-            "piece_host_us": piece_us,
-            "rest_host_us": host_us - sum(
-                x for k_, x in piece_us.items()
-                if x is not None and k_ != "c_entry"),
+    for n, _, stages in _swin_tables(SA):
+        step = {"device_us": 0.0, "device_us_fastest_split": 0.0}
+        for name, nw, c, h in stages:
+            (q, k, v, bias), (q4, k4, v4, m4) = _swin_inputs(dev, gen, nw, c,
+                                                             h, n)
+            call = lambda: SA.swin_window_attention_fwd(  # noqa: E731
+                q, k, v, bias, h)
+            lib = lambda: sdpa(q4, k4, v4, attn_mask=m4,  # noqa: E731
+                               scale=math.log(2.0))
+            host_us = _host_us(call)
+            win = P.profile_window(call, 200, {"swin_train_fwd": "swin"})
+            lib_host_us = _host_us(lib)
+            lib_win = P.profile_window(lib, 200, {})
+            piece_us = _swin_pieces(SA, q, k, v, bias, h)
+            by_groups = {}
+            for g in (d for d in range(1, SWIN_BATCH + 1)
+                      if SWIN_BATCH % d == 0):
+                entry = _swin_fwd_entry(SA, q, k, v, bias, h, g)
+                if entry is None:
+                    by_groups = None
+                    break
+                by_groups[g] = P.profile_window(
+                    entry, 50, {"swin_train_fwd": "swin"})[
+                    "kernels_ms"]["swin"] * 1e3 / 50
+            out = call().float().cpu().numpy()
+            device_us = win["kernels_ms"]["swin"] * 1e3 / 200
+            step["device_us"] += SWIN_CALLS_A_STEP[name] * device_us
+            if by_groups is not None:
+                step["device_us_fastest_split"] += \
+                    SWIN_CALLS_A_STEP[name] * min(by_groups.values())
+            print(json.dumps({
+                "geometry": name, "n": n, "nW": nw, "B": SWIN_BATCH,
+                "C": c, "H": h,
+                "groups": _groups(SA.batch_groups, nw, SWIN_BATCH, h, n),
+                "o_sha256": hashlib.sha256(out.tobytes()).hexdigest()[:16],
+                "host_us_a_call": host_us,
+                "kernel_device_us_a_launch": device_us,
+                "device_us_by_groups": by_groups,
+                "sdpa_host_us_a_call": lib_host_us,
+                "sdpa_device_us_a_call": lib_win["device_busy_ms"] * 1e3
+                / 200,
+                "piece_host_us": piece_us,
+                "rest_host_us": host_us - sum(
+                    x for k_, x in piece_us.items()
+                    if x is not None and k_ != "c_entry"),
+                "card": P.card()}), flush=True)
+            del q, k, v, bias, q4, k4, v4, m4
+            torch.cuda.empty_cache()
+        print(json.dumps({"n": n, "per_step": sum(
+            SWIN_CALLS_A_STEP[s[0]] for s in stages), "device_us_a_step": step,
             "card": P.card()}), flush=True)
 
 
-def _swin_infer_inputs(dev, gen, nw: int, c: int, h: int, nwb: int):
+def _swin_infer_inputs(dev, gen, nw: int, c: int, h: int, nwb: int,
+                       n: int):
     """Raw q, k, v (fp32), the natural-log bias and the clamped logit scale
     as chip_smoke.py's phase_swin makes them, at batch 16."""
-    n = 64
     q, k, v = (torch.randn(nw, BATCH, n, c, device=dev, generator=gen)
                for _ in range(3))
     bias = 16 * torch.rand(1, h, n, n, device=dev, generator=gen)
@@ -455,50 +517,56 @@ def swin_infer_calls() -> None:
     print(json.dumps({"card": P.card()}), flush=True)
     dev = torch.device("cuda")
     calls = 50
-    batch = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name_dt = str(dtype).split(".")[-1]
-        batch[name_dt] = {"device_us": 0.0, "event_us": 0.0}
-        gen = torch.Generator(device=dev).manual_seed(0)
-        for (nw, c, h, nwb), count in SWIN_SERVED.items():
-            q, k, v, bias, scale = _swin_infer_inputs(dev, gen, nw, c, h,
-                                                      nwb)
-            q, k, v = (x.to(dtype) for x in (q, k, v))
-            call = lambda: SA.swin_window_attention_infer(  # noqa: E731
-                q, k, v, bias, scale, h)
-            host_us = _host_us(call, 200)
-            enqueue_us = _enqueue_us(call)
-            event_us = _event_us(call)
-            win = P.profile_window(call, calls, {"swin_attn_kernel": "swin"})
-            device_us = win["kernels_ms"]["swin"] * 1e3 / calls
-            by_groups = {}
-            for g in (d for d in range(1, BATCH + 1) if BATCH % d == 0):
-                entry = _swin_infer_entry(SA, q, k, v, bias, scale, h, g)
-                if entry is None:
-                    by_groups = None
-                    break
-                by_groups[g] = P.profile_window(
-                    entry, calls, {"swin_attn_kernel": "swin"})[
-                    "kernels_ms"]["swin"] * 1e3 / calls
-            out = call().float().cpu().numpy()
-            batch[name_dt]["device_us"] += count * device_us
-            batch[name_dt]["event_us"] += count * event_us
-            print(json.dumps({
-                "nW": nw, "B": BATCH, "C": c, "H": h, "bias_windows": nwb,
-                "dtype": name_dt, "calls_a_batch": count,
-                "groups": (SA.batch_groups(nw, BATCH, h)
-                           if by_groups is not None else None),
-                "o_sha256": hashlib.sha256(out.tobytes()).hexdigest()[:16],
-                "host_us_a_call": host_us,
-                "host_enqueue_us_a_call": enqueue_us,
-                "event_us_a_call": event_us,
-                "device_us_a_launch": device_us,
-                "device_us_by_groups": by_groups,
-                "card": P.card()}), flush=True)
-            del q, k, v, bias
-            torch.cuda.empty_cache()
-    print(json.dumps({"per_batch": sum(SWIN_SERVED.values()),
-                      "us_a_batch": batch, "card": P.card()}), flush=True)
+    for n, served, _ in _swin_tables(SA):
+        batch = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            name_dt = str(dtype).split(".")[-1]
+            batch[name_dt] = {"device_us": 0.0, "event_us": 0.0,
+                              "device_us_fastest_split": 0.0}
+            gen = torch.Generator(device=dev).manual_seed(0)
+            for (nw, c, h, nwb), count in served.items():
+                q, k, v, bias, scale = _swin_infer_inputs(dev, gen, nw, c, h,
+                                                          nwb, n)
+                q, k, v = (x.to(dtype) for x in (q, k, v))
+                call = lambda: SA.swin_window_attention_infer(  # noqa: E731
+                    q, k, v, bias, scale, h)
+                host_us = _host_us(call, 200)
+                enqueue_us = _enqueue_us(call)
+                event_us = _event_us(call)
+                win = P.profile_window(call, calls, {"swin_attn": "swin"})
+                device_us = win["kernels_ms"]["swin"] * 1e3 / calls
+                by_groups = {}
+                for g in (d for d in range(1, BATCH + 1) if BATCH % d == 0):
+                    entry = _swin_infer_entry(SA, q, k, v, bias, scale, h, g)
+                    if entry is None:
+                        by_groups = None
+                        break
+                    by_groups[g] = P.profile_window(
+                        entry, calls, {"swin_attn": "swin"})[
+                        "kernels_ms"]["swin"] * 1e3 / calls
+                out = call().float().cpu().numpy()
+                batch[name_dt]["device_us"] += count * device_us
+                batch[name_dt]["event_us"] += count * event_us
+                if by_groups is not None:
+                    batch[name_dt]["device_us_fastest_split"] += \
+                        count * min(by_groups.values())
+                print(json.dumps({
+                    "n": n, "nW": nw, "B": BATCH, "C": c, "H": h,
+                    "bias_windows": nwb, "dtype": name_dt,
+                    "calls_a_batch": count,
+                    "groups": (_groups(SA.batch_groups, nw, BATCH, h, n)
+                               if by_groups is not None else None),
+                    "o_sha256": hashlib.sha256(out.tobytes()).hexdigest()[:16],
+                    "host_us_a_call": host_us,
+                    "host_enqueue_us_a_call": enqueue_us,
+                    "event_us_a_call": event_us,
+                    "device_us_a_launch": device_us,
+                    "device_us_by_groups": by_groups,
+                    "card": P.card()}), flush=True)
+                del q, k, v, bias
+                torch.cuda.empty_cache()
+        print(json.dumps({"n": n, "per_batch": sum(served.values()),
+                          "us_a_batch": batch, "card": P.card()}), flush=True)
 
 
 def _swin_bwd_entry(SA, q, k, v, bias, do, h: int, groups: int):
@@ -508,7 +576,12 @@ def _swin_bwd_entry(SA, q, k, v, bias, do, h: int, groups: int):
     fn, dev = SA.load_train_bwd_kernel(), q.get_device()
     dq, dk, dv = (torch.empty_like(q) for _ in range(3))
     dbias = torch.empty_like(bias)
-    ws = torch.empty((groups, *bias.shape), device=q.device)
+    # the workspace this tree's wrapper sizes (an older tree: the groups'
+    # dbias parts)
+    floats = (SA.bwd_workspace_floats(nw, b, h, n, groups)
+              if hasattr(SA, "bwd_workspace_floats")
+              else groups * bias.numel())
+    ws = torch.empty(max(floats, 1), device=q.device)
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
             do.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             dbias.data_ptr(), ws.data_ptr(), nw, b, n, h, c // h, groups,
@@ -533,63 +606,90 @@ def swin_bwd_calls() -> None:
     # an older tree splits the backward's batch as the forward's
     groups_of = getattr(SA, "bwd_batch_groups", SA.batch_groups)
     calls = 50
-    step = {}
-    for dtype in (torch.bfloat16, torch.float32):
-        name_dt = str(dtype).split(".")[-1]
-        step[name_dt] = 0.0
-        for name, nw, c, h in SWIN_GEOMETRIES:
-            (q, k, v, bias), (q4, k4, v4, m4) = _swin_inputs(
-                dev, gen, nw, c, h, dtype)
-            do = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
-            call = lambda: SA.swin_window_attention_bwd(  # noqa: E731
-                q, k, v, bias, do, h)
-            host_us = _host_us(call, 200)
-            enqueue_us = _enqueue_us(call)
-            event_us = _event_us(call)
-            win = P.profile_window(call, calls, {})
-            per_kernel = {k_: v_ * 1e3 / calls
-                          for k_, v_ in win["device_ms_top"].items()
-                          if "swin_train" in k_}
-            by_groups = {}
-            for g in (d for d in range(1, SWIN_BATCH + 1)
-                      if SWIN_BATCH % d == 0):
-                w = P.profile_window(_swin_bwd_entry(SA, q, k, v, bias, do,
-                                                     h, g), calls, {})
-                by_groups[g] = sum(v_ for k_, v_ in
-                                   w["device_ms_top"].items()
-                                   if "swin_train" in k_) * 1e3 / calls
-            # SDPA's backward with the mask's gradient, as chip_smoke.py's
-            # phase_swin_train takes its library time
-            leaves = [x.detach().requires_grad_() for x in (q4, k4, v4, m4)]
-            try:
-                o4 = sdpa(*leaves[:3], attn_mask=leaves[3],
-                          scale=math.log(2.0))
-                lib = lambda: torch.autograd.grad(  # noqa: E731
-                    o4, leaves, _sdpa_view(do, h), retain_graph=True)
-                lib_event_us = _event_us(lib)
-                lib_device_us = P.profile_window(lib, calls, {})[
-                    "device_busy_ms"] * 1e3 / calls
-            except RuntimeError:             # no backend gives dmask
-                lib_event_us = lib_device_us = None
-            device_us = sum(per_kernel.values())
-            step[name_dt] += SWIN_CALLS_A_STEP[name] * device_us
-            print(json.dumps({
-                "geometry": name, "nW": nw, "B": SWIN_BATCH, "C": c, "H": h,
-                "dtype": name_dt, "groups": groups_of(nw, SWIN_BATCH, h),
-                "host_us_a_call": host_us,
-                "host_enqueue_us_a_call": enqueue_us,
-                "event_us_a_call": event_us,
-                "device_us_a_call": device_us,
-                "device_us_by_kernel": per_kernel,
-                "device_us_by_groups": by_groups,
-                "sdpa_bwd_event_us_a_call": lib_event_us,
-                "sdpa_bwd_device_us_a_call": lib_device_us,
-                "card": P.card()}), flush=True)
-            del leaves, q, k, v, do
-            torch.cuda.empty_cache()
-    print(json.dumps({"per_step": sum(SWIN_CALLS_A_STEP.values()),
-                      "device_us_a_step": step, "card": P.card()}),
-          flush=True)
+    for n, _, stages in _swin_tables(SA):
+        step = {}
+        for dtype in (torch.bfloat16, torch.float32):
+            name_dt = str(dtype).split(".")[-1]
+            step[name_dt] = {"device_us": 0.0, "device_us_fastest_split": 0.0}
+            for name, nw, c, h in stages:
+                (q, k, v, bias), (q4, k4, v4, m4) = _swin_inputs(
+                    dev, gen, nw, c, h, n, dtype)
+                do = torch.randn(q.shape, device=dev, generator=gen).to(dtype)
+                call = lambda: SA.swin_window_attention_bwd(  # noqa: E731
+                    q, k, v, bias, do, h)
+                host_us = _host_us(call, 200)
+                enqueue_us = _enqueue_us(call)
+                event_us = _event_us(call)
+                win = P.profile_window(call, calls, {})
+                per_kernel = {k_: v_ * 1e3 / calls
+                              for k_, v_ in win["device_ms_top"].items()
+                              if "swin_train" in k_}
+                by_groups = {}
+                for g in (d for d in range(1, SWIN_BATCH + 1)
+                          if SWIN_BATCH % d == 0):
+                    w = P.profile_window(_swin_bwd_entry(
+                        SA, q, k, v, bias, do, h, g), calls, {})
+                    by_groups[g] = sum(v_ for k_, v_ in
+                                       w["device_ms_top"].items()
+                                       if "swin_train" in k_) * 1e3 / calls
+                # SDPA's backward with the mask's gradient, as
+                # chip_smoke.py's phase_swin_train takes its library time
+                leaves = [x.detach().requires_grad_()
+                          for x in (q4, k4, v4, m4)]
+                try:
+                    o4 = sdpa(*leaves[:3], attn_mask=leaves[3],
+                              scale=math.log(2.0))
+                    lib = lambda: torch.autograd.grad(  # noqa: E731
+                        o4, leaves, _sdpa_view(do, h), retain_graph=True)
+                    lib_event_us = _event_us(lib)
+                    lib_device_us = P.profile_window(lib, calls, {})[
+                        "device_busy_ms"] * 1e3 / calls
+                except RuntimeError:             # no backend gives dmask
+                    lib_event_us = lib_device_us = None
+                device_us = sum(per_kernel.values())
+                step[name_dt]["device_us"] += \
+                    SWIN_CALLS_A_STEP[name] * device_us
+                step[name_dt]["device_us_fastest_split"] += \
+                    SWIN_CALLS_A_STEP[name] * min(by_groups.values())
+                print(json.dumps({
+                    "geometry": name, "n": n, "nW": nw, "B": SWIN_BATCH,
+                    "C": c, "H": h, "dtype": name_dt,
+                    "groups": _groups(groups_of, nw, SWIN_BATCH, h, n),
+                    "host_us_a_call": host_us,
+                    "host_enqueue_us_a_call": enqueue_us,
+                    "event_us_a_call": event_us,
+                    "device_us_a_call": device_us,
+                    "device_us_by_kernel": per_kernel,
+                    "device_us_by_groups": by_groups,
+                    "sdpa_bwd_event_us_a_call": lib_event_us,
+                    "sdpa_bwd_device_us_a_call": lib_device_us,
+                    "card": P.card()}), flush=True)
+                del leaves, q, k, v, do
+                torch.cuda.empty_cache()
+        print(json.dumps({"n": n, "per_step": sum(
+            SWIN_CALLS_A_STEP[s_[0]] for s_ in stages),
+            "device_us_a_step": step, "card": P.card()}), flush=True)
+
+
+def _swin_fwd_entry(SA, q, k, v, bias, h: int, groups: int):
+    """#8's C entry point with the call's arguments at a given batch split:
+    one call, rc checked; None where the tree's entry point takes no batch
+    split."""
+    nw, b, n, c = q.shape
+    fn, dev = SA.load_train_kernel(), q.get_device()
+    if len(fn.argtypes) != 14:
+        return None
+    o = torch.empty_like(q)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            o.data_ptr(), nw, b, n, h, c // h, groups,
+            SA._DTYPE_CODES[q.dtype], dev,
+            torch._C._cuda_getCurrentRawStream(dev))
+
+    def call():
+        rc = fn(*args)
+        if rc:
+            raise RuntimeError(f"swin_attn_train_fwd: CUDA error {rc}")
+    return call
 
 
 def _enqueue_us(call, calls: int = 10, runs: int = 20) -> float:

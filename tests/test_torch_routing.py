@@ -10,10 +10,11 @@ JAX rule (every head dim from 32 up) except above head dim 128 and off the
 multiples of 16, which take the explicit path (ROADMAP §C); head dims 96
 (the fusion CLI's `--embed_dim 384 --num_heads 4`) and 128 (FakeNet's 2
 heads of 128, `--embed_dim 512 --num_heads 4`) take the flash kernels.
-Where the JAX package's rule admits more (16 x 16 windows, DeBERTa head
+Where the JAX package's rule admits more (Swin head dim 128, DeBERTa head
 dims other than 32 and 64), the port's rule is the JAX rule narrowed to
 the kernels' geometries, and those blocks take the explicit path, which
-draws the same dropout masks. Under tensor parallelism the DeBERTa rule
+draws the same dropout masks; Swin's 16 x 16, 24 x 24 and 32 x 32 windows
+take the kernels, as in the JAX package. Under tensor parallelism the DeBERTa rule
 reads the model's geometry and the kernel receives the rank's heads, which
 its checks accept.
 """
@@ -139,11 +140,29 @@ def test_swin_rule_admits_only_what_the_kernels_take(window, dh, heads):
 
 
 def test_swin_window_16_takes_the_explicit_path():
-    """fused_ok(16, 32, 4): the JAX rule admits it, the kernels take 64
-    tokens a window, so the port routes it to the explicit path."""
-    assert JS._fused_ok(16, 32, 4)
-    assert not SA.fused_ok(16, 32, 4)
-    assert SA.fused_ok(8, 32, 4)
+    """A 16 x 16 window takes the explicit path only where the port's rule
+    still narrows the JAX rule: head dim 128 (fused_ok(16, 128, 2)), which
+    the JAX rule admits and kernels #7-#9 do not take. At head dims 32 and
+    64 it takes the kernels (256 tokens), as at 8 x 8 (64)."""
+    assert JS._fused_ok(16, 128, 2)
+    assert not SA.fused_ok(16, 128, 2)
+    for window, dh, heads in ((16, 32, 4), (16, 64, 2), (8, 32, 4)):
+        assert JS._fused_ok(window, dh, heads)
+        assert SA.fused_ok(window, dh, heads)
+
+
+@pytest.mark.parametrize("window,dh,heads", list(itertools.product(
+    (4, 8, 12, 16, 24, 32), (16, 32, 64, 128), (1, 2, 3, 4, 6, 8, 16, 32))))
+def test_swin_rule_is_the_jax_rule_but_at_dh_128(window, dh, heads):
+    """The port's fused_ok equals the JAX package's _fused_ok -- windows 8,
+    16, 24 (where the head group is even) and 32 at head dims 32 and 64 --
+    with one exception, named here: head dim 128, which the JAX rule
+    admits and the kernels do not take (ROADMAP §C)."""
+    jax_rule = JS._fused_ok(window, dh, heads)
+    if dh == 128:
+        assert not SA.fused_ok(window, dh, heads)
+    else:
+        assert SA.fused_ok(window, dh, heads) == jax_rule
 
 
 # -- DeBERTa disentangled attention: (D, heads, T) -------------------------------

@@ -151,7 +151,7 @@ def test_mirror_matches_plain_and_jax(nw, b, c, heads):
     t = [torch.from_numpy(x) for x in (q, k, v, bias, do)]
     plain = [x.numpy() for x in TSA.swin_window_attention_bwd_plain(
         *t, heads)]
-    for groups in sorted({TSA.bwd_batch_groups(nw, b, heads), 1}):
+    for groups in sorted({TSA.bwd_batch_groups(nw, b, heads, 64), 1}):
         got = mirror(*t, heads, groups, hilo=False)
         _close(got, plain, f"plain, {groups} groups")
         _close(got, jgrads, f"jax, {groups} groups")
@@ -168,5 +168,5 @@ def test_mirror_with_hi_lo_weights_matches_plain(nw, b, c, heads):
     want = [x.numpy() for x in TSA.swin_window_attention_bwd_plain(
         t[0], t[1], t[2], tb, t[3], heads)]
     got = mirror(t[0], t[1], t[2], tb, t[3], heads,
-                 TSA.bwd_batch_groups(nw, b, heads), hilo=True)
+                 TSA.bwd_batch_groups(nw, b, heads, 64), hilo=True)
     _close(got, want, "hi + lo")

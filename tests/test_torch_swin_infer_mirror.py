@@ -233,7 +233,7 @@ def test_mirror_matches_plain_and_jax(nw, b, c, heads, shifted):
     exact = _float64(q, k, v, bias, scale, heads)
     plain = TSA.swin_window_attention_infer_plain(*t, heads).numpy()
     want = _jax(q, k, v, bias, scale, heads)
-    for groups in sorted({TSA.batch_groups(nw, b, heads), 1}):
+    for groups in sorted({TSA.batch_groups(nw, b, heads, 64), 1}):
         got = mirror(*t, heads, groups)
         assert np.isfinite(got.numpy()).all()
         assert _gap(got, exact) <= TOL, (groups, _gap(got, exact))
@@ -256,7 +256,7 @@ def test_mirror_with_bf16_weights_within_a_bf16_step(nw, b, c, heads,
     t = [_bf16(torch.from_numpy(x)) for x in (q, k, v)]
     tb, ts = torch.from_numpy(bias), torch.from_numpy(scale)
     ref = TSA.swin_window_attention_infer_plain(*t, tb, ts, heads)
-    groups = TSA.batch_groups(nw, b, heads)
+    groups = TSA.batch_groups(nw, b, heads, 64)
     got = mirror(*t, tb, ts, heads, groups, bf16=True)
     step = 2.0 ** (math.floor(math.log2(float(ref.abs().max()))) - 7)
     gap = _gap(got, ref)

@@ -25,7 +25,7 @@ SMS = 132
     (300, 8, 1, 1),       # one group already fills the card
 ])
 def test_batch_groups_divide_the_batch_and_fill_the_card(nw, b, heads, want):
-    g = SA.batch_groups(nw, b, heads)
+    g = SA.batch_groups(nw, b, heads, 64)
     assert g == want
     assert b % g == 0
     if nw * heads * b >= 2 * SMS:
@@ -51,7 +51,7 @@ def test_bwd_batch_groups_fill_the_card_once(nw, b, heads, want):
     """The backward's own split: one CTA an SM (132), not the forward's
     two, so that a (window, head) keeps its batch rows in one CTA, and
     dbias its one launch, wherever that fills the card."""
-    g = SA.bwd_batch_groups(nw, b, heads)
+    g = SA.bwd_batch_groups(nw, b, heads, 64)
     assert g == want
     assert b % g == 0
     if nw * heads * b >= SMS:
@@ -61,9 +61,51 @@ def test_bwd_batch_groups_fill_the_card_once(nw, b, heads, want):
         assert g == b
 
 
-def _good(nw=4, b=2, c=128, heads=4, dtype=torch.bfloat16):
-    q, k, v, do = (torch.zeros(nw, b, 64, c, dtype=dtype) for _ in range(4))
-    bias = torch.zeros(nw, heads, 64, 64)
+@pytest.mark.parametrize("nw,b,heads,n,want", [
+    (16, 16, 4, 256, 2),   # window 16, stage 0, a served batch: 512 CTAs
+    (4, 16, 8, 256, 4),    # stage 1
+    (1, 16, 16, 256, 8),   # stage 2: 64 tile pairs, 512 CTAs of 2 rows
+    (16, 8, 4, 576, 1),    # window 24, stage 0: 576 CTAs at one group
+    (1, 8, 16, 576, 2),
+    (1, 3, 4, 1024, 3),    # a 32 x 32 window: 64 tiles, one row a CTA
+])
+def test_batch_groups_count_the_query_tiles(nw, b, heads, n, want):
+    """Above 64 tokens the forwards' CTAs are (query tile, head, window,
+    group): n / 64 tiles a window count toward the 264 CTAs."""
+    tiles = n // 64
+    g = SA.batch_groups(nw, b, heads, n)
+    assert g == want and b % g == 0
+    if nw * heads * tiles * b >= 2 * SMS:
+        assert nw * heads * tiles * g >= 2 * SMS
+        assert all(nw * heads * tiles * d < 2 * SMS
+                   for d in range(1, g) if b % d == 0)
+    else:
+        assert g == b
+
+
+@pytest.mark.parametrize("nw,b,heads,n,want,floats", [
+    # window 16, stage 0 at batch 8: 256 CTAs, one group, statistics only
+    (16, 8, 4, 256, 1, 3 * 16 * 8 * 4 * 256),
+    # stage 1: 128 CTAs at one group, so two, each a dbias part
+    (4, 8, 8, 256, 2, 2 * 4 * 8 * 256 ** 2 + 3 * 4 * 8 * 8 * 256),
+    (1, 8, 16, 256, 4, 4 * 16 * 256 ** 2 + 3 * 8 * 16 * 256),
+    (1, 8, 16, 576, 1, 3 * 8 * 16 * 576),
+    (64, 8, 4, 64, 1, 0),  # 64 tokens: no workspace at one group
+    (16, 8, 8, 64, 2, 2 * 16 * 8 * 64 ** 2),
+])
+def test_bwd_batch_groups_and_workspace_at_large_windows(nw, b, heads, n,
+                                                         want, floats):
+    """The backward's groups count the tiles too (one CTA an SM), and its
+    workspace holds the groups' dbias parts and, above 64 tokens, the query
+    side's row statistics (m, 1 / l, D) for the key side."""
+    g = SA.bwd_batch_groups(nw, b, heads, n)
+    assert g == want and b % g == 0
+    assert SA.bwd_workspace_floats(nw, b, heads, n, g) == floats
+
+
+def _good(nw=4, b=2, c=128, heads=4, dtype=torch.bfloat16, n=64):
+    q, k, v, do = (torch.zeros(nw, b, n, c, dtype=dtype) for _ in range(4))
+    bias = torch.zeros(nw, heads, n, n)
     return dict(q=q, k=k, v=v, bias=bias, heads=heads, do=do)
 
 
@@ -76,6 +118,10 @@ def _bad_inputs():
     y["q"], y["k"], y["v"] = (t[:, :, :32].contiguous()
                               for t in (y["q"], y["k"], y["v"]))
     yield "32-token windows", dict(y, do=None)
+    z = _good(n=144)
+    yield "144-token windows", z
+    z = _good(n=256)
+    yield "256 tokens, bias for 64", dict(z, bias=torch.zeros(4, 4, 64, 64))
     yield "C not a multiple of heads", dict(x, heads=3)
     yield "head dim 16", dict(x, heads=8, bias=torch.zeros(4, 8, 64, 64))
     yield "head dim 128", _good(c=256, heads=2)
@@ -114,5 +160,15 @@ def test_train_checks_refuse_what_the_kernels_do_not_take(what, args):
 @pytest.mark.parametrize("c,heads", [(128, 4), (128, 2)])
 def test_train_checks_pass_what_the_kernels_take(dtype, c, heads):
     args = _good(c=c, heads=heads, dtype=dtype)
+    SA._check_train_inputs(**args)
+    SA._check_train_inputs(**dict(args, do=None))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,heads,n", [(128, 4, 256), (128, 2, 256),
+                                       (128, 4, 576), (64, 2, 1024)])
+def test_train_checks_pass_windows_past_8x8(dtype, c, heads, n):
+    """16 x 16, 24 x 24 and 32 x 32 windows: the blocked kernels'."""
+    args = _good(nw=1, c=c, heads=heads, dtype=dtype, n=n)
     SA._check_train_inputs(**args)
     SA._check_train_inputs(**dict(args, do=None))
